@@ -1,0 +1,111 @@
+"""Build the CUDA sources under ``csrc/`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), at first use, into ``build/kernels/`` at the root of the
+checkout.  A library is rebuilt when any source under ``csrc/`` is newer.
+Nothing outside the package's own sources is built.
+
+Every C entry takes its pointers and the stream as ``void*`` (bound as
+``ctypes.c_void_p``: a pointer passed as a plain int would be cut to 32
+bits) and returns ``cudaGetLastError()`` after its launch, which the
+wrapper raises on.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("sma_gemm", "norm_gemm", "decode_attention")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin)")
+    return found
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    out = lib_path(name)
+    if not out.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in CSRC.iterdir())
+    return out.stat().st_mtime < newest
+
+
+def build(names: Iterable[str] = SOURCES) -> List[str]:
+    """Compile every stale library of ``names``, one ``nvcc`` process per
+    source, all started together.  Returns the names built; raises with
+    the compiler's output when one fails.  ``-Xptxas -v`` reports (registers,
+    shared memory, spills) are kept beside each library as ``<name>.ptxas``.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        if not _stale(name):
+            continue
+        tmp = BUILD_DIR / f"lib{name}.so.tmp{os.getpid()}"
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        (BUILD_DIR / f"{name}.ptxas").write_text(log)
+        if proc.returncode:
+            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode})\n"
+                          f"{log}")
+        else:
+            os.replace(tmp, lib_path(name))
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return list(procs)
+
+
+def load(name: str, entries: Dict[str, List[type]]) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if stale.
+
+    ``entries`` maps each C entry to its ``argtypes``; every entry returns
+    an ``int`` (the ``cudaError_t`` after its launch).
+    """
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(lib_path(name)))
+        for fn_name, argtypes in entries.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry."""
+    if err:
+        fn = lib.repro_error_string
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{what}: CUDA error {err} at launch "
+                           f"({fn(err).decode()})")
+
+
+def stream_of(t) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device, as a pointer int."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,140 @@
+"""Plain PyTorch versions of the ported kernels (``repro.kernels.ref``).
+
+Each function is the ground truth its CUDA kernel is held against on the
+card, and what the kernel wrappers run for a CPU tensor.  Arithmetic is in
+float32, as in the JAX oracles.  On the card a float32 matrix product must
+not use TF32: callers that compare keep
+``torch.backends.cuda.matmul.allow_tf32`` False (PyTorch's default).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.sma import EPILOGUES
+
+#: Mask value of the paged oracle: finite, so a fully-masked row stays
+#: finite (``repro.kernels.ref.paged_attention_ref``).
+NEG_INF = -1e30
+
+
+def gemm_ref(a: torch.Tensor, b: torch.Tensor, *,
+             bias: Optional[torch.Tensor] = None,
+             epilogue: str = "none") -> torch.Tensor:
+    """C = epilogue(A @ B + bias), accumulated in float32, returned in
+    A's dtype.  a (..., K); b (K, N); bias (N,)."""
+    out = torch.matmul(a.float(), b.float())
+    if bias is not None:
+        out = out + bias.float()
+    return EPILOGUES[epilogue](out).to(a.dtype)
+
+
+def rms_inverse(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Row inverse RMS ``rsqrt(mean(x^2) + eps)`` in float32, (..., 1)."""
+    x32 = x.float()
+    return torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+
+
+def rmsnorm_gemm_ref(x: torch.Tensor, scale: torch.Tensor, w: torch.Tensor,
+                     *, epilogue: str = "none",
+                     eps: float = 1e-6) -> torch.Tensor:
+    """epilogue(rmsnorm(x; scale) @ w); the normalized rows are rounded to
+    x's dtype before the product, as in the JAX oracle."""
+    normed = (x.float() * rms_inverse(x, eps) * scale.float()).to(x.dtype)
+    out = torch.matmul(normed.float(), w.float())
+    return EPILOGUES[epilogue](out).to(x.dtype)
+
+
+def _masked_softmax_pv(logits: torch.Tensor, valid: torch.Tensor,
+                       v: torch.Tensor, pattern: str) -> torch.Tensor:
+    """softmax over the valid keys, then the product with v; a row with no
+    valid key gives 0 (the kernel's ``l == 0`` rule), never NaN."""
+    logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True)) * valid
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum(pattern, p, v)
+    return out / torch.where(l == 0, torch.ones_like(l), l)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token GQA attention over a partly filled cache.
+
+    q (B, Hq, D); k/v_cache (B, Hkv, Smax, D); cache_len (B,).  Returns
+    (B, Hq, D).  Each KV head serves its g = Hq/Hkv query rows (the cache
+    is never expanded).  A row with ``cache_len == 0`` gives 0, as the
+    kernel does.
+    """
+    b, hq, d = q.shape
+    hkv, smax = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    q4 = q.reshape(b, hkv, g, d).float() * scale
+    logits = torch.einsum("bhgd,bhkd->bhgk", q4, k_cache.float())
+    pos = torch.arange(smax, device=q.device)
+    valid = (pos[None, :] < cache_len[:, None].to(pos.dtype))[:, None, None]
+    out = _masked_softmax_pv(logits, valid, v_cache.float(),
+                             "bhgk,bhkd->bhgd")
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def _gather_pages(pool: torch.Tensor, block_table: torch.Tensor
+                  ) -> torch.Tensor:
+    """(NB, Hkv, BS, D) pool -> (B, Hkv, MB*BS, D) per-request cache.
+    Sentinel entries clamp into a real block whose positions the callers'
+    masks exclude."""
+    nb, hkv, bs, d = pool.shape
+    b, mb = block_table.shape
+    bt = block_table.long().clamp(0, nb - 1)
+    return pool[bt].permute(0, 2, 1, 3, 4).reshape(b, hkv, mb * bs, d)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor,
+                               block_table: torch.Tensor,
+                               kv_len: torch.Tensor, *,
+                               scale: Optional[float] = None
+                               ) -> torch.Tensor:
+    """Plain version of the paged decode kernel: gather each request's
+    pages, then :func:`decode_attention_ref`.  q (B, Hq, D); returns
+    (B, Hq, D).  Matches the JAX kernel path (page gather + decode kernel),
+    including 0 for ``kv_len == 0``."""
+    k = _gather_pages(k_pool, block_table)
+    v = _gather_pages(v_pool, block_table)
+    return decode_attention_ref(q, k, v, kv_len, scale=scale)
+
+
+def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                        v_pool: torch.Tensor, block_table: torch.Tensor,
+                        q_pos: torch.Tensor, kv_len: torch.Tensor, *,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Block-table attention over a paged pool (decode and chunked prefill).
+
+    q (B, C, Hq, D); k/v_pool (NB, Hkv, BS, D); block_table (B, MB), entries
+    >= NB unallocated; q_pos (B, C) absolute query positions; kv_len (B,)
+    valid length including this chunk.  Returns (B, C, Hq, D).  Masking
+    uses -1e30, so a fully masked row is a finite (uniform) average, as in
+    ``repro.kernels.ref.paged_attention_ref``.
+    """
+    b, c, hq, d = q.shape
+    hkv = k_pool.shape[1]
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    k = _gather_pages(k_pool, block_table).float()
+    v = _gather_pages(v_pool, block_table).float()
+    q5 = q.reshape(b, c, hkv, g, d).float() * scale
+    logits = torch.einsum("bchgd,bhkd->bchgk", q5, k)
+    k_pos = torch.arange(k.shape[2], device=q.device)
+    qp = q_pos.long()
+    mask = k_pos[None, None, :] < kv_len.long()[:, None, None]
+    mask = mask & (k_pos[None, None, :] <= qp[:, :, None])
+    if window is not None:
+        mask = mask & (k_pos[None, None, :] > qp[:, :, None] - window)
+    logits = torch.where(mask[:, :, None, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bchgk,bhkd->bchgd", probs, v)
+    return out.reshape(b, c, hq, d).to(q.dtype)

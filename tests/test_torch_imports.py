@@ -1,0 +1,32 @@
+"""The port stands alone: it imports neither JAX nor the JAX package."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any "import jax" now raises
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+loaded = sorted(m for m in sys.modules
+                if m == "repro" or m.startswith("repro."))
+assert not loaded, loaded
+assert "jaxlib" not in sys.modules
+print(len(names))
+"""
+
+
+def test_port_and_chip_smoke_import_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 15
