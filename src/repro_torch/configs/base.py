@@ -1,8 +1,9 @@
 """Model configuration (counterpart of ``repro.configs.base``).
 
-Only the fields the ported path reads are kept; ``dtype`` resolves to a
-torch dtype.  ``reduced()`` derives the same tiny CPU-test variant as the
-JAX package.
+Only the fields the ported paths read are kept; ``dtype`` (the compute
+dtype) and ``param_dtype`` (the trainer's master weights) resolve to torch
+dtypes.  ``reduced()`` derives the same tiny CPU-test variant as the JAX
+package.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ class ModelConfig:
     head_dim: Optional[int] = None
     rope_theta: float = 10000.0
     dtype: str = "bfloat16"
+    param_dtype: str = "float32"
     source: str = ""
 
     @property
@@ -43,6 +45,10 @@ class ModelConfig:
     @property
     def activation_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
+
+    @property
+    def parameter_dtype(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
 
 
 REGISTRY: Dict[str, ModelConfig] = {}
@@ -80,4 +86,5 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         d_ff=128 if cfg.d_ff else 0,
         vocab_size=256,
         dtype="float32",
+        param_dtype="float32",
     )

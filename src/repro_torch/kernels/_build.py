@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("sma_gemm", "norm_gemm", "decode_attention")
+SOURCES = ("sma_gemm", "norm_gemm", "decode_attention", "flash_attention")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -104,6 +104,14 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
         raise RuntimeError(f"{what}: CUDA error {err} at launch "
                            f"({fn(err).decode()})")
+
+
+def on_card(name: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (run
+    the plain version); raises for any other device."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {t.device}")
+    return t.device.type == "cuda"
 
 
 def stream_of(t) -> int:

@@ -106,13 +106,6 @@ def _launch(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     return out
 
 
-def _device_check(name: str, q: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if q.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
-    return q.device.type == "cuda"
-
-
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_table: torch.Tensor,
                            kv_len: torch.Tensor, *,
@@ -123,7 +116,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     entries >= NB unallocated; kv_len (B,) valid lengths including the new
     token.  Returns (B, Hq, D).
     """
-    if not _device_check("paged_decode_attention", q):
+    if not _build.on_card("paged_decode_attention", q):
         return paged_decode_attention_ref(q, k_pool, v_pool, block_table,
                                           kv_len, scale=scale)
     out = _launch(q, k_pool, v_pool, block_table, kv_len, scale)
@@ -139,7 +132,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     q (B, Hq, D); k/v_cache (B, Hkv, Smax, D); cache_len (B,).  Returns
     (B, Hq, D).
     """
-    if not _device_check("decode_attention", q):
+    if not _build.on_card("decode_attention", q):
         return decode_attention_ref(q, k_cache, v_cache, cache_len,
                                     scale=scale)
     b = q.shape[0]

@@ -1,13 +1,25 @@
 """Public kernel entry points (counterpart of ``repro.kernels.ops``).
 
-Models call these, never the kernel modules directly.  ``sma_gemm``,
-``rmsnorm_gemm`` and ``decode_attention`` are the kernel wrappers
-themselves; ``paged_decode_attention`` adds the routing below.  Each entry
-point:
+Models call these, never the kernel modules directly:
+
+* :func:`sma_gemm` -- ``epilogue(A @ B + bias)`` (every projection);
+* :func:`rmsnorm_gemm` -- ``epilogue(rmsnorm(x) @ W)`` (final_norm -> head);
+* :func:`flash_attention` -- causal/windowed GQA attention (train/prefill);
+* :func:`decode_attention` -- one token against a contiguous cache;
+* :func:`paged_decode_attention` -- serving attention over the paged pool,
+  with the routing below.
+
+Each entry point:
 
 * dispatches by device: the kernel wrapper launches its CUDA kernel for a
   CUDA tensor (or raises) and runs its plain version for a CPU tensor.
   There is no runtime failover from a kernel to a plain version;
+* with grad mode on, goes through the ``torch.autograd.Function`` of
+  :mod:`repro_torch.kernels.autograd`, whose backward is kernel launches
+  too.  With grad mode off (the serving engine's ``torch.inference_mode()``)
+  it calls the wrapper directly: ``Function.apply`` costs about 10 us a
+  call on an H100 machine's host, 3.9 % of a full-width decode step
+  (``chip_smoke.py``, ``entry_overhead``);
 * routes statically, mirroring the JAX package: a paged-attention site with
   more than one query token per row (a chunked-prefill tile) or a window
   goes to the plain :func:`repro_torch.kernels.ref.paged_attention_ref`, as
@@ -24,13 +36,15 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import autograd as _autograd
 from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import norm_gemm as _norm
+from repro_torch.kernels import sma_gemm as _gemm
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.norm_gemm import rmsnorm_gemm
 from repro_torch.kernels.ref import paged_attention_ref
-from repro_torch.kernels.sma_gemm import sma_gemm
 
-__all__ = ["ROUTED", "decode_attention", "launch_counts",
+__all__ = ["ROUTED", "decode_attention", "flash_attention", "launch_counts",
            "paged_decode_attention", "paged_route", "reset_counts",
            "rmsnorm_gemm", "sma_gemm"]
 
@@ -39,8 +53,10 @@ ROUTED: Dict[str, int] = collections.Counter()
 
 #: The kernel wrappers whose ``.launches`` the counters read.
 WRAPPERS = {
-    "sma_gemm": sma_gemm,
-    "rmsnorm_gemm": rmsnorm_gemm,
+    "sma_gemm": _gemm.sma_gemm,
+    "rmsnorm_gemm": _norm.rmsnorm_gemm,
+    "flash_attention": _flash.flash_attention_fwd,
+    "flash_attention_bwd": _flash.flash_attention_bwd,
     "paged_decode_attention": _decode.paged_decode_attention,
     "decode_attention": decode_attention,
 }
@@ -55,6 +71,34 @@ def reset_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
     ROUTED.clear()
+
+
+def sma_gemm(a: torch.Tensor, b: torch.Tensor, *,
+             bias: Optional[torch.Tensor] = None,
+             epilogue: str = "none") -> torch.Tensor:
+    """``epilogue(A @ B + bias)`` in A's dtype; a (..., K), b (K, N)."""
+    if not torch.is_grad_enabled():
+        return _gemm.sma_gemm(a, b, bias=bias, epilogue=epilogue)
+    return _autograd.SmaGemm.apply(a, b, bias, epilogue)
+
+
+def rmsnorm_gemm(x: torch.Tensor, scale: torch.Tensor, w: torch.Tensor, *,
+                 epilogue: str = "none", eps: float = 1e-6) -> torch.Tensor:
+    """``epilogue(rmsnorm(x; scale) @ w)`` in x's dtype."""
+    if not torch.is_grad_enabled():
+        return _norm.rmsnorm_gemm(x, scale, w, epilogue=epilogue, eps=eps)
+    return _autograd.RmsnormGemm.apply(x, scale, w, epilogue, eps)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Online-softmax attention (train/prefill).  q (B, Hq, Sq, D); k/v
+    (B, Hkv, Skv, D); queries end-aligned.  Returns (B, Hq, Sq, D)."""
+    if not torch.is_grad_enabled():
+        return _flash.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window, scale=scale)[0]
+    return _autograd.FlashAttention.apply(q, k, v, causal, window, scale)
 
 
 def paged_route(c: int, window: Optional[int]) -> Optional[str]:

@@ -8,7 +8,8 @@ not use TF32: callers that compare keep
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -104,6 +105,91 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     k = _gather_pages(k_pool, block_table)
     v = _gather_pages(v_pool, block_table)
     return decode_attention_ref(q, k, v, kv_len, scale=scale)
+
+
+def flash_mask(sq: int, skv: int, *, causal: bool, window: Optional[int],
+               device: torch.device) -> torch.Tensor:
+    """(Sq, Skv) visibility of the flash kernel: queries end-aligned (row
+    i at position i + Skv - Sq), causal keys <= position, windowed keys >
+    position - window."""
+    q_pos = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    k_pos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def _flash_scores(q: torch.Tensor, k: torch.Tensor, scale: float
+                  ) -> torch.Tensor:
+    """Scaled f32 scores (B, Hkv, g, Sq, Skv); each KV head serves its
+    g = Hq / Hkv query heads (never replicated)."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    q5 = q.reshape(b, hkv, hq // hkv, sq, d).float()
+    return torch.einsum("bhgqd,bhkd->bhgqk", q5, k.float()) * scale
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the flash kernel, with its semantics (those of the
+    TPU kernel, not of ``mha_ref``): q (B, Hq, Sq, D), k/v (B, Hkv, Skv,
+    D), queries end-aligned, query head h reads KV head h // group.  Masked
+    scores are -1e30 and contribute exactly 0; a row that sees no key has
+    l == 0 and gives 0.  Returns (out in q's dtype, lse (B, Hq, Sq) f32,
+    +inf where l == 0)."""
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    mask = flash_mask(sq, skv, causal=causal, window=window, device=q.device)
+    s = torch.where(mask, _flash_scores(q, k, scale), NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m) * mask
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    out = out / torch.where(l == 0, torch.ones_like(l), l)
+    lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, math.inf))
+    return (out.reshape(b, hq, sq, d).to(q.dtype),
+            lse.reshape(b, hq, sq))
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool = True,
+                            window: Optional[int] = None,
+                            scale: Optional[float] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Plain version of the flash backward kernel, written out (not
+    autograd of the forward): P = exp(S * scale - lse) on the visible
+    pairs, D = rowsum(dO * O), dS = P * (dP - D) with dP = dO V^T; then
+    dV = P^T dO, dK = dS^T Q * scale, dQ = dS K * scale, with dK and dV
+    summed over each KV head's query heads.  Returns (dq, dk, dv) in the
+    inputs' dtype."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    mask = flash_mask(sq, skv, causal=causal, window=window, device=q.device)
+    s = _flash_scores(q, k, scale)
+    lse5 = lse.reshape(b, hkv, g, sq, 1).float()
+    p = torch.exp(torch.where(mask, s - lse5, -math.inf))
+    do5 = dout.reshape(b, hkv, g, sq, d).float()
+    delta = (do5 * out.reshape(b, hkv, g, sq, d).float()).sum(-1,
+                                                               keepdim=True)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, do5)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", do5, v.float())
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds,
+                      q.reshape(b, hkv, g, sq, d).float()) * scale
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,

@@ -3,8 +3,11 @@
 Parameters are plain nested dicts of tensors, as in the JAX package.
 ``*_init`` functions draw from an explicit ``torch.Generator`` on the
 target device and take a ``lead`` shape for stacked (per-group) copies.
-Matrices are held in the activation dtype (the dtype the card computes in);
-norm scales stay float32, as the JAX code reads them in float32.
+Matrices are held in the activation dtype for serving and in the
+parameter dtype (float32 masters) for training; :func:`compute_cast`
+brings them to the compute dtype at each use, so a master gets its
+gradient through the cast.  Norm scales stay float32, as the JAX code
+reads them in float32.
 """
 from __future__ import annotations
 
@@ -13,6 +16,14 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
+
+
+def compute_cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A stored parameter in the compute dtype (``repro.models.layers.
+    compute_cast`` without the sharding constraint): a no-op for weights
+    already held in ``dtype``; for an f32 master, a cast whose backward
+    casts the gradient back."""
+    return w.to(dtype)
 
 
 def variance_scaling_init(gen: torch.Generator, shape: Tuple[int, ...],
@@ -77,6 +88,6 @@ def gated_mlp_init(gen: torch.Generator, d: int, d_ff: int,
 def gated_mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP: three SMA GEMMs, the silu fused as the epilogue of the
     gate projection (the ``rewrite.py`` epilogue-fusion rule)."""
-    h = ops.sma_gemm(x, params["wi"])
-    g = ops.sma_gemm(x, params["wg"], epilogue="silu")
-    return ops.sma_gemm(g * h, params["wo"])
+    h = ops.sma_gemm(x, compute_cast(params["wi"], x.dtype))
+    g = ops.sma_gemm(x, compute_cast(params["wg"], x.dtype), epilogue="silu")
+    return ops.sma_gemm(g * h, compute_cast(params["wo"], x.dtype))

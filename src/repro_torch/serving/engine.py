@@ -10,10 +10,11 @@ are padded to power-of-two row buckets with rows whose block tables are
 all-sentinel: their pool writes are masked out and their attention reads
 nothing (see ``serving.model``).
 
-Steps run eagerly (no ``sma_jit``).  Per-row containment of non-finite
-logits is kept: only healthy rows advance, a poisoned request is charged a
-retry under :class:`RetryPolicy` and evicted (its blocks zeroed and freed)
-once the budget is spent.  Greedy sampling is ``argmax``; with
+Steps run eagerly (no ``sma_jit``) under ``torch.inference_mode()``, so
+no autograd bookkeeping reaches the kernel entry points.  Per-row
+containment of non-finite logits is kept: only healthy rows advance, a
+poisoned request is charged a retry under :class:`RetryPolicy` and evicted
+(its blocks zeroed and freed) once the budget is spent.  Greedy sampling is ``argmax``; with
 ``temperature > 0`` tokens are drawn with the engine's own
 ``torch.Generator`` (not JAX's bits).  Fault injection, tracing spans and
 ``obs`` metrics are not ported; each executed tick is recorded in
@@ -220,6 +221,7 @@ class ServeEngine:
             ticks += 1
         return ticks
 
+    @torch.inference_mode()
     def _run_plan(self, plan: TickPlan) -> Dict[int, int]:
         if plan.phase == "prefill":
             return self._prefill_tick(list(plan.rows))

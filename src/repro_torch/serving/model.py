@@ -37,6 +37,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention
 from repro_torch.models.layers import (embed_apply, gated_mlp_apply,
                                        rmsnorm_apply)
+from repro_torch.models.lm import check_pattern, unstack
 from repro_torch.serving.kv_cache import CacheConfig
 
 __all__ = ["init_state", "paged_decode_step", "paged_prefill_step",
@@ -45,20 +46,13 @@ __all__ = ["init_state", "paged_decode_step", "paged_prefill_step",
 State = Tuple[Dict[str, torch.Tensor], ...]
 
 
-def _check_pattern(cfg: ModelConfig) -> None:
-    for btype in cfg.block_pattern:
-        if btype != "attn":
-            raise NotImplementedError(
-                f"block type {btype!r} is not ported yet (attn only)")
-
-
 def init_state(cfg: ModelConfig, cache: CacheConfig,
                dtype: Optional[torch.dtype] = None,
                device: DeviceLike = None) -> State:
     """Zeroed paged pools, one ``{"k", "v"}`` entry per pattern position.
     Paged pools have no batch axis, so unlike the JAX function this takes
     no ``max_batch``."""
-    _check_pattern(cfg)
+    check_pattern(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.activation_dtype
     shape = (cfg.num_groups, cache.num_blocks, cfg.num_kv_heads,
@@ -139,21 +133,15 @@ def _layers(params: dict, state: State, x: torch.Tensor,
             kv_len: torch.Tensor, widx: WriteIndex,
             cfg: ModelConfig) -> torch.Tensor:
     """Every group, every pattern position, in order."""
+    groups = [unstack(p, cfg.num_groups) for p in params["blocks"]]
     for g in range(cfg.num_groups):
         for p in range(len(cfg.block_pattern)):
-            bparams = _group(params["blocks"][p], g)
+            bparams = groups[p][g]
             pools = {"k": state[p]["k"][g], "v": state[p]["v"][g]}
             x = x + _paged_attn(bparams, x, pools, block_table, q_pos,
                                 kv_len, widx, cfg)
             x = _attn_ffn(bparams, x)
     return x
-
-
-def _group(tree, g: int):
-    """Group ``g``'s slice of a stacked parameter tree (views, no copy)."""
-    if isinstance(tree, dict):
-        return {k: _group(v, g) for k, v in tree.items()}
-    return tree[g]
 
 
 def _head(params: dict, x: torch.Tensor) -> torch.Tensor:

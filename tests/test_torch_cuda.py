@@ -8,24 +8,33 @@ visible, and runs on one with
 These cover what ``chip_smoke.py`` does not: every dtype route (the f32
 CUDA-core path, f16), ragged M/N/K and unaligned operands (the masked
 element-by-element loads), every epilogue with bias, GQA and head_dim 128
-in the decode kernel, and the serving steps on the card against the same
-steps on the CPU.  Tolerances: the reference's ``tol_for`` (3e-2 for
-16-bit outputs, one rounding flip; 2e-4 for f32, summation order), with
-TF32 off in the plain versions.
+in the decode and flash kernels, flash rows that see no key, gradients
+reaching weights through every kernel entry point, and the serving steps
+and a few training steps on the card against the same on the CPU.
+Tolerances: the reference's ``tol_for`` (3e-2 for 16-bit outputs, one
+rounding flip; 2e-4 for f32, summation order), with TF32 off in the plain
+versions.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
-from repro_torch.kernels import ref
+from repro_torch.data.pipeline import DataConfig, DataPipeline
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention)
+from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                 flash_attention_fwd)
 from repro_torch.kernels.norm_gemm import rmsnorm_gemm
 from repro_torch.kernels.sma_gemm import sma_gemm
+from repro_torch.launch.train import TrainLoopConfig, train
 from repro_torch.models import lm
 from repro_torch.serving import CacheConfig, PagedKVCache
 from repro_torch.serving import model as smodel
+from repro_torch.tree import leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -184,9 +193,166 @@ def test_serving_steps_on_card_match_cpu(dev):
         torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
 
 
-def _to(tree, device):
+def _to(tree, device, clone=False):
     if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
+        return {k: _to(v, device, clone) for k, v in tree.items()}
     if isinstance(tree, tuple):
-        return tuple(_to(v, device) for v in tree)
-    return tree.to(device)
+        return tuple(_to(v, device, clone) for v in tree)
+    return tree.detach().clone().to(device) if clone else tree.to(device)
+
+
+# ------------------------------------------------------- flash attention
+FLASH_CASES = [
+    (2, 4, 4, 256, 256, 64, True, None),
+    (1, 8, 2, 200, 200, 64, True, None),     # GQA, ragged S
+    (1, 4, 1, 192, 192, 128, True, 64),      # MQA, head_dim 128, window
+    (1, 2, 2, 130, 130, 64, False, None),    # non-causal, ragged
+    (1, 4, 4, 64, 256, 64, True, None),      # Sq < Skv, end-aligned
+    (1, 2, 2, 100, 40, 64, True, None),      # Sq > Skv: rows see no key
+]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", FLASH_CASES)
+def test_flash_matches_plain(dev, dtype, b, hq, hkv, sq, skv, d, causal,
+                             window):
+    """Forward (out, lse) and backward (dq, dk, dv) kernels against the
+    plain versions on the same inputs, at the 16-bit tol_for (P is rounded
+    to the input dtype for the tensor-core products; dQ is summed with
+    atomics in no fixed order)."""
+    dt = DTYPES[dtype]
+    q = randn((b, hq, sq, d), dt, dev, 20)
+    k = randn((b, hkv, skv, d), dt, dev, 21)
+    v = randn((b, hkv, skv, d), dt, dev, 22)
+    dout = randn((b, hq, sq, d), dt, dev, 23)
+    kw = dict(causal=causal, window=window)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    want, want_lse = ref.flash_attention_ref(q, k, v, **kw)
+    close(out, want, dt)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-3, atol=1e-3)
+    grads = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    wants = ref.flash_attention_bwd_ref(q, k, v, want, want_lse, dout, **kw)
+    for got, w in zip(grads, wants):
+        close(got, w, dt)
+    if sq > skv:
+        torch.testing.assert_close(out[:, :, :sq - skv].float(),
+                                   torch.zeros_like(out[:, :, :sq - skv],
+                                                    dtype=torch.float32))
+
+
+def test_flash_refuses_what_it_does_not_take(dev):
+    q = torch.zeros((1, 2, 8, 64), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="bf16/f16"):
+        flash_attention_fwd(q, q, q)
+    q = torch.zeros((1, 2, 8, 32), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_fwd(q, q, q)
+
+
+# ------------------------------------------- gradients through the wrappers
+def _grads(fn, leaves_):
+    for t in leaves_:
+        t.grad = None
+    fn().float().square().sum().backward()
+    return [t.grad.clone() for t in leaves_]
+
+
+def test_weights_get_gradients_through_cuda_wrappers(dev):
+    """A weight that requires grad gets a .grad through each kernel entry
+    point on the card (the wrappers write through ctypes and would cut the
+    graph without their autograd Functions), equal to the gradient through
+    the plain versions within the 16-bit tolerance."""
+    dt = torch.bfloat16
+    x = randn((3, 70, 128), dt, dev, 30).requires_grad_()
+    w32 = randn((128, 96), torch.float32, dev, 31, scale=128 ** -0.5)
+    w32.requires_grad_()
+    bias = randn((96,), torch.float32, dev, 32).requires_grad_()
+    scale = (randn((128,), torch.float32, dev, 33).abs() + 0.5)
+    scale.requires_grad_()
+    cases = {
+        "sma_gemm": (lambda: ops.sma_gemm(x, w32.to(dt), bias=bias,
+                                          epilogue="silu"),
+                     lambda: ref.gemm_ref(x, w32.to(dt), bias=bias,
+                                          epilogue="silu"),
+                     [x, w32, bias]),
+        "rmsnorm_gemm": (lambda: ops.rmsnorm_gemm(x, scale, w32.to(dt)),
+                         lambda: ref.rmsnorm_gemm_ref(x, scale, w32.to(dt)),
+                         [x, scale, w32]),
+    }
+    q = randn((2, 4, 128, 64), dt, dev, 34).requires_grad_()
+    kv = randn((2, 2, 128, 64), dt, dev, 35).requires_grad_()
+    cases["flash_attention"] = (
+        lambda: ops.flash_attention(q, kv, kv * 0.5),
+        lambda: ref.flash_attention_ref(q, kv, kv * 0.5)[0], [q, kv])
+    # Launches of one forward and backward: sma_gemm with silu runs the
+    # forward, Z again, dA and dB; rmsnorm_gemm's dW and dnormed are
+    # sma_gemm launches.
+    launches = {"sma_gemm": {"sma_gemm": 4},
+                "rmsnorm_gemm": {"rmsnorm_gemm": 1, "sma_gemm": 2},
+                "flash_attention": {"flash_attention": 1,
+                                    "flash_attention_bwd": 1}}
+    for name, (kernel, plain, ins) in cases.items():
+        ops.reset_counts()
+        got = _grads(kernel, ins)
+        counts = {k: n for k, n in ops.launch_counts().items() if n}
+        assert counts == launches[name], (name, counts)
+        want = _grads(plain, ins)
+        for g, w in zip(got, want):
+            assert g is not None and g.abs().sum() > 0, name
+            scale_ = w.float().abs().max().item()
+            torch.testing.assert_close(g.float() / scale_,
+                                       w.float() / scale_, rtol=3e-2,
+                                       atol=3e-2)
+
+
+def test_train_steps_on_card_match_cpu(dev):
+    """A small bf16 model with head_dim 64 (the flash kernel's), on the
+    card (kernels) and on the CPU (plain versions) from the same masters:
+    one step's loss within 1e-3 and every weight's gradient within 3e-2
+    relative (Frobenius), one step's launches as predicted, and the losses
+    of 3 trained steps within 2e-2 relative (bf16 outputs of every product,
+    rounded in other orders)."""
+    cfg = dataclasses.replace(reduced(get_config("stablelm-1.6b")),
+                              d_model=128, num_heads=2, num_kv_heads=2,
+                              head_dim=64, d_ff=256, dtype="bfloat16")
+    loop = TrainLoopConfig(steps=3, seq_len=96, global_batch=2,
+                           log_every=1, remat=True)
+    masters = lm.init(cfg, seed=0, device="cpu",
+                      dtype=cfg.parameter_dtype)
+
+    def copy(where):
+        return _to(masters, where, clone=True)
+
+    def step_grads(where):
+        params = copy(where)
+        flat = leaves(params)
+        for p in flat:
+            p.requires_grad_(True)
+        batch = next(DataPipeline(DataConfig(
+            cfg.vocab_size, loop.seq_len, loop.global_batch,
+            seed=loop.seed), device=where))
+        loss, _ = lm.loss_fn(params, cfg, batch, remat=True)
+        grads = torch.autograd.grad(loss, flat)
+        return loss.item(), [g.float().cpu() for g in grads]
+
+    want_loss, want_grads = step_grads(torch.device("cpu"))
+    got_loss, got_grads = step_grads(dev)
+    assert abs(got_loss - want_loss) <= 1e-3 * abs(want_loss)
+    for i, (g, w) in enumerate(zip(got_grads, want_grads)):
+        assert w.norm() > 0 and g.norm() > 0, i
+        assert ((g - w).norm() / w.norm()).item() <= 3e-2, i
+
+    want = train(cfg, loop, device="cpu", params=copy("cpu"))
+    ops.reset_counts()
+    train(cfg, dataclasses.replace(loop, steps=1), device=dev,
+          params=copy(dev))
+    layers = cfg.num_layers
+    assert ops.launch_counts() == {
+        "sma_gemm": 29 * layers + 2, "rmsnorm_gemm": 1,
+        "flash_attention": 2 * layers, "flash_attention_bwd": layers,
+        "paged_decode_attention": 0, "decode_attention": 0}
+    assert not ops.ROUTED
+    got = train(cfg, loop, device=dev, params=copy(dev))
+    np.testing.assert_allclose([h["loss"] for h in got["history"]],
+                               [h["loss"] for h in want["history"]],
+                               rtol=2e-2)

@@ -8,14 +8,17 @@ own ``tol_for``: 3e-2 for bf16 (one bf16 rounding of the output, taken at
 different points by the two frameworks) and 2e-4 for f32 (summation
 order).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.backends.pallas_backend import INTERPRET
+from repro.backends.xla_backend import chunked_mha
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as j_decode
+from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.norm_gemm import rmsnorm_gemm as j_rmsnorm_gemm
 from repro.kernels.sma_gemm import sma_gemm as j_sma_gemm
 from repro_torch.kernels import ops, ref
@@ -210,3 +213,155 @@ def test_plain_references_agree_with_each_other():
     torch.testing.assert_close(
         ref.paged_decode_attention_ref(q, kc, vc, table, lens),
         ref.decode_attention_ref(q, kc, vc, lens))
+
+
+# -------------------------------------------------------- flash attention
+# The cases of tests/test_kernels.py's flash sweep: GQA, MQA + window,
+# padding (S not a multiple of the blocks), non-causal, Sq < Skv.
+FLASH_CASES = [
+    (2, 4, 4, 256, 256, 64, True, None),
+    (1, 8, 2, 256, 256, 64, True, None),
+    (1, 4, 1, 192, 192, 32, True, 64),
+    (2, 2, 2, 100, 100, 64, True, None),
+    (1, 2, 2, 128, 128, 64, False, None),
+    (1, 4, 4, 64, 256, 64, True, None),
+]
+
+
+def _qkv(b, hq, hkv, sq, skv, d, seed=8):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, hq, sq, d), np.float32),
+            rng.standard_normal((b, hkv, skv, d), np.float32),
+            rng.standard_normal((b, hkv, skv, d), np.float32))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", FLASH_CASES)
+def test_flash_plain_matches_jax_kernel(b, hq, hkv, sq, skv, d, causal,
+                                        window, dtype):
+    """The port's flash site on CPU tensors (the plain version) against
+    the Pallas kernel under the interpreter, at tol_for."""
+    (q, tq), (k, tk), (v, tv) = (both(x, dtype)
+                                 for x in _qkv(b, hq, hkv, sq, skv, d))
+    want = j_flash(q, k, v, causal=causal, window=window, block_q=64,
+                   block_kv=64, interpret=True)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (b, hq, sq, d)
+    assert_close(got, want, dtype)
+
+
+def _jax_vjp(fn, args, dout):
+    """(out, *input gradients) of ``fn`` through jax.vjp."""
+    out, vjp = jax.vjp(fn, *(jnp.asarray(x) for x in args))
+    return (out, *vjp(jnp.asarray(dout)))
+
+
+@pytest.mark.parametrize("oracle", ["chunked_mha", "mha_ref"])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", FLASH_CASES)
+def test_flash_autograd_matches_jax_grad(b, hq, hkv, sq, skv, d, causal,
+                                         window, oracle):
+    """The flash Function on the CPU (plain forward, plain backward written
+    out) against jax.vjp of the JAX package's differentiable attention:
+    the XLA backend's chunked online softmax (chunk 64, so several chunks
+    and a padded one) and the full-softmax oracle.  f32, 1e-4: the two
+    sides differ only in summation order."""
+    q, k, v = _qkv(b, hq, hkv, sq, skv, d)
+    dout = np.random.default_rng(9).standard_normal(q.shape, np.float32)
+    if oracle == "chunked_mha":
+        def fn(q_, k_, v_):
+            return chunked_mha(q_, k_, v_, causal=causal, window=window,
+                               scale=None, chunk=64)
+    else:
+        def fn(q_, k_, v_):
+            return jref.mha_ref(q_, k_, v_, causal=causal, window=window)
+    want = _jax_vjp(fn, (q, k, v), dout)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.backward(torch.from_numpy(dout))
+    for got, w in zip((out.detach(), tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_flash_rows_that_see_no_key_give_zero():
+    """Sq > Skv: the first Sq - Skv rows sit before every key.  They give
+    0, lse +inf and zero gradients, never NaN; the other rows match the
+    JAX oracle."""
+    q, k, v = _qkv(1, 4, 2, 96, 40, 16)
+    dout = np.random.default_rng(10).standard_normal(q.shape, np.float32)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = ops.flash_attention(tq, tk, tv, causal=True)
+    out.backward(torch.from_numpy(dout))
+    _, lse = ref.flash_attention_ref(tq.detach(), tk.detach(), tv.detach())
+    dead = 96 - 40
+    assert torch.isinf(lse[:, :, :dead]).all()
+    assert torch.isfinite(lse[:, :, dead:]).all()
+    for t in (out, tq.grad, tk.grad, tv.grad):
+        assert torch.isfinite(t).all()
+    assert (out[:, :, :dead] == 0).all() and (tq.grad[:, :, :dead] == 0).all()
+    want = jref.mha_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(out[:, :, dead:].detach().numpy(),
+                               np.asarray(want)[:, :, dead:], rtol=1e-4,
+                               atol=1e-4)
+
+
+# ----------------------------------------------------- gradients of GEMMs
+def _assert_grads(got, want, tol=2e-4):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_sma_gemm_autograd_matches_jax_grad(epilogue, with_bias):
+    """The sma_gemm Function's backward (dZ = dC * epilogue'(Z), dA, dB
+    and dbias through the wrapper, here its plain version) against
+    jax.vjp of repro.kernels.ref.gemm_ref, f32 at tol_for; leading dims
+    collapse into M."""
+    rng = np.random.default_rng(11)
+    a = rng.standard_normal((2, 19, 40), np.float32)
+    b = rng.standard_normal((40, 33), np.float32) / np.sqrt(40)
+    bias = rng.standard_normal((33,), np.float32)
+    dout = rng.standard_normal((2, 19, 33), np.float32)
+    args = (a, b, bias) if with_bias else (a, b)
+    want = _jax_vjp(lambda a_, b_, *bb: jref.gemm_ref(
+        a_, b_, bias=bb[0] if bb else None, epilogue=epilogue), args, dout)
+    targs = [torch.from_numpy(x).requires_grad_() for x in args]
+    out = ops.sma_gemm(targs[0], targs[1],
+                       bias=targs[2] if with_bias else None,
+                       epilogue=epilogue)
+    assert type(out.grad_fn).__name__ == "SmaGemmBackward"
+    out.backward(torch.from_numpy(dout))
+    _assert_grads([out] + [t.grad for t in targs], want)
+
+
+@pytest.mark.parametrize("epilogue", ["none", "gelu"])
+def test_rmsnorm_gemm_autograd_matches_jax_grad(epilogue):
+    """The rmsnorm_gemm Function's backward (dW and dnormed through
+    sma_gemm, the rmsnorm backward elementwise) against jax.vjp of
+    repro.kernels.ref.rmsnorm_gemm_ref, f32 at tol_for."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((3, 7, 48), np.float32) * 3
+    scale = rng.uniform(0.5, 1.5, (48,)).astype(np.float32)
+    w = rng.standard_normal((48, 36), np.float32) / np.sqrt(48)
+    dout = rng.standard_normal((3, 7, 36), np.float32)
+    want = _jax_vjp(lambda x_, s_, w_: jref.rmsnorm_gemm_ref(
+        x_, s_, w_, epilogue=epilogue), (x, scale, w), dout)
+    targs = [torch.from_numpy(t).requires_grad_() for t in (x, scale, w)]
+    out = ops.rmsnorm_gemm(*targs, epilogue=epilogue)
+    assert type(out.grad_fn).__name__ == "RmsnormGemmBackward"
+    out.backward(torch.from_numpy(dout))
+    _assert_grads([out] + [t.grad for t in targs], want)
+
+
+def test_entry_points_skip_autograd_without_grad():
+    """Without a gradient to take (inference, or grad mode off) the entry
+    points call the wrappers directly: no graph, no Function."""
+    x = torch.randn(4, 8, requires_grad=True)
+    w = torch.randn(8, 8)
+    with torch.no_grad():
+        assert ops.sma_gemm(x, w).grad_fn is None
+    assert ops.sma_gemm(x.detach(), w).grad_fn is None
+    assert ops.sma_gemm(x, w).grad_fn is not None
