@@ -31,7 +31,17 @@
    StableLM-2-1.6B, sequence 2048, batch 4, remat, 5 steps: finite losses
    that fall, launch counts as predicted, nothing routed, step time,
    tokens/s, MFU and peak memory; a profile of one more step.
-6. Prints the kernel table as one JSON line, then the result line
+6. Recurrent path: the RG-LRU scan kernel against its plain version at
+   the prefill's shape (with planted faults: the carry reset mid-sequence,
+   h_last one step early, a read one step late), the flash forward and the
+   contiguous decode kernel at recurrentgemma's MQA head_dim 256; then
+   full-width, full-depth RecurrentGemma-2B (random bf16 weights from a
+   seed) through ``lm.prefill`` of 4 x 4,096 tokens and 32 greedy
+   ``lm.decode_step``s, with launch counts as predicted and nothing
+   routed; a 3-layer full-width model's prefill and decode logits through
+   the kernels against the plain versions, with planted faults; and a
+   profile of one prefill and a few decode steps.
+7. Prints the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the JAX package.  Any failed check raises and
@@ -39,6 +49,7 @@ the script exits non-zero before the result line.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -62,6 +73,7 @@ from repro_torch.kernels import autograd as kautograd  # noqa: E402
 from repro_torch.kernels import decode_attention as kdecode  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import norm_gemm as knorm  # noqa: E402
+from repro_torch.kernels import rglru as krglru  # noqa: E402
 from repro_torch.kernels import sma_gemm as kgemm  # noqa: E402
 from repro_torch.launch.train import (TrainLoopConfig, make_step,  # noqa: E402
                                       train)
@@ -126,6 +138,24 @@ TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 5, 2048, 4
 TRAIN_LR = 1e-3
 H100_BF16 = 989e12            # dense bf16 tensor-core peak, for the MFU
 
+# The recurrent path: recurrentgemma-2b at full width.  The prompts are a
+# multiple of the window (2048): the reference's cache layout after a
+# longer prompt only matches its decode's ring slots then (ROADMAP.md).
+RG_ARCH = "recurrentgemma-2b"
+RG_BATCH, RG_PROMPT, RG_NEW = 4, 4096, 32
+RG_CACHE = RG_PROMPT + 64
+# RG-LRU kernel vs its plain version, per element |err| <= RGLRU_ATOL +
+# RGLRU_RTOL * |plain|: both round the same f32 product and sum at every
+# step, so they should agree exactly; the limit passes one rounding of a
+# bf16 output and no more.  Each planted fault of check_rglru must fail it
+# on every element it moves by more than FAULT_MARGIN limits.
+RGLRU_ATOL, RGLRU_RTOL = 1e-6, 2.0 ** -8
+# Logits of the 3-layer recurrent model (prefill's last position, then one
+# decode step), kernels vs plain versions, max |err|.  On an H100 the noise
+# reads 0.031 (one bf16 step of a logit near 4) and the faults of RG_FAULTS
+# marked must 1.93 and 3.10 (PERF.md); the limit lies between them.
+RG_LOGIT_ATOL = 0.1
+
 KERNEL_SOURCES = {
     "sma_gemm": ("src/repro_torch/kernels/csrc/sma_gemm.cu",
                  "src/repro/kernels/sma_gemm.py:83"),
@@ -142,6 +172,8 @@ KERNEL_SOURCES = {
     # this kernel is the gradient of the one it replaces.
     "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:101"),
+    "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                   "src/repro/kernels/rglru.py:55"),
 }
 
 
@@ -596,6 +628,8 @@ def plain_kernels():
              (knorm, "rmsnorm_gemm"): ref.rmsnorm_gemm_ref,
              (kdecode, "paged_decode_attention"):
                  ref.paged_decode_attention_ref,
+             (kdecode, "decode_attention"): ref.decode_attention_ref,
+             (krglru, "rglru_scan"): ref.rglru_scan_ref,
              (kflash, "flash_attention_fwd"): ref.flash_attention_ref,
              (kflash, "flash_attention_bwd"): ref.flash_attention_bwd_ref}
     saved = {key: getattr(*key) for key in swaps}
@@ -1054,6 +1088,441 @@ def report_profile(prof, wall: float, steps: int, what: str) -> None:
               f"{count // steps:5d}/step  {key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# The recurrent path: recurrentgemma-2b through lm.prefill / lm.decode_step
+# ---------------------------------------------------------------------------
+def scan_inputs(gen, dev, b, s, d, dt):
+    """Decays in (0, 1) and inputs of 0.1 scale, as the reference's kernel
+    test draws them; h0 of unit scale."""
+    a = torch.sigmoid(torch.randn((b, s, d), generator=gen, device=dev))
+    u = torch.randn((b, s, d), generator=gen, device=dev) * 0.1
+    h0 = torch.randn((b, d), generator=gen, device=dev)
+    return a.to(dt), u.to(dt), h0.to(dt)
+
+
+def rglru_multiples(got, want):
+    return ((got.float() - want.float()).abs()
+            / (RGLRU_ATOL + RGLRU_RTOL * want.float().abs()))
+
+
+def rglru_controls(a, u, h0, want_seq, want_last):
+    """Planted faults fed to the kernel, each held against the plain
+    version of the right inputs: the carry reset to h0 at t = S/2 (the
+    sequence run as two halves), h_last taken one step early (the last
+    step left out) and a read one step late (a_t replaced by a_{t-1}).
+    Each must fail the check on every element it moves by more than
+    FAULT_MARGIN limits (measured on the plain version of the faulty
+    inputs)."""
+    half = a.shape[1] // 2
+    late = torch.cat([a[:, :1], a[:, :-1]], 1)
+
+    def reset(fn):
+        s1, _ = fn(a[:, :half], u[:, :half], h0)
+        s2, last = fn(a[:, half:], u[:, half:], h0)
+        return torch.cat([s1, s2], 1), last
+
+    faults = {
+        f"carry reset to h0 at t={half}": (reset, 0),
+        "h_last one step early": (
+            lambda fn: fn(a[:, :-1], u[:, :-1], h0), 1),
+        "a read at t-1": (lambda fn: fn(late, u, h0), 0),
+    }
+    for name, (run, which) in faults.items():
+        want = (want_seq, want_last)[which]
+        effect = rglru_multiples(run(ref.rglru_scan_ref)[which], want)
+        bad = rglru_multiples(run(krglru.rglru_scan)[which], want)
+        must = effect > FAULT_MARGIN
+        n_must = int(must.sum())
+        n_caught = int((bad[must] > 1).sum())
+        print(f"rglru control, {name}: moves {n_must} of {must.numel()} "
+              f"{'h_seq' if which == 0 else 'h_last'} elements by > "
+              f"{FAULT_MARGIN} limits; the check fails {n_caught} of them")
+        if n_must == 0 or n_caught < n_must:
+            fail(f"rglru control '{name}' passes the check where it moves "
+                 f"the output")
+
+
+def check_rglru(gen, dev):
+    """The scan kernel against its plain version at the prefill's shape
+    (B 4, S 4096, D 2560, bf16) with and without h0, and at a ragged
+    (1, 4097, 2568) in f32; the planted faults on the first; the prefill's
+    call (no h0) timed."""
+    rows = []
+    cases = [(RG_BATCH, RG_PROMPT, 2560, torch.bfloat16, True),
+             (RG_BATCH, RG_PROMPT, 2560, torch.bfloat16, False),
+             (1, RG_PROMPT + 1, 2568, torch.float32, True)]
+    for i, (b, s, d, dt, with_h0) in enumerate(cases):
+        a, u, h0 = scan_inputs(gen, dev, b, s, d, dt)
+        h0 = h0 if with_h0 else None
+        got = krglru.rglru_scan(a, u, h0)
+        want = ref.rglru_scan_ref(a, u, h0)
+        mult = max(rglru_multiples(g, w).max().item()
+                   for g, w in zip(got, want))
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+        shape = (f"B={b} S={s} D={d} {str(dt)[6:]}"
+                 f"{' h0' if with_h0 else ''}")
+        print(f"rglru {shape}: max |err| {err:.4g}, max limit multiple "
+              f"{mult:.3g} of {RGLRU_ATOL} + {RGLRU_RTOL:.4g}|plain|")
+        if not all(torch.isfinite(g.float()).all() for g in got) \
+                or mult > 1:
+            fail(f"rglru_scan {shape}: kernel disagrees with its plain "
+                 f"version")
+        if i == 0:
+            rglru_controls(a, u, h0, *want)
+        if i == 1:
+            nbytes = 3 * a.numel() * a.element_size() \
+                + b * d * a.element_size()
+            rows.append(entry(
+                "rglru_scan", shape, err,
+                time_ms(krglru.rglru_scan, [(a, u)]),
+                time_ms(ref.rglru_scan_ref, [(a, u)], 2),
+                bound(nbytes, 2 * a.numel(), torch.float32), None))
+        del a, u, h0, got, want
+    return rows
+
+
+def check_flash_mqa(gen, dev):
+    """The flash forward at recurrentgemma's prefill shape: B 4, Hq 10,
+    Hkv 1, S 4096, D 256, window 2048, bf16; timed against the plain
+    version and scaled_dot_product_attention with the windowed mask.  One
+    key more in a window of 2048 moves a row by about 1/2048 of its
+    values, under the tolerance, so the planted fault 'the window one key
+    too wide' is fed at window 8 (S 512) as well, where it must be
+    caught."""
+    dt = torch.bfloat16
+    b, hq, s, d, window = RG_BATCH, 10, RG_PROMPT, 256, 2048
+    rows = []
+    for seq, win, timed in ((s, window, True), (512, 8, False)):
+        q, k, v, _ = flash_inputs(gen, dev, hq, 1, seq=seq, b=b, d=d)
+        out, lse = kflash.flash_attention_fwd(q, k, v, window=win)
+        want, want_lse = ref.flash_attention_ref(q, k, v, window=win)
+        mult = row_multiples(out, want)
+        err = (out.float() - want.float()).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        wide_plain = ref.flash_attention_ref(q, k, v, window=win + 1)[0]
+        effect = row_multiples(wide_plain, want)
+        bad = row_multiples(
+            kflash.flash_attention_fwd(q, k, v, window=win + 1)[0], want)
+        must = effect > FAULT_MARGIN
+        n_must, n_caught = int(must.sum()), int((bad[must] > 1).sum())
+        print(f"flash MQA D={d} S={seq} window {win}: out max |err| "
+              f"{err:.4g} (max limit multiple {mult.max().item():.3g}), lse "
+              f"{lse_err:.3g}; control, window one key too wide: moves "
+              f"{n_must} of {must.numel()} rows by > {FAULT_MARGIN} limits "
+              f"(largest {effect.max().item():.3g}), the check fails "
+              f"{n_caught} of them")
+        del wide_plain, want_lse
+        if not torch.isfinite(out.float()).all() or mult.max() > 1:
+            fail(f"flash forward MQA D={d} window {win}: kernel disagrees "
+                 f"with its plain version")
+        if lse_err > 1e-2:
+            fail(f"flash forward MQA D={d}: lse off by {lse_err:.3g}")
+        if not timed and (n_must == 0 or n_caught < n_must):
+            fail(f"flash control 'window one key too wide' at window {win} "
+                 f"passes the check on a row it changes")
+        if not timed:
+            continue
+        args = [(q, k, v)]
+        mask = ref.flash_mask(seq, seq, causal=True, window=win, device=dev)
+
+        def sdpa(q_, k_, v_):
+            return F.scaled_dot_product_attention(
+                q_, k_.expand(-1, hq, -1, -1), v_.expand(-1, hq, -1, -1),
+                attn_mask=mask)
+
+        pairs = visible_pairs(seq, seq, win, dev) * b * hq
+        io = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * b * hq * seq
+        rows.append(entry(
+            "flash_attention",
+            f"B={b} Hq={hq} Hkv=1 S={seq} D={d} causal window={win} bf16",
+            err, time_ms(lambda *a_: kflash.flash_attention_fwd(
+                *a_, window=win), args),
+            time_ms(lambda *a_: ref.flash_attention_ref(*a_, window=win),
+                    args, 2),
+            bound(io, 4 * d * pairs, dt), time_ms(sdpa, args, 5)))
+        del out, want, args, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+RG_KV_LENS = (1, 17, 100, 256, 511, 1024, 1777, 2048)
+
+
+def check_decode_mqa(gen, dev):
+    """The contiguous decode kernel at recurrentgemma's decode shape: B 8,
+    Hq 10, Hkv 1, D 256, Smax 2048 (the ring of a local layer), bf16,
+    lengths 1..2048 checked; timed with every length 2048, as a decode
+    step past the window reads it."""
+    dt = torch.bfloat16
+    b, hq, d, smax = 8, 10, 256, 2048
+    q = torch.randn((b, hq, d), generator=gen, device=dev).to(dt)
+    caches = [tuple(torch.randn((b, 1, smax, d), generator=gen,
+                                device=dev).to(dt) for _ in range(2))
+              for _ in range(copies(2 * b * smax * d * 2))]
+    ragged = torch.tensor(RG_KV_LENS, dtype=torch.int32, device=dev)
+    full = torch.full((b,), smax, dtype=torch.int32, device=dev)
+    errs = []
+    for lens in (ragged, full):
+        got = kdecode.decode_attention(q, *caches[0], lens)
+        want = ref.decode_attention_ref(q, *caches[0], lens)
+        errs.append(compare(got, want, f"decode_attention MQA D={d}",
+                            ATTN_ATOL, ATTN_RTOL))
+        mult = limit_multiples(got, want, ATTN_ATOL, ATTN_RTOL)
+        print(f"decode MQA D={d}, kernel vs plain: limit multiple by "
+              f"kv_len {lens.tolist()}: {[round(x, 4) for x in mult.tolist()]}")
+    args = [(q, kc, vc, full) for kc, vc in caches]
+    mask = (torch.arange(smax, device=dev)[None, :]
+            < full[:, None])[:, None, None, :]
+
+    def sdpa(q_, k_, v_, _lens):
+        return F.scaled_dot_product_attention(
+            q_[:, :, None], k_.expand(-1, hq, -1, -1),
+            v_.expand(-1, hq, -1, -1), attn_mask=mask)
+
+    nbytes = 2 * 2 * b * hq * d + 2 * 2 * b * smax * d + 4 * b
+    return [entry(
+        "decode_attention",
+        f"B={b} Hq={hq} Hkv=1 D={d} Smax={smax} kv_len={smax} bf16 "
+        f"(checked also at {list(RG_KV_LENS)})",
+        max(errs), time_ms(kdecode.decode_attention, args),
+        time_ms(ref.decode_attention_ref, args),
+        bound(nbytes, 4 * b * hq * smax * d, dt), time_ms(sdpa, args))]
+
+
+def rg_launches(cfg, phase: str) -> dict:
+    """Launches of one call: an rglru block makes 8 projections (w_in,
+    w_gate, w_a, w_x, w_out and the MLP's 3), a local block 7; prefill
+    runs one scan per rglru block and one flash forward per local block,
+    a decode step one contiguous decode per local block; the head is one
+    rmsnorm_gemm."""
+    n_rglru = cfg.num_groups * cfg.block_pattern.count("rglru")
+    n_local = cfg.num_groups * cfg.block_pattern.count("local")
+    out = {"sma_gemm": 8 * n_rglru + 7 * n_local, "rmsnorm_gemm": 1}
+    if phase == "prefill":
+        out.update(rglru_scan=n_rglru, flash_attention=n_local)
+    else:
+        out["decode_attention"] = n_local
+    return out
+
+
+def rg_tokens(cfg, dev, shape, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, shape, generator=gen, device=dev)
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: n for k, n in counts.items() if n}
+
+
+def serve_recurrentgemma(cfg, params, dev):
+    """lm.prefill of RG_BATCH x RG_PROMPT tokens, then RG_NEW greedy
+    lm.decode_steps, at full width and depth.  Checks finite logits, the
+    launches of every call and that nothing was routed; prints prefill ms,
+    the median decode step, tokens/s and peak memory.  Returns the run's
+    launch counts."""
+    toks = rg_tokens(cfg, dev, (RG_BATCH, RG_PROMPT), 0)
+    # Warm-up (first launches, allocator): a short prompt and one step.
+    logits, state, cl = lm.prefill(params, cfg, {"tokens": toks[:, :256]},
+                                   cache_size=RG_CACHE)
+    lm.decode_step(params, state, cl, cfg,
+                   {"tokens": logits.argmax(-1, keepdim=True)})
+    del logits, state, cl
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    total = collections.Counter()
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state, cl = lm.prefill(params, cfg, {"tokens": toks},
+                                   cache_size=RG_CACHE)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    calls = [("prefill", ops.launch_counts(), dict(ops.ROUTED), logits)]
+    steps, out_tokens = [], []
+    for _ in range(RG_NEW):
+        nxt = logits.argmax(-1, keepdim=True)
+        out_tokens.append(nxt)
+        ops.reset_counts()
+        t = time.perf_counter()
+        logits, state, cl = lm.decode_step(params, state, cl, cfg,
+                                           {"tokens": nxt})
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t)
+        calls.append(("decode", ops.launch_counts(), dict(ops.ROUTED),
+                      logits))
+    peak = torch.cuda.max_memory_allocated()
+    vpad = lm.padded_vocab(cfg)
+    for i, (phase, counts, routed, lg) in enumerate(calls):
+        if lg.shape != (RG_BATCH, vpad) or not torch.isfinite(lg).all():
+            fail(f"recurrentgemma call {i} ({phase}): logits "
+                 f"{tuple(lg.shape)} or non-finite")
+        if nonzero(counts) != rg_launches(cfg, phase) or routed:
+            fail(f"recurrentgemma call {i} ({phase}): launches "
+                 f"{nonzero(counts)}, expected {rg_launches(cfg, phase)}; "
+                 f"routed {routed}")
+        total.update(counts)
+    if cl.tolist() != [RG_PROMPT + RG_NEW] * RG_BATCH:
+        fail(f"recurrentgemma: cache_len {cl.tolist()} after the run")
+    toks_out = torch.cat(out_tokens, 1)
+    step_ms = 1e3 * float(np.median(steps))
+    print(f"recurrentgemma: {RG_ARCH} full width ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {vpad}), bf16, random weights; "
+          f"prefill {RG_BATCH} x {RG_PROMPT} tokens in "
+          f"{1e3 * prefill_s:.2f} ms ({RG_BATCH * RG_PROMPT / prefill_s:.1f}"
+          f" tokens/s); {RG_NEW} decode steps, median {step_ms:.3f} ms "
+          f"(min {1e3 * min(steps):.3f}, max {1e3 * max(steps):.3f}): "
+          f"{RG_BATCH * RG_NEW / sum(steps):.1f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated)")
+    print(f"recurrentgemma: launches a prefill "
+          f"{json.dumps(rg_launches(cfg, 'prefill'))}, a decode step "
+          f"{json.dumps(rg_launches(cfg, 'decode'))}, as predicted; nothing "
+          f"routed; row 0 tokens {toks_out[0, :8].tolist()}")
+    return dict(total)
+
+
+# Planted faults of check_recurrent_logits, each one wrong launch: must
+# the logit limit catch it?  A carry reset mid-sequence is forgotten
+# within a few steps (a = exp(-8 softplus(lambda) r) is ~e^-4.8 with these
+# weights) and one ring slot is 1 of 2048 keys: both are readings.
+RG_FAULTS = {"rglru: carry reset at t = S/2": False,
+             "rglru: h_seq one step late": True,
+             "decode: oldest ring slot skipped": False,
+             "decode: eff_len taken mod the window (1 slot read)": True}
+
+
+@contextlib.contextmanager
+def planted_recurrent(fault: str, pos: int, smax: int):
+    """One wrong launch, made by feeding a kernel wrong inputs: the second
+    scan of the prefill (the rglru layer just before the local layer) with
+    its carry reset at S/2 or its h_seq shifted one step late, or the
+    decode step's attention (which writes position ``pos`` into a full
+    ring of ``smax`` slots) without the oldest slot or over
+    ``(pos + 1) % smax`` slots.  Yields the call counts."""
+    scan, attn = ops.rglru_scan, ops.decode_attention
+    calls = {"scan": 0, "attn": 0}
+
+    def wrong_scan(a, u, h0=None):
+        calls["scan"] += 1
+        if calls["scan"] != 2 or not fault.startswith("rglru"):
+            return scan(a, u, h0)
+        if "reset" in fault:
+            half = a.shape[1] // 2
+            s1, _ = scan(a[:, :half], u[:, :half], h0)
+            s2, last = scan(a[:, half:], u[:, half:])
+            return torch.cat([s1, s2], 1), last
+        seq, last = scan(a, u, h0)
+        return torch.cat([torch.zeros_like(seq[:, :1]), seq[:, :-1]], 1), last
+
+    def wrong_attn(q, k_cache, v_cache, lens, **kw):
+        calls["attn"] += 1
+        if "oldest" in fault:
+            keep = torch.tensor([i for i in range(smax)
+                                 if i != (pos + 1) % smax], device=q.device)
+            return attn(q, k_cache[:, :, keep], v_cache[:, :, keep],
+                        lens - 1, **kw)
+        if "mod the window" in fault:
+            lens = torch.full_like(lens, (pos + 1) % smax)
+        return attn(q, k_cache, v_cache, lens, **kw)
+
+    ops.rglru_scan, ops.decode_attention = wrong_scan, wrong_attn
+    try:
+        yield calls
+    finally:
+        ops.rglru_scan, ops.decode_attention = scan, attn
+
+
+def check_recurrent_logits(cfg, dev):
+    """Pattern (rglru, rglru, local) x 1 group at full width: the prefill's
+    last-position logits (B 2, 4,096 tokens) and one decode step's, through
+    the kernels and through the plain versions; then each of RG_FAULTS
+    planted.  The noise must lie under RG_LOGIT_ATOL and the faults marked
+    must above it."""
+    cfg3 = dataclasses.replace(cfg, block_pattern=("rglru", "rglru", "local"),
+                               num_groups=1)
+    params = lm.init(cfg3, seed=0, device=dev)
+    b, smax = 2, cfg3.window
+    toks = rg_tokens(cfg3, dev, (b, RG_PROMPT), 1)
+    nxt = rg_tokens(cfg3, dev, (b, 1), 2)
+
+    def run():
+        logits, state, cl = lm.prefill(params, cfg3, {"tokens": toks},
+                                       cache_size=RG_CACHE)
+        step = lm.decode_step(params, state, cl, cfg3, {"tokens": nxt})[0]
+        return logits.float(), step.float()
+
+    ops.reset_counts()
+    got = run()
+    counts = nonzero(ops.launch_counts())
+    expect = collections.Counter(rg_launches(cfg3, "prefill"))
+    expect.update(rg_launches(cfg3, "decode"))
+    if counts != dict(expect):
+        fail(f"recurrent logits: launches {counts}, expected {dict(expect)}")
+    with plain_kernels():
+        want = run()
+    for name, g, w in zip(("prefill", "decode step"), got, want):
+        if g.shape != (b, lm.padded_vocab(cfg3)) \
+                or not torch.isfinite(g).all():
+            fail(f"recurrent logits, {name}: shape {tuple(g.shape)} or "
+                 f"non-finite")
+
+    def reading(outs) -> float:
+        return max((g - w).abs().max().item() for g, w in zip(outs, want))
+
+    noise = reading(got)
+    each = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    agree = [int((g.argmax(-1) == w.argmax(-1)).sum())
+             for g, w in zip(got, want)]
+    print(f"recurrent logits, kernels vs plain versions: max |err| prefill "
+          f"{each[0]:.4g}, decode step {each[1]:.4g} (|logit| max "
+          f"{want[0].abs().max().item():.3g}); top-1 agree on {agree} of "
+          f"{b} rows; limit {RG_LOGIT_ATOL}")
+    missed = []
+    for fault, must in RG_FAULTS.items():
+        with planted_recurrent(fault, RG_PROMPT, smax) as calls:
+            r = reading(run())
+        if calls != {"scan": 2, "attn": 1}:
+            fail(f"recurrent logits control '{fault}': {calls} launches, "
+                 f"so the fault may have missed its target")
+        print(f"recurrent logits control, {fault}: max |err| {r:.4g} "
+              f"({r / RG_LOGIT_ATOL:.3g} limits; "
+              f"{'must be caught' if must else 'a reading'})")
+        if must and r <= RG_LOGIT_ATOL:
+            missed.append(fault)
+    if noise > RG_LOGIT_ATOL:
+        fail(f"recurrent logits: max |err| {noise:.4g} > {RG_LOGIT_ATOL}")
+    if missed:
+        fail(f"recurrent logits: planted faults within the limit: {missed}")
+
+
+def profile_recurrent(cfg, params, dev, steps: int = 5):
+    """torch.profiler over one full-width prefill (B 4, 4,096 tokens) and
+    over a few decode steps after it: device busy share and device time by
+    kernel of each."""
+    from torch.profiler import ProfilerActivity, profile
+    toks = rg_tokens(cfg, dev, (RG_BATCH, RG_PROMPT), 3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, state, cl = lm.prefill(params, cfg, {"tokens": toks},
+                                       cache_size=RG_CACHE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile(prof, wall, 1, "recurrentgemma prefill")
+    nxt = {"tokens": logits.argmax(-1, keepdim=True)}
+    lm.decode_step(params, state, cl, cfg, nxt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            lm.decode_step(params, state, cl, cfg, nxt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile(prof, wall, steps, "recurrentgemma decode step")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1094,6 +1563,10 @@ def main() -> int:
                  + check_sma_gemm(gen, dev, TRAIN_GEMMS, " (train)")
                  + check_rmsnorm_gemm(gen, dev) + check_decode(gen, dev)
                  + check_flash(gen, dev))
+    torch.cuda.empty_cache()
+    rows += phase("recurrent kernel checks",
+                  lambda: check_rglru(gen, dev) + check_flash_mqa(gen, dev)
+                  + check_decode_mqa(gen, dev))
     for row in rows:
         print(f"kernel {row['name']} [{row['shape']}]: max|err| "
               f"{row['max_abs_err']:.3g}, {row['ms']:.4f} ms, plain "
@@ -1123,15 +1596,36 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_counts, tparams = phase("trainer", run_trainer, cfg, dev)
     phase("train profile", profile_train_step, cfg, tparams, dev)
+    del tparams
+    torch.cuda.empty_cache()
+
+    # The recurrent path, without autograd.
+    rg_cfg = get_config(RG_ARCH)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params = lm.init(rg_cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        print(f"init: {RG_ARCH} full width ({rg_cfg.num_layers} layers, "
+              f"d_model {rg_cfg.d_model}, vocab "
+              f"{lm.padded_vocab(rg_cfg)}) in {time.perf_counter() - t0:.3f}"
+              f" s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the "
+              f"card")
+        rg_counts = phase("serve recurrentgemma", serve_recurrentgemma,
+                          rg_cfg, params, dev)
+        phase("recurrent profile", profile_recurrent, rg_cfg, params, dev)
+        del params
+        torch.cuda.empty_cache()
+        phase("recurrent logits", check_recurrent_logits, rg_cfg, dev)
     print(f"phases (s): "
           f"{json.dumps({k: round(x, 1) for k, x in phases.items()})}")
 
     for row in rows:
         by_path = {"serve": serve_counts[row["name"]],
-                   "train": train_counts[row["name"]]}
+                   "train": train_counts[row["name"]],
+                   "recurrentgemma": rg_counts.get(row["name"], 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
-        if row["launches"] == 0 and row["name"] != "decode_attention":
+        if row["launches"] == 0:
             fail(f"kernel {row['name']} was not launched on a main path")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -2,8 +2,8 @@
 
 Only the fields the ported paths read are kept; ``dtype`` (the compute
 dtype) and ``param_dtype`` (the trainer's master weights) resolve to torch
-dtypes.  ``reduced()`` derives the same tiny CPU-test variant as the JAX
-package.
+dtypes; ``window`` is the sliding window of ``local`` blocks.
+``reduced()`` derives the same tiny CPU-test variant as the JAX package.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None
     rope_theta: float = 10000.0
+    window: Optional[int] = None
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     source: str = ""
@@ -67,8 +68,9 @@ def get_config(name: str) -> ModelConfig:
     return REGISTRY[name]
 
 
-def reduced(cfg: ModelConfig) -> ModelConfig:
-    """Tiny same-family variant for CPU tests (same rules as ``repro``)."""
+def reduced(cfg: ModelConfig, *, seq_len: int = 64) -> ModelConfig:
+    """Tiny same-family variant for CPU tests (same rules as ``repro``,
+    including the window: at most half of ``seq_len``)."""
     if cfg.num_kv_heads == 1:
         kv = 1
     elif cfg.num_kv_heads == cfg.num_heads:
@@ -85,6 +87,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         head_dim=16,
         d_ff=128 if cfg.d_ff else 0,
         vocab_size=256,
+        window=min(cfg.window, seq_len // 2) if cfg.window else None,
         dtype="float32",
         param_dtype="float32",
     )

@@ -1,14 +1,19 @@
-"""Load the JAX package's parameters into the port.
+"""Load the JAX package's parameters and decode state into the port.
 
 ``from_jax_params`` takes the tree ``repro.models.lm.init`` returns, with
 its leaves already turned into numpy arrays (the port imports no JAX):
 nested dicts, ``blocks`` a tuple of dicts whose leaves are stacked on a
 leading ``num_groups`` axis.  It returns the same tree of tensors on
-``device``.  Matrices are cast once, here, to ``dtype``: by default the
-activation dtype the card computes in (the values JAX's per-call
-``compute_cast`` produces), which serving uses; the trainer's tests pass
-``cfg.parameter_dtype`` for float32 masters.  Norm scales stay float32, as
-the JAX code reads them.
+``device``.  Matrices and biases are cast once, here, to ``dtype``: by
+default the activation dtype the card computes in (the values JAX's
+per-call casts produce), which serving uses; the trainer's tests pass
+``cfg.parameter_dtype`` for float32 masters.  Norm scales and the RG-LRU's
+``lambda_raw`` stay float32, as the JAX code reads them.
+
+``from_jax_state`` takes the state ``repro.models.lm.init_state`` or
+``prefill`` returns (a tuple of dicts of stacked numpy arrays) and returns
+the port's :data:`repro_torch.models.lm.State`: the RG-LRU carry ``h`` in
+float32, every other leaf (KV caches, conv tails) in ``dtype``.
 """
 from __future__ import annotations
 
@@ -20,20 +25,30 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 
+#: Leaves held in float32 whatever the matrices' dtype.
+F32_PARAMS = ("scale", "lambda_raw")
+F32_STATE = ("h",)
+
+
+def _convert(node: Any, dev: torch.device, dtype: torch.dtype,
+             f32_names, name: str = "") -> Any:
+    if isinstance(node, dict):
+        return {k: _convert(v, dev, dtype, f32_names, k)
+                for k, v in node.items()}
+    if isinstance(node, (tuple, list)):
+        return tuple(_convert(v, dev, dtype, f32_names, name) for v in node)
+    arr = np.array(node, dtype=np.float32)
+    return torch.from_numpy(arr).to(
+        device=dev, dtype=torch.float32 if name in f32_names else dtype)
+
 
 def from_jax_params(tree: Any, cfg: ModelConfig, device: DeviceLike = None,
                     dtype: Optional[torch.dtype] = None) -> dict:
-    dev = resolve_device(device)
-    mat_dtype = dtype or cfg.activation_dtype
+    return _convert(tree, resolve_device(device),
+                    dtype or cfg.activation_dtype, F32_PARAMS)
 
-    def convert(node: Any, name: str = "") -> Any:
-        if isinstance(node, dict):
-            return {k: convert(v, k) for k, v in node.items()}
-        if isinstance(node, (tuple, list)):
-            return tuple(convert(v, name) for v in node)
-        arr = np.array(node, dtype=np.float32)
-        return torch.from_numpy(arr).to(
-            device=dev,
-            dtype=torch.float32 if name == "scale" else mat_dtype)
 
-    return convert(tree)
+def from_jax_state(state: Any, cfg: ModelConfig, device: DeviceLike = None,
+                   dtype: Optional[torch.dtype] = None) -> tuple:
+    return _convert(tuple(state), resolve_device(device),
+                    dtype or cfg.activation_dtype, F32_STATE)

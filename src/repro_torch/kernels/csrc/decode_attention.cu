@@ -27,6 +27,11 @@
 //
 // The contiguous `decode_attention` entry is the same kernel with BS = Smax
 // and the table arange(B)[:, None], built by the wrapper.
+//
+// Shared memory is f32 throughout: 2 * TILE * (D + 1) of K and V, g * TILE
+// scores, 2 * g * D of queries and accumulators.  Where that passes 48 KB
+// (g = 10, D = 256: 54 KB at TILE 16) the launch opts in to more, up to the
+// 227 KB a block may have; the wrapper picks TILE.
 #include "common.cuh"
 
 namespace repro {
@@ -150,15 +155,22 @@ __global__ void __launch_bounds__(128) paged_decode_kernel(
 }
 
 template <typename T>
-void launch(const void* q, const void* kp, const void* vp, const int* table,
-            const int* kv_len, void* out, int B, int Hq, int Hkv, int D,
-            int NB, int BS, int MB, int tile, float scale, size_t smem,
-            cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* kp, const void* vp,
+                   const int* table, const int* kv_len, void* out, int B,
+                   int Hq, int Hkv, int D, int NB, int BS, int MB, int tile,
+                   float scale, size_t smem, cudaStream_t stream) {
   dim3 grid(Hkv, B);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
   paged_decode_kernel<T><<<grid, 128, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), table, kv_len, static_cast<T*>(out), Hq, Hkv,
       D, NB, BS, MB, tile, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace repro
@@ -175,19 +187,18 @@ extern "C" int paged_decode_attention_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case repro::kF32:
-      repro::launch<float>(q, k_pool, v_pool, tb, kl, out, B, Hq, Hkv, D, NB,
-                           BS, MB, tile, scale, smem, s);
-      break;
+      return static_cast<int>(repro::launch<float>(
+          q, k_pool, v_pool, tb, kl, out, B, Hq, Hkv, D, NB, BS, MB, tile,
+          scale, smem, s));
     case repro::kBF16:
-      repro::launch<__nv_bfloat16>(q, k_pool, v_pool, tb, kl, out, B, Hq,
-                                   Hkv, D, NB, BS, MB, tile, scale, smem, s);
-      break;
+      return static_cast<int>(repro::launch<__nv_bfloat16>(
+          q, k_pool, v_pool, tb, kl, out, B, Hq, Hkv, D, NB, BS, MB, tile,
+          scale, smem, s));
     case repro::kF16:
-      repro::launch<__half>(q, k_pool, v_pool, tb, kl, out, B, Hq, Hkv, D,
-                            NB, BS, MB, tile, scale, smem, s);
-      break;
+      return static_cast<int>(repro::launch<__half>(
+          q, k_pool, v_pool, tb, kl, out, B, Hq, Hkv, D, NB, BS, MB, tile,
+          scale, smem, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -42,6 +42,10 @@
 // across KV tiles with f32 atomics into a zeroed (B, Hq, Sq, D) buffer, so
 // dQ's summation order varies from run to run (the tolerance says so).
 //
+// Head dims: the forward takes 64, 128 and 256 (recurrentgemma's MQA heads,
+// with Q staged in shared memory and 32-key tiles, see FwdTile); the backward
+// 64 and 128.
+//
 // What bounds it on an H100: operations.  At B 4, H 32, S 2048, D 64,
 // causal, the forward does 4 * D flops on each of B*H*S(S+1)/2 visible
 // (query, key) pairs, 68.7 GFLOP, 0.069 ms at 989 TFLOP/s, against 0.040 ms
@@ -57,7 +61,7 @@ namespace repro {
 namespace flash {
 
 constexpr int BQ = 64;       // query rows per block: 4 warps x 16
-constexpr int BK = 64;       // keys per tile
+constexpr int BK = 64;       // keys per tile (backward; forward: FwdTile)
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr float kNegInf = -1e30f;  // floor of the running max
@@ -151,6 +155,22 @@ __device__ __forceinline__ void load_rows(T* s, const T* g, int r0, int R) {
 }
 
 // ---------------------------------------------------------------- forward
+// Keys per KV tile of the forward, and whether Q is staged in shared memory.
+// At D <= 128 a warp keeps its 16 rows of Q as mma A fragments in registers
+// (D / 4 registers a thread) beside the 16 x D f32 output accumulator (D / 2
+// registers a thread).  At D = 256 those two alone would be 192 registers,
+// so Q is read from shared memory at each product instead, and the tile is
+// 32 keys: the K/V double buffer is then 66 KB and Q 33 KB.
+template <int D>
+struct FwdTile {
+  static constexpr int kKeys = D > 128 ? 32 : 64;
+  static constexpr bool kQInSmem = D > 128;
+  template <typename T>
+  static constexpr size_t smem() {
+    return (2 * 2 * kKeys + (kQInSmem ? BQ : 0)) * (D + 8) * sizeof(T);
+  }
+};
+
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -158,11 +178,14 @@ __global__ void __launch_bounds__(THREADS)
                      float* __restrict__ lse, int Hq, int Hkv, int Sq,
                      int Skv, float scale, int causal, int window) {
   constexpr int LD = D + 8;  // padded row stride against bank conflicts
-  constexpr int NT = BK / 8;  // score n-tiles per warp
+  constexpr int TK = FwdTile<D>::kKeys;
+  constexpr bool QS = FwdTile<D>::kQInSmem;
+  constexpr int NT = TK / 8;  // score n-tiles per warp
   constexpr int OT = D / 8;   // output n-tiles per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);  // [2][BK][LD]
-  T* Vs = Ks + 2 * BK * LD;                // [2][BK][LD]
+  T* Ks = reinterpret_cast<T*>(smem_raw);  // [2][TK][LD]
+  T* Vs = Ks + 2 * TK * LD;                // [2][TK][LD]
+  T* Qs = Vs + 2 * TK * LD;                // [BQ][LD] when QS
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -177,15 +200,17 @@ __global__ void __launch_bounds__(THREADS)
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this thread's rows
   const int p0 = r0 + off, p1 = r1 + off;          // their positions
 
-  // Q as the A fragments of QK^T, straight from device memory.
-  uint32_t qf[D / 16][4];
+  // Q as the A fragments of QK^T, straight from device memory (D <= 128).
+  uint32_t qf[QS ? 1 : D / 16][4];
+  if constexpr (!QS) {
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const int c = ks * 16 + t * 2;
-    qf[ks][0] = r0 < Sq ? ld32(qb + static_cast<size_t>(r0) * D + c) : 0u;
-    qf[ks][1] = r1 < Sq ? ld32(qb + static_cast<size_t>(r1) * D + c) : 0u;
-    qf[ks][2] = r0 < Sq ? ld32(qb + static_cast<size_t>(r0) * D + c + 8) : 0u;
-    qf[ks][3] = r1 < Sq ? ld32(qb + static_cast<size_t>(r1) * D + c + 8) : 0u;
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const int c = ks * 16 + t * 2;
+      qf[ks][0] = r0 < Sq ? ld32(qb + static_cast<size_t>(r0) * D + c) : 0u;
+      qf[ks][1] = r1 < Sq ? ld32(qb + static_cast<size_t>(r1) * D + c) : 0u;
+      qf[ks][2] = r0 < Sq ? ld32(qb + static_cast<size_t>(r0) * D + c + 8) : 0u;
+      qf[ks][3] = r1 < Sq ? ld32(qb + static_cast<size_t>(r1) * D + c + 8) : 0u;
+    }
   }
 
   // KV tiles this block can see (the TPU kernel's `run` predicate).
@@ -193,8 +218,8 @@ __global__ void __launch_bounds__(THREADS)
   int kv_lo = 0, kv_hi = Skv;
   if (causal) kv_hi = min(kv_hi, last + 1);
   if (window > 0) kv_lo = max(kv_lo, first - window + 1);
-  const int kt0 = kv_lo / BK;
-  const int kt1 = kv_hi > kv_lo ? (kv_hi + BK - 1) / BK : kt0;
+  const int kt0 = kv_lo / TK;
+  const int kt1 = kv_hi > kv_lo ? (kv_hi + TK - 1) / TK : kt0;
 
   float o[OT][4];
 #pragma unroll
@@ -203,41 +228,55 @@ __global__ void __launch_bounds__(THREADS)
   const bool live0 = r0 < Sq, live1 = r1 < Sq;
 
   if (kt0 < kt1) {
-    load_rows<T, BK, D, LD>(Ks, kb, kt0 * BK, Skv);
-    load_rows<T, BK, D, LD>(Vs, vb, kt0 * BK, Skv);
+    if constexpr (QS) load_rows<T, BQ, D, LD>(Qs, qb, q0, Sq);
+    load_rows<T, TK, D, LD>(Ks, kb, kt0 * TK, Skv);
+    load_rows<T, TK, D, LD>(Vs, vb, kt0 * TK, Skv);
     cp_async_commit();
   }
   for (int kt = kt0; kt < kt1; ++kt) {
     const int st = (kt - kt0) & 1;
     if (kt + 1 < kt1) {
-      load_rows<T, BK, D, LD>(Ks + (st ^ 1) * BK * LD, kb, (kt + 1) * BK, Skv);
-      load_rows<T, BK, D, LD>(Vs + (st ^ 1) * BK * LD, vb, (kt + 1) * BK, Skv);
+      load_rows<T, TK, D, LD>(Ks + (st ^ 1) * TK * LD, kb, (kt + 1) * TK, Skv);
+      load_rows<T, TK, D, LD>(Vs + (st ^ 1) * TK * LD, vb, (kt + 1) * TK, Skv);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* ks_ = Ks + st * BK * LD;
-    const T* vs_ = Vs + st * BK * LD;
+    const T* ks_ = Ks + st * TK * LD;
+    const T* vs_ = Vs + st * TK * LD;
 
-    // S = Q K^T for this warp's 16 rows x 64 keys.
+    // S = Q K^T for this warp's 16 rows x TK keys.
     float s[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4];
+      if constexpr (QS) {
+        const T* qr = Qs + (warp * 16 + g) * LD + kk * 16 + t * 2;
+        qa[0] = ld32(qr);
+        qa[1] = ld32(qr + 8 * LD);
+        qa[2] = ld32(qr + 8);
+        qa[3] = ld32(qr + 8 * LD + 8);
+      } else {
+        qa[0] = qf[kk][0];
+        qa[1] = qf[kk][1];
+        qa[2] = qf[kk][2];
+        qa[3] = qf[kk][3];
+      }
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const T* kr = ks_ + (n * 8 + g) * LD + kk * 16 + t * 2;
         const uint32_t bf[2] = {ld32(kr), ld32(kr + 8)};
-        mma16816<T>(s[n], qf[kk], bf);
+        mma16816<T>(s[n], qa, bf);
       }
     }
 
     // Mask, scale, online softmax in f32.  Masked scores become -inf; the
     // running max never drops below -1e30, so they give exactly 0.
-    const int k0 = kt * BK;
+    const int k0 = kt * TK;
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -281,7 +320,7 @@ __global__ void __launch_bounds__(THREADS)
 
     // O += P V: the score fragments are the A fragments of this product.
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
+    for (int kk = 0; kk < TK / 16; ++kk) {
       const uint32_t pa[4] = {pack2<T>(s[2 * kk][0], s[2 * kk][1]),
                               pack2<T>(s[2 * kk][2], s[2 * kk][3]),
                               pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
@@ -538,7 +577,7 @@ template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
                float scale, int causal, int window, cudaStream_t stream) {
-  const size_t smem = 2 * 2 * BK * (D + 8) * sizeof(T);
+  const size_t smem = FwdTile<D>::template smem<T>();
   if (int err = allow_smem(flash_fwd_kernel<T, D>, smem)) return err;
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
@@ -573,14 +612,13 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
 }  // namespace flash
 }  // namespace repro
 
-#define REPRO_FLASH_DISPATCH(CALL)                                  \
-  switch (dtype * 1000 + D) {                                       \
-    case repro::kBF16 * 1000 + 64: return CALL(__nv_bfloat16, 64);  \
-    case repro::kBF16 * 1000 + 128: return CALL(__nv_bfloat16, 128); \
-    case repro::kF16 * 1000 + 64: return CALL(__half, 64);          \
-    case repro::kF16 * 1000 + 128: return CALL(__half, 128);        \
-    default: return static_cast<int>(cudaErrorInvalidValue);        \
-  }
+// The forward takes head_dim 64, 128 and 256; the backward 64 and 128 (at
+// 256 its dK and dV accumulators alone would be 256 registers a thread).
+#define REPRO_FLASH_CASES(CALL)                                      \
+  case repro::kBF16 * 1000 + 64: return CALL(__nv_bfloat16, 64);    \
+  case repro::kBF16 * 1000 + 128: return CALL(__nv_bfloat16, 128);  \
+  case repro::kF16 * 1000 + 64: return CALL(__half, 64);            \
+  case repro::kF16 * 1000 + 128: return CALL(__half, 128);
 
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* out, void* lse, int B,
@@ -590,7 +628,12 @@ extern "C" int flash_attention_fwd_launch(
   repro::flash::launch_fwd<T, DD>(q, k, v, out, static_cast<float*>(lse), B, \
                                   Hq, Hkv, Sq, Skv, scale, causal, window,  \
                                   static_cast<cudaStream_t>(stream))
-  REPRO_FLASH_DISPATCH(REPRO_FWD)
+  switch (dtype * 1000 + D) {
+    REPRO_FLASH_CASES(REPRO_FWD)
+    case repro::kBF16 * 1000 + 256: return REPRO_FWD(__nv_bfloat16, 256);
+    case repro::kF16 * 1000 + 256: return REPRO_FWD(__half, 256);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 #undef REPRO_FWD
 }
 
@@ -604,6 +647,9 @@ extern "C" int flash_attention_bwd_launch(
       q, k, v, out, dout, static_cast<const float*>(lse),                 \
       static_cast<float*>(delta), static_cast<float*>(dq), dk, dv, B, Hq, \
       Hkv, Sq, Skv, scale, causal, window, static_cast<cudaStream_t>(stream))
-  REPRO_FLASH_DISPATCH(REPRO_BWD)
+  switch (dtype * 1000 + D) {
+    REPRO_FLASH_CASES(REPRO_BWD)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 #undef REPRO_BWD
 }

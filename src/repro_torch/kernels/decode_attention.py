@@ -20,8 +20,16 @@ Two entries share the kernel:
   :func:`repro_torch.kernels.ref.paged_decode_attention_ref`.
 * :func:`decode_attention` -- q (B, Hq, D) against a contiguous
   (B, Hkv, Smax, D) cache; the wrapper passes the cache as a pool of B
-  blocks of Smax positions and the table ``arange(B)[:, None]``.  Plain
-  version :func:`repro_torch.kernels.ref.decode_attention_ref`.
+  blocks of Smax positions and the table ``arange(B)[:, None]``, with
+  ``cache_len`` clamped to Smax (every position valid, as in the plain
+  version).  Plain version :func:`repro_torch.kernels.ref.
+  decode_attention_ref`.
+
+A block stages TILE tokens of K and V, the g query rows and their
+accumulators in shared memory, in f32.  The tile is the largest of 64, 32
+and 16 tokens within 48 KB; where none fits (recurrentgemma's g = 10,
+D = 256 needs 54 KB at 16 tokens) it is the largest within the 227 KB a
+block may opt in to, and the launch opts in.
 
 Each wrapper runs its plain version only for CPU tensors; for CUDA tensors
 it launches the kernel or raises, and counts its launches in ``.launches``.
@@ -38,8 +46,10 @@ from repro_torch.kernels.ref import (decode_attention_ref,
                                      paged_decode_attention_ref)
 from repro_torch.kernels.sma_gemm import DTYPE_CODES
 
-#: Shared memory one block may take without opting in to more.
+#: Shared memory one block may take without opting in to more, and the most
+#: it may opt in to on an H100 (232,448 bytes).
 _SMEM_LIMIT = 48 * 1024
+_SMEM_OPT_IN = 227 * 1024
 _TILES = (64, 32, 16)
 
 #: q, k_pool, v_pool, table, kv_len, out; B, Hq, Hkv, D, NB, BS, MB, tile;
@@ -53,14 +63,20 @@ def _lib() -> ctypes.CDLL:
                        {"paged_decode_attention_launch": _ARGTYPES})
 
 
+def _smem_bytes(g: int, d: int, tile: int) -> int:
+    """Shared memory of one block (``csrc/decode_attention.cu``)."""
+    return 4 * (2 * tile * (d + 1) + g * tile + 2 * g * d + 3 * g)
+
+
 def _tile(g: int, d: int) -> int:
-    """Tokens per shared-memory step: the largest that fits one block."""
-    for tile in _TILES:
-        if 4 * (2 * tile * (d + 1) + g * tile + 2 * g * d + 3 * g) \
-                <= _SMEM_LIMIT:
-            return tile
+    """Tokens per shared-memory step: the largest that fits 48 KB, else the
+    largest that fits the opt-in limit."""
+    for limit in (_SMEM_LIMIT, _SMEM_OPT_IN):
+        for tile in _TILES:
+            if _smem_bytes(g, d, tile) <= limit:
+                return tile
     raise ValueError(f"decode attention with g={g}, head_dim={d} does not "
-                     f"fit {_SMEM_LIMIT} bytes of shared memory")
+                     f"fit {_SMEM_OPT_IN} bytes of shared memory")
 
 
 def _launch(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -137,7 +153,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                     scale=scale)
     b = q.shape[0]
     table = torch.arange(b, dtype=torch.int32, device=q.device)[:, None]
-    out = _launch(q, k_cache, v_cache, table, cache_len, scale)
+    lens = cache_len.clamp(max=k_cache.shape[2])
+    out = _launch(q, k_cache, v_cache, table, lens, scale)
     decode_attention.launches += 1
     return out
 

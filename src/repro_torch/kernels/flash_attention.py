@@ -24,8 +24,10 @@ Two wrappers, each with its own launch counter:
   counts once.
 
 Each runs its plain version only for CPU tensors; for CUDA tensors it
-launches the kernel or raises.  The kernels take bf16/f16 with head_dim
-64 or 128; anything else on the card raises.
+launches the kernel or raises.  The kernels take bf16/f16; the forward
+head_dim 64, 128 or 256 (at 256, recurrentgemma's, Q is staged in shared
+memory and KV tiles are 32 keys), the backward 64 or 128.  Anything else
+on the card raises.
 """
 from __future__ import annotations
 
@@ -39,7 +41,9 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_ref)
 from repro_torch.kernels.sma_gemm import DTYPE_CODES
 
-HEAD_DIMS = (64, 128)
+#: head_dims each kernel takes.
+FWD_HEAD_DIMS = (64, 128, 256)
+BWD_HEAD_DIMS = (64, 128)
 
 #: q, k, v, out, lse; B, Hq, Hkv, Sq, Skv, D; scale; causal, window,
 #: dtype; stream.
@@ -63,8 +67,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           *more: torch.Tensor) -> Tuple[int, int, int, int, int, int]:
+def _check(head_dims: Tuple[int, ...], q: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor, *more: torch.Tensor
+           ) -> Tuple[int, int, int, int, int, int]:
     b, hq, sq, d = q.shape
     b2, hkv, skv, d2 = k.shape
     if b2 != b or d2 != d or v.shape != k.shape or hkv == 0 or hq % hkv:
@@ -77,9 +82,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"the flash kernels take bf16/f16 q, k, v of one "
                          f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the flash kernels take head_dim in {HEAD_DIMS}, "
-                         f"got {d}")
+    if d not in head_dims:
+        which = "forward" if head_dims == FWD_HEAD_DIMS else "backward"
+        raise ValueError(f"the flash {which} kernel takes head_dim in "
+                         f"{head_dims}, got {d}")
     return b, hq, hkv, sq, skv, d
 
 
@@ -102,7 +108,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not _build.on_card("flash_attention", q):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)
-    b, hq, hkv, sq, skv, d = _check(q, k, v)
+    b, hq, hkv, sq, skv, d = _check(FWD_HEAD_DIMS, q, k, v)
     win = _window(window)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
@@ -134,7 +140,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                        causal=causal, window=window,
                                        scale=scale)
-    b, hq, hkv, sq, skv, d = _check(q, k, v, out, lse, dout)
+    b, hq, hkv, sq, skv, d = _check(BWD_HEAD_DIMS, q, k, v, out, lse,
+                                    dout)
     if out.shape != q.shape or dout.shape != q.shape \
             or lse.shape != (b, hq, sq):
         raise ValueError(f"out {tuple(out.shape)}, dout "

@@ -7,7 +7,8 @@ Models call these, never the kernel modules directly:
 * :func:`flash_attention` -- causal/windowed GQA attention (train/prefill);
 * :func:`decode_attention` -- one token against a contiguous cache;
 * :func:`paged_decode_attention` -- serving attention over the paged pool,
-  with the routing below.
+  with the routing below;
+* :func:`rglru_scan` -- the RG-LRU recurrence (recurrentgemma prefill).
 
 Each entry point:
 
@@ -19,7 +20,8 @@ Each entry point:
   too.  With grad mode off (the serving engine's ``torch.inference_mode()``)
   it calls the wrapper directly: ``Function.apply`` costs about 10 us a
   call on an H100 machine's host, 3.9 % of a full-width decode step
-  (``chip_smoke.py``, ``entry_overhead``);
+  (``chip_smoke.py``, ``entry_overhead``).  :func:`rglru_scan` has no
+  backward kernel yet and refuses a gradient on the card;
 * routes statically, mirroring the JAX package: a paged-attention site with
   more than one query token per row (a chunked-prefill tile) or a window
   goes to the plain :func:`repro_torch.kernels.ref.paged_attention_ref`, as
@@ -32,7 +34,7 @@ The JAX package's backend registry and ladder are not ported.
 from __future__ import annotations
 
 import collections
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -40,13 +42,13 @@ from repro_torch.kernels import autograd as _autograd
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import norm_gemm as _norm
+from repro_torch.kernels import rglru as _rglru
 from repro_torch.kernels import sma_gemm as _gemm
-from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.ref import paged_attention_ref
 
 __all__ = ["ROUTED", "decode_attention", "flash_attention", "launch_counts",
            "paged_decode_attention", "paged_route", "reset_counts",
-           "rmsnorm_gemm", "sma_gemm"]
+           "rglru_scan", "rmsnorm_gemm", "sma_gemm"]
 
 #: Calls routed to a plain version by design, keyed by reason.
 ROUTED: Dict[str, int] = collections.Counter()
@@ -58,7 +60,8 @@ WRAPPERS = {
     "flash_attention": _flash.flash_attention_fwd,
     "flash_attention_bwd": _flash.flash_attention_bwd,
     "paged_decode_attention": _decode.paged_decode_attention,
-    "decode_attention": decode_attention,
+    "decode_attention": _decode.decode_attention,
+    "rglru_scan": _rglru.rglru_scan,
 }
 
 
@@ -99,6 +102,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _flash.flash_attention_fwd(q, k, v, causal=causal,
                                           window=window, scale=scale)[0]
     return _autograd.FlashAttention.apply(q, k, v, causal, window, scale)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """One query token against a contiguous cache.  q (B, Hq, D); k/v_cache
+    (B, Hkv, Smax, D); cache_len (B,) valid positions.  Returns
+    (B, Hq, D)."""
+    return _decode.decode_attention(q, k_cache, v_cache, cache_len,
+                                    scale=scale)
+
+
+def rglru_scan(a: torch.Tensor, u: torch.Tensor,
+               h0: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``h_t = a_t * h_{t-1} + u_t`` with a float32 carry.  a, u (B, S, D);
+    h0 (B, D) or None.  Returns (h_seq, h_last) in a's dtype.
+
+    On the card there is no backward kernel: with grad mode on and an
+    input that requires a gradient this raises, and does not fall back to
+    the plain version.  On the CPU the plain version is differentiable."""
+    ins = (a, u) if h0 is None else (a, u, h0)
+    if a.device.type == "cuda" and torch.is_grad_enabled() \
+            and any(t.requires_grad for t in ins):
+        raise NotImplementedError(
+            "rglru_scan has no backward kernel on the card yet (a reverse "
+            "scan, csrc/rglru_scan.cu); run it without a gradient")
+    return _rglru.rglru_scan(a, u, h0)
 
 
 def paged_route(c: int, window: Optional[int]) -> Optional[str]:

@@ -224,3 +224,22 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bchgk,bhkd->bchgd", probs, v)
     return out.reshape(b, c, hq, d).to(q.dtype)
+
+
+def rglru_scan_ref(a: torch.Tensor, u: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the RG-LRU scan ``h_t = a_t * h_{t-1} + u_t``: a
+    sequential loop over time with a float32 carry (a product, then a sum,
+    each rounded to f32).  a, u (B, S, D); h0 (B, D) or None (zeros).
+    Returns (h_seq (B, S, D), h_last (B, D)), both in a's dtype as the TPU
+    kernel returns them (``repro.kernels.ref.rglru_ref`` returns h_last in
+    f32; the kernel rounds it)."""
+    b, s, d = a.shape
+    h = (torch.zeros((b, d), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    out = torch.empty((b, s, d), dtype=a.dtype, device=a.device)
+    for t in range(s):
+        h = a[:, t].float() * h + u[:, t].float()
+        out[:, t] = h
+    return out, h.to(a.dtype)

@@ -1,17 +1,20 @@
-"""Decoder LM: parameters, the dense forward and the loss
-(counterpart of ``repro.models.lm``, ``attn`` blocks).
+"""Decoder LM: parameters, the forward and the loss, and the
+contiguous-state serving steps (counterpart of ``repro.models.lm``, block
+types ``attn``, ``local`` and ``rglru``).
 
 ``init`` returns the same parameter tree as ``repro.models.lm.init``
 (without the sharding specs): ``embed``, ``blocks`` (a tuple, one dict per
 pattern position, each tensor stacked over ``num_groups`` on its leading
 axis), ``final_norm`` and ``head``.  :func:`forward` and :func:`loss_fn`
-are the train path (the trainer is :mod:`repro_torch.launch.train`); the
-serving steps are in :mod:`repro_torch.serving.model`.  ``prefill`` and
-``decode_step`` over a contiguous cache are not ported.
+are the train path (the trainer is :mod:`repro_torch.launch.train`).
+:func:`init_state`, :func:`prefill` and :func:`decode_step` serve over a
+contiguous state (KV caches and recurrent states, stacked over groups like
+the parameters); the paged serving steps of the engine are in
+:mod:`repro_torch.serving.model`.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -19,7 +22,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models import attention
+from repro_torch.models import attention, recurrent
 from repro_torch.models.layers import (compute_cast, embed_init,
                                        gated_mlp_apply, gated_mlp_init,
                                        rmsnorm_apply, rmsnorm_init,
@@ -32,11 +35,20 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return -(-cfg.vocab_size // VOCAB_PAD) * VOCAB_PAD
 
 
-def check_pattern(cfg: ModelConfig) -> None:
+#: Block types the port runs (``mlstm`` and ``slstm`` are not ported).
+BLOCK_TYPES = ("attn", "local", "rglru")
+
+#: State: one dict per pattern position, each tensor stacked over groups.
+State = Tuple[Dict[str, torch.Tensor], ...]
+
+
+def check_pattern(cfg: ModelConfig,
+                  allowed: Sequence[str] = BLOCK_TYPES) -> None:
     for btype in cfg.block_pattern:
-        if btype != "attn":
+        if btype not in allowed:
             raise NotImplementedError(
-                f"block type {btype!r} is not ported yet (attn only)")
+                f"block type {btype!r} is not ported for this path (it "
+                f"takes {tuple(allowed)})")
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
@@ -53,12 +65,15 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
     d, lead = cfg.d_model, (cfg.num_groups,)
     vpad = padded_vocab(cfg)
     params = {"embed": embed_init(gen, vpad, d, dt)}
-    params["blocks"] = tuple({
-        "norm1": rmsnorm_init(d, dev, lead),
-        "mixer": attention.attn_init(gen, cfg, dt, lead),
-        "norm2": rmsnorm_init(d, dev, lead),
-        "ffn": gated_mlp_init(gen, d, cfg.d_ff, dt, lead),
-    } for _ in cfg.block_pattern)
+    def block(btype: str) -> dict:
+        mixer = (recurrent.rglru_block_init(gen, cfg, dt, lead)
+                 if btype == "rglru"
+                 else attention.attn_init(gen, cfg, dt, lead))
+        return {"norm1": rmsnorm_init(d, dev, lead), "mixer": mixer,
+                "norm2": rmsnorm_init(d, dev, lead),
+                "ffn": gated_mlp_init(gen, d, cfg.d_ff, dt, lead)}
+
+    params["blocks"] = tuple(block(bt) for bt in cfg.block_pattern)
     params["final_norm"] = rmsnorm_init(d, dev)
     params["head"] = {"w": variance_scaling_init(gen, (d, vpad), dt)}
     return params
@@ -74,12 +89,32 @@ def unstack(tree, n: int) -> List:
     return list(tree.unbind(0))
 
 
-def _block(bparams: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """One ``attn`` block: x + attn(norm1 x), then + mlp(norm2 x)."""
-    x = x + attention.attn_apply(bparams["mixer"],
-                                 rmsnorm_apply(bparams["norm1"], x), cfg)
+def _window(btype: str, cfg: ModelConfig) -> Optional[int]:
+    return cfg.window if btype == "local" else None
+
+
+def _cache_slots(btype: str, cfg: ModelConfig, cache_size: int) -> int:
+    """KV slots of an attention layer: a ``local`` one keeps a ring of
+    ``min(window, cache_size)``."""
+    return min(cfg.window, cache_size) if btype == "local" else cache_size
+
+
+def mlp_residual(bparams: dict, x: torch.Tensor) -> torch.Tensor:
+    """A block's second half: x + mlp(norm2 x)."""
     return x + gated_mlp_apply(bparams["ffn"],
                                rmsnorm_apply(bparams["norm2"], x))
+
+
+def _block(bparams: dict, btype: str, x: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """One block: x + mixer(norm1 x), then + mlp(norm2 x)."""
+    h = rmsnorm_apply(bparams["norm1"], x)
+    if btype == "rglru":
+        y = recurrent.rglru_block_apply(bparams["mixer"], h, cfg)
+    else:
+        y = attention.attn_apply(bparams["mixer"], h, cfg,
+                                 window=_window(btype, cfg))
+    return mlp_residual(bparams, x + y)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -98,8 +133,8 @@ def forward(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     groups = [unstack(p, cfg.num_groups) for p in params["blocks"]]
 
     def group_body(x: torch.Tensor, g: int) -> torch.Tensor:
-        for p in range(len(cfg.block_pattern)):
-            x = _block(groups[p][g], x, cfg)
+        for p, btype in enumerate(cfg.block_pattern):
+            x = _block(groups[p][g], btype, x, cfg)
         return x
 
     for g in range(cfg.num_groups):
@@ -108,12 +143,18 @@ def forward(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                            preserve_rng_state=False)
         else:
             x = group_body(x, g)
-    logits = ops.rmsnorm_gemm(x, params["final_norm"]["scale"],
-                              compute_cast(params["head"]["w"], dt))
+    logits = head(params, x)
     if logits.shape[-1] != cfg.vocab_size:
         col = torch.arange(logits.shape[-1], device=logits.device)
         logits = logits.masked_fill(col >= cfg.vocab_size, -1e30)
     return logits
+
+
+def head(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """final_norm -> head as one fused ``rmsnorm_gemm`` (the JAX compiler's
+    prologue-fusion rule: the only norm -> dot chain with one consumer)."""
+    return ops.rmsnorm_gemm(x, params["final_norm"]["scale"],
+                            compute_cast(params["head"]["w"], x.dtype))
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -136,3 +177,108 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         acc = hit.float().sum() / denom
     return loss, {"ce_loss": loss.detach(), "loss": loss.detach(),
                   "accuracy": acc}
+
+
+# ---------------------------------------------------------------------------
+# Serving over a contiguous state: init_state, prefill, decode_step
+# ---------------------------------------------------------------------------
+def init_state(cfg: ModelConfig, batch: int, cache_size: int,
+               dtype: Optional[torch.dtype] = None,
+               device: DeviceLike = None) -> State:
+    """Zeroed decode state, one entry per pattern position stacked over
+    groups: ``{"k", "v"}`` (G, B, Hkv, size, hd) for attention, where a
+    ``local`` layer's size is ``min(window, cache_size)``; ``{"h"}`` (G, B,
+    lru) float32 and ``{"conv_tail"}`` (G, B, 3, lru) for ``rglru``.  Runs
+    on ``cuda`` unless ``device`` says otherwise."""
+    check_pattern(cfg)
+    dev = resolve_device(device)
+    dtype = dtype or cfg.activation_dtype
+    hd, g = cfg.resolved_head_dim, cfg.num_groups
+    state = []
+    for btype in cfg.block_pattern:
+        if btype == "rglru":
+            one = recurrent.rglru_block_init_state(cfg, batch, dtype, dev)
+            state.append({k: v.expand((g,) + v.shape).contiguous()
+                          for k, v in one.items()})
+            continue
+        shape = (g, batch, cfg.num_kv_heads,
+                 _cache_slots(btype, cfg, cache_size), hd)
+        state.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
+                      "v": torch.zeros(shape, dtype=dtype, device=dev)})
+    return tuple(state)
+
+
+def _stack_state(per_group: List[List[dict]]) -> State:
+    """[group][position] dicts -> one dict a position, stacked over
+    groups."""
+    return tuple({k: torch.stack([grp[p][k] for grp in per_group])
+                  for k in per_group[0][p]}
+                 for p in range(len(per_group[0])))
+
+
+@torch.no_grad()
+def prefill(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            *, cache_size: int) -> Tuple[torch.Tensor, State, torch.Tensor]:
+    """The whole prompt through every layer, populating the decode state.
+
+    batch ``tokens`` (B, S).  Returns (logits of the last position (B,
+    Vpad), state, cache_len (B,) int32 = S).  An ``rglru`` layer keeps the
+    scan's h_last (rounded to the activation dtype by the kernel, stored
+    in float32) and the last 3 recurrence inputs; an attention layer its
+    cache from :func:`repro_torch.models.attention.attn_prefill`."""
+    check_pattern(cfg)
+    dt = cfg.activation_dtype
+    x = compute_cast(params["embed"]["table"][batch["tokens"].long()], dt)
+    b, s, _ = x.shape
+    groups = [unstack(p, cfg.num_groups) for p in params["blocks"]]
+    per_group = []
+    for g in range(cfg.num_groups):
+        entries = []
+        for p, btype in enumerate(cfg.block_pattern):
+            bp = groups[p][g]
+            h = rmsnorm_apply(bp["norm1"], x)
+            if btype == "rglru":
+                y, h_last, xr = recurrent.rglru_block_scan(bp["mixer"], h)
+                entries.append({
+                    "h": h_last.float(),
+                    "conv_tail": xr[:, -(recurrent.CONV_WIDTH - 1):]
+                    .to(dt).contiguous()})
+            else:
+                y, cache = attention.attn_prefill(
+                    bp["mixer"], h, cfg, window=_window(btype, cfg),
+                    cache_size=_cache_slots(btype, cfg, cache_size))
+                entries.append(cache)
+            x = mlp_residual(bp, x + y)
+        per_group.append(entries)
+    logits = head(params, x[:, -1:])
+    cache_len = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    return logits[:, 0], _stack_state(per_group), cache_len
+
+
+@torch.no_grad()
+def decode_step(params: dict, state: State, cache_len: torch.Tensor,
+                cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, State, torch.Tensor]:
+    """One token for every row.  batch ``tokens`` (B, 1); cache_len (B,),
+    the position this step writes.  Returns (logits (B, Vpad), state,
+    cache_len + 1).  **The state is updated in place** and returned (the
+    JAX function returns a new one)."""
+    check_pattern(cfg)
+    dt = cfg.activation_dtype
+    x = compute_cast(params["embed"]["table"][batch["tokens"].long()], dt)
+    groups = [unstack(p, cfg.num_groups) for p in params["blocks"]]
+    for g in range(cfg.num_groups):
+        for p, btype in enumerate(cfg.block_pattern):
+            bp, entry = groups[p][g], state[p]
+            h = rmsnorm_apply(bp["norm1"], x)
+            if btype == "rglru":
+                y, new = recurrent.rglru_block_decode(
+                    bp["mixer"], h, {k: v[g] for k, v in entry.items()}, cfg)
+                for k, v in new.items():
+                    entry[k][g].copy_(v)
+            else:
+                y, _ = attention.attn_decode(
+                    bp["mixer"], h, {"k": entry["k"][g], "v": entry["v"][g]},
+                    cache_len, cfg, window=_window(btype, cfg))
+            x = mlp_residual(bp, x + y)
+    return head(params, x)[:, 0], state, cache_len + 1

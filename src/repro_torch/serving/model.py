@@ -35,24 +35,21 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention
-from repro_torch.models.layers import (embed_apply, gated_mlp_apply,
-                                       rmsnorm_apply)
-from repro_torch.models.lm import check_pattern, unstack
+from repro_torch.models.layers import embed_apply, rmsnorm_apply
+from repro_torch.models.lm import (State, check_pattern, head, mlp_residual,
+                                   unstack)
 from repro_torch.serving.kv_cache import CacheConfig
 
 __all__ = ["init_state", "paged_decode_step", "paged_prefill_step",
            "pooled_positions", "write_index"]
-
-State = Tuple[Dict[str, torch.Tensor], ...]
-
 
 def init_state(cfg: ModelConfig, cache: CacheConfig,
                dtype: Optional[torch.dtype] = None,
                device: DeviceLike = None) -> State:
     """Zeroed paged pools, one ``{"k", "v"}`` entry per pattern position.
     Paged pools have no batch axis, so unlike the JAX function this takes
-    no ``max_batch``."""
-    check_pattern(cfg)
+    no ``max_batch``.  The paged steps run ``attn`` blocks only."""
+    check_pattern(cfg, ("attn",))
     dev = resolve_device(device)
     dtype = dtype or cfg.activation_dtype
     shape = (cfg.num_groups, cache.num_blocks, cfg.num_kv_heads,
@@ -105,12 +102,6 @@ def _pool_write(pool: torch.Tensor, widx: WriteIndex,
     pool[widx.blocks, :, widx.offsets] = flat.to(pool.dtype)
 
 
-def _attn_ffn(bparams: dict, x: torch.Tensor) -> torch.Tensor:
-    """Post-attention norm2 + MLP residual (shared by both phases)."""
-    return x + gated_mlp_apply(bparams["ffn"],
-                               rmsnorm_apply(bparams["norm2"], x))
-
-
 def _paged_attn(bparams: dict, x: torch.Tensor, pools: dict,
                 block_table: torch.Tensor, q_pos: torch.Tensor,
                 kv_len: torch.Tensor, widx: WriteIndex,
@@ -140,15 +131,8 @@ def _layers(params: dict, state: State, x: torch.Tensor,
             pools = {"k": state[p]["k"][g], "v": state[p]["v"][g]}
             x = x + _paged_attn(bparams, x, pools, block_table, q_pos,
                                 kv_len, widx, cfg)
-            x = _attn_ffn(bparams, x)
+            x = mlp_residual(bparams, x)
     return x
-
-
-def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """final_norm -> head as one fused rmsnorm_gemm (the only norm->dot
-    chain with a single consumer)."""
-    return ops.rmsnorm_gemm(x, params["final_norm"]["scale"],
-                            params["head"]["w"])
 
 
 def _start(state: State, block_table: torch.Tensor, q_pos: torch.Tensor,
@@ -178,7 +162,7 @@ def paged_decode_step(params: dict, state: State,
     kv_len = torch.where(widx.keep[:, 0], cache_len + 1, 0)
     x = embed_apply(params["embed"], batch["tokens"])          # (B, 1, D)
     x = _layers(params, state, x, block_table, q_pos, kv_len, widx, cfg)
-    return _head(params, x)[:, 0], state, cache_len + 1
+    return head(params, x)[:, 0], state, cache_len + 1
 
 
 def paged_prefill_step(params: dict, state: State,
@@ -203,4 +187,4 @@ def paged_prefill_step(params: dict, state: State,
     x = _layers(params, state, x, block_table, q_pos, kv_len, widx, cfg)
     last = (n_tokens - 1).clamp(0, c - 1)
     x_last = x[torch.arange(b, device=x.device), last][:, None]
-    return _head(params, x_last)[:, 0], state, kv_len
+    return head(params, x_last)[:, 0], state, kv_len

@@ -9,8 +9,12 @@ These cover what ``chip_smoke.py`` does not: every dtype route (the f32
 CUDA-core path, f16), ragged M/N/K and unaligned operands (the masked
 element-by-element loads), every epilogue with bias, GQA and head_dim 128
 in the decode and flash kernels, flash rows that see no key, gradients
-reaching weights through every kernel entry point, and the serving steps
-and a few training steps on the card against the same on the CPU.
+reaching weights through every kernel entry point, the serving steps and a
+few training steps on the card against the same on the CPU, and the
+recurrentgemma kernels and steps: the RG-LRU scan (bit for bit against its
+plain version), the flash forward and the contiguous decode at MQA with
+head_dim 256, and ``lm.prefill`` / ``lm.decode_step`` of a small recurrent
+model.
 Tolerances: the reference's ``tol_for`` (3e-2 for 16-bit outputs, one
 rounding flip; 2e-4 for f32, summation order), with TF32 off in the plain
 versions.
@@ -29,6 +33,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                  flash_attention_fwd)
 from repro_torch.kernels.norm_gemm import rmsnorm_gemm
+from repro_torch.kernels.rglru import rglru_scan
 from repro_torch.kernels.sma_gemm import sma_gemm
 from repro_torch.launch.train import TrainLoopConfig, train
 from repro_torch.models import lm
@@ -350,9 +355,126 @@ def test_train_steps_on_card_match_cpu(dev):
     assert ops.launch_counts() == {
         "sma_gemm": 29 * layers + 2, "rmsnorm_gemm": 1,
         "flash_attention": 2 * layers, "flash_attention_bwd": layers,
-        "paged_decode_attention": 0, "decode_attention": 0}
+        "paged_decode_attention": 0, "decode_attention": 0,
+        "rglru_scan": 0}
     assert not ops.ROUTED
     got = train(cfg, loop, device=dev, params=copy(dev))
     np.testing.assert_allclose([h["loss"] for h in got["history"]],
                                [h["loss"] for h in want["history"]],
                                rtol=2e-2)
+
+
+# ------------------------------------------------------------ recurrentgemma
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,s,d,h0", [(2, 100, 96, True), (1, 257, 130, False),
+                                      (3, 33, 2568, True), (1, 1, 7, False)])
+def test_rglru_scan_matches_plain_bit_for_bit(dev, dtype, b, s, d, h0):
+    """The kernel rounds a product and a sum to f32 at each step, as the
+    plain version's separate tensor ops do: h_seq and h_last are equal,
+    not only close.  Ragged S (past the 32-step chunks) and D."""
+    dt = DTYPES[dtype]
+    a = torch.sigmoid(randn((b, s, d), torch.float32, dev, 40)).to(dt)
+    u = randn((b, s, d), dt, dev, 41, scale=0.1)
+    h = randn((b, d), dt, dev, 42) if h0 else None
+    ops.reset_counts()
+    got = rglru_scan(a, u, h)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rglru_scan"] == 1
+    want = ref.rglru_scan_ref(a, u, h)
+    for g, w in zip(got, want):
+        assert g.dtype == dt
+        assert torch.equal(g, w), (g.float() - w.float()).abs().max()
+
+
+def test_rglru_scan_refuses_a_gradient_on_card(dev):
+    a = torch.full((1, 4, 8), 0.5, device=dev, requires_grad=True)
+    u = torch.ones((1, 4, 8), device=dev)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.rglru_scan(a, u)
+    with torch.no_grad():
+        assert torch.isfinite(ops.rglru_scan(a, u)[0]).all()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("b,hq,sq,window", [(1, 10, 300, 128),
+                                            (2, 4, 256, None),
+                                            (1, 10, 64, 2048)])
+def test_flash_forward_head_dim_256(dev, dtype, b, hq, sq, window):
+    """recurrentgemma's attention: MQA (Hkv = 1), head_dim 256, windowed or
+    not, ragged S; the backward at head_dim 256 is refused."""
+    dt = DTYPES[dtype]
+    q = randn((b, hq, sq, 256), dt, dev, 50)
+    k = randn((b, 1, sq, 256), dt, dev, 51)
+    v = randn((b, 1, sq, 256), dt, dev, 52)
+    out, lse = flash_attention_fwd(q, k, v, window=window)
+    want, want_lse = ref.flash_attention_ref(q, k, v, window=window)
+    close(out, want, dt)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-3, atol=1e-3)
+    with pytest.raises(ValueError, match="backward kernel takes head_dim"):
+        flash_attention_bwd(q, k, v, out, lse, q)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_contiguous_decode_mqa_head_dim_256(dev, dtype):
+    """g = 10 query heads on one KV head of 256 (shared memory past 48 KB,
+    so the launch opts in); lengths 0, 1, a partial tile, full, and past
+    Smax (clamped: every position valid, as in the plain version)."""
+    dt = DTYPES[dtype]
+    lens = [0, 1, 77, 300, 301]
+    q = randn((len(lens), 10, 256), dt, dev, 53)
+    kc = randn((len(lens), 1, 300, 256), dt, dev, 54)
+    vc = randn((len(lens), 1, 300, 256), dt, dev, 55)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = decode_attention(q, kc, vc, kv_len)
+    close(got, ref.decode_attention_ref(q, kc, vc, kv_len), dt)
+    assert got[0].abs().max().item() == 0.0
+
+
+def test_recurrent_serving_on_card_matches_cpu(dev):
+    """A small recurrentgemma (one group of the pattern, 13 layers,
+    head_dim 256 so the flash kernel takes it, bf16) through
+    ``lm.prefill`` of 64 tokens and 2 ``lm.decode_step``s: the kernels on
+    the card against the plain versions on the CPU, fed the same tokens,
+    each call's logits within 3e-2 relative (Frobenius; bf16 outputs of
+    every product, rounded in other orders, compound over the layers: 26
+    layers read 0.030 on an H100), and each call's launches as
+    predicted."""
+    cfg = dataclasses.replace(reduced(get_config("recurrentgemma-2b")),
+                              num_groups=1, d_model=128, num_heads=2,
+                              head_dim=256, d_ff=256, dtype="bfloat16")
+    params = lm.init(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(56).integers(
+        0, cfg.vocab_size, (2, 64)))
+    n_rglru = cfg.num_groups * cfg.block_pattern.count("rglru")
+    n_local = cfg.num_groups * cfg.block_pattern.count("local")
+    gemms = 8 * n_rglru + 7 * n_local
+    launches = {"prefill": {"rglru_scan": n_rglru, "flash_attention": n_local,
+                            "sma_gemm": gemms, "rmsnorm_gemm": 1},
+                "decode": {"decode_attention": n_local, "sma_gemm": gemms,
+                           "rmsnorm_gemm": 1}}
+
+    def run(where, feed=None):
+        p = _to(params, where)
+        ops.reset_counts()
+        logits, state, cl = lm.prefill(p, cfg, {"tokens": toks.to(where)},
+                                       cache_size=72)
+        counts = [{k: n for k, n in ops.launch_counts().items() if n}]
+        outs, fed = [logits.float().cpu()], []
+        for i in range(2):
+            nxt = feed[i] if feed else logits.argmax(-1, keepdim=True).cpu()
+            fed.append(nxt)
+            ops.reset_counts()
+            logits, state, cl = lm.decode_step(p, state, cl, cfg,
+                                               {"tokens": nxt.to(where)})
+            counts.append({k: n for k, n in ops.launch_counts().items()
+                           if n})
+            outs.append(logits.float().cpu())
+        return outs, fed, counts
+
+    want, fed, _ = run(torch.device("cpu"))
+    got, _, counts = run(dev, fed)
+    assert counts == [launches["prefill"]] + [launches["decode"]] * 2
+    assert not ops.ROUTED
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert ((g - w).norm() / w.norm()).item() <= 3e-2

@@ -19,8 +19,20 @@ loaded = sorted(m for m in sys.modules
                 if m == "repro" or m.startswith("repro."))
 assert not loaded, loaded
 assert "jaxlib" not in sys.modules
-print(len(names))
+assert "triton" not in sys.modules
+print(" ".join(names))
 """
+
+#: Modules each slice of the port added; every one must be among those
+#: imported above.
+MODULES = (
+    "repro_torch.kernels.sma_gemm", "repro_torch.kernels.norm_gemm",
+    "repro_torch.kernels.decode_attention", "repro_torch.serving.engine",
+    "repro_torch.kernels.flash_attention", "repro_torch.kernels.autograd",
+    "repro_torch.launch.train", "repro_torch.optim.adamw",
+    "repro_torch.kernels.rglru", "repro_torch.models.recurrent",
+    "repro_torch.configs.recurrentgemma_2b", "repro_torch.convert",
+)
 
 
 def test_port_and_chip_smoke_import_without_jax_or_repro():
@@ -29,4 +41,6 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 15
+    names = set(proc.stdout.strip().splitlines()[-1].split())
+    assert len(names) >= 18
+    assert not set(MODULES) - names, set(MODULES) - names
