@@ -41,7 +41,17 @@
    routed; a 3-layer full-width model's prefill and decode logits through
    the kernels against the plain versions, with planted faults; and a
    profile of one prefill and a few decode steps.
-7. Prints the kernel table as one JSON line, then the result line
+7. xLSTM path: the chunkwise mLSTM kernel against its plain version (h and
+   the final state) at the prefill's shape, at a ragged S and at a small
+   head dim, with planted faults (the state dropped at a chunk boundary,
+   one key dropped, the input gate one step late); then full-width,
+   full-depth xlstm-1.3b (random bf16 weights from a seed) through
+   ``lm.prefill`` of 4 x 2,048 tokens and 32 greedy ``lm.decode_step``s,
+   with launch counts as predicted and nothing routed; a 3-layer
+   full-width model's logits through the kernels against the plain
+   versions, with planted faults; a profile of one prefill and a few
+   decode steps, and the host time of one sLSTM block's step loop.
+8. Prints the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the JAX package.  Any failed check raises and
@@ -72,12 +82,13 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import autograd as kautograd  # noqa: E402
 from repro_torch.kernels import decode_attention as kdecode  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
+from repro_torch.kernels import mlstm as kmlstm  # noqa: E402
 from repro_torch.kernels import norm_gemm as knorm  # noqa: E402
 from repro_torch.kernels import rglru as krglru  # noqa: E402
 from repro_torch.kernels import sma_gemm as kgemm  # noqa: E402
 from repro_torch.launch.train import (TrainLoopConfig, make_step,  # noqa: E402
                                       train)
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import lm, recurrent  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 from repro_torch.serving import (CacheConfig, Request,  # noqa: E402
@@ -143,7 +154,6 @@ H100_BF16 = 989e12            # dense bf16 tensor-core peak, for the MFU
 # longer prompt only matches its decode's ring slots then (ROADMAP.md).
 RG_ARCH = "recurrentgemma-2b"
 RG_BATCH, RG_PROMPT, RG_NEW = 4, 4096, 32
-RG_CACHE = RG_PROMPT + 64
 # RG-LRU kernel vs its plain version, per element |err| <= RGLRU_ATOL +
 # RGLRU_RTOL * |plain|: both round the same f32 product and sum at every
 # step, so they should agree exactly; the limit passes one rounding of a
@@ -155,6 +165,31 @@ RGLRU_ATOL, RGLRU_RTOL = 1e-6, 2.0 ** -8
 # reads 0.031 (one bf16 step of a logit near 4) and the faults of RG_FAULTS
 # marked must 1.93 and 3.10 (PERF.md); the limit lies between them.
 RG_LOGIT_ATOL = 0.1
+
+# The xLSTM path: xlstm-1.3b at full width and depth.  2,048-token prompts
+# are 16 chunks of 128, so the mLSTM state crosses 15 chunk boundaries.
+XL_ARCH = "xlstm-1.3b"
+XL_BATCH, XL_PROMPT, XL_NEW = 4, 2048, 32
+# mLSTM kernel vs its plain version.  h, per element, |err| <= atol + rtol
+# * |plain|, (atol, rtol) by h's dtype: both sum the same f32 terms in
+# other orders, so for bf16 rtol passes one rounding flip of h (2^-7) and
+# atol the f32 noise of outputs near 0; f32 h is held at the reference's
+# own tol_for (tests/test_kernels.py), 2e-4.  The state (f32), per tensor,
+# max |err| <= MLSTM_STATE_LIMIT * max |plain|: on an H100 it reads ~4e-7
+# (PERF.md).  Each planted fault of mlstm_controls must fail the h check
+# on every element it moves by more than FAULT_MARGIN limits.
+MLSTM_TOL = {torch.bfloat16: (2e-3, 2.0 ** -7), torch.float32: (2e-4, 2e-4)}
+MLSTM_STATE_LIMIT = 1e-5
+# check_mlstm's cases (B, H, S, D, dtype): the prefill's shape, a ragged
+# S, a small head dim; chunk 128, xlstm-1.3b's.
+MLSTM_CASES = [(XL_BATCH, 4, XL_PROMPT, 1024, torch.bfloat16),
+               (XL_BATCH, 4, 2000, 1024, torch.bfloat16),
+               (2, 4, 1000, 64, torch.float32)]
+MLSTM_CHUNK = 128
+# Logits of the 3-layer xLSTM model (prefill's last position, then one
+# decode step), kernels vs plain versions, max |err|; the faults of
+# XL_FAULTS marked must lie above it (PERF.md).
+XL_LOGIT_ATOL = 0.1
 
 KERNEL_SOURCES = {
     "sma_gemm": ("src/repro_torch/kernels/csrc/sma_gemm.cu",
@@ -174,6 +209,8 @@ KERNEL_SOURCES = {
                             "src/repro/kernels/flash_attention.py:101"),
     "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru.py:55"),
+    "mlstm_chunkwise": ("src/repro_torch/kernels/csrc/mlstm_chunkwise.cu",
+                        "src/repro/kernels/mlstm.py:108"),
 }
 
 
@@ -630,6 +667,7 @@ def plain_kernels():
                  ref.paged_decode_attention_ref,
              (kdecode, "decode_attention"): ref.decode_attention_ref,
              (krglru, "rglru_scan"): ref.rglru_scan_ref,
+             (kmlstm, "mlstm_chunkwise"): ref.mlstm_chunkwise_ref,
              (kflash, "flash_attention_fwd"): ref.flash_attention_ref,
              (kflash, "flash_attention_bwd"): ref.flash_attention_bwd_ref}
     saved = {key: getattr(*key) for key in swaps}
@@ -1315,16 +1353,17 @@ def nonzero(counts: dict) -> dict:
     return {k: n for k, n in counts.items() if n}
 
 
-def serve_recurrentgemma(cfg, params, dev):
-    """lm.prefill of RG_BATCH x RG_PROMPT tokens, then RG_NEW greedy
+def serve_recurrent(cfg, params, dev, launches, batch, prompt, new):
+    """lm.prefill of ``batch`` x ``prompt`` tokens, then ``new`` greedy
     lm.decode_steps, at full width and depth.  Checks finite logits, the
-    launches of every call and that nothing was routed; prints prefill ms,
-    the median decode step, tokens/s and peak memory.  Returns the run's
-    launch counts."""
-    toks = rg_tokens(cfg, dev, (RG_BATCH, RG_PROMPT), 0)
+    launches of every call (``launches(cfg, phase)``) and that nothing was
+    routed; prints prefill ms, the median decode step, tokens/s and peak
+    memory.  Returns the run's launch counts."""
+    cache = prompt + 64
+    toks = rg_tokens(cfg, dev, (batch, prompt), 0)
     # Warm-up (first launches, allocator): a short prompt and one step.
     logits, state, cl = lm.prefill(params, cfg, {"tokens": toks[:, :256]},
-                                   cache_size=RG_CACHE)
+                                   cache_size=cache)
     lm.decode_step(params, state, cl, cfg,
                    {"tokens": logits.argmax(-1, keepdim=True)})
     del logits, state, cl
@@ -1335,12 +1374,12 @@ def serve_recurrentgemma(cfg, params, dev):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, state, cl = lm.prefill(params, cfg, {"tokens": toks},
-                                   cache_size=RG_CACHE)
+                                   cache_size=cache)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     calls = [("prefill", ops.launch_counts(), dict(ops.ROUTED), logits)]
     steps, out_tokens = [], []
-    for _ in range(RG_NEW):
+    for _ in range(new):
         nxt = logits.argmax(-1, keepdim=True)
         out_tokens.append(nxt)
         ops.reset_counts()
@@ -1354,29 +1393,31 @@ def serve_recurrentgemma(cfg, params, dev):
     peak = torch.cuda.max_memory_allocated()
     vpad = lm.padded_vocab(cfg)
     for i, (phase, counts, routed, lg) in enumerate(calls):
-        if lg.shape != (RG_BATCH, vpad) or not torch.isfinite(lg).all():
-            fail(f"recurrentgemma call {i} ({phase}): logits "
+        if lg.shape != (batch, vpad) or not torch.isfinite(lg).all():
+            fail(f"{cfg.name} call {i} ({phase}): logits "
                  f"{tuple(lg.shape)} or non-finite")
-        if nonzero(counts) != rg_launches(cfg, phase) or routed:
-            fail(f"recurrentgemma call {i} ({phase}): launches "
-                 f"{nonzero(counts)}, expected {rg_launches(cfg, phase)}; "
+        if nonzero(counts) != launches(cfg, phase) or routed:
+            fail(f"{cfg.name} call {i} ({phase}): launches "
+                 f"{nonzero(counts)}, expected {launches(cfg, phase)}; "
                  f"routed {routed}")
         total.update(counts)
-    if cl.tolist() != [RG_PROMPT + RG_NEW] * RG_BATCH:
-        fail(f"recurrentgemma: cache_len {cl.tolist()} after the run")
+    if cl.tolist() != [prompt + new] * batch:
+        fail(f"{cfg.name}: cache_len {cl.tolist()} after the run")
     toks_out = torch.cat(out_tokens, 1)
     step_ms = 1e3 * float(np.median(steps))
-    print(f"recurrentgemma: {RG_ARCH} full width ({cfg.num_layers} layers, "
-          f"d_model {cfg.d_model}, vocab {vpad}), bf16, random weights; "
-          f"prefill {RG_BATCH} x {RG_PROMPT} tokens in "
-          f"{1e3 * prefill_s:.2f} ms ({RG_BATCH * RG_PROMPT / prefill_s:.1f}"
-          f" tokens/s); {RG_NEW} decode steps, median {step_ms:.3f} ms "
-          f"(min {1e3 * min(steps):.3f}, max {1e3 * max(steps):.3f}): "
-          f"{RG_BATCH * RG_NEW / sum(steps):.1f} tokens/s; peak memory "
-          f"{peak / 2**30:.2f} GiB (max_memory_allocated)")
-    print(f"recurrentgemma: launches a prefill "
-          f"{json.dumps(rg_launches(cfg, 'prefill'))}, a decode step "
-          f"{json.dumps(rg_launches(cfg, 'decode'))}, as predicted; nothing "
+    n_params = sum(t.numel() for t in leaves(params))
+    print(f"{cfg.name}: full width ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {vpad}, {n_params / 1e9:.3f} B "
+          f"parameters), bf16, random weights; prefill {batch} x {prompt} "
+          f"tokens in {1e3 * prefill_s:.2f} ms "
+          f"({batch * prompt / prefill_s:.1f} tokens/s); {new} decode "
+          f"steps, median {step_ms:.3f} ms (min {1e3 * min(steps):.3f}, "
+          f"max {1e3 * max(steps):.3f}): {batch * new / sum(steps):.1f} "
+          f"tokens/s; peak memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated)")
+    print(f"{cfg.name}: launches a prefill "
+          f"{json.dumps(launches(cfg, 'prefill'))}, a decode step "
+          f"{json.dumps(launches(cfg, 'decode'))}, as predicted; nothing "
           f"routed; row 0 tokens {toks_out[0, :8].tolist()}")
     return dict(total)
 
@@ -1432,84 +1473,95 @@ def planted_recurrent(fault: str, pos: int, smax: int):
         ops.rglru_scan, ops.decode_attention = scan, attn
 
 
-def check_recurrent_logits(cfg, dev):
-    """Pattern (rglru, rglru, local) x 1 group at full width: the prefill's
-    last-position logits (B 2, 4,096 tokens) and one decode step's, through
-    the kernels and through the plain versions; then each of RG_FAULTS
-    planted.  The noise must lie under RG_LOGIT_ATOL and the faults marked
-    must above it."""
-    cfg3 = dataclasses.replace(cfg, block_pattern=("rglru", "rglru", "local"),
-                               num_groups=1)
+def check_logits(cfg3, dev, prompt, launches, faults, planted, calls,
+                 limit):
+    """A 3-layer full-width model ``cfg3``: the prefill's last-position
+    logits (B 2, ``prompt`` tokens) and one decode step's, through the
+    kernels and through the plain versions; then each fault of ``faults``
+    (name -> must it be caught) planted by ``planted(name)``, a context
+    that yields its call counts, which must equal ``calls``.  The noise
+    must lie under ``limit`` and the faults marked must above it."""
     params = lm.init(cfg3, seed=0, device=dev)
-    b, smax = 2, cfg3.window
-    toks = rg_tokens(cfg3, dev, (b, RG_PROMPT), 1)
+    b = 2
+    toks = rg_tokens(cfg3, dev, (b, prompt), 1)
     nxt = rg_tokens(cfg3, dev, (b, 1), 2)
+    tag = f"{cfg3.name} 3-layer logits"
 
     def run():
         logits, state, cl = lm.prefill(params, cfg3, {"tokens": toks},
-                                       cache_size=RG_CACHE)
+                                       cache_size=prompt + 64)
         step = lm.decode_step(params, state, cl, cfg3, {"tokens": nxt})[0]
         return logits.float(), step.float()
 
     ops.reset_counts()
     got = run()
     counts = nonzero(ops.launch_counts())
-    expect = collections.Counter(rg_launches(cfg3, "prefill"))
-    expect.update(rg_launches(cfg3, "decode"))
+    expect = collections.Counter(launches(cfg3, "prefill"))
+    expect.update(launches(cfg3, "decode"))
     if counts != dict(expect):
-        fail(f"recurrent logits: launches {counts}, expected {dict(expect)}")
+        fail(f"{tag}: launches {counts}, expected {dict(expect)}")
     with plain_kernels():
         want = run()
-    for name, g, w in zip(("prefill", "decode step"), got, want):
+    for name, g in zip(("prefill", "decode step"), got):
         if g.shape != (b, lm.padded_vocab(cfg3)) \
                 or not torch.isfinite(g).all():
-            fail(f"recurrent logits, {name}: shape {tuple(g.shape)} or "
-                 f"non-finite")
+            fail(f"{tag}, {name}: shape {tuple(g.shape)} or non-finite")
 
-    def reading(outs) -> float:
-        return max((g - w).abs().max().item() for g, w in zip(outs, want))
+    def readings(outs) -> list:
+        return [(g - w).abs().max().item() for g, w in zip(outs, want)]
 
-    noise = reading(got)
-    each = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    noise = max(readings(got))
     agree = [int((g.argmax(-1) == w.argmax(-1)).sum())
              for g, w in zip(got, want)]
-    print(f"recurrent logits, kernels vs plain versions: max |err| prefill "
-          f"{each[0]:.4g}, decode step {each[1]:.4g} (|logit| max "
-          f"{want[0].abs().max().item():.3g}); top-1 agree on {agree} of "
-          f"{b} rows; limit {RG_LOGIT_ATOL}")
+    print(f"{tag}, kernels vs plain versions: max |err| prefill "
+          f"{readings(got)[0]:.4g}, decode step {readings(got)[1]:.4g} "
+          f"(|logit| max {want[0].abs().max().item():.3g}); top-1 agree on "
+          f"{agree} of {b} rows; limit {limit}")
     missed = []
-    for fault, must in RG_FAULTS.items():
-        with planted_recurrent(fault, RG_PROMPT, smax) as calls:
-            r = reading(run())
-        if calls != {"scan": 2, "attn": 1}:
-            fail(f"recurrent logits control '{fault}': {calls} launches, "
-                 f"so the fault may have missed its target")
-        print(f"recurrent logits control, {fault}: max |err| {r:.4g} "
-              f"({r / RG_LOGIT_ATOL:.3g} limits; "
+    for fault, must in faults.items():
+        with planted(fault) as made:
+            r = readings(run())
+        if made != calls:
+            fail(f"{tag} control '{fault}': {made} launches, so the fault "
+                 f"may have missed its target")
+        print(f"{tag} control, {fault}: max |err| prefill {r[0]:.4g}, "
+              f"decode step {r[1]:.4g} ({max(r) / limit:.3g} limits; "
               f"{'must be caught' if must else 'a reading'})")
-        if must and r <= RG_LOGIT_ATOL:
+        if must and max(r) <= limit:
             missed.append(fault)
-    if noise > RG_LOGIT_ATOL:
-        fail(f"recurrent logits: max |err| {noise:.4g} > {RG_LOGIT_ATOL}")
+    if noise > limit:
+        fail(f"{tag}: max |err| {noise:.4g} > {limit}")
     if missed:
-        fail(f"recurrent logits: planted faults within the limit: {missed}")
+        fail(f"{tag}: planted faults within the limit: {missed}")
 
 
-def profile_recurrent(cfg, params, dev, steps: int = 5):
-    """torch.profiler over one full-width prefill (B 4, 4,096 tokens) and
-    over a few decode steps after it: device busy share and device time by
-    kernel of each."""
+def check_recurrent_logits(cfg, dev):
+    """check_logits for pattern (rglru, rglru, local) x 1 group, with
+    RG_FAULTS."""
+    cfg3 = dataclasses.replace(cfg, block_pattern=("rglru", "rglru", "local"),
+                               num_groups=1)
+    check_logits(cfg3, dev, RG_PROMPT, rg_launches, RG_FAULTS,
+                 lambda f: planted_recurrent(f, RG_PROMPT, cfg3.window),
+                 {"scan": 2, "attn": 1}, RG_LOGIT_ATOL)
+
+
+def profile_serving(cfg, params, dev, batch, prompt, steps: int = 5):
+    """torch.profiler over one full-width prefill of ``batch`` x ``prompt``
+    tokens (device activity only: a CPU-side trace of xLSTM's ~270,000
+    launches takes minutes to reduce, and the report reads device rows
+    only) and over a few decode steps after it: device busy share and
+    device time by kernel of each."""
     from torch.profiler import ProfilerActivity, profile
-    toks = rg_tokens(cfg, dev, (RG_BATCH, RG_PROMPT), 3)
+    toks = rg_tokens(cfg, dev, (batch, prompt), 3)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         logits, state, cl = lm.prefill(params, cfg, {"tokens": toks},
-                                       cache_size=RG_CACHE)
+                                       cache_size=prompt + 64)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    report_profile(prof, wall, 1, "recurrentgemma prefill")
+    report_profile(prof, wall, 1, f"{cfg.name} prefill")
+    del prof
     nxt = {"tokens": logits.argmax(-1, keepdim=True)}
     lm.decode_step(params, state, cl, cfg, nxt)
     torch.cuda.synchronize()
@@ -1520,7 +1572,252 @@ def profile_recurrent(cfg, params, dev, steps: int = 5):
             lm.decode_step(params, state, cl, cfg, nxt)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    report_profile(prof, wall, steps, "recurrentgemma decode step")
+    report_profile(prof, wall, steps, f"{cfg.name} decode step")
+
+
+# ---------------------------------------------------------------------------
+# The xLSTM path: xlstm-1.3b through lm.prefill / lm.decode_step
+# ---------------------------------------------------------------------------
+def mlstm_inputs(gen, dev, b, h, s, d, dt):
+    """q, k, v unit normals in ``dt`` (the projections' scale); the gates
+    as the model makes them: log_i ~ N(0, 0.5), log_f = log_sigmoid(N(0,
+    0.5) + the reference's forget bias linspace(3, 6) over the heads), so
+    f is 0.95-0.998 and the state is remembered across chunks."""
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dt)
+               for _ in range(3))
+    bias = torch.linspace(3.0, 6.0, h, device=dev)[None, :, None]
+    lf = F.logsigmoid(0.5 * torch.randn((b, h, s), generator=gen,
+                                        device=dev) + bias)
+    li = 0.5 * torch.randn((b, h, s), generator=gen, device=dev)
+    return q, k, v, lf, li
+
+
+def mlstm_multiples(got, want):
+    atol, rtol = MLSTM_TOL[want.dtype]
+    return ((got.float() - want.float()).abs()
+            / (atol + rtol * want.float().abs()))
+
+
+def state_errors(got, want) -> list:
+    """max |err| / max |plain| of C, n and m."""
+    return [((g - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+            for g, w in zip(got, want)]
+
+
+def mlstm_flops(b, h, s, d, chunk) -> float:
+    """Operations of the chunkwise function on this run's chunks: per
+    chunk of l steps and (b, h), 2 d for each of the l (l + 1) / 2 causal
+    (query, key) pairs in S = q k^T and again in (S . D) v; 2 l d^2 for q
+    C0 (not on the first chunk, where C0 is zero) and for the state
+    update."""
+    L = min(chunk, s)
+    lens = [min(L, s - t0) for t0 in range(0, s, L)]
+    return b * h * (sum(2 * (l * l + l) * d + 4 * l * d * d for l in lens)
+                    - 2 * lens[0] * d * d)
+
+
+def mlstm_controls(ins, chunk, want, want_state):
+    """Planted faults fed to the kernel, each held against the plain
+    version of the right inputs: the state dropped at the chunk boundary
+    nearest S/2 (the second half run on its own), one key dropped (a zero
+    k row at the first chunk's last position, so the fault reaches every
+    later chunk through the state) and the input gate one step late
+    (log_i shifted by one).  Each must fail the h check on every element it
+    moves by more than FAULT_MARGIN limits (measured on the plain version
+    of the faulty inputs); the state readings are printed."""
+    q, k, v, lf, li = ins
+    s = q.shape[2]
+    cut = (s // 2) // chunk * chunk
+
+    def halves(fn):
+        h1 = fn(q[:, :, :cut], k[:, :, :cut], v[:, :, :cut], lf[..., :cut],
+                li[..., :cut], chunk=chunk)
+        h2, st = fn(q[:, :, cut:], k[:, :, cut:], v[:, :, cut:],
+                    lf[..., cut:], li[..., cut:], chunk=chunk,
+                    return_state=True)
+        return torch.cat([h1, h2], 2), st
+
+    k_drop = k.clone()
+    k_drop[:, :, chunk - 1] = 0
+    late = torch.cat([li[..., :1], li[..., :-1]], -1)
+    faults = {
+        f"state dropped at t={cut}": halves,
+        f"key at t={chunk - 1} dropped": lambda fn: fn(
+            q, k_drop, v, lf, li, chunk=chunk, return_state=True),
+        "input gate one step late": lambda fn: fn(
+            q, k, v, lf, late, chunk=chunk, return_state=True),
+    }
+    for name, run in faults.items():
+        effect_h = run(ref.mlstm_chunkwise_ref)[0]
+        bad_h, bad_state = run(kmlstm.mlstm_chunkwise)
+        effect = mlstm_multiples(effect_h, want)
+        bad = mlstm_multiples(bad_h, want)
+        must = effect > FAULT_MARGIN
+        n_must, n_caught = int(must.sum()), int((bad[must] > 1).sum())
+        st = state_errors(bad_state, want_state)
+        print(f"mlstm control, {name}: moves {n_must} of {must.numel()} h "
+              f"elements by > {FAULT_MARGIN} limits; the check fails "
+              f"{n_caught} of them; state C, n, m off by "
+              f"{[float(f'{x:.3g}') for x in st]} of max |plain| (limit "
+              f"{MLSTM_STATE_LIMIT})")
+        if n_must == 0 or n_caught < n_must:
+            fail(f"mlstm control '{name}' passes the check where it moves "
+                 f"the output")
+        del effect_h, bad_h, bad_state, effect, bad, must
+
+
+def check_mlstm(gen, dev):
+    """The chunkwise mLSTM kernel against its plain version, h and the
+    final (C, n, m): at the prefill's shape (B 4, H 4, S 2048, D 1024,
+    chunk 128, bf16), at a ragged S 2000, and at a small head dim (B 2,
+    H 4, S 1000, D 64, f32); the planted faults on the first; the first
+    timed, with its bound."""
+    rows = []
+    chunk = MLSTM_CHUNK
+    for i, (b, h, s, d, dt) in enumerate(MLSTM_CASES):
+        ins = mlstm_inputs(gen, dev, b, h, s, d, dt)
+        got, state = kmlstm.mlstm_chunkwise(*ins, chunk=chunk,
+                                            return_state=True)
+        want, want_state = ref.mlstm_chunkwise_ref(*ins, chunk=chunk,
+                                                   return_state=True)
+        mult = mlstm_multiples(got, want).max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        st = state_errors(state, want_state)
+        shape = f"B={b} H={h} S={s} D={d} chunk={chunk} {str(dt)[6:]}"
+        print(f"mlstm {shape}: h max |err| {err:.4g} (max limit multiple "
+              f"{mult:.3g} of {MLSTM_TOL[dt][0]} + "
+              f"{MLSTM_TOL[dt][1]:.4g}|plain|); "
+              f"state C, n, m off by {[float(f'{x:.3g}') for x in st]} of "
+              f"max |plain| (limit {MLSTM_STATE_LIMIT})")
+        if not torch.isfinite(got.float()).all() or mult > 1 \
+                or max(st) > MLSTM_STATE_LIMIT:
+            fail(f"mlstm_chunkwise {shape}: kernel disagrees with its plain "
+                 f"version")
+        if i == 0:
+            mlstm_controls(ins, chunk, want, want_state)
+            q = ins[0]
+            nbytes = (4 * q.numel() * q.element_size() + 2 * 4 * b * h * s
+                      + 4 * b * h * (d * d + d + 1))
+
+            def run(*a):
+                return kmlstm.mlstm_chunkwise(*a, chunk=chunk,
+                                              return_state=True)
+
+            def plain(*a):
+                return ref.mlstm_chunkwise_ref(*a, chunk=chunk,
+                                               return_state=True)
+
+            rows.append(entry(
+                "mlstm_chunkwise", shape + " with state", err,
+                time_ms(run, [ins], 10), time_ms(plain, [ins], 3),
+                bound(nbytes, mlstm_flops(b, h, s, d, chunk), dt), None))
+        del ins, got, state, want, want_state
+        torch.cuda.empty_cache()
+    return rows
+
+
+def xl_launches(cfg, phase: str) -> dict:
+    """Launches of one call: an mLSTM layer makes 6 products (w_up, w_q,
+    w_k, w_v, w_if, w_down), an sLSTM layer 3 (w_gates, w_ff1, w_ff2);
+    prefill runs one chunkwise kernel per mLSTM layer, a decode step none
+    (its one-step recurrence is plain tensor ops, as in the reference); the
+    head is one rmsnorm_gemm."""
+    n_m = cfg.num_groups * cfg.block_pattern.count("mlstm")
+    n_s = cfg.num_groups * cfg.block_pattern.count("slstm")
+    out = {"sma_gemm": 6 * n_m + 3 * n_s, "rmsnorm_gemm": 1}
+    if phase == "prefill":
+        out["mlstm_chunkwise"] = n_m
+    return out
+
+
+# Planted faults of check_xlstm_logits, each one wrong launch (the first
+# mLSTM layer's prefill): must the logit limit catch it?  With forget
+# gates of 0.95-0.998 a state dropped 128 steps before the end is still
+# mostly remembered; one dropped 1,024 steps before has decayed to a few
+# per cent in the slowest head, so that one is a reading.
+XL_FAULTS = {"mlstm: state dropped at the last chunk boundary": True,
+             "mlstm: state dropped at S/2": False,
+             "mlstm: input gate one step late": True,
+             "mlstm: final state one chunk early": True}
+
+
+@contextlib.contextmanager
+def planted_xlstm(fault: str):
+    """One wrong launch, made by feeding the kernel wrong inputs: the first
+    mLSTM layer's prefill with its state dropped at the last chunk
+    boundary or at S/2 (the rest run on its own), with log_i one step
+    late, or returning the state of one chunk before the end as its final
+    state.  Yields the call count."""
+    mlstm = ops.mlstm_chunkwise
+    calls = {"mlstm": 0}
+
+    def wrong(q, k, v, lf, li, *, chunk, return_state=False):
+        calls["mlstm"] += 1
+        if calls["mlstm"] != 1:
+            return mlstm(q, k, v, lf, li, chunk=chunk,
+                         return_state=return_state)
+        s = q.shape[2]
+        cut = s // 2 if "S/2" in fault else s - chunk
+
+        def part(lo, hi, state):
+            return mlstm(q[:, :, lo:hi], k[:, :, lo:hi], v[:, :, lo:hi],
+                         lf[..., lo:hi], li[..., lo:hi], chunk=chunk,
+                         return_state=state)
+
+        if "late" in fault:
+            li = torch.cat([li[..., :1], li[..., :-1]], -1)
+            h, st = mlstm(q, k, v, lf, li, chunk=chunk, return_state=True)
+        elif "dropped" in fault:
+            h2, st = part(cut, s, True)
+            h = torch.cat([part(0, cut, False), h2], 2)
+        else:
+            h = mlstm(q, k, v, lf, li, chunk=chunk)
+            st = part(0, cut, True)[1]
+        return (h, st) if return_state else h
+
+    ops.mlstm_chunkwise = wrong
+    try:
+        yield calls
+    finally:
+        ops.mlstm_chunkwise = mlstm
+
+
+def check_xlstm_logits(cfg, dev):
+    """check_logits for pattern (mlstm, mlstm, slstm) x 1 group, with
+    XL_FAULTS."""
+    cfg3 = dataclasses.replace(cfg, block_pattern=("mlstm", "mlstm",
+                                                   "slstm"), num_groups=1)
+    check_logits(cfg3, dev, XL_PROMPT, xl_launches, XL_FAULTS, planted_xlstm,
+                 {"mlstm": 2}, XL_LOGIT_ATOL)
+
+
+def profile_xlstm(cfg, params, dev):
+    """The host time of one sLSTM block over the prompt (its step loop is
+    2,048 steps of small launches) against a whole prefill, then
+    profile_serving."""
+    toks = rg_tokens(cfg, dev, (XL_BATCH, XL_PROMPT), 3)
+    p = cfg.block_pattern.index("slstm")
+    mixer = lm.unstack(params["blocks"][p]["mixer"], cfg.num_groups)[0]
+    x = torch.randn((XL_BATCH, XL_PROMPT, cfg.d_model), device=dev).to(
+        cfg.activation_dtype)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recurrent.slstm_block_prefill(mixer, x, cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    n_s = cfg.num_groups * cfg.block_pattern.count("slstm")
+    t0 = time.perf_counter()
+    lm.prefill(params, cfg, {"tokens": toks}, cache_size=XL_PROMPT + 64)
+    torch.cuda.synchronize()
+    whole = time.perf_counter() - t0
+    print(f"xlstm: one sLSTM block over {XL_BATCH} x {XL_PROMPT} tokens "
+          f"{1e3 * walls[-1]:.2f} ms host wall; x {n_s} layers = "
+          f"{1e3 * n_s * walls[-1]:.1f} ms of a {1e3 * whole:.1f} ms prefill "
+          f"({100 * n_s * walls[-1] / whole:.1f}%)")
+    del x
+    profile_serving(cfg, params, dev, XL_BATCH, XL_PROMPT)
 
 
 def main() -> int:
@@ -1567,6 +1864,8 @@ def main() -> int:
     rows += phase("recurrent kernel checks",
                   lambda: check_rglru(gen, dev) + check_flash_mqa(gen, dev)
                   + check_decode_mqa(gen, dev))
+    torch.cuda.empty_cache()
+    rows += phase("mlstm kernel checks", check_mlstm, gen, dev)
     for row in rows:
         print(f"kernel {row['name']} [{row['shape']}]: max|err| "
               f"{row['max_abs_err']:.3g}, {row['ms']:.4f} ms, plain "
@@ -1610,19 +1909,40 @@ def main() -> int:
               f"{lm.padded_vocab(rg_cfg)}) in {time.perf_counter() - t0:.3f}"
               f" s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the "
               f"card")
-        rg_counts = phase("serve recurrentgemma", serve_recurrentgemma,
-                          rg_cfg, params, dev)
-        phase("recurrent profile", profile_recurrent, rg_cfg, params, dev)
+        rg_counts = phase("serve recurrentgemma", serve_recurrent, rg_cfg,
+                          params, dev, rg_launches, RG_BATCH, RG_PROMPT,
+                          RG_NEW)
+        phase("recurrent profile", profile_serving, rg_cfg, params, dev,
+              RG_BATCH, RG_PROMPT)
         del params
         torch.cuda.empty_cache()
         phase("recurrent logits", check_recurrent_logits, rg_cfg, dev)
+
+    # The xLSTM path, without autograd.
+    xl_cfg = get_config(XL_ARCH)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params = lm.init(xl_cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        print(f"init: {XL_ARCH} full width ({xl_cfg.num_layers} layers, "
+              f"d_model {xl_cfg.d_model}, vocab "
+              f"{lm.padded_vocab(xl_cfg)}) in {time.perf_counter() - t0:.3f}"
+              f" s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the "
+              f"card")
+        xl_counts = phase("serve xlstm", serve_recurrent, xl_cfg, params,
+                          dev, xl_launches, XL_BATCH, XL_PROMPT, XL_NEW)
+        phase("xlstm profile", profile_xlstm, xl_cfg, params, dev)
+        del params
+        torch.cuda.empty_cache()
+        phase("xlstm logits", check_xlstm_logits, xl_cfg, dev)
     print(f"phases (s): "
           f"{json.dumps({k: round(x, 1) for k, x in phases.items()})}")
 
     for row in rows:
         by_path = {"serve": serve_counts[row["name"]],
                    "train": train_counts[row["name"]],
-                   "recurrentgemma": rg_counts.get(row["name"], 0)}
+                   "recurrentgemma": rg_counts.get(row["name"], 0),
+                   "xlstm": xl_counts.get(row["name"], 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["launches"] == 0:

@@ -3,6 +3,8 @@
 Only the fields the ported paths read are kept; ``dtype`` (the compute
 dtype) and ``param_dtype`` (the trainer's master weights) resolve to torch
 dtypes; ``window`` is the sliding window of ``local`` blocks.
+``mlstm_proj_factor`` and ``mlstm_chunk`` are the mLSTM block's inner
+width factor and the chunk of its chunkwise kernel (xLSTM).
 ``reduced()`` derives the same tiny CPU-test variant as the JAX package.
 """
 from __future__ import annotations
@@ -31,6 +33,8 @@ class ModelConfig:
     head_dim: Optional[int] = None
     rope_theta: float = 10000.0
     window: Optional[int] = None
+    mlstm_proj_factor: float = 2.0
+    mlstm_chunk: int = 128
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     source: str = ""
@@ -88,6 +92,7 @@ def reduced(cfg: ModelConfig, *, seq_len: int = 64) -> ModelConfig:
         d_ff=128 if cfg.d_ff else 0,
         vocab_size=256,
         window=min(cfg.window, seq_len // 2) if cfg.window else None,
+        mlstm_chunk=16,
         dtype="float32",
         param_dtype="float32",
     )

@@ -7,13 +7,17 @@ leading ``num_groups`` axis.  It returns the same tree of tensors on
 ``device``.  Matrices and biases are cast once, here, to ``dtype``: by
 default the activation dtype the card computes in (the values JAX's
 per-call casts produce), which serving uses; the trainer's tests pass
-``cfg.parameter_dtype`` for float32 masters.  Norm scales and the RG-LRU's
-``lambda_raw`` stay float32, as the JAX code reads them.
+``cfg.parameter_dtype`` for float32 masters.  The leaves the JAX code reads
+in float32 stay float32: norm scales, the RG-LRU's ``lambda_raw``, the
+mLSTM's gate bias ``b_if``, the xLSTM blocks' ``gn_scale`` and the sLSTM's
+recurrent matrix ``r_gates``.
 
 ``from_jax_state`` takes the state ``repro.models.lm.init_state`` or
 ``prefill`` returns (a tuple of dicts of stacked numpy arrays) and returns
-the port's :data:`repro_torch.models.lm.State`: the RG-LRU carry ``h`` in
-float32, every other leaf (KV caches, conv tails) in ``dtype``.
+the port's :data:`repro_torch.models.lm.State`: the recurrent states (the
+RG-LRU carry ``h``, the mLSTM's ``c``, ``n``, ``m``, the sLSTM's ``c``,
+``n``, ``m``, ``h``) in float32, every other leaf (KV caches, conv tails)
+in ``dtype``.
 """
 from __future__ import annotations
 
@@ -26,8 +30,8 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 
 #: Leaves held in float32 whatever the matrices' dtype.
-F32_PARAMS = ("scale", "lambda_raw")
-F32_STATE = ("h",)
+F32_PARAMS = ("scale", "lambda_raw", "b_if", "gn_scale", "r_gates")
+F32_STATE = ("h", "c", "n", "m")
 
 
 def _convert(node: Any, dev: torch.device, dtype: torch.dtype,

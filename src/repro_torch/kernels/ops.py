@@ -8,7 +8,9 @@ Models call these, never the kernel modules directly:
 * :func:`decode_attention` -- one token against a contiguous cache;
 * :func:`paged_decode_attention` -- serving attention over the paged pool,
   with the routing below;
-* :func:`rglru_scan` -- the RG-LRU recurrence (recurrentgemma prefill).
+* :func:`rglru_scan` -- the RG-LRU recurrence (recurrentgemma prefill);
+* :func:`mlstm_chunkwise` -- the chunkwise mLSTM with its final state
+  (xLSTM forward and prefill).
 
 Each entry point:
 
@@ -20,8 +22,9 @@ Each entry point:
   too.  With grad mode off (the serving engine's ``torch.inference_mode()``)
   it calls the wrapper directly: ``Function.apply`` costs about 10 us a
   call on an H100 machine's host, 3.9 % of a full-width decode step
-  (``chip_smoke.py``, ``entry_overhead``).  :func:`rglru_scan` has no
-  backward kernel yet and refuses a gradient on the card;
+  (``chip_smoke.py``, ``entry_overhead``).  :func:`rglru_scan` and
+  :func:`mlstm_chunkwise` have no backward kernel yet and refuse a
+  gradient on the card;
 * routes statically, mirroring the JAX package: a paged-attention site with
   more than one query token per row (a chunked-prefill tile) or a window
   goes to the plain :func:`repro_torch.kernels.ref.paged_attention_ref`, as
@@ -41,14 +44,15 @@ import torch
 from repro_torch.kernels import autograd as _autograd
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mlstm as _mlstm
 from repro_torch.kernels import norm_gemm as _norm
 from repro_torch.kernels import rglru as _rglru
 from repro_torch.kernels import sma_gemm as _gemm
 from repro_torch.kernels.ref import paged_attention_ref
 
 __all__ = ["ROUTED", "decode_attention", "flash_attention", "launch_counts",
-           "paged_decode_attention", "paged_route", "reset_counts",
-           "rglru_scan", "rmsnorm_gemm", "sma_gemm"]
+           "mlstm_chunkwise", "paged_decode_attention", "paged_route",
+           "reset_counts", "rglru_scan", "rmsnorm_gemm", "sma_gemm"]
 
 #: Calls routed to a plain version by design, keyed by reason.
 ROUTED: Dict[str, int] = collections.Counter()
@@ -62,6 +66,7 @@ WRAPPERS = {
     "paged_decode_attention": _decode.paged_decode_attention,
     "decode_attention": _decode.decode_attention,
     "rglru_scan": _rglru.rglru_scan,
+    "mlstm_chunkwise": _mlstm.mlstm_chunkwise,
 }
 
 
@@ -123,13 +128,35 @@ def rglru_scan(a: torch.Tensor, u: torch.Tensor,
     On the card there is no backward kernel: with grad mode on and an
     input that requires a gradient this raises, and does not fall back to
     the plain version.  On the CPU the plain version is differentiable."""
-    ins = (a, u) if h0 is None else (a, u, h0)
-    if a.device.type == "cuda" and torch.is_grad_enabled() \
+    _refuse_gradient("rglru_scan", "a reverse scan, csrc/rglru_scan.cu",
+                     (a, u) if h0 is None else (a, u, h0))
+    return _rglru.rglru_scan(a, u, h0)
+
+
+def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    log_f: torch.Tensor, log_i: torch.Tensor, *,
+                    chunk: int = 128, return_state: bool = False):
+    """Stabilized chunkwise mLSTM.  q/k/v (B, H, S, D); log_f/log_i (B, H,
+    S).  Returns h (B, H, S, D) in q's dtype and, with ``return_state``,
+    also the final (C (B, H, D, D), n (B, H, D), m (B, H)) in float32: the
+    kernel computes the state itself, so nothing is routed (the JAX
+    package sends such a site down its XLA path).
+
+    On the card there is no backward kernel: with grad mode on and an
+    input that requires a gradient this raises, and does not fall back to
+    the plain version."""
+    _refuse_gradient("mlstm_chunkwise", "csrc/mlstm_chunkwise.cu",
+                     (q, k, v, log_f, log_i))
+    return _mlstm.mlstm_chunkwise(q, k, v, log_f, log_i, chunk=chunk,
+                                  return_state=return_state)
+
+
+def _refuse_gradient(name: str, where: str, ins) -> None:
+    if ins[0].device.type == "cuda" and torch.is_grad_enabled() \
             and any(t.requires_grad for t in ins):
         raise NotImplementedError(
-            "rglru_scan has no backward kernel on the card yet (a reverse "
-            "scan, csrc/rglru_scan.cu); run it without a gradient")
-    return _rglru.rglru_scan(a, u, h0)
+            f"{name} has no backward kernel on the card yet ({where}); run "
+            f"it without a gradient")
 
 
 def paged_route(c: int, window: Optional[int]) -> Optional[str]:

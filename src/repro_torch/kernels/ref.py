@@ -243,3 +243,91 @@ def rglru_scan_ref(a: torch.Tensor, u: torch.Tensor,
         h = a[:, t].float() * h + u[:, t].float()
         out[:, t] = h
     return out, h.to(a.dtype)
+
+
+def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        log_f: torch.Tensor, log_i: torch.Tensor, *,
+                        chunk: int, return_state: bool = False):
+    """Plain version of the chunkwise mLSTM kernel (the stabilized chunkwise
+    algebra of ``repro.kernels.mlstm`` and of the JAX package's XLA path,
+    ``repro.backends.xla_backend.mlstm_chunkwise``), in float32.
+
+    q/k/v (B, H, S, D); log_f/log_i (B, H, S).  Chunks of L = min(chunk,
+    S) steps; a ragged tail is padded with log_f 0 and log_i -1e30 (i = 0),
+    so padded steps change neither the output nor the state.  The state
+    starts at zeros with m = 0.  Returns h (B, H, S, D) in q's dtype and,
+    with ``return_state``, also the final (C (B, H, D, D), n (B, H, D),
+    m (B, H)) in float32, the state after S steps."""
+    b, h, s, d = q.shape
+    scale = d ** -0.5
+    L = min(chunk, s)
+    pad = (-s) % L
+    q32, k32, v32 = q.float() * scale, k.float(), v.float()
+    lf, li = log_f.float(), log_i.float()
+    if pad:
+        q32, k32, v32 = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                         for t in (q32, k32, v32))
+        lf = torch.nn.functional.pad(lf, (0, pad))
+        li = torch.nn.functional.pad(li, (0, pad), value=NEG_INF)
+    c = q.new_zeros((b, h, d, d), dtype=torch.float32)
+    n = q.new_zeros((b, h, d), dtype=torch.float32)
+    m = q.new_zeros((b, h), dtype=torch.float32)
+    tri = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    outs = []
+    for t0 in range(0, s + pad, L):
+        qq, kk, vv = (t[:, :, t0:t0 + L] for t in (q32, k32, v32))
+        b_cum = lf[..., t0:t0 + L].cumsum(-1)                  # (B, H, L)
+        a = li[..., t0:t0 + L] - b_cum
+        g = torch.maximum(m[..., None], torch.cummax(a, -1).values)
+        decay0 = torch.exp(m[..., None] - g)
+        s_mat = qq @ kk.transpose(-1, -2)
+        d_mat = torch.where(tri, torch.exp(a[..., None, :] - g[..., None]),
+                            0.0)
+        sd = s_mat * d_mat
+        num = decay0[..., None] * (qq @ c) + sd @ vv
+        qn0 = (qq @ n[..., None])[..., 0]
+        den = torch.maximum((decay0 * qn0 + sd.sum(-1)).abs(),
+                            torch.exp(-(b_cum + g)))
+        outs.append(num / den[..., None])
+        g_last = g[..., -1]
+        scale_c = torch.exp(m - g_last)
+        wk = torch.exp(a - g_last[..., None])[..., None] * kk
+        c = scale_c[..., None, None] * c + wk.transpose(-1, -2) @ vv
+        n = scale_c[..., None] * n + wk.sum(-2)
+        m = b_cum[..., -1] + g_last
+    out = torch.cat(outs, 2)[:, :, :s].to(q.dtype)
+    return (out, (c, n, m)) if return_state else out
+
+
+def mlstm_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              log_f: torch.Tensor, log_i: torch.Tensor) -> torch.Tensor:
+    """The mLSTM's sequential oracle (``repro.kernels.ref.mlstm_ref``): one
+    step at a time in float32, with the stabilizer m_t = max(log f_t +
+    m_{t-1}, log i_t):
+
+        C_t = f'_t C_{t-1} + i'_t k_t v_t^T,  n_t = f'_t n_{t-1} + i'_t k_t
+        h_t = C_t^T q_t / max(|n_t . q_t|, exp(-m_t))
+
+    q/k/v (B, H, S, D); log_f/log_i (B, H, S).  Returns (B, H, S, D) in
+    q's dtype."""
+    b, h, s, d = q.shape
+    q32 = q.float() * d ** -0.5
+    k32, v32, lf, li = k.float(), v.float(), log_f.float(), log_i.float()
+    c = q.new_zeros((b, h, d, d), dtype=torch.float32)
+    n = q.new_zeros((b, h, d), dtype=torch.float32)
+    m = q.new_zeros((b, h), dtype=torch.float32)
+    out = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
+    for t in range(s):
+        m_new = torch.maximum(lf[..., t] + m, li[..., t])
+        f_t = torch.exp(lf[..., t] + m - m_new)[..., None]
+        i_t = torch.exp(li[..., t] - m_new)[..., None]
+        k_t, v_t, q_t = k32[:, :, t], v32[:, :, t], q32[:, :, t]
+        c = (f_t[..., None] * c
+             + i_t[..., None] * (k_t[..., :, None] * v_t[..., None, :]))
+        n = f_t * n + i_t * k_t
+        num = torch.einsum("bhde,bhd->bhe", c, q_t)
+        den = torch.maximum(torch.einsum("bhd,bhd->bh", n, q_t).abs(),
+                            torch.exp(-m_new))[..., None]
+        out[:, :, t] = num / den
+        m = m_new
+    return out

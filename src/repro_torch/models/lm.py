@@ -1,12 +1,13 @@
 """Decoder LM: parameters, the forward and the loss, and the
 contiguous-state serving steps (counterpart of ``repro.models.lm``, block
-types ``attn``, ``local`` and ``rglru``).
+types ``attn``, ``local``, ``rglru``, ``mlstm`` and ``slstm``).
 
 ``init`` returns the same parameter tree as ``repro.models.lm.init``
 (without the sharding specs): ``embed``, ``blocks`` (a tuple, one dict per
 pattern position, each tensor stacked over ``num_groups`` on its leading
-axis), ``final_norm`` and ``head``.  :func:`forward` and :func:`loss_fn`
-are the train path (the trainer is :mod:`repro_torch.launch.train`).
+axis; an xLSTM block has ``norm1`` and ``mixer`` only), ``final_norm`` and
+``head``.  :func:`forward` and :func:`loss_fn` are the train path (the
+trainer is :mod:`repro_torch.launch.train`).
 :func:`init_state`, :func:`prefill` and :func:`decode_step` serve over a
 contiguous state (KV caches and recurrent states, stacked over groups like
 the parameters); the paged serving steps of the engine are in
@@ -14,7 +15,8 @@ the parameters); the paged serving steps of the engine are in
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, \
+    Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -35,8 +37,26 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return -(-cfg.vocab_size // VOCAB_PAD) * VOCAB_PAD
 
 
-#: Block types the port runs (``mlstm`` and ``slstm`` are not ported).
-BLOCK_TYPES = ("attn", "local", "rglru")
+#: Block types the port runs.
+BLOCK_TYPES = ("attn", "local", "rglru", "mlstm", "slstm")
+
+#: Block types that are ``norm1`` + ``mixer`` only, with no MLP after.
+_MIXER_ONLY = ("mlstm", "slstm")
+
+
+class _Recurrent(NamedTuple):
+    """A recurrent mixer's functions in :mod:`repro_torch.models.recurrent`."""
+    init: Callable
+    apply: Callable
+    prefill: Callable
+    init_state: Callable
+    decode: Callable
+
+
+_RECURRENT = {
+    name: _Recurrent(*(getattr(recurrent, f"{name}_block_{fn}")
+                       for fn in _Recurrent._fields))
+    for name in ("rglru", "mlstm", "slstm")}
 
 #: State: one dict per pattern position, each tensor stacked over groups.
 State = Tuple[Dict[str, torch.Tensor], ...]
@@ -66,12 +86,14 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
     vpad = padded_vocab(cfg)
     params = {"embed": embed_init(gen, vpad, d, dt)}
     def block(btype: str) -> dict:
-        mixer = (recurrent.rglru_block_init(gen, cfg, dt, lead)
-                 if btype == "rglru"
+        mixer = (_RECURRENT[btype].init(gen, cfg, dt, lead)
+                 if btype in _RECURRENT
                  else attention.attn_init(gen, cfg, dt, lead))
-        return {"norm1": rmsnorm_init(d, dev, lead), "mixer": mixer,
-                "norm2": rmsnorm_init(d, dev, lead),
-                "ffn": gated_mlp_init(gen, d, cfg.d_ff, dt, lead)}
+        out = {"norm1": rmsnorm_init(d, dev, lead), "mixer": mixer}
+        if btype not in _MIXER_ONLY:
+            out.update(norm2=rmsnorm_init(d, dev, lead),
+                       ffn=gated_mlp_init(gen, d, cfg.d_ff, dt, lead))
+        return out
 
     params["blocks"] = tuple(block(bt) for bt in cfg.block_pattern)
     params["final_norm"] = rmsnorm_init(d, dev)
@@ -105,16 +127,22 @@ def mlp_residual(bparams: dict, x: torch.Tensor) -> torch.Tensor:
                                rmsnorm_apply(bparams["norm2"], x))
 
 
+def _finish(bparams: dict, btype: str, x: torch.Tensor) -> torch.Tensor:
+    """After the mixer's residual: + mlp(norm2 x), except in an xLSTM
+    block."""
+    return x if btype in _MIXER_ONLY else mlp_residual(bparams, x)
+
+
 def _block(bparams: dict, btype: str, x: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     """One block: x + mixer(norm1 x), then + mlp(norm2 x)."""
     h = rmsnorm_apply(bparams["norm1"], x)
-    if btype == "rglru":
-        y = recurrent.rglru_block_apply(bparams["mixer"], h, cfg)
+    if btype in _RECURRENT:
+        y = _RECURRENT[btype].apply(bparams["mixer"], h, cfg)
     else:
         y = attention.attn_apply(bparams["mixer"], h, cfg,
                                  window=_window(btype, cfg))
-    return mlp_residual(bparams, x + y)
+    return _finish(bparams, btype, x + y)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -188,16 +216,18 @@ def init_state(cfg: ModelConfig, batch: int, cache_size: int,
     """Zeroed decode state, one entry per pattern position stacked over
     groups: ``{"k", "v"}`` (G, B, Hkv, size, hd) for attention, where a
     ``local`` layer's size is ``min(window, cache_size)``; ``{"h"}`` (G, B,
-    lru) float32 and ``{"conv_tail"}`` (G, B, 3, lru) for ``rglru``.  Runs
-    on ``cuda`` unless ``device`` says otherwise."""
+    lru) float32 and ``{"conv_tail"}`` (G, B, 3, lru) for ``rglru``;
+    ``{"c", "n", "m"}`` float32 and ``{"conv_tail"}`` for ``mlstm``;
+    ``{"c", "n", "m", "h"}`` (G, B, H, dh) float32 for ``slstm``.  Runs on
+    ``cuda`` unless ``device`` says otherwise."""
     check_pattern(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.activation_dtype
     hd, g = cfg.resolved_head_dim, cfg.num_groups
     state = []
     for btype in cfg.block_pattern:
-        if btype == "rglru":
-            one = recurrent.rglru_block_init_state(cfg, batch, dtype, dev)
+        if btype in _RECURRENT:
+            one = _RECURRENT[btype].init_state(cfg, batch, dtype, dev)
             state.append({k: v.expand((g,) + v.shape).contiguous()
                           for k, v in one.items()})
             continue
@@ -222,10 +252,10 @@ def prefill(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """The whole prompt through every layer, populating the decode state.
 
     batch ``tokens`` (B, S).  Returns (logits of the last position (B,
-    Vpad), state, cache_len (B,) int32 = S).  An ``rglru`` layer keeps the
-    scan's h_last (rounded to the activation dtype by the kernel, stored
-    in float32) and the last 3 recurrence inputs; an attention layer its
-    cache from :func:`repro_torch.models.attention.attn_prefill`."""
+    Vpad), state, cache_len (B,) int32 = S).  A recurrent layer keeps the
+    state its ``*_block_prefill`` returns (an ``mlstm`` layer the
+    chunkwise kernel's final (C, n, m)); an attention layer its cache from
+    :func:`repro_torch.models.attention.attn_prefill`."""
     check_pattern(cfg)
     dt = cfg.activation_dtype
     x = compute_cast(params["embed"]["table"][batch["tokens"].long()], dt)
@@ -237,18 +267,14 @@ def prefill(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         for p, btype in enumerate(cfg.block_pattern):
             bp = groups[p][g]
             h = rmsnorm_apply(bp["norm1"], x)
-            if btype == "rglru":
-                y, h_last, xr = recurrent.rglru_block_scan(bp["mixer"], h)
-                entries.append({
-                    "h": h_last.float(),
-                    "conv_tail": xr[:, -(recurrent.CONV_WIDTH - 1):]
-                    .to(dt).contiguous()})
+            if btype in _RECURRENT:
+                y, st = _RECURRENT[btype].prefill(bp["mixer"], h, cfg)
             else:
-                y, cache = attention.attn_prefill(
+                y, st = attention.attn_prefill(
                     bp["mixer"], h, cfg, window=_window(btype, cfg),
                     cache_size=_cache_slots(btype, cfg, cache_size))
-                entries.append(cache)
-            x = mlp_residual(bp, x + y)
+            entries.append(st)
+            x = _finish(bp, btype, x + y)
         per_group.append(entries)
     logits = head(params, x[:, -1:])
     cache_len = torch.full((b,), s, dtype=torch.int32, device=x.device)
@@ -271,8 +297,8 @@ def decode_step(params: dict, state: State, cache_len: torch.Tensor,
         for p, btype in enumerate(cfg.block_pattern):
             bp, entry = groups[p][g], state[p]
             h = rmsnorm_apply(bp["norm1"], x)
-            if btype == "rglru":
-                y, new = recurrent.rglru_block_decode(
+            if btype in _RECURRENT:
+                y, new = _RECURRENT[btype].decode(
                     bp["mixer"], h, {k: v[g] for k, v in entry.items()}, cfg)
                 for k, v in new.items():
                     entry[k][g].copy_(v)
@@ -280,5 +306,5 @@ def decode_step(params: dict, state: State, cache_len: torch.Tensor,
                 y, _ = attention.attn_decode(
                     bp["mixer"], h, {"k": entry["k"][g], "v": entry["v"][g]},
                     cache_len, cfg, window=_window(btype, cfg))
-            x = mlp_residual(bp, x + y)
+            x = _finish(bp, btype, x + y)
     return head(params, x)[:, 0], state, cache_len + 1

@@ -1,16 +1,26 @@
-"""Griffin recurrent block: causal conv1d + RG-LRU (recurrentgemma)
-(counterpart of ``repro.models.recurrent``, the RG-LRU half; mLSTM and
-sLSTM are not ported).
+"""Recurrent blocks: Griffin RG-LRU (recurrentgemma) and xLSTM's mLSTM and
+sLSTM (counterpart of ``repro.models.recurrent``).
 
-Every projection is an :func:`repro_torch.kernels.ops.sma_gemm`: the gate
-takes the fused ``"gelu"`` epilogue (tanh-approximate, as ``jax.nn.gelu``'s
-default), ``w_a`` and ``w_x`` their biases, with the sigmoid applied
-outside.  The scan over time is :func:`repro_torch.kernels.ops.rglru_scan`;
-a decode step runs the one-step recurrence as plain tensor ops, as the JAX
-package does.  The lru width is d_model (recurrentgemma-2b).
+Every projection is an :func:`repro_torch.kernels.ops.sma_gemm`.  RG-LRU:
+the gate takes the fused ``"gelu"`` epilogue (tanh-approximate, as
+``jax.nn.gelu``'s default), ``w_a`` and ``w_x`` their biases, with the
+sigmoid applied outside; the scan over time is
+:func:`repro_torch.kernels.ops.rglru_scan`.  mLSTM: six products a layer
+(``w_up``, ``w_q``, ``w_k``, ``w_v``, ``w_if``, ``w_down``); the gates keep
+the reference's rounding (``w_if``'s product rounded to the activation
+dtype, then its bias and ``log_sigmoid`` in float32, since they go through
+``exp``); the sweep over the sequence is
+:func:`repro_torch.kernels.ops.mlstm_chunkwise`, whose final state is the
+prefill's decode state.  sLSTM: ``w_gates`` takes its bias in the epilogue,
+``w_ff1`` the ``"gelu"`` epilogue; the time loop is a Python loop over
+steps with the recurrent product ``r_gates`` in float32, as the reference's
+``lax.scan`` (no kernel).  A decode step runs each block's one-step
+recurrence as plain float32 tensor ops, as the JAX package does.  The lru
+width is d_model (recurrentgemma-2b).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -99,7 +109,7 @@ def rglru_block_scan(params: dict, x: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The block over a whole sequence.  x (B, S, D) -> (y (B, S, D), the
     scan's h_last (B, lru) in x's dtype, the recurrence input xr (B, S,
-    lru)).  Prefill keeps the last two for decode."""
+    lru)).  :func:`rglru_block_prefill` keeps the last two for decode."""
     xr, gate = _in_proj(params, x)
     xc = causal_conv1d(xr, params["conv_w"], params["conv_b"])
     a, u = rglru_gates(params, xc)
@@ -112,6 +122,17 @@ def rglru_block_apply(params: dict, x: torch.Tensor,
                       cfg: ModelConfig) -> torch.Tensor:
     """Training / prefill forward.  x (B, S, D) -> (B, S, D)."""
     return rglru_block_scan(params, x)[0]
+
+
+def rglru_block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig
+                        ) -> Tuple[torch.Tensor, dict]:
+    """The block over a prompt, with its decode state: the scan's h_last
+    (rounded to the activation dtype by the kernel, held in float32) and
+    the last 3 recurrence inputs."""
+    y, h_last, xr = rglru_block_scan(params, x)
+    return y, {"h": h_last.float(),
+               "conv_tail": xr[:, -(CONV_WIDTH - 1):]
+               .to(cfg.activation_dtype).contiguous()}
 
 
 def rglru_block_init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
@@ -140,3 +161,264 @@ def rglru_block_decode(params: dict, x: torch.Tensor, state: dict,
     y = h.to(dtype)[:, None, :] * gate
     out = ops.sma_gemm(y, compute_cast(params["w_out"], dtype))
     return out, {"h": h, "conv_tail": tail}
+
+
+# ===========================================================================
+# xLSTM mLSTM block (matrix memory, chunkwise-parallel over a sequence)
+# ===========================================================================
+def _mlstm_dims(cfg: ModelConfig) -> Tuple[int, int]:
+    inner = int(cfg.d_model * cfg.mlstm_proj_factor)
+    return inner, inner // cfg.num_heads
+
+
+def mlstm_block_init(gen: torch.Generator, cfg: ModelConfig,
+                     dtype: torch.dtype, lead: Tuple[int, ...] = ()) -> dict:
+    """The JAX block's shapes and draws: variance-scaled matrices (the conv
+    over its 4 taps, ``w_down`` over the inner width), a zero conv bias,
+    ``b_if`` = (0 for the input gates, linspace(3, 6) for the forget
+    gates) and ``gn_scale`` = 1, the last two float32 as the gates and the
+    norm read them."""
+    d, h = cfg.d_model, cfg.num_heads
+    inner, _ = _mlstm_dims(cfg)
+    dev = gen.device
+    b_if = torch.cat([torch.zeros(h), torch.linspace(3.0, 6.0, h)])
+    return {
+        "w_up": variance_scaling_init(gen, lead + (d, 2 * inner), dtype),
+        "conv_w": variance_scaling_init(gen, lead + (CONV_WIDTH, inner),
+                                        dtype, fan_in=CONV_WIDTH),
+        "conv_b": torch.zeros(lead + (inner,), dtype=dtype, device=dev),
+        "w_q": variance_scaling_init(gen, lead + (inner, inner), dtype),
+        "w_k": variance_scaling_init(gen, lead + (inner, inner), dtype),
+        "w_v": variance_scaling_init(gen, lead + (inner, inner), dtype),
+        "w_if": variance_scaling_init(gen, lead + (inner, 2 * h), dtype),
+        "b_if": b_if.to(dev).expand(lead + (2 * h,)).contiguous(),
+        "gn_scale": torch.ones(lead + (inner,), dtype=torch.float32,
+                               device=dev),
+        "w_down": variance_scaling_init(gen, lead + (inner, d), dtype,
+                                        fan_in=inner),
+    }
+
+
+def _headwise_rms(x: torch.Tensor, scale: torch.Tensor,
+                  h: int) -> torch.Tensor:
+    """Per-head RMS norm over (..., H * dh) in float32, scaled, returned in
+    x's dtype."""
+    lead, inner = x.shape[:-1], x.shape[-1]
+    xh = x.reshape(*lead, h, inner // h).float()
+    xh = xh * torch.rsqrt(xh.square().mean(-1, keepdim=True) + 1e-6)
+    return (xh.reshape(*lead, inner) * scale.float()).to(x.dtype)
+
+
+def _mlstm_qkv_gates(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                     conv_tail: Optional[torch.Tensor] = None):
+    """q, k, v (B, S, inner) in x's dtype, log_i and log_f (B, S, H) in
+    float32, the output gate's input z and the conv's input x_m."""
+    dtype, h = x.dtype, cfg.num_heads
+    inner, _ = _mlstm_dims(cfg)
+    up = ops.sma_gemm(x, compute_cast(params["w_up"], dtype))
+    x_m, z = up[..., :inner], up[..., inner:]
+    xc = F.silu(causal_conv1d(x_m, params["conv_w"], params["conv_b"],
+                              tail=conv_tail))
+    q = ops.sma_gemm(xc, compute_cast(params["w_q"], dtype))
+    k = ops.sma_gemm(xc, compute_cast(params["w_k"], dtype))
+    v = ops.sma_gemm(x_m, compute_cast(params["w_v"], dtype))
+    if_gates = (ops.sma_gemm(xc, compute_cast(params["w_if"], dtype)).float()
+                + params["b_if"].float())
+    log_i, log_f = if_gates[..., :h], F.logsigmoid(if_gates[..., h:])
+    return q, k, v, log_i, log_f, z, x_m
+
+
+def _mlstm_out(params: dict, out: torch.Tensor, z: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Headwise norm, the silu(z) output gate, then ``w_down``."""
+    out = _headwise_rms(out, params["gn_scale"], cfg.num_heads) * F.silu(z)
+    return ops.sma_gemm(out, compute_cast(params["w_down"], out.dtype))
+
+
+def _mlstm_sequence(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                    return_state: bool):
+    """The block over a whole sequence through the chunkwise kernel.
+    Returns y (B, S, D), and with ``return_state`` also the decode state."""
+    b, s, _ = x.shape
+    inner, dh = _mlstm_dims(cfg)
+    h = cfg.num_heads
+    q, k, v, log_i, log_f, z, x_m = _mlstm_qkv_gates(params, x, cfg)
+
+    def heads(t: torch.Tensor) -> torch.Tensor:
+        return t.reshape(b, s, h, dh).transpose(1, 2)
+
+    res = ops.mlstm_chunkwise(heads(q), heads(k), heads(v),
+                              log_f.transpose(1, 2), log_i.transpose(1, 2),
+                              chunk=cfg.mlstm_chunk,
+                              return_state=return_state)
+    out = res[0] if return_state else res
+    y = _mlstm_out(params, out.transpose(1, 2).reshape(b, s, inner), z, cfg)
+    if not return_state:
+        return y
+    c, n, m = res[1]
+    return y, {"c": c, "n": n, "m": m,
+               "conv_tail": x_m[:, -(CONV_WIDTH - 1):]
+               .to(cfg.activation_dtype).contiguous()}
+
+
+def mlstm_block_apply(params: dict, x: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """Training / forward path.  x (B, S, D) -> (B, S, D)."""
+    return _mlstm_sequence(params, x, cfg, return_state=False)
+
+
+def mlstm_block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig
+                        ) -> Tuple[torch.Tensor, dict]:
+    """The forward that also returns the decode state: the kernel's final
+    (C, n, m) in float32 and the last 3 conv inputs."""
+    return _mlstm_sequence(params, x, cfg, return_state=True)
+
+
+def mlstm_block_init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                           device: torch.device) -> dict:
+    """Zero C (B, H, dh, dh), n (B, H, dh) and m (B, H) in float32, and a
+    zero ``conv_tail`` (B, 3, inner) in ``dtype``."""
+    inner, dh = _mlstm_dims(cfg)
+    h = cfg.num_heads
+
+    def zeros(*shape, dt=torch.float32):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return {"c": zeros(batch, h, dh, dh), "n": zeros(batch, h, dh),
+            "m": zeros(batch, h),
+            "conv_tail": zeros(batch, CONV_WIDTH - 1, inner, dt=dtype)}
+
+
+def mlstm_block_decode(params: dict, x: torch.Tensor, state: dict,
+                       cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
+    """One decode step, the sequential mLSTM update in float32.  x (B, 1,
+    D) -> (y (B, 1, D), new state); ``state`` is not modified."""
+    b = x.shape[0]
+    inner, dh = _mlstm_dims(cfg)
+    h = cfg.num_heads
+    q, k, v, log_i, log_f, z, x_m = _mlstm_qkv_gates(
+        params, x, cfg, conv_tail=state["conv_tail"])
+    tail = torch.cat([state["conv_tail"][:, 1:],
+                      x_m.to(state["conv_tail"].dtype)], dim=1)
+
+    def heads(t: torch.Tensor) -> torch.Tensor:
+        return t[:, 0].reshape(b, h, dh).float()
+
+    q1, k1, v1 = heads(q) * dh ** -0.5, heads(k), heads(v)
+    lf, li = log_f[:, 0], log_i[:, 0]                       # (B, H)
+    m_new = torch.maximum(lf + state["m"], li)
+    f_t = torch.exp(lf + state["m"] - m_new)
+    i_t = torch.exp(li - m_new)
+    c = (f_t[..., None, None] * state["c"]
+         + i_t[..., None, None] * (k1[..., :, None] * v1[..., None, :]))
+    n = f_t[..., None] * state["n"] + i_t[..., None] * k1
+    num = torch.einsum("bhde,bhd->bhe", c, q1)
+    den = torch.maximum(torch.einsum("bhd,bhd->bh", n, q1).abs(),
+                        torch.exp(-m_new))[..., None]
+    out = (num / den).reshape(b, 1, inner).to(x.dtype)
+    return _mlstm_out(params, out, z, cfg), {"c": c, "n": n, "m": m_new,
+                                             "conv_tail": tail}
+
+
+# ===========================================================================
+# xLSTM sLSTM block (scalar memory; sequential)
+# ===========================================================================
+def slstm_block_init(gen: torch.Generator, cfg: ModelConfig,
+                     dtype: torch.dtype, lead: Tuple[int, ...] = ()) -> dict:
+    """The JAX block's shapes and draws: the post-FF width is 4/3 d rounded
+    up to a multiple of 128 (2816 at d 2048); ``r_gates`` (H, dh, 4 dh)
+    over dh and ``gn_scale`` are float32, as the step and the norm read
+    them; the gate bias is zero."""
+    d, h = cfg.d_model, cfg.num_heads
+    dh = d // h
+    ff = -(-int(math.ceil(4.0 * d / 3.0)) // 128) * 128
+    dev = gen.device
+    return {
+        "w_gates": variance_scaling_init(gen, lead + (d, 4 * d), dtype),
+        "r_gates": variance_scaling_init(gen, lead + (h, dh, 4 * dh),
+                                         torch.float32, fan_in=dh),
+        "b_gates": torch.zeros(lead + (4 * d,), dtype=dtype, device=dev),
+        "gn_scale": torch.ones(lead + (d,), dtype=torch.float32,
+                               device=dev),
+        "w_ff1": variance_scaling_init(gen, lead + (d, ff), dtype),
+        "w_ff2": variance_scaling_init(gen, lead + (ff, d), dtype,
+                                       fan_in=ff),
+    }
+
+
+def _slstm_gates(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """W x + b for every step, (B, S, 4D) in x's dtype."""
+    return ops.sma_gemm(x, compute_cast(params["w_gates"], x.dtype),
+                        bias=params["b_gates"].to(x.dtype))
+
+
+def _slstm_step(r_gates: torch.Tensor, wx_t: torch.Tensor, state: dict,
+                h_heads: int) -> dict:
+    """One sLSTM step in float32.  wx_t (B, 4D), W x_t + b; r_gates (H,
+    dh, 4 dh) float32.  Returns the new state {c, n, m, h}, each (B, H,
+    dh)."""
+    b = wx_t.shape[0]
+    rec = torch.einsum("bhd,hdf->bhf", state["h"], r_gates)
+    gates = wx_t.float().reshape(b, h_heads, -1) + rec
+    li, lf, z_raw, o_raw = gates.chunk(4, dim=-1)
+    lf = F.logsigmoid(lf)
+    m_new = torch.maximum(lf + state["m"], li)
+    i_t = torch.exp(li - m_new)
+    f_t = torch.exp(lf + state["m"] - m_new)
+    c = f_t * state["c"] + i_t * torch.tanh(z_raw)
+    n = torch.clamp(f_t * state["n"] + i_t, min=1e-6)
+    h_new = torch.sigmoid(o_raw) * (c / n)
+    return {"c": c, "n": n, "m": m_new, "h": h_new}
+
+
+def _slstm_out(params: dict, hs: torch.Tensor, h_heads: int
+               ) -> torch.Tensor:
+    """Headwise norm of the hidden states (B, S, D), then the post-FF:
+    ``gelu(hs @ w_ff1) @ w_ff2``."""
+    hs = _headwise_rms(hs, params["gn_scale"], h_heads)
+    ff = ops.sma_gemm(hs, compute_cast(params["w_ff1"], hs.dtype),
+                      epilogue="gelu")
+    return ops.sma_gemm(ff, compute_cast(params["w_ff2"], hs.dtype))
+
+
+def slstm_block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig
+                        ) -> Tuple[torch.Tensor, dict]:
+    """The block over a whole sequence, one step at a time from the zero
+    state.  x (B, S, D) -> (y (B, S, D), the final state)."""
+    b, s, d = x.shape
+    wx = _slstm_gates(params, x).float()   # read in f32 by every step
+    r_gates = params["r_gates"].float()
+    state = slstm_block_init_state(cfg, b, x.dtype, x.device)
+    hs = []
+    for t in range(s):
+        state = _slstm_step(r_gates, wx[:, t], state, cfg.num_heads)
+        hs.append(state["h"])
+    hs = torch.stack(hs, 1).reshape(b, s, d).to(x.dtype)
+    return _slstm_out(params, hs, cfg.num_heads), state
+
+
+def slstm_block_apply(params: dict, x: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """Training / forward path.  x (B, S, D) -> (B, S, D)."""
+    return slstm_block_prefill(params, x, cfg)[0]
+
+
+def slstm_block_init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                           device: torch.device) -> dict:
+    """c, n, m, h (B, H, dh), all float32 whatever ``dtype``: zeros, with
+    n at 1e-6."""
+    h = cfg.num_heads
+    z = torch.zeros((batch, h, cfg.d_model // h), dtype=torch.float32,
+                    device=device)
+    return {"c": z, "n": z + 1e-6, "m": z.clone(), "h": z.clone()}
+
+
+def slstm_block_decode(params: dict, x: torch.Tensor, state: dict,
+                       cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
+    """One decode step.  x (B, 1, D) -> (y (B, 1, D), new state); ``state``
+    is not modified."""
+    b = x.shape[0]
+    new = _slstm_step(params["r_gates"].float(), _slstm_gates(params, x)[:, 0],
+                      state, cfg.num_heads)
+    hs = new["h"].reshape(b, 1, -1).to(x.dtype)
+    return _slstm_out(params, hs, cfg.num_heads), new

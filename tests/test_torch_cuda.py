@@ -14,7 +14,9 @@ few training steps on the card against the same on the CPU, and the
 recurrentgemma kernels and steps: the RG-LRU scan (bit for bit against its
 plain version), the flash forward and the contiguous decode at MQA with
 head_dim 256, and ``lm.prefill`` / ``lm.decode_step`` of a small recurrent
-model.
+model; and the xLSTM ones: the chunkwise mLSTM (h and its final state, at
+small and full head dim, ragged S, every dtype) and the serving steps of a
+small xLSTM.
 Tolerances: the reference's ``tol_for`` (3e-2 for 16-bit outputs, one
 rounding flip; 2e-4 for f32, summation order), with TF32 off in the plain
 versions.
@@ -32,6 +34,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention)
 from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                  flash_attention_fwd)
+from repro_torch.kernels.mlstm import mlstm_chunkwise
 from repro_torch.kernels.norm_gemm import rmsnorm_gemm
 from repro_torch.kernels.rglru import rglru_scan
 from repro_torch.kernels.sma_gemm import sma_gemm
@@ -356,7 +359,7 @@ def test_train_steps_on_card_match_cpu(dev):
         "sma_gemm": 29 * layers + 2, "rmsnorm_gemm": 1,
         "flash_attention": 2 * layers, "flash_attention_bwd": layers,
         "paged_decode_attention": 0, "decode_attention": 0,
-        "rglru_scan": 0}
+        "rglru_scan": 0, "mlstm_chunkwise": 0}
     assert not ops.ROUTED
     got = train(cfg, loop, device=dev, params=copy(dev))
     np.testing.assert_allclose([h["loss"] for h in got["history"]],
@@ -474,6 +477,108 @@ def test_recurrent_serving_on_card_matches_cpu(dev):
     want, fed, _ = run(torch.device("cpu"))
     got, _, counts = run(dev, fed)
     assert counts == [launches["prefill"]] + [launches["decode"]] * 2
+    assert not ops.ROUTED
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert ((g - w).norm() / w.norm()).item() <= 3e-2
+
+
+# -------------------------------------------------------------------- xLSTM
+def mlstm_inputs(b, h, s, d, dtype, dev, seed):
+    """q, k, v unit normals in ``dtype``; float32 gates with forget gates
+    near the model's (log_sigmoid(N + 4)) and input gates 0.5 N."""
+    q, k, v = (randn((b, h, s, d), dtype, dev, seed + i) for i in range(3))
+    lf = torch.nn.functional.logsigmoid(
+        randn((b, h, s), torch.float32, dev, seed + 3) + 4.0)
+    li = randn((b, h, s), torch.float32, dev, seed + 4, scale=0.5)
+    return q, k, v, lf, li
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,h,s,d,chunk", [
+    (1, 2, 128, 32, 32), (2, 1, 100, 64, 32),   # ragged S
+    (2, 2, 257, 200, 16),                       # D not a multiple of 128
+    (1, 1, 300, 1024, 128)])                    # xLSTM's head dim
+def test_mlstm_chunkwise_matches_plain(dev, dtype, b, h, s, d, chunk):
+    """h against the plain version at ``tol`` and, with ``return_state``,
+    the final (C, n, m) in float32: both sum the same f32 terms in other
+    orders, so the state is held at 2e-4 of its largest entry.  Without
+    ``return_state`` only h comes back, the same h."""
+    dt = DTYPES[dtype]
+    ins = mlstm_inputs(b, h, s, d, dt, dev, s + d)
+    ops.reset_counts()
+    got, state = mlstm_chunkwise(*ins, chunk=chunk, return_state=True)
+    only = mlstm_chunkwise(*ins, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mlstm_chunkwise"] == 2
+    want, want_state = ref.mlstm_chunkwise_ref(*ins, chunk=chunk,
+                                               return_state=True)
+    assert got.dtype == dt and torch.equal(got, only)
+    close(got, want, dt)
+    for g, w in zip(state, want_state):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        lim = 2e-4 * w.abs().max().item()
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=lim)
+
+
+def test_mlstm_chunkwise_refuses_what_it_does_not_take(dev):
+    """A gradient (no backward kernel), a chunk past 128, mixed dtypes."""
+    q, k, v, lf, li = mlstm_inputs(1, 1, 16, 8, torch.float32, dev, 60)
+    q.requires_grad_()
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.mlstm_chunkwise(q, k, v, lf, li, chunk=16)
+    with torch.no_grad():
+        assert torch.isfinite(ops.mlstm_chunkwise(q, k, v, lf, li,
+                                                  chunk=16)).all()
+    q = q.detach()
+    long_ins = mlstm_inputs(1, 1, 300, 8, torch.float32, dev, 61)
+    with pytest.raises(ValueError, match="chunks of 1..128"):
+        mlstm_chunkwise(*long_ins, chunk=256)
+    with pytest.raises(ValueError, match="share one of"):
+        mlstm_chunkwise(q, k.bfloat16(), v, lf, li, chunk=16)
+
+
+def test_xlstm_serving_on_card_matches_cpu(dev):
+    """A small xLSTM (one group of the pattern: 7 mLSTM + 1 sLSTM, d_model
+    128, 2 heads so the mLSTM head dim is 128, chunk 16, bf16) through
+    ``lm.prefill`` of 40 tokens (ragged against the chunk) and 2
+    ``lm.decode_step``s: the kernels on the card against the plain
+    versions on the CPU, fed the same tokens, each call's logits within
+    3e-2 relative (Frobenius), and each call's launches as predicted (6
+    products an mLSTM layer, 3 an sLSTM one; one mlstm_chunkwise an mLSTM
+    layer at prefill)."""
+    cfg = dataclasses.replace(reduced(get_config("xlstm-1.3b")),
+                              num_groups=1, d_model=128, num_heads=2,
+                              dtype="bfloat16")
+    params = lm.init(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(62).integers(
+        0, cfg.vocab_size, (2, 40)))
+    n_m = cfg.num_groups * cfg.block_pattern.count("mlstm")
+    n_s = cfg.num_groups * cfg.block_pattern.count("slstm")
+    gemms = {"sma_gemm": 6 * n_m + 3 * n_s, "rmsnorm_gemm": 1}
+    launches = [dict(gemms, mlstm_chunkwise=n_m), gemms, gemms]
+
+    def run(where, feed=None):
+        p = _to(params, where)
+        ops.reset_counts()
+        logits, state, cl = lm.prefill(p, cfg, {"tokens": toks.to(where)},
+                                       cache_size=48)
+        counts = [{k: n for k, n in ops.launch_counts().items() if n}]
+        outs, fed = [logits.float().cpu()], []
+        for i in range(2):
+            nxt = feed[i] if feed else logits.argmax(-1, keepdim=True).cpu()
+            fed.append(nxt)
+            ops.reset_counts()
+            logits, state, cl = lm.decode_step(p, state, cl, cfg,
+                                               {"tokens": nxt.to(where)})
+            counts.append({k: n for k, n in ops.launch_counts().items()
+                           if n})
+            outs.append(logits.float().cpu())
+        return outs, fed, counts
+
+    want, fed, _ = run(torch.device("cpu"))
+    got, _, counts = run(dev, fed)
+    assert counts == launches
     assert not ops.ROUTED
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()

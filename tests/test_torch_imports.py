@@ -32,6 +32,7 @@ MODULES = (
     "repro_torch.launch.train", "repro_torch.optim.adamw",
     "repro_torch.kernels.rglru", "repro_torch.models.recurrent",
     "repro_torch.configs.recurrentgemma_2b", "repro_torch.convert",
+    "repro_torch.kernels.mlstm", "repro_torch.configs.xlstm_1_3b",
 )
 
 
