@@ -118,6 +118,9 @@ ATTN_ATOL, ATTN_RTOL = 2e-3, 1e-2
 # (PERF.md); the limit lies between them.
 LOGIT_ATOL = 0.12
 COLD_BYTES = 160 << 20        # > 50 MB L2: rotate inputs so reads are cold
+# time_ms's device-side sleep, ~20 ms at the H100's 1.755 GHz boost
+# clock: longer than the host takes to queue 20 calls of any checked entry.
+QUEUE_CYCLES = 35_000_000
 # Flash forward vs its plain version, bf16 outputs, per element
 # |err| <= FLASH_ATOL + FLASH_RTOL * |plain|: twice the decode attention's
 # limit, since the kernel rounds P to bf16 before the PV product (the
@@ -226,14 +229,22 @@ def smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, args_list, iters: int = 20) -> float:
+def time_ms(fn, args_list, iters: int = 20, paced: bool = False) -> float:
     """Mean device time of ``fn(*args)`` in ms over ``iters`` launches,
-    cycling through ``args_list`` (copies that together exceed L2)."""
+    cycling through ``args_list`` (copies that together exceed L2).
+
+    The calls are queued behind a device-side sleep of QUEUE_CYCLES, so
+    the card runs them back to back: a small kernel's host-side call (tens
+    of us on the machines measured) would otherwise pace the card and be
+    read as its time.  ``paced=True`` times them without the sleep: the
+    host's pace where it is the slower."""
     for args in args_list[:3]:
         fn(*args)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if not paced:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for i in range(iters):
         fn(*args_list[i % len(args_list)])
@@ -305,13 +316,18 @@ def check_sma_gemm(gen, dev, shapes, tag=""):
         ws = [(torch.randn((k, n), generator=gen, device=dev)
                * k ** -0.5).to(dt)
               for _ in range(copies(k * n * 2))]
+        before = dict(kgemm.ROUTES)
         got = kgemm.sma_gemm(a, ws[0], epilogue=ep)
+        route = routes_since(before)
         err = compare(got, ref.gemm_ref(a, ws[0], epilogue=ep),
                       f"sma_gemm M={m} {k}->{n} {ep}")
         args = [(a, w) for w in ws]
         big = 2 * m * n * k > 1e11
         ms = time_ms(lambda a_, w_: kgemm.sma_gemm(a_, w_, epilogue=ep),
                      args, 5 if big else 20)
+        paced_ms = time_ms(
+            lambda a_, w_: kgemm.sma_gemm(a_, w_, epilogue=ep), args,
+            5 if big else 20, paced=True)
         plain_ms = time_ms(
             lambda a_, w_: ref.gemm_ref(a_, w_, epilogue=ep), args,
             3 if big else 20)
@@ -320,8 +336,74 @@ def check_sma_gemm(gen, dev, shapes, tag=""):
         b = bound(2 * (m * k + k * n + m * n), 2 * m * n * k, dt)
         out.append(entry("sma_gemm", f"M={m} K={k} N={n} {ep} bf16{tag}",
                          err, ms, plain_ms, b, lib_ms))
+        out[-1].update(gemm_route=route, paced_ms=paced_ms)
         del a, ws, got, args
     return out
+
+
+def routes_since(before: dict) -> str:
+    """The one ``sma_gemm`` route launched since ``before`` (a copy of
+    ``sma_gemm.routes``)."""
+    moved = {r for r, n in kgemm.ROUTES.items() if n != before[r]}
+    if len(moved) != 1:
+        fail(f"sma_gemm: routes {moved} since the last reading, expected one")
+    return moved.pop()
+
+
+def gemm_multiples(got, want):
+    """Per element |err| / (ATOL + RTOL |plain|): above 1 where the GEMM
+    check fails."""
+    return ((got.float() - want.float()).abs()
+            / (ATOL + RTOL * want.float().abs()))
+
+
+def gemm_controls(gen, dev):
+    """Planted faults fed to ``sma_gemm``, each held against the plain
+    version of the right inputs: on the split-K route (M 8, 2048->5632) the
+    last K slice of B zeroed; on the wgmma route (M 200, 2056->392: K one
+    8-row step past the 64-deep tiles, N three boxes and a ragged fourth)
+    the last, ragged K tile of B zeroed, and one 64-column box of B
+    (columns 64-127, the second box of the first tile) negated.  Each
+    must fail the check on every element it moves by more than
+    FAULT_MARGIN limits (measured on the plain version of the faulty
+    inputs)."""
+    dt = torch.bfloat16
+    cases = []
+    m, k, n = 8, 2048, 5632
+    slices, kslice = kgemm._slices(n, k)
+    a = torch.randn((m, k), generator=gen, device=dev).to(dt)
+    w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(dt)
+    bad = w.clone()
+    bad[(slices - 1) * kslice:] = 0
+    cases.append((f"split-K, last K slice (rows {(slices - 1) * kslice}-"
+                  f"{k - 1} of {slices}) zeroed", "splitk", a, w, bad))
+    m, k, n = 200, 2056, 392
+    a = torch.randn((m, k), generator=gen, device=dev).to(dt)
+    w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(dt)
+    bad = w.clone()
+    bad[k // 64 * 64:] = 0
+    cases.append((f"wgmma, last ragged K tile (rows {k // 64 * 64}-{k - 1}) "
+                  f"zeroed", "wgmma", a, w, bad))
+    bad = w.clone()
+    bad[:, 64:128] = -bad[:, 64:128]
+    cases.append(("wgmma, one 64-column box of B (columns 64-127) negated",
+                  "wgmma", a, w, bad))
+    for name, route, a, w, bad in cases:
+        want = ref.gemm_ref(a, w)
+        effect = gemm_multiples(ref.gemm_ref(a, bad), want)
+        before = dict(kgemm.ROUTES)
+        got = gemm_multiples(kgemm.sma_gemm(a, bad), want)
+        if routes_since(before) != route:
+            fail(f"sma_gemm control '{name}' did not take the {route} route")
+        must = effect > FAULT_MARGIN
+        n_must, n_caught = int(must.sum()), int((got[must] > 1).sum())
+        print(f"sma_gemm control, {name}: moves {n_must} of {must.numel()} "
+              f"elements by > {FAULT_MARGIN} limits; the check fails "
+              f"{n_caught} of them (min multiple "
+              f"{got[must].min().item() if n_must else 0:.3g})")
+        if n_must == 0 or n_caught < n_must:
+            fail(f"sma_gemm control '{name}' passes the check where it "
+                 f"moves the output")
 
 
 def check_rmsnorm_gemm(gen, dev):
@@ -417,6 +499,8 @@ def check_decode(gen, dev):
         err, time_ms(kdecode.paged_decode_attention, args),
         time_ms(ref.paged_decode_attention_ref, args),
         bound(nbytes, flops, dt), None))
+    out[-1]["paced_ms"] = time_ms(kdecode.paged_decode_attention, args,
+                                  paced=True)
 
     caches = [tuple(torch.randn((b, h, smax, d), generator=gen,
                                 device=dev).to(dt) for _ in range(2))
@@ -438,6 +522,8 @@ def check_decode(gen, dev):
         err, time_ms(kdecode.decode_attention, args),
         time_ms(ref.decode_attention_ref, args),
         bound(nbytes - 4 * b * mb, flops, dt), time_ms(sdpa, args)))
+    out[-1]["paced_ms"] = time_ms(kdecode.decode_attention, args,
+                                  paced=True)
     return out
 
 
@@ -618,6 +704,7 @@ def serve(cfg, params, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, routed = ops.launch_counts(), dict(ops.ROUTED)
+    routes = dict(kgemm.ROUTES)
 
     for r in reqs:
         if r.status != "done" or len(r.out_tokens) != 32:
@@ -637,6 +724,12 @@ def serve(cfg, params, dev):
     for name, n in expect.items():
         if counts[name] != n:
             fail(f"{name}: {counts[name]} launches, expected {n}")
+    # Decode ticks (M = batch <= 8) on split-K; prefill ticks on wgmma,
+    # or split-K where a tick holds 16 tokens or fewer.
+    if routes["tile"] or routes["f32"] \
+            or routes["splitk"] < per_layer * len(ticks["decode"]):
+        fail(f"serve: sma_gemm routes {routes}, expected wgmma and split-K "
+             f"only, split-K on every decode tick")
     ttft = [r.t_first - r.t_submit for r in reqs]
     tokens = sum(len(r.out_tokens) for r in reqs)
     print(f"serve: {len(reqs)} requests, prompts {lens.tolist()}, "
@@ -650,10 +743,11 @@ def serve(cfg, params, dev):
           f"{len(ticks['prefill'])} ticks; switches {eng.sched.switches}")
     print(f"serve: launches {json.dumps(counts)}; per decode tick "
           f"{per_layer} sma_gemm, 1 rmsnorm_gemm, {cfg.num_layers} paged "
-          f"decode; routed to plain by design {json.dumps(routed)}")
+          f"decode; routed to plain by design {json.dumps(routed)}; "
+          f"sma_gemm routes {json.dumps(routes)}")
     del eng
     torch.cuda.empty_cache()
-    return counts
+    return counts, routes
 
 
 @contextlib.contextmanager
@@ -1048,6 +1142,7 @@ def run_trainer(cfg, dev):
     result = train(cfg, loop, device=dev)
     torch.cuda.synchronize()
     counts, routed = ops.launch_counts(), dict(ops.ROUTED)
+    routes = nonzero(kgemm.ROUTES)
     peak = torch.cuda.max_memory_allocated()
     hist = result["history"]
     for h in hist:
@@ -1066,6 +1161,9 @@ def run_trainer(cfg, dev):
              f"({per_step} a step)")
     if routed:
         fail(f"trainer routed calls to plain versions: {routed}")
+    if routes != {"wgmma": counts["sma_gemm"]}:
+        fail(f"trainer: sma_gemm routes {routes}, expected every launch on "
+             f"wgmma")
     walls = [h["wall_s"] for h in hist]
     steps = [b - a for a, b in zip(walls, walls[1:])]
     step_s = float(np.median(steps))
@@ -1084,8 +1182,9 @@ def run_trainer(cfg, dev):
           f"/ step / 989 TFLOP/s, N = {n_mm} matmul parameters); peak "
           f"memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
     print(f"train: launches over {TRAIN_STEPS} steps {json.dumps(counts)}; "
-          f"a step {json.dumps(per_step)}; routed {routed}")
-    return counts, result["params"]
+          f"a step {json.dumps(per_step)}; routed {routed}; sma_gemm routes "
+          f"{json.dumps(routes)}")
+    return counts, routes, result["params"]
 
 
 def profile_train_step(cfg, params, dev):
@@ -1121,7 +1220,7 @@ def report_profile(prof, wall: float, steps: int, what: str) -> None:
     print(f"profile: {steps} {what}(s) in {1e3 * wall:.2f} ms host wall, "
           f"device busy {1e3 * busy:.2f} ms ({100 * busy / wall:.1f}% of "
           f"the window, idle {100 * (1 - busy / wall):.1f}%)")
-    for dev_us, count, key in sorted(rows, reverse=True)[:12]:
+    for dev_us, count, key in sorted(rows, reverse=True)[:16]:
         print(f"profile: {dev_us / steps / 1e3:8.3f} ms/step "
               f"{count // steps:5d}/step  {key[:90]}")
 
@@ -1287,6 +1386,51 @@ def check_flash_mqa(gen, dev):
 RG_KV_LENS = (1, 17, 100, 256, 511, 1024, 1777, 2048)
 
 
+def split_controls(q, kc, vc, lens, want):
+    """Planted faults fed to the split-KV decode over a full cache (every
+    length Smax), each held against the plain version of the right
+    inputs: one key changed in the last split only (position Smax - 1
+    set to the sum of the g query rows, so every row weighs it heavily),
+    and the first position of each split dropped (those positions cut out
+    of the cache).  Each must fail the attention check on every (request,
+    query head) row it moves by more than FAULT_MARGIN limits (measured on
+    the plain version of the faulty inputs)."""
+    b, hq, d = q.shape
+    hkv, smax = kc.shape[1], kc.shape[2]
+    splits = kdecode._splits(b, hkv, smax)
+    chunk = -(-smax // splits)
+    last = kc.clone()
+    last[:, :, -1] = q.float().reshape(b, hkv, hq // hkv, d).sum(2).to(
+        kc.dtype)
+    keep = torch.tensor([p for p in range(smax) if p % chunk],
+                        device=q.device)
+    firsts = (lens[:, None] > torch.arange(0, smax, chunk,
+                                           device=q.device)).sum(1)
+    faults = {
+        f"key at {smax - 1} (last of {splits} splits) changed":
+            (q, last, vc, lens),
+        f"first position of each of {splits} splits dropped":
+            (q, kc[:, :, keep].contiguous(), vc[:, :, keep].contiguous(),
+             (lens - firsts).to(lens.dtype)),
+    }
+    for name, args in faults.items():
+        effect = limit_multiples(ref.decode_attention_ref(*args)
+                                 .reshape(b * hq, d), want.reshape(b * hq, d),
+                                 ATTN_ATOL, ATTN_RTOL)
+        bad = limit_multiples(kdecode.decode_attention(*args)
+                              .reshape(b * hq, d), want.reshape(b * hq, d),
+                              ATTN_ATOL, ATTN_RTOL)
+        must = effect > FAULT_MARGIN
+        n_must, n_caught = int(must.sum()), int((bad[must] > 1).sum())
+        print(f"decode MQA control, {name}: moves {n_must} of {b * hq} rows "
+              f"by > {FAULT_MARGIN} limits; the check fails {n_caught} of "
+              f"them (min multiple "
+              f"{bad[must].min().item() if n_must else 0:.3g})")
+        if n_must == 0 or n_caught < n_must:
+            fail(f"decode MQA control '{name}' passes the attention "
+                 f"tolerance on a row it moves")
+
+
 def check_decode_mqa(gen, dev):
     """The contiguous decode kernel at recurrentgemma's decode shape: B 8,
     Hq 10, Hkv 1, D 256, Smax 2048 (the ring of a local layer), bf16,
@@ -1309,6 +1453,7 @@ def check_decode_mqa(gen, dev):
         mult = limit_multiples(got, want, ATTN_ATOL, ATTN_RTOL)
         print(f"decode MQA D={d}, kernel vs plain: limit multiple by "
               f"kv_len {lens.tolist()}: {[round(x, 4) for x in mult.tolist()]}")
+    split_controls(q, *caches[0], full, want)   # want: the full lengths
     args = [(q, kc, vc, full) for kc, vc in caches]
     mask = (torch.arange(smax, device=dev)[None, :]
             < full[:, None])[:, None, None, :]
@@ -1319,13 +1464,15 @@ def check_decode_mqa(gen, dev):
             v_.expand(-1, hq, -1, -1), attn_mask=mask)
 
     nbytes = 2 * 2 * b * hq * d + 2 * 2 * b * smax * d + 4 * b
-    return [entry(
+    row = entry(
         "decode_attention",
         f"B={b} Hq={hq} Hkv=1 D={d} Smax={smax} kv_len={smax} bf16 "
         f"(checked also at {list(RG_KV_LENS)})",
         max(errs), time_ms(kdecode.decode_attention, args),
         time_ms(ref.decode_attention_ref, args),
-        bound(nbytes, 4 * b * hq * smax * d, dt), time_ms(sdpa, args))]
+        bound(nbytes, 4 * b * hq * smax * d, dt), time_ms(sdpa, args))
+    row["paced_ms"] = time_ms(kdecode.decode_attention, args, paced=True)
+    return [row]
 
 
 def rg_launches(cfg, phase: str) -> dict:
@@ -1377,7 +1524,8 @@ def serve_recurrent(cfg, params, dev, launches, batch, prompt, new):
                                    cache_size=cache)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    calls = [("prefill", ops.launch_counts(), dict(ops.ROUTED), logits)]
+    calls = [("prefill", ops.launch_counts(), dict(ops.ROUTED),
+              nonzero(kgemm.ROUTES), logits)]
     steps, out_tokens = [], []
     for _ in range(new):
         nxt = logits.argmax(-1, keepdim=True)
@@ -1389,10 +1537,11 @@ def serve_recurrent(cfg, params, dev, launches, batch, prompt, new):
         torch.cuda.synchronize()
         steps.append(time.perf_counter() - t)
         calls.append(("decode", ops.launch_counts(), dict(ops.ROUTED),
-                      logits))
+                      nonzero(kgemm.ROUTES), logits))
     peak = torch.cuda.max_memory_allocated()
     vpad = lm.padded_vocab(cfg)
-    for i, (phase, counts, routed, lg) in enumerate(calls):
+    routes = collections.Counter()
+    for i, (phase, counts, routed, gemm_routes, lg) in enumerate(calls):
         if lg.shape != (batch, vpad) or not torch.isfinite(lg).all():
             fail(f"{cfg.name} call {i} ({phase}): logits "
                  f"{tuple(lg.shape)} or non-finite")
@@ -1400,7 +1549,12 @@ def serve_recurrent(cfg, params, dev, launches, batch, prompt, new):
             fail(f"{cfg.name} call {i} ({phase}): launches "
                  f"{nonzero(counts)}, expected {launches(cfg, phase)}; "
                  f"routed {routed}")
+        want = {"prefill": "wgmma", "decode": "splitk"}[phase]
+        if gemm_routes != {want: counts["sma_gemm"]}:
+            fail(f"{cfg.name} call {i} ({phase}): sma_gemm routes "
+                 f"{gemm_routes}, expected every launch on {want}")
         total.update(counts)
+        routes.update(gemm_routes)
     if cl.tolist() != [prompt + new] * batch:
         fail(f"{cfg.name}: cache_len {cl.tolist()} after the run")
     toks_out = torch.cat(out_tokens, 1)
@@ -1418,8 +1572,10 @@ def serve_recurrent(cfg, params, dev, launches, batch, prompt, new):
     print(f"{cfg.name}: launches a prefill "
           f"{json.dumps(launches(cfg, 'prefill'))}, a decode step "
           f"{json.dumps(launches(cfg, 'decode'))}, as predicted; nothing "
-          f"routed; row 0 tokens {toks_out[0, :8].tolist()}")
-    return dict(total)
+          f"routed; sma_gemm routes {json.dumps(dict(routes))} (prefill "
+          f"wgmma, decode split-K); row 0 tokens "
+          f"{toks_out[0, :8].tolist()}")
+    return dict(total), dict(routes)
 
 
 # Planted faults of check_recurrent_logits, each one wrong launch: must
@@ -1839,10 +1995,15 @@ def main() -> int:
           f"into {_build.BUILD_DIR.relative_to(ROOT)}")
     for name in _build.SOURCES:
         log = _build.BUILD_DIR / f"{name}.ptxas"
+        entry_fn = ""
         for line in log.read_text().splitlines() if log.exists() else ():
+            if "Compiling entry function" in line:
+                # the mangled name, cut before its parameter list
+                entry_fn = line.split("'")[1].split("EEv")[0][:72]
             spills = "spill" in line and "0 bytes spill stores" not in line
             if "registers" in line or spills:
-                print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
+                print(f"ptxas {name} {entry_fn}: "
+                      f"{line.split(':', 1)[-1].strip()}")
 
     phases = {"build": time.perf_counter() - t0}
 
@@ -1860,6 +2021,7 @@ def main() -> int:
                  + check_sma_gemm(gen, dev, TRAIN_GEMMS, " (train)")
                  + check_rmsnorm_gemm(gen, dev) + check_decode(gen, dev)
                  + check_flash(gen, dev))
+    phase("sma_gemm controls", gemm_controls, gen, dev)
     torch.cuda.empty_cache()
     rows += phase("recurrent kernel checks",
                   lambda: check_rglru(gen, dev) + check_flash_mqa(gen, dev)
@@ -1867,8 +2029,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += phase("mlstm kernel checks", check_mlstm, gen, dev)
     for row in rows:
-        print(f"kernel {row['name']} [{row['shape']}]: max|err| "
-              f"{row['max_abs_err']:.3g}, {row['ms']:.4f} ms, plain "
+        route = f" {row['gemm_route']}" if "gemm_route" in row else ""
+        paced = (f" (host-paced {row['paced_ms']:.4f})"
+                 if "paced_ms" in row else "")
+        print(f"kernel {row['name']}{route} [{row['shape']}]: max|err| "
+              f"{row['max_abs_err']:.3g}, {row['ms']:.4f} ms{paced}, plain "
               f"{row['plain_ms']:.4f} ms, library {row['library_ms']}, "
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     torch.cuda.empty_cache()
@@ -1883,7 +2048,7 @@ def main() -> int:
               f"{cfg.d_model}, vocab {lm.padded_vocab(cfg)}) in "
               f"{time.perf_counter() - t0:.3f} s, "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-        serve_counts = phase("serve", serve, cfg, params, dev)
+        serve_counts, serve_routes = phase("serve", serve, cfg, params, dev)
         phase("decode logits", check_decode_logits, cfg, params, dev)
         phase("decode profile", profile_decode, cfg, params, dev)
         phase("entry overhead", entry_overhead, cfg, params, dev)
@@ -1893,7 +2058,8 @@ def main() -> int:
     # The training path.
     phase("train step vs plain", check_train_step, cfg, dev)
     torch.cuda.empty_cache()
-    train_counts, tparams = phase("trainer", run_trainer, cfg, dev)
+    train_counts, train_routes, tparams = phase("trainer", run_trainer, cfg,
+                                                dev)
     phase("train profile", profile_train_step, cfg, tparams, dev)
     del tparams
     torch.cuda.empty_cache()
@@ -1909,9 +2075,9 @@ def main() -> int:
               f"{lm.padded_vocab(rg_cfg)}) in {time.perf_counter() - t0:.3f}"
               f" s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the "
               f"card")
-        rg_counts = phase("serve recurrentgemma", serve_recurrent, rg_cfg,
-                          params, dev, rg_launches, RG_BATCH, RG_PROMPT,
-                          RG_NEW)
+        rg_counts, rg_routes = phase(
+            "serve recurrentgemma", serve_recurrent, rg_cfg, params, dev,
+            rg_launches, RG_BATCH, RG_PROMPT, RG_NEW)
         phase("recurrent profile", profile_serving, rg_cfg, params, dev,
               RG_BATCH, RG_PROMPT)
         del params
@@ -1929,8 +2095,9 @@ def main() -> int:
               f"{lm.padded_vocab(xl_cfg)}) in {time.perf_counter() - t0:.3f}"
               f" s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the "
               f"card")
-        xl_counts = phase("serve xlstm", serve_recurrent, xl_cfg, params,
-                          dev, xl_launches, XL_BATCH, XL_PROMPT, XL_NEW)
+        xl_counts, xl_routes = phase("serve xlstm", serve_recurrent, xl_cfg,
+                                     params, dev, xl_launches, XL_BATCH,
+                                     XL_PROMPT, XL_NEW)
         phase("xlstm profile", profile_xlstm, xl_cfg, params, dev)
         del params
         torch.cuda.empty_cache()
@@ -1947,6 +2114,9 @@ def main() -> int:
         row["launches_by_path"] = by_path
         if row["launches"] == 0:
             fail(f"kernel {row['name']} was not launched on a main path")
+    print(f"sma_gemm routes by path: " + json.dumps(
+        {"serve": serve_routes, "train": train_routes,
+         "recurrentgemma": rg_routes, "xlstm": xl_routes}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

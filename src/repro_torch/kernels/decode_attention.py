@@ -3,9 +3,8 @@
 Replaces the Pallas kernel ``repro/kernels/decode_attention.py:78``
 (``decode_attention``) and the page gather that
 ``repro/backends/pallas_backend.py:82`` puts in front of it.  The CUDA
-kernel (``csrc/decode_attention.cu``) reads pages in place through the
-block table, one block per (request, KV head) serving its g = Hq/Hkv query
-rows, and walks only pages below ``ceil(kv_len / BS)``, so sentinel table
+kernels (``csrc/decode_attention.cu``) read pages in place through the
+block table and walk only positions below ``kv_len``, so sentinel table
 entries are never read.  Online softmax in f32 with a -1e30 mask;
 ``kv_len == 0`` gives 0.  An entry outside ``[0, NB)`` below ``kv_len``
 (or ``kv_len`` past the table) is not clamped: that request's output is
@@ -13,26 +12,31 @@ NaN, where the plain version clamps into a real block as JAX's gather does.
 
 Bound on an H100: bytes (each valid K/V row is read once).
 
-Two entries share the kernel:
+Split-KV ("flash-decoding") design, two launches on the current stream:
+the partial pass, grid (Hkv, B, splits), walks one range of positions for
+a (request, KV head) and its g = Hq/Hkv query rows, the head_dim spread
+across the lanes of a warp (16-byte loads straight into registers, scores
+reduced by shuffles), and writes an f32 (m, l, accumulator) per query row
+into a scratch tensor this wrapper allocates; the merge pass folds the
+partials in split order.  :func:`_splits` picks the ranges from B, Hkv and
+the table's capacity alone, so a call shape always has one launch shape;
+:func:`repro_torch.kernels.ref.decode_attention_split_ref` is the same
+split-then-merge in plain PyTorch.
+
+Two entries share the kernels:
 
 * :func:`paged_decode_attention` -- q (B, Hq, D) against (NB, Hkv, BS, D)
   pools through a (B, MB) table; plain version
   :func:`repro_torch.kernels.ref.paged_decode_attention_ref`.
 * :func:`decode_attention` -- q (B, Hq, D) against a contiguous
-  (B, Hkv, Smax, D) cache; the wrapper passes the cache as a pool of B
-  blocks of Smax positions and the table ``arange(B)[:, None]``, with
-  ``cache_len`` clamped to Smax (every position valid, as in the plain
-  version).  Plain version :func:`repro_torch.kernels.ref.
-  decode_attention_ref`.
-
-A block stages TILE tokens of K and V, the g query rows and their
-accumulators in shared memory, in f32.  The tile is the largest of 64, 32
-and 16 tokens within 48 KB; where none fits (recurrentgemma's g = 10,
-D = 256 needs 54 KB at 16 tokens) it is the largest within the 227 KB a
-block may opt in to, and the launch opts in.
+  (B, Hkv, Smax, D) cache, passed as a pool of B blocks of Smax positions
+  with no table (block b is request b's); ``cache_len`` past Smax is
+  clamped (every position valid, as in the plain version).  Plain version
+  :func:`repro_torch.kernels.ref.decode_attention_ref`.
 
 Each wrapper runs its plain version only for CPU tensors; for CUDA tensors
-it launches the kernel or raises, and counts its launches in ``.launches``.
+it launches the kernels or raises, and counts one launch per call in
+``.launches``.
 """
 from __future__ import annotations
 
@@ -46,15 +50,18 @@ from repro_torch.kernels.ref import (decode_attention_ref,
                                      paged_decode_attention_ref)
 from repro_torch.kernels.sma_gemm import DTYPE_CODES
 
-#: Shared memory one block may take without opting in to more, and the most
-#: it may opt in to on an H100 (232,448 bytes).
-_SMEM_LIMIT = 48 * 1024
-_SMEM_OPT_IN = 227 * 1024
-_TILES = (64, 32, 16)
+#: Partial-pass blocks to aim for: two per SM on an H100's 132.
+_BLOCKS = 264
+#: Fewest positions a split walks (one tile), and the most splits the merge
+#: pass takes (``kMaxSplits`` in ``csrc/decode_attention.cu``).
+_TILE = 32
+_MAX_SPLITS = 512
+#: The most query rows per KV head that a partial block holds.
+_MAX_G = 16
 
-#: q, k_pool, v_pool, table, kv_len, out; B, Hq, Hkv, D, NB, BS, MB, tile;
-#: scale; dtype; stream.
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float]
+#: q, k_pool, v_pool, table, kv_len, part, out; B, Hq, Hkv, D, NB, BS, MB,
+#: splits; scale; dtype; stream.
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float]
              + [ctypes.c_int, ctypes.c_void_p])
 
 
@@ -63,61 +70,72 @@ def _lib() -> ctypes.CDLL:
                        {"paged_decode_attention_launch": _ARGTYPES})
 
 
-def _smem_bytes(g: int, d: int, tile: int) -> int:
-    """Shared memory of one block (``csrc/decode_attention.cu``)."""
-    return 4 * (2 * tile * (d + 1) + g * tile + 2 * g * d + 3 * g)
+def _splits(b: int, hkv: int, max_len: int) -> int:
+    """Position ranges per (request, KV head): enough for ``_BLOCKS``
+    partial blocks, each range at least ``_TILE`` positions of the table's
+    capacity ``max_len``.  Depends on the call shape only, never on
+    ``kv_len``."""
+    want = -(-_BLOCKS // max(b * hkv, 1))
+    return max(1, min(want, max_len // _TILE, _MAX_SPLITS))
 
 
-def _tile(g: int, d: int) -> int:
-    """Tokens per shared-memory step: the largest that fits 48 KB, else the
-    largest that fits the opt-in limit."""
-    for limit in (_SMEM_LIMIT, _SMEM_OPT_IN):
-        for tile in _TILES:
-            if _smem_bytes(g, d, tile) <= limit:
-                return tile
-    raise ValueError(f"decode attention with g={g}, head_dim={d} does not "
-                     f"fit {_SMEM_OPT_IN} bytes of shared memory")
+def _check_head(g: int, d: int, vec: int) -> None:
+    """A lane holds one or two 16-byte chunks of a row, so head_dim is at
+    most 32 chunks (one each, lanes in groups of a power of two) or 64."""
+    chunks = d // vec
+    if d % vec or not (chunks <= 32 or (chunks % 32 == 0 and chunks <= 64)):
+        raise ValueError(f"head_dim {d} must be a multiple of {vec} and at "
+                         f"most {32 * vec}, or {64 * vec}")
+    if g > _MAX_G:
+        raise ValueError(f"decode attention serves at most {_MAX_G} query "
+                         f"heads per KV head, got {g}")
 
 
 def _launch(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
-            block_table: torch.Tensor, kv_len: torch.Tensor,
+            block_table: Optional[torch.Tensor], kv_len: torch.Tensor,
             scale: Optional[float]) -> torch.Tensor:
-    """Check and launch the paged kernel; q (B, Hq, D), pools
-    (NB, Hkv, BS, D), table (B, MB).  Returns (B, Hq, D)."""
+    """Check and launch the kernels; q (B, Hq, D), pools (NB, Hkv, BS, D),
+    table (B, MB), or None for a contiguous cache (pool block b is request
+    b's, kv_len clamped to BS).  Returns (B, Hq, D)."""
     b, hq, d = q.shape
     nb, hkv, bs, d2 = k_pool.shape
     if d2 != d or v_pool.shape != k_pool.shape or hq % hkv:
         raise ValueError(f"shapes do not match: q {tuple(q.shape)}, pools "
                          f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
-    if block_table.shape[0] != b or kv_len.shape != (b,):
-        raise ValueError(f"table {tuple(block_table.shape)} / kv_len "
+    rows = nb if block_table is None else block_table.shape[0]
+    if rows != b or kv_len.shape != (b,):
+        raise ValueError(f"table/cache rows {rows} / kv_len "
                          f"{tuple(kv_len.shape)} do not match B={b}")
-    for t in (k_pool, v_pool, block_table, kv_len):
+    for t in (k_pool, v_pool, kv_len) + (
+            () if block_table is None else (block_table,)):
         if t.device != q.device:
             raise ValueError(f"all inputs must be on {q.device}")
     if q.dtype not in DTYPE_CODES or k_pool.dtype != q.dtype \
             or v_pool.dtype != q.dtype:
         raise ValueError(f"q and pools must share one of f32/bf16/f16, got "
                          f"{q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
-    vec = 16 // q.element_size()
-    if d % vec:
-        raise ValueError(f"head_dim {d} must be a multiple of {vec}")
+    _check_head(hq // hkv, d, 16 // q.element_size())
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("pools must be contiguous (they are read in place)")
     q = q.contiguous()
-    table = block_table.to(torch.int32).contiguous()
+    table = None if block_table is None else \
+        block_table.to(torch.int32).contiguous()
     lens = kv_len.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     if b == 0:
         return out
+    mb = 1 if table is None else table.shape[1]
+    splits = _splits(b, hkv, mb * bs)
+    part = torch.empty(b * hq * splits * (d + 2), dtype=torch.float32,
+                       device=q.device)
     scale = float(scale) if scale is not None else d ** -0.5
     lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.paged_decode_attention_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            table.data_ptr(), lens.data_ptr(), out.data_ptr(), b, hq, hkv, d,
-            nb, bs, table.shape[1], _tile(hq // hkv, d), scale,
-            DTYPE_CODES[q.dtype], _build.stream_of(q))
+            None if table is None else table.data_ptr(), lens.data_ptr(),
+            part.data_ptr(), out.data_ptr(), b, hq, hkv, d, nb, bs, mb,
+            splits, scale, DTYPE_CODES[q.dtype], _build.stream_of(q))
     _build.check(lib, err, "decode_attention")
     return out
 
@@ -151,10 +169,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if not _build.on_card("decode_attention", q):
         return decode_attention_ref(q, k_cache, v_cache, cache_len,
                                     scale=scale)
-    b = q.shape[0]
-    table = torch.arange(b, dtype=torch.int32, device=q.device)[:, None]
-    lens = cache_len.clamp(max=k_cache.shape[2])
-    out = _launch(q, k_cache, v_cache, table, lens, scale)
+    out = _launch(q, k_cache, v_cache, None, cache_len, scale)
     decode_attention.launches += 1
     return out
 

@@ -30,7 +30,10 @@ Each entry point:
   goes to the plain :func:`repro_torch.kernels.ref.paged_attention_ref`, as
   ``repro.kernels.decode_attention.paged_constraints`` routes it.  Each such
   call is counted in :data:`ROUTED` under its reason string;
-* counts kernel launches on the wrappers (:func:`launch_counts`).
+* counts kernel launches on the wrappers (:func:`launch_counts`), and
+  ``sma_gemm``'s launches per route in ``sma_gemm.routes`` (the kernel
+  that shape, dtype and alignment pick: ``wgmma``, ``splitk``, ``tile``
+  or ``f32``; see :mod:`repro_torch.kernels.sma_gemm`).
 
 The JAX package's backend registry and ladder are not ported.
 """
@@ -76,8 +79,11 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_counts() -> None:
+    """Zero every wrapper's launches, ``sma_gemm.routes`` and
+    :data:`ROUTED`."""
     for fn in WRAPPERS.values():
         fn.launches = 0
+    _gemm.ROUTES.update(dict.fromkeys(_gemm.ROUTES, 0))
     ROUTED.clear()
 
 

@@ -81,6 +81,52 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
+def decode_attention_split_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, cache_len: torch.Tensor,
+                               splits: int, *,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`decode_attention_ref` as the split-KV kernel computes it.
+
+    Positions are cut into ``splits`` ranges of ``ceil(Smax / splits)``;
+    each range gives, per query row, the f32 partial (m, l, acc) of its
+    valid positions (m = -1e30, l = 0 where it has none), and the partials
+    are folded in split order: m = max m_i, l = sum l_i e^(m_i - m),
+    out = sum acc_i e^(m_i - m) / l, 0 where l == 0.
+    """
+    b, hq, d = q.shape
+    hkv, smax = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    q4 = q.reshape(b, hkv, g, d).float() * scale
+    chunk = -(-smax // splits)
+    lens = cache_len.to(torch.int64)[:, None, None]
+    ms, ls, accs = [], [], []
+    for s in range(splits):
+        p0, p1 = s * chunk, min((s + 1) * chunk, smax)
+        k = k_cache[:, :, p0:p1].float()
+        logits = torch.einsum("bhgd,bhkd->bhgk", q4, k)
+        pos = torch.arange(p0, p0 + logits.shape[-1], device=q.device)
+        valid = pos[None, None, None, :] < lens[..., None]
+        logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+        m = logits.amax(-1) if p1 > p0 else torch.full(
+            (b, hkv, g), NEG_INF, device=q.device)
+        m = torch.where(valid.any(-1), m, torch.full_like(m, NEG_INF))
+        p = torch.exp(logits - m[..., None]) * valid
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhgk,bhkd->bhgd", p,
+                                 v_cache[:, :, p0:p1].float()))
+    m = torch.stack(ms).amax(0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(accs[0])
+    for m_i, l_i, acc_i in zip(ms, ls, accs):
+        w = torch.exp(m_i - m)
+        l = l + l_i * w
+        acc = acc + acc_i * w[..., None]
+    out = acc / torch.where(l == 0, torch.ones_like(l), l)[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
 def _gather_pages(pool: torch.Tensor, block_table: torch.Tensor
                   ) -> torch.Tensor:
     """(NB, Hkv, BS, D) pool -> (B, Hkv, MB*BS, D) per-request cache.

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.data.pipeline import DataConfig, DataPipeline
+from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention)
@@ -103,6 +104,70 @@ def test_sma_gemm_unaligned_operands(dev, dtype):
     close(sma_gemm(a, b), ref.gemm_ref(a, b), dt)
 
 
+def _routes_of(fn):
+    """``sma_gemm.routes`` gained by ``fn()``."""
+    before = dict(sma_gemm.routes)
+    fn()
+    return {r: n - before[r] for r, n in sma_gemm.routes.items()
+            if n != before[r]}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("m,k,n", [(65, 72, 136), (200, 2056, 392),
+                                   (8192, 2048, 5632), (129, 40, 8),
+                                   (17, 64, 200)])
+def test_sma_gemm_wgmma_route_ragged(dev, dtype, m, k, n):
+    """TMA + wgmma: ragged M, N and K past the 128 x 128 x 64 tiles (N over
+    several 64-column boxes with a ragged last one), every epilogue with
+    bias."""
+    dt = DTYPES[dtype]
+    a = randn((m, k), dt, dev, 20)
+    b = randn((k, n), dt, dev, 21, scale=k ** -0.5)
+    bias = randn((n,), torch.float32, dev, 22)
+    for ep in ("none", "relu", "gelu", "silu", "tanh"):
+        routes = _routes_of(lambda: close(
+            sma_gemm(a, b, bias=bias, epilogue=ep),
+            ref.gemm_ref(a, b, bias=bias, epilogue=ep), dt))
+        assert routes == {"wgmma": 1}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("k", [64, 2048, 5632])
+@pytest.mark.parametrize("n", [72, 2048])
+def test_sma_gemm_splitk_route(dev, dtype, m, k, n):
+    """Split-K at decode sizes: K slices summed in fixed order, bias and an
+    epilogue after the sum."""
+    dt = DTYPES[dtype]
+    a = randn((m, k), dt, dev, 23)
+    b = randn((k, n), dt, dev, 24, scale=k ** -0.5)
+    bias = randn((n,), torch.float32, dev, 25)
+    for ep in ("none", "silu"):
+        routes = _routes_of(lambda: close(
+            sma_gemm(a, b, bias=bias, epilogue=ep),
+            ref.gemm_ref(a, b, bias=bias, epilogue=ep), dt))
+        assert routes == {"splitk": 1}
+    got = sma_gemm(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sma_gemm(a, b))   # no atomics: bit for bit
+
+
+@pytest.mark.parametrize("dtype,m,k,n,offset,route", [
+    ("float32", 300, 64, 64, 0, "f32"), ("float32", 4, 64, 64, 0, "f32"),
+    ("bfloat16", 37, 70, 50, 0, "tile"), ("bfloat16", 8, 72, 50, 0, "tile"),
+    ("float16", 20, 72, 40, 1, "tile"), ("bfloat16", 16, 64, 64, 0, "splitk"),
+    ("bfloat16", 17, 64, 64, 0, "wgmma")])
+def test_sma_gemm_routes_on_card(dev, dtype, m, k, n, offset, route):
+    """Each route, read from ``sma_gemm.routes``: f32 on the CUDA cores,
+    what TMA cannot take (K or N not a multiple of 8, an offset base) on the
+    tile kernel, split-K at M <= 16, wgmma above."""
+    dt = DTYPES[dtype]
+    a = randn((m, k), dt, dev, 26, offset=offset)
+    b = randn((k, n), dt, dev, 27, scale=k ** -0.5)
+    assert _routes_of(lambda: close(sma_gemm(a, b), ref.gemm_ref(a, b),
+                                    dt)) == {route: 1}
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("m,k,n", [(8, 2048, 1000), (19, 70, 45),
                                    (64, 256, 384)])
@@ -162,6 +227,75 @@ def test_paged_decode_poisons_reads_outside_the_table(dev):
     assert torch.isnan(got[1:]).all()
     close(got[:1], ref.paged_decode_attention_ref(q[:1], kp, vp, table[:1],
                                                   kv_len[:1]), dt)
+
+
+def _split_lens(cap, splits):
+    """0, 1, a split boundary and one either side, fewer positions than
+    splits, into the last split, the full cache."""
+    chunk = -(-cap // splits)
+    return [0, 1, chunk - 1, chunk, chunk + 1, splits - 1,
+            (splits - 1) * chunk + 1, cap]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("hq,hkv,d", [(10, 1, 256), (8, 2, 64),
+                                      (32, 32, 64)])
+def test_split_kv_decode_at_split_lengths(dev, dtype, hq, hkv, d):
+    """Both entries at the lengths where a split can go wrong, against the
+    plain versions and against the split-then-merge reference."""
+    dt = DTYPES[dtype]
+    bs, mb = 16, 32
+    cap = bs * mb
+    lens = _split_lens(cap, kdecode._splits(8, hkv, cap))
+    b = len(lens)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = randn((b, hq, d), dt, dev, 60)
+    kc = randn((b, hkv, cap, d), dt, dev, 61)
+    vc = randn((b, hkv, cap, d), dt, dev, 62)
+    got = decode_attention(q, kc, vc, kv_len)
+    close(got, ref.decode_attention_ref(q, kc, vc, kv_len), dt)
+    close(got, ref.decode_attention_split_ref(
+        q, kc, vc, kv_len, kdecode._splits(b, hkv, cap)), dt)
+    assert got[0].abs().max().item() == 0.0
+    # The same caches as a shuffled paged pool: request r's page p is block
+    # perm[r * mb + p].
+    perm = torch.from_numpy(np.random.default_rng(63).permutation(b * mb))
+    table = perm.reshape(b, mb).to(dev, torch.int32)
+    pool = torch.empty((b * mb, hkv, bs, d), dtype=dt, device=dev)
+    vpool = torch.empty_like(pool)
+    pages = kc.reshape(b, hkv, mb, bs, d).transpose(1, 2)
+    pool[table.long().reshape(-1)] = pages.reshape(b * mb, hkv, bs, d)
+    vpool[table.long().reshape(-1)] = vc.reshape(b, hkv, mb, bs, d) \
+        .transpose(1, 2).reshape(b * mb, hkv, bs, d)
+    paged = paged_decode_attention(q, pool, vpool, table, kv_len)
+    close(paged, ref.paged_decode_attention_ref(q, pool, vpool, table,
+                                                kv_len), dt)
+    close(paged, got, dt)
+
+
+def test_split_kv_decode_poisons_in_any_split(dev):
+    """A sentinel entry below kv_len in the last split (not the first) still
+    makes that request's output NaN after the merge; ragged neighbours are
+    unchanged."""
+    dt = torch.bfloat16
+    bs, mb = 16, 64
+    b, hkv, nb = 4, 2, 4 * 64
+    splits = kdecode._splits(b, hkv, bs * mb)
+    assert splits > 2
+    table = torch.arange(b * mb, dtype=torch.int32, device=dev).reshape(b, mb)
+    table[1, mb - 1] = nb                          # the last page
+    table[2, mb // 2] = -1                         # a middle page
+    kv_len = torch.tensor([300, mb * bs, mb * bs, 17], dtype=torch.int32,
+                          device=dev)
+    q = randn((b, 8, 64), dt, dev, 64)
+    kp = randn((nb, hkv, bs, 64), dt, dev, 65)
+    vp = randn((nb, hkv, bs, 64), dt, dev, 66)
+    got = paged_decode_attention(q, kp, vp, table, kv_len)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[1:3]).all()
+    keep = torch.tensor([0, 3], device=dev)
+    close(got[keep], ref.paged_decode_attention_ref(
+        q[keep], kp, vp, table[keep], kv_len[keep]), dt)
 
 
 def test_serving_steps_on_card_match_cpu(dev):
