@@ -13,8 +13,11 @@
    PyTorch call that computes the same function where there is one
    (``library_ms``, a yardstick the port never calls), and the bound.  The
    flash kernels (forward and backward) are also fed planted faults (a
-   skipped KV tile, the diagonal key dropped, the backward's D term
-   dropped), which their checks must catch.
+   skipped KV tile, the diagonal key dropped, the last visible tile of a
+   diagonal block skipped, the ragged-S mask off by one, the second
+   64-column box of K at D 128 read one row late, the backward's D term
+   dropped, one query tile's dQ dropped), which their checks must catch,
+   and every flash launch must take the ``wgmma`` route.
 4. Serving path: full-width StableLM-2-1.6B (random weights from a seed)
    through ``repro_torch.serving.ServeEngine``, 8 requests with prompts of
    64-512 tokens and 32 new tokens each, greedy.  Checks that every request
@@ -130,7 +133,8 @@ QUEUE_CYCLES = 35_000_000
 FLASH_ATOL, FLASH_RTOL = 4e-3, 2e-2
 # Flash backward vs its plain version (fed the same out and lse): max |err|
 # over a gradient tensor, relative to that tensor's max |plain|.  dq is
-# summed with atomics in no fixed order, so its low bits vary by run.
+# summed by reduce-adds in the L2 in no fixed order, so its low bits vary
+# by run.
 FLASH_GRAD_LIMIT = 2e-2
 # A planted fault must fail the check on every row it moves by more than
 # this many limits (measured on the plain version of the faulty inputs).
@@ -530,11 +534,15 @@ def check_decode(gen, dev):
 # ---------------------------------------------------------------------------
 # Flash attention, forward and backward, at the trainer's shapes
 # ---------------------------------------------------------------------------
-FLASH_CASES = {   # B 4, S 2048, D 64, bf16, causal; Hq/Hkv and window vary
-    "causal": (32, 32, None),
-    "GQA 32/8": (32, 8, None),
-    "window 512": (32, 32, 512),
+FLASH_CASES = {   # B 4, S 2048, bf16, causal; Hq/Hkv, window and D vary
+    "causal": (32, 32, None, 64),
+    "GQA 32/8": (32, 8, None, 64),
+    "window 512": (32, 32, 512, 64),
+    "GQA 32/8 D 128": (32, 8, None, 128),
 }
+# The wgmma kernels' tiles (csrc/flash_attention.cu): 128 query rows and
+# 128 keys a forward block (64 keys at D 256), 64 query rows a backward tile.
+FLASH_BQ, FLASH_TK, FLASH_BWD_BQ = 128, 128, 64
 
 
 def flash_inputs(gen, dev, hq, hkv, seq=TRAIN_SEQ, b=TRAIN_BATCH, d=64):
@@ -566,40 +574,119 @@ def grad_error(got, want) -> float:
             / want.float().abs().max()).item()
 
 
+def fault_caught(name, effect, bad):
+    """A planted forward fault: ``effect`` and ``bad`` are the row limit
+    multiples of the plain version and of the kernel on the faulty inputs.
+    The check must fail every row the fault moves by > FAULT_MARGIN."""
+    must = effect > FAULT_MARGIN
+    n_must, n_caught = int(must.sum()), int((bad[must] > 1).sum())
+    print(f"flash control, {name}: moves {n_must} of {must.numel()} rows by "
+          f"> {FAULT_MARGIN} limits (largest {effect.max().item():.3g}); "
+          f"the check fails {n_caught} of them (min multiple "
+          f"{bad[must].min().item() if n_must else 0:.3g}) and "
+          f"{(bad > 1).float().mean():.3f} of all rows")
+    if n_must == 0 or n_caught < n_must:
+        fail(f"flash control '{name}' passes the check on a row it changes")
+
+
 def flash_controls(q, k, v, dout, out, lse):
-    """Planted faults fed to the kernels, each held against the plain
-    version of the right inputs.  Forward: the 64 newest keys of every
-    query dropped (a skipped KV tile: row i + 64 run with keys 0..i) and
-    the diagonal key dropped (row i + 1 run with keys 0..i).  Each must
-    fail the forward check on every row it moves by more than
-    FAULT_MARGIN limits.  Backward: the D = rowsum(dO * O) term dropped
-    (O fed as zeros) must fail the dq and dk checks."""
+    """Planted faults fed to the kernels at B 4, H 32, S 2048, D 64,
+    causal, each held against the plain version of the right inputs.
+
+    Forward: the 64 newest keys of every query dropped (row i + 64 run with
+    keys 0..i); the diagonal key dropped (row i + 1 run with keys 0..i);
+    the last visible KV tile of a diagonal block skipped (the block's 128
+    rows run with the keys before its diagonal tile, unmasked), for blocks
+    1, 4 and 15; the ragged-S mask off by one (non-causal, Skv 9 and 128,
+    run with one key more).  Each must fail the forward check on every row
+    it moves by more than FAULT_MARGIN limits.  Backward: the D =
+    rowsum(dO * O) term dropped (O fed as zeros) must fail the dq and dk
+    checks; one query tile's dQ dropped (dO of rows 64-127, or 1024-1087,
+    of one head zeroed, which zeroes those rows' dS and so every dQ
+    reduce-add they get) must fail the dq check."""
     want = ref.flash_attention_ref(q, k, v)[0]
     for name, drop in (("KV tile skipped (64 newest keys)", 64),
                        ("diagonal key dropped", 1)):
         args = (q[:, :, drop:], k[:, :, :-drop], v[:, :, :-drop])
-        effect = row_multiples(ref.flash_attention_ref(*args)[0],
-                               want[:, :, drop:])
-        bad = row_multiples(kflash.flash_attention_fwd(*args)[0],
-                            want[:, :, drop:])
-        must = effect > FAULT_MARGIN
-        caught = (bad[must] > 1).float().mean().item() if must.any() else 0
-        print(f"flash control, {name}: moves {must.float().mean():.3f} of "
-              f"the rows by > {FAULT_MARGIN} limits; the check fails "
-              f"{caught:.4f} of them (min multiple "
-              f"{bad[must].min().item() if must.any() else 0:.3g}) and "
-              f"{(bad > 1).float().mean():.3f} of all rows")
-        if not must.any() or caught < 1:
-            fail(f"flash control '{name}' passes the check on a row it "
-                 f"changes")
+        fault_caught(name,
+                     row_multiples(ref.flash_attention_ref(*args)[0],
+                                   want[:, :, drop:]),
+                     row_multiples(kflash.flash_attention_fwd(*args)[0],
+                                   want[:, :, drop:]))
+    for blk in (1, 4, 15):
+        rows = slice(blk * FLASH_BQ, (blk + 1) * FLASH_BQ)
+        keys = slice(0, blk * FLASH_BQ)
+        args = (q[:, :, rows], k[:, :, keys], v[:, :, keys])
+        fault_caught(f"last visible KV tile of diagonal block {blk} "
+                     f"skipped",
+                     row_multiples(ref.flash_attention_ref(
+                         *args, causal=False)[0], want[:, :, rows]),
+                     row_multiples(kflash.flash_attention_fwd(
+                         *args, causal=False)[0], want[:, :, rows]))
+    for skv in (9, FLASH_TK):
+        qs = q[:, :, :256]
+        good = ref.flash_attention_ref(qs, k[:, :, :skv], v[:, :, :skv],
+                                       causal=False)[0]
+        args = (qs, k[:, :, :skv + 1], v[:, :, :skv + 1])
+        fault_caught(f"ragged-S mask off by one (Skv {skv} read as "
+                     f"{skv + 1})",
+                     row_multiples(ref.flash_attention_ref(
+                         *args, causal=False)[0], good),
+                     row_multiples(kflash.flash_attention_fwd(
+                         *args, causal=False)[0], good))
+    wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout)
     bad = kflash.flash_attention_bwd(q, k, v, torch.zeros_like(out), lse,
                                      dout)
-    wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout)
     errs = [grad_error(g, w) for g, w in zip(bad, wants)]
     print(f"flash control, backward D term dropped: dq {errs[0]:.4g}, dk "
-          f"{errs[1]:.4g}, dv {errs[2]:.4g} (limit {FLASH_GRAD_LIMIT})")
+          f"{errs[1]:.4g}, dv {errs[2]:.4g} (limit {FLASH_GRAD_LIMIT}): "
+          f"{errs[0] / FLASH_GRAD_LIMIT:.3g} and "
+          f"{errs[1] / FLASH_GRAD_LIMIT:.3g} limits")
     if min(errs[:2]) <= FLASH_GRAD_LIMIT:
         fail("flash control 'D term dropped' passes the dq or dk check")
+    for tile in (1, 16):
+        rows = slice(tile * FLASH_BWD_BQ, (tile + 1) * FLASH_BWD_BQ)
+        hole = dout.clone()
+        hole[0, 0, rows] = 0
+        dq_bad = kflash.flash_attention_bwd(q, k, v, out, lse, hole)[0]
+        err = grad_error(dq_bad, wants[0])
+        print(f"flash control, dQ of query tile {tile} (rows {rows.start}-"
+              f"{rows.stop - 1}, batch 0, head 0) dropped: dq {err:.4g} = "
+              f"{err / FLASH_GRAD_LIMIT:.3g} limits")
+        if err <= FLASH_GRAD_LIMIT:
+            fail(f"flash control 'dQ of query tile {tile} dropped' passes "
+                 f"the dq check")
+
+
+def flash_box_control(q, k, v, want):
+    """Planted fault at D 128, causal: the second 64-column box of K read
+    one row late (K's columns 64-127 taken from the next key).  It must
+    fail the forward check on every row it moves by more than FAULT_MARGIN
+    limits."""
+    bad_k = k.clone()
+    bad_k[..., :-1, 64:] = k[..., 1:, 64:]
+    fault_caught("second 64-column box of K at D 128 read one row late",
+                 row_multiples(ref.flash_attention_ref(q, bad_k, v)[0],
+                               want),
+                 row_multiples(kflash.flash_attention_fwd(q, bad_k, v)[0],
+                               want))
+
+
+#: The flash routes each path's run launched, filled as the paths run.
+FLASH_ROUTES_BY_PATH = {}
+
+
+def check_flash_routes(where: str, counts: dict) -> dict:
+    """Every flash launch in ``counts`` (``ops.launch_counts`` since the
+    last ``ops.reset_counts``) went the ``wgmma`` route; returns the
+    launches by route."""
+    got = {"flash_attention": nonzero(kflash.FWD_ROUTES),
+           "flash_attention_bwd": nonzero(kflash.BWD_ROUTES)}
+    for name in got:
+        want = {"wgmma": counts[name]} if counts.get(name) else {}
+        if got[name] != want:
+            fail(f"{where}: {name} routes {got[name]}, expected {want}")
+    return got
 
 
 def check_flash(gen, dev):
@@ -608,8 +695,9 @@ def check_flash(gen, dev):
     feeds the planted faults and is timed."""
     dt = torch.bfloat16
     rows = []
-    for case, (hq, hkv, window) in FLASH_CASES.items():
-        q, k, v, dout = flash_inputs(gen, dev, hq, hkv)
+    ops.reset_counts()
+    for case, (hq, hkv, window, d) in FLASH_CASES.items():
+        q, k, v, dout = flash_inputs(gen, dev, hq, hkv, d=d)
         out, lse = kflash.flash_attention_fwd(q, k, v, window=window)
         want, want_lse = ref.flash_attention_ref(q, k, v, window=window)
         mult = row_multiples(out, want)
@@ -637,8 +725,12 @@ def check_flash(gen, dev):
             fail(f"flash forward {case}: lse off by {lse_err:.3g}")
         if max(gerr.values()) > FLASH_GRAD_LIMIT:
             fail(f"flash backward {case}: {gerr} over {FLASH_GRAD_LIMIT}")
+        if d == 128:
+            flash_box_control(q, k, v, want)
         if case != "causal":
             continue
+        routes = check_flash_routes("flash checks", ops.launch_counts())
+        print(f"flash routes of the checks so far: {json.dumps(routes)}")
         flash_controls(q, k, v, dout, out, lse)
         b, _, s, d = q.shape
         pairs = visible_pairs(s, s, window, dev) * b * hq
@@ -1164,6 +1256,7 @@ def run_trainer(cfg, dev):
     if routes != {"wgmma": counts["sma_gemm"]}:
         fail(f"trainer: sma_gemm routes {routes}, expected every launch on "
              f"wgmma")
+    FLASH_ROUTES_BY_PATH["train"] = check_flash_routes("trainer", counts)
     walls = [h["wall_s"] for h in hist]
     steps = [b - a for a, b in zip(walls, walls[1:])]
     step_s = float(np.median(steps))
@@ -1183,7 +1276,8 @@ def run_trainer(cfg, dev):
           f"memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
     print(f"train: launches over {TRAIN_STEPS} steps {json.dumps(counts)}; "
           f"a step {json.dumps(per_step)}; routed {routed}; sma_gemm routes "
-          f"{json.dumps(routes)}")
+          f"{json.dumps(routes)}; flash routes "
+          f"{json.dumps(FLASH_ROUTES_BY_PATH['train'])}")
     return counts, routes, result["params"]
 
 
@@ -1526,6 +1620,8 @@ def serve_recurrent(cfg, params, dev, launches, batch, prompt, new):
     prefill_s = time.perf_counter() - t0
     calls = [("prefill", ops.launch_counts(), dict(ops.ROUTED),
               nonzero(kgemm.ROUTES), logits)]
+    flash_r = check_flash_routes(f"{cfg.name} prefill", calls[0][1])
+    FLASH_ROUTES_BY_PATH[cfg.name] = flash_r
     steps, out_tokens = [], []
     for _ in range(new):
         nxt = logits.argmax(-1, keepdim=True)
@@ -1573,7 +1669,8 @@ def serve_recurrent(cfg, params, dev, launches, batch, prompt, new):
           f"{json.dumps(launches(cfg, 'prefill'))}, a decode step "
           f"{json.dumps(launches(cfg, 'decode'))}, as predicted; nothing "
           f"routed; sma_gemm routes {json.dumps(dict(routes))} (prefill "
-          f"wgmma, decode split-K); row 0 tokens "
+          f"wgmma, decode split-K); the prefill's flash routes "
+          f"{json.dumps(flash_r)}; row 0 tokens "
           f"{toks_out[0, :8].tolist()}")
     return dict(total), dict(routes)
 
@@ -2117,6 +2214,7 @@ def main() -> int:
     print(f"sma_gemm routes by path: " + json.dumps(
         {"serve": serve_routes, "train": train_routes,
          "recurrentgemma": rg_routes, "xlstm": xl_routes}))
+    print(f"flash routes by path: {json.dumps(FLASH_ROUTES_BY_PATH)}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

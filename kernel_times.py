@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
-"""Time ``sma_gemm`` and the decode-attention kernels of one checkout.
+"""Time ``sma_gemm``, the decode-attention and the flash kernels of one
+checkout.
 
     python3 kernel_times.py [--root DIR]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), builds
 its kernels there, and times each entry at the main paths' shapes (the
 ``SERVE_GEMMS`` and ``TRAIN_GEMMS`` of ``chip_smoke.py``, its paged and
-contiguous decode shapes) two ways, over inputs rotated past the 50 MB L2:
+contiguous decode shapes, the flash forward and backward at the training
+shape and the forward at RecurrentGemma's prefill shape) two ways, over
+inputs rotated past the 50 MB L2 where they fit:
 
 * ``device_ms``: the calls queued behind a device-side sleep, so the card
   runs them back to back (the kernel's own time);
 * ``paced_ms``: the same calls without the sleep, as a caller that waits
   on nothing sees them (the host's pace where it is the slower).
 
-Prints the card (``nvidia-smi``) and one JSON line.  To compare two
+Beside each flash row, ``sdpa_ms`` is the device time of PyTorch's
+``scaled_dot_product_attention`` (and its backward) on the same inputs: a
+yardstick, never called by the port.  Prints the card (``nvidia-smi``)
+and one JSON line.  To compare two
 commits on one card, unpack the other into a directory that
 ``.gitignore`` lists and run both in one call, in turns (A B B A).
 Needs a card; imports nothing of JAX.
@@ -45,7 +51,9 @@ def main() -> int:
     import numpy as np
     import torch
     from repro_torch.kernels import _build
+    import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as kdecode
+    from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import sma_gemm as kgemm
     if not torch.cuda.is_available():
         print("kernel_times: needs an NVIDIA card", file=sys.stderr)
@@ -54,7 +62,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
-    _build.build(["sma_gemm", "decode_attention"])
+    _build.build(["sma_gemm", "decode_attention", "flash_attention"])
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -75,10 +83,11 @@ def main() -> int:
 
     rows = []
 
-    def row(name, shape, fn, args_list, iters=20):
+    def row(name, shape, fn, args_list, iters=20, **extra):
         rows.append({"name": name, "shape": shape,
                      "device_ms": timed(fn, args_list, iters, True),
-                     "paced_ms": timed(fn, args_list, iters, False)})
+                     "paced_ms": timed(fn, args_list, iters, False),
+                     **extra})
 
     dt = torch.bfloat16
     for m, k, n in GEMMS:
@@ -125,6 +134,46 @@ def main() -> int:
               for _ in range(8)]
     row("decode_attention", f"B={b} Hq={hq} Hkv=1 D={d} Smax={smax} full",
         kdecode.decode_attention, [(q, kc, vc, full) for kc, vc in caches])
+    del caches
+
+    # Flash: B 4, H 32, S 2048, D 64, causal (training), forward and
+    # backward; B 4, Hq 10, Hkv 1, S 4096, D 256, window 2048 (RecurrentGemma
+    # prefill), forward.
+    def qkv(b_, hq_, hkv_, s_, d_):
+        return [tuple(torch.randn((b_, h_, s_, d_), generator=gen,
+                                  device=dev).to(dt)
+                      for h_ in (hq_, hkv_, hkv_, hq_)) for _ in range(2)]
+
+    sets = qkv(4, 32, 32, 2048, 64)
+    fwd_args = [x[:3] for x in sets]
+    outs = [kflash.flash_attention_fwd(*a) for a in fwd_args]
+    bwd_args = [(*a[:3], o, l, a[3]) for a, (o, l) in zip(sets, outs)]
+    lib_sets = []
+    for q_, k_, v_, do_ in sets:
+        leaves = [t.detach().clone().requires_grad_() for t in (q_, k_, v_)]
+        lib_sets.append((F.scaled_dot_product_attention(
+            *leaves, is_causal=True), leaves, do_))
+    shape = "B=4 H=32 S=2048 D=64 causal"
+    row("flash_attention", shape, kflash.flash_attention_fwd, fwd_args,
+        sdpa_ms=timed(lambda *a: F.scaled_dot_product_attention(
+            *a, is_causal=True), fwd_args, 20, True))
+    row("flash_attention_bwd", shape, kflash.flash_attention_bwd, bwd_args,
+        sdpa_ms=timed(lambda o, lv, do_: torch.autograd.grad(
+            o, lv, do_, retain_graph=True), lib_sets, 20, True))
+    del sets, fwd_args, outs, bwd_args, lib_sets
+    b, hq, s, win = 4, 10, 4096, 2048
+    args = [x[:3] for x in qkv(b, hq, 1, s, 256)]
+    mask = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
+    mask &= ~torch.ones_like(mask).tril(-win)
+
+    def sdpa_mqa(q_, k_, v_):
+        return F.scaled_dot_product_attention(
+            q_, k_.expand(-1, hq, -1, -1), v_.expand(-1, hq, -1, -1),
+            attn_mask=mask)
+
+    row("flash_attention", f"B={b} Hq={hq} Hkv=1 S={s} D=256 window={win}",
+        lambda *a: kflash.flash_attention_fwd(*a, window=win), args, 10,
+        sdpa_ms=timed(sdpa_mqa, args, 5, True))
     print(card)
     print(json.dumps({"root": str(root), "card": card, "rows": rows}))
     return 0

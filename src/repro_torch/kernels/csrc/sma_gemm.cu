@@ -32,14 +32,10 @@
 // * otherwise gemm_tile.cuh: the WMMA kernel for bf16/f16 operands TMA
 //   cannot take, the CUDA-core kernel (no TF32) for f32.
 //
-// The TMA descriptors are encoded on the host for every call with
-// cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint (this
-// library links no libcuda), and passed as __grid_constant__ parameters.
-#include <cuda.h>
-
-#include <type_traits>
-
+// The TMA descriptors are encoded on the host for every call
+// (hopper.cuh's encode) and passed as __grid_constant__ parameters.
 #include "gemm_tile.cuh"
+#include "hopper.cuh"
 
 namespace repro {
 namespace wg {
@@ -50,136 +46,6 @@ constexpr int B_BOX = BK * 64 * 2;    // one TMA box: 64 K rows x 64 columns
 constexpr int STAGE_BYTES = A_BYTES + 2 * B_BOX;
 constexpr int THREADS = 384;  // a producer warpgroup, two consumer ones
 constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Spin until the phase of `bar` with this parity has completed.  A phase
-// that has not completed within 5 s is a fault of the kernel: trap, so the
-// launch fails instead of holding the card forever.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  for (uint32_t spins = 1;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins % 1024 == 0) {
-      uint64_t now;
-      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-      if (t0 == 0)
-        t0 = now;
-      else if (now - t0 > 5000000000ull)
-        __trap();
-    }
-  }
-}
-
-// One 2-D box of `map` at (c0 inner, c1 outer) into shared memory at dst;
-// its bytes count against the transaction count of barrier `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor for a 128-byte-swizzled tile: start
-// address, leading and stride byte offsets (all >> 4), layout type 1.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma instructions.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define REPRO_WGMMA_REGS                                                  \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, "                                     \
-  "%8, %9, %10, %11, %12, %13, %14, %15, "                                \
-  "%16, %17, %18, %19, %20, %21, %22, %23, "                              \
-  "%24, %25, %26, %27, %28, %29, %30, %31, "                              \
-  "%32, %33, %34, %35, %36, %37, %38, %39, "                              \
-  "%40, %41, %42, %43, %44, %45, %46, %47, "                              \
-  "%48, %49, %50, %51, %52, %53, %54, %55, "                              \
-  "%56, %57, %58, %59, %60, %61, %62, %63}, "
-#define REPRO_WGMMA_OUTS                                                  \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),             \
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
-      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
-      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
-      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),    \
-      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),    \
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),    \
-      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),    \
-      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),    \
-      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),    \
-      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-
-// d (64 x 128, f32) += A (64 x 16, K-major) * B (16 x 128, MN-major).
-template <typename T>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_m64n128k16<__nv_bfloat16>(
-    float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REPRO_WGMMA_REGS
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
-      : REPRO_WGMMA_OUTS
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_m64n128k16<__half>(float (&d)[64],
-                                                         uint64_t da,
-                                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " REPRO_WGMMA_REGS
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
-      : REPRO_WGMMA_OUTS
-      : "l"(da), "l"(db), "r"(1));
-}
-
-#undef REPRO_WGMMA_REGS
-#undef REPRO_WGMMA_OUTS
 
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
@@ -217,7 +83,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(smem_u32(&bars[s]), 1);
       mbar_init(smem_u32(&bars[STAGES + s]), 2);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -250,25 +116,25 @@ __global__ void __launch_bounds__(THREADS, 1)
     const uint32_t sa = smem_u32(smem + s * STAGE_BYTES) + c * 64 * 128;
     const uint32_t sb = smem_u32(smem + s * STAGE_BYTES) + A_BYTES;
     fence_acc(d);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       // A, K-major: 8-row groups 1024 bytes apart, 16 K values = 32 bytes
       // further along the swizzled row.  B, MN-major: 8 K rows (1024 bytes)
       // to the next K group, the second 64-column box B_BOX bytes on, 16 K
       // rows = 2048 bytes per step.
-      wgmma_m64n128k16<T>(d, smem_desc(sa + kk * 32, 16, 1024),
-                          smem_desc(sb + kk * 2048, B_BOX, 1024));
+      wgmma_ss<0, 1, T>(d, smem_desc(sa + kk * 32, 16, 1024),
+                        smem_desc(sb + kk * 2048, B_BOX, 1024), 1);
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    wgmma_commit();
     fence_acc(d);
     // The group of the previous k tile has retired: free its stage.
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    wgmma_wait<1>();
     fence_acc(d);
     if (kt > 0 && threadIdx.x % 128 == 0)
       mbar_arrive(smem_u32(&bars[STAGES + (kt - 1) % STAGES]));
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wgmma_wait<0>();
   fence_acc(d);
 
   // Accumulator layout of m64nNk16: warp w of the warpgroup holds rows
@@ -294,47 +160,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A row-major (outer, inner) 16-bit matrix, boxes of (box_outer,
-// box_inner) with 128-byte swizzle, zeros past the edges.
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, bool f16,
-            uint64_t inner, uint64_t outer, uint32_t box_inner,
-            uint32_t box_outer) {
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner * 2};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map,
-            f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-            2, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// box_inner).
+bool encode2d(EncodeTiled fn, CUtensorMap* map, const void* ptr, bool f16,
+              uint64_t inner, uint64_t outer, uint32_t box_inner,
+              uint32_t box_outer) {
+  const uint64_t dims[2] = {inner, outer};
+  const uint32_t box[2] = {box_inner, box_outer};
+  return encode(fn, map, ptr, f16, 2, dims, box);
 }
 
 template <typename T>
@@ -344,8 +177,8 @@ cudaError_t launch(const void* a, const void* b, const float* bias, void* c,
   if (fn == nullptr) return cudaErrorSymbolNotFound;
   constexpr bool f16 = std::is_same<T, __half>::value;
   CUtensorMap ta, tb;
-  if (!encode(fn, &ta, a, f16, K, M, BK, BM) ||
-      !encode(fn, &tb, b, f16, N, K, 64, BK))
+  if (!encode2d(fn, &ta, a, f16, K, M, BK, BM) ||
+      !encode2d(fn, &tb, b, f16, N, K, 64, BK))
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       gemm_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,20 +1,25 @@
 """Flash attention for Hopper, forward and backward (train/prefill path).
 
 Replaces the Pallas kernel ``repro/kernels/flash_attention.py:101``
-(``flash_attention``).  The CUDA kernels (``csrc/flash_attention.cu``) give
-one block 64 query rows of one (batch, head) and loop over the visible KV
-tiles inside the block, with the online softmax in f32 registers and both
-products on the tensor cores (bf16/f16, ``mma.sync``).  KV tiles wholly in
-the future or before the window are skipped, keys past ``Skv`` are masked
-in the kernel, and query head ``h`` reads KV head ``h // group``.  The
-backward (FlashAttention-2) recomputes ``P`` from the forward's ``lse``,
-accumulates dK/dV per KV tile summed over the group, and dQ with f32
-atomics.
+(``flash_attention``).  The CUDA kernels (``csrc/flash_attention.cu``) run
+on ``wgmma`` + TMA with warp specialisation: a block of three warpgroups,
+one producer that keeps TMA loads in flight and two consumers of 64 rows
+each.  The forward gives a block 128 query rows of one (batch, head) and
+loops over the visible KV tiles inside the block, with the online softmax
+in f32 registers; the backward (FlashAttention-2) gives a block 128 keys
+of one (batch, KV head), recomputes ``P`` from the forward's ``lse``,
+sums dK/dV over the group in registers, and adds dQ into an f32 buffer
+with TMA reduce-adds.
+KV tiles wholly in the future or before the window are skipped, keys past
+``Skv`` are masked in the kernel, and query head ``h`` reads KV head
+``h // group``.
 
 Bound on an H100: operations (``4 * D`` flops per visible (query, key)
 pair forward, 2.5x that backward).
 
-Two wrappers, each with its own launch counter:
+Two wrappers, each with its own launch counter and its launches by route
+(``.routes``, zeroed by ``ops.reset_counts``; :func:`_route` picks the
+route statically):
 
 * :func:`flash_attention_fwd` -- ``(out, lse)``; plain version
   :func:`repro_torch.kernels.ref.flash_attention_ref`.
@@ -25,9 +30,8 @@ Two wrappers, each with its own launch counter:
 
 Each runs its plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises.  The kernels take bf16/f16; the forward
-head_dim 64, 128 or 256 (at 256, recurrentgemma's, Q is staged in shared
-memory and KV tiles are 32 keys), the backward 64 or 128.  Anything else
-on the card raises.
+head_dim 64, 128 or 256, the backward 64 or 128.  Anything else on the
+card raises.
 """
 from __future__ import annotations
 
@@ -44,6 +48,8 @@ from repro_torch.kernels.sma_gemm import DTYPE_CODES
 #: head_dims each kernel takes.
 FWD_HEAD_DIMS = (64, 128, 256)
 BWD_HEAD_DIMS = (64, 128)
+#: Shared memory a block can use on an H100 (227 KB).
+SMEM_LIMIT = 232_448
 
 #: q, k, v, out, lse; B, Hq, Hkv, Sq, Skv, D; scale; causal, window,
 #: dtype; stream.
@@ -57,12 +63,41 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
 def _lib() -> ctypes.CDLL:
     return _build.load("flash_attention",
                        {"flash_attention_fwd_launch": _FWD_ARGTYPES,
-                        "flash_attention_bwd_launch": _BWD_ARGTYPES})
+                        "flash_attention_bwd_launch": _BWD_ARGTYPES,
+                        "flash_attention_smem": [ctypes.c_int] * 2})
+
+
+def _route(d: int, dtype: torch.dtype, backward: bool = False) -> str:
+    """The kernel for head_dim ``d``: ``"wgmma"`` (the TMA + wgmma
+    kernels) for every (dtype, head_dim) the wrappers take."""
+    dims = BWD_HEAD_DIMS if backward else FWD_HEAD_DIMS
+    if dtype not in (torch.bfloat16, torch.float16) or d not in dims:
+        raise ValueError(f"no flash route for {dtype}, head_dim {d}")
+    return "wgmma"
+
+
+def smem_bytes(d: int, backward: bool = False) -> int:
+    """Dynamic shared memory of the kernel for head_dim ``d``, as
+    ``csrc/flash_attention.cu`` sizes it (``Fwd<D>::SMEM``,
+    ``Bwd<D>::SMEM``): 64-column boxes of 128-byte rows, 1 KB to align
+    the swizzled tiles, 8 bytes an mbarrier."""
+    boxes = d // 64
+    if backward:  # K, V (128 keys); a ring of (Q, dO of 64 rows, dS^T,
+        #           lse / delta); 2 dQ tiles (64 x d f32); 1 + 3 x stages
+        #           mbarriers
+        stages = 3 if d == 64 else 2
+        return (2 * boxes * 128 * 128
+                + stages * (2 * boxes * 64 * 128 + 128 * 64 * 2 + 2 * 64 * 4)
+                + 2 * 64 * d * 4 + 1024 + 8 * (1 + 3 * stages))
+    tk, stages = (64, 2) if d > 128 else (128, 3)
+    # Q (128 rows); a ring of (K, V of tk keys); 1 + 2 x stages mbarriers
+    return (boxes * 128 * 128 + stages * 2 * boxes * tk * 128 + 1024
+            + 8 * (1 + 2 * stages))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, with a 16-byte aligned start (the kernels copy rows of
-    16 bytes with cp.async)."""
+    """Contiguous, with a 16-byte aligned start (TMA's rule for a tensor
+    map's base)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -114,6 +149,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if out.numel():
+        route = _route(d, q.dtype)
         scale = float(scale) if scale is not None else d ** -0.5
         lib = _lib()
         with torch.cuda.device(q.device):
@@ -121,8 +157,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr(), b, hq, hkv, sq, skv, d, scale, int(causal),
                 win, DTYPE_CODES[q.dtype], _build.stream_of(q))
-        _build.check(lib, err, "flash_attention_fwd")
+        _build.check(lib, err, f"flash_attention_fwd ({route})")
         flash_attention_fwd.launches += 1
+        FWD_ROUTES[route] += 1
     return out, lse
 
 
@@ -159,6 +196,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() and k.numel():
         delta = torch.empty((b, hq, sq), dtype=torch.float32,
                             device=q.device)
+        route = _route(d, q.dtype, backward=True)
         scale = float(scale) if scale is not None else d ** -0.5
         lib = _lib()
         with torch.cuda.device(q.device):
@@ -168,13 +206,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq,
                 skv, d, scale, int(causal), win, DTYPE_CODES[q.dtype],
                 _build.stream_of(q))
-        _build.check(lib, err, "flash_attention_bwd")
+        _build.check(lib, err, f"flash_attention_bwd ({route})")
         flash_attention_bwd.launches += 1
+        BWD_ROUTES[route] += 1
     else:
         dk.zero_()
         dv.zero_()
     return dq.to(q.dtype), dk, dv
 
 
+#: Launches per route (:func:`_route`), read as ``.routes`` on each
+#: wrapper; ``ops.reset_counts`` clears them.  Module dicts, so a stand-in
+#: that takes a wrapper's name (a planted fault) still counts into them.
+FWD_ROUTES = {"wgmma": 0}
+BWD_ROUTES = {"wgmma": 0}
 flash_attention_fwd.launches = 0
+flash_attention_fwd.routes = FWD_ROUTES
 flash_attention_bwd.launches = 0
+flash_attention_bwd.routes = BWD_ROUTES

@@ -79,11 +79,12 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_counts() -> None:
-    """Zero every wrapper's launches, ``sma_gemm.routes`` and
-    :data:`ROUTED`."""
+    """Zero every wrapper's launches, the routes of ``sma_gemm`` and the
+    flash kernels, and :data:`ROUTED`."""
     for fn in WRAPPERS.values():
         fn.launches = 0
-    _gemm.ROUTES.update(dict.fromkeys(_gemm.ROUTES, 0))
+    for routes in (_gemm.ROUTES, _flash.FWD_ROUTES, _flash.BWD_ROUTES):
+        routes.update(dict.fromkeys(routes, 0))
     ROUTED.clear()
 
 

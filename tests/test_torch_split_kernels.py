@@ -2,8 +2,10 @@
 split-KV merge, against the JAX package.
 
 ``sma_gemm`` picks its kernel (``_route``) and split-K's slices
-(``_slices``), and the decode kernels their position ranges (``_splits``),
-in plain Python: those choices are tested here, on the CPU.  The split-KV
+(``_slices``), the decode kernels their position ranges (``_splits``), and
+the flash kernels their route and shared memory (``_route``,
+``smem_bytes``), in plain Python: those choices are tested here, on the
+CPU.  The split-KV
 decode is one partial (m, l, acc) per range, folded in split order;
 ``ref.decode_attention_split_ref`` is that merge in plain PyTorch, held
 against the JAX kernel (``interpret=True``) and the JAX oracle at the
@@ -22,6 +24,7 @@ from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as j_decode
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import decode_attention as kdecode
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import sma_gemm as kgemm
 
 F32_TOL = 2e-4
@@ -230,3 +233,56 @@ def test_routes_count_in_one_dict_that_reset_clears():
     kgemm.ROUTES["wgmma"] += 3
     ops.reset_counts()
     assert set(kgemm.sma_gemm.routes.values()) == {0}
+
+
+# ------------------------------------------------------- flash attention
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d,backward", [(64, False), (128, False),
+                                        (256, False), (64, True),
+                                        (128, True)])
+def test_flash_route_is_wgmma_for_what_the_kernels_take(dtype, d, backward):
+    assert kflash._route(d, dtype, backward) == "wgmma"
+
+
+@pytest.mark.parametrize("dtype,d,backward", [
+    (torch.float32, 64, False), (torch.bfloat16, 32, False),
+    (torch.bfloat16, 192, False), (torch.bfloat16, 256, True),
+    (torch.float16, 512, False)])
+def test_flash_route_refuses_what_the_kernels_do_not_take(dtype, d,
+                                                          backward):
+    with pytest.raises(ValueError, match="no flash route"):
+        kflash._route(d, dtype, backward)
+
+
+@pytest.mark.parametrize("d,backward", [(64, False), (128, False),
+                                        (256, False), (64, True),
+                                        (128, True)])
+def test_flash_shared_memory_fits_a_block(d, backward):
+    """Every (head_dim, direction) the kernels take fits the 227 KB a
+    block may use, with the tiles the kernel's header states."""
+    got = kflash.smem_bytes(d, backward)
+    assert got <= kflash.SMEM_LIMIT
+    kb = 1 << 10
+    if backward:   # K + V, a ring of (Q, dO, dS^T, lse / delta: 3 at
+        #            D 64, 2 at D 128), two dQ tiles, 1 + 3 x stages
+        #            mbarriers
+        kv = {64: 32 * kb, 128: 64 * kb}[d]
+        stages = {64: 3, 128: 2}[d]
+        assert got == (kv + stages * (kv // 2 + 16 * kb + kb // 2)
+                       + 2 * 64 * d * 4 + kb + 8 * (1 + 3 * stages))
+    else:          # Q, a ring of K + V (3 of 128 keys, 2 of 64 at D 256)
+        q = {64: 16 * kb, 128: 32 * kb, 256: 64 * kb}[d]
+        stages, kv = {64: (3, 32 * kb), 128: (3, 64 * kb),
+                      256: (2, 64 * kb)}[d]
+        assert got == q + stages * kv + kb + 8 * (1 + 2 * stages)
+
+
+def test_flash_routes_count_in_dicts_that_reset_clears():
+    from repro_torch.kernels import ops
+    assert kflash.flash_attention_fwd.routes is kflash.FWD_ROUTES
+    assert kflash.flash_attention_bwd.routes is kflash.BWD_ROUTES
+    kflash.FWD_ROUTES["wgmma"] += 2
+    kflash.BWD_ROUTES["wgmma"] += 1
+    ops.reset_counts()
+    assert kflash.FWD_ROUTES == {"wgmma": 0}
+    assert kflash.BWD_ROUTES == {"wgmma": 0}
