@@ -17,7 +17,12 @@
    diagonal block skipped, the ragged-S mask off by one, the second
    64-column box of K at D 128 read one row late, the backward's D term
    dropped, one query tile's dQ dropped), which their checks must catch,
-   and every flash launch must take the ``wgmma`` route.
+   and every flash launch must take the ``wgmma`` route.  The head's
+   ``rmsnorm_gemm`` runs its ``tile`` route at M 1 and 8 and its ``wgmma``
+   route at M 2048 and 8192, the latter timed beside the ``tile`` kernel
+   and ``torch.matmul`` of the pre-normalized x; planted faults on the
+   ``wgmma`` route (one row's r read as 1, the scale one K column late,
+   one K stage skipped) must be caught.
 4. Serving path: full-width StableLM-2-1.6B (random weights from a seed)
    through ``repro_torch.serving.ServeEngine``, 8 requests with prompts of
    64-512 tokens and 32 new tokens each, greedy.  Checks that every request
@@ -44,17 +49,27 @@
    routed; a 3-layer full-width model's prefill and decode logits through
    the kernels against the plain versions, with planted faults; and a
    profile of one prefill and a few decode steps.
-7. xLSTM path: the chunkwise mLSTM kernel against its plain version (h and
-   the final state) at the prefill's shape, at a ragged S and at a small
-   head dim, with planted faults (the state dropped at a chunk boundary,
-   one key dropped, the input gate one step late); then full-width,
+7. xLSTM path: the chunkwise mLSTM kernels against their plain version (h
+   and the final state) at the prefill's shape and at a ragged S (route
+   ``wgmma``) and at a small head dim in f32 (route ``simt``), with
+   planted faults (the state dropped at a chunk boundary, one key dropped,
+   the input gate one step late; inside the ``wgmma`` kernels the lo half
+   of the state update dropped, C_k handed to a chunk's outputs one chunk
+   late, one chunk's S . D row sums dropped, C_k handed as its hi half
+   alone), timed beside the ``simt``
+   kernel on the same inputs; then full-width,
    full-depth xlstm-1.3b (random bf16 weights from a seed) through
    ``lm.prefill`` of 4 x 2,048 tokens and 32 greedy ``lm.decode_step``s,
-   with launch counts as predicted and nothing routed; a 3-layer
+   with launch counts as predicted, nothing routed, every mLSTM launch on
+   ``wgmma`` and every head on ``tile``; a 3-layer
    full-width model's logits through the kernels against the plain
    versions, with planted faults; a profile of one prefill and a few
    decode steps, and the host time of one sLSTM block's step loop.
-8. Prints the kernel table as one JSON line, then the result line
+   Every path checks the routes of ``rmsnorm_gemm`` (the training head on
+   ``wgmma``, decode heads on ``tile``) and ``mlstm_chunkwise``.
+8. Prints the kernel table as one JSON line (the redesigned kernels' rows
+   with their route, the earlier design's time in the same call, and the
+   ``-Xptxas -v`` registers, spills and shared memory), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the JAX package.  Any failed check raises and
@@ -322,7 +337,7 @@ def check_sma_gemm(gen, dev, shapes, tag=""):
               for _ in range(copies(k * n * 2))]
         before = dict(kgemm.ROUTES)
         got = kgemm.sma_gemm(a, ws[0], epilogue=ep)
-        route = routes_since(before)
+        route = kernel_route(kgemm.ROUTES, before, "sma_gemm")
         err = compare(got, ref.gemm_ref(a, ws[0], epilogue=ep),
                       f"sma_gemm M={m} {k}->{n} {ep}")
         args = [(a, w) for w in ws]
@@ -345,12 +360,12 @@ def check_sma_gemm(gen, dev, shapes, tag=""):
     return out
 
 
-def routes_since(before: dict) -> str:
-    """The one ``sma_gemm`` route launched since ``before`` (a copy of
-    ``sma_gemm.routes``)."""
-    moved = {r for r, n in kgemm.ROUTES.items() if n != before[r]}
+def kernel_route(routes: dict, before: dict, what: str) -> str:
+    """The one route of ``routes`` (a wrapper's ``.routes``) launched
+    since ``before`` (a copy of it)."""
+    moved = {r for r, n in routes.items() if n != before[r]}
     if len(moved) != 1:
-        fail(f"sma_gemm: routes {moved} since the last reading, expected one")
+        fail(f"{what}: routes {moved} since the last reading, expected one")
     return moved.pop()
 
 
@@ -397,7 +412,7 @@ def gemm_controls(gen, dev):
         effect = gemm_multiples(ref.gemm_ref(a, bad), want)
         before = dict(kgemm.ROUTES)
         got = gemm_multiples(kgemm.sma_gemm(a, bad), want)
-        if routes_since(before) != route:
+        if kernel_route(kgemm.ROUTES, before, "sma_gemm") != route:
             fail(f"sma_gemm control '{name}' did not take the {route} route")
         must = effect > FAULT_MARGIN
         n_must, n_caught = int(must.sum()), int((got[must] > 1).sum())
@@ -410,15 +425,52 @@ def gemm_controls(gen, dev):
                  f"moves the output")
 
 
+# rmsnorm_gemm at the head's shapes, M tokens: the decode heads (1, 8; the
+# ``tile`` route), a prefill-sized one and the training head (2048, 8192;
+# ``wgmma``).
+NORM_MS = (1, 8, 2048, TRAIN_SEQ * TRAIN_BATCH)
+
+
+def norm_gemm_plain(x, r, scale, w):
+    """The head's plain version with its row inverse RMS ``r`` given:
+    round(x * r * scale) to x's dtype, then the f32 product, rounded
+    (``ref.rmsnorm_gemm_ref``'s arithmetic)."""
+    normed = (x.float() * r[:, None] * scale.float()).to(x.dtype)
+    return torch.matmul(normed.float(), w.float()).to(x.dtype)
+
+
+def ptxas_entries(name: str, part: str) -> dict:
+    """Registers, spills and static shared memory that ``-Xptxas -v``
+    reported for each kernel of ``build/kernels/<name>.ptxas`` whose
+    mangled name holds ``part`` (the name cut before its parameters)."""
+    out, fn = {}, ""
+    log = _build.BUILD_DIR / f"{name}.ptxas"
+    for line in log.read_text().splitlines() if log.exists() else ():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1].split("EEv")[0][:72]
+        elif part in fn and ("registers" in line or "spill" in line):
+            out.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
 def check_rmsnorm_gemm(gen, dev):
+    """rmsnorm_gemm against its plain version at NORM_MS, 2048 -> 100352
+    (the head), each on its route; the wgmma route (M 8192) also timed as
+    the tile kernel on the same inputs, and the product of the
+    pre-normalized x by ``torch.matmul`` (a yardstick of the GEMM alone,
+    never called by the port); planted faults at M 2048."""
     out = []
     dt = torch.bfloat16
     k, n = 2048, lm.padded_vocab(get_config(ARCH))
     w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(dt)
     scale = torch.rand((k,), generator=gen, device=dev) + 0.5
-    for m in (1, 8, TRAIN_SEQ * TRAIN_BATCH):
+    for m in NORM_MS:
         x = (torch.randn((m, k), generator=gen, device=dev) * 3).to(dt)
+        before = dict(knorm.ROUTES)
         got = knorm.rmsnorm_gemm(x, scale, w)
+        route = kernel_route(knorm.ROUTES, before, f"rmsnorm_gemm M={m}")
+        if route != ("tile" if m <= 16 else "wgmma"):
+            fail(f"rmsnorm_gemm M={m} took the {route} route")
         err = compare(got, ref.rmsnorm_gemm_ref(x, scale, w),
                       f"rmsnorm_gemm M={m} {k}->{n}")
         args = [(x, scale, w)]
@@ -426,9 +478,83 @@ def check_rmsnorm_gemm(gen, dev):
         ms = time_ms(knorm.rmsnorm_gemm, args, iters)
         plain_ms = time_ms(ref.rmsnorm_gemm_ref, args, iters)
         b = bound(2 * (m * k + k * n + m * n) + 4 * k, 2 * m * n * k, dt)
-        out.append(entry("rmsnorm_gemm", f"M={m} K={k} N={n} none bf16",
-                         err, ms, plain_ms, b, None))
+        row = entry("rmsnorm_gemm", f"M={m} K={k} N={n} none bf16", err,
+                    ms, plain_ms, b, None)
+        row["kernel_route"] = route
+        if route == "wgmma":
+            r = ref.rms_inverse(x).reshape(m)
+            sc = scale.float()
+            if m == 2048:
+                norm_controls(x, r, sc, w)
+            if m == NORM_MS[-1]:
+                row["earlier_ms"] = time_ms(
+                    lambda *a: knorm._launch(*a, route="tile"),
+                    [(x, r, sc, w)], iters)
+                normed = (x.float() * r[:, None] * sc).to(dt)
+                row["matmul_ms"] = time_ms(torch.matmul, [(normed, w)],
+                                           iters)
+                row["ptxas"] = ptxas_entries("norm_gemm", "gemm_wgmma")
+                row["smem_bytes"] = knorm._lib().norm_gemm_wgmma_smem()
+                del normed
+        out.append(row)
     return out
+
+
+def norm_controls(x, r, scale, w):
+    """Planted faults fed to rmsnorm_gemm's wgmma route (``knorm._launch``
+    with the row inverse RMS given) at M 2048, 2048 -> 100352, each held
+    against the plain version of the right inputs: one row's r read as 1
+    (row 77), the scale read one K column late (column k scaled by
+    scale[k - 1]), one K stage skipped (W's rows 1024-1087, the 17th
+    64-deep stage, zeroed).  Each must fail the GEMM check on every element
+    it moves by more than FAULT_MARGIN limits (measured on the plain
+    version of the faulty inputs)."""
+    want = norm_gemm_plain(x, r, scale, w)
+    r_one = r.clone()
+    r_one[77] = 1.0
+    w_skip = w.clone()
+    w_skip[1024:1088] = 0
+    faults = {"one row's r read as 1 (row 77)": (r_one, scale, w),
+              "the scale read one K column late": (
+                  r, torch.cat([scale[:1], scale[:-1]]), w),
+              "one K stage skipped (W rows 1024-1087)": (r, scale, w_skip)}
+    for name, (rr, ss, ww) in faults.items():
+        effect = gemm_multiples(norm_gemm_plain(x, rr, ss, ww), want)
+        got, route = knorm._launch(x, rr, ss, ww)
+        if route != "wgmma":
+            fail(f"rmsnorm_gemm control '{name}' took the {route} route")
+        bad = gemm_multiples(got, want)
+        must = effect > FAULT_MARGIN
+        n_must, n_caught = int(must.sum()), int((bad[must] > 1).sum())
+        print(f"rmsnorm_gemm control, {name}: moves {n_must} of "
+              f"{must.numel()} elements by > {FAULT_MARGIN} limits; the "
+              f"check fails {n_caught} of them (min multiple "
+              f"{bad[must].min().item() if n_must else 0:.3g})")
+        if n_must == 0 or n_caught < n_must:
+            fail(f"rmsnorm_gemm control '{name}' passes the check where it "
+                 f"moves the output")
+        del effect, got, bad, must
+    del want, w_skip
+
+
+#: rmsnorm_gemm's and mlstm_chunkwise's routes each path's run launched,
+#: filled as the paths run.
+ROUTES_BY_PATH = {}
+
+
+def check_kernel_routes(where: str, counts: dict, norm: str,
+                        mlstm: str = "wgmma") -> dict:
+    """Every rmsnorm_gemm launch in ``counts`` (``ops.launch_counts``
+    since the last ``ops.reset_counts``) went the ``norm`` route and every
+    mlstm_chunkwise launch the ``mlstm`` route; returns the launches by
+    route."""
+    got = {"rmsnorm_gemm": nonzero(knorm.ROUTES),
+           "mlstm_chunkwise": nonzero(kmlstm.ROUTES)}
+    for name, route in (("rmsnorm_gemm", norm), ("mlstm_chunkwise", mlstm)):
+        want = {route: counts[name]} if counts.get(name) else {}
+        if got[name] != want:
+            fail(f"{where}: {name} routes {got[name]}, expected {want}")
+    return got
 
 
 KV_LENS = (0, 1, 17, 100, 256, 511, 777, 1024)
@@ -797,6 +923,7 @@ def serve(cfg, params, dev):
     wall = time.perf_counter() - t0
     counts, routed = ops.launch_counts(), dict(ops.ROUTED)
     routes = dict(kgemm.ROUTES)
+    ROUTES_BY_PATH["serve"] = check_kernel_routes("serve", counts, "tile")
 
     for r in reqs:
         if r.status != "done" or len(r.out_tokens) != 32:
@@ -1181,6 +1308,7 @@ def check_train_step(cfg, dev, layers: int = 4):
     ops.reset_counts()
     got = run()
     counts = ops.launch_counts()
+    check_kernel_routes("train step", counts, "wgmma")
     rel = errors(got)
     limits = {k: STEP_LIMITS.get(k, STEP_LIMITS["grad"]) for k in rel}
     picks = ("blocks.0.mixer.wq[0]", f"blocks.0.ffn.wo[{layers - 1}]",
@@ -1257,6 +1385,8 @@ def run_trainer(cfg, dev):
         fail(f"trainer: sma_gemm routes {routes}, expected every launch on "
              f"wgmma")
     FLASH_ROUTES_BY_PATH["train"] = check_flash_routes("trainer", counts)
+    ROUTES_BY_PATH["train"] = check_kernel_routes("trainer", counts,
+                                                  "wgmma")
     walls = [h["wall_s"] for h in hist]
     steps = [b - a for a, b in zip(walls, walls[1:])]
     step_s = float(np.median(steps))
@@ -1622,6 +1752,11 @@ def serve_recurrent(cfg, params, dev, launches, batch, prompt, new):
               nonzero(kgemm.ROUTES), logits)]
     flash_r = check_flash_routes(f"{cfg.name} prefill", calls[0][1])
     FLASH_ROUTES_BY_PATH[cfg.name] = flash_r
+    # The heads (M = batch) on the tile kernel, every mLSTM on wgmma.
+    kernel_routes = collections.defaultdict(collections.Counter)
+    for name, got in check_kernel_routes(f"{cfg.name} prefill", calls[0][1],
+                                         "tile").items():
+        kernel_routes[name].update(got)
     steps, out_tokens = [], []
     for _ in range(new):
         nxt = logits.argmax(-1, keepdim=True)
@@ -1634,6 +1769,10 @@ def serve_recurrent(cfg, params, dev, launches, batch, prompt, new):
         steps.append(time.perf_counter() - t)
         calls.append(("decode", ops.launch_counts(), dict(ops.ROUTED),
                       nonzero(kgemm.ROUTES), logits))
+        for name, got in check_kernel_routes(
+                f"{cfg.name} decode", calls[-1][1], "tile").items():
+            kernel_routes[name].update(got)
+    ROUTES_BY_PATH[cfg.name] = {k: dict(v) for k, v in kernel_routes.items()}
     peak = torch.cuda.max_memory_allocated()
     vpad = lm.padded_vocab(cfg)
     routes = collections.Counter()
@@ -1670,7 +1809,8 @@ def serve_recurrent(cfg, params, dev, launches, batch, prompt, new):
           f"{json.dumps(launches(cfg, 'decode'))}, as predicted; nothing "
           f"routed; sma_gemm routes {json.dumps(dict(routes))} (prefill "
           f"wgmma, decode split-K); the prefill's flash routes "
-          f"{json.dumps(flash_r)}; row 0 tokens "
+          f"{json.dumps(flash_r)}; rmsnorm_gemm and mlstm_chunkwise routes "
+          f"{json.dumps(ROUTES_BY_PATH[cfg.name])}; row 0 tokens "
           f"{toks_out[0, :8].tolist()}")
     return dict(total), dict(routes)
 
@@ -1919,35 +2059,99 @@ def mlstm_controls(ins, chunk, want, want_state):
         del effect_h, bad_h, bad_state, effect, bad, must
 
 
+def mlstm_plant_controls(ins, chunk, want, want_state):
+    """Planted faults inside the wgmma kernels (``kmlstm._run`` with a
+    ``ref.PLANT_*`` mask), each held against the plain version of the
+    right inputs: the lo half of the state update dropped must fail the
+    state check; C_k handed to the outputs of chunk nc // 2 one chunk late,
+    and that chunk's S . D row sums dropped, must fail the h check on
+    every element they move by more than FAULT_MARGIN limits (measured on
+    ``ref.mlstm_chunkwise_two_pass_ref`` with the same fault).  C_k handed
+    to the outputs as its hi half alone (what would halve the hand-off's
+    bytes) must fail the h check: a design question more than a fault, and
+    its effect is rounding-sensitive where a row's denominator cancels, so
+    it is held as a whole, with its count printed."""
+    q, k, v, lf, li = ins
+    s = q.shape[2]
+    L = min(chunk, s)
+    cf = -(-s // L) // 2
+    faults = {"lo half of the state update dropped": ref.PLANT_LO,
+              f"C_k handed to chunk {cf}'s outputs one chunk late":
+                  ref.PLANT_LATE,
+              f"chunk {cf}'s S . D row sums dropped": ref.PLANT_ROWSUM,
+              "C_k handed to the outputs as its hi half alone":
+                  ref.PLANT_CK_HI}
+    for name, plant in faults.items():
+        bad_h, *bad_state = kmlstm._run(q, k, v, lf.float(), li.float(), L,
+                                        "wgmma", plant=plant)
+        st = state_errors(bad_state, want_state)
+        bad = mlstm_multiples(bad_h, want)
+        if plant == ref.PLANT_LO:
+            print(f"mlstm control, {name}: state C, n, m off by "
+                  f"{[float(f'{x:.3g}') for x in st]} of max |plain| "
+                  f"({st[0] / MLSTM_STATE_LIMIT:.3g} limits); h max limit "
+                  f"multiple {bad.max().item():.3g}")
+            if st[0] <= MLSTM_STATE_LIMIT:
+                fail(f"mlstm control '{name}' passes the state check")
+            continue
+        if plant == ref.PLANT_CK_HI:
+            over = int((bad > 1).sum())
+            print(f"mlstm control, {name}: the h check fails {over} of "
+                  f"{bad.numel()} elements (max limit multiple "
+                  f"{bad.max().item():.3g})")
+            if over == 0:
+                fail(f"mlstm control '{name}' passes the h check")
+            continue
+        effect = mlstm_multiples(ref.mlstm_chunkwise_two_pass_ref(
+            *ins, chunk=chunk, plant=plant), want)
+        must = effect > FAULT_MARGIN
+        n_must, n_caught = int(must.sum()), int((bad[must] > 1).sum())
+        print(f"mlstm control, {name}: moves {n_must} of {must.numel()} h "
+              f"elements by > {FAULT_MARGIN} limits; the check fails "
+              f"{n_caught} of them (min multiple "
+              f"{bad[must].min().item() if n_must else 0:.3g})")
+        if n_must == 0 or n_caught < n_must:
+            fail(f"mlstm control '{name}' passes the check where it moves "
+                 f"the output")
+        del effect, must
+    del bad_h, bad_state, bad
+
+
 def check_mlstm(gen, dev):
-    """The chunkwise mLSTM kernel against its plain version, h and the
+    """The chunkwise mLSTM kernels against their plain version, h and the
     final (C, n, m): at the prefill's shape (B 4, H 4, S 2048, D 1024,
-    chunk 128, bf16), at a ragged S 2000, and at a small head dim (B 2,
-    H 4, S 1000, D 64, f32); the planted faults on the first; the first
-    timed, with its bound."""
+    chunk 128, bf16) and at a ragged S 2000 on the wgmma route, and at a
+    small head dim (B 2, H 4, S 1000, D 64, f32) on the simt route; the
+    planted faults on the first, which is timed with its bound, beside the
+    simt kernel on the same inputs (the earlier design)."""
     rows = []
     chunk = MLSTM_CHUNK
     for i, (b, h, s, d, dt) in enumerate(MLSTM_CASES):
         ins = mlstm_inputs(gen, dev, b, h, s, d, dt)
+        before = dict(kmlstm.ROUTES)
         got, state = kmlstm.mlstm_chunkwise(*ins, chunk=chunk,
                                             return_state=True)
+        route = kernel_route(kmlstm.ROUTES, before, "mlstm_chunkwise")
         want, want_state = ref.mlstm_chunkwise_ref(*ins, chunk=chunk,
                                                    return_state=True)
         mult = mlstm_multiples(got, want).max().item()
         err = (got.float() - want.float()).abs().max().item()
         st = state_errors(state, want_state)
         shape = f"B={b} H={h} S={s} D={d} chunk={chunk} {str(dt)[6:]}"
-        print(f"mlstm {shape}: h max |err| {err:.4g} (max limit multiple "
-              f"{mult:.3g} of {MLSTM_TOL[dt][0]} + "
+        print(f"mlstm {shape} ({route}): h max |err| {err:.4g} (max limit "
+              f"multiple {mult:.3g} of {MLSTM_TOL[dt][0]} + "
               f"{MLSTM_TOL[dt][1]:.4g}|plain|); "
               f"state C, n, m off by {[float(f'{x:.3g}') for x in st]} of "
               f"max |plain| (limit {MLSTM_STATE_LIMIT})")
+        if route != ("simt" if dt == torch.float32 else "wgmma"):
+            fail(f"mlstm_chunkwise {shape} took the {route} route")
         if not torch.isfinite(got.float()).all() or mult > 1 \
                 or max(st) > MLSTM_STATE_LIMIT:
             fail(f"mlstm_chunkwise {shape}: kernel disagrees with its plain "
                  f"version")
         if i == 0:
             mlstm_controls(ins, chunk, want, want_state)
+            mlstm_plant_controls(ins, chunk, want, want_state)
             q = ins[0]
             nbytes = (4 * q.numel() * q.element_size() + 2 * 4 * b * h * s
                       + 4 * b * h * (d * d + d + 1))
@@ -1956,14 +2160,27 @@ def check_mlstm(gen, dev):
                 return kmlstm.mlstm_chunkwise(*a, chunk=chunk,
                                               return_state=True)
 
+            def simt(q_, k_, v_, lf_, li_):
+                return kmlstm._run(q_, k_, v_, lf_, li_, chunk, "simt")
+
             def plain(*a):
                 return ref.mlstm_chunkwise_ref(*a, chunk=chunk,
                                                return_state=True)
 
-            rows.append(entry(
-                "mlstm_chunkwise", shape + " with state", err,
-                time_ms(run, [ins], 10), time_ms(plain, [ins], 3),
-                bound(nbytes, mlstm_flops(b, h, s, d, chunk), dt), None))
+            row = entry("mlstm_chunkwise", shape + " with state", err,
+                        time_ms(run, [ins], 10), time_ms(plain, [ins], 3),
+                        bound(nbytes, mlstm_flops(b, h, s, d, chunk), dt),
+                        None)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            run(*ins)
+            row.update(kernel_route=route,
+                       earlier_ms=time_ms(simt, [ins], 3),
+                       scratch_peak_bytes=torch.cuda.max_memory_allocated()
+                       - base,
+                       ptxas=ptxas_entries("mlstm_chunkwise", "mlstm_wg"),
+                       smem_bytes=kmlstm.wgmma_smem())
+            rows.append(row)
         del ins, got, state, want, want_state
         torch.cuda.empty_cache()
     return rows
@@ -2091,16 +2308,8 @@ def main() -> int:
     print(f"build: {built} in {time.perf_counter() - t0:.1f} s "
           f"into {_build.BUILD_DIR.relative_to(ROOT)}")
     for name in _build.SOURCES:
-        log = _build.BUILD_DIR / f"{name}.ptxas"
-        entry_fn = ""
-        for line in log.read_text().splitlines() if log.exists() else ():
-            if "Compiling entry function" in line:
-                # the mangled name, cut before its parameter list
-                entry_fn = line.split("'")[1].split("EEv")[0][:72]
-            spills = "spill" in line and "0 bytes spill stores" not in line
-            if "registers" in line or spills:
-                print(f"ptxas {name} {entry_fn}: "
-                      f"{line.split(':', 1)[-1].strip()}")
+        for fn, report in ptxas_entries(name, "").items():
+            print(f"ptxas {name} {fn}: {report}")
 
     phases = {"build": time.perf_counter() - t0}
 
@@ -2126,13 +2335,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += phase("mlstm kernel checks", check_mlstm, gen, dev)
     for row in rows:
-        route = f" {row['gemm_route']}" if "gemm_route" in row else ""
-        paced = (f" (host-paced {row['paced_ms']:.4f})"
-                 if "paced_ms" in row else "")
+        route = row.get("gemm_route", row.get("kernel_route"))
+        route = f" {route}" if route else ""
+        extra = "".join(
+            f", {key} {row[key]:.4f}" for key in ("paced_ms", "earlier_ms",
+                                                  "matmul_ms") if key in row)
         print(f"kernel {row['name']}{route} [{row['shape']}]: max|err| "
-              f"{row['max_abs_err']:.3g}, {row['ms']:.4f} ms{paced}, plain "
+              f"{row['max_abs_err']:.3g}, {row['ms']:.4f} ms{extra}, plain "
               f"{row['plain_ms']:.4f} ms, library {row['library_ms']}, "
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        for fn, report in row.get("ptxas", {}).items():
+            print(f"  ptxas {fn}: {report}")
+        if "smem_bytes" in row:
+            print(f"  dynamic shared memory {json.dumps(row['smem_bytes'])} "
+                  f"bytes" + (f"; scratch and outputs of one call "
+                              f"{row['scratch_peak_bytes'] / 2**30:.3f} GiB"
+                              if "scratch_peak_bytes" in row else ""))
     torch.cuda.empty_cache()
 
     # The serving path, without autograd.
@@ -2215,6 +2433,8 @@ def main() -> int:
         {"serve": serve_routes, "train": train_routes,
          "recurrentgemma": rg_routes, "xlstm": xl_routes}))
     print(f"flash routes by path: {json.dumps(FLASH_ROUTES_BY_PATH)}")
+    print(f"rmsnorm_gemm and mlstm_chunkwise routes by path: "
+          f"{json.dumps(ROUTES_BY_PATH)}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time ``sma_gemm``, the decode-attention and the flash kernels of one
-checkout.
+"""Time ``sma_gemm``, the decode-attention, the flash, the ``rmsnorm_gemm``
+and the ``mlstm_chunkwise`` kernels of one checkout.
 
     python3 kernel_times.py [--root DIR]
 
@@ -8,8 +8,10 @@ Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), builds
 its kernels there, and times each entry at the main paths' shapes (the
 ``SERVE_GEMMS`` and ``TRAIN_GEMMS`` of ``chip_smoke.py``, its paged and
 contiguous decode shapes, the flash forward and backward at the training
-shape and the forward at RecurrentGemma's prefill shape) two ways, over
-inputs rotated past the 50 MB L2 where they fit:
+shape and the forward at RecurrentGemma's prefill shape, the head's
+``rmsnorm_gemm`` at decode (M 8) and training (M 8192) sizes, the chunkwise
+mLSTM at xLSTM's prefill shape with its state) two ways, over inputs
+rotated past the 50 MB L2 where they fit:
 
 * ``device_ms``: the calls queued behind a device-side sleep, so the card
   runs them back to back (the kernel's own time);
@@ -17,8 +19,11 @@ inputs rotated past the 50 MB L2 where they fit:
   on nothing sees them (the host's pace where it is the slower).
 
 Beside each flash row, ``sdpa_ms`` is the device time of PyTorch's
-``scaled_dot_product_attention`` (and its backward) on the same inputs: a
-yardstick, never called by the port.  Prints the card (``nvidia-smi``)
+``scaled_dot_product_attention`` (and its backward) on the same inputs, and
+beside the M 8192 head ``matmul_ms`` is ``torch.matmul`` of the
+pre-normalized x by the head (the GEMM alone): yardsticks, never called by
+the port.  Only the public wrappers are called, so an older checkout's
+kernels are timed the same way.  Prints the card (``nvidia-smi``)
 and one JSON line.  To compare two
 commits on one card, unpack the other into a directory that
 ``.gitignore`` lists and run both in one call, in turns (A B B A).
@@ -54,6 +59,9 @@ def main() -> int:
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as kdecode
     from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import mlstm as kmlstm
+    from repro_torch.kernels import norm_gemm as knorm
+    from repro_torch.kernels import ref
     from repro_torch.kernels import sma_gemm as kgemm
     if not torch.cuda.is_available():
         print("kernel_times: needs an NVIDIA card", file=sys.stderr)
@@ -62,7 +70,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
-    _build.build(["sma_gemm", "decode_attention", "flash_attention"])
+    _build.build(["sma_gemm", "decode_attention", "flash_attention",
+                  "norm_gemm", "mlstm_chunkwise"])
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -174,8 +183,44 @@ def main() -> int:
     row("flash_attention", f"B={b} Hq={hq} Hkv=1 S={s} D=256 window={win}",
         lambda *a: kflash.flash_attention_fwd(*a, window=win), args, 10,
         sdpa_ms=timed(sdpa_mqa, args, 5, True))
+    del args
+
+    # The head: final_norm -> head, 2048 -> 100352 (StableLM's padded
+    # vocab), at a decode tick (M 8) and the training step (M 8192).
+    k, n = 2048, 100352
+    w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(dt)
+    scale = torch.rand((k,), generator=gen, device=dev) + 0.5
+    for m in (8, 8192):
+        x = (torch.randn((m, k), generator=gen, device=dev) * 3).to(dt)
+        extra = {}
+        if m > 16:
+            normed = (x.float() * ref.rms_inverse(x) * scale).to(dt)
+            extra["matmul_ms"] = timed(torch.matmul, [(normed, w)], 3, True)
+        row("rmsnorm_gemm", f"M={m} K={k} N={n}", knorm.rmsnorm_gemm,
+            [(x, scale, w)], 20 if m <= 16 else 3, **extra)
+        del x
+    del w
+
+    # The chunkwise mLSTM at xlstm-1.3b's prefill shape, with its state.
+    b, h, s, d = 4, 4, 2048, 1024
+    q, k_, v = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dt)
+                for _ in range(3))
+    lf = F.logsigmoid(0.5 * torch.randn((b, h, s), generator=gen,
+                                        device=dev)
+                      + torch.linspace(3.0, 6.0, h, device=dev)[None, :,
+                                                                 None])
+    li = 0.5 * torch.randn((b, h, s), generator=gen, device=dev)
+    row("mlstm_chunkwise", f"B={b} H={h} S={s} D={d} chunk=128 with state",
+        lambda *a: kmlstm.mlstm_chunkwise(*a, chunk=128, return_state=True),
+        [(q, k_, v, lf, li)], 10)
+    # The launches of each route over the whole run, where the checkout
+    # counts them.
+    routes = {fn.__name__: dict(fn.routes)
+              for fn in (kgemm.sma_gemm, knorm.rmsnorm_gemm,
+                         kmlstm.mlstm_chunkwise) if hasattr(fn, "routes")}
     print(card)
-    print(json.dumps({"root": str(root), "card": card, "rows": rows}))
+    print(json.dumps({"root": str(root), "card": card, "routes": routes,
+                      "rows": rows}))
     return 0
 
 

@@ -1,7 +1,7 @@
-// Hopper machinery shared by the port's wgmma + TMA kernels (sma_gemm.cu,
-// flash_attention.cu): mbarriers, TMA loads and tensor maps, wgmma
-// shared-memory descriptors and the wgmma instructions themselves,
-// register hand-over between warpgroups.  Needs sm_90a.
+// Hopper machinery shared by the port's wgmma + TMA kernels (gemm_wgmma.cuh,
+// flash_attention.cu, mlstm_chunkwise.cu): mbarriers, TMA loads, stores and
+// tensor maps, wgmma shared-memory descriptors and the wgmma instructions
+// themselves, register hand-over between warpgroups.  Needs sm_90a.
 //
 // Conventions.  Every tile that wgmma reads is a 128-byte-swizzled TMA box
 // of 64 16-bit columns (128 bytes a row), so 8 rows make one 1024-byte
@@ -103,6 +103,27 @@ __device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map,
                                                int c2) {
   asm volatile(
       "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// Store a 2-D box of shared memory at src into `map`'s tensor at (c0, c1)
+// (the part of the box inside the tensor); tracked by this thread's bulk
+// groups.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+// The same for a 3-D map.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
       " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2)
       : "memory");

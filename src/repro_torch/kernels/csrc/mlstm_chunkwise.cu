@@ -18,48 +18,66 @@
 // the reference's padding, so they change neither h nor the state: the
 // state written is the state after S steps.
 //
-// Grid.  The TPU kernel keeps C (D x D f32) in VMEM across a sequential
-// chunk axis; at xLSTM's head dim D = 1024 that is 4 MB per (batch, head),
-// and a block here has at most 227 KB of shared memory.  So C is split by
-// value columns: one block owns E = 128 columns of one (batch, head) and
-// walks the chunks in order.  h[:, e] needs only C[:, e] and v[:, e], so the
-// column tiles are independent.  The block's C tile (D x 128 f32, 512 KB at
-// D = 1024) lives in the f32 state tensor the wrapper allocates: the block
-// reads it and writes it once a chunk (at B 4, H 4 the whole C is 64 MB,
-// near the 50 MB L2).  What every column block of a (batch, head) needs
-// over the full D -- S = q k^T, its decayed row sums and q.n0 -- each block
-// computes itself: S is recomputed D / E = 8 times, which makes the
-// kernel's operations 1.5x the function's (as the bound below counts it) at
-// the xLSTM shape (per chunk and block, 2 L^2 D for S against 2 L D E +
-// 2 L^2 E + 2 D L E for the rest);
-// a state-independent pre-pass could remove it at the cost of writing the
-// (L x L) decay-masked S of every chunk to memory.  n (D f32) and m are the
-// same in every column block; each keeps its own copy (n in shared memory,
-// m in a register of thread 0) and column block 0 writes them out.
+// Two routes (the wrapper picks one, kernels/mlstm.py `_route`):
 //
-// Per chunk:
-//   1. the gate scan (cumsum, cummax, stabilizer, decays), serially by one
-//      thread from shared memory (L <= 128 steps);
-//   2. one loop over D in 32-deep slices: S = q k^T (L x L) and q C0 (L x E)
-//      accumulated in registers (8 x 8 of each a thread), q.n0 beside them;
-//   3. S scaled and decay-masked (causal), stored transposed in shared
-//      memory with its row sums; v's column tile (L x E) loaded;
-//   4. h = (decay0 * q C0 + (S . D) v) / den, stored in q's dtype;
-//   5. C and n updated in 64-row tiles of D: C += (w k)^T v with w = exp(a -
-//      g_L), each tile of k scaled by w in shared memory.
-// All arithmetic is f32 on the CUDA cores (the TPU kernel's f32 dots),
-// register-tiled 8 x 8 a thread from shared memory.
+// Route simt (f32, and what route wgmma does not take).  The TPU kernel
+// keeps C (D x D f32) in VMEM across a sequential chunk axis; at xLSTM's
+// head dim D = 1024 that is 4 MB per (batch, head), and a block here has at
+// most 227 KB of shared memory.  So C is split by value columns: one block
+// owns E = 128 columns of one (batch, head) and walks the chunks in order.
+// h[:, e] needs only C[:, e] and v[:, e], so the column tiles are
+// independent.  The block's C tile (D x 128 f32) lives in the f32 state
+// tensor the wrapper allocates: the block reads it and writes it once a
+// chunk.  What every column block of a (batch, head) needs over the full D
+// -- S = q k^T, its decayed row sums and q.n0 -- each block computes
+// itself.  n (D f32) and m are the same in every column block; each keeps
+// its own copy and column block 0 writes them out.  Per chunk: the gate
+// scan by one thread; S = q k^T and q C0 over D in 32-deep slices; S . D
+// into shared memory with its row sums; h = (decay0 q C0 + (S . D) v) /
+// den; C and n updated 64 rows of D at a time.  All arithmetic is f32 on
+// the CUDA cores, register-tiled 8 x 8 a thread.
+//
+// Route wgmma (bf16/f16 q, k, v, D % 64 == 0, chunks of 128 steps,
+// 16-byte-aligned bases): the work split by what depends on the state.
+// The stabilizer chain (b, a, g, m and every chunk's m0) depends only on
+// the gates, S . D only on q, k and the gates; only C and n carry state.
+//   gates_kernel   one block a (batch, head): each chunk's cumsum and
+//                  cummax as warp shuffle scans, the m0 chain over the
+//                  chunks by one thread, then per step g, decay0, minv and
+//                  w = exp(a - g_L), per chunk exp(m0 - g_L); the final m.
+//   intra_kernel   one block a (batch * head, chunk): S = q k^T once, on
+//                  wgmma from TMA'd q and k; S . D in registers; its f32
+//                  row sums and S . D in hi + lo halves to a scratch.
+//   state_kernel   one block a (128 x 128 tile of C, batch * head): the
+//                  tile is the f32 wgmma accumulator for the whole walk
+//                  over the chunks; each chunk it is handed to the output
+//                  pass as C_k (hi + lo, TMA stores), scaled by exp(m0 -
+//                  g_L), and C += (w k)^T v, A MN-major from k's TMA'd
+//                  boxes rewritten as hi / lo of w k; n beside it in f32.
+//   output_kernel  one block a (128 value columns, chunk, batch * head):
+//                  h = (decay0 q C_k + (S . D) v) / den on wgmma, q . n_k
+//                  on the CUDA cores.
+// Precision: in every product one side is exact in the 16-bit type (q, k
+// or v) and the other (w k, S . D, C_k) is f32; that side is split into
+// hi = round(x) and lo = round(x - hi) and the product made as two wgmma
+// into one f32 accumulator, which keeps ~16 mantissa bits (the state is
+// held to 1e-5 of its largest entry; TF32's 10 bits, or hi alone, miss
+// it).  The decay of C is applied to the f32 accumulator itself.  Scratch
+// comes from the wrapper; the largest is C_k of every chunk but the first,
+// in hi + lo: B*H*(S/128 - 1)*D^2*4 bytes (1.0 GB at the xLSTM prefill
+// shape), written once and read once.
 //
 // What bounds it on an H100: operations.  At the xLSTM prefill shape (B 4,
 // H 4, S 2048, D 1024, chunk 128) the function is 141.8 GFLOP, counting the
 // causal (query, key) pairs only and no q C0 on the first chunk (0.143 ms at
 // the 989 TFLOP/s of bf16 tensor cores; 2.1 ms at the 67 TFLOP/s of f32 on
-// CUDA cores), and moves 333 MB (0.099 ms).  This first version runs on the
-// CUDA cores, in f32, with the redundant S above; the tensor cores
-// (mma.sync or wgmma, the state kept f32) are the redesign.
+// CUDA cores), and moves 333 MB (0.099 ms).  Route simt, on the CUDA cores
+// with S recomputed by each of the D / 128 column blocks, took 10.3 ms;
+// route wgmma does twice the function's products (the hi / lo halves)
+// on the tensor cores plus ~2 GB of C_k traffic (~0.6 ms of bytes).
 #include <math.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro {
 namespace mlstm {
@@ -382,6 +400,795 @@ int launch(const void* q, const void* k, const void* v, const float* log_f,
 }
 
 }  // namespace mlstm
+
+// ===========================================================================
+// Route wgmma: bf16/f16 q, k, v, D a multiple of 64, chunks of 128 steps,
+// 16-byte-aligned bases.  Four launches, split by what depends on the
+// state (see the header):
+//   gates_kernel   the gate scans and the stabilizer chain (CUDA cores);
+//   intra_kernel   S . D and its row sums, once per (batch * head, chunk);
+//   state_kernel   the C chain, a 128 x 128 tile of C a block;
+//   output_kernel  h, a (batch * head, chunk, 128 value columns) a block.
+// ===========================================================================
+namespace mlstm_wg {
+
+constexpr int L = 128;          // steps a chunk
+constexpr int THREADS = 384;    // a producer warpgroup, two consumer ones
+constexpr int BOX = 128 * 128;  // bytes of a 128-row box of 64 16-bit columns
+constexpr int HALF = 64 * 128;  // bytes of a 64-row one
+constexpr int GATE_WARPS = 16;
+constexpr float NEG_BIG = -1e30f;
+// Gate scratch, f32 [BH][SLOTS][Sp], Sp = nc * L: per step a = log i - b,
+// g, w = exp(a - g_L), decay0 = exp(m0 - g), minv = exp(-(b + g)).
+enum { kA = 0, kG = 1, kW = 2, kDecay = 3, kMinv = 4, SLOTS = 5 };
+// Chunk scratch, f32 [BH][3][nc]: scale_c = exp(m0 - g_L), m0, g_L.
+enum { kScale = 0, kM0 = 1, kGL = 2 };
+// Planted faults of chip_smoke.py's controls (a bit mask, 0 on every real
+// call; must match repro_torch.kernels.ref.PLANT_*): the lo half of the
+// state update dropped; the outputs of chunk nc / 2 reading the C of the
+// chunk before (when nc / 2 >= 2); that chunk's S . D row sums dropped;
+// the outputs reading C_k's hi half only.
+enum { kPlantLo = 1, kPlantLate = 2, kPlantRowsum = 4, kPlantCkHi = 8 };
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// x0, x1 rounded to T (hi) and what that rounding lost, rounded to T again
+// (lo); each pair packed into 32 bits, x0 in the low half.  hi + lo keeps
+// ~16 of f32's 24 mantissa bits (bf16), the f32 side of a product whose
+// other side is exact in T.
+template <typename T>
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo);
+template <>
+__device__ __forceinline__ void split2<__nv_bfloat16>(float x0, float x1,
+                                                      uint32_t& hi,
+                                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+template <>
+__device__ __forceinline__ void split2<__half>(float x0, float x1,
+                                               uint32_t& hi, uint32_t& lo) {
+  const __half2 h = __floats2half2_rn(x0, x1);
+  const float2 hf = __half22float2(h);
+  const __half2 l = __floats2half2_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float a, float b);
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+template <>
+__device__ __forceinline__ void store2<__half>(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+
+// ---------------------------------------------------------------- gates
+// One block a (batch, head).  Warp w takes chunks w, w + 16, ...; lane l
+// takes steps 4 l .. 4 l + 3 of a chunk, and the cumsum and cummax across
+// lanes are shuffle scans of the lane totals.  Steps past S read log f 0
+// and log i -1e30, the reference's padding.
+__global__ void __launch_bounds__(32 * GATE_WARPS)
+    gates_kernel(const float* __restrict__ log_f,
+                 const float* __restrict__ log_i, float* __restrict__ gates,
+                 float* __restrict__ chunks, float* __restrict__ m_out, int S,
+                 int nc) {
+  const int bh = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t Sp = static_cast<size_t>(nc) * L;
+  float* gt = gates + bh * SLOTS * Sp;
+  float* ch = chunks + static_cast<size_t>(bh) * 3 * nc;
+  const float* lf = log_f + static_cast<size_t>(bh) * S;
+  const float* li = log_i + static_cast<size_t>(bh) * S;
+  // 1. b = cumsum(log f), a = log i - b, cm = cummax(a) within each chunk;
+  //    b goes to the minv slot, cm to the g slot until step 3.
+  for (int c = warp; c < nc; c += GATE_WARPS) {
+    const int t = c * L + 4 * lane;
+    float b[4], a[4], cm[4];
+    float run = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      run += t + i < S ? lf[t + i] : 0.f;
+      b[i] = run;
+    }
+    float x = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    float pre = __shfl_up_sync(0xffffffffu, x, 1);
+    if (lane == 0) pre = 0.f;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      b[i] += pre;
+      a[i] = (t + i < S ? li[t + i] : NEG_BIG) - b[i];
+      mx = fmaxf(mx, a[i]);
+      cm[i] = mx;
+    }
+    float y = mx;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float z = __shfl_up_sync(0xffffffffu, y, o);
+      if (lane >= o) y = fmaxf(y, z);
+    }
+    float pm = __shfl_up_sync(0xffffffffu, y, 1);
+    if (lane == 0) pm = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      gt[kA * Sp + t + i] = a[i];
+      gt[kG * Sp + t + i] = fmaxf(cm[i], pm);
+      gt[kMinv * Sp + t + i] = b[i];
+    }
+    if (lane == 31) {  // b and cm at the chunk's last step, for the chain
+      ch[kScale * nc + c] = b[3];
+      ch[kGL * nc + c] = fmaxf(cm[3], pm);
+    }
+  }
+  __syncthreads();
+  // 2. The stabilizer chain: g_L = max(m0, cm_L), m0 of the next chunk =
+  //    b_L + g_L, from m0 = 0; the last is the state's m.
+  if (threadIdx.x == 0) {
+    float m = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      const float gl = fmaxf(m, ch[kGL * nc + c]);
+      const float bl = ch[kScale * nc + c];
+      ch[kScale * nc + c] = expf(m - gl);
+      ch[kM0 * nc + c] = m;
+      ch[kGL * nc + c] = gl;
+      m = bl + gl;
+    }
+    m_out[bh] = m;
+  }
+  __syncthreads();
+  // 3. Per step: g = max(m0, cm), decay0, minv and w.
+  for (int c = warp; c < nc; c += GATE_WARPS) {
+    const float m0 = ch[kM0 * nc + c], gl = ch[kGL * nc + c];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const size_t t = static_cast<size_t>(c) * L + 4 * lane + i;
+      const float g = fmaxf(m0, gt[kG * Sp + t]);
+      const float b = gt[kMinv * Sp + t];
+      gt[kG * Sp + t] = g;
+      gt[kDecay * Sp + t] = expf(m0 - g);
+      gt[kMinv * Sp + t] = expf(-(b + g));
+      gt[kW * Sp + t] = expf(gt[kA * Sp + t] - gl);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- S . D
+struct Intra {
+  static constexpr int STAGES = 4;
+  static constexpr int STAGE_BYTES = 2 * BOX;  // q and k: 64 columns x 128
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+};
+
+// One block a (batch * head, chunk): S = q k^T on wgmma (q and k K-major
+// 128-step boxes, 64 columns of D a stage; each consumer 64 query rows),
+// then in registers (S . D)[j][s] = S[j][s] * scale * exp(a_s - g_j) for
+// s <= j, else 0; its f32 row sums to rowsum [BH * nc][128], and it split
+// into hi + lo in T to sd [2][BH * nc][128][128].
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+    intra_kernel(__grid_constant__ const CUtensorMap tmQ,
+                 __grid_constant__ const CUtensorMap tmK,
+                 const float* __restrict__ gates, T* __restrict__ sd,
+                 float* __restrict__ rowsum, int D, int nc, int BH,
+                 float scale) {
+  using F = Intra;
+  constexpr int STAGES = F::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(smem + STAGES * F::STAGE_BYTES);
+  // bars[s]: stage s is full; bars[STAGES + s]: stage s is free (one
+  // arrival per consumer).
+  const int blk = blockIdx.x, bh = blk / nc, t0 = (blk % nc) * L;
+  const int nk = D / 64;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(&bars[s]), 1);
+      mbar_init(smem_u32(&bars[STAGES + s]), 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {  // the producer
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES)
+          mbar_wait(smem_u32(&bars[STAGES + s]), (kt / STAGES - 1) & 1);
+        const uint32_t full = smem_u32(&bars[s]);
+        mbar_expect_tx(full, F::STAGE_BYTES);
+        const uint32_t sq = smem_u32(smem + s * F::STAGE_BYTES);
+        tma_load(sq, &tmQ, kt * 64, t0, bh, full);
+        tma_load(sq + BOX, &tmK, kt * 64, t0, bh, full);
+      }
+    }
+    return;
+  }
+  const int c = threadIdx.x / 128 - 1;
+  const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+  const int g = lane / 4, tq = lane % 4;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(smem_u32(&bars[s]), (kt / STAGES) & 1);
+    const uint32_t sq = smem_u32(smem + s * F::STAGE_BYTES), sk = sq + BOX;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0, 0, T>(acc, smem_desc(sq + c * HALF + kk * 32, 16, 1024),
+                        smem_desc(sk + kk * 32, 16, 1024), 1);
+    wgmma_commit();
+    fence_acc(acc);
+    wgmma_wait<1>();
+    fence_acc(acc);
+    if (kt > 0 && t == 0)
+      mbar_arrive(smem_u32(&bars[STAGES + (kt - 1) % STAGES]));
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // Accumulator: rows j0 = 64 c + 16 w + lane / 4 and j0 + 8; register
+  // 4 jj + 2 h + e is column (step) 8 jj + 2 (lane % 4) + e.
+  const size_t Sp = static_cast<size_t>(nc) * L;
+  const float* gb = gates + bh * SLOTS * Sp;
+  const int j0 = c * 64 + w * 16 + g, j1 = j0 + 8;
+  const float g0 = gb[kG * Sp + t0 + j0], g1 = gb[kG * Sp + t0 + j1];
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int s = 8 * jj + 2 * tq + e;
+      const float as = gb[kA * Sp + t0 + s];
+      const float v0 = s <= j0 ? acc[4 * jj + e] * scale * expf(as - g0) : 0.f;
+      const float v1 =
+          s <= j1 ? acc[4 * jj + 2 + e] * scale * expf(as - g1) : 0.f;
+      acc[4 * jj + e] = v0;
+      acc[4 * jj + 2 + e] = v1;
+      rs0 += v0;
+      rs1 += v1;
+    }
+  rs0 = quad_sum(rs0);
+  rs1 = quad_sum(rs1);
+  if (tq == 0) {
+    rowsum[static_cast<size_t>(blk) * L + j0] = rs0;
+    rowsum[static_cast<size_t>(blk) * L + j1] = rs1;
+  }
+  T* hi = sd + static_cast<size_t>(blk) * L * L;
+  T* lo = hi + static_cast<size_t>(BH) * nc * L * L;
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj) {
+    const int col = 8 * jj + 2 * tq;
+    uint32_t h, l;
+    split2<T>(acc[4 * jj], acc[4 * jj + 1], h, l);
+    *reinterpret_cast<uint32_t*>(hi + j0 * L + col) = h;
+    *reinterpret_cast<uint32_t*>(lo + j0 * L + col) = l;
+    split2<T>(acc[4 * jj + 2], acc[4 * jj + 3], h, l);
+    *reinterpret_cast<uint32_t*>(hi + j1 * L + col) = h;
+    *reinterpret_cast<uint32_t*>(lo + j1 * L + col) = l;
+  }
+}
+
+// ---------------------------------------------------------------- state
+struct State {
+  // A ring of half-chunk stages (64 steps): k (two 64-column boxes,
+  // rewritten in place as hi), lo (two), v (two), 8 KB a box.
+  static constexpr int STAGES = 3;
+  static constexpr int STAGE_BYTES = 6 * HALF;
+  // C_k for the TMA store: [consumer][hi, lo][2 boxes of 64 x 64].
+  static constexpr int OUT_BYTES = 2 * 2 * 2 * HALF;
+  // n's column partials: [consumer][chunk parity][16 row groups][64] f32.
+  static constexpr int RED_BYTES = 2 * 2 * 16 * 64 * 4;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + OUT_BYTES + RED_BYTES +
+                              1024 + 2 * STAGES * 8;
+};
+
+// One block a (128 x 128 tile of C, batch * head), walking the chunks in
+// order with the tile as the f32 wgmma accumulator in registers (each
+// consumer 64 rows of D), in half-chunk stages of 64 steps (a ring of 3,
+// so TMA runs a chunk ahead).  Per half-chunk the consumer rewrites its k
+// box (64 steps x 64 rows of D) in place as hi(w_s k_s) and writes
+// lo(w_s k_s) beside it (elementwise, so the swizzled layout is kept),
+// fence.proxy.async, warpgroup sync, and issues C += (w k)^T v: A MN-major
+// from the k boxes (hi, then lo), B = v MN-major (the transpose-B form),
+// 8 wgmma m64n128k16.  The rewrite of a half-chunk overlaps the products
+// of the one before.  At each chunk boundary it waits for the products,
+// rounds the tile into hi + lo boxes of shared memory (swizzled) and hands
+// them to the output pass as C_i with TMA stores (ck slot i - 1), then
+// scales the tile by exp(m0 - g_L).  The column block at e = 0 also
+// carries n (its 64 rows a consumer, f32 on the CUDA cores from the
+// unrounded w k) and stores n_i beside C_i.  The final C and n are written
+// in f32.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+    state_kernel(__grid_constant__ const CUtensorMap tmK,
+                 __grid_constant__ const CUtensorMap tmV,
+                 __grid_constant__ const CUtensorMap tmC,
+                 const float* __restrict__ gates,
+                 const float* __restrict__ chunks, float* __restrict__ nk,
+                 float* __restrict__ C, float* __restrict__ n_out, int D,
+                 int nc, int BH, int plant) {
+  using F = State;
+  constexpr int STAGES = F::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* obuf = smem + STAGES * F::STAGE_BYTES;
+  float* red = reinterpret_cast<float*>(obuf + F::OUT_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      obuf + F::OUT_BYTES + F::RED_BYTES);
+  const int tiles = (D + 127) / 128;
+  const int bh = blockIdx.y;
+  const int d0 = (blockIdx.x / tiles) * 128, e0 = (blockIdx.x % tiles) * 128;
+  const int nh = 2 * nc;  // half-chunks
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(&bars[s]), 1);
+      mbar_init(smem_u32(&bars[STAGES + s]), 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {  // the producer
+    if (threadIdx.x == 0) {
+      for (int hs = 0; hs < nh; ++hs) {
+        const int s = hs % STAGES;
+        if (hs >= STAGES)
+          mbar_wait(smem_u32(&bars[STAGES + s]), (hs / STAGES - 1) & 1);
+        const uint32_t full = smem_u32(&bars[s]);
+        mbar_expect_tx(full, 4 * HALF);
+        const uint32_t sb = smem_u32(smem + s * F::STAGE_BYTES);
+        const int row = hs * 64;
+        tma_load(sb, &tmK, d0, row, bh, full);
+        tma_load(sb + HALF, &tmK, d0 + 64, row, bh, full);
+        tma_load(sb + 4 * HALF, &tmV, e0, row, bh, full);
+        tma_load(sb + 5 * HALF, &tmV, e0 + 64, row, bh, full);
+      }
+    }
+    return;
+  }
+  const int c = threadIdx.x / 128 - 1;
+  const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const size_t Sp = static_cast<size_t>(nc) * L;
+  const float* wv = gates + bh * SLOTS * Sp + kW * Sp;
+  const float* sc = chunks + static_cast<size_t>(bh) * 3 * nc + kScale * nc;
+  const bool do_n = e0 == 0;
+  // Thread t rewrites rows (steps) t / 8 + 16 ii of its consumer's box, the
+  // 16-byte chunk t % 8 of each: under the 128-byte swizzle, columns
+  // 8 lc .. 8 lc + 7 of the box for all four rows.
+  const int lc = (t % 8) ^ ((t / 8) % 8);
+  const int nd = d0 + c * 64 + t;  // the row of n thread t < 64 carries
+  float nv = 0.f;
+  float* nkb = nk + static_cast<size_t>(bh) * (nc - 1) * D;
+  unsigned char* ob = obuf + c * 4 * HALF;  // hi boxes, then lo boxes
+  const int orow = w * 16 + g;  // this thread's rows of the consumer's 64
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float part[8];
+  // w of this thread's four steps, a half-chunk ahead.
+  float wnext[4];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) wnext[ii] = wv[t / 8 + 16 * ii];
+  for (int hs = 0; hs < nh; ++hs) {
+    const int s = hs % STAGES, i = hs / 2, half = hs % 2;
+    float wcur[4];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      wcur[ii] = wnext[ii];
+      if (hs + 1 < nh)
+        wnext[ii] = wv[static_cast<size_t>(hs + 1) * 64 + t / 8 + 16 * ii];
+    }
+    mbar_wait(smem_u32(&bars[s]), (hs / STAGES) & 1);
+    unsigned char* kb = smem + s * F::STAGE_BYTES + c * HALF;
+    unsigned char* lb = kb + 2 * HALF;
+    if (half == 0) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) part[e] = 0.f;
+    }
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      const int r = t / 8 + 16 * ii;
+      const float wr = wcur[ii];
+      const int off = r * 128 + (t % 8) * 16;
+      const uint4 raw = *reinterpret_cast<const uint4*>(kb + off);
+      const T* x = reinterpret_cast<const T*>(&raw);
+      uint32_t hv[4], lv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p0 = to_f(x[2 * e]) * wr, p1 = to_f(x[2 * e + 1]) * wr;
+        part[2 * e] += p0;
+        part[2 * e + 1] += p1;
+        split2<T>(p0, p1, hv[e], lv[e]);
+        if (plant & kPlantLo) lv[e] = 0u;
+      }
+      *reinterpret_cast<uint4*>(kb + off) =
+          make_uint4(hv[0], hv[1], hv[2], hv[3]);
+      *reinterpret_cast<uint4*>(lb + off) =
+          make_uint4(lv[0], lv[1], lv[2], lv[3]);
+    }
+    float* rb = red + (c * 2 + (i & 1)) * 16 * 64;
+    if (do_n && half == 1) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) rb[(t / 8) * 64 + lc * 8 + e] = part[e];
+    }
+    fence_proxy_async();
+    named_sync(1 + c, 128);
+    if (half == 0 && i > 0) {
+      // Chunk i - 1's products are done: free its last stage, hand C_i to
+      // the output pass, decay the tile.
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (t == 0) {
+        mbar_arrive(smem_u32(&bars[STAGES + (hs - 1) % STAGES]));
+        bulk_wait_read();  // the last chunk's C_k stores have read ob
+      }
+      named_sync(1 + c, 128);
+      // Column 8 jj + 2 tq of row r goes to box jj / 8, 16-byte chunk
+      // (jj % 8) ^ (r % 8) of the row.
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = orow + 8 * h;
+          const int o = (jj / 8) * HALF + r * 128 + ((jj % 8) ^ (r % 8)) * 16 +
+                        4 * tq;
+          uint32_t hv, lv;
+          split2<T>(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1], hv, lv);
+          *reinterpret_cast<uint32_t*>(ob + o) = hv;
+          *reinterpret_cast<uint32_t*>(ob + 2 * HALF + o) = lv;
+        }
+      fence_proxy_async();
+      named_sync(1 + c, 128);
+      if (t == 0) {
+        const int slab = bh * (nc - 1) + i - 1, lo = BH * (nc - 1);
+        const uint32_t o0 = smem_u32(ob);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          tma_store(&tmC, o0 + u * HALF, e0 + 64 * u, d0 + c * 64, slab);
+          tma_store(&tmC, o0 + (2 + u) * HALF, e0 + 64 * u, d0 + c * 64,
+                    slab + lo);
+        }
+        bulk_commit();
+      }
+      const float f = sc[i];
+#pragma unroll
+      for (int x = 0; x < 64; ++x) acc[x] *= f;
+      if (do_n && t < 64 && nd < D)
+        nkb[static_cast<size_t>(i - 1) * D + nd] = nv;
+    }
+    if (do_n && half == 1 && t < 64) {
+      float colsum = 0.f;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) colsum += rb[r * 64 + t];
+      nv = sc[i] * nv + colsum;
+    }
+    const uint32_t ka = smem_u32(kb), la = smem_u32(lb);
+    const uint32_t vb = smem_u32(smem + s * F::STAGE_BYTES + 4 * HALF);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // A = (w k)^T, MN-major: 16 steps = 2048 bytes a k16 step (one
+      // 64-column box, so LBO is unused); B = v, MN-major, its two
+      // 64-column boxes HALF bytes apart.
+      wgmma_ss<1, 1, T>(acc, smem_desc(ka + kk * 2048, HALF, 1024),
+                        smem_desc(vb + kk * 2048, HALF, 1024), 1);
+      wgmma_ss<1, 1, T>(acc, smem_desc(la + kk * 2048, HALF, 1024),
+                        smem_desc(vb + kk * 2048, HALF, 1024), 1);
+    }
+    wgmma_commit();
+    if (half == 1) {
+      // The chunk's first half has retired: free its stage.
+      fence_acc(acc);
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (t == 0) mbar_arrive(smem_u32(&bars[STAGES + (hs - 1) % STAGES]));
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  const int row0 = d0 + c * 64 + orow, col0 = e0 + 2 * tq;
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj) {
+    const int col = col0 + 8 * jj;
+    if (col >= D) continue;  // D is a multiple of 64: col + 1 < D too
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row < D)
+        *reinterpret_cast<float2*>(
+            C + (static_cast<size_t>(bh) * D + row) * D + col) =
+            make_float2(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1]);
+    }
+  }
+  if (do_n && t < 64 && nd < D) n_out[static_cast<size_t>(bh) * D + nd] = nv;
+  if (t == 0) bulk_wait();  // the C_k stores have landed
+}
+
+// ---------------------------------------------------------------- output
+struct Out {
+  static constexpr int STAGES = 4;
+  static constexpr int STAGE_BYTES = 3 * BOX;  // three 16 KB operand slots
+  static constexpr int SMEM =
+      STAGES * STAGE_BYTES + L * 4 + 1024 + 2 * STAGES * 8;
+};
+
+// One block a (128 value columns, chunk, batch * head), each consumer 64
+// of the chunk's rows:
+//   phase 1 (chunk > 0), D / 64 stages of {q (K-major, 64 columns of D),
+//     C hi, C lo (MN-major, 64 rows of D x 128 columns)}: acc = q C_k as
+//     two wgmma a k16 step, and q . n_k beside it on the CUDA cores (n_k
+//     f32 from the state pass);
+//   then acc *= decay0_j * scale, row by row;
+//   phase 2, 2 stages of {S . D hi (K-major, 64 steps), v (MN-major, 64
+//     steps x 128 columns), S . D lo}: acc += (S . D) v;
+//   h = acc / max(|decay0_j scale q_j . n_k + rowsum_j|, exp(-m_j)),
+//   stored for rows < S.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+    output_kernel(__grid_constant__ const CUtensorMap tmQ,
+                  __grid_constant__ const CUtensorMap tmC,
+                  __grid_constant__ const CUtensorMap tmSD,
+                  __grid_constant__ const CUtensorMap tmV,
+                  const float* __restrict__ gates,
+                  const float* __restrict__ rowsum,
+                  const float* __restrict__ nk, T* __restrict__ out, int S,
+                  int D, int nc, int BH, float scale, int plant) {
+  using F = Out;
+  constexpr int STAGES = F::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  float* qn_s = reinterpret_cast<float*>(smem + STAGES * F::STAGE_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(qn_s + L);
+  const int ci = blockIdx.y, bh = blockIdx.z;
+  const int e0 = blockIdx.x * 128, t0 = ci * L, blk = bh * nc + ci;
+  const int cf = nc / 2;
+  // The chunk whose C the outputs read: this one, or (planted) the one
+  // before.
+  const int src =
+      (plant & kPlantLate) && ci == cf && cf >= 2 ? ci - 1 : ci;
+  const int n1 = ci > 0 ? D / 64 : 0;  // phase 1's stages (C_0 = 0)
+  const int steps = n1 + 2;
+  const int c_hi = bh * (nc - 1) + src - 1, c_lo = c_hi + BH * (nc - 1);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(&bars[s]), 1);
+      mbar_init(smem_u32(&bars[STAGES + s]), 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {  // the producer
+    if (threadIdx.x == 0) {
+      for (int st = 0; st < steps; ++st) {
+        const int s = st % STAGES;
+        if (st >= STAGES)
+          mbar_wait(smem_u32(&bars[STAGES + s]), (st / STAGES - 1) & 1);
+        const uint32_t full = smem_u32(&bars[s]);
+        mbar_expect_tx(full, F::STAGE_BYTES);
+        const uint32_t sb = smem_u32(smem + s * F::STAGE_BYTES);
+        if (st < n1) {
+          tma_load(sb, &tmQ, st * 64, t0, bh, full);
+          tma_load(sb + BOX, &tmC, e0, st * 64, c_hi, full);
+          tma_load(sb + BOX + HALF, &tmC, e0 + 64, st * 64, c_hi, full);
+          tma_load(sb + 2 * BOX, &tmC, e0, st * 64, c_lo, full);
+          tma_load(sb + 2 * BOX + HALF, &tmC, e0 + 64, st * 64, c_lo, full);
+        } else {
+          const int u = st - n1;
+          tma_load(sb, &tmSD, 64 * u, 0, blk, full);
+          tma_load(sb + BOX, &tmV, e0, t0 + 64 * u, bh, full);
+          tma_load(sb + BOX + HALF, &tmV, e0 + 64, t0 + 64 * u, bh, full);
+          tma_load(sb + 2 * BOX, &tmSD, 64 * u, 0, blk + BH * nc, full);
+        }
+      }
+    }
+    return;
+  }
+  const int c = threadIdx.x / 128 - 1;
+  const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const size_t Sp = static_cast<size_t>(nc) * L;
+  const float* gb = gates + bh * SLOTS * Sp;
+  // q . n_k: thread t takes row qr of the chunk, logical 16-byte chunks
+  // 4 (t % 2) .. + 3 of each q box.
+  const int qr = c * 64 + t / 2;
+  const float* nb =
+      ci > 0 ? nk + (static_cast<size_t>(bh) * (nc - 1) + ci - 1) * D : nk;
+  float qn = 0.f;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const int j0 = c * 64 + w * 16 + g, j1 = j0 + 8;
+  // Phase 1: acc = q C_k, q . n_k beside it.
+  for (int st = 0; st < n1; ++st) {
+    const int s = st % STAGES;
+    mbar_wait(smem_u32(&bars[s]), (st / STAGES) & 1);
+    const uint32_t sb = smem_u32(smem + s * F::STAGE_BYTES);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // A = q, K-major (32 bytes a k16 step); B = C_k, MN-major (16 rows =
+      // 2048 bytes a step, its 64-column boxes HALF bytes apart).
+      const uint64_t da = smem_desc(sb + c * HALF + kk * 32, 16, 1024);
+      wgmma_ss<0, 1, T>(acc, da, smem_desc(sb + BOX + kk * 2048, HALF, 1024),
+                        1);
+      if (!(plant & kPlantCkHi))
+        wgmma_ss<0, 1, T>(acc, da,
+                          smem_desc(sb + 2 * BOX + kk * 2048, HALF, 1024), 1);
+    }
+    wgmma_commit();
+    const unsigned char* qrow = smem + s * F::STAGE_BYTES + qr * 128;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int lq = 4 * (t % 2) + u;
+      const uint4 raw =
+          *reinterpret_cast<const uint4*>(qrow + (lq ^ (qr % 8)) * 16);
+      const T* x = reinterpret_cast<const T*>(&raw);
+      const float4 na = *reinterpret_cast<const float4*>(nb + st * 64 + lq * 8);
+      const float4 nn =
+          *reinterpret_cast<const float4*>(nb + st * 64 + lq * 8 + 4);
+      qn += to_f(x[0]) * na.x + to_f(x[1]) * na.y + to_f(x[2]) * na.z +
+            to_f(x[3]) * na.w + to_f(x[4]) * nn.x + to_f(x[5]) * nn.y +
+            to_f(x[6]) * nn.z + to_f(x[7]) * nn.w;
+    }
+    fence_acc(acc);
+    wgmma_wait<1>();
+    fence_acc(acc);
+    if (st > 0 && t == 0)
+      mbar_arrive(smem_u32(&bars[STAGES + (st - 1) % STAGES]));
+  }
+  // acc *= decay0_j * scale, row by row, between the phases: no product
+  // in flight (ptxas serializes every wgmma of a loop in which other
+  // instructions write the accumulator).
+  wgmma_wait<0>();
+  fence_acc(acc);
+  if (n1 > 0) {
+    const float f0 = gb[kDecay * Sp + t0 + j0] * scale;
+    const float f1 = gb[kDecay * Sp + t0 + j1] * scale;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      acc[4 * jj] *= f0;
+      acc[4 * jj + 1] *= f0;
+      acc[4 * jj + 2] *= f1;
+      acc[4 * jj + 3] *= f1;
+    }
+  }
+  // Phase 2: acc += (S . D) v.
+  for (int st = n1; st < steps; ++st) {
+    const int s = st % STAGES;
+    mbar_wait(smem_u32(&bars[s]), (st / STAGES) & 1);
+    const uint32_t sb = smem_u32(smem + s * F::STAGE_BYTES);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // A = S . D hi and lo, K-major; B = v, MN-major.
+      const uint64_t db = smem_desc(sb + BOX + kk * 2048, HALF, 1024);
+      wgmma_ss<0, 1, T>(acc, smem_desc(sb + c * HALF + kk * 32, 16, 1024), db,
+                        1);
+      wgmma_ss<0, 1, T>(
+          acc, smem_desc(sb + 2 * BOX + c * HALF + kk * 32, 16, 1024), db, 1);
+    }
+    wgmma_commit();
+    fence_acc(acc);
+    wgmma_wait<1>();
+    fence_acc(acc);
+    if (st > 0 && t == 0)
+      mbar_arrive(smem_u32(&bars[STAGES + (st - 1) % STAGES]));
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  qn += __shfl_xor_sync(0xffffffffu, qn, 1);  // t and t ^ 1 share a row
+  if (t % 2 == 0) qn_s[qr] = qn;
+  named_sync(1 + c, 128);
+  const bool drop_rs = (plant & kPlantRowsum) && ci == cf;
+  float den[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = h ? j1 : j0;
+    const size_t tp = t0 + j;
+    const float rs = drop_rs ? 0.f : rowsum[static_cast<size_t>(blk) * L + j];
+    den[h] = fmaxf(fabsf(gb[kDecay * Sp + tp] * scale * qn_s[j] + rs),
+                   gb[kMinv * Sp + tp]);
+  }
+  T* ob = out + static_cast<size_t>(bh) * S * D;
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj) {
+    const int col = e0 + 8 * jj + 2 * tq;
+    if (col >= D) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int tp = t0 + (h ? j1 : j0);
+      if (tp < S)
+        store2<T>(ob + static_cast<size_t>(tp) * D + col,
+                  acc[4 * jj + 2 * h] / den[h],
+                  acc[4 * jj + 2 * h + 1] / den[h]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launch
+template <typename K>
+cudaError_t allow_smem(K kernel, int smem) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const float* log_f,
+           const float* log_i, void* out, float* C, float* n, float* m,
+           float* gates, float* chunks, void* sd, float* rowsum, void* ck,
+           float* nk, int BH, int S, int D, int plant, cudaStream_t stream) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  constexpr bool f16 = std::is_same<T, __half>::value;
+  const int nc = (S + L - 1) / L;
+  const uint64_t seq[3] = {static_cast<uint64_t>(D),
+                           static_cast<uint64_t>(S),
+                           static_cast<uint64_t>(BH)};
+  const uint64_t cdims[3] = {static_cast<uint64_t>(D),
+                             static_cast<uint64_t>(D),
+                             2ull * BH * (nc > 1 ? nc - 1 : 1)};
+  const uint64_t sdims[3] = {L, L, 2ull * BH * nc};
+  const uint32_t box128[3] = {64, 128, 1}, box64[3] = {64, 64, 1};
+  CUtensorMap tq, tk, tk64, tv64, tc, tsd;
+  if (!encode(fn, &tq, q, f16, 3, seq, box128) ||
+      !encode(fn, &tk, k, f16, 3, seq, box128) ||
+      !encode(fn, &tk64, k, f16, 3, seq, box64) ||
+      !encode(fn, &tv64, v, f16, 3, seq, box64) ||
+      !encode(fn, &tc, ck, f16, 3, cdims, box64) ||
+      !encode(fn, &tsd, sd, f16, 3, sdims, box128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if ((err = allow_smem(intra_kernel<T>, Intra::SMEM)) ||
+      (err = allow_smem(state_kernel<T>, State::SMEM)) ||
+      (err = allow_smem(output_kernel<T>, Out::SMEM)))
+    return static_cast<int>(err);
+  const float scale = rsqrtf(static_cast<float>(D));
+  T* sdp = static_cast<T*>(sd);
+  gates_kernel<<<BH, 32 * GATE_WARPS, 0, stream>>>(log_f, log_i, gates,
+                                                   chunks, m, S, nc);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  intra_kernel<T><<<BH * nc, THREADS, Intra::SMEM, stream>>>(
+      tq, tk, gates, sdp, rowsum, D, nc, BH, scale);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  const int tiles = (D + 127) / 128;
+  state_kernel<T><<<dim3(tiles * tiles, BH), THREADS, State::SMEM, stream>>>(
+      tk64, tv64, tc, gates, chunks, nk, C, n, D, nc, BH, plant);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  output_kernel<T><<<dim3(tiles, nc, BH), THREADS, Out::SMEM, stream>>>(
+      tq, tc, tsd, tv64, gates, rowsum, nk, static_cast<T*>(out), S, D, nc,
+      BH, scale, plant);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace mlstm_wg
 }  // namespace repro
 
 // q, k, v, out (B*H, S, D) in `dtype`; log_f, log_i (B*H, S) f32; C (B*H, D,
@@ -414,4 +1221,40 @@ extern "C" int mlstm_chunkwise_launch(const void* q, const void* k,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The wgmma route (bf16/f16, D % 64 == 0, chunks of 128, 16-byte-aligned
+// q, k, v).  Scratch from the wrapper, nc = ceil(S / 128): gates f32
+// [B*H][5][nc*128], chunks f32 [B*H][3][nc], sd (dtype) [2][B*H*nc][128]
+// [128], rowsum f32 [B*H*nc*128], ck (dtype) [2][B*H*max(nc-1, 1)][D][D],
+// nk f32 [B*H*max(nc-1, 1)*D].  plant: chip_smoke.py's planted faults, 0
+// otherwise.  Returns cudaGetLastError() after the last launch.
+extern "C" int mlstm_chunkwise_wgmma_launch(
+    const void* q, const void* k, const void* v, const void* log_f,
+    const void* log_i, void* out, void* C, void* n, void* m, void* gates,
+    void* chunks, void* sd, void* rowsum, void* ck, void* nk, int BH, int S,
+    int D, int dtype, int plant, void* stream) {
+  if (S < 1 || D < 64 || D % 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_MLSTM_WG(T)                                                   \
+  repro::mlstm_wg::launch<T>(                                               \
+      q, k, v, static_cast<const float*>(log_f),                            \
+      static_cast<const float*>(log_i), out, static_cast<float*>(C),        \
+      static_cast<float*>(n), static_cast<float*>(m),                       \
+      static_cast<float*>(gates), static_cast<float*>(chunks), sd,          \
+      static_cast<float*>(rowsum), ck, static_cast<float*>(nk), BH, S, D,   \
+      plant, static_cast<cudaStream_t>(stream))
+  switch (dtype) {
+    case repro::kBF16: return REPRO_MLSTM_WG(__nv_bfloat16);
+    case repro::kF16: return REPRO_MLSTM_WG(__half);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_MLSTM_WG
+}
+
+// Dynamic shared memory of the wgmma route's kernels in bytes: pass 0
+// (S . D), 1 (state), 2 (output).
+extern "C" int mlstm_chunkwise_wgmma_smem(int pass) {
+  using namespace repro::mlstm_wg;
+  return pass == 0 ? Intra::SMEM : pass == 1 ? State::SMEM : Out::SMEM;
 }

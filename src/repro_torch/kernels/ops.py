@@ -30,10 +30,12 @@ Each entry point:
   goes to the plain :func:`repro_torch.kernels.ref.paged_attention_ref`, as
   ``repro.kernels.decode_attention.paged_constraints`` routes it.  Each such
   call is counted in :data:`ROUTED` under its reason string;
-* counts kernel launches on the wrappers (:func:`launch_counts`), and
-  ``sma_gemm``'s launches per route in ``sma_gemm.routes`` (the kernel
-  that shape, dtype and alignment pick: ``wgmma``, ``splitk``, ``tile``
-  or ``f32``; see :mod:`repro_torch.kernels.sma_gemm`).
+* counts kernel launches on the wrappers (:func:`launch_counts`), and the
+  launches per route (the kernel that shape, dtype and alignment pick) of
+  ``sma_gemm.routes`` (``wgmma``, ``splitk``, ``tile``, ``f32``),
+  ``rmsnorm_gemm.routes`` (``wgmma``, ``tile``, ``f32``),
+  ``mlstm_chunkwise.routes`` (``wgmma``, ``simt``) and the flash
+  wrappers' ``.routes``.
 
 The JAX package's backend registry and ladder are not ported.
 """
@@ -79,11 +81,13 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_counts() -> None:
-    """Zero every wrapper's launches, the routes of ``sma_gemm`` and the
-    flash kernels, and :data:`ROUTED`."""
+    """Zero every wrapper's launches, the routes of ``sma_gemm``,
+    ``rmsnorm_gemm``, ``mlstm_chunkwise`` and the flash kernels, and
+    :data:`ROUTED`."""
     for fn in WRAPPERS.values():
         fn.launches = 0
-    for routes in (_gemm.ROUTES, _flash.FWD_ROUTES, _flash.BWD_ROUTES):
+    for routes in (_gemm.ROUTES, _norm.ROUTES, _mlstm.ROUTES,
+                   _flash.FWD_ROUTES, _flash.BWD_ROUTES):
         routes.update(dict.fromkeys(routes, 0))
     ROUTED.clear()
 

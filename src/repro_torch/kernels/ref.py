@@ -345,6 +345,120 @@ def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, (c, n, m)) if return_state else out
 
 
+#: Planted faults of the mLSTM ``wgmma`` kernels and of
+#: :func:`mlstm_chunkwise_two_pass_ref` (a bit mask; must match
+#: ``csrc/mlstm_chunkwise.cu``): the lo half of the state update (w k)
+#: dropped; the outputs of chunk nc // 2 (when >= 2) given the C of the
+#: chunk before; that chunk's S . D row sums dropped; the outputs given
+#: C_k's hi half only.
+PLANT_LO, PLANT_LATE, PLANT_ROWSUM, PLANT_CK_HI = 1, 2, 4, 8
+
+
+def _split16(x: torch.Tensor, dtype: torch.dtype
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 x as hi = x rounded to ``dtype`` and lo = (x - hi) rounded to
+    ``dtype``, both returned in f32."""
+    hi = x.to(dtype).float()
+    return hi, (x - hi).to(dtype).float()
+
+
+def mlstm_chunkwise_two_pass_ref(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, log_f: torch.Tensor,
+                                 log_i: torch.Tensor, *, chunk: int,
+                                 return_state: bool = False,
+                                 plant: int = 0):
+    """The algorithm of the mLSTM ``wgmma`` route in plain PyTorch: the
+    function of :func:`mlstm_chunkwise_ref`, computed in its passes and
+    with its roundings, for the tests and ``chip_smoke.py`` (never on a
+    main path).
+
+    1. Gate pre-scan: per chunk b = cumsum(log f), a = log i - b,
+       cm = cummax(a); the stabilizer chain g_L = max(m0, cm_L), m0' =
+       b_L + g_L over the chunks; then g = max(m0, cm), decay0 = exp(m0 -
+       g), minv = exp(-(b + g)), w = exp(a - g_L), scale_c = exp(m0 - g_L).
+    2. Stored S . D = (q k^T) * D^-0.5 * exp(a_s - g_j) (s <= j) in f32,
+       its f32 row sums, and its hi + lo split.
+    3. The C_k chain: C_0 = 0, C_{k+1} = scale_c C_k + (hi + lo of w k)^T
+       v; n likewise from the unsplit w k.
+    4. h = (decay0 D^-0.5 q (hi + lo of C_k) + (hi + lo of S . D) v) /
+       max(|decay0 D^-0.5 q . n_k + row sum|, minv).
+
+    The split type is q's (bf16 for f32 inputs); q, k, v are read as exact
+    in it.  ``plant`` is a mask of ``PLANT_*`` faults (0: none).  Returns
+    what :func:`mlstm_chunkwise_ref` returns."""
+    b, h, s, d = q.shape
+    half = q.dtype if q.dtype in (torch.bfloat16, torch.float16) \
+        else torch.bfloat16
+    scale = d ** -0.5
+    L = min(chunk, s)
+    nc = -(-s // L)
+    pad = nc * L - s
+    q32, k32, v32 = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+                     .reshape(b, h, nc, L, d) for t in (q, k, v))
+    lf = torch.nn.functional.pad(log_f.float(), (0, pad)).reshape(b, h, nc, L)
+    li = torch.nn.functional.pad(log_i.float(), (0, pad), value=NEG_INF
+                                 ).reshape(b, h, nc, L)
+    # 1. gates
+    bc = lf.cumsum(-1)
+    a = li - bc
+    cm = torch.cummax(a, -1).values
+    m = q.new_zeros((b, h), dtype=torch.float32)
+    m0s = []
+    for c in range(nc):
+        m0s.append(m)
+        m = bc[..., c, -1] + torch.maximum(m, cm[..., c, -1])
+    m0 = torch.stack(m0s, -1)                                  # (B, H, nc)
+    g = torch.maximum(m0[..., None], cm)
+    g_last = g[..., -1]
+    decay0 = torch.exp(m0[..., None] - g)
+    minv = torch.exp(-(bc + g))
+    w = torch.exp(a - g_last[..., None])
+    scale_c = torch.exp(m0 - g_last)
+    # 2. S . D, once per chunk
+    tri = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    sd = (q32 @ k32.transpose(-1, -2)) * scale * torch.where(
+        tri, torch.exp(a[..., None, :] - g[..., :, None]), 0.0)
+    rowsum = sd.sum(-1)
+    sd_hi, sd_lo = _split16(sd, half)
+    # 3. the C_k chain
+    wk = w[..., None] * k32
+    wk_hi, wk_lo = _split16(wk, half)
+    if plant & PLANT_LO:
+        wk_lo = torch.zeros_like(wk_lo)
+    c_state = q.new_zeros((b, h, d, d), dtype=torch.float32)
+    n = q.new_zeros((b, h, d), dtype=torch.float32)
+    cs, ns = [], []
+    for c in range(nc):
+        cs.append(c_state)
+        ns.append(n)
+        sc = scale_c[..., c]
+        c_state = (sc[..., None, None] * c_state
+                   + (wk_hi[:, :, c] + wk_lo[:, :, c]).transpose(-1, -2)
+                   @ v32[:, :, c])
+        n = sc[..., None] * n + wk[:, :, c].sum(-2)
+    # 4. outputs
+    cf = nc // 2
+    outs = []
+    for c in range(nc):
+        src = c - 1 if plant & PLANT_LATE and c == cf and cf >= 2 else c
+        ck_hi, ck_lo = _split16(cs[src], half)
+        if plant & PLANT_CK_HI:
+            ck_lo = torch.zeros_like(ck_lo)
+        qc = q32[:, :, c]
+        dec = decay0[:, :, c] * scale
+        num = (dec[..., None] * (qc @ (ck_hi + ck_lo))
+               + (sd_hi[:, :, c] + sd_lo[:, :, c]) @ v32[:, :, c])
+        rs = rowsum[:, :, c]
+        if plant & PLANT_ROWSUM and c == cf:
+            rs = torch.zeros_like(rs)
+        qn = (qc @ ns[c][..., None])[..., 0]
+        den = torch.maximum((dec * qn + rs).abs(), minv[:, :, c])
+        outs.append(num / den[..., None])
+    out = torch.stack(outs, 2).reshape(b, h, nc * L, d)[:, :, :s]
+    out = out.to(q.dtype)
+    return (out, (c_state, n, m)) if return_state else out
+
+
 def mlstm_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               log_f: torch.Tensor, log_i: torch.Tensor) -> torch.Tensor:
     """The mLSTM's sequential oracle (``repro.kernels.ref.mlstm_ref``): one

@@ -15,8 +15,10 @@ recurrentgemma kernels and steps: the RG-LRU scan (bit for bit against its
 plain version), the flash forward and the contiguous decode at MQA with
 head_dim 256, and ``lm.prefill`` / ``lm.decode_step`` of a small recurrent
 model; and the xLSTM ones: the chunkwise mLSTM (h and its final state, at
-small and full head dim, ragged S, every dtype) and the serving steps of a
-small xLSTM.
+small and full head dim, ragged S, every dtype; its wgmma route against
+its simt route and the plain version) and the serving steps of a small
+xLSTM; the head's rmsnorm_gemm on its wgmma route against the tile route
+and the plain version.
 Tolerances: the reference's ``tol_for`` (3e-2 for 16-bit outputs, one
 rounding flip; 2e-4 for f32, summation order), with TF32 off in the plain
 versions.
@@ -31,6 +33,8 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import mlstm as kmlstm
+from repro_torch.kernels import norm_gemm as knorm
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention)
@@ -180,6 +184,48 @@ def test_rmsnorm_gemm_matches_plain(dev, dtype, m, k, n):
     for ep in ("none", "silu"):
         close(rmsnorm_gemm(x, scale, w, epilogue=ep),
               ref.rmsnorm_gemm_ref(x, scale, w, epilogue=ep), dt)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("m,k,n", [(17, 2048, 100352), (2048, 2048, 100352),
+                                   (8192, 2048, 100352), (300, 2048, 1000),
+                                   (100, 136, 200)])
+def test_rmsnorm_gemm_wgmma_route(dev, dtype, m, k, n):
+    """The wgmma route (the norm applied in the kernel to each resident A
+    stage) against the plain version at ``tol`` and against the tile route
+    on the same inputs: both round x * r * scale to the dtype and sum f32
+    products, so they agree to one rounding flip; N = 1000 is ragged
+    against the 128-column tiles, K = 136 against the 64-deep stages.  The
+    route is read from ``rmsnorm_gemm.routes``."""
+    dt = DTYPES[dtype]
+    x = randn((m, k), dt, dev, 28, scale=3.0)
+    scale = randn((k,), torch.float32, dev, 29).abs() + 0.5
+    w = randn((k, n), dt, dev, 30, scale=k ** -0.5)
+    ops.reset_counts()
+    got = rmsnorm_gemm(x, scale, w)
+    assert knorm.ROUTES == {"wgmma": 1, "tile": 0, "f32": 0}
+    r = ref.rms_inverse(x).reshape(m)
+    tile, route = knorm._launch(x, r, scale, w, route="tile")
+    assert route == "tile"
+    close(got, ref.rmsnorm_gemm_ref(x, scale, w), dt)
+    close(got, tile, dt)
+
+
+def test_rmsnorm_gemm_routes_on_card(dev):
+    """Decode heads (M <= 16) on the tile kernel, the training head on
+    wgmma, f32 on the CUDA-core kernel."""
+    k, n = 2048, 1024
+    scale = randn((k,), torch.float32, dev, 31).abs() + 0.5
+    for m, dt, route in ((8, torch.bfloat16, "tile"),
+                         (16, torch.float16, "tile"),
+                         (8192, torch.bfloat16, "wgmma"),
+                         (64, torch.float32, "f32")):
+        x = randn((m, k), dt, dev, 32, scale=3.0)
+        w = randn((k, n), dt, dev, 33, scale=k ** -0.5)
+        ops.reset_counts()
+        close(rmsnorm_gemm(x, scale, w), ref.rmsnorm_gemm_ref(x, scale, w),
+              dt)
+        assert {r: c for r, c in knorm.ROUTES.items() if c} == {route: 1}
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -723,6 +769,72 @@ def test_mlstm_chunkwise_matches_plain(dev, dtype, b, h, s, d, chunk):
         assert g.dtype == torch.float32 and g.shape == w.shape
         lim = 2e-4 * w.abs().max().item()
         torch.testing.assert_close(g, w, rtol=2e-4, atol=lim)
+
+
+#: chip_smoke.py's MLSTM_TOL and MLSTM_STATE_LIMIT.
+MLSTM_TOL = {torch.bfloat16: (2e-3, 2.0 ** -7),
+             torch.float16: (2e-3, 2.0 ** -10)}
+MLSTM_STATE_LIMIT = 1e-5
+
+
+def _mlstm_h_multiple(got, want, dtype):
+    atol, rtol = MLSTM_TOL[dtype]
+    return ((got.float() - want.float()).abs()
+            / (atol + rtol * want.float().abs())).max().item()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("b,h,s,d", [(4, 4, 2048, 1024),  # xLSTM prefill
+                                     (4, 4, 2000, 1024),  # ragged S
+                                     (2, 2, 300, 64), (1, 3, 512, 128),
+                                     (1, 2, 128, 64),     # one chunk
+                                     (2, 1, 130, 128)])   # a 2-step chunk
+def test_mlstm_wgmma_route_matches_simt_and_plain(dev, dtype, b, h, s, d):
+    """The wgmma route (chunk 128) against the plain version at
+    ``chip_smoke.py``'s limits -- h per element within MLSTM_TOL (one
+    rounding flip of h; f16's at its own 10-bit rtol), each of C, n, m
+    within MLSTM_STATE_LIMIT of its largest entry -- and against the simt
+    route on the same inputs at the same limits; one launch a call, on the
+    route ``mlstm_chunkwise.routes`` reports."""
+    dt = DTYPES[dtype]
+    ins = mlstm_inputs(b, h, s, d, dt, dev, 7 * s + d)
+    ops.reset_counts()
+    got, state = mlstm_chunkwise(*ins, chunk=128, return_state=True)
+    torch.cuda.synchronize()
+    assert kmlstm.ROUTES == {"wgmma": 1, "simt": 0}
+    assert ops.launch_counts()["mlstm_chunkwise"] == 1
+    want, want_state = ref.mlstm_chunkwise_ref(*ins, chunk=128,
+                                               return_state=True)
+    simt = kmlstm._run(*(t.contiguous() for t in ins[:3]), ins[3], ins[4],
+                       128, "simt")
+    for other_h, other_state in ((want, want_state), (simt[0], simt[1:])):
+        assert _mlstm_h_multiple(got, other_h, dt) <= 1
+        for g, w in zip(state, other_state):
+            assert g.dtype == torch.float32 and g.shape == w.shape
+            assert ((g - w).abs().max() / w.abs().max()).item() \
+                <= MLSTM_STATE_LIMIT
+
+
+def test_mlstm_routes_on_card(dev):
+    """bf16 chunks of 128 on wgmma; f32, another chunk or S < 128 on simt."""
+    cases = [((1, 2, 256, 64), torch.bfloat16, 128, "wgmma"),
+             ((1, 2, 256, 64), torch.float32, 128, "simt"),
+             ((1, 2, 256, 64), torch.bfloat16, 64, "simt"),
+             ((1, 2, 100, 64), torch.bfloat16, 128, "simt")]
+    for (b, h, s, d), dt, chunk, route in cases:
+        ins = mlstm_inputs(b, h, s, d, dt, dev, s + chunk)
+        ops.reset_counts()
+        got = mlstm_chunkwise(*ins, chunk=chunk)
+        assert {r: c for r, c in kmlstm.ROUTES.items() if c} == {route: 1}
+        close(got, ref.mlstm_chunkwise_ref(*ins, chunk=chunk), dt)
+
+
+def test_mlstm_wgmma_shared_memory_fits_a_block(dev):
+    """The built wgmma kernels' dynamic shared memory, each within the
+    227 KB a block may use."""
+    smem = kmlstm.wgmma_smem()
+    assert set(smem) == {"intra", "state", "output"}
+    assert 0 < min(smem.values()) and max(smem.values()) <= 232448
 
 
 def test_mlstm_chunkwise_refuses_what_it_does_not_take(dev):

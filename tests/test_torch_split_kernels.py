@@ -2,10 +2,10 @@
 split-KV merge, against the JAX package.
 
 ``sma_gemm`` picks its kernel (``_route``) and split-K's slices
-(``_slices``), the decode kernels their position ranges (``_splits``), and
-the flash kernels their route and shared memory (``_route``,
-``smem_bytes``), in plain Python: those choices are tested here, on the
-CPU.  The split-KV
+(``_slices``), the decode kernels their position ranges (``_splits``), the
+flash kernels their route and shared memory (``_route``, ``smem_bytes``),
+and ``rmsnorm_gemm`` and ``mlstm_chunkwise`` their routes (``_route``), in
+plain Python: those choices are tested here, on the CPU.  The split-KV
 decode is one partial (m, l, acc) per range, folded in split order;
 ``ref.decode_attention_split_ref`` is that merge in plain PyTorch, held
 against the JAX kernel (``interpret=True``) and the JAX oracle at the
@@ -25,6 +25,8 @@ from repro.kernels.decode_attention import decode_attention as j_decode
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import mlstm as kmlstm
+from repro_torch.kernels import norm_gemm as knorm
 from repro_torch.kernels import sma_gemm as kgemm
 
 F32_TOL = 2e-4
@@ -286,3 +288,63 @@ def test_flash_routes_count_in_dicts_that_reset_clears():
     ops.reset_counts()
     assert kflash.FWD_ROUTES == {"wgmma": 0}
     assert kflash.BWD_ROUTES == {"wgmma": 0}
+
+
+# ------------------------------------------------------------ rmsnorm_gemm
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m,route", [(1, "tile"), (8, "tile"), (16, "tile"),
+                                     (17, "wgmma"), (2048, "wgmma"),
+                                     (8192, "wgmma")])
+def test_norm_route_aligned_16_bit_operands(dtype, m, route):
+    """The head: decode sizes (M <= 16) stay on the tile kernel, the
+    training head (M 8192) goes to wgmma."""
+    for k, n in ((2048, 100352), (2048, 50432), (64, 392)):
+        assert knorm._route(m, n, k, dtype, True) == route
+
+
+@pytest.mark.parametrize("m", [1, 17, 8192])
+@pytest.mark.parametrize("k,n,aligned", [(2048, 1000, True),
+                                         (2050, 1024, True),
+                                         (2048, 1024, False)])
+def test_norm_route_what_tma_cannot_take_goes_to_the_tile_kernel(m, k, n,
+                                                                 aligned):
+    """N = 1000 is a multiple of 8 and goes where sma_gemm's would; K or N
+    not a multiple of 8, or an offset base, take the tile kernel."""
+    want = "wgmma" if m > 16 and n % 8 == 0 and k % 8 == 0 and aligned \
+        else "tile"
+    assert knorm._route(m, n, k, torch.bfloat16, aligned) == want
+    assert knorm._route(m, n, k, torch.float32, aligned) == "f32"
+
+
+# --------------------------------------------------------- mlstm_chunkwise
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("s,d,chunk", [(2048, 1024, 128), (2000, 1024, 128),
+                                       (128, 64, 128), (300, 128, 128),
+                                       (1000, 192, 128)])
+def test_mlstm_route_wgmma_for_16_bit_chunks_of_128(dtype, s, d, chunk):
+    """L = min(chunk, S) = 128 and D a multiple of 64: the wgmma kernels
+    and any S of at least 128."""
+    assert kmlstm._route(s, d, chunk, dtype, True) == "wgmma"
+
+
+@pytest.mark.parametrize("s,d,chunk,dtype,aligned", [
+    (1000, 64, 128, torch.float32, True),     # f32
+    (2048, 1024, 64, torch.bfloat16, True),   # another chunk
+    (100, 64, 128, torch.bfloat16, True),     # S < 128: L = S
+    (2048, 200, 128, torch.bfloat16, True),   # D not a multiple of 64
+    (2048, 1024, 128, torch.bfloat16, False)])  # an offset base
+def test_mlstm_route_simt_for_the_rest(s, d, chunk, dtype, aligned):
+    assert kmlstm._route(s, d, chunk, dtype, aligned) == "simt"
+
+
+def test_norm_and_mlstm_routes_count_in_dicts_that_reset_clears():
+    from repro_torch.kernels import ops
+    assert knorm.rmsnorm_gemm.routes is knorm.ROUTES
+    assert kmlstm.mlstm_chunkwise.routes is kmlstm.ROUTES
+    assert set(knorm.ROUTES) == {"wgmma", "tile", "f32"}
+    assert set(kmlstm.ROUTES) == {"wgmma", "simt"}
+    knorm.ROUTES["wgmma"] += 2
+    kmlstm.ROUTES["simt"] += 1
+    ops.reset_counts()
+    assert set(knorm.ROUTES.values()) == {0}
+    assert set(kmlstm.ROUTES.values()) == {0}
