@@ -40,13 +40,18 @@
    that fall, launch counts as predicted, nothing routed, step time,
    tokens/s, MFU and peak memory; a profile of one more step.
 6. Recurrent path: the RG-LRU scan kernel against its plain version at
-   the prefill's shape (with planted faults: the carry reset mid-sequence,
-   h_last one step early, a read one step late), the flash forward and the
+   the prefill's shape, bit for bit on its ``tma`` route (with planted
+   faults: the carry reset mid-sequence, h_last one step early, a read one
+   step late; inside the ``tma`` kernel a ring stage consumed one phase
+   early, one stage's store dropped, the carry run past S into the
+   zero-filled tail), timed beside the ``simt`` kernel (the earlier
+   design) on the same inputs, the flash forward and the
    contiguous decode kernel at recurrentgemma's MQA head_dim 256; then
    full-width, full-depth RecurrentGemma-2B (random bf16 weights from a
    seed) through ``lm.prefill`` of 4 x 4,096 tokens and 32 greedy
    ``lm.decode_step``s, with launch counts as predicted and nothing
-   routed; a 3-layer full-width model's prefill and decode logits through
+   routed, every scan on ``tma``; a 3-layer full-width model's prefill and
+   decode logits through
    the kernels against the plain versions, with planted faults; and a
    profile of one prefill and a few decode steps.
 7. xLSTM path: the chunkwise mLSTM kernels against their plain version (h
@@ -66,7 +71,8 @@
    versions, with planted faults; a profile of one prefill and a few
    decode steps, and the host time of one sLSTM block's step loop.
    Every path checks the routes of ``rmsnorm_gemm`` (the training head on
-   ``wgmma``, decode heads on ``tile``) and ``mlstm_chunkwise``.
+   ``wgmma``, decode heads on ``tile``), ``mlstm_chunkwise`` and
+   ``rglru_scan``.
 8. Prints the kernel table as one JSON line (the redesigned kernels' rows
    with their route, the earlier design's time in the same call, and the
    ``-Xptxas -v`` registers, spills and shared memory), then the result line
@@ -537,20 +543,22 @@ def norm_controls(x, r, scale, w):
     del want, w_skip
 
 
-#: rmsnorm_gemm's and mlstm_chunkwise's routes each path's run launched,
-#: filled as the paths run.
+#: rmsnorm_gemm's, mlstm_chunkwise's and rglru_scan's routes each path's
+#: run launched, filled as the paths run.
 ROUTES_BY_PATH = {}
 
 
 def check_kernel_routes(where: str, counts: dict, norm: str,
-                        mlstm: str = "wgmma") -> dict:
+                        mlstm: str = "wgmma", scan: str = "tma") -> dict:
     """Every rmsnorm_gemm launch in ``counts`` (``ops.launch_counts``
-    since the last ``ops.reset_counts``) went the ``norm`` route and every
-    mlstm_chunkwise launch the ``mlstm`` route; returns the launches by
-    route."""
+    since the last ``ops.reset_counts``) went the ``norm`` route, every
+    mlstm_chunkwise launch the ``mlstm`` route and every rglru_scan launch
+    the ``scan`` route; returns the launches by route."""
     got = {"rmsnorm_gemm": nonzero(knorm.ROUTES),
-           "mlstm_chunkwise": nonzero(kmlstm.ROUTES)}
-    for name, route in (("rmsnorm_gemm", norm), ("mlstm_chunkwise", mlstm)):
+           "mlstm_chunkwise": nonzero(kmlstm.ROUTES),
+           "rglru_scan": nonzero(krglru.ROUTES)}
+    for name, route in (("rmsnorm_gemm", norm), ("mlstm_chunkwise", mlstm),
+                        ("rglru_scan", scan)):
         want = {route: counts[name]} if counts.get(name) else {}
         if got[name] != want:
             fail(f"{where}: {name} routes {got[name]}, expected {want}")
@@ -1503,11 +1511,43 @@ def rglru_controls(a, u, h0, want_seq, want_last):
                  f"the output")
 
 
+def rglru_plant_controls(a, u, h0, want, faults):
+    """Planted faults inside the tma kernel (``krglru._run`` with a
+    ``ref.SCAN_PLANT_*`` mask), each held against the plain version of the
+    right inputs: each must fail the check on every element it moves by
+    more than FAULT_MARGIN limits (measured on
+    ``ref.rglru_scan_planted_ref``, the same fault in plain PyTorch, for
+    the kernel's ring stage and depth).  The planted run must also be that
+    plain version bit for bit: the fault is the one named, and no other."""
+    tile = krglru.tma_tile(a.dtype)
+    for name, (plant, which) in faults.items():
+        got = krglru._run(a, u, h0, "tma", plant=plant)
+        emulated = ref.rglru_scan_planted_ref(a, u, h0, plant, tile["rows"],
+                                              tile["stages"])
+        effect = rglru_multiples(emulated[which], want[which])
+        bad = rglru_multiples(got[which], want[which])
+        must = effect > FAULT_MARGIN
+        n_must = int(must.sum())
+        n_caught = int((bad[must] > 1).sum())
+        same = all(torch.equal(g, e) for g, e in zip(got, emulated))
+        print(f"rglru tma control, {name}: moves {n_must} of {must.numel()} "
+              f"{'h_seq' if which == 0 else 'h_last'} elements by > "
+              f"{FAULT_MARGIN} limits; the check fails {n_caught} of them; "
+              f"the kernel's output is its plain version's: {same}")
+        if n_must == 0 or n_caught < n_must or not same:
+            fail(f"rglru tma control '{name}' passes the check where it "
+                 f"moves the output, or is not the fault named")
+        del got, emulated, effect, bad, must
+
+
 def check_rglru(gen, dev):
     """The scan kernel against its plain version at the prefill's shape
     (B 4, S 4096, D 2560, bf16) with and without h0, and at a ragged
-    (1, 4097, 2568) in f32; the planted faults on the first; the prefill's
-    call (no h0) timed."""
+    (1, 4097, 2568) in f32: within the limit, and on the tma route bit for
+    bit; the planted faults on the first (and the tail fault of the tma
+    kernel on the last, whose S is past its stages); the prefill's call
+    (no h0) timed beside the simt kernel (the earlier design) and
+    ``torch.add(a, u)`` on the same inputs."""
     rows = []
     cases = [(RG_BATCH, RG_PROMPT, 2560, torch.bfloat16, True),
              (RG_BATCH, RG_PROMPT, 2560, torch.bfloat16, False),
@@ -1515,30 +1555,54 @@ def check_rglru(gen, dev):
     for i, (b, s, d, dt, with_h0) in enumerate(cases):
         a, u, h0 = scan_inputs(gen, dev, b, s, d, dt)
         h0 = h0 if with_h0 else None
+        before = dict(krglru.ROUTES)
         got = krglru.rglru_scan(a, u, h0)
+        route = kernel_route(krglru.ROUTES, before, "rglru_scan")
         want = ref.rglru_scan_ref(a, u, h0)
         mult = max(rglru_multiples(g, w).max().item()
                    for g, w in zip(got, want))
         err = max((g.float() - w.float()).abs().max().item()
                   for g, w in zip(got, want))
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
         shape = (f"B={b} S={s} D={d} {str(dt)[6:]}"
                  f"{' h0' if with_h0 else ''}")
-        print(f"rglru {shape}: max |err| {err:.4g}, max limit multiple "
-              f"{mult:.3g} of {RGLRU_ATOL} + {RGLRU_RTOL:.4g}|plain|")
+        print(f"rglru {shape} ({route}): max |err| {err:.4g}, max limit "
+              f"multiple {mult:.3g} of {RGLRU_ATOL} + {RGLRU_RTOL:.4g}|plain|;"
+              f" bit for bit: {equal}")
+        if route != "tma":
+            fail(f"rglru_scan {shape} took the {route} route")
         if not all(torch.isfinite(g.float()).all() for g in got) \
-                or mult > 1:
+                or mult > 1 or not equal:
             fail(f"rglru_scan {shape}: kernel disagrees with its plain "
                  f"version")
         if i == 0:
             rglru_controls(a, u, h0, *want)
+            rglru_plant_controls(a, u, h0, want, {
+                "a ring stage consumed one phase early":
+                    (ref.SCAN_PLANT_EARLY, 0),
+                "one stage's store dropped": (ref.SCAN_PLANT_STORE, 0)})
         if i == 1:
             nbytes = 3 * a.numel() * a.element_size() \
                 + b * d * a.element_size()
-            rows.append(entry(
+            row = entry(
                 "rglru_scan", shape, err,
                 time_ms(krglru.rglru_scan, [(a, u)]),
                 time_ms(ref.rglru_scan_ref, [(a, u)], 2),
-                bound(nbytes, 2 * a.numel(), torch.float32), None))
+                bound(nbytes, 2 * a.numel(), torch.float32), None)
+            row.update(
+                kernel_route=route,
+                earlier_ms=time_ms(
+                    lambda *x: krglru._run(*x, None, "simt"), [(a, u)]),
+                # One elementwise pass over the same bytes: a yardstick of
+                # the bytes alone (no PyTorch call computes the recurrence).
+                add_ms=time_ms(torch.add, [(a, u)]),
+                ptxas=ptxas_entries("rglru_scan", "scan_tma"),
+                smem_bytes=krglru.tma_tile(dt)["smem_bytes"])
+            rows.append(row)
+        if i == 2:
+            rglru_plant_controls(a, u, h0, want, {
+                "the carry run past S into the zero-filled tail":
+                    (ref.SCAN_PLANT_TAIL, 1)})
         del a, u, h0, got, want
     return rows
 
@@ -1809,7 +1873,8 @@ def serve_recurrent(cfg, params, dev, launches, batch, prompt, new):
           f"{json.dumps(launches(cfg, 'decode'))}, as predicted; nothing "
           f"routed; sma_gemm routes {json.dumps(dict(routes))} (prefill "
           f"wgmma, decode split-K); the prefill's flash routes "
-          f"{json.dumps(flash_r)}; rmsnorm_gemm and mlstm_chunkwise routes "
+          f"{json.dumps(flash_r)}; rmsnorm_gemm, mlstm_chunkwise and "
+          f"rglru_scan routes "
           f"{json.dumps(ROUTES_BY_PATH[cfg.name])}; row 0 tokens "
           f"{toks_out[0, :8].tolist()}")
     return dict(total), dict(routes)
@@ -2339,7 +2404,8 @@ def main() -> int:
         route = f" {route}" if route else ""
         extra = "".join(
             f", {key} {row[key]:.4f}" for key in ("paced_ms", "earlier_ms",
-                                                  "matmul_ms") if key in row)
+                                                  "matmul_ms", "add_ms")
+            if key in row)
         print(f"kernel {row['name']}{route} [{row['shape']}]: max|err| "
               f"{row['max_abs_err']:.3g}, {row['ms']:.4f} ms{extra}, plain "
               f"{row['plain_ms']:.4f} ms, library {row['library_ms']}, "
@@ -2433,7 +2499,7 @@ def main() -> int:
         {"serve": serve_routes, "train": train_routes,
          "recurrentgemma": rg_routes, "xlstm": xl_routes}))
     print(f"flash routes by path: {json.dumps(FLASH_ROUTES_BY_PATH)}")
-    print(f"rmsnorm_gemm and mlstm_chunkwise routes by path: "
+    print(f"rmsnorm_gemm, mlstm_chunkwise and rglru_scan routes by path: "
           f"{json.dumps(ROUTES_BY_PATH)}")
     print(card)
     print(json.dumps({"kernels": rows}))

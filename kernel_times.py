@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time ``sma_gemm``, the decode-attention, the flash, the ``rmsnorm_gemm``
-and the ``mlstm_chunkwise`` kernels of one checkout.
+"""Time ``sma_gemm``, the decode-attention, the flash, the ``rmsnorm_gemm``,
+the ``mlstm_chunkwise`` and the ``rglru_scan`` kernels of one checkout.
 
     python3 kernel_times.py [--root DIR]
 
@@ -10,7 +10,8 @@ its kernels there, and times each entry at the main paths' shapes (the
 contiguous decode shapes, the flash forward and backward at the training
 shape and the forward at RecurrentGemma's prefill shape, the head's
 ``rmsnorm_gemm`` at decode (M 8) and training (M 8192) sizes, the chunkwise
-mLSTM at xLSTM's prefill shape with its state) two ways, over inputs
+mLSTM at xLSTM's prefill shape with its state, the RG-LRU scan at
+RecurrentGemma's prefill shape with and without h0) two ways, over inputs
 rotated past the 50 MB L2 where they fit:
 
 * ``device_ms``: the calls queued behind a device-side sleep, so the card
@@ -20,13 +21,14 @@ rotated past the 50 MB L2 where they fit:
 
 Beside each flash row, ``sdpa_ms`` is the device time of PyTorch's
 ``scaled_dot_product_attention`` (and its backward) on the same inputs, and
-beside the M 8192 head ``matmul_ms`` is ``torch.matmul`` of the
-pre-normalized x by the head (the GEMM alone): yardsticks, never called by
-the port.  Only the public wrappers are called, so an older checkout's
-kernels are timed the same way.  Prints the card (``nvidia-smi``)
-and one JSON line.  To compare two
-commits on one card, unpack the other into a directory that
-``.gitignore`` lists and run both in one call, in turns (A B B A).
+beside each head ``matmul_ms`` is ``torch.matmul`` of the pre-normalized x
+by the head (the GEMM alone), and beside the scan ``add_ms`` is
+``torch.add(a, u)``, one elementwise pass over the same bytes (no PyTorch
+call computes the recurrence): yardsticks, never called by the port.
+Only the public wrappers are called, so an older checkout's kernels are
+timed the same way.  Prints the card (``nvidia-smi``) and one JSON line.
+To compare two commits on one card, unpack the other into a directory
+that ``.gitignore`` lists and run both in one call, in turns (A B B A).
 Needs a card; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -62,6 +64,7 @@ def main() -> int:
     from repro_torch.kernels import mlstm as kmlstm
     from repro_torch.kernels import norm_gemm as knorm
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru as krglru
     from repro_torch.kernels import sma_gemm as kgemm
     if not torch.cuda.is_available():
         print("kernel_times: needs an NVIDIA card", file=sys.stderr)
@@ -71,7 +74,7 @@ def main() -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
     _build.build(["sma_gemm", "decode_attention", "flash_attention",
-                  "norm_gemm", "mlstm_chunkwise"])
+                  "norm_gemm", "mlstm_chunkwise", "rglru_scan"])
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -192,13 +195,12 @@ def main() -> int:
     scale = torch.rand((k,), generator=gen, device=dev) + 0.5
     for m in (8, 8192):
         x = (torch.randn((m, k), generator=gen, device=dev) * 3).to(dt)
-        extra = {}
-        if m > 16:
-            normed = (x.float() * ref.rms_inverse(x) * scale).to(dt)
-            extra["matmul_ms"] = timed(torch.matmul, [(normed, w)], 3, True)
+        normed = (x.float() * ref.rms_inverse(x) * scale).to(dt)
+        iters = 20 if m <= 16 else 3
         row("rmsnorm_gemm", f"M={m} K={k} N={n}", knorm.rmsnorm_gemm,
-            [(x, scale, w)], 20 if m <= 16 else 3, **extra)
-        del x
+            [(x, scale, w)], iters,
+            matmul_ms=timed(torch.matmul, [(normed, w)], iters, True))
+        del x, normed
     del w
 
     # The chunkwise mLSTM at xlstm-1.3b's prefill shape, with its state.
@@ -213,11 +215,26 @@ def main() -> int:
     row("mlstm_chunkwise", f"B={b} H={h} S={s} D={d} chunk=128 with state",
         lambda *a: kmlstm.mlstm_chunkwise(*a, chunk=128, return_state=True),
         [(q, k_, v, lf, li)], 10)
+    del q, k_, v, lf, li
+
+    # The RG-LRU scan at recurrentgemma-2b's prefill shape (lru width 2560),
+    # without h0 (the prefill's call) and with one; a and u of 84 MB each
+    # exceed the L2.
+    b, s, d = 4, 4096, 2560
+    a = torch.sigmoid(torch.randn((b, s, d), generator=gen,
+                                  device=dev)).to(dt)
+    u = (torch.randn((b, s, d), generator=gen, device=dev) * 0.1).to(dt)
+    h0 = torch.randn((b, d), generator=gen, device=dev).to(dt)
+    row("rglru_scan", f"B={b} S={s} D={d}", krglru.rglru_scan, [(a, u)],
+        add_ms=timed(torch.add, [(a, u)], 20, True))
+    row("rglru_scan", f"B={b} S={s} D={d} h0", krglru.rglru_scan,
+        [(a, u, h0)])
     # The launches of each route over the whole run, where the checkout
     # counts them.
     routes = {fn.__name__: dict(fn.routes)
               for fn in (kgemm.sma_gemm, knorm.rmsnorm_gemm,
-                         kmlstm.mlstm_chunkwise) if hasattr(fn, "routes")}
+                         kmlstm.mlstm_chunkwise, krglru.rglru_scan)
+              if hasattr(fn, "routes")}
     print(card)
     print(json.dumps({"root": str(root), "card": card, "routes": routes,
                       "rows": rows}))

@@ -1,5 +1,6 @@
 // Hopper machinery shared by the port's wgmma + TMA kernels (gemm_wgmma.cuh,
-// flash_attention.cu, mlstm_chunkwise.cu): mbarriers, TMA loads, stores and
+// flash_attention.cu, mlstm_chunkwise.cu) and the TMA-fed scan
+// (rglru_scan.cu): mbarriers, TMA loads, stores and
 // tensor maps, wgmma shared-memory descriptors and the wgmma instructions
 // themselves, register hand-over between warpgroups.  Needs sm_90a.
 //
@@ -131,9 +132,11 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
-// Wait until this thread's bulk groups have read their shared memory.
+// Wait until all but the newest N of this thread's bulk groups have read
+// their shared memory.
+template <int N = 0>
 __device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 // Wait until this thread's bulk groups have completed.
 __device__ __forceinline__ void bulk_wait() {
@@ -433,11 +436,13 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A contiguous tensor of `rank` dims (innermost first) of `bytes`-wide
-// elements, boxes of `box` elements with 128-byte swizzle; TMA zero-fills
-// a box past the edges (and a reduce skips them).
+// elements, boxes of `box` elements with 128-byte swizzle (or `swizzle`);
+// TMA zero-fills a box past the edges (and a reduce or a store skips
+// them).
 inline bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr,
                    CUtensorMapDataType type, uint64_t bytes, int rank,
-                   const uint64_t* dims, const uint32_t* box) {
+                   const uint64_t* dims, const uint32_t* box,
+                   CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   cuuint64_t d[5], strides[4];
   cuuint32_t b[5], elem[5];
   uint64_t stride = bytes;
@@ -449,7 +454,7 @@ inline bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr,
     if (i + 1 < rank) strides[i] = stride;
   }
   return fn(map, type, rank, const_cast<void*>(ptr), d, strides, b, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -5,12 +5,8 @@
 // `_rglru_kernel`).  The TPU kernel walks a (B, D/bd, S/bs) grid with time
 // innermost and carries h in a VMEM scratch across the sequential time
 // axis; it pads S and D to its blocks (a = 1, u = 0 past S).  Here blocks
-// run in no order, so one thread owns one (b, d) channel for the whole
-// sequence and keeps the carry in a register: the time loop is the
-// sequential axis.  Channels past D are masked by index, nothing is
-// padded.  Neighbouring threads own neighbouring channels, so every load of
-// a[b, t, :] and u[b, t, :] and every store of h_seq[b, t, :] is coalesced
-// across the warp.
+// run in no order, so the time loop runs inside one thread per channel,
+// with the carry in a register.
 //
 // Semantics (those of the TPU kernel): a, u and h0 are read as f32; the
 // carry starts at h0 (zeros without one); each step is a product and a sum,
@@ -18,14 +14,31 @@
 // PyTorch version's bit for bit); h_seq is stored in a's dtype and h_last
 // is the final f32 carry rounded once to a's dtype.
 //
-// What bounds it on an H100: bytes, in principle (3 * B * S * D elements
-// move, 2 flops each); in this first version, latency.  At the prefill's
-// shape (B 4, S 4096, D 2560, bf16) only 10,240 threads run, each a chain of
-// 4,096 dependent steps.  To keep memory requests in flight, each thread
-// loads the next CHUNK steps of a and u into registers before it runs them.
-// A time-chunked scan (local scans, a carry pass, a fix-up) that spreads
-// each channel over many threads is the redesign.
-#include "common.cuh"
+// What bounds it on an H100: bytes (3 * B * S * D elements move, 2 flops
+// each).  One step's dependency chain is a multiply and an add, ~8 cycles,
+// so a 4,096-step chain takes ~19 us against the 75 us its bytes take at
+// the prefill's shape (B 4, S 4096, D 2560, bf16): the time axis can stay
+// sequential, and exact, if enough bytes are in flight.  Two routes
+// (repro_torch.kernels.rglru._route):
+//
+// * tma: a block of kWarps warps takes kCols = 128 channels of one batch
+//   row, one a thread (80 blocks at the prefill's shape).  Thread 0 keeps a
+//   ring of kStages shared-memory stages full with TMA loads of a (steps x
+//   kCols) box of a and of u each (3-D tensor maps (D, S, B), so a box
+//   never reads into the next batch row; TMA zero-fills past S and D), each
+//   completing on its stage's mbarrier.  The threads walk a stage's rows in
+//   order, kRegRows rows at a time through registers, write each rounded h
+//   into a shared-memory output stage, and thread 0 stores the finished
+//   stage with TMA (clipped at S and D) and refills the ring slot just
+//   consumed.  The chain stops at t = S - 1: a zero-filled a would reset
+//   the carry.  Boxes of 256-byte rows (bf16) and a ring of 3 measured
+//   faster on an H100 than 64- or 128-byte rows spread over every SM, or
+//   deeper rings.  Needs D * sizeof(T) % 16 == 0 and 16-byte-aligned bases.
+// * simt: the first design, for the strides TMA refuses.  One thread owns
+//   one (b, d) channel for the whole sequence and loads the next kChunk
+//   steps of a and u into registers before it runs them; loads and stores
+//   are coalesced across channels.
+#include "hopper.cuh"
 
 namespace repro {
 
@@ -79,10 +92,170 @@ void launch_scan(const void* a, const void* u, const void* h0, void* h_seq,
       static_cast<T*>(h_last), S, D);
 }
 
+// ------------------------------------------------------------------- tma
+namespace scan_tma {
+
+// Planted faults (a bit mask; must match repro_torch.kernels.ref.
+// SCAN_PLANT_*), 0 on every real call.  Each acts on stage nst / 2:
+// consumed one ring phase early (its load deferred until after the block
+// has read the slot, which still holds the stage kStages before); its
+// output store dropped; and, at the last stage, the carry run on through
+// the zero-filled rows past S before h_last is taken.
+enum { kPlantEarly = 1, kPlantTail = 2, kPlantStore = 4 };
+
+constexpr int kWarps = 4;           // slabs of 32 channels a block
+constexpr int kCols = 32 * kWarps;  // channels a block, one a thread
+constexpr int kStageBytes = 16384;  // of a, and of u, a stage
+constexpr int kStages = 3;          // ring of input stages
+constexpr int kOut = 2;             // output stages
+constexpr int kRegRows = 32;        // steps of a and u held in registers
+
+template <typename T>
+struct Tile {
+  static constexpr int ROW = kCols * static_cast<int>(sizeof(T));
+  static constexpr int R = kStageBytes / ROW;  // steps a stage: 64 (16-bit)
+  static constexpr int U = R < kRegRows ? R : kRegRows;
+  static constexpr int SMEM = (2 * kStages + kOut) * kStageBytes +
+                              kStages * static_cast<int>(sizeof(uint64_t));
+};
+
+// One step of one channel: h = a * h + u, the product and the sum each
+// rounded to f32; returns h rounded to T.
+template <typename T>
+__device__ __forceinline__ T step(T a, T u, float& h) {
+  h = __fadd_rn(__fmul_rn(to_f(a), h), to_f(u));
+  return from_f<T>(h);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kCols)
+    scan_kernel(__grid_constant__ const CUtensorMap tmA,
+                __grid_constant__ const CUtensorMap tmU,
+                __grid_constant__ const CUtensorMap tmH,
+                const T* __restrict__ h0, T* __restrict__ h_last, int S,
+                int D, int plant) {
+  using C = Tile<T>;
+  constexpr int BOX = C::R * kCols;  // elements of a stage
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sa = reinterpret_cast<T*>(smem);  // [kStages][R][kCols]
+  T* su = sa + kStages * BOX;          // [kStages][R][kCols]
+  T* so = su + kStages * BOX;          // [kOut][R][kCols]
+  uint64_t* full = reinterpret_cast<uint64_t*>(so + kOut * BOX);
+
+  const int t = threadIdx.x;  // channel d0 + t
+  const int d0 = blockIdx.x * kCols, b = blockIdx.y, d = d0 + t;
+  const int nst = (S + C::R - 1) / C::R;
+  const int kp = nst / 2;  // the planted stage
+  const bool early = (plant & kPlantEarly) && kp >= kStages;
+
+  auto load = [&](int k) {  // thread 0: stage k into ring slot k % kStages
+    const int s = k % kStages;
+    const uint32_t bar = smem_u32(&full[s]);
+    mbar_expect_tx(bar, 2 * kStageBytes);
+    tma_load(smem_u32(sa + s * BOX), &tmA, d0, k * C::R, b, bar);
+    tma_load(smem_u32(su + s * BOX), &tmU, d0, k * C::R, b, bar);
+  };
+  if (t == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(smem_u32(&full[s]), 1);
+    mbar_init_fence();
+    for (int k = 0; k < kStages && k < nst; ++k) load(k);
+  }
+  __syncthreads();
+
+  float h = h0 != nullptr && d < D ? to_f(h0[static_cast<size_t>(b) * D + d])
+                                   : 0.f;
+  for (int k = 0; k < nst; ++k) {
+    const int s = k % kStages, o = k % kOut;
+    if (!(early && k == kp)) mbar_wait(smem_u32(&full[s]), (k / kStages) & 1);
+    if (k >= kOut) {  // output slot o: its last store has read it
+      if (t == 0) bulk_wait_read<kOut - 1>();
+      __syncthreads();
+    }
+    // Row r of a slot is kCols consecutive elements, one a thread: a warp's
+    // reads and writes of a row are free of bank conflicts.
+    const T* pa = sa + s * BOX + t;
+    const T* pu = su + s * BOX + t;
+    T* po = so + o * BOX + t;
+    const int rows = (plant & kPlantTail) ? C::R : min(C::R, S - k * C::R);
+    if (rows == C::R) {
+      // U rows of a and u into registers, then their steps: the loads of a
+      // block of rows all precede its stores, above which the compiler could
+      // not otherwise move them (the slots may alias), so a shared-memory
+      // latency is paid once a block of rows, not once a step.
+#pragma unroll
+      for (int r0 = 0; r0 < C::R; r0 += C::U) {
+        T av[C::U], uv[C::U];
+#pragma unroll
+        for (int i = 0; i < C::U; ++i) {
+          av[i] = pa[kCols * (r0 + i)];
+          uv[i] = pu[kCols * (r0 + i)];
+        }
+#pragma unroll
+        for (int i = 0; i < C::U; ++i)
+          po[kCols * (r0 + i)] = step(av[i], uv[i], h);
+      }
+    } else {
+      for (int r = 0; r < rows; ++r)
+        po[kCols * r] = step(pa[kCols * r], pu[kCols * r], h);
+    }
+    fence_proxy_async();  // this thread's h rows, before the async store
+    __syncthreads();      // every thread has read slot s and written slot o
+    if (t == 0) {
+      if (!((plant & kPlantStore) && k == kp))
+        tma_store(&tmH, smem_u32(so + o * BOX), d0, k * C::R, b);
+      bulk_commit();  // a group per stage, empty where the store is dropped
+      if (early && k == kp) {  // the deferred load, into the slot just read
+        load(k);
+        mbar_wait(smem_u32(&full[s]), (k / kStages) & 1);
+      }
+      const int next = k + kStages;
+      if (next < nst && !(early && next == kp)) load(next);
+    }
+  }
+  if (d < D) h_last[static_cast<size_t>(b) * D + d] = from_f<T>(h);
+  if (t == 0) bulk_wait();  // every store has landed
+}
+
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  return std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+template <typename T>
+int launch(const void* a, const void* u, const void* h0, void* h_seq,
+           void* h_last, int B, int S, int D, int plant,
+           cudaStream_t stream) {
+  using C = Tile<T>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const uint64_t dims[3] = {static_cast<uint64_t>(D),
+                            static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(B)};
+  const uint32_t box[3] = {kCols, C::R, 1};
+  auto map = [&](CUtensorMap* m, const void* ptr) {
+    return encode(fn, m, ptr, map_type<T>(), sizeof(T), 3, dims, box,
+                  CU_TENSOR_MAP_SWIZZLE_NONE);
+  };
+  CUtensorMap ta, tu, th;
+  if (!map(&ta, a) || !map(&tu, u) || !map(&th, h_seq))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err) return static_cast<int>(err);
+  dim3 grid((D + kCols - 1) / kCols, B);
+  scan_kernel<T><<<grid, kCols, C::SMEM, stream>>>(
+      ta, tu, th, static_cast<const T*>(h0), static_cast<T*>(h_last), S, D,
+      plant);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace scan_tma
 }  // namespace repro
 
-// h0 may be null (a zero carry).  Returns cudaGetLastError() after the
-// launch.
+// The simt route.  h0 may be null (a zero carry).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int rglru_scan_launch(const void* a, const void* u, const void* h0,
                                  void* h_seq, void* h_last, int B, int S,
                                  int D, int dtype, void* stream) {
@@ -101,4 +274,40 @@ extern "C" int rglru_scan_launch(const void* a, const void* u, const void* h0,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tma route: D * element size a multiple of 16 bytes, a, u, h_seq
+// 16-byte aligned, S >= 1.  h0 may be null.  plant: chip_smoke.py's planted
+// faults, 0 otherwise.  Returns cudaGetLastError() after the launch.
+extern "C" int rglru_scan_tma_launch(const void* a, const void* u,
+                                     const void* h0, void* h_seq,
+                                     void* h_last, int B, int S, int D,
+                                     int dtype, int plant, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case repro::kF32:
+      return repro::scan_tma::launch<float>(a, u, h0, h_seq, h_last, B, S, D,
+                                            plant, s);
+    case repro::kBF16:
+      return repro::scan_tma::launch<__nv_bfloat16>(a, u, h0, h_seq, h_last,
+                                                    B, S, D, plant, s);
+    case repro::kF16:
+      return repro::scan_tma::launch<__half>(a, u, h0, h_seq, h_last, B, S,
+                                             D, plant, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The tma route's tile for `dtype`: what 0, its steps a stage (where the
+// planted faults act); 1, its ring's stages; 2, its dynamic shared memory
+// a block in bytes.
+extern "C" int rglru_scan_tma_tile(int dtype, int what) {
+  using namespace repro::scan_tma;
+  using F = Tile<float>;
+  using H = Tile<__half>;
+  const bool f32 = dtype == repro::kF32;
+  return what == 0 ? (f32 ? F::R : H::R)
+         : what == 1 ? kStages
+                     : (f32 ? F::SMEM : H::SMEM);
 }

@@ -34,8 +34,9 @@ Each entry point:
   launches per route (the kernel that shape, dtype and alignment pick) of
   ``sma_gemm.routes`` (``wgmma``, ``splitk``, ``tile``, ``f32``),
   ``rmsnorm_gemm.routes`` (``wgmma``, ``tile``, ``f32``),
-  ``mlstm_chunkwise.routes`` (``wgmma``, ``simt``) and the flash
-  wrappers' ``.routes``.
+  ``mlstm_chunkwise.routes`` (``wgmma``, ``simt``),
+  ``rglru_scan.routes`` (``tma``, ``simt``) and the flash wrappers'
+  ``.routes``.
 
 The JAX package's backend registry and ladder are not ported.
 """
@@ -82,12 +83,12 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_counts() -> None:
     """Zero every wrapper's launches, the routes of ``sma_gemm``,
-    ``rmsnorm_gemm``, ``mlstm_chunkwise`` and the flash kernels, and
-    :data:`ROUTED`."""
+    ``rmsnorm_gemm``, ``mlstm_chunkwise``, ``rglru_scan`` and the flash
+    kernels, and :data:`ROUTED`."""
     for fn in WRAPPERS.values():
         fn.launches = 0
     for routes in (_gemm.ROUTES, _norm.ROUTES, _mlstm.ROUTES,
-                   _flash.FWD_ROUTES, _flash.BWD_ROUTES):
+                   _rglru.ROUTES, _flash.FWD_ROUTES, _flash.BWD_ROUTES):
         routes.update(dict.fromkeys(routes, 0))
     ROUTED.clear()
 

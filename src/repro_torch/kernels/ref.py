@@ -291,6 +291,41 @@ def rglru_scan_ref(a: torch.Tensor, u: torch.Tensor,
     return out, h.to(a.dtype)
 
 
+#: Planted faults of the ``tma`` scan kernel and of
+#: :func:`rglru_scan_planted_ref` (a bit mask; must match
+#: ``csrc/rglru_scan.cu``), each at ring stage nst // 2 of nst: the stage
+#: consumed one ring phase early (it reads the slot's previous fill, the
+#: stage ``stages`` before; only where nst // 2 >= stages); the carry run
+#: on through the zero-filled rows past S before h_last is taken; the
+#: stage's store dropped.
+SCAN_PLANT_EARLY, SCAN_PLANT_TAIL, SCAN_PLANT_STORE = 1, 2, 4
+
+
+def rglru_scan_planted_ref(a: torch.Tensor, u: torch.Tensor,
+                           h0: Optional[torch.Tensor], plant: int,
+                           rows: int, stages: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rglru_scan_ref` with the ``SCAN_PLANT_*`` faults of
+    ``plant`` made as the ``tma`` kernel makes them, for ring stages of
+    ``rows`` steps in a ring of ``stages`` (the output a planted kernel
+    run must reproduce; its outputs start zeroed)."""
+    s = a.shape[1]
+    nst = -(-s // rows)
+    kp = nst // 2
+    lo, hi = kp * rows, min((kp + 1) * rows, s)
+    if plant & SCAN_PLANT_EARLY and kp >= stages:
+        a, u = a.clone(), u.clone()
+        back = stages * rows
+        a[:, lo:hi] = a[:, lo - back:hi - back]
+        u[:, lo:hi] = u[:, lo - back:hi - back]
+    h_seq, h_last = rglru_scan_ref(a, u, h0)
+    if plant & SCAN_PLANT_TAIL and s % rows:
+        h_last = torch.zeros_like(h_last)  # a = u = 0: the carry is 0
+    if plant & SCAN_PLANT_STORE:
+        h_seq[:, lo:hi] = 0
+    return h_seq, h_last
+
+
 def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         log_f: torch.Tensor, log_i: torch.Tensor, *,
                         chunk: int, return_state: bool = False):

@@ -12,7 +12,8 @@ in the decode and flash kernels, flash rows that see no key, gradients
 reaching weights through every kernel entry point, the serving steps and a
 few training steps on the card against the same on the CPU, and the
 recurrentgemma kernels and steps: the RG-LRU scan (bit for bit against its
-plain version), the flash forward and the contiguous decode at MQA with
+plain version, on both routes, at the edges of the tma kernel's ring and
+boxes), the flash forward and the contiguous decode at MQA with
 head_dim 256, and ``lm.prefill`` / ``lm.decode_step`` of a small recurrent
 model; and the xLSTM ones: the chunkwise mLSTM (h and its final state, at
 small and full head dim, ragged S, every dtype; its wgmma route against
@@ -36,6 +37,7 @@ from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import mlstm as kmlstm
 from repro_torch.kernels import norm_gemm as knorm
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rglru as krglru
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention)
 from repro_torch.kernels.flash_attention import (flash_attention_bwd,
@@ -583,10 +585,13 @@ def test_train_steps_on_card_match_cpu(dev):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("b,s,d,h0", [(2, 100, 96, True), (1, 257, 130, False),
                                       (3, 33, 2568, True), (1, 1, 7, False)])
-def test_rglru_scan_matches_plain_bit_for_bit(dev, dtype, b, s, d, h0):
+def test_rglru_scan_matches_plain_bit_for_bit(dev, dtype, b, s, d, h0,
+                                              record_property):
     """The kernel rounds a product and a sum to f32 at each step, as the
     plain version's separate tensor ops do: h_seq and h_last are equal,
-    not only close.  Ragged S (past the 32-step chunks) and D."""
+    not only close.  Ragged S (past the 32-step chunks) and D; each case
+    records its route, the one ``_route`` picks (D 7 and 130 in 16 bits
+    and f32 are strides TMA refuses: ``simt``; the rest ``tma``)."""
     dt = DTYPES[dtype]
     a = torch.sigmoid(randn((b, s, d), torch.float32, dev, 40)).to(dt)
     u = randn((b, s, d), dt, dev, 41, scale=0.1)
@@ -595,10 +600,92 @@ def test_rglru_scan_matches_plain_bit_for_bit(dev, dtype, b, s, d, h0):
     got = rglru_scan(a, u, h)
     torch.cuda.synchronize()
     assert ops.launch_counts()["rglru_scan"] == 1
+    route = krglru._route(b, s, d, dt, True)
+    record_property("route", route)
+    assert _rglru_routes() == {route: 1}
     want = ref.rglru_scan_ref(a, u, h)
     for g, w in zip(got, want):
         assert g.dtype == dt
         assert torch.equal(g, w), (g.float() - w.float()).abs().max()
+
+
+def _rglru_routes():
+    return {r: n for r, n in krglru.ROUTES.items() if n}
+
+
+def _scan_inputs(b, s, d, dt, dev, h0, offset=0):
+    a = torch.sigmoid(randn((b, s, d), torch.float32, dev, s + d)).to(dt)
+    if offset:
+        a = randn((b, s, d), dt, dev, 0, offset=offset).copy_(a)
+    u = randn((b, s, d), dt, dev, s + d + 1, scale=0.1, offset=offset)
+    h = randn((b, d), dt, dev, s + d + 2) if h0 else None
+    return a, u, h
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("h0", [True, False])
+@pytest.mark.parametrize("b,s,d", [(2, 20, 2560),    # S below one stage
+                                   (1, 1, 2560),     # one step
+                                   (1, 4097, 2560),  # S past the stages
+                                   (2, 300, 2568),   # D ragged to the block
+                                   (2, 300, 2536),
+                                   (4, 4096, 2560)])  # the prefill's shape
+def test_rglru_scan_tma_route_bit_for_bit(dev, dtype, h0, b, s, d):
+    """The tma kernel, on the edges of its ring and its boxes: the ragged
+    S (zero-filled past S, the chain stopping at S - 1), D not a multiple
+    of the 128-channel block (zero-filled, stores clipped), S = 1 and S
+    below one stage; equal to the plain version, not only close."""
+    dt = DTYPES[dtype]
+    a, u, h = _scan_inputs(b, s, d, dt, dev, h0)
+    ops.reset_counts()
+    got = rglru_scan(a, u, h)
+    torch.cuda.synchronize()
+    assert _rglru_routes() == {"tma": 1}
+    want = ref.rglru_scan_ref(a, u, h)
+    for g, w in zip(got, want):
+        assert g.dtype == dt and g.shape == w.shape
+        assert torch.equal(g, w), (g.float() - w.float()).abs().max()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rglru_scan_offset_base_routes_to_simt(dev, dtype):
+    """a and u one element into their buffers: TMA refuses the base, the
+    simt kernel takes it, bit for bit."""
+    dt = DTYPES[dtype]
+    a, u, h = _scan_inputs(2, 100, 2560, dt, dev, True, offset=1)
+    assert a.data_ptr() % 16 and u.data_ptr() % 16
+    assert krglru._route(2, 100, 2560, dt, False) == "simt"
+    ops.reset_counts()
+    got = rglru_scan(a, u, h)
+    torch.cuda.synchronize()
+    assert _rglru_routes() == {"simt": 1}
+    for g, w in zip(got, ref.rglru_scan_ref(a, u, h)):
+        assert torch.equal(g, w)
+
+
+def test_rglru_scan_routes_on_card(dev):
+    """Over a run of calls, the route counts are _route's choices."""
+    cases = [((4, 64, 2560), torch.bfloat16), ((1, 33, 7), torch.bfloat16),
+             ((1, 33, 130), torch.float16), ((2, 9, 96), torch.float32),
+             ((2, 9, 130), torch.float32), ((1, 70, 2568), torch.float16)]
+    ops.reset_counts()
+    want = {"tma": 0, "simt": 0}
+    for (b, s, d), dt in cases:
+        a, u, h = _scan_inputs(b, s, d, dt, dev, False)
+        rglru_scan(a, u, h)
+        want[krglru._route(b, s, d, dt, True)] += 1
+    torch.cuda.synchronize()
+    assert krglru.rglru_scan.routes == want == {"tma": 3, "simt": 3}
+    assert ops.launch_counts()["rglru_scan"] == len(cases)
+
+
+def test_rglru_scan_tma_shared_memory_fits_a_block(dev):
+    """The built tma kernel's dynamic shared memory, within the 227 KB a
+    block may use, and its ring deep enough for the planted faults."""
+    for dt in DTYPES.values():
+        tile = krglru.tma_tile(dt)
+        assert 0 < tile["smem_bytes"] <= 232448
+        assert tile["rows"] >= 16 and tile["stages"] >= 2
 
 
 def test_rglru_scan_refuses_a_gradient_on_card(dev):
