@@ -39,6 +39,16 @@
    StableLM-2-1.6B, sequence 2048, batch 4, remat, 5 steps: finite losses
    that fall, launch counts as predicted, nothing routed, step time,
    tokens/s, MFU and peak memory; a profile of one more step.
+   Front door: ``repro_torch.sma_jit(lm.forward)`` on full-width
+   StableLM-2-1.6B at the trainer's B 4 x S 2048 under ``torch.no_grad``:
+   the compile's stage times and plan summary; a second call is a cache
+   hit and S 1024 compiles once more; one compiled forward launches what
+   the direct forward launches (168 ``sma_gemm``, 1 ``rmsnorm_gemm``, 24
+   flash, all ``wgmma``, nothing routed), its profile holds no cuBLAS or
+   CUTLASS GEMM, and its logits equal the direct forward's bit for bit; a
+   planted fault edited into the compiled module (one fused silu dropped)
+   must fail that check; the fused, unfused (``fuse_runtime=False``) and
+   direct forwards are timed, device and host-paced.
 6. Recurrent path: the RG-LRU scan kernel against its plain version at
    the prefill's shape, bit for bit on its ``tma`` route (with planted
    faults: the carry reset mid-sequence, h_last one step early, a read one
@@ -86,6 +96,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -1458,6 +1469,200 @@ def report_profile(prof, wall: float, steps: int, what: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The front door: full-width StableLM-2-1.6B lm.forward through sma_jit
+# ---------------------------------------------------------------------------
+JIT_BATCH, JIT_SEQ = TRAIN_BATCH, TRAIN_SEQ      # the trainer's shape
+JIT_SHORT_SEQ = 1024                             # a second signature
+JIT_TIME_ITERS = 5
+# Words of library GEMM kernels' names (cuBLAS, CUTLASS) in a profile, and
+# the port's own GEMM kernels, some of whose names share them.
+LIBRARY_GEMM_WORDS = ("gemm", "cutlass", "cublas", "xmma", "nvjet")
+OWN_GEMM_KERNELS = ("gemm_wgmma_kernel", "gemm_tc_kernel", "gemm_f32_kernel",
+                    "splitk_partial_kernel", "splitk_reduce_kernel")
+
+
+def jit_launches(cfg) -> dict:
+    """Launches of one forward, direct or compiled: 7 projections a layer,
+    the head, one flash a layer."""
+    n = cfg.num_layers
+    return {"sma_gemm": 7 * n, "rmsnorm_gemm": 1, "flash_attention": n}
+
+
+def counted_run(fn):
+    """``fn()`` between a reset and a read of the launch counters: (out,
+    launches, routes of the GEMM and flash kernels, ROUTED)."""
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    routes = {"sma_gemm": nonzero(kgemm.ROUTES),
+              "rmsnorm_gemm": nonzero(knorm.ROUTES),
+              "flash": nonzero(kflash.FWD_ROUTES)}
+    return out, nonzero(ops.launch_counts()), routes, dict(ops.ROUTED)
+
+
+def library_gemm_kernels(prof) -> list:
+    names = {ev.key for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA}
+    return sorted(n for n in names
+                  if any(w in n.lower() for w in LIBRARY_GEMM_WORDS)
+                  and not any(k in n for k in OWN_GEMM_KERNELS))
+
+
+def host_ms(fn) -> float:
+    """Host wall of one call until it returns (the enqueue), the card idle
+    before it; the card is drained after."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    wall = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return 1e3 * wall
+
+
+def front_door(cfg, params, dev, card: str):
+    """``sma_jit(lm.forward)`` at full width, B x S = JIT_BATCH x JIT_SEQ:
+    compile (stage times, plan summary), cache (a hit, then a second
+    signature), launches and routes equal to the direct forward's, no
+    library GEMM in its profile, logits bit for bit the direct ones, a
+    planted fault in the compiled module caught, and the fused / unfused /
+    direct forwards timed.  Returns the compiled call's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import SMAOptions, sma_jit
+    from repro_torch.compiler import dispatch as cdispatch
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (JIT_BATCH, JIT_SEQ),
+                         generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": toks}
+    fwd = functools.partial(lm.forward, cfg=cfg)
+    eng = sma_jit(fwd)
+
+    # 1. Compile.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng(params, batch=batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    # 2. Cache.
+    hit_ms = host_ms(lambda: eng(params, batch=batch))
+    if (eng.stats.misses, eng.stats.hits) != (1, 1):
+        fail(f"front door: second call at the same shapes was not a cache "
+             f"hit: {eng.stats}")
+    eng(params, batch={"tokens": toks[:, :JIT_SHORT_SEQ]})
+    if (eng.stats.misses, eng.stats.hits) != (2, 1):
+        fail(f"front door: S {JIT_SHORT_SEQ} did not compile once: "
+             f"{eng.stats}")
+    cm = eng.compile(params, batch=batch)
+    rep = cm.report
+    fus, disp, bks = rep["fusion"], rep["dispatch"], rep["backends"]
+    print(f"jit: compile of lm.forward ({ARCH} full width, {cfg.num_layers} "
+          f"layers, B {JIT_BATCH} x S {JIT_SEQ}, bf16): "
+          + ", ".join(f"{k.removesuffix('_s')} {v:.3f} s"
+                      for k, v in rep["compile"].items())
+          + f"; first call {first_s:.3f} s (compile + run); graph "
+          f"{cm.traced.num_nodes} nodes")
+    print(f"jit: plan: {rep['num_ops']} ops, {rep['groups']} groups "
+          f"({rep['systolic_groups']} systolic, {rep['simd_groups']} simd),"
+          f" {rep['mode_switches']} mode switches, systolic FLOP share "
+          f"{rep['systolic_flop_share']:.4f}; fused sites planned "
+          f"{fus['planned_fused_sites']}, realized "
+          f"{fus['realized_fused_sites']} ({fus['realized_epilogue_sites']} "
+          f"epilogue, {fus['realized_prologue_sites']} prologue); HBM bytes "
+          f"avoided planned {fus['planned_hbm_bytes_avoided']:.6g}, realized"
+          f" {fus['realized_hbm_bytes_avoided']:.6g}; fallbacks "
+          f"{json.dumps(fus['fallback_reasons'])}")
+    print(f"jit: dispatch {json.dumps(disp)}; routes "
+          f"{json.dumps(bks['routes'])}; backends "
+          f"{json.dumps(bks['chosen'])}")
+    print(f"jit: cache {json.dumps(eng.stats.asdict())}; a cached call's "
+          f"host wall to return {hit_ms:.3f} ms")
+    # 3. Launches and routes, compiled against direct.
+    direct, d_counts, d_routes, d_routed = counted_run(
+        lambda: fwd(params, batch=batch))
+    got, j_counts, j_routes, j_routed = counted_run(
+        lambda: eng(params, batch=batch))
+    expect = jit_launches(cfg)
+    want_routes = {"sma_gemm": {"wgmma": expect["sma_gemm"]},
+                   "rmsnorm_gemm": {"wgmma": 1},
+                   "flash": {"wgmma": expect["flash_attention"]}}
+    if d_counts != expect or d_routes != want_routes or d_routed:
+        fail(f"direct forward launches {d_counts}, routes {d_routes}, "
+             f"routed {d_routed}; expected {expect}, {want_routes}")
+    if (j_counts, j_routes, j_routed) != (d_counts, d_routes, d_routed):
+        fail(f"compiled forward launches {j_counts}, routes {j_routes}, "
+             f"routed {j_routed}; the direct forward {d_counts}, "
+             f"{d_routes}")
+    print(f"jit: launches of one forward, compiled {json.dumps(j_counts)} "
+          f"= direct; routes {json.dumps(j_routes)}")
+    # ... and no library GEMM in a profile of one compiled call.
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng(params, batch=batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    lib = library_gemm_kernels(prof)
+    if lib:
+        fail(f"compiled forward ran library GEMM kernels: {lib}")
+    report_profile(prof, wall, 1, "compiled forward")
+    # 4. Logits.
+    if not torch.equal(got, direct):
+        err = (got.float() - direct.float()).abs().max().item()
+        fail(f"compiled logits differ from the direct forward's (max |err| "
+             f"{err:.4g})")
+    print(f"jit: logits {tuple(got.shape)} {got.dtype} bit for bit the "
+          f"direct forward's")
+    # 5. A planted fault in the compiled module: one fused silu dropped.
+    gm = cm.module
+    node = next(n for n in gm.graph.nodes
+                if n.target is cdispatch.sma_gemm_site
+                and n.kwargs["epilogue"] == "silu")
+    saved = dict(node.kwargs)
+    node.kwargs = {**saved, "epilogue": "none"}
+    gm.recompile()
+    try:
+        bad = eng(params, batch=batch)
+    finally:
+        node.kwargs = saved
+        gm.recompile()
+    if torch.equal(bad, direct):
+        fail("planted fault (one fused silu dropped) not caught by the "
+             "logits check")
+    print(f"jit: planted fault (layer 0's fused silu dropped) caught: max "
+          f"|err| {(bad.float() - direct.float()).abs().max().item():.4g}")
+    del bad
+    if not torch.equal(eng(params, batch=batch), direct):
+        fail("compiled logits differ after the planted fault was removed")
+    # 6. The A/B: fused, unfused (every GEMM bare, epilogues as their own
+    # kernels), direct.
+    unfused = sma_jit(fwd, options=SMAOptions(fuse_runtime=False))
+    unfused(params, batch=batch)
+    u_out, u_counts, u_routes, _ = counted_run(
+        lambda: unfused(params, batch=batch))
+    u_err = (u_out.float() - direct.float()).abs().max().item()
+    del u_out
+    print(f"jit: unfused forward launches {json.dumps(u_counts)}, routes "
+          f"{json.dumps(u_routes)}; logits max |err| against the direct "
+          f"forward {u_err:.4g} (a reading: its gate products run in f32)")
+    calls = {"direct": lambda: fwd(params, batch=batch),
+             "fused": lambda: eng(params, batch=batch),
+             "unfused": lambda: unfused(params, batch=batch)}
+    times = {}
+    for name in ("direct", "fused", "unfused", "unfused", "fused", "direct"):
+        dev_ms = time_ms(calls[name], [()], iters=JIT_TIME_ITERS)
+        paced = time_ms(calls[name], [()], iters=JIT_TIME_ITERS, paced=True)
+        times.setdefault(name, []).append((dev_ms, paced,
+                                           host_ms(calls[name])))
+    for name, runs in times.items():
+        print(f"jit: {name} forward, B {JIT_BATCH} x S {JIT_SEQ} ({card}): "
+              f"device ms {[round(r[0], 3) for r in runs]}, host-paced ms "
+              f"{[round(r[1], 3) for r in runs]}, host wall to return ms "
+              f"{[round(r[2], 3) for r in runs]}")
+    return j_counts
+
+
+# ---------------------------------------------------------------------------
 # The recurrent path: recurrentgemma-2b through lm.prefill / lm.decode_step
 # ---------------------------------------------------------------------------
 def scan_inputs(gen, dev, b, s, d, dt):
@@ -2445,6 +2650,13 @@ def main() -> int:
     del tparams
     torch.cuda.empty_cache()
 
+    # The front door: lm.forward through sma_jit, without autograd.
+    with torch.no_grad():
+        params = lm.init(cfg, seed=0, device=dev)
+        jit_counts = phase("front door", front_door, cfg, params, dev, card)
+    del params
+    torch.cuda.empty_cache()
+
     # The recurrent path, without autograd.
     rg_cfg = get_config(RG_ARCH)
     with torch.inference_mode():
@@ -2489,6 +2701,7 @@ def main() -> int:
     for row in rows:
         by_path = {"serve": serve_counts[row["name"]],
                    "train": train_counts[row["name"]],
+                   "jit": jit_counts.get(row["name"], 0),
                    "recurrentgemma": rg_counts.get(row["name"], 0),
                    "xlstm": xl_counts.get(row["name"], 0)}
         row["launches"] = sum(by_path.values())

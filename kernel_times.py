@@ -19,6 +19,10 @@ rotated past the 50 MB L2 where they fit:
 * ``paced_ms``: the same calls without the sleep, as a caller that waits
   on nothing sees them (the host's pace where it is the slower).
 
+Last, the public entries ``ops.flash_attention`` and ``ops.sma_gemm`` at
+shapes small enough that their ``paced_ms`` is the host's cost of one
+entry call.
+
 Beside each flash row, ``sdpa_ms`` is the device time of PyTorch's
 ``scaled_dot_product_attention`` (and its backward) on the same inputs, and
 beside each head ``matmul_ms`` is ``torch.matmul`` of the pre-normalized x
@@ -229,6 +233,16 @@ def main() -> int:
         add_ms=timed(torch.add, [(a, u)], 20, True))
     row("rglru_scan", f"B={b} S={s} D={d} h0", krglru.rglru_scan,
         [(a, u, h0)])
+    # The public entries (kernels.ops) at shapes where the host sets the
+    # pace: paced_ms is the host's cost of one entry call, launch included.
+    from repro_torch.kernels import ops
+    tiny = torch.randn((1, 1, 128, 64), generator=gen, device=dev).to(dt)
+    w = torch.randn((64, 64), generator=gen, device=dev).to(dt)
+    with torch.no_grad():
+        row("ops.flash_attention", "B=1 H=1 S=128 D=64 causal, host-bound",
+            ops.flash_attention, [(tiny, tiny, tiny)], iters=200)
+        row("ops.sma_gemm", "M=1 K=64 N=64, host-bound", ops.sma_gemm,
+            [(tiny[0, 0, :1], w)], iters=200)
     # The launches of each route over the whole run, where the checkout
     # counts them.
     routes = {fn.__name__: dict(fn.routes)

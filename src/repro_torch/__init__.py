@@ -10,7 +10,13 @@ run on ``cuda`` unless the caller passes ``device="cpu"``.  On the card
 every kernel of the path is one written by hand for ``sm_90a``
 (:mod:`repro_torch.kernels`); on the CPU each wrapper runs its plain
 PyTorch version, which is what the CPU tests compare with the JAX package.
+
+The front door is :func:`sma_jit` (:mod:`repro_torch.api`): it traces a
+function with ``torch.fx``, plans its SYSTOLIC/SIMD mode timeline, fuses
+epilogues and norm prologues into the GEMM sites and dispatches them to the
+kernels (:mod:`repro_torch.compiler`).
 """
 from repro_torch._device import resolve_device
+from repro_torch.api import SMAOptions, options, sma_jit
 
-__all__ = ["resolve_device"]
+__all__ = ["SMAOptions", "options", "resolve_device", "sma_jit"]

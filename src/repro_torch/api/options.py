@@ -1,0 +1,123 @@
+"""``SMAOptions``: the one configuration surface of the front door
+(``repro.api.options``).
+
+:class:`SMAOptions` is a frozen, hashable dataclass; a field left ``None``
+inherits from the enclosing :func:`options` context, else from
+:data:`DEFAULTS`, so partial options overlay field by field::
+
+    with repro_torch.options(fuse_runtime=False):
+        y = engine(params, batch)        # compiles its own, unfused entry
+
+:func:`current_options` is the defaults overlaid by every active context;
+:func:`resolve_options` overlays explicit options on that, which is what an
+engine bakes into each cached executable and into its cache key.
+
+The port keeps only the fields that mean something in it today.  The
+reference's ``backend``, ``interpret``, ``autotune``, ``block_*``,
+``precision``, ``jit``, ``donate_argnums``, ``check_numerics``, ``verify``,
+``mesh``, ``mesh_rules`` and ``max_scan_unroll`` wait for the modules that
+give them a meaning (ROADMAP.md §1): routing is static and by device, and
+a traced graph has no scans to unroll.
+
+This module imports nothing of the port, so every layer can import it.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+from typing import Any, Iterator, Optional, Tuple
+
+__all__ = ["SMAOptions", "options", "current_options", "resolve_options",
+           "DEFAULTS"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SMAOptions:
+    """Every knob of the trace -> plan -> rewrite -> dispatch pipeline.
+
+    plan / rewrite
+      * ``fuse_runtime`` -- run the fusion patterns of the rewrite pass
+        (``False`` is the spatially decoupled A/B baseline: every GEMM
+        dispatched bare, its epilogue run as separate kernels).
+      * ``fuse_epilogues`` / ``max_epilogue_ops`` -- the
+        :class:`~repro_torch.core.sma.SMAPolicy` knobs of the plan.
+      * ``policy`` -- a pre-built ``SMAPolicy`` (wins over the two above).
+
+    engine
+      * ``max_cache_entries`` -- beyond this many cached executables the
+        least recently used is evicted; ``0`` means unbounded.
+    """
+
+    fuse_runtime: Optional[bool] = None
+    fuse_epilogues: Optional[bool] = None
+    max_epilogue_ops: Optional[int] = None
+    max_cache_entries: Optional[int] = None
+    policy: Any = None
+
+    _FIELDS = ("fuse_runtime", "fuse_epilogues", "max_epilogue_ops",
+               "max_cache_entries", "policy")
+
+    def overlay(self, other: Optional["SMAOptions"]) -> "SMAOptions":
+        """``other``'s explicitly set (non-``None``) fields override ours."""
+        if other is None:
+            return self
+        updates = {f: getattr(other, f) for f in self._FIELDS
+                   if getattr(other, f) is not None}
+        return dataclasses.replace(self, **updates) if updates else self
+
+    def cache_key(self) -> Tuple[Any, ...]:
+        """Hashable identity for the compile cache.  A ``policy`` hashes by
+        identity; holding the object itself (not its ``id()``) keeps it
+        alive as long as the key, so a recycled id never aliases two."""
+        return tuple(getattr(self, f) for f in self._FIELDS)
+
+    def asdict(self) -> dict:
+        """JSON-friendly view (for plan reports)."""
+        out = {f: getattr(self, f) for f in self._FIELDS}
+        if self.policy is not None:
+            out["policy"] = type(self.policy).__name__
+        return out
+
+
+#: The resolved defaults.
+DEFAULTS = SMAOptions(fuse_runtime=True, fuse_epilogues=True,
+                      max_epilogue_ops=4, max_cache_entries=0, policy=None)
+
+_STACK: contextvars.ContextVar[Tuple[SMAOptions, ...]] = \
+    contextvars.ContextVar("repro_torch_sma_options_stack", default=())
+
+
+def current_options() -> SMAOptions:
+    """Defaults overlaid by every active :func:`options` context, inner
+    last."""
+    merged = DEFAULTS
+    for layer in _STACK.get():
+        merged = merged.overlay(layer)
+    return merged
+
+
+def resolve_options(*overlays: Optional[SMAOptions]) -> SMAOptions:
+    """:func:`current_options` overlaid by explicit options, in order (an
+    engine's options beat the context)."""
+    merged = current_options()
+    for layer in overlays:
+        merged = merged.overlay(layer)
+    return merged
+
+
+@contextlib.contextmanager
+def options(opts: Optional[SMAOptions] = None, /,
+            **fields: Any) -> Iterator[SMAOptions]:
+    """Push a partial :class:`SMAOptions` overlay for the ``with`` scope:
+    an ``SMAOptions`` or keyword fields, not both.  Nested contexts overlay
+    field by field.  Yields the resolved options."""
+    if opts is not None and fields:
+        raise TypeError("pass an SMAOptions object OR keyword fields, "
+                        "not both")
+    layer = opts if opts is not None else SMAOptions(**fields)
+    token = _STACK.set(_STACK.get() + (layer,))
+    try:
+        yield current_options()
+    finally:
+        _STACK.reset(token)

@@ -1,0 +1,232 @@
+"""Stage 4 -- dispatch: the rewritten program as a ``torch.fx.GraphModule``
+whose GEMM sites and kernel-entry nodes call the port's kernel entries
+(``repro.compiler.dispatch``).
+
+:func:`build_module` copies the traced graph node by node, with each
+:class:`~repro_torch.compiler.rewrite.FusedGemm` put in its chain's place
+as one call:
+
+* a fused epilogue site and a bare site call
+  :func:`repro_torch.kernels.ops.sma_gemm` (``bias=``, ``epilogue=``);
+* a fused prologue site calls :func:`repro_torch.kernels.ops.rmsnorm_gemm`;
+* a kernel-entry node (``repro_torch::flash_attention``, the scans) calls
+  its entry (:data:`repro_torch.compiler.trace.KERNEL_ENTRY_OPS`);
+* every other node runs its aten op natively.
+
+Nodes the rewrite left without a user (the folded upcasts, the collapsing
+views) are dropped.  ``GraphModule.recompile`` turns the graph into Python,
+so a call runs generated code, not an interpreter loop over nodes.  The
+entries are looked up on ``ops`` at call time.  On the card no eligible
+product reaches ``aten.mm``: each is a kernel launch (or the wrapper
+raises).
+
+:func:`compile_with_options` is the pipeline ``trace -> lower -> plan ->
+rewrite -> dispatch`` behind :func:`repro_torch.api.sma_jit`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+import torch.fx
+import torch.utils._pytree as pytree
+
+from repro_torch.api.options import SMAOptions, resolve_options
+from repro_torch.backends.base import OpSite
+from repro_torch.backends.registry import record_sites, select_backend
+from repro_torch.compiler.fuse import ModelPlan, plan_program
+from repro_torch.compiler.lower import (MATMUL_OPS, BATCHED_MATMUL_OPS,
+                                        lower_graph, op_name, sma_eligible,
+                                        val)
+from repro_torch.compiler.report import (backends_section, fusion_section,
+                                         plan_report)
+from repro_torch.compiler.rewrite import (FUSABLE_DTYPES, FusedGemm,
+                                          RewriteResult, rewrite_program)
+from repro_torch.compiler.trace import (KERNEL_ENTRY_OPS, TracedModel,
+                                        trace_model)
+from repro_torch.core.sma import SMAPolicy
+from repro_torch.kernels import ops
+
+__all__ = ["CompiledModel", "build_module", "compile_with_options",
+           "count_dispatch_sites"]
+
+
+def sma_gemm_site(a, b, bias, *, epilogue, shape):
+    """One ``sma_gemm`` site; ``shape`` views the output where the chain's
+    value had another shape (the collapsed leading dims)."""
+    out = ops.sma_gemm(a, b, bias=bias, epilogue=epilogue)
+    return out if shape is None else out.view(shape)
+
+
+def rmsnorm_gemm_site(x, scale, w, *, epilogue, eps, shape):
+    out = ops.rmsnorm_gemm(x, scale, w, epilogue=epilogue, eps=eps)
+    return out if shape is None else out.view(shape)
+
+
+def _dispatchable(node: torch.fx.Node) -> bool:
+    return sma_eligible(node) and all(
+        val(a).dtype in FUSABLE_DTYPES
+        for a in node.all_input_nodes)
+
+
+def count_dispatch_sites(graph: torch.fx.Graph) -> Dict[str, int]:
+    """Census of the traced graph's products: ``systolic_dispatch_sites``
+    (eligible, taken by ``sma_gemm``/``rmsnorm_gemm``) and
+    ``native_dot_sites`` (batched or otherwise native), and the
+    ``kernel_entry_sites`` (flash, scans)."""
+    counts = {"systolic_dispatch_sites": 0, "native_dot_sites": 0,
+              "kernel_entry_sites": 0}
+    for node in graph.nodes:
+        if node.op != "call_function":
+            continue
+        if node.target in KERNEL_ENTRY_OPS:
+            counts["kernel_entry_sites"] += 1
+        elif _dispatchable(node):
+            counts["systolic_dispatch_sites"] += 1
+        elif op_name(node) in MATMUL_OPS | BATCHED_MATMUL_OPS:
+            counts["native_dot_sites"] += 1
+    return counts
+
+
+def collect_backend_sites(rewritten: RewriteResult) -> List[Dict[str, Any]]:
+    """The static route of every site the module dispatches (GEMM sites and
+    kernel-entry nodes), from the fake values alone."""
+    with record_sites() as sites:
+        for item in rewritten.items:
+            if isinstance(item, FusedGemm):
+                select_backend(OpSite.from_args(
+                    item.entry, tuple(val(n) for n in item.inputs)))
+            elif item.op == "call_function" and \
+                    item.target in KERNEL_ENTRY_OPS:
+                select_backend(OpSite.from_args(
+                    op_name(item), tuple(
+                        val(a) for a in item.args
+                        if isinstance(a, torch.fx.Node))))
+    return sites
+
+
+def build_module(traced: TracedModel,
+                 rewritten: RewriteResult) -> torch.fx.GraphModule:
+    """The dispatching ``GraphModule`` (see the module docstring)."""
+    graph = torch.fx.Graph()
+    env: Dict[torch.fx.Node, torch.fx.Node] = {}
+
+    def arg(n):
+        return None if n is None else env[n]
+
+    for item in rewritten.items:
+        if isinstance(item, FusedGemm):
+            if item.kind == "prologue":
+                new = graph.call_function(
+                    rmsnorm_gemm_site, tuple(arg(n) for n in item.inputs),
+                    {"epilogue": item.epilogue, "eps": item.eps,
+                     "shape": item.shape})
+            else:
+                new = graph.call_function(
+                    sma_gemm_site, tuple(arg(n) for n in item.inputs),
+                    {"epilogue": item.epilogue, "shape": item.shape})
+            new.meta["val"] = val(item.out)
+            env[item.out] = new
+            continue
+        new = graph.node_copy(item, lambda n: env[n])
+        if item.op == "call_function" and item.target in KERNEL_ENTRY_OPS:
+            new.target = KERNEL_ENTRY_OPS[item.target]
+        env[item] = new
+    graph.eliminate_dead_code()
+    return torch.fx.GraphModule(traced.graph_module, graph,
+                                class_name=f"SMA_{traced.name}")
+
+
+@dataclasses.dataclass
+class CompiledModel:
+    """Plan + executable for ONE signature (an :class:`repro_torch.api.
+    Engine` caches one per signature).  Calling it with arguments of the
+    compiled structure runs the dispatching module under
+    ``torch.no_grad()``."""
+
+    traced: TracedModel
+    plan: ModelPlan
+    report_data: Dict[str, Any]
+    module: torch.fx.GraphModule
+    rewritten: RewriteResult
+    options: SMAOptions
+    #: Installed by the owning engine: restamps the report's ``engine``
+    #: section on every read.
+    report_refresh: Optional[Callable[[Dict[str, Any]], None]] = \
+        dataclasses.field(default=None, repr=False, compare=False)
+
+    @property
+    def report(self) -> Dict[str, Any]:
+        if self.report_refresh is not None:
+            self.report_refresh(self.report_data)
+        return self.report_data
+
+    @property
+    def name(self) -> str:
+        return self.traced.name
+
+    @property
+    def summary(self):
+        return self.plan.summary
+
+    @property
+    def fused_sites(self) -> List[FusedGemm]:
+        """Every realized fusion site (bare sites excluded)."""
+        return [s for s in self.rewritten.sites if s.fused]
+
+    def __call__(self, *args, **kwargs):
+        flat, in_tree = pytree.tree_flatten((args, kwargs))
+        if in_tree != self.traced.in_tree:
+            raise TypeError(
+                f"compiled model '{self.name}' called with argument "
+                f"structure {in_tree}; compiled for {self.traced.in_tree}")
+        if torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad
+                for t in flat):
+            raise RuntimeError(
+                f"sma_jit compiles forward functions: '{self.name}' was "
+                f"called with grad enabled on inputs that require grad; "
+                f"call it under torch.no_grad() or torch.inference_mode() "
+                f"(gradients through sma_jit are not ported yet)")
+        with torch.no_grad():
+            outs = self.module(*flat)
+        return pytree.tree_unflatten(list(outs), self.traced.out_tree)
+
+
+def compile_with_options(fn: Callable, *args, name: Optional[str] = None,
+                         options: Optional[SMAOptions] = None,
+                         **kwargs) -> CompiledModel:
+    """Trace -> lower -> plan -> rewrite -> dispatch, configured by one
+    :class:`SMAOptions` (``options`` overlaid on the ambient context).  The
+    report's ``compile`` section times each stage on the host clock."""
+    o = resolve_options(options)
+    times: Dict[str, float] = {}
+    t0 = time.perf_counter()
+    traced = trace_model(fn, *args, name=name, **kwargs)
+    t1 = time.perf_counter()
+    program = lower_graph(traced.graph)
+    t2 = time.perf_counter()
+    policy = o.policy if o.policy is not None else SMAPolicy(
+        fuse_epilogues=bool(o.fuse_epilogues),
+        max_epilogue_ops=o.max_epilogue_ops)
+    plan = plan_program(program, name=traced.name, policy=policy)
+    t3 = time.perf_counter()
+    rewritten = rewrite_program(traced.graph, fuse=bool(o.fuse_runtime))
+    t4 = time.perf_counter()
+    module = build_module(traced, rewritten)
+    t5 = time.perf_counter()
+    times.update(trace_s=t1 - t0, lower_s=t2 - t1, plan_s=t3 - t2,
+                 rewrite_s=t4 - t3, dispatch_s=t5 - t4)
+
+    report = plan_report(plan)
+    report["options"] = o.asdict()
+    report["dispatch"] = {"backend": "static",
+                          **count_dispatch_sites(traced.graph)}
+    report["fusion"] = fusion_section(
+        plan, rewritten if o.fuse_runtime else None)
+    report["backends"] = backends_section(collect_backend_sites(rewritten))
+    report["compile"] = times
+    return CompiledModel(traced=traced, plan=plan, report_data=report,
+                         module=module, rewritten=rewritten, options=o)

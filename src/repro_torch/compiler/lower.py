@@ -1,0 +1,337 @@
+"""Stage 2 -- lower: fx graph nodes to the symbolic ``Op`` IR of
+:mod:`repro_torch.core.modes`, with FLOP and byte costs read from the fake
+tensors each node carries (``repro.compiler.lower``).
+
+The mapping is the paper's taxonomy over aten ops, as the reference maps
+JAX primitives:
+
+* ``mm`` and ``addmm`` (a 2-D right operand: the ``(..., K) @ (K, N)``
+  shape, :func:`sma_eligible`), ``convolution``, ``mv``/``dot`` ->
+  ``MATMUL``; ``bmm``/``baddbmm`` -> ``ATTENTION_MATMUL`` (SYSTOLIC);
+* reductions (``sum``, ``mean``, ``amax``, ``cumsum``, ...) ->
+  ``REDUCTION``, tile-local only over the trailing axis; ``_softmax`` ->
+  a ``REDUCTION`` (max and sum) and an ``ELEMENTWISE`` (exp and divide);
+  ``native_layer_norm`` and its kin -> ``NORMALIZATION``;
+* ``index``/``index_select``/``gather``/``scatter``/``index_put``/
+  ``embedding`` -> ``GATHER_SCATTER`` and ``topk``/``sort`` -> ``TOPK``,
+  never tile-local;
+* ``_to_copy`` with a dtype change -> ``CAST``;
+* everything else that computes -> ``ELEMENTWISE``, transcendentals
+  FLOP-weighted heavier;
+* layout ops (``view``, ``_unsafe_view``, ``transpose``, ``expand``,
+  ``slice``, ``cat``, ``clone``, ``arange``, ...) are elided and counted
+  in :class:`LowerStats`.
+
+Every kernel-entry node (:data:`repro_torch.compiler.trace.
+KERNEL_ENTRY_OPS`) becomes one ``Op`` of its mode: flash attention ->
+``ATTENTION_MATMUL`` (its FLOPs counted over the (query, key) pairs the
+mask keeps), the RG-LRU and mLSTM scans -> ``RECURRENCE``.
+
+Python loops unroll while tracing, so the graph has no scan or while nodes
+to coarsen: a model's layer loop lowers layer by layer.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import operator
+from typing import Dict, List
+
+import torch
+import torch.fx
+
+from repro_torch.core.modes import Op, OpKind
+
+__all__ = ["LoweredProgram", "LowerStats", "gemm_shape", "lower_graph",
+           "sma_eligible"]
+
+#: Pure layout ops: zero-cost at plan level.
+LAYOUT_OPS = frozenset({
+    "view", "_unsafe_view", "reshape", "_reshape_alias", "view_as",
+    "transpose", "t", "permute", "movedim", "expand", "expand_as", "slice",
+    "select", "narrow", "squeeze", "unsqueeze", "flatten", "unflatten",
+    "cat", "stack", "split", "split_with_sizes", "unbind", "chunk",
+    "clone", "contiguous", "alias", "detach", "lift_fresh_copy",
+    "as_strided", "diagonal", "unfold", "flip", "roll", "repeat",
+    "constant_pad_nd", "pad", "copy", "copy_", "arange", "empty",
+    "empty_like", "empty_strided", "new_empty", "zeros", "zeros_like",
+    "new_zeros", "ones", "ones_like", "new_ones", "full", "full_like",
+    "new_full", "scalar_tensor", "fill", "fill_", "zero_",
+})
+
+REDUCE_OPS = frozenset({
+    "sum", "mean", "amax", "amin", "max", "min", "argmax", "argmin", "prod",
+    "logsumexp", "var", "var_mean", "std", "std_mean", "norm",
+    "linalg_vector_norm", "any", "all",
+})
+
+CUMULATIVE_OPS = frozenset({"cumsum", "cumprod", "cummax", "cummin",
+                            "logcumsumexp"})
+
+SOFTMAX_OPS = frozenset({"_softmax", "_log_softmax"})
+
+NORM_OPS = frozenset({"native_layer_norm", "native_group_norm",
+                      "native_batch_norm", "_native_batch_norm_legit",
+                      "_native_batch_norm_legit_no_training"})
+
+GATHER_OPS = frozenset({
+    "index", "index_select", "gather", "scatter", "scatter_add",
+    "scatter_reduce", "index_put", "index_put_", "_index_put_impl_",
+    "index_add", "index_copy", "embedding", "take", "masked_scatter",
+    "slice_scatter", "select_scatter",
+})
+
+TOPK_OPS = frozenset({"topk", "sort", "argsort", "kthvalue", "msort"})
+
+MATMUL_OPS = frozenset({"mm", "addmm", "mv", "addmv", "dot", "vdot"})
+BATCHED_MATMUL_OPS = frozenset({"bmm", "baddbmm"})
+
+TRANSCENDENTAL_OPS = frozenset({
+    "exp", "exp2", "expm1", "log", "log2", "log10", "log1p", "sigmoid",
+    "tanh", "sin", "cos", "tan", "asin", "acos", "atan", "atan2", "sinh",
+    "cosh", "erf", "erfc", "erfinv", "pow", "rsqrt", "sqrt", "gelu", "silu",
+    "softplus", "log_sigmoid_forward", "logit", "mish", "lgamma",
+    "digamma",
+})
+
+_TRANSCENDENTAL_FLOPS = 4.0
+
+#: Elementwise ops recognized by name (the rest count as unknown).
+KNOWN_ELEMENTWISE = frozenset({
+    "add", "sub", "rsub", "mul", "div", "neg", "abs", "sign", "floor",
+    "ceil", "round", "trunc", "clamp", "clamp_min", "clamp_max", "minimum",
+    "maximum", "where", "masked_fill", "relu", "eq", "ne", "lt", "le", "gt",
+    "ge", "logical_and", "logical_or", "logical_not", "logical_xor",
+    "bitwise_and", "bitwise_or", "bitwise_not", "bitwise_xor", "remainder",
+    "fmod", "reciprocal", "lerp", "addcmul", "addcdiv", "tril", "triu",
+    "threshold", "hardtanh", "isnan", "isinf",
+})
+
+
+@dataclasses.dataclass
+class LowerStats:
+    """Bookkeeping emitted alongside the lowered ops."""
+
+    total_eqns: int = 0          # graph nodes that compute or move data
+    layout_ops_elided: int = 0
+    kernel_entries: int = 0      # flash / scan nodes
+    unknown_prims: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class LoweredProgram:
+    """The symbolic program handed to :class:`repro_torch.core.sma.
+    SMAPolicy`."""
+
+    ops: List[Op]
+    stats: LowerStats
+
+
+# --------------------------------------------------------------------------
+# Node helpers
+# --------------------------------------------------------------------------
+def op_name(node: torch.fx.Node) -> str:
+    """The aten overload packet's name (``"mm"``), ``"getitem"`` for tuple
+    indexing, or the target's own name."""
+    if node.target is operator.getitem:
+        return "getitem"
+    packet = getattr(node.target, "_overloadpacket", None)
+    if packet is not None:
+        return packet.__name__
+    return getattr(node.target, "__name__", str(node.target))
+
+
+def val(node) -> object:
+    """The fake value a node carries (None for non-nodes)."""
+    return node.meta.get("val") if isinstance(node, torch.fx.Node) else None
+
+
+def _nbytes(value) -> float:
+    if isinstance(value, torch.Tensor):
+        return float(value.numel() * value.element_size())
+    if isinstance(value, (tuple, list)):
+        return sum(_nbytes(v) for v in value)
+    return 0.0
+
+
+def _numel(value) -> float:
+    if isinstance(value, torch.Tensor):
+        return float(value.numel())
+    if isinstance(value, (tuple, list)):
+        return sum(_numel(v) for v in value)
+    return 0.0
+
+
+def _in_bytes(node: torch.fx.Node) -> float:
+    return sum(_nbytes(val(n)) for n in node.all_input_nodes)
+
+
+def sma_eligible(node: torch.fx.Node) -> bool:
+    """True for the ``(M, K) @ (K, N)`` product the SMA GEMM takes: ``mm``,
+    or ``addmm`` with a 1-D bias of N and unit ``beta``/``alpha``, with 2-D
+    floating operands.  ``make_fx`` writes a ``(..., K) @ (K, N)`` product
+    as ``view`` (leading dims collapsed) -> ``mm`` -> ``_unsafe_view``, so
+    the ``mm`` is the site.  Batched products (``bmm``) keep their native
+    lowering."""
+    if node.op != "call_function":
+        return False
+    name = op_name(node)
+    if name == "mm":
+        a, b = node.args[:2]
+    elif name == "addmm":
+        bias, a, b = node.args[:3]
+        if (node.kwargs.get("beta", 1) != 1 or node.kwargs.get("alpha", 1)
+                != 1 or getattr(val(bias), "ndim", None) != 1
+                or tuple(val(bias).shape) != (val(b).shape[1],)):
+            return False
+    else:
+        return False
+    va, vb = val(a), val(b)
+    return (isinstance(va, torch.Tensor) and isinstance(vb, torch.Tensor)
+            and va.ndim == 2 and vb.ndim == 2
+            and va.dtype.is_floating_point and vb.dtype.is_floating_point)
+
+
+def gemm_shape(node: torch.fx.Node):
+    """(M, N, K) of an eligible ``mm``/``addmm`` node."""
+    a, b = (node.args[:2] if op_name(node) == "mm" else node.args[1:3])
+    m, k = val(a).shape
+    return int(m), int(val(b).shape[1]), int(k)
+
+
+def _reduced_dims(node: torch.fx.Node, ndim: int):
+    """The reduced axes of a reduction node, normalized; all axes when the
+    node names none."""
+    dims = node.args[1] if len(node.args) > 1 else node.kwargs.get("dim")
+    if dims is None or (isinstance(dims, (list, tuple)) and not dims):
+        return tuple(range(ndim))
+    if isinstance(dims, int):
+        dims = (dims,)
+    if not all(isinstance(d, int) for d in dims):
+        return tuple(range(ndim))
+    return tuple(sorted(d % max(ndim, 1) for d in dims))
+
+
+def attention_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """(query, key) pairs a causal/windowed, end-aligned mask keeps."""
+    if not causal and window is None:
+        return sq * skv
+    total = 0
+    for i in range(sq):
+        last = skv - sq + i                 # the query's own position
+        first = 0 if window is None else max(0, last - window + 1)
+        total += max(0, min(last, skv - 1) - first + 1)
+    return total
+
+
+# --------------------------------------------------------------------------
+# The lowerer
+# --------------------------------------------------------------------------
+class _Lowerer:
+    def __init__(self) -> None:
+        self.ops: List[Op] = []
+        self.stats = LowerStats()
+
+    def emit(self, name: str, kind: OpKind, *, flops: float,
+             bytes_in: float, bytes_out: float, tile_local: bool) -> None:
+        self.ops.append(Op(f"{name}#{len(self.ops) + 1}", kind, flops=flops,
+                           bytes_in=bytes_in, bytes_out=bytes_out,
+                           tile_local=tile_local))
+
+    def lower(self, node: torch.fx.Node) -> None:
+        from repro_torch.compiler.trace import KERNEL_ENTRY_OPS
+        if node.op != "call_function":
+            return
+        self.stats.total_eqns += 1
+        name = op_name(node)
+        out = val(node)
+        bin_, bout = _in_bytes(node), _nbytes(out)
+
+        if node.target in KERNEL_ENTRY_OPS:
+            self.stats.kernel_entries += 1
+            self._kernel_entry(node, name, bin_, bout)
+            return
+        if name in LAYOUT_OPS or name == "getitem" or (
+                name == "_to_copy" and "dtype" not in node.kwargs):
+            self.stats.layout_ops_elided += 1
+            return
+
+        if name in MATMUL_OPS or name in BATCHED_MATMUL_OPS:
+            a = val(node.args[1] if name in ("addmm", "addmv", "baddbmm")
+                    else node.args[0])
+            k = a.shape[-1] if isinstance(a, torch.Tensor) else 0
+            kind = (OpKind.ATTENTION_MATMUL if name in BATCHED_MATMUL_OPS
+                    else OpKind.MATMUL)
+            self.emit(name, kind, flops=2.0 * _numel(out) * k,
+                      bytes_in=bin_, bytes_out=bout, tile_local=True)
+        elif name == "convolution":
+            w = val(node.args[1])
+            per_out = w.numel() / max(w.shape[0], 1)
+            self.emit(name, OpKind.MATMUL, flops=2.0 * _numel(out) * per_out,
+                      bytes_in=bin_, bytes_out=bout, tile_local=True)
+        elif name in REDUCE_OPS or name in CUMULATIVE_OPS:
+            operand = val(node.args[0])
+            local = _reduced_dims(node, operand.ndim) == (operand.ndim - 1,)
+            self.emit(name, OpKind.REDUCTION, flops=float(operand.numel()),
+                      bytes_in=bin_, bytes_out=bout, tile_local=local)
+        elif name in SOFTMAX_OPS:
+            operand = val(node.args[0])
+            n = float(operand.numel())
+            local = node.args[1] % operand.ndim == operand.ndim - 1
+            self.emit(f"{name}.reduce", OpKind.REDUCTION, flops=2.0 * n,
+                      bytes_in=bin_, bytes_out=0.0, tile_local=local)
+            self.emit(f"{name}.normalize", OpKind.ELEMENTWISE,
+                      flops=(_TRANSCENDENTAL_FLOPS + 1.0) * n,
+                      bytes_in=0.0, bytes_out=bout, tile_local=True)
+        elif name in NORM_OPS:
+            self.emit(name, OpKind.NORMALIZATION,
+                      flops=4.0 * _numel(val(node.args[0])), bytes_in=bin_,
+                      bytes_out=bout, tile_local=True)
+        elif name in GATHER_OPS:
+            self.emit(name, OpKind.GATHER_SCATTER, flops=0.0, bytes_in=bin_,
+                      bytes_out=bout, tile_local=False)
+        elif name in TOPK_OPS:
+            n = max(_numel(val(node.args[0])), 2.0)
+            self.emit(name, OpKind.TOPK, flops=n * math.log2(n),
+                      bytes_in=bin_, bytes_out=bout, tile_local=False)
+        elif name == "_to_copy":
+            self.emit(name, OpKind.CAST, flops=0.0, bytes_in=bin_,
+                      bytes_out=bout, tile_local=True)
+        else:
+            if name not in TRANSCENDENTAL_OPS and \
+                    name not in KNOWN_ELEMENTWISE:
+                self.stats.unknown_prims[name] = \
+                    self.stats.unknown_prims.get(name, 0) + 1
+            weight = _TRANSCENDENTAL_FLOPS \
+                if name in TRANSCENDENTAL_OPS else 1.0
+            self.emit(name, OpKind.ELEMENTWISE, flops=weight * _numel(out),
+                      bytes_in=bin_, bytes_out=bout, tile_local=True)
+
+    def _kernel_entry(self, node: torch.fx.Node, name: str, bin_: float,
+                      bout: float) -> None:
+        if name == "flash_attention":
+            q, k = val(node.args[0]), val(node.args[1])
+            b, hq, sq, d = q.shape
+            causal, window = node.args[3], node.args[4]
+            pairs = attention_pairs(sq, k.shape[2], causal, window)
+            self.emit(name, OpKind.ATTENTION_MATMUL,
+                      flops=4.0 * b * hq * pairs * d, bytes_in=bin_,
+                      bytes_out=bout, tile_local=True)
+        elif name == "rglru_scan":
+            self.emit(name, OpKind.RECURRENCE,
+                      flops=2.0 * _numel(val(node.args[0])), bytes_in=bin_,
+                      bytes_out=bout, tile_local=False)
+        else:                               # the mLSTM, with or without state
+            b, h, s, d = val(node.args[0]).shape
+            chunk = min(node.args[5], s)
+            self.emit(name, OpKind.RECURRENCE,
+                      flops=4.0 * b * h * s * d * (chunk + d),
+                      bytes_in=bin_, bytes_out=bout, tile_local=False)
+
+
+def lower_graph(graph: torch.fx.Graph) -> LoweredProgram:
+    """Lower a traced fx graph to the symbolic :class:`Op` program."""
+    lw = _Lowerer()
+    for node in graph.nodes:
+        lw.lower(node)
+    return LoweredProgram(ops=lw.ops, stats=lw.stats)

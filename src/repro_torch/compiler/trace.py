@@ -1,0 +1,254 @@
+"""Stage 1 -- trace: a PyTorch function to an fx graph of aten ops
+(``repro.compiler.trace``).
+
+``trace_model(fn, *args, **kwargs)`` flattens ``(args, kwargs)`` with
+``torch.utils._pytree``, makes one fake tensor per tensor leaf (shape,
+stride, dtype and device of the leaf, no storage) and runs
+``make_fx(..., tracing_mode="fake")`` under ``torch.no_grad()``.  Tracing is
+shape-only, like ``jax.ShapeDtypeStruct`` in the reference: a leaf may be a
+real tensor or a :class:`TensorSpec`, and a full-width configuration traces
+without allocating device memory.  The fakes keep the leaves' devices, so
+factory calls in the function (``torch.arange(..., device=x.device)``) are
+recorded on the device the compiled program will run on.
+
+How the kernel entries of :mod:`repro_torch.kernels.ops` meet the tracer
+(:func:`kernel_entries_as_ops`, active only while tracing):
+
+* ``sma_gemm`` and ``rmsnorm_gemm`` trace as their plain chains
+  (``kernels/ref.py``: f32 upcasts, ``mm``, bias, epilogue, the downcast;
+  the norm's ``pow -> mean -> add eps -> rsqrt -> mul -> mul scale``), so
+  the rewrite pass finds the fusable sites in them as it finds them in any
+  other program;
+* ``flash_attention``, ``rglru_scan`` and ``mlstm_chunkwise`` trace as one
+  node each, a ``torch.library`` custom op (``repro_torch::...``) with a
+  fake implementation; the dispatcher calls the entry itself in its place.
+
+The entries are swapped on the ``ops`` module for the trace only: the direct
+path never goes through a custom op's dispatcher.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Any, Callable, Iterator, List, Optional, Tuple
+
+import torch
+import torch.utils._pytree as pytree
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.fx.experimental.proxy_tensor import make_fx
+
+from repro_torch.kernels import ops, ref
+
+__all__ = ["KERNEL_ENTRY_OPS", "TensorSpec", "TracedModel",
+           "kernel_entries_as_ops", "trace_model"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """A shape-only argument: what a leaf looks like, with no storage."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    device: torch.device = torch.device("cuda")
+
+    def __post_init__(self) -> None:
+        device = torch.device(self.device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", 0)    # as a tensor's .device reads
+        object.__setattr__(self, "shape", tuple(int(d) for d in self.shape))
+        object.__setattr__(self, "device", device)
+
+    def stride(self) -> Tuple[int, ...]:
+        """Contiguous strides."""
+        out, acc = [], 1
+        for d in reversed(self.shape):
+            out.append(acc)
+            acc *= max(d, 1)
+        return tuple(reversed(out))
+
+
+@dataclasses.dataclass(frozen=True)
+class TracedModel:
+    """A function frozen into an fx graph plus its pytree contract."""
+
+    name: str
+    graph_module: torch.fx.GraphModule
+    in_tree: Any     # TreeSpec of (args, kwargs)
+    out_tree: Any    # TreeSpec of fn's return value
+    num_nodes: int
+
+    @property
+    def graph(self) -> torch.fx.Graph:
+        return self.graph_module.graph
+
+
+# --------------------------------------------------------------------------
+# Kernel entries as single graph nodes
+# --------------------------------------------------------------------------
+def _dense(*ts: torch.Tensor):
+    """Contiguous outputs, as the fakes below promise the tracer (a no-op
+    for the kernels, which write dense outputs)."""
+    return tuple(t.contiguous() for t in ts)
+
+
+def flash_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, window: Optional[int],
+                scale: Optional[float]) -> torch.Tensor:
+    """``ops.flash_attention`` with the custom op's positional arguments."""
+    return ops.flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale).contiguous()
+
+
+def rglru_entry(a: torch.Tensor, u: torch.Tensor, h0: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _dense(*ops.rglru_scan(a, u, h0))
+
+
+def mlstm_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                log_f: torch.Tensor, log_i: torch.Tensor,
+                chunk: int) -> torch.Tensor:
+    return ops.mlstm_chunkwise(q, k, v, log_f, log_i,
+                               chunk=chunk).contiguous()
+
+
+def mlstm_state_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      log_f: torch.Tensor, log_i: torch.Tensor, chunk: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """The mLSTM with its final state, flattened to (h, C, n, m)."""
+    h, (c, n, m) = ops.mlstm_chunkwise(q, k, v, log_f, log_i, chunk=chunk,
+                                       return_state=True)
+    return _dense(h, c, n, m)
+
+
+def _register(name: str, entry: Callable, fake: Callable):
+    op = torch.library.custom_op(f"repro_torch::{name}", entry,
+                                 mutates_args=())
+    op.register_fake(fake)
+    return getattr(torch.ops.repro_torch, name).default
+
+
+def _empty(like: torch.Tensor, shape, dtype=None) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype or like.dtype, device=like.device)
+
+
+def _fake_mlstm_state(q, k, v, log_f, log_i, chunk):
+    b, h, _, d = q.shape
+    f32 = torch.float32
+    return (_empty(q, q.shape), _empty(q, (b, h, d, d), f32),
+            _empty(q, (b, h, d), f32), _empty(q, (b, h), f32))
+
+
+#: Custom op -> the kernel entry it stands for (with the op's positional
+#: arguments); the dispatcher calls the entry in the op's place.  The fakes
+#: give dense outputs, as the entries do.
+KERNEL_ENTRY_OPS = {
+    _register("flash_attention", flash_entry,
+              lambda q, k, v, causal, window, scale: _empty(q, q.shape)):
+        flash_entry,
+    _register("rglru_scan", rglru_entry,
+              lambda a, u, h0: (_empty(a, a.shape),
+                                _empty(a, (a.shape[0], a.shape[2])))):
+        rglru_entry,
+    _register("mlstm_chunkwise", mlstm_entry,
+              lambda q, k, v, log_f, log_i, chunk: _empty(q, q.shape)):
+        mlstm_entry,
+    _register("mlstm_chunkwise_state", mlstm_state_entry,
+              _fake_mlstm_state): mlstm_state_entry,
+}
+
+
+def _trace_flash(q, k, v, *, causal=True, window=None, scale=None):
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, window,
+                                                 scale)
+
+
+def _trace_rglru(a, u, h0=None):
+    return tuple(torch.ops.repro_torch.rglru_scan(a, u, h0))
+
+
+def _trace_mlstm(q, k, v, log_f, log_i, *, chunk=128, return_state=False):
+    if not return_state:
+        return torch.ops.repro_torch.mlstm_chunkwise(q, k, v, log_f, log_i,
+                                                     chunk)
+    h, c, n, m = torch.ops.repro_torch.mlstm_chunkwise_state(
+        q, k, v, log_f, log_i, chunk)
+    return h, (c, n, m)
+
+
+_TRACE_ENTRIES = {
+    "sma_gemm": ref.gemm_ref,
+    "rmsnorm_gemm": ref.rmsnorm_gemm_ref,
+    "flash_attention": _trace_flash,
+    "rglru_scan": _trace_rglru,
+    "mlstm_chunkwise": _trace_mlstm,
+}
+_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def kernel_entries_as_ops() -> Iterator[None]:
+    """For the ``with`` scope, the ``ops`` entries trace as described in the
+    module docstring.  One trace at a time: the swap is process-wide."""
+    with _LOCK:
+        saved = {name: getattr(ops, name) for name in _TRACE_ENTRIES}
+        try:
+            for name, fn in _TRACE_ENTRIES.items():
+                setattr(ops, name, fn)
+            yield
+        finally:
+            for name, fn in saved.items():
+                setattr(ops, name, fn)
+
+
+# --------------------------------------------------------------------------
+# Tracing
+# --------------------------------------------------------------------------
+def _fake(mode: FakeTensorMode, leaf: Any) -> Any:
+    """A fresh fake tensor for a tensor or TensorSpec leaf (one per leaf,
+    so two leaves holding the same tensor still trace as two inputs)."""
+    if leaf is None:
+        return None
+    if isinstance(leaf, TensorSpec):
+        shape, stride = leaf.shape, leaf.stride()
+    elif isinstance(leaf, torch.Tensor):
+        shape, stride = tuple(leaf.shape), tuple(leaf.stride())
+    else:
+        raise TypeError(
+            f"sma_jit argument leaf {leaf!r} is not a tensor; mark the "
+            f"containing keyword argument static via "
+            f"sma_jit(..., static_argnames=...)")
+    with mode:
+        return torch.empty_strided(shape, stride, dtype=leaf.dtype,
+                                   device=leaf.device)
+
+
+def trace_model(fn: Callable, *args, name: Optional[str] = None,
+                **kwargs) -> TracedModel:
+    """Trace ``fn(*args, **kwargs)`` to a :class:`TracedModel`.
+
+    Leaves of ``args``/``kwargs`` are tensors, :class:`TensorSpec` or None;
+    only their metadata is read.  Static configuration (a config object, a
+    string) is closed over by ``fn`` (``functools.partial``) or passed as a
+    static keyword of :func:`repro_torch.api.sma_jit`.
+    """
+    flat, in_tree = pytree.tree_flatten((args, kwargs))
+    mode = FakeTensorMode()
+    fakes = [_fake(mode, leaf) for leaf in flat]
+    out_trees: List[Any] = []
+
+    def flat_fn(*flat_in):
+        call_args, call_kwargs = pytree.tree_unflatten(list(flat_in), in_tree)
+        flat_out, out_tree = pytree.tree_flatten(fn(*call_args,
+                                                    **call_kwargs))
+        out_trees.append(out_tree)
+        return flat_out
+
+    with torch.no_grad(), kernel_entries_as_ops():
+        gm = make_fx(flat_fn, tracing_mode="fake")(*fakes)
+    return TracedModel(
+        name=name or getattr(getattr(fn, "func", fn), "__name__", None)
+        or "model",
+        graph_module=gm, in_tree=in_tree, out_tree=out_trees[-1],
+        num_nodes=len(gm.graph.nodes))

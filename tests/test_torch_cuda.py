@@ -986,3 +986,46 @@ def test_xlstm_serving_on_card_matches_cpu(dev):
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         assert ((g - w).norm() / w.norm()).item() <= 3e-2
+
+
+# ------------------------------------------------------ the sma_jit front door
+def _launches_and_routes():
+    from repro_torch.kernels import sma_gemm as kgemm
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    routes = {name: {r: n for r, n in table.items() if n}
+              for name, table in (("sma_gemm", kgemm.ROUTES),
+                                  ("rmsnorm_gemm", knorm.ROUTES),
+                                  ("flash", kflash.FWD_ROUTES))}
+    return counts, routes
+
+
+def test_sma_jit_forward_is_the_direct_forward(dev):
+    """Full-width StableLM-2-1.6B cut to 2 layers, bf16, 2 x 256 tokens:
+    ``sma_jit(lm.forward)`` launches what the direct ``lm.forward`` launches
+    (7 sma_gemm a layer, one rmsnorm_gemm, one flash a layer, on the same
+    routes, nothing routed) and its logits are bit for bit the direct
+    ones: the same kernels on the same operands."""
+    import functools
+
+    from repro_torch import sma_jit
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), num_groups=2)
+    params = lm.init(cfg, seed=0, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(70).integers(
+        0, cfg.vocab_size, (2, 256))).to(dev)
+    eng = sma_jit(functools.partial(lm.forward, cfg=cfg))
+    with torch.no_grad():
+        ops.reset_counts()
+        want = lm.forward(params, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        direct = _launches_and_routes()
+        eng(params, batch={"tokens": toks})        # compiles
+        ops.reset_counts()
+        got = eng(params, batch={"tokens": toks})
+        torch.cuda.synchronize()
+        compiled = _launches_and_routes()
+    assert direct[0] == {"sma_gemm": 14, "rmsnorm_gemm": 1,
+                         "flash_attention": 2}
+    assert compiled == direct
+    assert not ops.ROUTED
+    assert torch.equal(got, want)
+    assert (eng.stats.misses, eng.stats.hits) == (1, 1)

@@ -33,6 +33,15 @@ MODULES = (
     "repro_torch.kernels.rglru", "repro_torch.models.recurrent",
     "repro_torch.configs.recurrentgemma_2b", "repro_torch.convert",
     "repro_torch.kernels.mlstm", "repro_torch.configs.xlstm_1_3b",
+    "repro_torch.core.modes", "repro_torch.core.dataflow",
+    "repro_torch.core.scheduler", "repro_torch.core.roofline",
+    "repro_torch.compiler", "repro_torch.compiler.trace",
+    "repro_torch.compiler.lower", "repro_torch.compiler.fuse",
+    "repro_torch.compiler.rewrite", "repro_torch.compiler.report",
+    "repro_torch.compiler.dispatch", "repro_torch.api",
+    "repro_torch.api.options", "repro_torch.api.engine",
+    "repro_torch.backends", "repro_torch.backends.base",
+    "repro_torch.backends.registry",
 )
 
 
