@@ -24,13 +24,24 @@
    ``wgmma`` route (one row's r read as 1, the scale one K column late,
    one K stage skipped) must be caught.
 4. Serving path: full-width StableLM-2-1.6B (random weights from a seed)
-   through ``repro_torch.serving.ServeEngine``, 8 requests with prompts of
-   64-512 tokens and 32 new tokens each, greedy.  Checks that every request
-   finishes with 32 tokens, that every kernel of the path was launched in
-   that run as many times as predicted, and that one decode step's logits
-   through the kernels agree with the same step through the plain versions.
-   Times a decode step with the GEMM entries through their autograd
-   Functions and through the bare wrappers.
+   through ``repro_torch.serving.ServeEngine``, both phases compiled by
+   ``sma_jit`` (one compile per phase and row bucket), 8 requests with
+   prompts of 64-512 tokens and 32 new tokens each, greedy.  A warm-up
+   pass of the same requests compiles every signature (compile seconds
+   and graph nodes printed per phase and bucket); the timed pass must
+   compile nothing.  Checks that every request finishes with 32 tokens,
+   that every kernel of the path was launched in that run as many times
+   as predicted and on the predicted routes, and that the same pass under
+   ``repro_torch.profile`` counts, in its tick spans, the scheduler's own
+   mode switches.  Holds the compiled prefill tick and two decode ticks
+   against the direct steps (logits, lengths, pools ``torch.equal``, the
+   same launches and routes) and plants a lost pool write in a compiled
+   decode graph, which the next tick's logits must show; times a compiled
+   decode tick's host time against the direct step's (A B B A) and the
+   device time of each.  Then one decode step's logits through the
+   kernels against the same step through the plain versions, and a
+   decode step with the GEMM entries through their autograd Functions
+   and through the bare wrappers.
 5. Training path: one step of a 4-layer full-width model through the
    kernels against the same step through the plain versions (loss, grad
    norm, every weight's gradient a layer at a time), and the same step with
@@ -95,6 +106,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import dataclasses
 import functools
 import json
@@ -111,6 +123,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import obs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, DataPipeline  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -915,37 +928,77 @@ def check_flash(gen, dev):
 
 
 # ---------------------------------------------------------------------------
-# The main path: ServeEngine at full width
+# The main path: ServeEngine at full width, both phases through sma_jit
 # ---------------------------------------------------------------------------
-def serve(cfg, params, dev):
-    cache = CacheConfig(block_size=16, num_blocks=512, max_seq_len=1024)
-    sched = SchedulerConfig(policy="sma", prefill_chunk=256)
-    eng = ServeEngine(cfg, params, cache=cache, max_batch=8, sched=sched,
-                      device=dev)
+SERVE_CACHE = CacheConfig(block_size=16, num_blocks=512, max_seq_len=1024)
+SERVE_CHUNK, SERVE_NEW = 256, 32
+# Host time of a compiled decode tick against the direct step: rounds of
+# A B B A, HOST_STEPS steps each; device time over HOST_STEPS steps.
+HOST_ROUNDS, HOST_STEPS = 4, 5
+
+
+def serve_requests(cfg):
+    """The serve run's 8 requests (prompts of 64-512 tokens, seed 0)."""
     rng = np.random.default_rng(0)
     lens = rng.integers(64, 513, size=8)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=n)
-                    .astype(np.int32), max_new_tokens=32)
-            for i, n in enumerate(lens)]
-    # Warm-up request (first launches, allocator), then a clean engine.
-    eng.submit(Request(rid=-1, prompt=reqs[0].prompt[:64], max_new_tokens=2))
-    eng.run()
-    eng.reset()
+    return lens, [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                     size=n).astype(np.int32),
+                          max_new_tokens=SERVE_NEW)
+                  for i, n in enumerate(lens)]
 
-    ops.reset_counts()
+
+def serve_pass(eng, reqs) -> float:
+    """Submit ``reqs`` at once and run the engine until they drain; the
+    host wall to the card's last work."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
     eng.run()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    return time.perf_counter() - t0
+
+
+def compile_table(eng) -> list:
+    """(phase, row bucket, compile s, graph nodes) of every cached
+    signature (the bucket is the tokens leaf's rows, the last leaf)."""
+    return sorted((phase, key[1][-1][0][0], entry.compile_time_s,
+                   entry.compiled.traced.num_nodes)
+                  for phase, e in eng.engines.items()
+                  for key, entry in e._cache.items())
+
+
+def serve(cfg, params, dev):
+    """The serve run through the compiled engine: a warm-up pass of the
+    same requests compiles every (phase, bucket) signature, ``reset()``
+    keeps them, and the timed pass must compile nothing.  Then the same
+    pass once more under ``repro_torch.profile``, whose tick spans must
+    count the scheduler's mode switches.  Returns the timed pass's
+    launches and ``sma_gemm`` routes, and the engine."""
+    sched = SchedulerConfig(policy="sma", prefill_chunk=SERVE_CHUNK)
+    eng = ServeEngine(cfg, params, cache=SERVE_CACHE, max_batch=8,
+                      sched=sched, device=dev)
+    warm = serve_pass(eng, serve_requests(cfg)[1])
+    table = compile_table(eng)
+    print(f"serve warm-up pass (compiles included): {warm:.3f} s; "
+          f"compile s and graph nodes per (phase, bucket): " + ", ".join(
+              f"{p} {b}: {t:.3f} s {n}" for p, b, t, n in table))
+    eng.reset()
+    misses = {p: e.stats.misses for p, e in eng.engines.items()}
+
+    lens, reqs = serve_requests(cfg)
+    ops.reset_counts()
+    wall = serve_pass(eng, reqs)
     counts, routed = ops.launch_counts(), dict(ops.ROUTED)
     routes = dict(kgemm.ROUTES)
     ROUTES_BY_PATH["serve"] = check_kernel_routes("serve", counts, "tile")
+    new = {p: e.stats.misses - misses[p] for p, e in eng.engines.items()}
+    if any(new.values()):
+        fail(f"serve: the timed pass compiled {new} signatures after the "
+             f"warm-up pass")
 
     for r in reqs:
-        if r.status != "done" or len(r.out_tokens) != 32:
+        if r.status != "done" or len(r.out_tokens) != SERVE_NEW:
             fail(f"request {r.rid}: {r.status} with "
                  f"{len(r.out_tokens or [])} tokens ({r.error})")
         if not all(0 <= t < lm.padded_vocab(cfg) for t in r.out_tokens):
@@ -962,6 +1015,9 @@ def serve(cfg, params, dev):
     for name, n in expect.items():
         if counts[name] != n:
             fail(f"{name}: {counts[name]} launches, expected {n}")
+    if sum(routed.values()) != cfg.num_layers * len(ticks["prefill"]):
+        fail(f"serve: routed {routed}, expected one chunked-prefill call "
+             f"a layer a prefill tick")
     # Decode ticks (M = batch <= 8) on split-K; prefill ticks on wgmma,
     # or split-K where a tick holds 16 tokens or fewer.
     if routes["tile"] or routes["f32"] \
@@ -970,22 +1026,198 @@ def serve(cfg, params, dev):
              f"only, split-K on every decode tick")
     ttft = [r.t_first - r.t_submit for r in reqs]
     tokens = sum(len(r.out_tokens) for r in reqs)
-    print(f"serve: {len(reqs)} requests, prompts {lens.tolist()}, "
-          f"{tokens} tokens in {wall:.3f} s: {tokens / wall:.1f} tokens/s "
-          f"(wall clock, bf16, {ARCH} full width, random weights)")
+    print(f"serve (compiled): {len(reqs)} requests, prompts "
+          f"{lens.tolist()}, {tokens} tokens in {wall:.3f} s: "
+          f"{tokens / wall:.1f} tokens/s (wall clock, bf16, {ARCH} full "
+          f"width, random weights)")
     print(f"serve: TTFT mean {1e3 * np.mean(ttft):.1f} ms, max "
-          f"{1e3 * max(ttft):.1f} ms; decode step mean "
+          f"{1e3 * max(ttft):.1f} ms; decode tick mean "
           f"{1e3 * np.mean(ticks['decode']):.2f} ms over "
           f"{len(ticks['decode'])} ticks; prefill tick mean "
           f"{1e3 * np.mean(ticks['prefill']):.2f} ms over "
-          f"{len(ticks['prefill'])} ticks; switches {eng.sched.switches}")
+          f"{len(ticks['prefill'])} ticks; switches {eng.sched.switches}; "
+          f"cache {json.dumps(eng.stats()['engines'])}")
     print(f"serve: launches {json.dumps(counts)}; per decode tick "
           f"{per_layer} sma_gemm, 1 rmsnorm_gemm, {cfg.num_layers} paged "
           f"decode; routed to plain by design {json.dumps(routed)}; "
           f"sma_gemm routes {json.dumps(routes)}")
-    del eng
+
+    # The same pass under a profile: the tick spans' timeline must count
+    # the scheduler's own switches.  The compiled steps run through the
+    # span-recording interpreter here, so this pass is not timed.
+    eng.reset()
+    with obs.profile(sync=False) as prof:
+        serve_pass(eng, serve_requests(cfg)[1])
+    tick_spans = [e for e in prof.events if e["cat"] == "serve"]
+    sec = obs.runtime_section(tick_spans)
+    whole = prof.runtime_section()
+    print(f"serve runtime_section (profile, sync=False), tick spans: "
+          f"{len(tick_spans)} ticks, mode_switches {sec['mode_switches']} "
+          f"(scheduler {eng.sched.switches}), per mode ms "
+          f"{json.dumps({m: round(us / 1e3, 3) for m, us in sec['per_mode_us'].items()})}"
+          f"; whole window: {whole['kernel_spans']} kernel spans, "
+          f"{whole['mode_switches']} mode switches inside and between "
+          f"ticks, {len(prof.events)} events")
+    for line in obs.render_mode_timeline(sec).splitlines():
+        print(f"serve {line}")
+    if sec["mode_switches"] != eng.sched.switches \
+            or len(tick_spans) != eng.sched.ticks:
+        fail(f"serve: the tick spans count {sec['mode_switches']} mode "
+             f"switches over {len(tick_spans)} ticks, the scheduler "
+             f"{eng.sched.switches} over {eng.sched.ticks}")
+    if any(e["name"] == "engine.compile" for e in prof.events):
+        fail("serve: the profiled pass compiled a signature")
+    eng.reset()
+    return counts, routes, eng
+
+
+def serve_step_inputs(cfg, dev):
+    """A ragged first chunk (8 rows, chunk 256) through its own block
+    tables, as the serve run's first prefill tick has it."""
+    b, mb = 8, SERVE_CACHE.max_blocks_per_req
+    table = torch.arange(b * mb, dtype=torch.int32,
+                         device=dev).reshape(b, mb) % SERVE_CACHE.num_blocks
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (b, SERVE_CHUNK), generator=gen,
+                         device=dev, dtype=torch.int32)
+    n_tok = torch.tensor([256, 1, 17, 100, 256, 200, 8, 150],
+                         dtype=torch.int32, device=dev)
+    return table, toks, n_tok
+
+
+def lost_write(compiled, layer: int, layers: int):
+    """A copy of a compiled decode step with ``layer``'s two pool writes
+    (K and V) removed from its graph."""
+    faulty = copy.copy(compiled)
+    faulty.module = copy.deepcopy(compiled.module)
+    puts = [n for n in faulty.module.graph.nodes
+            if n.target is torch.ops.aten.index_put_.default]
+    if len(puts) != 2 * layers:
+        fail(f"compiled decode step: {len(puts)} pool writes, expected "
+             f"{2 * layers}")
+    for n in puts[2 * layer:2 * layer + 2]:
+        n.replace_all_uses_with(n.args[0])
+        faulty.module.graph.erase_node(n)
+    faulty.module.recompile()
+    return faulty
+
+
+def check_compiled_serving(cfg, params, dev, eng):
+    """The engine's compiled prefill tick (bucket 8, chunk 256) and two
+    decode ticks against the direct steps on the same inputs: logits, the
+    returned lengths and every pool's real blocks ``torch.equal``, each
+    tick's launches, routes and routed calls equal.  Then the same with
+    the first decode tick's graph missing layer 0's pool writes: the next
+    tick's logits must not be equal.  Then the host time of a compiled
+    decode tick against the direct step (A B B A) and the device time of
+    each (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+    table, toks, n_tok = serve_step_inputs(cfg, dev)
+    zero = torch.zeros(8, dtype=torch.int32, device=dev)
+    nb = SERVE_CACHE.num_blocks
+    direct = (lambda p, s, bt, cl, nt, b: smodel.paged_prefill_step(
+                  p, s, bt, cl, nt, cfg, b),
+              lambda p, s, bt, cl, b: smodel.paged_decode_step(
+                  p, s, bt, cl, cfg, b))
+    compiled = (eng.engines["prefill"], eng.engines["decode"])
+
+    def run(prefill, decode, first=None, feed=None):
+        """Prefill, two decode ticks (the first through ``first`` when
+        given); each tick's (logits, lengths, launches, routes, routed),
+        the tokens fed, and the pools."""
+        state = smodel.init_state(cfg, SERVE_CACHE, device=dev)
+        out, fed = [], []
+        (logits, _, cl), *seen = counted_run(lambda: prefill(
+            params, state, table, zero, n_tok, {"tokens": toks}))
+        out.append((logits, cl, seen))
+        for i, step in enumerate((first or decode, decode)):
+            nxt = feed[i] if feed else \
+                logits.argmax(-1, keepdim=True).to(torch.int32)
+            fed.append(nxt)
+            (logits, _, cl), *seen = counted_run(lambda: step(
+                params, state, table, cl.to(torch.int32), {"tokens": nxt}))
+            out.append((logits, cl, seen))
+        return out, fed, [p[:, :nb] for e in state for p in e.values()]
+
+    misses = [e.stats.misses for e in compiled]
+    want, fed, want_pools = run(*direct)
+    got, _, got_pools = run(*compiled, feed=fed)
+    if [e.stats.misses for e in compiled] != misses:
+        fail("compiled serving check: the serve run's signatures missed")
+    for i, ((gl, gc, gseen), (wl, wc, wseen)) in enumerate(zip(got, want)):
+        what = "prefill tick" if i == 0 else f"decode tick {i}"
+        if not torch.isfinite(gl.float()).all():
+            fail(f"compiled {what}: non-finite logits")
+        if not (torch.equal(gl, wl) and torch.equal(gc, wc)):
+            fail(f"compiled {what}: logits or lengths differ from the "
+                 f"direct step's (max |err| "
+                 f"{(gl.float() - wl.float()).abs().max().item():.4g})")
+        if gseen != wseen:
+            fail(f"compiled {what}: launches, routes, routed {gseen}, "
+                 f"direct {wseen}")
+    if not all(torch.equal(g, w) for g, w in zip(got_pools, want_pools)):
+        fail("compiled ticks: the pools differ from the direct steps'")
+    print(f"compiled ticks vs direct steps (prefill bucket 8 x chunk 256, "
+          f"two decode ticks): logits, lengths and {len(got_pools)} pools "
+          f"torch.equal; launches, routes, routed equal: "
+          f"{json.dumps([s[0] for _, _, s in got])}")
+    del got_pools, want_pools
+
+    (decode_sig,) = [entry.compiled for key, entry in
+                     eng.engines["decode"]._cache.items()
+                     if key[1][-1][0][0] == 8]
+    bad, _, _ = run(*compiled, feed=fed,
+                    first=lost_write(decode_sig, 0, cfg.num_layers))
+    err = [(b[0].float() - w[0].float()).abs().max().item()
+           for b, w in zip(bad, want)]
+    print(f"planted fault, layer 0's pool writes removed from the first "
+          f"compiled decode tick: max |err| of the logits against the "
+          f"direct steps, prefill / tick 1 / tick 2: "
+          f"{', '.join(f'{e:.4g}' for e in err)}")
+    if err[2] == 0.0:
+        fail("planted lost write: the next tick's logits equal the direct "
+             "step's")
     torch.cuda.empty_cache()
-    return counts, routes
+
+    state = smodel.init_state(cfg, SERVE_CACHE, device=dev)
+    logits, _, cl = direct[0](params, state, table, zero, n_tok,
+                              {"tokens": toks})
+    cl = cl.to(torch.int32)
+    nxt = logits.argmax(-1, keepdim=True).to(torch.int32)
+    steps = {"direct": lambda: direct[1](params, state, table, cl,
+                                         {"tokens": nxt}),
+             "compiled": lambda: compiled[1](params, state, table, cl,
+                                             {"tokens": nxt})}
+    walls = {k: [] for k in steps}
+    for k in steps:
+        steps[k]()
+    for _ in range(HOST_ROUNDS):
+        for k in ("direct", "compiled", "compiled", "direct"):
+            walls[k].append(host_ms(
+                lambda: [steps[k]() for _ in range(HOST_STEPS)])
+                / HOST_STEPS)
+    med = {k: float(np.median(w)) for k, w in walls.items()}
+    print(f"decode tick host time to return (8 rows, median of "
+          f"{len(walls['direct'])} rounds of {HOST_STEPS} steps, A B B A): "
+          f"direct {med['direct']:.3f} ms, compiled {med['compiled']:.3f} "
+          f"ms ({100 * (med['compiled'] / med['direct'] - 1):+.1f} %); "
+          f"rounds {json.dumps({k: [round(x, 3) for x in w] for k, w in walls.items()})}")
+    busy = {}
+    for k in ("direct", "compiled"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(HOST_STEPS):
+                steps[k]()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy[k] = report_profile(prof, wall, HOST_STEPS,
+                                 f"{k} decode tick")
+    print(f"decode tick device time (busy / step): " + ", ".join(
+        f"{k} {'not measured' if b is None else f'{1e3 * b / HOST_STEPS:.3f} ms'}"
+        for k, b in busy.items()))
+    return med, busy
 
 
 @contextlib.contextmanager
@@ -1449,7 +1681,9 @@ def profile_train_step(cfg, params, dev):
     report_profile(prof, wall, 1, "train step")
 
 
-def report_profile(prof, wall: float, steps: int, what: str) -> None:
+def report_profile(prof, wall: float, steps: int, what: str):
+    """Print the device busy share of the window and the kernels by device
+    time; returns the busy seconds (None when the trace has none)."""
     rows = []   # kernels only: host ops also carry their kernels' time
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
@@ -1458,7 +1692,7 @@ def report_profile(prof, wall: float, steps: int, what: str) -> None:
             rows.append((dev_us, ev.count, ev.key))
     if not rows:
         print(f"profile {what}: no device time in the trace (not measured)")
-        return
+        return None
     busy = sum(r[0] for r in rows) / 1e6
     print(f"profile: {steps} {what}(s) in {1e3 * wall:.2f} ms host wall, "
           f"device busy {1e3 * busy:.2f} ms ({100 * busy / wall:.1f}% of "
@@ -1466,6 +1700,7 @@ def report_profile(prof, wall: float, steps: int, what: str) -> None:
     for dev_us, count, key in sorted(rows, reverse=True)[:16]:
         print(f"profile: {dev_us / steps / 1e3:8.3f} ms/step "
               f"{count // steps:5d}/step  {key[:90]}")
+    return busy
 
 
 # ---------------------------------------------------------------------------
@@ -2634,7 +2869,11 @@ def main() -> int:
               f"{cfg.d_model}, vocab {lm.padded_vocab(cfg)}) in "
               f"{time.perf_counter() - t0:.3f} s, "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-        serve_counts, serve_routes = phase("serve", serve, cfg, params, dev)
+        serve_counts, serve_routes, eng = phase("serve", serve, cfg, params,
+                                                dev)
+        phase("compiled serving", check_compiled_serving, cfg, params, dev,
+              eng)
+        del eng
         phase("decode logits", check_decode_logits, cfg, params, dev)
         phase("decode profile", profile_decode, cfg, params, dev)
         phase("entry overhead", entry_overhead, cfg, params, dev)

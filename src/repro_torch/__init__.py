@@ -15,8 +15,17 @@ The front door is :func:`sma_jit` (:mod:`repro_torch.api`): it traces a
 function with ``torch.fx``, plans its SYSTOLIC/SIMD mode timeline, fuses
 epilogues and norm prologues into the GEMM sites and dispatches them to the
 kernels (:mod:`repro_torch.compiler`).
+
+Observability: ``with repro_torch.profile(path=...): ...`` records spans
+for everything inside (engine calls and compiles, dispatch sites, kernel
+launches, serving ticks) and optionally writes a Perfetto-loadable Chrome
+trace (:mod:`repro_torch.obs`).  Off by default; never part of any
+compile-cache key.
 """
+from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch.api import SMAOptions, options, sma_jit
+from repro_torch.obs import profile
 
-__all__ = ["SMAOptions", "options", "resolve_device", "sma_jit"]
+__all__ = ["SMAOptions", "obs", "options", "profile", "resolve_device",
+           "sma_jit"]

@@ -25,9 +25,18 @@ Example::
     eng.compile(params, batch=...).report                # the plan report
 
 ``static_argnames`` marks keyword arguments as compile-time constants
-(hashable, baked into the trace), as with ``jax.jit``.  The engine compiles
-forward functions: a call with grad enabled on inputs that require grad
-raises (gradients through ``sma_jit`` are not ported yet).
+(hashable, baked into the trace), as with ``jax.jit``.  The engine
+compiles forward functions: a call with grad enabled on inputs that
+require grad raises (gradients through ``sma_jit`` are not ported yet).
+
+Observability (:mod:`repro_torch.obs`), as in the reference: every lookup
+feeds ``engine.cache_hits`` / ``engine.cache_misses`` /
+``engine.cache_evictions`` and each compile the ``engine.compile_s``
+histogram; under a :func:`repro_torch.profile` a call runs in an
+``engine.call`` span annotated ``cache=hit|miss`` and a compile in an
+``engine.compile`` span, and a plan report read after a profile carries
+its ``runtime`` section (the measured mode timeline of the most recent
+profile window).
 """
 from __future__ import annotations
 
@@ -42,6 +51,8 @@ import torch.utils._pytree as pytree
 
 from repro_torch.api.options import SMAOptions, resolve_options
 from repro_torch.compiler.trace import TensorSpec
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import trace as _obs_trace
 
 __all__ = ["Engine", "EngineStats", "abstract_signature", "sma_jit"]
 
@@ -133,7 +144,9 @@ class Engine:
         return ((in_tree, abstract_signature(flat), static_key,
                  opts.cache_key()), static, dynamic)
 
-    def _lookup(self, args, kwargs) -> Tuple[_CacheEntry, Dict[str, Any]]:
+    def _lookup(self, args, kwargs
+                ) -> Tuple[_CacheEntry, Dict[str, Any], bool]:
+        """``(entry, dynamic kwargs, hit)``, compiling on a miss."""
         opts = resolve_options(self.options)
         key, static, dynamic = self._key(args, kwargs, opts)
         entry = self._cache.get(key)
@@ -141,13 +154,16 @@ class Engine:
             self._cache.move_to_end(key)
             self.stats.hits += 1
             entry.hits += 1
-            return entry, dynamic
+            _metrics.inc("engine.cache_hits")
+            return entry, dynamic, True
 
         from repro_torch.compiler.dispatch import compile_with_options
         fn = functools.partial(self.fn, **static) if static else self.fn
         t0 = time.perf_counter()
-        compiled = compile_with_options(fn, *args, name=self.name,
-                                        options=opts, **dynamic)
+        with _obs_trace.span("engine.compile", cat="engine",
+                             engine=self.name):
+            compiled = compile_with_options(fn, *args, name=self.name,
+                                            options=opts, **dynamic)
         dt = time.perf_counter() - t0
         entry = _CacheEntry(compiled=compiled, compile_time_s=dt)
         compiled.report_refresh = functools.partial(self._refresh_report,
@@ -155,11 +171,14 @@ class Engine:
         self._cache[key] = entry
         self.stats.misses += 1
         self.stats.compile_time_s += dt
+        _metrics.inc("engine.cache_misses")
+        _metrics.observe("engine.compile_s", dt)
         limit = opts.max_cache_entries or 0
         while limit > 0 and len(self._cache) > limit:
             self._cache.popitem(last=False)
             self.stats.evictions += 1
-        return entry, dynamic
+            _metrics.inc("engine.cache_evictions")
+        return entry, dynamic, False
 
     def _refresh_report(self, entry: _CacheEntry,
                         rep: Dict[str, Any]) -> None:
@@ -170,10 +189,23 @@ class Engine:
             "amortized_compile_s": entry.compile_time_s / calls,
             "engine_stats": self.stats.asdict(),
         }
+        # The measured half of the plan: the active (or most recent)
+        # profile window's mode timeline; runs of other engines inside the
+        # same window count in the same timeline.
+        tracer = _obs_trace.last_tracer()
+        if tracer is not None and tracer.events:
+            rep["runtime"] = tracer.runtime_section()
 
     def __call__(self, *args, **kwargs):
-        entry, dynamic = self._lookup(args, kwargs)
-        return entry.compiled(*args, **dynamic)
+        tracer = _obs_trace.current_tracer()
+        if tracer is None:
+            entry, dynamic, _ = self._lookup(args, kwargs)
+            return entry.compiled(*args, **dynamic)
+        with tracer.span("engine.call", cat="engine",
+                         engine=self.name) as sp:
+            entry, dynamic, hit = self._lookup(args, kwargs)
+            sp.annotate(cache="hit" if hit else "miss")
+            return sp.block(entry.compiled(*args, **dynamic))
 
     def compile(self, *args, **kwargs):
         """Compile (or fetch) the executable for this signature without

@@ -9,19 +9,28 @@ as one call:
 * a fused epilogue site and a bare site call
   :func:`repro_torch.kernels.ops.sma_gemm` (``bias=``, ``epilogue=``);
 * a fused prologue site calls :func:`repro_torch.kernels.ops.rmsnorm_gemm`;
-* a kernel-entry node (``repro_torch::flash_attention``, the scans) calls
-  its entry (:data:`repro_torch.compiler.trace.KERNEL_ENTRY_OPS`);
+* a kernel-entry node (``repro_torch::flash_attention``, the decode
+  attentions, the scans) calls its entry
+  (:data:`repro_torch.compiler.trace.KERNEL_ENTRY_OPS`);
 * every other node runs its aten op natively.
 
 Nodes the rewrite left without a user (the folded upcasts, the collapsing
-views) are dropped.  ``GraphModule.recompile`` turns the graph into Python,
-so a call runs generated code, not an interpreter loop over nodes.  The
-entries are looked up on ``ops`` at call time.  On the card no eligible
-product reaches ``aten.mm``: each is a kernel launch (or the wrapper
-raises).
+views) are dropped; in-place writes (a serving step's pool ``index_put_``)
+are kept.  ``GraphModule.recompile`` turns the graph into Python, so a
+call runs generated code, not an interpreter loop over nodes.  The entries
+are looked up on ``ops`` at call time.  On the card no eligible product
+reaches ``aten.mm``: each is a kernel launch (or the wrapper raises).
+
+While a :func:`repro_torch.profile` is active, and only then, a call runs
+the same graph through :class:`TracedRun`, a ``torch.fx.Interpreter``
+that records the reference dispatcher's spans: ``dispatch.sma_gemm`` /
+``dispatch.fused_gemm`` around each GEMM site and one
+``dispatch.simd_region`` (mode ``simd``) per run of other nodes between
+them.  Without a profile the generated code runs, at no cost a node.
 
 :func:`compile_with_options` is the pipeline ``trace -> lower -> plan ->
-rewrite -> dispatch`` behind :func:`repro_torch.api.sma_jit`.
+rewrite -> dispatch`` behind :func:`repro_torch.api.sma_jit`, each of the
+first four stages under a ``compile.{stage}`` span.
 """
 from __future__ import annotations
 
@@ -48,9 +57,10 @@ from repro_torch.compiler.trace import (KERNEL_ENTRY_OPS, TracedModel,
                                         trace_model)
 from repro_torch.core.sma import SMAPolicy
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as _obs_trace
 
-__all__ = ["CompiledModel", "build_module", "compile_with_options",
-           "count_dispatch_sites"]
+__all__ = ["CompiledModel", "TracedRun", "build_module",
+           "compile_with_options", "count_dispatch_sites"]
 
 
 def sma_gemm_site(a, b, bias, *, epilogue, shape):
@@ -100,10 +110,15 @@ def collect_backend_sites(rewritten: RewriteResult) -> List[Dict[str, Any]]:
                     item.entry, tuple(val(n) for n in item.inputs)))
             elif item.op == "call_function" and \
                     item.target in KERNEL_ENTRY_OPS:
+                name = op_name(item)
+                extras = {}
+                if name == "paged_decode_attention":   # its routing inputs
+                    extras = {"c": val(item.args[0]).shape[1],
+                              "window": item.args[6]}
                 select_backend(OpSite.from_args(
-                    op_name(item), tuple(
-                        val(a) for a in item.args
-                        if isinstance(a, torch.fx.Node))))
+                    name, tuple(val(a) for a in item.args
+                                if isinstance(a, torch.fx.Node)),
+                    **extras))
     return sites
 
 
@@ -128,6 +143,13 @@ def build_module(traced: TracedModel,
                     sma_gemm_site, tuple(arg(n) for n in item.inputs),
                     {"epilogue": item.epilogue, "shape": item.shape})
             new.meta["val"] = val(item.out)
+            new.meta["dispatch_span"] = (
+                ("dispatch.fused_gemm",
+                 {"kind": item.kind, "epilogue": item.epilogue})
+                if item.fused else
+                ("dispatch.sma_gemm",
+                 {"lhs": list(val(item.inputs[0]).shape),
+                  "rhs": list(val(item.inputs[1]).shape)}))
             env[item.out] = new
             continue
         new = graph.node_copy(item, lambda n: env[n])
@@ -137,6 +159,48 @@ def build_module(traced: TracedModel,
     graph.eliminate_dead_code()
     return torch.fx.GraphModule(traced.graph_module, graph,
                                 class_name=f"SMA_{traced.name}")
+
+
+class TracedRun(torch.fx.Interpreter):
+    """One run of a dispatching module that records its dispatch spans
+    (reference ``repro.compiler.dispatch._Interpreter``): each GEMM site
+    under ``dispatch.sma_gemm`` (a bare site, with its operand shapes) or
+    ``dispatch.fused_gemm`` (with its kind and epilogue), and each run of
+    other nodes between them as one ``dispatch.simd_region`` event (mode
+    ``simd``, its node count).  Walls are host time: the tracer's ``sync``
+    does not wait inside a region."""
+
+    def __init__(self, module: torch.fx.GraphModule,
+                 tracer: "_obs_trace.Tracer") -> None:
+        super().__init__(module)
+        self.tracer = tracer
+        self._region_start: Optional[float] = None
+        self._region_nodes = 0
+
+    def _flush(self) -> None:
+        if self._region_start is not None:
+            end = self.tracer.now_us()
+            if end > self._region_start:
+                self.tracer.add_event(
+                    "dispatch.simd_region", cat="dispatch",
+                    ts=self._region_start, dur=end - self._region_start,
+                    mode="simd", nodes=self._region_nodes)
+        self._region_start, self._region_nodes = None, 0
+
+    def run_node(self, n: torch.fx.Node) -> Any:
+        site = n.meta.get("dispatch_span")     # set by build_module
+        if site is not None:
+            self._flush()
+            name, args = site
+            with self.tracer.span(name, cat="dispatch", **args):
+                return super().run_node(n)
+        if n.op == "output":
+            self._flush()
+        elif n.op != "placeholder":
+            if self._region_start is None:
+                self._region_start = self.tracer.now_us()
+            self._region_nodes += 1
+        return super().run_node(n)
 
 
 @dataclasses.dataclass
@@ -190,8 +254,12 @@ class CompiledModel:
                 f"called with grad enabled on inputs that require grad; "
                 f"call it under torch.no_grad() or torch.inference_mode() "
                 f"(gradients through sma_jit are not ported yet)")
+        tracer = _obs_trace.current_tracer()
         with torch.no_grad():
-            outs = self.module(*flat)
+            if tracer is None:
+                outs = self.module(*flat)
+            else:
+                outs = TracedRun(self.module, tracer).run(*flat)
         return pytree.tree_unflatten(list(outs), self.traced.out_tree)
 
 
@@ -204,16 +272,20 @@ def compile_with_options(fn: Callable, *args, name: Optional[str] = None,
     o = resolve_options(options)
     times: Dict[str, float] = {}
     t0 = time.perf_counter()
-    traced = trace_model(fn, *args, name=name, **kwargs)
+    with _obs_trace.span("compile.trace", cat="compile"):
+        traced = trace_model(fn, *args, name=name, **kwargs)
     t1 = time.perf_counter()
-    program = lower_graph(traced.graph)
+    with _obs_trace.span("compile.lower", cat="compile"):
+        program = lower_graph(traced.graph)
     t2 = time.perf_counter()
     policy = o.policy if o.policy is not None else SMAPolicy(
         fuse_epilogues=bool(o.fuse_epilogues),
         max_epilogue_ops=o.max_epilogue_ops)
-    plan = plan_program(program, name=traced.name, policy=policy)
+    with _obs_trace.span("compile.plan", cat="compile"):
+        plan = plan_program(program, name=traced.name, policy=policy)
     t3 = time.perf_counter()
-    rewritten = rewrite_program(traced.graph, fuse=bool(o.fuse_runtime))
+    with _obs_trace.span("compile.rewrite", cat="compile"):
+        rewritten = rewrite_program(traced.graph, fuse=bool(o.fuse_runtime))
     t4 = time.perf_counter()
     module = build_module(traced, rewritten)
     t5 = time.perf_counter()

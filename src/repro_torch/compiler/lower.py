@@ -25,7 +25,11 @@ JAX primitives:
 Every kernel-entry node (:data:`repro_torch.compiler.trace.
 KERNEL_ENTRY_OPS`) becomes one ``Op`` of its mode: flash attention ->
 ``ATTENTION_MATMUL`` (its FLOPs counted over the (query, key) pairs the
-mask keeps), the RG-LRU and mLSTM scans -> ``RECURRENCE``.
+mask keeps); the contiguous and paged decode entries ->
+``ATTENTION_MATMUL``, their FLOPs over each query against every key the
+shapes let it reach (the cache's ``Smax``, or the table's ``max_blocks x
+block_size``: an upper bound, the valid lengths are data) and their bytes
+over those keys and values; the RG-LRU and mLSTM scans -> ``RECURRENCE``.
 
 Python loops unroll while tracing, so the graph has no scan or while nodes
 to coarsen: a model's layer loop lowers layer by layer.
@@ -316,6 +320,20 @@ class _Lowerer:
             pairs = attention_pairs(sq, k.shape[2], causal, window)
             self.emit(name, OpKind.ATTENTION_MATMUL,
                       flops=4.0 * b * hq * pairs * d, bytes_in=bin_,
+                      bytes_out=bout, tile_local=True)
+        elif name in ("decode_attention", "paged_decode_attention"):
+            q, kv = val(node.args[0]), val(node.args[1])
+            if name == "paged_decode_attention":
+                b, c, hq, d = q.shape
+                keys = val(node.args[3]).shape[1] * kv.shape[2]
+            else:
+                (b, hq, d), c = q.shape, 1
+                keys = kv.shape[2]
+            kv_bytes = 2.0 * b * kv.shape[1] * keys * d * kv.element_size()
+            lens = sum(_nbytes(val(a)) for a in node.args[3:])  # table, lens
+            self.emit(name, OpKind.ATTENTION_MATMUL,
+                      flops=4.0 * b * hq * c * keys * d,
+                      bytes_in=_nbytes(q) + kv_bytes + lens,
                       bytes_out=bout, tile_local=True)
         elif name == "rglru_scan":
             self.emit(name, OpKind.RECURRENCE,

@@ -8,9 +8,12 @@ largest fusion groups), with the reference's keys.  ``fusion_section``
 reconciles what the planner *promised* with what the rewrite pass
 *realized*.  ``backends_section`` records the static route of each
 dispatched site (:func:`repro_torch.backends.registry.select_backend`).
-The reference's ``comm`` section waits for the distributed slice, and its
-``runtime``, ``diagnostics`` and ``resilience`` sections for ``obs``,
-``analysis`` and ``resilience`` (ROADMAP.md).
+The ``runtime`` section (the measured mode timeline of a
+:func:`repro_torch.profile` window) is stamped by the engine
+(:mod:`repro_torch.api.engine`) and rendered by :func:`render_text`.  The
+reference's ``comm`` section waits for the distributed slice, and its
+``diagnostics`` and ``resilience`` sections for ``analysis`` and
+``resilience`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -195,6 +198,18 @@ def render_text(report: Dict[str, Any]) -> str:
             f"  engine cache           : {eng['cache_hits']} hits, "
             f"compile {eng['compile_time_s']:.3f}s "
             f"(amortized {eng['amortized_compile_s'] * 1e3:.2f} ms/call)")
+    rt = report.get("runtime")
+    if rt and rt.get("enabled"):
+        from repro_torch.obs.export import render_mode_timeline
+        per_mode = ", ".join(
+            f"{m}={us / 1e3:.2f}ms" for m, us in
+            sorted(rt["per_mode_us"].items()))
+        lines.append(
+            f"  runtime (measured)     : {per_mode or 'no mode spans'}; "
+            f"{rt['mode_switches']} mode switches, "
+            f"{rt['switch_overhead_us'] / 1e3:.2f} ms switch overhead")
+        lines.extend("    " + ln
+                     for ln in render_mode_timeline(rt).splitlines())
     return "\n".join(lines)
 
 

@@ -19,9 +19,13 @@ How the kernel entries of :mod:`repro_torch.kernels.ops` meet the tracer
   the norm's ``pow -> mean -> add eps -> rsqrt -> mul -> mul scale``), so
   the rewrite pass finds the fusable sites in them as it finds them in any
   other program;
-* ``flash_attention``, ``rglru_scan`` and ``mlstm_chunkwise`` trace as one
-  node each, a ``torch.library`` custom op (``repro_torch::...``) with a
-  fake implementation; the dispatcher calls the entry itself in its place.
+* ``flash_attention``, ``decode_attention``, ``paged_decode_attention``,
+  ``rglru_scan`` and ``mlstm_chunkwise`` trace as one node each, a
+  ``torch.library`` custom op (``repro_torch::...``) with a fake
+  implementation; the dispatcher calls the entry itself in its place, so
+  what the entry decides at run time (the paged site's routing and its
+  ``ops.ROUTED`` count, the kernel's launch count) happens on every call
+  of the compiled program, not once while tracing.
 
 The entries are swapped on the ``ops`` module for the trace only: the direct
 path never goes through a custom op's dispatcher.
@@ -100,6 +104,26 @@ def flash_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                scale=scale).contiguous()
 
 
+def decode_entry(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, cache_len: torch.Tensor,
+                 scale: Optional[float]) -> torch.Tensor:
+    """``ops.decode_attention`` with the custom op's positional arguments."""
+    return ops.decode_attention(q, k_cache, v_cache, cache_len,
+                                scale=scale).contiguous()
+
+
+def paged_entry(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                block_table: torch.Tensor, q_pos: torch.Tensor,
+                kv_len: torch.Tensor, window: Optional[int],
+                scale: Optional[float]) -> torch.Tensor:
+    """``ops.paged_decode_attention`` with the custom op's positional
+    arguments (its routing and ``ops.ROUTED`` count happen here, at run
+    time)."""
+    return ops.paged_decode_attention(q, k_pool, v_pool, block_table, q_pos,
+                                      kv_len, window=window,
+                                      scale=scale).contiguous()
+
+
 def rglru_entry(a: torch.Tensor, u: torch.Tensor, h0: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     return _dense(*ops.rglru_scan(a, u, h0))
@@ -147,6 +171,12 @@ KERNEL_ENTRY_OPS = {
     _register("flash_attention", flash_entry,
               lambda q, k, v, causal, window, scale: _empty(q, q.shape)):
         flash_entry,
+    _register("decode_attention", decode_entry,
+              lambda q, k_cache, v_cache, cache_len, scale:
+              _empty(q, q.shape)): decode_entry,
+    _register("paged_decode_attention", paged_entry,
+              lambda q, k_pool, v_pool, block_table, q_pos, kv_len, window,
+              scale: _empty(q, q.shape)): paged_entry,
     _register("rglru_scan", rglru_entry,
               lambda a, u, h0: (_empty(a, a.shape),
                                 _empty(a, (a.shape[0], a.shape[2])))):
@@ -162,6 +192,17 @@ KERNEL_ENTRY_OPS = {
 def _trace_flash(q, k, v, *, causal=True, window=None, scale=None):
     return torch.ops.repro_torch.flash_attention(q, k, v, causal, window,
                                                  scale)
+
+
+def _trace_decode(q, k_cache, v_cache, cache_len, *, scale=None):
+    return torch.ops.repro_torch.decode_attention(q, k_cache, v_cache,
+                                                  cache_len, scale)
+
+
+def _trace_paged(q, k_pool, v_pool, block_table, q_pos, kv_len, *,
+                 window=None, scale=None):
+    return torch.ops.repro_torch.paged_decode_attention(
+        q, k_pool, v_pool, block_table, q_pos, kv_len, window, scale)
 
 
 def _trace_rglru(a, u, h0=None):
@@ -181,6 +222,8 @@ _TRACE_ENTRIES = {
     "sma_gemm": ref.gemm_ref,
     "rmsnorm_gemm": ref.rmsnorm_gemm_ref,
     "flash_attention": _trace_flash,
+    "decode_attention": _trace_decode,
+    "paged_decode_attention": _trace_paged,
     "rglru_scan": _trace_rglru,
     "mlstm_chunkwise": _trace_mlstm,
 }

@@ -29,7 +29,15 @@ Each entry point:
   more than one query token per row (a chunked-prefill tile) or a window
   goes to the plain :func:`repro_torch.kernels.ref.paged_attention_ref`, as
   ``repro.kernels.decode_attention.paged_constraints`` routes it.  Each such
-  call is counted in :data:`ROUTED` under its reason string;
+  call is counted in :data:`ROUTED` under its reason string, when it runs
+  (a compiled step calls this entry on every run, not once at its trace);
+* records a ``kernel.{op}`` span while a :func:`repro_torch.profile` is
+  active (the reference's ``_launch``): tagged with the execution mode of
+  the entry's op kind (``sma_gemm``, ``rmsnorm_gemm`` and the attention
+  entries systolic, the scans SIMD) and the route the wrapper took (a
+  route counter's key, ``kernel`` for the decode kernels, ``plain`` for a
+  CPU tensor or a site routed by design, with its ``reason``).  Without a
+  profile an entry costs one Python call and one ``ContextVar`` read more;
 * counts kernel launches on the wrappers (:func:`launch_counts`), and the
   launches per route (the kernel that shape, dtype and alignment pick) of
   ``sma_gemm.routes`` (``wgmma``, ``splitk``, ``tile``, ``f32``),
@@ -43,10 +51,12 @@ The JAX package's backend registry and ladder are not ported.
 from __future__ import annotations
 
 import collections
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.modes import OpKind, classify_op
 from repro_torch.kernels import autograd as _autograd
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
@@ -55,6 +65,7 @@ from repro_torch.kernels import norm_gemm as _norm
 from repro_torch.kernels import rglru as _rglru
 from repro_torch.kernels import sma_gemm as _gemm
 from repro_torch.kernels.ref import paged_attention_ref
+from repro_torch.obs import trace as _obs_trace
 
 __all__ = ["ROUTED", "decode_attention", "flash_attention", "launch_counts",
            "mlstm_chunkwise", "paged_decode_attention", "paged_route",
@@ -93,6 +104,56 @@ def reset_counts() -> None:
     ROUTED.clear()
 
 
+#: Each entry's op kind (the lowering's, ``compiler/lower.py``), whose
+#: execution mode tags its kernel span.
+_KINDS = {"sma_gemm": OpKind.MATMUL, "rmsnorm_gemm": OpKind.MATMUL,
+          "flash_attention": OpKind.ATTENTION_MATMUL,
+          "decode_attention": OpKind.ATTENTION_MATMUL,
+          "paged_decode_attention": OpKind.ATTENTION_MATMUL,
+          "rglru_scan": OpKind.RECURRENCE,
+          "mlstm_chunkwise": OpKind.RECURRENCE}
+
+#: The route counters each entry's wrapper bumps (``ROUTED`` for the paged
+#: entry: the sites it sends to the plain version).
+_ROUTE_COUNTERS = {"sma_gemm": _gemm.ROUTES, "rmsnorm_gemm": _norm.ROUTES,
+                   "flash_attention": _flash.FWD_ROUTES,
+                   "rglru_scan": _rglru.ROUTES,
+                   "mlstm_chunkwise": _mlstm.ROUTES,
+                   "paged_decode_attention": ROUTED}
+
+
+def _route_taken(x: torch.Tensor, counter: Optional[Dict[str, int]],
+                 before: Dict[str, int]) -> Dict[str, str]:
+    """The span's route annotation: the counter key the call bumped."""
+    for key, n in (counter or {}).items():
+        if n != before.get(key, 0):
+            if counter is ROUTED:
+                return {"route": "plain", "reason": key}
+            return {"route": key}
+    return {"route": "kernel" if x.device.type == "cuda" else "plain"}
+
+
+def _spanned(op: str) -> Callable[[Callable], Callable]:
+    """A ``kernel.{op}`` span around the entry while a profile is active."""
+    mode = classify_op(_KINDS[op]).value
+    counter = _ROUTE_COUNTERS.get(op)
+
+    def wrap(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def entry(*args: Any, **kwargs: Any):
+            tr = _obs_trace.current_tracer()
+            if tr is None:
+                return fn(*args, **kwargs)
+            before = dict(counter) if counter is not None else {}
+            with tr.span(f"kernel.{op}", cat="kernel", mode=mode) as sp:
+                out = fn(*args, **kwargs)
+                sp.annotate(**_route_taken(args[0], counter, before))
+                return sp.block(out)
+        return entry
+    return wrap
+
+
+@_spanned("sma_gemm")
 def sma_gemm(a: torch.Tensor, b: torch.Tensor, *,
              bias: Optional[torch.Tensor] = None,
              epilogue: str = "none") -> torch.Tensor:
@@ -102,6 +163,7 @@ def sma_gemm(a: torch.Tensor, b: torch.Tensor, *,
     return _autograd.SmaGemm.apply(a, b, bias, epilogue)
 
 
+@_spanned("rmsnorm_gemm")
 def rmsnorm_gemm(x: torch.Tensor, scale: torch.Tensor, w: torch.Tensor, *,
                  epilogue: str = "none", eps: float = 1e-6) -> torch.Tensor:
     """``epilogue(rmsnorm(x; scale) @ w)`` in x's dtype."""
@@ -110,6 +172,7 @@ def rmsnorm_gemm(x: torch.Tensor, scale: torch.Tensor, w: torch.Tensor, *,
     return _autograd.RmsnormGemm.apply(x, scale, w, epilogue, eps)
 
 
+@_spanned("flash_attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -121,6 +184,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _autograd.FlashAttention.apply(q, k, v, causal, window, scale)
 
 
+@_spanned("decode_attention")
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: torch.Tensor, *,
                      scale: Optional[float] = None) -> torch.Tensor:
@@ -131,6 +195,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                     scale=scale)
 
 
+@_spanned("rglru_scan")
 def rglru_scan(a: torch.Tensor, u: torch.Tensor,
                h0: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -145,6 +210,7 @@ def rglru_scan(a: torch.Tensor, u: torch.Tensor,
     return _rglru.rglru_scan(a, u, h0)
 
 
+@_spanned("mlstm_chunkwise")
 def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     log_f: torch.Tensor, log_i: torch.Tensor, *,
                     chunk: int = 128, return_state: bool = False):
@@ -182,6 +248,7 @@ def paged_route(c: int, window: Optional[int]) -> Optional[str]:
     return None
 
 
+@_spanned("paged_decode_attention")
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_table: torch.Tensor,
                            q_pos: torch.Tensor, kv_len: torch.Tensor, *,

@@ -5,20 +5,40 @@ The same request flow as the JAX engine: ``submit`` queues a request,
 every ``step`` first admits from the queue into free rows (reserving each
 request's whole KV-block budget), then the mode scheduler picks one
 same-phase batch -- a prefill chunk for every row still prefilling, or one
-decode token for every decoding row -- and the engine runs it.  Batches
-are padded to power-of-two row buckets with rows whose block tables are
-all-sentinel: their pool writes are masked out and their attention reads
-nothing (see ``serving.model``).
+decode token for every decoding row -- and the engine runs it.
 
-Steps run eagerly (no ``sma_jit``) under ``torch.inference_mode()``, so
-no autograd bookkeeping reaches the kernel entry points.  Per-row
-containment of non-finite logits is kept: only healthy rows advance, a
-poisoned request is charged a retry under :class:`RetryPolicy` and evicted
-(its blocks zeroed and freed) once the budget is spent.  Greedy sampling is ``argmax``; with
-``temperature > 0`` tokens are drawn with the engine's own
-``torch.Generator`` (not JAX's bits).  Fault injection, tracing spans and
-``obs`` metrics are not ported; each executed tick is recorded in
-``tick_log`` as (phase, rows, seconds) instead.
+**One compile per (phase, bucket).**  Both phases run through
+:func:`repro_torch.sma_jit` engines (``self.engines``), named
+``{cfg.name}.paged_decode`` and ``{cfg.name}.paged_prefill`` as the
+reference names them.  Batches are padded to power-of-two row buckets
+with rows whose block tables are all-sentinel (their pool writes land in
+the spare block and their attention reads nothing, see
+``serving.model``) and prefill chunks to ``prefill_chunk``, so each phase
+compiles once per bucket and every later tick is a cache hit.
+:meth:`reset` keeps the compiled signatures.  There is no eager fallback:
+a step that fails to trace or compile raises.  The direct path is
+:func:`repro_torch.serving.model.paged_decode_step` /
+``paged_prefill_step`` called by hand.  Ticks run under
+``torch.inference_mode()``, so no autograd bookkeeping reaches the kernel
+entry points.
+
+**Observability** (:mod:`repro_torch.obs`), at the reference's sites:
+each tick runs under a ``serving.tick.{phase}`` span tagged with its mode
+(prefill systolic, decode SIMD) and rows, so ``obs.runtime_section`` of
+the tick spans measures the realized mode switches; the counters
+``serving.admitted`` / ``serving.ticks`` / ``serving.mode_switches`` /
+``serving.tokens`` and the histograms ``serving.queue_wait_s`` /
+``serving.ttft_s`` / ``serving.itl_s``, and on the failure paths
+``serve.retries`` / ``serve.evictions`` / ``serve.requests_failed`` /
+``serve.watchdog_exceeded``.  Each executed tick is also recorded in
+``tick_log`` as (phase, rows, seconds).
+
+Per-row containment of non-finite logits is kept: only healthy rows
+advance, a poisoned request is charged a retry under :class:`RetryPolicy`
+and evicted (its blocks zeroed and freed) once the budget is spent.
+Greedy sampling is ``argmax``; with ``temperature > 0`` tokens are drawn
+with the engine's own ``torch.Generator`` (not JAX's bits).  Fault
+injection and the whole-tick retry (``repro.resilience``) are not ported.
 """
 from __future__ import annotations
 
@@ -31,7 +51,10 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.api import SMAOptions, sma_jit
 from repro_torch.configs.base import ModelConfig
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import trace as _obs_trace
 from repro_torch.serving import model as smodel
 from repro_torch.serving.kv_cache import CacheConfig, PagedKVCache
 from repro_torch.serving.scheduler import (ModeScheduler, SchedulerConfig,
@@ -78,13 +101,15 @@ class ServeEngine:
     """Continuous-batching engine: paged KV + SMA mode-batching scheduler.
 
     ``params`` must already be on ``device`` (``cuda`` unless the caller
-    passes ``device="cpu"``).
+    passes ``device="cpu"``).  ``options`` configure both phases'
+    ``sma_jit`` engines.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, *,
                  cache: Optional[CacheConfig] = None,
                  max_batch: int = 8,
                  sched: Optional[SchedulerConfig] = None,
+                 options: Optional[SMAOptions] = None,
                  temperature: float = 0.0, seed: int = 0,
                  retry: Optional[RetryPolicy] = None,
                  device: DeviceLike = None) -> None:
@@ -114,12 +139,16 @@ class ServeEngine:
         self.failed: Dict[int, Request] = {}
         self.tick_log: List[Tuple[str, int, float]] = []
 
-        # One step function per phase (the JAX engine's sma_jit engines).
-        self.steps = {
-            "decode": lambda p, s, bt, cl, b: smodel.paged_decode_step(
-                p, s, bt, cl, cfg, b),
-            "prefill": lambda p, s, bt, cl, nt, b: smodel.paged_prefill_step(
-                p, s, bt, cl, nt, cfg, b),
+        # One engine per phase, one compile per row bucket.
+        self.engines = {
+            "decode": sma_jit(
+                lambda p, s, bt, cl, b: smodel.paged_decode_step(
+                    p, s, bt, cl, cfg, b),
+                options=options, name=f"{cfg.name}.paged_decode"),
+            "prefill": sma_jit(
+                lambda p, s, bt, cl, nt, b: smodel.paged_prefill_step(
+                    p, s, bt, cl, nt, cfg, b),
+                options=options, name=f"{cfg.name}.paged_prefill"),
         }
 
     # ------------------------------------------------------------------ rows
@@ -175,13 +204,17 @@ class ServeEngine:
         row = free[0]
         if not self.kv.admit(row, len(req.prompt), req.max_new_tokens):
             return False
+        now = time.perf_counter()
         req.slot = row
         req.out_tokens = []
         req.status = "active"
         req.prefilled = 0
-        req.t_admit = time.perf_counter()
+        req.t_admit = now
+        if req.t_submit is not None:
+            _metrics.observe("serving.queue_wait_s", now - req.t_submit)
         self.cache_len[row] = 0
         self.active[req.rid] = req
+        _metrics.inc("serving.admitted")
         return True
 
     def _admit_from_queue(self) -> None:
@@ -223,9 +256,17 @@ class ServeEngine:
 
     @torch.inference_mode()
     def _run_plan(self, plan: TickPlan) -> Dict[int, int]:
-        if plan.phase == "prefill":
-            return self._prefill_tick(list(plan.rows))
-        return self._decode_tick(list(plan.rows))
+        """Run one planned tick under its mode-tagged span: the span's
+        ``mode`` is what ``obs.runtime_section`` collapses into systolic /
+        SIMD segments, the measured mode-switch count of the serve loop."""
+        if plan.switched:
+            _metrics.inc("serving.mode_switches")
+        _metrics.inc("serving.ticks")
+        with _obs_trace.span(f"serving.tick.{plan.phase}", cat="serve",
+                             mode=plan.mode, rows=len(plan.rows)):
+            if plan.phase == "prefill":
+                return self._prefill_tick(list(plan.rows))
+            return self._decode_tick(list(plan.rows))
 
     # ------------------------------------------------------------- internals
     @staticmethod
@@ -250,8 +291,13 @@ class ServeEngine:
         now = time.perf_counter()
         req.out_tokens.append(tok)
         if req.t_first is None:
+            if req.t_submit is not None:
+                _metrics.observe("serving.ttft_s", now - req.t_submit)
             req.t_first = now
+        else:
+            _metrics.observe("serving.itl_s", now - req.t_last)
         req.t_last = now
+        _metrics.inc("serving.tokens")
         if len(req.out_tokens) >= req.max_new_tokens:
             self._finish(req)
 
@@ -287,7 +333,7 @@ class ServeEngine:
             toks[i, :m] = req.prompt[req.prefilled:req.prefilled + m]
             n_tok[i] = m
         bt, cl = self._tables(rows, pad)
-        logits, _, _ = self.steps["prefill"](
+        logits, _, _ = self.engines["prefill"](
             self.params, self.state, bt, cl, self._tensor(n_tok),
             {"tokens": self._tensor(toks)})
         np_logits, good = self._healthy(logits, len(rows))
@@ -323,7 +369,7 @@ class ServeEngine:
             toks[i, 0] = (req.out_tokens[-1] if req.out_tokens
                           else int(req.prompt[-1]))
         bt, cl = self._tables(rows, pad)
-        logits, _, _ = self.steps["decode"](
+        logits, _, _ = self.engines["decode"](
             self.params, self.state, bt, cl, {"tokens": self._tensor(toks)})
         # Containment: only healthy rows advance; poisoned requests are
         # charged a bounded retry.
@@ -343,6 +389,7 @@ class ServeEngine:
     # -------------------------------------------------------- failure paths
     def _charge_retry(self, req: Request, why: str) -> None:
         req.retries += 1
+        _metrics.inc("serve.retries")
         if req.retries > self.retry.max_retries:
             self._evict(req, f"{why} (after {req.retries - 1} retries)")
 
@@ -366,18 +413,21 @@ class ServeEngine:
             self._scrub_blocks(self.kv.blocks_of(req.slot))
             self.kv.release(req.slot)
             self.cache_len[req.slot] = 0
+        _metrics.inc("serve.evictions")
         self._fail(req, error)
 
     def _fail(self, req: Request, error: str) -> None:
         req.status = "failed"
         req.error = error
         self.failed[req.rid] = req
+        _metrics.inc("serve.requests_failed")
 
     def _watchdog(self, elapsed_s: float) -> None:
         deadline = self.retry.deadline_s
         if deadline is None or elapsed_s <= deadline:
             return
         self.watchdog_exceeded += 1
+        _metrics.inc("serve.watchdog_exceeded")
         if self.watchdog_exceeded == 1:
             warnings.warn(f"serve tick took {elapsed_s:.3f}s "
                           f"(RetryPolicy.deadline_s={deadline}); counted in "
@@ -385,7 +435,9 @@ class ServeEngine:
 
     # ------------------------------------------------------------- lifecycle
     def reset(self) -> None:
-        """Return to an empty engine (pools zeroed, scheduler reset)."""
+        """Return to an empty engine (pools zeroed, scheduler reset),
+        keeping the compiled signatures: a second identical workload
+        compiles nothing."""
         self.kv = PagedKVCache(self.cache, self.max_batch)
         self.state = smodel.init_state(self.cfg, self.cache,
                                        device=self.device)
@@ -399,7 +451,11 @@ class ServeEngine:
         self.gen = torch.Generator().manual_seed(self.seed)
 
     def stats(self) -> dict:
+        eng = {name: {"hits": e.stats.hits, "misses": e.stats.misses,
+                      "compile_time_s": e.stats.compile_time_s}
+               for name, e in self.engines.items()}
         return {"kv": self.kv.stats(), "scheduler": self.sched.stats(),
+                "engines": eng,
                 "requests": {"queued": len(self.queue),
                              "active": len(self.active),
                              "done": len(self.done),

@@ -23,9 +23,10 @@ the device arrays live in the engine's state pytree; this module owns the
 
 Block tables are host-side ``np.int32`` arrays of shape
 ``(max_batch, max_blocks_per_req)``; unallocated slots hold the sentinel
-``num_blocks`` (one past the pool): the serving model masks writes through
-them out (:func:`repro_torch.serving.model.write_index`), gathers clamp
-into real-but-masked blocks, and the decode kernel never reads them.
+``num_blocks`` (one past the real blocks): the serving model sends writes
+through them to the pool's spare block at that id
+(:func:`repro_torch.serving.model.write_index`), gathers clamp into
+real-but-masked blocks, and the decode kernel never reads them.
 """
 from __future__ import annotations
 
@@ -124,8 +125,8 @@ class PagedKVCache:
         self.config = config
         self.max_batch = max_batch
         self.allocator = BlockAllocator(config.num_blocks)
-        #: Sentinel = num_blocks: one past the pool; writes through it are
-        #: masked out.
+        #: Sentinel = num_blocks: one past the real blocks; writes through
+        #: it land in the pools' spare block, which nothing reads.
         self.sentinel = config.num_blocks
         self._tables = np.full(
             (max_batch, config.max_blocks_per_req), self.sentinel, np.int32)

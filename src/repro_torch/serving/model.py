@@ -2,9 +2,9 @@
 (counterpart of ``repro.serving.model``, ``attn`` blocks).
 
 State is a tuple with one entry per pattern position; an ``attn`` entry is
-``{"k", "v"}: (num_groups, num_blocks, Hkv, block_size, head_dim)`` with no
-batch axis.  Which blocks belong to which request is carried by the
-``block_table`` argument.
+``{"k", "v"}: (num_groups, num_blocks + 1, Hkv, block_size, head_dim)``
+with no batch axis (the last block is a spare, below).  Which blocks
+belong to which request is carried by the ``block_table`` argument.
 
 Two entry points, one per serving phase:
 
@@ -16,9 +16,15 @@ Two entry points, one per serving phase:
 ``pool[table[row, p // bs], :, p % bs]``.  The JAX package drops writes to
 the sentinel block id (``== num_blocks``) with ``mode="drop"``; PyTorch has
 no such mode and an out-of-range index on CUDA is a device-side assert, so
-:func:`write_index` selects the writes to keep once per step (masking
-sentinel, out-of-table and padding positions) and every layer writes
-through that selection.  The selection is one host sync per step.
+every pool holds one spare block past the last real one, at the sentinel
+id ``num_blocks`` (:func:`init_state`).  No table hands it out.
+:func:`write_index` sends every write that would be dropped (a sentinel
+entry, a position past the table, a padding position) to that block, so
+each layer writes all B*C positions with one ``index_put_`` whose shapes do
+not depend on the data: the steps trace (:func:`repro_torch.sma_jit`) and
+need no host sync.  Attention reads ``pool[:num_blocks]``, a contiguous
+view, so the first ``num_blocks`` blocks are the JAX pools, bit for bit,
+and nothing reads the spare block.
 
 Weights are used as they are stored (the activation dtype); every
 projection is an :func:`repro_torch.kernels.ops.sma_gemm`, the head is
@@ -43,16 +49,20 @@ from repro_torch.serving.kv_cache import CacheConfig
 __all__ = ["init_state", "paged_decode_step", "paged_prefill_step",
            "pooled_positions", "write_index"]
 
+
 def init_state(cfg: ModelConfig, cache: CacheConfig,
                dtype: Optional[torch.dtype] = None,
                device: DeviceLike = None) -> State:
-    """Zeroed paged pools, one ``{"k", "v"}`` entry per pattern position.
-    Paged pools have no batch axis, so unlike the JAX function this takes
-    no ``max_batch``.  The paged steps run ``attn`` blocks only."""
+    """Zeroed paged pools, one ``{"k", "v"}`` entry per pattern position,
+    each ``(num_groups, num_blocks + 1, Hkv, block_size, head_dim)``: the
+    last block is the spare that dropped writes land in (module
+    docstring).  Paged pools have no batch axis, so unlike the JAX function
+    this takes no ``max_batch``.  The paged steps run ``attn`` blocks
+    only."""
     check_pattern(cfg, ("attn",))
     dev = resolve_device(device)
     dtype = dtype or cfg.activation_dtype
-    shape = (cfg.num_groups, cache.num_blocks, cfg.num_kv_heads,
+    shape = (cfg.num_groups, cache.num_blocks + 1, cfg.num_kv_heads,
              cache.block_size, cfg.resolved_head_dim)
     return tuple({"k": torch.zeros(shape, dtype=dtype, device=dev),
                   "v": torch.zeros(shape, dtype=dtype, device=dev)}
@@ -66,12 +76,12 @@ def pooled_positions(cfg: ModelConfig) -> Tuple[int, ...]:
 
 
 class WriteIndex(NamedTuple):
-    """The pool writes one step keeps: ``keep`` (B, C) marks them,
-    ``rows`` index them in the flattened (B*C) positions, and
-    ``blocks``/``offsets`` say where each lands."""
+    """Where one step's B*C pool writes land: ``keep`` (B, C) marks those
+    that land in a real block; ``blocks``/``offsets`` (B*C,) give every
+    write's block and offset, the spare block ``num_blocks`` for the
+    others."""
 
     keep: torch.Tensor
-    rows: torch.Tensor
     blocks: torch.Tensor
     offsets: torch.Tensor
 
@@ -79,10 +89,10 @@ class WriteIndex(NamedTuple):
 def write_index(block_table: torch.Tensor, pos: torch.Tensor,
                 num_blocks: int, block_size: int,
                 valid: Optional[torch.Tensor] = None) -> WriteIndex:
-    """Select the writes of positions ``pos`` (B, C) that land in a real
-    block: positions past the table, sentinel entries (>= num_blocks) and
-    positions masked by ``valid`` (B, C) write nowhere, as the JAX scatter
-    with ``mode="drop"`` does."""
+    """Place the writes of positions ``pos`` (B, C): positions past the
+    table, sentinel entries (outside [0, num_blocks)) and positions masked
+    by ``valid`` (B, C) go to the spare block ``num_blocks``, so the real
+    blocks see exactly the JAX scatter with ``mode="drop"``."""
     mb = block_table.shape[1]
     pos = pos.long()
     idx = pos // block_size
@@ -90,15 +100,17 @@ def write_index(block_table: torch.Tensor, pos: torch.Tensor,
     keep = (idx < mb) & (blk >= 0) & (blk < num_blocks)
     if valid is not None:
         keep &= valid
-    rows = keep.reshape(-1).nonzero().squeeze(1)
-    return WriteIndex(keep, rows, blk.reshape(-1)[rows],
-                      (pos % block_size).reshape(-1)[rows])
+    blocks = torch.where(keep, blk, num_blocks)
+    return WriteIndex(keep, blocks.reshape(-1),
+                      (pos % block_size).reshape(-1))
 
 
 def _pool_write(pool: torch.Tensor, widx: WriteIndex,
                 val: torch.Tensor) -> None:
-    """Write val (B, C, Hkv, D) into pool (NB, Hkv, BS, D), in place."""
-    flat = val.reshape(-1, *val.shape[-2:])[widx.rows]
+    """Write val (B, C, Hkv, D) into pool (NB + 1, Hkv, BS, D), in place:
+    one ``index_put_`` over every position (several dropped writes may
+    meet in the spare block; which one lands there is unspecified)."""
+    flat = val.reshape(-1, *val.shape[-2:])
     pool[widx.blocks, :, widx.offsets] = flat.to(pool.dtype)
 
 
@@ -114,8 +126,9 @@ def _paged_attn(bparams: dict, x: torch.Tensor, pools: dict,
     q, k, v = attention._project_qkv(bparams["mixer"], h, cfg, q_pos)
     _pool_write(pools["k"], widx, k)
     _pool_write(pools["v"], widx, v)
-    out = ops.paged_decode_attention(q, pools["k"], pools["v"], block_table,
-                                     q_pos, kv_len)
+    nb = pools["k"].shape[0] - 1                # the real blocks
+    out = ops.paged_decode_attention(q, pools["k"][:nb], pools["v"][:nb],
+                                     block_table, q_pos, kv_len)
     return ops.sma_gemm(out.reshape(b, c, -1), bparams["mixer"]["wo"])
 
 
@@ -137,8 +150,8 @@ def _layers(params: dict, state: State, x: torch.Tensor,
 
 def _start(state: State, block_table: torch.Tensor, q_pos: torch.Tensor,
            valid: Optional[torch.Tensor]) -> WriteIndex:
-    _, nb, _, bs, _ = state[0]["k"].shape
-    return write_index(block_table, q_pos, nb, bs, valid)
+    _, nb_spare, _, bs, _ = state[0]["k"].shape
+    return write_index(block_table, q_pos, nb_spare - 1, bs, valid)
 
 
 def paged_decode_step(params: dict, state: State,

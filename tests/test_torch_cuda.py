@@ -10,7 +10,8 @@ CUDA-core path, f16), ragged M/N/K and unaligned operands (the masked
 element-by-element loads), every epilogue with bias, GQA and head_dim 128
 in the decode and flash kernels, flash rows that see no key, gradients
 reaching weights through every kernel entry point, the serving steps and a
-few training steps on the card against the same on the CPU, and the
+few training steps on the card against the same on the CPU, the serving
+engine's compiled ticks against the direct steps (bit for bit), and the
 recurrentgemma kernels and steps: the RG-LRU scan (bit for bit against its
 plain version, on both routes, at the edges of the tma kernel's ring and
 boxes), the flash forward and the contiguous decode at MQA with
@@ -45,10 +46,11 @@ from repro_torch.kernels.flash_attention import (flash_attention_bwd,
 from repro_torch.kernels.mlstm import mlstm_chunkwise
 from repro_torch.kernels.norm_gemm import rmsnorm_gemm
 from repro_torch.kernels.rglru import rglru_scan
+from repro_torch.kernels import sma_gemm as kgemm
 from repro_torch.kernels.sma_gemm import sma_gemm
 from repro_torch.launch.train import TrainLoopConfig, train
 from repro_torch.models import lm
-from repro_torch.serving import CacheConfig, PagedKVCache
+from repro_torch.serving import CacheConfig, PagedKVCache, ServeEngine
 from repro_torch.serving import model as smodel
 from repro_torch.tree import leaves
 
@@ -382,6 +384,68 @@ def test_serving_steps_on_card_match_cpu(dev):
     got, _ = run(dev, fed)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+
+
+def test_compiled_serving_ticks_equal_direct_on_card(dev):
+    """A 2-layer model at StableLM-2-1.6B's full width in bf16: the
+    engine's compiled prefill tick (4 ragged rows, chunk 64) and two decode
+    ticks, against the direct steps on the same inputs: logits, returned
+    lengths and the pools' real blocks ``torch.equal``, each tick with the
+    same launches, ``sma_gemm`` / ``rmsnorm_gemm`` routes and routed
+    calls."""
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), num_groups=2)
+    cc = CacheConfig(block_size=16, num_blocks=64, max_seq_len=256)
+    kv = PagedKVCache(cc, 4)
+    for r, n in enumerate((64, 17, 40, 1)):
+        assert kv.admit(r, n, 4)
+    table = torch.from_numpy(kv.table_rows([0, 1, 2, 3])).to(dev)
+    toks = torch.from_numpy(np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (4, 64)).astype(np.int32)).to(dev)
+    n_tok = torch.tensor([64, 17, 40, 1], dtype=torch.int32, device=dev)
+
+    def counted(fn, *args):
+        ops.reset_counts()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, ({k: n for k, n in ops.launch_counts().items() if n},
+                     dict(kgemm.ROUTES), dict(knorm.ROUTES), dict(ops.ROUTED))
+
+    def run(prefill, decode):
+        state = smodel.init_state(cfg, cc, device=dev)
+        zero = torch.zeros(4, dtype=torch.int32, device=dev)
+        (logits, _, cl), seen = counted(prefill, params, state, table, zero,
+                                        n_tok, {"tokens": toks})
+        outs = [(logits.clone(), cl.clone(), seen,
+                 [p[:, :cc.num_blocks].clone() for e in state
+                  for p in e.values()])]
+        for _ in range(2):
+            nxt = logits.argmax(-1, keepdim=True).to(torch.int32)
+            (logits, _, cl), seen = counted(decode, params, state, table,
+                                            cl.to(torch.int32),
+                                            {"tokens": nxt})
+            outs.append((logits.clone(), cl.clone(), seen,
+                         [p[:, :cc.num_blocks].clone() for e in state
+                          for p in e.values()]))
+        return outs
+
+    with torch.inference_mode():
+        params = lm.init(cfg, seed=0, device=dev)
+        eng = ServeEngine(cfg, params, cache=cc, max_batch=4, device=dev)
+        got = run(eng.engines["prefill"], eng.engines["decode"])
+        want = run(lambda p, s, bt, cl, nt, b: smodel.paged_prefill_step(
+                       p, s, bt, cl, nt, cfg, b),
+                   lambda p, s, bt, cl, b: smodel.paged_decode_step(
+                       p, s, bt, cl, cfg, b))
+    assert [e.stats.misses for e in eng.engines.values()] == [1, 1]
+    for (gl, gc, gseen, gp), (wl, wc, wseen, wp) in zip(got, want):
+        assert torch.isfinite(gl.float()).all()
+        assert torch.equal(gl, wl) and torch.equal(gc, wc)
+        assert all(torch.equal(g, w) for g, w in zip(gp, wp))
+        assert gseen == wseen
+    assert got[0][2][0] == {"sma_gemm": 14, "rmsnorm_gemm": 1}
+    assert sum(got[0][2][3].values()) == 2          # chunked prefill routed
+    assert got[1][2][0] == {"sma_gemm": 14, "rmsnorm_gemm": 1,
+                            "paged_decode_attention": 2}
 
 
 def _to(tree, device, clone=False):

@@ -41,7 +41,9 @@ MODULES = (
     "repro_torch.compiler.dispatch", "repro_torch.api",
     "repro_torch.api.options", "repro_torch.api.engine",
     "repro_torch.backends", "repro_torch.backends.base",
-    "repro_torch.backends.registry",
+    "repro_torch.backends.registry", "repro_torch.obs",
+    "repro_torch.obs.trace", "repro_torch.obs.metrics",
+    "repro_torch.obs.timing", "repro_torch.obs.export",
 )
 
 

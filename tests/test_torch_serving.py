@@ -70,7 +70,9 @@ def test_converted_params_mirror_the_jax_tree(models):
 
 def test_paged_prefill_then_decode_match_jax(models):
     """One chunked prefill (ragged n_tokens) then 3 decode steps: logits and
-    both pools agree with repro.serving.model at every step."""
+    both pools agree with repro.serving.model at every step (the pools'
+    real blocks; the port's last block is the spare that dropped writes
+    land in)."""
     jcfg, jparams, tcfg, tparams = models
     cc = CacheConfig(block_size=4, num_blocks=32, max_seq_len=64)
     b, c = 3, 8
@@ -88,7 +90,9 @@ def test_paged_prefill_then_decode_match_jax(models):
     def check(jl, tl):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
         for name in ("k", "v"):
-            np.testing.assert_allclose(tstate[0][name].numpy(),
+            assert tstate[0][name].shape[1] == cc.num_blocks + 1
+            np.testing.assert_allclose(tstate[0][name][:, :cc.num_blocks]
+                                       .numpy(),
                                        np.asarray(jstate[0][name]), **TOL)
 
     with repro.options(backend="interpret"):
@@ -114,14 +118,23 @@ def test_paged_prefill_then_decode_match_jax(models):
 
 def test_sentinel_and_padding_writes_are_masked():
     """Padding positions, sentinel entries and positions past the table
-    write nowhere (the JAX scatter's mode="drop")."""
+    write nowhere in the real blocks (the JAX scatter's mode="drop"): they
+    land in the spare block at the sentinel id."""
     table = torch.tensor([[3, 5], [6, 6]], dtype=torch.int32)   # NB = 6
     pos = torch.tensor([[0, 5, 9], [1, 2, 3]])
     valid = torch.tensor([[True, False, True], [True, True, True]])
     w = tmodel.write_index(table, pos, num_blocks=6, block_size=4,
                            valid=valid)
-    assert w.rows.tolist() == [0]          # row 0 pos 0 -> block 3 slot 0
-    assert w.blocks.tolist() == [3] and w.offsets.tolist() == [0]
+    assert w.keep.tolist() == [[True, False, False], [False] * 3]
+    # row 0 pos 0 -> block 3 slot 0; every other write -> the spare block 6
+    assert w.blocks.tolist() == [3, 6, 6, 6, 6, 6]
+    assert w.offsets.tolist() == [0, 1, 1, 1, 2, 3]
+    pool = torch.zeros(7, 1, 4, 2)
+    val = torch.arange(1.0, 7.0)[:, None, None].expand(6, 1, 2)
+    tmodel._pool_write(pool, w, val.reshape(2, 3, 1, 2))
+    want = torch.zeros(6, 1, 4, 2)
+    want[3, :, 0] = 1.0
+    assert torch.equal(pool[:6], want)
 
 
 def test_decode_padding_rows_attend_over_nothing(models, monkeypatch):
@@ -219,10 +232,11 @@ def _staggered(eng, reqs, arrivals):
 
 
 def _record(eng):
-    """Log every tick's rows (as request ids) and step inputs."""
+    """Log every tick's rows (as request ids) and the inputs of the
+    compiled step it runs."""
     log = []
     for phase in ("prefill", "decode"):
-        tick_fn, step_fn = getattr(eng, f"_{phase}_tick"), eng.steps[phase]
+        tick_fn, step_fn = getattr(eng, f"_{phase}_tick"), eng.engines[phase]
 
         def tick(rows, phase=phase, tick_fn=tick_fn):
             by_row = eng._by_row()
@@ -236,7 +250,7 @@ def _record(eng):
             return step_fn(*args)
 
         setattr(eng, f"_{phase}_tick", tick)
-        eng.steps[phase] = step
+        eng.engines[phase] = step
     return log
 
 
@@ -279,9 +293,9 @@ def _jax_greedy(jcfg, jparams, cc, max_batch, reqs, log):
 
 
 def test_engine_greedy_tokens_equal_jax_loop(models):
-    """Staggered requests served to completion by the port's engine give,
-    request by request, the tokens of a greedy loop over the JAX step
-    functions on the same block tables."""
+    """Staggered requests served to completion by the port's engine (both
+    phases compiled by sma_jit) give, request by request, the tokens of a
+    greedy loop over the JAX step functions on the same block tables."""
     jcfg, jparams, tcfg, tparams = models
     cc = CacheConfig(block_size=4, num_blocks=40, max_seq_len=32)
     eng = ServeEngine(tcfg, tparams, cache=cc, max_batch=4,
@@ -289,6 +303,7 @@ def test_engine_greedy_tokens_equal_jax_loop(models):
                                             mode_min_run=2),
                       device="cpu")
     reqs = _requests(tcfg, lens=(6, 9, 3, 7, 5), max_new=(5, 3, 6, 4, 4))
+    engines = dict(eng.engines)
     log = _record(eng)
     ops.reset_counts()
     _staggered(eng, reqs, arrivals=(0, 0, 2, 3, 6))
@@ -299,6 +314,9 @@ def test_engine_greedy_tokens_equal_jax_loop(models):
     assert eng.kv.stats()["blocks_used"] == 0
     # CPU tensors: every wrapper took its plain version, none launched
     assert sum(ops.launch_counts().values()) == 0
+    for phase, engine in engines.items():
+        ticks = sum(e["phase"] == phase for e in log)
+        assert engine.stats.calls == ticks and engine.stats.misses >= 1
     want = _jax_greedy(jcfg, jparams, cc, 4, reqs, log)
     for r in reqs:
         assert r.out_tokens == want[r.rid], r.rid
