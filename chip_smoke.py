@@ -45,11 +45,24 @@
 5. Training path: one step of a 4-layer full-width model through the
    kernels against the same step through the plain versions (loss, grad
    norm, every weight's gradient a layer at a time), and the same step with
-   planted backward faults, which the limits must catch; then
-   ``repro_torch.launch.train.train`` on full-width, full-depth
-   StableLM-2-1.6B, sequence 2048, batch 4, remat, 5 steps: finite losses
-   that fall, launch counts as predicted, nothing routed, step time,
-   tokens/s, MFU and peak memory; a profile of one more step.
+   planted backward faults, which the limits must catch.  The train step
+   through ``sma_jit`` against the direct step at 4 full-width layers: the
+   loss and the gradients upstream of every flash dQ bit for bit, every
+   other gradient, and each parameter's update and moment after one step,
+   within twice the direct step's own run-to-run spread (the flash
+   backward sums dQ in no fixed order) or a stated floor; the same
+   launches and routes but the recomputations nothing reads; a zeroed
+   weight-gradient site and a dropped AdamW write planted in the compiled
+   modules, which must be caught.  ``train()`` with ``grad_compression``
+   for 2 steps, and a run halted at step 2 and resumed, against unbroken
+   runs.  Then ``repro_torch.launch.train.train`` on full-width,
+   full-depth StableLM-2-1.6B, sequence 2048, batch 4, remat, 5 steps,
+   its step compiled once by ``sma_jit`` (compile stages and graph nodes
+   printed; 1 miss, 4 hits): finite losses that fall, launch counts as
+   predicted, all ``wgmma``, nothing routed, step time, tokens/s, MFU and
+   peak memory; the compiled step timed against the direct step A B B A
+   (event and host ms, peak memory of each); a profile of one more
+   compiled step.
    Front door: ``repro_torch.sma_jit(lm.forward)`` on full-width
    StableLM-2-1.6B at the trainer's B 4 x S 2048 under ``torch.no_grad``:
    the compile's stage times and plan summary; a second call is a cache
@@ -109,8 +122,10 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -122,6 +137,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+import torch.utils._pytree as pytree  # noqa: E402
 
 from repro_torch import obs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -134,11 +150,11 @@ from repro_torch.kernels import mlstm as kmlstm  # noqa: E402
 from repro_torch.kernels import norm_gemm as knorm  # noqa: E402
 from repro_torch.kernels import rglru as krglru  # noqa: E402
 from repro_torch.kernels import sma_gemm as kgemm  # noqa: E402
-from repro_torch.launch.train import (TrainLoopConfig, make_step,  # noqa: E402
-                                      train)
+from repro_torch.launch.train import (TrainLoopConfig,  # noqa: E402
+                                      direct_step, make_step, train)
 from repro_torch.models import lm, recurrent  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
-from repro_torch.tree import leaves  # noqa: E402
+from repro_torch.tree import leaves, tree_map  # noqa: E402
 from repro_torch.serving import (CacheConfig, Request,  # noqa: E402
                                  SchedulerConfig, ServeEngine)
 from repro_torch.serving import model as smodel  # noqa: E402
@@ -200,6 +216,24 @@ TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 5, 2048, 4
 # at this rate it must fall from step 1 to step 5.
 TRAIN_LR = 1e-3
 H100_BF16 = 989e12            # dense bf16 tensor-core peak, for the MFU
+# The compiled train step against the direct one (check_compiled_train_step,
+# check_train_options): the relative error (Frobenius, a layer at a time)
+# of every gradient, and of every parameter's update and moment after one
+# step, must stay within max(2 x the direct step's own run-to-run spread,
+# JIT_TRAIN_FLOOR).  The flash backward sums dQ with reduce-adds in no
+# fixed order, so nothing downstream of a dQ is bit-reproducible: on an
+# H100 the direct-vs-direct spread of a gradient reads up to 8e-7, of an
+# update from a stepped state up to 5.3e-3 (from zero moments, where
+# Adam's update is about sign(g), 4.8e-2; PERF.md).  The planted faults of
+# check_compiled_train_step (one weight gradient zeroed, one parameter
+# write dropped) read ~1.0, fifty times this floor.
+JIT_TRAIN_FLOOR = 2e-2
+# A resumed run's loss at the step after the restore against the unbroken
+# runs', relative: the floor of its limit (max(2 x their spread, this)).
+# A restore onto the wrong batch moves it by ~1e-2 (other tokens).
+RESUME_LOSS_FLOOR = 1e-4
+# Steps queued back to back for each reading of the step timing (A B B A).
+TIME_STEPS = 2
 
 # The recurrent path: recurrentgemma-2b at full width.  The prompts are a
 # multiple of the window (2048): the reference's cache layout after a
@@ -1434,6 +1468,16 @@ def step_launches(cfg) -> dict:
             "flash_attention": 2 * n, "flash_attention_bwd": n}
 
 
+def compiled_step_launches(cfg) -> dict:
+    """Launches of one compiled training step: the direct step's but each
+    remat group's recomputed MLP wo, whose output nothing reads (the eager
+    recomputation runs up to it, since its input is the last tensor the
+    group saved; the compiled program's dead-code pass drops it)."""
+    out = step_launches(cfg)
+    out["sma_gemm"] -= cfg.num_layers
+    return out
+
+
 def matmul_params(cfg) -> int:
     """Parameters that enter a matrix product (the embedding gather does
     not): the MFU's N."""
@@ -1600,9 +1644,45 @@ def check_train_step(cfg, dev, layers: int = 4):
             fail(f"train step control '{fault}' passes every limit")
 
 
+@contextlib.contextmanager
+def captured_compiles():
+    """The ``CompiledModel``s the engines build in the ``with`` scope
+    (``train()`` returns its engine's statistics only)."""
+    from repro_torch.compiler import dispatch as cdispatch
+    orig, built = cdispatch.compile_with_options, []
+
+    def spy(*args, **kwargs):
+        built.append(orig(*args, **kwargs))
+        return built[-1]
+
+    cdispatch.compile_with_options = spy
+    try:
+        yield built
+    finally:
+        cdispatch.compile_with_options = orig
+
+
+def print_compile(what: str, cm) -> None:
+    rep = cm.report
+    fus, bks = rep["fusion"], rep["backends"]
+    print(f"{what}: compile "
+          + ", ".join(f"{k.removesuffix('_s')} {v:.3f} s"
+                      for k, v in rep["compile"].items())
+          + f"; graph {cm.traced.num_nodes} nodes traced, "
+          f"{len(cm.module.graph.nodes)} dispatched; plan {rep['num_ops']} "
+          f"ops, {rep['groups']} groups, {rep['mode_switches']} mode "
+          f"switches, systolic FLOP share "
+          f"{rep['systolic_flop_share']:.4f}; fused sites planned "
+          f"{fus['planned_fused_sites']}, realized "
+          f"{fus['realized_fused_sites']} ({fus['realized_epilogue_sites']} "
+          f"epilogue, {fus['realized_prologue_sites']} prologue); dispatch "
+          f"{json.dumps(rep['dispatch'])}; routes {json.dumps(bks['routes'])}")
+
+
 def run_trainer(cfg, dev):
-    """train() at full width and depth, at TRAIN_LR; returns the launch
-    counts of the run (5 steps) and the trained parameters."""
+    """train() at full width and depth, at TRAIN_LR, through its compiled
+    step; returns the launch counts of the run (5 steps), the sma_gemm
+    routes, the trained parameters and the compiled step."""
     loop = TrainLoopConfig(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
                            global_batch=TRAIN_BATCH, log_every=1, seed=0,
                            peak_lr=TRAIN_LR, remat=True)
@@ -1610,11 +1690,18 @@ def run_trainer(cfg, dev):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     torch.cuda.synchronize()
-    result = train(cfg, loop, device=dev)
+    with captured_compiles() as built:
+        result = train(cfg, loop, device=dev)
     torch.cuda.synchronize()
     counts, routed = ops.launch_counts(), dict(ops.ROUTED)
     routes = nonzero(kgemm.ROUTES)
     peak = torch.cuda.max_memory_allocated()
+    engine = result["engine"]
+    if (engine["misses"], engine["hits"], len(built)) != \
+            (1, TRAIN_STEPS - 1, 1):
+        fail(f"trainer: the step engine compiled {len(built)} times, "
+             f"{engine}; expected 1 miss and {TRAIN_STEPS - 1} hits")
+    cm = built[0]
     hist = result["history"]
     for h in hist:
         if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
@@ -1625,7 +1712,7 @@ def run_trainer(cfg, dev):
     if not losses[-1] < losses[0]:
         fail(f"trainer: the loss did not fall over {TRAIN_STEPS} steps at "
              f"peak_lr {TRAIN_LR}: {losses}")
-    per_step = step_launches(cfg)
+    per_step = compiled_step_launches(cfg)
     expect = {k: TRAIN_STEPS * n for k, n in per_step.items()}
     if {k: counts[k] for k in expect} != expect:
         fail(f"trainer launches {counts}, expected {expect} "
@@ -1643,42 +1730,397 @@ def run_trainer(cfg, dev):
     step_s = float(np.median(steps))
     tokens = TRAIN_SEQ * TRAIN_BATCH
     n_mm = matmul_params(cfg)
+    print_compile(f"train: {cfg.name}.train_step", cm)
     print(f"train: {ARCH} full width, {cfg.num_layers} layers, seq "
           f"{TRAIN_SEQ}, batch {TRAIN_BATCH}, remat, f32 masters + AdamW, "
-          f"peak_lr {TRAIN_LR}, bf16 compute; losses "
+          f"peak_lr {TRAIN_LR}, bf16 compute, the step compiled by sma_jit "
+          f"(engine {json.dumps(engine)}); losses "
           f"{[round(x, 4) for x in losses]} (fell "
           f"{losses[0] - losses[-1]:.4f}), grad norms "
           f"{[round(h['grad_norm'], 4) for h in hist]}")
-    print(f"train: step 1 {walls[0]:.3f} s (first launches), steps 2-5 "
-          f"{[round(x, 4) for x in steps]} s, median {step_s:.4f} s: "
-          f"{tokens / step_s:.1f} tokens/s, MFU "
+    print(f"train: step 1 {walls[0]:.3f} s (compile and first launches), "
+          f"steps 2-5 {[round(x, 4) for x in steps]} s, median "
+          f"{step_s:.4f} s: {tokens / step_s:.1f} tokens/s, MFU "
           f"{100 * 6 * n_mm * tokens / step_s / H100_BF16:.2f}% (6 N tokens "
           f"/ step / 989 TFLOP/s, N = {n_mm} matmul parameters); peak "
           f"memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
     print(f"train: launches over {TRAIN_STEPS} steps {json.dumps(counts)}; "
-          f"a step {json.dumps(per_step)}; routed {routed}; sma_gemm routes "
-          f"{json.dumps(routes)}; flash routes "
+          f"a step {json.dumps(per_step)} (the direct step "
+          f"{json.dumps(step_launches(cfg))}); routed {routed}; sma_gemm "
+          f"routes {json.dumps(routes)}; flash routes "
           f"{json.dumps(FLASH_ROUTES_BY_PATH['train'])}")
-    return counts, routes, result["params"]
+    return counts, routes, result["params"], cm
 
 
-def profile_train_step(cfg, params, dev):
-    """torch.profiler over one more training step (fresh AdamW state):
-    device busy share and device time by kernel."""
-    from torch.profiler import ProfilerActivity, profile
-    ocfg = adamw.AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=1,
+def step_ocfg():
+    """train()'s optimizer configuration at TRAIN_STEPS, TRAIN_LR."""
+    return adamw.AdamWConfig(peak_lr=TRAIN_LR,
+                             warmup_steps=max(TRAIN_STEPS // 10, 1),
                              total_steps=TRAIN_STEPS)
-    step = make_step(cfg, ocfg, remat=True)
+
+
+def time_train_step(cfg, params, cm, dev, card: str):
+    """The compiled step (train()'s) against the direct step at full width,
+    on the trained parameters and a fresh optimizer state: each one's peak
+    memory (each after a collection, with the memory held before it
+    printed: a step may leave tensors in reference cycles), compiled,
+    direct, compiled; then A B B A: CUDA-event ms a
+    step over TIME_STEPS steps queued back to back behind a device-side
+    sleep, and the host's wall until one step returns."""
+    direct = functools.partial(direct_step, cfg=cfg, ocfg=step_ocfg(),
+                               remat=True, grad_compression=False)
+    opt = adamw.init(params)
+    batch = train_batch(cfg, dev)
+    calls = {"direct": lambda: direct(params, opt, {}, batch),
+             "compiled": lambda: cm(params, opt, {}, batch)}
+    peaks, held = {}, {}
+    for name in ("compiled", "direct", "compiled"):
+        gc.collect()      # what an earlier step left in reference cycles
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held[name] = torch.cuda.memory_allocated() / 2**30
+        calls[name]()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+    times = {}
+    for name in ("direct", "compiled", "compiled", "direct"):
+        ev = time_ms(calls[name], [()], iters=TIME_STEPS)
+        times.setdefault(name, []).append((ev, host_ms(calls[name])))
+    for name, runs in times.items():
+        print(f"train step timing, {name}, {cfg.num_layers} layers, S "
+              f"{TRAIN_SEQ} x B {TRAIN_BATCH} ({card}): event ms a step "
+              f"{[round(r[0], 3) for r in runs]}, host ms to return "
+              f"{[round(r[1], 3) for r in runs]}; peak memory "
+              f"{peaks[name]:.3f} GiB, {held[name]:.3f} of it held before "
+              f"the step (parameters, moments, batch)")
+    ev = {k: float(np.mean([r[0] for r in v])) for k, v in times.items()}
+    print(f"train step timing: compiled / direct event ms "
+          f"{ev['compiled'] / ev['direct']:.4f}, peak memory "
+          f"{peaks['compiled'] / peaks['direct']:.4f}")
+
+
+def profile_train_step(cfg, params, dev, cm):
+    """torch.profiler over one more compiled training step (fresh AdamW
+    state): device busy share and device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
     opt = adamw.init(params)
     batch = train_batch(cfg, dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(params, opt, batch)
+        cm(params, opt, {}, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    report_profile(prof, wall, 1, "train step")
+    report_profile(prof, wall, 1, "compiled train step")
+
+
+def relative_errors(got: dict, want: dict) -> dict:
+    """Per piece, ||got - want|| / ||want|| (Frobenius)."""
+    return {k: ((got[k].float() - w.float()).norm()
+                / w.float().norm().clamp_min(1e-30)).item()
+            for k, w in want.items()}
+
+
+def state_pieces(names, params, opt, start) -> dict:
+    """After a step: each parameter's update (params - start) and each
+    moment, a layer at a time."""
+    upd = [p - p0 for p, p0 in zip(leaves(params), leaves(start))]
+    out = {}
+    for tag, flat in (("update", upd), ("m", leaves(opt["m"])),
+                      ("v", leaves(opt["v"]))):
+        out.update({f"{tag} {k}": x
+                    for k, x in grad_pieces(names, flat).items()})
+    return out
+
+
+def spread_multiples(rel: dict, spread: dict) -> dict:
+    """Each reading over its limit, max(2 x spread, JIT_TRAIN_FLOOR)."""
+    return {k: x / max(2 * spread[k], JIT_TRAIN_FLOOR)
+            for k, x in rel.items()}
+
+
+def kernel_counts() -> tuple:
+    """(launches, routes of the GEMM and flash kernels, ROUTED) since the
+    last reset."""
+    return (nonzero(ops.launch_counts()),
+            {"sma_gemm": nonzero(kgemm.ROUTES),
+             "rmsnorm_gemm": nonzero(knorm.ROUTES),
+             "flash": nonzero(kflash.FWD_ROUTES),
+             "flash_bwd": nonzero(kflash.BWD_ROUTES)},
+            dict(ops.ROUTED))
+
+
+def less_gemm(counts: tuple, n: int) -> tuple:
+    """``counts`` with ``n`` fewer ``sma_gemm`` launches on ``wgmma``."""
+    launches, routes, routed = copy.deepcopy(counts)
+    launches["sma_gemm"] -= n
+    routes["sma_gemm"]["wgmma"] -= n
+    return launches, routes, routed
+
+
+def grad_output_site(cm, index: int, layer: int):
+    """The dispatched ``sma_gemm`` site that makes layer ``layer``'s piece
+    of output ``index``: the stack of a block leaf's per-layer gradients,
+    walked back through its casts and views."""
+    from repro_torch.compiler import dispatch as cdispatch
+    out = next(n for n in cm.module.graph.nodes if n.op == "output")
+    node = out.args[0][index]
+    node = node.args[0][layer]                      # stack([...])[layer]
+    while node.target is not cdispatch.sma_gemm_site:
+        node = node.all_input_nodes[0]
+    return node
+
+
+def zero_site(a, b, bias, *, epilogue, shape):
+    """A planted fault: the GEMM site returns zeros and launches nothing."""
+    out = a.new_zeros(tuple(a.shape[:-1]) + (b.shape[1],))
+    return out if shape is None else out.view(shape)
+
+
+def skip_copy(dst, src):
+    """A planted fault: the parameter write is dropped."""
+    return dst
+
+
+def check_compiled_train_step(cfg, dev, layers: int = 4):
+    """The train step through sma_jit against the direct step, 4 full-width
+    layers, on the same f32 masters, moments and batch.
+
+    1. The loss and gradients (``lm.loss_fn`` + ``torch.autograd.grad``,
+       compiled and direct): the direct part run twice for its own
+       spread; the compiled loss and the gradients upstream of every dQ
+       (the head, the top layer's MLP) torch.equal the direct ones, every
+       other gradient within max(2 x spread, JIT_TRAIN_FLOOR); launches
+       and routes the direct ones but the ``layers`` dead recomputations.
+    2. The whole step (``make_step``), from the state one direct step
+       left, on the next batch: each parameter's update and each moment
+       within the same kind of limit (``clip_norm`` scales every gradient
+       by the global norm, which sums the nondeterministic ones too), the
+       loss torch.equal.
+    3. Planted faults edited into the compiled modules, which must fail
+       those limits: layer 2's wq dB site returning zeros, and one AdamW
+       parameter write (the stacked wq's) dropped."""
+    from repro_torch import sma_jit
+    from repro_torch.compiler import dispatch as cdispatch
+    cfg_n = dataclasses.replace(cfg, num_groups=layers)
+    params = lm.init(cfg_n, seed=0, device=dev, dtype=cfg_n.parameter_dtype)
+    names = [n for n, _ in named_leaves(params)]
+    batch = train_batch(cfg_n, dev)
+    layer = layers // 2
+
+    def loss_and_grads(params, batch):
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, _ = lm.loss_fn(live, cfg_n, batch, remat=True)
+        return loss.detach(), torch.autograd.grad(loss, leaves(live))
+
+    def grads_run(fn):
+        ops.reset_counts()
+        loss, grads = fn(params, batch)
+        torch.cuda.synchronize()
+        return loss, grad_pieces(names, grads), kernel_counts()
+
+    grad_eng = sma_jit(loss_and_grads, name=f"{cfg_n.name}.loss_and_grads")
+    t0 = time.perf_counter()
+    grad_cm = grad_eng.compile(params, batch)
+    print_compile(f"train check, {layers} layers, loss and gradients "
+                  f"({time.perf_counter() - t0:.3f} s)", grad_cm)
+    want = grads_run(loss_and_grads)
+    again = grads_run(loss_and_grads)
+    spread = relative_errors(again[1], want[1])
+    del again
+    got = grads_run(grad_eng)
+    if not torch.equal(got[0], want[0]):
+        fail(f"compiled loss {got[0].item()} differs from the direct "
+             f"{want[0].item()}")
+    exact = ["head.w", "final_norm.scale"] + [
+        f"blocks.0.{k}[{layers - 1}]"
+        for k in ("ffn.wg", "ffn.wi", "ffn.wo", "norm2.scale")]
+    unequal = [k for k in exact if not torch.equal(got[1][k], want[1][k])]
+    if unequal:
+        fail(f"compiled gradients upstream of every dQ differ from the "
+             f"direct ones: {unequal}")
+    expect = less_gemm(want[2], layers)
+    if got[2] != expect:
+        fail(f"compiled loss and gradients: launches, routes, routed "
+             f"{got[2]}, expected {expect} (direct {want[2]})")
+    mult = spread_multiples(relative_errors(got[1], want[1]), spread)
+    worst = max(mult, key=mult.get)
+    zero_spread = sum(x == 0 for x in spread.values())
+    print(f"train check, {layers} layers, loss and gradients compiled vs "
+          f"direct: loss {got[0].item():.6f} torch.equal; {len(exact)} "
+          f"gradients upstream of every dQ torch.equal; direct-vs-direct "
+          f"spread max {max(spread.values()):.4g}, median "
+          f"{np.median(list(spread.values())):.4g} ({zero_spread} of "
+          f"{len(spread)} pieces 0); largest limit multiple "
+          f"{mult[worst]:.4g} ({worst}); launches {json.dumps(got[2][0])} "
+          f"(direct {json.dumps(want[2][0])}); routes "
+          f"{json.dumps(got[2][1])}")
+    if mult[worst] > 1:
+        fail(f"compiled gradient {worst} over its limit: {mult[worst]:.4g} "
+             f"x max(2 x spread {spread[worst]:.4g}, {JIT_TRAIN_FLOOR})")
+    del got
+    # Planted: layer `layer`'s wq dB returns zeros.
+    wq = 1 + names.index("blocks.0.mixer.wq")        # outputs: loss, grads
+    node = grad_output_site(grad_cm, wq, layer)
+    node.target = zero_site
+    grad_cm.module.recompile()
+    try:
+        bad = grads_run(grad_eng)
+    finally:
+        node.target = cdispatch.sma_gemm_site
+        grad_cm.module.recompile()
+    bmult = spread_multiples(relative_errors(bad[1], want[1]), spread)
+    key = f"blocks.0.mixer.wq[{layer}]"
+    print(f"train check control, layer {layer}'s wq dB zeroed in the "
+          f"compiled module: its limit multiple {bmult[key]:.4g}; "
+          f"{sum(x > 1 for x in bmult.values())} of {len(bmult)} readings "
+          f"over their limits; sma_gemm launches {bad[2][0]['sma_gemm']}")
+    if bmult[key] <= 1 or bad[2][0]["sma_gemm"] != expect[0]["sma_gemm"] - 1:
+        fail("planted fault (wq dB zeroed) not caught by the gradient "
+             "check")
+    del bad, want
+
+    # 2. The whole step, on the next batch, from the state one direct step
+    # left: Adam's first update is about sign(g) a element, which flips
+    # wherever the dQ order moves a gradient near 0 (a few % of a lower
+    # layer's update); with the moments of a step before, it does not.
+    ocfg = step_ocfg()
+    direct = functools.partial(direct_step, cfg=cfg_n, ocfg=ocfg,
+                               remat=True, grad_compression=False)
+    step_eng = make_step(cfg_n, ocfg, remat=True, grad_compression=False)
+    pipe = DataPipeline(DataConfig(cfg_n.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                   seed=0), device=dev)
+    first, batch = next(pipe), next(pipe)
+    start = copy.deepcopy(params), adamw.init(params)
+    start = tuple(direct(*start, {}, first)[:2])
+    step_cm = step_eng.compile(*start, {}, batch)
+
+    def step_run(fn):
+        p, o = copy.deepcopy(start)
+        ops.reset_counts()
+        p, o, _, m = fn(p, o, {}, batch)
+        torch.cuda.synchronize()
+        return state_pieces(names, p, o, start[0]), m, kernel_counts()
+
+    want = step_run(direct)
+    again = step_run(direct)
+    spread = relative_errors(again[0], want[0])
+    del again
+    got = step_run(step_eng)
+    if not torch.equal(got[1]["loss"], want[1]["loss"]):
+        fail("compiled step's loss differs from the direct step's")
+    if got[2] != less_gemm(want[2], layers):
+        fail(f"compiled step: launches, routes, routed {got[2]}, expected "
+             f"{less_gemm(want[2], layers)}")
+    mult = spread_multiples(relative_errors(got[0], want[0]), spread)
+    worst = max(mult, key=mult.get)
+    print(f"train check, {layers} layers, one step compiled vs direct: loss "
+          f"torch.equal, grad norm {got[1]['grad_norm'].item():.6f} vs "
+          f"{want[1]['grad_norm'].item():.6f}; parameter updates and "
+          f"moments: direct-vs-direct spread max "
+          f"{max(spread.values()):.4g}, median "
+          f"{np.median(list(spread.values())):.4g}; largest limit multiple "
+          f"{mult[worst]:.4g} ({worst}); launches {json.dumps(got[2][0])}")
+    if mult[worst] > 1:
+        fail(f"compiled step: {worst} over its limit ({mult[worst]:.4g})")
+    del got
+    # Planted: the stacked wq's parameter write dropped.
+    flat, _ = pytree.tree_flatten(((*start, {}, batch), {}))
+    wq = start[0]["blocks"][0]["mixer"]["wq"]
+    target = [n for n in step_cm.module.graph.nodes
+              if n.op == "placeholder"][next(i for i, t in enumerate(flat)
+                                             if t is wq)]
+    node = next(n for n in target.users if n.target is
+                torch.ops.aten.copy_.default)
+    node.target = skip_copy
+    step_cm.module.recompile()
+    try:
+        bad = step_run(step_eng)
+    finally:
+        node.target = torch.ops.aten.copy_.default
+        step_cm.module.recompile()
+    bmult = spread_multiples(relative_errors(bad[0], want[0]), spread)
+    keys = [k for k in bmult if k.startswith("update blocks.0.mixer.wq[")]
+    others = sorted((k for k in bmult if k not in keys and bmult[k] > 1),
+                    key=bmult.get, reverse=True)
+    print(f"train check control, the stacked wq's AdamW write dropped in "
+          f"the compiled step: its update's limit multiples "
+          f"{[round(bmult[k], 3) for k in keys]}; "
+          f"{sum(x > 1 for x in bmult.values())} of {len(bmult)} readings "
+          f"over their limits; the others over "
+          f"{json.dumps({k: round(bmult[k], 3) for k in others[:8]})}")
+    if len(keys) != layers or min(bmult[k] for k in keys) <= 1:
+        fail("planted fault (a parameter write dropped) not caught")
+
+
+def check_train_options(cfg, dev):
+    """train() with ``grad_compression`` (2 steps, 4 full-width layers:
+    finite, one compile and a hit), and a run halted at step 2 and resumed
+    to step 3 against unbroken 3-step runs (a 2-layer bf16 model of d 128,
+    head_dim 64, full vocabulary, so its checkpoints stay small): the
+    resumed parameters within max(2 x the two unbroken runs' spread,
+    JIT_TRAIN_FLOOR) of the first unbroken run's, a layer at a time, and
+    its step-3 loss within max(2 x theirs apart, RESUME_LOSS_FLOOR)."""
+    cfg4 = dataclasses.replace(cfg, num_groups=4)
+    loop = TrainLoopConfig(steps=2, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, log_every=1,
+                           peak_lr=TRAIN_LR, grad_compression=True)
+    out = train(cfg4, loop, device=dev)
+    hist = out["history"]
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist) or (out["engine"]["misses"],
+                                  out["engine"]["hits"]) != (1, 1):
+        fail(f"train with grad_compression: {hist}, {out['engine']}")
+    print(f"train options: grad_compression, 4 layers, 2 steps: losses "
+          f"{[round(h['loss'], 4) for h in hist]}, grad norms "
+          f"{[round(h['grad_norm'], 4) for h in hist]}; engine "
+          f"{json.dumps(out['engine'])}")
+    del out
+    small = dataclasses.replace(cfg, num_groups=2, d_model=128, num_heads=2,
+                                num_kv_heads=2, head_dim=64, d_ff=256)
+    ckpt = ROOT / "build" / "chip_smoke_checkpoints"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    base = dict(steps=3, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                log_every=1, peak_lr=TRAIN_LR, checkpoint_every=100)
+    names = [n for n, _ in named_leaves(lm.init(small, seed=0, device=dev))]
+    runs = [train(small, TrainLoopConfig(**base), device=dev)
+            for _ in range(2)]
+    halted = train(small, TrainLoopConfig(checkpoint_dir=str(ckpt),
+                                          halt_at_step=2, **base),
+                   device=dev)
+    resumed = train(small, TrainLoopConfig(checkpoint_dir=str(ckpt), **base),
+                    device=dev)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if [h["step"] for h in halted["history"]] != [1, 2] or \
+            [h["step"] for h in resumed["history"]] != [3]:
+        fail(f"halt/resume steps: {halted['history']}, "
+             f"{resumed['history']}")
+
+    def pieces(out):
+        return grad_pieces(names, leaves(out["params"]))
+
+    spread = relative_errors(pieces(runs[1]), pieces(runs[0]))
+    mult = spread_multiples(relative_errors(pieces(resumed),
+                                            pieces(runs[0])), spread)
+    worst = max(mult, key=mult.get)
+    losses = [[h["loss"] for h in r["history"]]
+              for r in runs + [halted, resumed]]
+    last = [r[-1] for r in losses]
+    loss_limit = max(2 * abs(last[1] - last[0]),
+                     RESUME_LOSS_FLOOR * abs(last[0]))
+    print(f"train options: halted at step 2 and resumed to 3 (d 128, 2 "
+          f"layers): losses unbroken {losses[0]}, {losses[1]}, halted "
+          f"{losses[2]}, resumed {losses[3]}; step 3's loss resumed vs "
+          f"unbroken {abs(last[3] - last[0]):.4g} (limit {loss_limit:.4g});"
+          f" parameters against the unbroken run: spread max "
+          f"{max(spread.values()):.4g}, largest limit multiple "
+          f"{mult[worst]:.4g} ({worst})")
+    if not all(math.isfinite(x) for r in losses for x in r) or \
+            mult[worst] > 1 or abs(last[3] - last[0]) > loss_limit:
+        fail(f"resumed run: {worst} over its limit ({mult[worst]:.4g}) or "
+             f"step 3's loss {last[3]} against {last[0]}")
 
 
 def report_profile(prof, wall: float, steps: int, what: str):
@@ -2883,10 +3325,16 @@ def main() -> int:
     # The training path.
     phase("train step vs plain", check_train_step, cfg, dev)
     torch.cuda.empty_cache()
-    train_counts, train_routes, tparams = phase("trainer", run_trainer, cfg,
-                                                dev)
-    phase("train profile", profile_train_step, cfg, tparams, dev)
-    del tparams
+    phase("compiled train step", check_compiled_train_step, cfg, dev)
+    torch.cuda.empty_cache()
+    phase("train options", check_train_options, cfg, dev)
+    torch.cuda.empty_cache()
+    train_counts, train_routes, tparams, train_cm = phase(
+        "trainer", run_trainer, cfg, dev)
+    phase("train step timing", time_train_step, cfg, tparams, train_cm, dev,
+          card)
+    phase("train profile", profile_train_step, cfg, tparams, dev, train_cm)
+    del tparams, train_cm
     torch.cuda.empty_cache()
 
     # The front door: lm.forward through sma_jit, without autograd.

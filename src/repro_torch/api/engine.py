@@ -24,10 +24,28 @@ Example::
     eng.stats                     # EngineStats(hits=1, misses=1, ...)
     eng.compile(params, batch=...).report                # the plan report
 
+A function that differentiates inside itself compiles its backward too
+(the reference's ``sma_jit`` around ``jax.value_and_grad``): the trace
+records forward, backward and the in-place updates as one program, each
+kernel call of the direct step one node.  The trainer's step
+(``repro_torch.launch.train.make_step``) is such a function::
+
+    def step(params, opt_state, batch):
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, _ = lm.loss_fn(live, cfg, batch, remat=True)
+        grads = torch.autograd.grad(loss, leaves(live))
+        return adamw.update(grads, opt_state, params, ocfg)  # in place
+
+    train_step = sma_jit(step, name="train_step")
+    params, opt_state, metrics = train_step(params, opt_state, batch)
+    params, opt_state, metrics = train_step(params, opt_state, batch)  # hit
+
+The optimizer state's leaves are tensors, so step 2..N hit the cache.
+The compiled program holds no autograd graph: a call with grad enabled on
+inputs that require grad raises; differentiate inside the function.
+
 ``static_argnames`` marks keyword arguments as compile-time constants
-(hashable, baked into the trace), as with ``jax.jit``.  The engine
-compiles forward functions: a call with grad enabled on inputs that
-require grad raises (gradients through ``sma_jit`` are not ported yet).
+(hashable, baked into the trace), as with ``jax.jit``.
 
 Observability (:mod:`repro_torch.obs`), as in the reference: every lookup
 feeds ``engine.cache_hits`` / ``engine.cache_misses`` /

@@ -9,15 +9,21 @@ as one call:
 * a fused epilogue site and a bare site call
   :func:`repro_torch.kernels.ops.sma_gemm` (``bias=``, ``epilogue=``);
 * a fused prologue site calls :func:`repro_torch.kernels.ops.rmsnorm_gemm`;
-* a kernel-entry node (``repro_torch::flash_attention``, the decode
-  attentions, the scans) calls its entry
+* a gradient call site (``repro_torch::sma_gemm`` / ``rmsnorm_gemm``)
+  is a site as well, fused or bare as its arguments say;
+* a kernel-entry node (``repro_torch::flash_attention``, the flash
+  forward and backward of a gradient site, the decode attentions, the
+  scans) calls its entry
   (:data:`repro_torch.compiler.trace.KERNEL_ENTRY_OPS`);
 * every other node runs its aten op natively.
 
 Nodes the rewrite left without a user (the folded upcasts, the collapsing
-views) are dropped; in-place writes (a serving step's pool ``index_put_``)
-are kept.  ``GraphModule.recompile`` turns the graph into Python, so a
-call runs generated code, not an interpreter loop over nodes.  The entries
+views, a gradient the step never reads, a remat group's recomputed last
+product) are dropped; in-place writes (a serving step's pool
+``index_put_``, a train step's optimizer ``mul_`` / ``add_`` / ``copy_``
+on its parameters and moments) are kept: their schemas mutate.
+``GraphModule.recompile`` turns the graph into Python, so a call runs
+generated code, not an interpreter loop over nodes.  The entries
 are looked up on ``ops`` at call time.  On the card no eligible product
 reaches ``aten.mm``: each is a kernel launch (or the wrapper raises).
 
@@ -53,8 +59,8 @@ from repro_torch.compiler.report import (backends_section, fusion_section,
                                          plan_report)
 from repro_torch.compiler.rewrite import (FUSABLE_DTYPES, FusedGemm,
                                           RewriteResult, rewrite_program)
-from repro_torch.compiler.trace import (KERNEL_ENTRY_OPS, TracedModel,
-                                        trace_model)
+from repro_torch.compiler.trace import (GEMM_SITE_OPS, KERNEL_ENTRY_OPS,
+                                        TracedModel, trace_model)
 from repro_torch.core.sma import SMAPolicy
 from repro_torch.kernels import ops
 from repro_torch.obs import trace as _obs_trace
@@ -83,7 +89,8 @@ def _dispatchable(node: torch.fx.Node) -> bool:
 
 def count_dispatch_sites(graph: torch.fx.Graph) -> Dict[str, int]:
     """Census of the traced graph's products: ``systolic_dispatch_sites``
-    (eligible, taken by ``sma_gemm``/``rmsnorm_gemm``) and
+    (eligible products and gradient call sites, taken by
+    ``sma_gemm``/``rmsnorm_gemm``) and
     ``native_dot_sites`` (batched or otherwise native), and the
     ``kernel_entry_sites`` (flash, scans)."""
     counts = {"systolic_dispatch_sites": 0, "native_dot_sites": 0,
@@ -91,7 +98,9 @@ def count_dispatch_sites(graph: torch.fx.Graph) -> Dict[str, int]:
     for node in graph.nodes:
         if node.op != "call_function":
             continue
-        if node.target in KERNEL_ENTRY_OPS:
+        if node.target in GEMM_SITE_OPS:
+            counts["systolic_dispatch_sites"] += 1
+        elif node.target in KERNEL_ENTRY_OPS:
             counts["kernel_entry_sites"] += 1
         elif _dispatchable(node):
             counts["systolic_dispatch_sites"] += 1
@@ -100,11 +109,11 @@ def count_dispatch_sites(graph: torch.fx.Graph) -> Dict[str, int]:
     return counts
 
 
-def collect_backend_sites(rewritten: RewriteResult) -> List[Dict[str, Any]]:
-    """The static route of every site the module dispatches (GEMM sites and
-    kernel-entry nodes), from the fake values alone."""
+def collect_backend_sites(items: List[Any]) -> List[Dict[str, Any]]:
+    """The static route of every site among ``items`` (rewrite items: GEMM
+    sites and kernel-entry nodes), from the fake values alone."""
     with record_sites() as sites:
-        for item in rewritten.items:
+        for item in items:
             if isinstance(item, FusedGemm):
                 select_backend(OpSite.from_args(
                     item.entry, tuple(val(n) for n in item.inputs)))
@@ -143,6 +152,7 @@ def build_module(traced: TracedModel,
                     sma_gemm_site, tuple(arg(n) for n in item.inputs),
                     {"epilogue": item.epilogue, "shape": item.shape})
             new.meta["val"] = val(item.out)
+            new.meta["site"] = item
             new.meta["dispatch_span"] = (
                 ("dispatch.fused_gemm",
                  {"kind": item.kind, "epilogue": item.epilogue})
@@ -155,6 +165,7 @@ def build_module(traced: TracedModel,
         new = graph.node_copy(item, lambda n: env[n])
         if item.op == "call_function" and item.target in KERNEL_ENTRY_OPS:
             new.target = KERNEL_ENTRY_OPS[item.target]
+            new.meta["site"] = item
         env[item] = new
     graph.eliminate_dead_code()
     return torch.fx.GraphModule(traced.graph_module, graph,
@@ -208,7 +219,10 @@ class CompiledModel:
     """Plan + executable for ONE signature (an :class:`repro_torch.api.
     Engine` caches one per signature).  Calling it with arguments of the
     compiled structure runs the dispatching module under
-    ``torch.no_grad()``."""
+    ``torch.no_grad()``: a traced backward is explicit aten and kernel
+    calls, so it needs no autograd at run time.  In-place writes of the
+    function to its inputs happen on the caller's tensors, and an input it
+    returns is returned as that tensor."""
 
     traced: TracedModel
     plan: ModelPlan
@@ -250,10 +264,13 @@ class CompiledModel:
                 isinstance(t, torch.Tensor) and t.requires_grad
                 for t in flat):
             raise RuntimeError(
-                f"sma_jit compiles forward functions: '{self.name}' was "
-                f"called with grad enabled on inputs that require grad; "
-                f"call it under torch.no_grad() or torch.inference_mode() "
-                f"(gradients through sma_jit are not ported yet)")
+                f"compiled '{self.name}' was called with grad enabled on "
+                f"inputs that require grad, but a compiled program holds "
+                f"no autograd graph to differentiate: take the gradient "
+                f"inside the compiled function (torch.autograd.grad of "
+                f"its loss, as repro_torch.launch.train.direct_step does) "
+                f"and call it under torch.no_grad() or on inputs that do "
+                f"not require grad")
         tracer = _obs_trace.current_tracer()
         with torch.no_grad():
             if tracer is None:
@@ -298,7 +315,8 @@ def compile_with_options(fn: Callable, *args, name: Optional[str] = None,
                           **count_dispatch_sites(traced.graph)}
     report["fusion"] = fusion_section(
         plan, rewritten if o.fuse_runtime else None)
-    report["backends"] = backends_section(collect_backend_sites(rewritten))
+    report["backends"] = backends_section(collect_backend_sites(
+        [n.meta["site"] for n in module.graph.nodes if "site" in n.meta]))
     report["compile"] = times
     return CompiledModel(traced=traced, plan=plan, report_data=report,
                          module=module, rewritten=rewritten, options=o)

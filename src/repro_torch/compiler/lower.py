@@ -23,9 +23,14 @@ JAX primitives:
   in :class:`LowerStats`.
 
 Every kernel-entry node (:data:`repro_torch.compiler.trace.
-KERNEL_ENTRY_OPS`) becomes one ``Op`` of its mode: flash attention ->
-``ATTENTION_MATMUL`` (its FLOPs counted over the (query, key) pairs the
-mask keeps); the contiguous and paged decode entries ->
+KERNEL_ENTRY_OPS`) becomes one ``Op`` of its mode: flash attention,
+forward (with or without its ``lse``) and backward -> ``ATTENTION_MATMUL``
+(its FLOPs counted over the (query, key) pairs the mask keeps, the
+backward's at 2.5x the forward's); a gradient site's ``sma_gemm`` /
+``rmsnorm_gemm`` -> ``MATMUL`` followed by its fused SIMD work (the norm
+prologue as ``NORMALIZATION``, the bias and the epilogue as
+``ELEMENTWISE``), which the planner attaches to the product's group as it
+attaches a plain chain's; the contiguous and paged decode entries ->
 ``ATTENTION_MATMUL``, their FLOPs over each query against every key the
 shapes let it reach (the cache's ``Smax``, or the table's ``max_blocks x
 block_size``: an upper bound, the valid lengths are data) and their bytes
@@ -311,15 +316,49 @@ class _Lowerer:
             self.emit(name, OpKind.ELEMENTWISE, flops=weight * _numel(out),
                       bytes_in=bin_, bytes_out=bout, tile_local=True)
 
+    def _gemm_site(self, node: torch.fx.Node, name: str, bin_: float,
+                   bout: float) -> None:
+        """A GEMM gradient site: the product, then its fused SIMD work
+        (the norm prologue, the bias, the epilogue), each costed as the
+        plain chain's op and reading the f32 intermediate it keeps on
+        chip."""
+        prologue = name == "rmsnorm_gemm"
+        a, w = val(node.args[0]), val(node.args[2 if prologue else 1])
+        k, n = w.shape
+        m = a.numel() // max(k, 1)
+        self.emit(name, OpKind.MATMUL, flops=2.0 * m * n * k, bytes_in=bin_,
+                  bytes_out=bout, tile_local=True)
+        if prologue:
+            self.emit(f"{name}.rmsnorm", OpKind.NORMALIZATION,
+                      flops=4.0 * m * k,
+                      bytes_in=float(m * k * a.element_size()),
+                      bytes_out=0.0, tile_local=True)
+        elif node.args[2] is not None:
+            self.emit(f"{name}.bias", OpKind.ELEMENTWISE, flops=float(m * n),
+                      bytes_in=4.0 * m * n, bytes_out=0.0, tile_local=True)
+        epilogue = node.args[3]
+        if epilogue != "none":
+            weight = 1.0 if epilogue == "relu" else _TRANSCENDENTAL_FLOPS
+            self.emit(f"{name}.{epilogue}", OpKind.ELEMENTWISE,
+                      flops=weight * m * n, bytes_in=4.0 * m * n,
+                      bytes_out=0.0, tile_local=True)
+
     def _kernel_entry(self, node: torch.fx.Node, name: str, bin_: float,
                       bout: float) -> None:
-        if name == "flash_attention":
+        if name in ("sma_gemm", "rmsnorm_gemm"):
+            self._gemm_site(node, name, bin_, bout)
+        elif name in ("flash_attention", "flash_attention_fwd",
+                      "flash_attention_bwd"):
             q, k = val(node.args[0]), val(node.args[1])
             b, hq, sq, d = q.shape
-            causal, window = node.args[3], node.args[4]
+            at = 6 if name == "flash_attention_bwd" else 3
+            causal, window = node.args[at], node.args[at + 1]
             pairs = attention_pairs(sq, k.shape[2], causal, window)
+            # The backward's five products (S and dP recomputed, dV, dK,
+            # dQ) over the forward's two: 2.5x its FLOPs.
+            mult = 10.0 if name == "flash_attention_bwd" else 4.0
             self.emit(name, OpKind.ATTENTION_MATMUL,
-                      flops=4.0 * b * hq * pairs * d, bytes_in=bin_,
+                      flops=mult * b * hq * pairs * d, bytes_in=bin_,
                       bytes_out=bout, tile_local=True)
         elif name in ("decode_attention", "paged_decode_attention"):
             q, kv = val(node.args[0]), val(node.args[1])

@@ -14,7 +14,12 @@ the product:
 * **prologue chains** -- ``rmsnorm(x; scale) -> mm [-> activation]``, the
   ``pow 2 -> mean(-1) -> add eps -> rsqrt -> mul x -> mul scale`` chain:
   ``rmsnorm_gemm(x, scale, w, epilogue=..., eps=...)``;
-* every other eligible product is a **bare** site: ``sma_gemm(a, w)``.
+* every other eligible product is a **bare** site: ``sma_gemm(a, w)``;
+* a **gradient call site** (``repro_torch::sma_gemm`` /
+  ``repro_torch::rmsnorm_gemm``, :data:`repro_torch.compiler.trace.
+  GEMM_SITE_OPS`) is already one kernel call with its bias, epilogue or
+  norm prologue in its arguments: it becomes a site as it stands (fused
+  when it carries any of them, with or without ``fuse``).
 
 A product ``make_fx`` wrote for a ``(..., K)`` operand reads ``view ->
 mm -> _unsafe_view``; the views are looked through.  **Dtype round trips**
@@ -50,6 +55,7 @@ import torch
 import torch.fx
 
 from repro_torch.compiler.lower import gemm_shape, op_name, sma_eligible, val
+from repro_torch.compiler.trace import GEMM_SITE_OPS
 
 __all__ = ["FUSABLE_DTYPES", "FusedGemm", "RewriteResult", "RewriteStats",
            "rewrite_program"]
@@ -380,15 +386,48 @@ def _match_site(anchor: Node, fuse: bool, stats: RewriteStats
                    eps=prologue[3] if prologue is not None else 1e-6,
                    shape=None if out_shape == kernel_shape else out_shape,
                    site=site)
-    if fused:
-        stats.realized_fused_sites += 1
-        if kind == "prologue":
-            stats.realized_prologue_sites += 1
-        else:
-            stats.realized_epilogue_sites += 1
-        stats.realized_hbm_bytes_avoided += avoided
-        stats.eqns_elided += len(chain) - 1
-        stats.sites.append(site)
+    _count(stats, fg)
+    return fg
+
+
+def _count(stats: RewriteStats, fg: FusedGemm) -> None:
+    """Realized-fusion accounting of one site."""
+    if not fg.fused:
+        return
+    stats.realized_fused_sites += 1
+    if fg.kind == "prologue":
+        stats.realized_prologue_sites += 1
+    else:
+        stats.realized_epilogue_sites += 1
+    stats.realized_hbm_bytes_avoided += fg.site["hbm_bytes_avoided"]
+    stats.eqns_elided += len(fg.chain) - 1
+    stats.sites.append(fg.site)
+
+
+def _gradient_site(node: Node, stats: RewriteStats) -> FusedGemm:
+    """A gradient call site as one GEMM site.  What it keeps on chip is
+    what the plain chain's fusion saves: the f32 product before its bias
+    and before its epilogue, and a prologue's normalized matrix."""
+    prologue = op_name(node) == "rmsnorm_gemm"
+    inputs = tuple(node.args[:3])
+    epilogue = node.args[3]
+    a = val(inputs[0])
+    k, n = val(inputs[2] if prologue else inputs[1]).shape
+    m = a.numel() // max(k, 1)
+    bias = not prologue and inputs[2] is not None
+    kind = ("prologue" if prologue
+            else "epilogue" if bias or epilogue != "none" else "bare")
+    avoided = 2.0 * 4 * m * n * (int(bias) + int(epilogue != "none"))
+    if prologue:
+        avoided += 2.0 * m * k * a.element_size()
+    site = {"kind": kind, "epilogue": epilogue, "bias": bias, "m": m,
+            "k": k, "n": n, "dtype": str(a.dtype).replace("torch.", ""),
+            "folded_casts": False, "eqns_elided": 0,
+            "hbm_bytes_avoided": avoided if kind != "bare" else 0.0}
+    fg = FusedGemm(kind=kind, inputs=inputs, out=node, chain=(node,),
+                   epilogue=epilogue,
+                   eps=node.args[4] if prologue else 1e-6, site=site)
+    _count(stats, fg)
     return fg
 
 
@@ -402,6 +441,10 @@ def rewrite_program(graph: torch.fx.Graph, *, fuse: bool = True
     consumed: Set[Node] = set()
     at: Dict[Node, FusedGemm] = {}
     for node in nodes:
+        if node.op == "call_function" and node.target in GEMM_SITE_OPS:
+            at[node] = _gradient_site(node, stats)
+            consumed.add(node)
+            continue
         if node in consumed or not sma_eligible(node):
             continue
         site = _match_site(node, fuse, stats)

@@ -4,15 +4,26 @@
 ``trace_model(fn, *args, **kwargs)`` flattens ``(args, kwargs)`` with
 ``torch.utils._pytree``, makes one fake tensor per tensor leaf (shape,
 stride, dtype and device of the leaf, no storage) and runs
-``make_fx(..., tracing_mode="fake")`` under ``torch.no_grad()``.  Tracing is
-shape-only, like ``jax.ShapeDtypeStruct`` in the reference: a leaf may be a
-real tensor or a :class:`TensorSpec`, and a full-width configuration traces
-without allocating device memory.  The fakes keep the leaves' devices, so
-factory calls in the function (``torch.arange(..., device=x.device)``) are
-recorded on the device the compiled program will run on.
+``make_fx(..., tracing_mode="fake")`` under ``torch.enable_grad()``.
+Tracing is shape-only, like ``jax.ShapeDtypeStruct`` in the reference: a
+leaf may be a real tensor or a :class:`TensorSpec`, and a full-width
+configuration traces without allocating device memory.  The fakes keep the
+leaves' devices, so factory calls in the function (``torch.arange(...,
+device=x.device)``) are recorded on the device the compiled program will
+run on.
+
+Grad mode is on while tracing, so a function that differentiates inside
+itself (``torch.autograd.grad`` of a loss, as the reference's train step
+holds ``jax.value_and_grad``) records its backward too: one joint graph of
+forward, backward and whatever follows (the optimizer's in-place writes).
+A function whose leaves do not require grad records the graph it records
+under ``torch.no_grad()``.
 
 How the kernel entries of :mod:`repro_torch.kernels.ops` meet the tracer
-(:func:`kernel_entries_as_ops`, active only while tracing):
+(:func:`kernel_entries_as_ops`, active only while tracing).  Each call is
+decided as ``ops`` decides between its autograd Functions and its
+wrappers: grad mode on and an input that requires grad make a **gradient
+call site**; anything else traces as before:
 
 * ``sma_gemm`` and ``rmsnorm_gemm`` trace as their plain chains
   (``kernels/ref.py``: f32 upcasts, ``mm``, bias, epilogue, the downcast;
@@ -25,7 +36,19 @@ How the kernel entries of :mod:`repro_torch.kernels.ops` meet the tracer
   implementation; the dispatcher calls the entry itself in its place, so
   what the entry decides at run time (the paged site's routing and its
   ``ops.ROUTED`` count, the kernel's launch count) happens on every call
-  of the compiled program, not once while tracing.
+  of the compiled program, not once while tracing;
+* at a gradient call site ``sma_gemm``, ``rmsnorm_gemm`` and
+  ``flash_attention`` trace as custom ops with a registered backward
+  (:data:`GRADIENT_OPS`): ``repro_torch::sma_gemm`` / ``rmsnorm_gemm``
+  (the whole fused call, one node) and ``repro_torch::flash_attention_fwd``
+  (returning the ``lse`` it saves).  Their backward is the one of
+  :mod:`repro_torch.kernels.autograd`, written in ``repro_torch::sma_gemm``
+  and ``repro_torch::flash_attention_bwd`` nodes and the same elementwise
+  aten ops, so each kernel launch of the direct step is one node of the
+  joint graph.  A remat group's recomputation (``torch.utils.checkpoint``)
+  is traced where the backward asks for it, its sites gradient sites of
+  their own.  A gradient the step never reads is a node without users,
+  which dispatch drops.
 
 The entries are swapped on the ``ops`` module for the trace only: the direct
 path never goes through a custom op's dispatcher.
@@ -42,9 +65,14 @@ import torch.utils._pytree as pytree
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.fx.experimental.proxy_tensor import make_fx
 
+from repro_torch.kernels import autograd as _autograd
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import norm_gemm as _norm
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import sma_gemm as _gemm
 
-__all__ = ["KERNEL_ENTRY_OPS", "TensorSpec", "TracedModel",
+__all__ = ["GEMM_SITE_OPS", "GRADIENT_OPS", "KERNEL_ENTRY_OPS",
+           "TensorSpec", "TracedModel",
            "kernel_entries_as_ops", "trace_model"]
 
 
@@ -146,10 +174,14 @@ def mlstm_state_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _dense(h, c, n, m)
 
 
-def _register(name: str, entry: Callable, fake: Callable):
+def _register(name: str, entry: Callable, fake: Callable,
+              backward: Optional[Callable] = None,
+              setup: Optional[Callable] = None):
     op = torch.library.custom_op(f"repro_torch::{name}", entry,
                                  mutates_args=())
     op.register_fake(fake)
+    if backward is not None:
+        op.register_autograd(backward, setup_context=setup)
     return getattr(torch.ops.repro_torch, name).default
 
 
@@ -162,6 +194,116 @@ def _fake_mlstm_state(q, k, v, log_f, log_i, chunk):
     f32 = torch.float32
     return (_empty(q, q.shape), _empty(q, (b, h, d, d), f32),
             _empty(q, (b, h, d), f32), _empty(q, (b, h), f32))
+
+
+# --------------------------------------------------------------------------
+# Gradient call sites: the GEMM and flash entries with their backward
+# --------------------------------------------------------------------------
+def gemm_entry(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor],
+               epilogue: str) -> torch.Tensor:
+    """One ``sma_gemm`` launch with the custom op's positional arguments."""
+    return _gemm.sma_gemm(a, b, bias=bias, epilogue=epilogue).contiguous()
+
+
+def norm_entry(x: torch.Tensor, scale: torch.Tensor, w: torch.Tensor,
+               epilogue: str, eps: float) -> torch.Tensor:
+    """One ``rmsnorm_gemm`` launch with the custom op's positional
+    arguments."""
+    return _norm.rmsnorm_gemm(x, scale, w, epilogue=epilogue,
+                              eps=eps).contiguous()
+
+
+def flash_fwd_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, window: Optional[int],
+                    scale: Optional[float]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The flash forward kernel, with the ``lse`` its backward reads."""
+    return _dense(*_flash.flash_attention_fwd(q, k, v, causal=causal,
+                                              window=window, scale=scale))
+
+
+def flash_bwd_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                    causal: bool, window: Optional[int],
+                    scale: Optional[float]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash backward kernel: (dq, dk, dv)."""
+    return _dense(*_flash.flash_attention_bwd(q, k, v, out, lse, dout,
+                                              causal=causal, window=window,
+                                              scale=scale))
+
+
+def _gemm_node(a: torch.Tensor, b: torch.Tensor,
+               bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """A backward product as a ``repro_torch::sma_gemm`` node."""
+    return torch.ops.repro_torch.sma_gemm(a, b, bias, "none")
+
+
+def _gemm_setup(ctx, inputs, output) -> None:
+    a, b, bias, epilogue = inputs
+    ctx.save_for_backward(a, b, bias)
+    ctx.epilogue = epilogue
+
+
+def _gemm_backward(ctx, dc):
+    a, b, bias = ctx.saved_tensors
+    return (*_autograd.sma_gemm_backward(_gemm_node, a, b, bias,
+                                         ctx.epilogue, dc,
+                                         ctx.needs_input_grad), None)
+
+
+def _norm_setup(ctx, inputs, output) -> None:
+    x, scale, w, epilogue, eps = inputs
+    ctx.save_for_backward(x, scale, w)
+    ctx.epilogue, ctx.eps = epilogue, eps
+
+
+def _norm_backward(ctx, dy):
+    x, scale, w = ctx.saved_tensors
+    return (*_autograd.rmsnorm_gemm_backward(_gemm_node, x, scale, w,
+                                             ctx.epilogue, ctx.eps, dy,
+                                             ctx.needs_input_grad),
+            None, None)
+
+
+def _flash_setup(ctx, inputs, output) -> None:
+    q, k, v, causal, window, scale = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.args = dict(causal=causal, window=window, scale=scale)
+
+
+def _flash_backward(ctx, dout, dlse):
+    return (*_autograd.flash_attention_backward(
+        torch.ops.repro_torch.flash_attention_bwd, ctx.saved_tensors, dout,
+        **ctx.args), None, None, None)
+
+
+def _gemm_out(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return _empty(a, tuple(a.shape[:-1]) + (w.shape[1],))
+
+
+#: The gradient call sites' custom ops -> their entries (see the module
+#: docstring); the GEMM two are :data:`GEMM_SITE_OPS`.
+GRADIENT_OPS = {
+    _register("sma_gemm", gemm_entry,
+              lambda a, b, bias, epilogue: _gemm_out(a, b),
+              _gemm_backward, _gemm_setup): gemm_entry,
+    _register("rmsnorm_gemm", norm_entry,
+              lambda x, scale, w, epilogue, eps: _gemm_out(x, w),
+              _norm_backward, _norm_setup): norm_entry,
+    _register("flash_attention_fwd", flash_fwd_entry,
+              lambda q, k, v, causal, window, scale:
+              (_empty(q, q.shape), _empty(q, q.shape[:3], torch.float32)),
+              _flash_backward, _flash_setup): flash_fwd_entry,
+    _register("flash_attention_bwd", flash_bwd_entry,
+              lambda q, k, v, out, lse, dout, causal, window, scale:
+              (_empty(q, q.shape), _empty(k, k.shape), _empty(v, v.shape))):
+        flash_bwd_entry,
+}
+
+#: The GEMM gradient sites: the rewriter makes each one GEMM site.
+GEMM_SITE_OPS = frozenset({torch.ops.repro_torch.sma_gemm.default,
+                           torch.ops.repro_torch.rmsnorm_gemm.default})
 
 
 #: Custom op -> the kernel entry it stands for (with the op's positional
@@ -186,10 +328,33 @@ KERNEL_ENTRY_OPS = {
         mlstm_entry,
     _register("mlstm_chunkwise_state", mlstm_state_entry,
               _fake_mlstm_state): mlstm_state_entry,
+    **GRADIENT_OPS,
 }
 
 
+def _gradient_site(*ins: Optional[torch.Tensor]) -> bool:
+    """Grad mode on and an input that requires grad (where ``ops`` takes
+    its autograd Function)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ins)
+
+
+def _trace_gemm(a, b, *, bias=None, epilogue="none"):
+    if _gradient_site(a, b, bias):
+        return torch.ops.repro_torch.sma_gemm(a, b, bias, epilogue)
+    return ref.gemm_ref(a, b, bias=bias, epilogue=epilogue)
+
+
+def _trace_norm(x, scale, w, *, epilogue="none", eps=1e-6):
+    if _gradient_site(x, scale, w):
+        return torch.ops.repro_torch.rmsnorm_gemm(x, scale, w, epilogue, eps)
+    return ref.rmsnorm_gemm_ref(x, scale, w, epilogue=epilogue, eps=eps)
+
+
 def _trace_flash(q, k, v, *, causal=True, window=None, scale=None):
+    if _gradient_site(q, k, v):
+        return torch.ops.repro_torch.flash_attention_fwd(
+            q, k, v, causal, window, scale)[0]
     return torch.ops.repro_torch.flash_attention(q, k, v, causal, window,
                                                  scale)
 
@@ -219,8 +384,8 @@ def _trace_mlstm(q, k, v, log_f, log_i, *, chunk=128, return_state=False):
 
 
 _TRACE_ENTRIES = {
-    "sma_gemm": ref.gemm_ref,
-    "rmsnorm_gemm": ref.rmsnorm_gemm_ref,
+    "sma_gemm": _trace_gemm,
+    "rmsnorm_gemm": _trace_norm,
     "flash_attention": _trace_flash,
     "decode_attention": _trace_decode,
     "paged_decode_attention": _trace_paged,
@@ -288,7 +453,7 @@ def trace_model(fn: Callable, *args, name: Optional[str] = None,
         out_trees.append(out_tree)
         return flat_out
 
-    with torch.no_grad(), kernel_entries_as_ops():
+    with torch.enable_grad(), kernel_entries_as_ops():
         gm = make_fx(flat_fn, tracing_mode="fake")(*fakes)
     return TracedModel(
         name=name or getattr(getattr(fn, "func", fn), "__name__", None)

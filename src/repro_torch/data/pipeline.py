@@ -9,7 +9,7 @@ a Zipf-ish start, and the arrays are bit-identical to the reference's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -54,20 +54,28 @@ def make_batch(cfg: DataConfig, step: int) -> Dict[str, np.ndarray]:
 
 @dataclasses.dataclass
 class PipelineState:
-    """The cursor: the step of the next batch (checkpointing it comes with
-    the trainer's checkpoint/resume)."""
+    """The cursor: the step of the next batch.  It rides in every
+    checkpoint of the trainer as ``to_dict()``."""
     next_step: int = 0
+
+    def to_dict(self) -> Dict[str, int]:
+        return {"next_step": self.next_step}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, int]) -> "PipelineState":
+        return cls(next_step=int(d["next_step"]))
 
 
 class DataPipeline:
-    """Iterator over batches 0, 1, 2, ... of ``cfg``, with the cursor in
-    ``state``; batches land on ``device`` (``cuda`` unless the caller says
-    otherwise)."""
+    """Iterator over batches ``state.next_step``, ``+ 1``, ... of ``cfg``
+    (from 0 unless a saved ``state`` is given); batches land on ``device``
+    (``cuda`` unless the caller says otherwise)."""
 
-    def __init__(self, cfg: DataConfig, *, device: DeviceLike = None) -> None:
+    def __init__(self, cfg: DataConfig, *, device: DeviceLike = None,
+                 state: Optional[PipelineState] = None) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.state = PipelineState()
+        self.state = state or PipelineState()
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         return self

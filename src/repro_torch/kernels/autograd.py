@@ -19,11 +19,17 @@ plain versions, which is what the CPU tests hold against ``jax.grad``.
   to ``dx`` and ``dscale`` is elementwise torch in f32.
 * :class:`FlashAttention` -- the forward kernel saves ``lse``; the
   backward kernel recomputes P from it.
+
+The GEMM backward formulas are :func:`sma_gemm_backward` and
+:func:`rmsnorm_gemm_backward`, written over the ``gemm`` that makes each
+product: the Functions pass the wrapper, and the compiler's gradient call
+sites (:mod:`repro_torch.compiler.trace`) pass the ``repro_torch::sma_gemm``
+custom op, so a traced backward records one node per launch of this one.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -66,6 +72,77 @@ def _t(x: torch.Tensor) -> torch.Tensor:
     return x.t().contiguous()
 
 
+#: ``gemm(a, b, bias)``: one ``epilogue="none"`` product, the launch the
+#: backward formulas below make for each of theirs.
+Gemm = Callable[[torch.Tensor, torch.Tensor, Optional[torch.Tensor]],
+                torch.Tensor]
+
+
+def sma_gemm_backward(gemm: Gemm, a: torch.Tensor, b: torch.Tensor,
+                      bias: Optional[torch.Tensor], epilogue: str,
+                      dc: torch.Tensor, needs: Sequence[bool]):
+    """(dA, dB, dbias) of ``C = epilogue(A @ B + bias)``, each None where
+    ``needs`` (the inputs' ``needs_input_grad``) says no."""
+    k, n = b.shape
+    a2 = a.reshape(-1, k)
+    dz = _dz(dc.reshape(-1, n), lambda: gemm(a2, b, bias), epilogue,
+             a.dtype)
+    da = db = dbias = None
+    if needs[0]:
+        da = gemm(dz, _t(b), None).reshape(a.shape)
+    if needs[1]:
+        db = gemm(_t(a2), dz, None)
+    if bias is not None and needs[2]:
+        dbias = dz.float().sum(0).to(bias.dtype)
+    return da, db, dbias
+
+
+def rmsnorm_gemm_backward(gemm: Gemm, x: torch.Tensor, scale: torch.Tensor,
+                          w: torch.Tensor, epilogue: str, eps: float,
+                          dy: torch.Tensor, needs: Sequence[bool]):
+    """(dx, dscale, dW) of ``Y = epilogue(rmsnorm(x; scale) @ W)``, each
+    None where ``needs`` says no."""
+    k, n = w.shape
+    x2 = x.reshape(-1, k)
+    r = rms_inverse(x2, eps)                      # (M, 1) f32
+    xr = x2.float() * r
+    normed = (xr * scale.float()).to(x.dtype)
+    dz = _dz(dy.reshape(-1, n), lambda: gemm(normed, w, None), epilogue,
+             x.dtype)
+    dx = dscale = dw = None
+    if needs[2]:
+        dw = gemm(_t(normed), dz, None)
+    if needs[0] or needs[1]:
+        dn = gemm(dz, _t(w), None).float()        # d normed, (M, K)
+        if needs[1]:
+            dscale = (dn * xr).sum(0).to(scale.dtype)
+        if needs[0]:
+            gs = dn * scale.float()
+            dx = r * (gs - xr * (gs * xr).mean(-1, keepdim=True))
+            dx = dx.to(x.dtype).reshape(x.shape)
+    return dx, dscale, dw
+
+
+def flash_attention_backward(bwd: Callable, saved: Sequence[torch.Tensor],
+                             dout: torch.Tensor, *, causal: bool,
+                             window: Optional[int], scale: Optional[float]):
+    """(dq, dk, dv) of the flash forward from its saved (q, k, v, out,
+    lse), by one ``bwd(q, k, v, out, lse, dout, causal, window, scale)``
+    call (the backward kernel recomputes P from ``lse``)."""
+    q, k, v, out, lse = saved
+    return bwd(q, k, v, out, lse, dout.contiguous(), causal, window, scale)
+
+
+def _launch_flash_bwd(q, k, v, out, lse, dout, causal, window, scale):
+    return _flash.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                      window=window, scale=scale)
+
+
+def _launch_gemm(a: torch.Tensor, b: torch.Tensor,
+                 bias: Optional[torch.Tensor]) -> torch.Tensor:
+    return _gemm.sma_gemm(a, b, bias=bias)
+
+
 class SmaGemm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a: torch.Tensor, b: torch.Tensor,
@@ -77,19 +154,8 @@ class SmaGemm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dc: torch.Tensor):
         a, b, bias = ctx.saved_tensors
-        k, n = b.shape
-        a2 = a.reshape(-1, k)
-        dz = _dz(dc.reshape(-1, n),
-                 lambda: _gemm.sma_gemm(a2, b, bias=bias), ctx.epilogue,
-                 a.dtype)
-        da = db = dbias = None
-        if ctx.needs_input_grad[0]:
-            da = _gemm.sma_gemm(dz, _t(b)).reshape(a.shape)
-        if ctx.needs_input_grad[1]:
-            db = _gemm.sma_gemm(_t(a2), dz)
-        if bias is not None and ctx.needs_input_grad[2]:
-            dbias = dz.float().sum(0).to(bias.dtype)
-        return da, db, dbias, None
+        return (*sma_gemm_backward(_launch_gemm, a, b, bias, ctx.epilogue,
+                                   dc, ctx.needs_input_grad), None)
 
 
 class RmsnormGemm(torch.autograd.Function):
@@ -103,25 +169,9 @@ class RmsnormGemm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy: torch.Tensor):
         x, scale, w = ctx.saved_tensors
-        k, n = w.shape
-        x2 = x.reshape(-1, k)
-        r = rms_inverse(x2, ctx.eps)                  # (M, 1) f32
-        xr = x2.float() * r
-        normed = (xr * scale.float()).to(x.dtype)
-        dz = _dz(dy.reshape(-1, n), lambda: _gemm.sma_gemm(normed, w),
-                 ctx.epilogue, x.dtype)
-        dx = dscale = dw = None
-        if ctx.needs_input_grad[2]:
-            dw = _gemm.sma_gemm(_t(normed), dz)
-        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            dn = _gemm.sma_gemm(dz, _t(w)).float()   # d normed, (M, K)
-            if ctx.needs_input_grad[1]:
-                dscale = (dn * xr).sum(0).to(scale.dtype)
-            if ctx.needs_input_grad[0]:
-                gs = dn * scale.float()
-                dx = r * (gs - xr * (gs * xr).mean(-1, keepdim=True))
-                dx = dx.to(x.dtype).reshape(x.shape)
-        return dx, dscale, dw, None, None
+        return (*rmsnorm_gemm_backward(_launch_gemm, x, scale, w,
+                                       ctx.epilogue, ctx.eps, dy,
+                                       ctx.needs_input_grad), None, None)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -137,7 +187,5 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout: torch.Tensor):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash.flash_attention_bwd(q, k, v, out, lse,
-                                                dout.contiguous(), **ctx.args)
-        return dq, dk, dv, None, None, None
+        return (*flash_attention_backward(_launch_flash_bwd, ctx.saved_tensors,
+                                          dout, **ctx.args), None, None, None)

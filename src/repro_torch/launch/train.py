@@ -1,34 +1,52 @@
 """Training driver (counterpart of ``repro.launch.train``).
 
     python -m repro_torch.launch.train --arch stablelm-1.6b --steps 5 \\
-        --seq-len 2048 --batch 4
+        --seq-len 2048 --batch 4 [--checkpoint-dir D] [--grad-compression]
 
 Float32 master weights and AdamW state, compute in the config's activation
 dtype (bf16 for the full configs), as in the JAX package; the data are the
-JAX package's synthetic token pipeline (copied).  Each step is
-``lm.loss_fn`` forward and backward, then an in-place
-:func:`repro_torch.optim.adamw.update`.  On the card every projection,
-forward and backward, is an ``sma_gemm`` launch, the head an
-``rmsnorm_gemm`` and every attention the flash kernels; the step runs
-eagerly (the JAX step is built on ``sma_jit``, which has no counterpart
-here).  Checkpoint/resume, ``halt_at_step`` and int8 gradient compression
-are not ported yet.
+JAX package's synthetic token pipeline (copied).
+
+The step is built on the ``sma_jit`` front door, as the reference's is
+(:func:`make_step`): the engine traces :func:`direct_step` -- ``lm.loss_fn``
+and its ``torch.autograd.grad``, the optional int8 error-feedback round
+trip (:mod:`repro_torch.optim.compress`) and the in-place
+:func:`repro_torch.optim.adamw.update` -- as one joint program, and caches
+it per signature: steps 2..N are cache hits.  On the card every
+projection, forward, recomputed and backward, is an ``sma_gemm`` launch,
+the head an ``rmsnorm_gemm`` and every attention the flash kernels, each a
+node of that program.  Parameters, moments and step are updated in place
+(the port's counterpart of the reference's ``donate_argnums``); the
+masters do not require grad outside the step.
+
+:func:`train` auto-resumes from the latest checkpoint in
+``checkpoint_dir`` (parameters, optimizer state, error-feedback state and
+the data cursor travel together), checkpoints every ``checkpoint_every``
+steps, and with ``halt_at_step`` checkpoints and stops there (a simulated
+fault: the resumed run equals an unbroken one).  The reference's mesh
+waits for the distributed slice (ROADMAP.md §1 item 10).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import json
 import time
 from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.api import SMAOptions, sma_jit
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig, get_config, reduced
-from repro_torch.data.pipeline import DataConfig, DataPipeline
+from repro_torch.data.pipeline import DataConfig, DataPipeline, PipelineState
 from repro_torch.models import lm
+from repro_torch.obs import trace as _obs_trace
 from repro_torch.optim import adamw
-from repro_torch.tree import leaves
+from repro_torch.optim import compress as gcomp
+from repro_torch.tree import leaves, tree_map, unflatten
 
 
 @dataclasses.dataclass
@@ -37,53 +55,106 @@ class TrainLoopConfig:
     seq_len: int = 128
     global_batch: int = 8
     log_every: int = 10
+    checkpoint_every: int = 50
+    checkpoint_dir: Optional[str] = None
+    # Simulated fault injection: checkpoint and halt after this step (the
+    # resumed run must equal an unbroken one: the schedule and the data
+    # cursor key off the global step).
+    halt_at_step: Optional[int] = None
+    grad_compression: bool = False
     seed: int = 0
     peak_lr: float = 3e-3
     remat: bool = True
 
 
-def make_step(cfg: ModelConfig, ocfg: adamw.AdamWConfig, *, remat: bool):
-    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``;
-    parameters and optimizer state are updated in place."""
-    def step(params, opt_state, batch):
-        loss, metrics = lm.loss_fn(params, cfg, batch, remat=remat)
-        grads = torch.autograd.grad(loss, leaves(params))
-        params, opt_state, om = adamw.update(list(grads), opt_state, params,
-                                             ocfg)
-        return params, opt_state, {**metrics, **om}
-    return step
+def direct_step(params, opt_state, ef, batch, *, cfg: ModelConfig,
+                ocfg: adamw.AdamWConfig, remat: bool,
+                grad_compression: bool):
+    """One step, run as written: ``(params, opt_state, ef, metrics)``.
+
+    The gradient is taken with respect to detached copies of the masters
+    (so the masters need not require grad); ``params`` and the moments are
+    then updated in place and returned, ``opt_state["step"]`` and ``ef``
+    replaced.  This is the function :func:`make_step` compiles."""
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, metrics = lm.loss_fn(live, cfg, batch, remat=remat)
+    grads = unflatten(live, torch.autograd.grad(loss, leaves(live)))
+    if grad_compression:
+        grads, ef = gcomp.roundtrip(grads, ef)
+    params, opt_state, om = adamw.update(grads, opt_state, params, ocfg)
+    return params, opt_state, ef, {**metrics, **om}
+
+
+def make_step(cfg: ModelConfig, ocfg: adamw.AdamWConfig, *, remat: bool,
+              grad_compression: bool, options: Optional[SMAOptions] = None):
+    """The train step on the ``sma_jit`` front door:
+    ``step(params, opt_state, ef, batch) -> (params, opt_state, ef,
+    metrics)``, :func:`direct_step` traced forward, backward and optimizer
+    as one program and cached per abstract signature (a new sequence
+    length or batch compiles once)."""
+    step = functools.partial(direct_step, cfg=cfg, ocfg=ocfg, remat=remat,
+                             grad_compression=grad_compression)
+    return sma_jit(step, options=options, name=f"{cfg.name}.train_step")
+
+
+def _state(params, opt_state, ef, pipe: DataPipeline) -> Dict[str, Any]:
+    return {"params": params, "opt": opt_state, "ef": ef,
+            "data": pipe.state.to_dict()}
 
 
 def train(cfg: ModelConfig, loop: TrainLoopConfig, *,
-          device: DeviceLike = None,
-          params: Optional[dict] = None) -> Dict[str, Any]:
-    """Train for ``loop.steps`` steps.  Runs on ``cuda`` unless ``device``
-    says otherwise.  ``params`` (float32 masters on ``device``, updated in
-    place) default to ``lm.init(cfg, seed=loop.seed)`` in
-    ``cfg.parameter_dtype``.  Returns ``{"history", "params"}``; history
-    has one entry per logged step with the metrics, ``step`` and
-    ``wall_s`` (host seconds since the first step began, taken after the
-    metrics reach the host)."""
+          device: DeviceLike = None, params: Optional[dict] = None,
+          options: Optional[SMAOptions] = None) -> Dict[str, Any]:
+    """Train for ``loop.steps`` steps through :func:`make_step`'s engine.
+    Runs on ``cuda`` unless ``device`` says otherwise.  ``params`` (float32
+    masters on ``device``, updated in place) default to ``lm.init(cfg,
+    seed=loop.seed)`` in ``cfg.parameter_dtype``.  Returns ``{"history",
+    "params", "engine"}``: history has one entry per logged step with the
+    metrics, ``step`` and ``wall_s`` (host seconds since the first step of
+    this run began, taken after the metrics reach the host); ``engine`` is
+    the step engine's cache statistics."""
     dev = resolve_device(device)
     if params is None:
         params = lm.init(cfg, seed=loop.seed, device=dev,
                          dtype=cfg.parameter_dtype)
     for p in leaves(params):
-        p.requires_grad_(True)
+        p.requires_grad_(False)
     opt_state = adamw.init(params)
+    ef = gcomp.init_error(params) if loop.grad_compression else {}
     pipe = DataPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                    seq_len=loop.seq_len,
                                    global_batch=loop.global_batch,
                                    seed=loop.seed), device=dev)
+    start_step = 0
+
+    mgr = (CheckpointManager(loop.checkpoint_dir)
+           if loop.checkpoint_dir else None)
+    if mgr is not None and mgr.latest_step() is not None:
+        start_step, restored = mgr.restore(_state(params, opt_state, ef,
+                                                  pipe))
+        params, opt_state, ef = (restored["params"], restored["opt"],
+                                 restored["ef"])
+        pipe.state = PipelineState.from_dict(restored["data"])
+        print(f"[train] resumed from step {start_step}")
+
     ocfg = adamw.AdamWConfig(peak_lr=loop.peak_lr,
                              warmup_steps=max(loop.steps // 10, 1),
                              total_steps=loop.steps)
-    step_fn = make_step(cfg, ocfg, remat=loop.remat)
+    step_fn = make_step(cfg, ocfg, remat=loop.remat,
+                        grad_compression=loop.grad_compression,
+                        options=options)
+
+    def finish() -> Dict[str, Any]:
+        return {"history": history, "params": params,
+                "engine": step_fn.stats.asdict()}
 
     history = []
     t0 = time.perf_counter()
-    for i in range(loop.steps):
-        params, opt_state, metrics = step_fn(params, opt_state, next(pipe))
+    for i in range(start_step, loop.steps):
+        batch = next(pipe)
+        with _obs_trace.span("train.step", cat="train", step=i):
+            params, opt_state, ef, metrics = step_fn(params, opt_state, ef,
+                                                     batch)
         if (i + 1) % loop.log_every == 0 or i == loop.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             m["step"] = i + 1
@@ -92,7 +163,19 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, *,
             print(f"[train] step {i + 1:5d} loss={m['loss']:.4f} "
                   f"acc={m['accuracy']:.3f} gnorm={m['grad_norm']:.2f}",
                   flush=True)
-    return {"history": history, "params": params}
+        if mgr is not None and (i + 1) % loop.checkpoint_every == 0:
+            mgr.save(i + 1, _state(params, opt_state, ef, pipe))
+        if loop.halt_at_step is not None and (i + 1) == loop.halt_at_step:
+            if mgr is not None:
+                if (i + 1) % loop.checkpoint_every != 0:
+                    mgr.save(i + 1, _state(params, opt_state, ef, pipe))
+                mgr.wait()
+            print(f"[train] simulated fault: halted at step {i + 1}")
+            return finish()
+    if mgr is not None:
+        mgr.save(loop.steps, _state(params, opt_state, ef, pipe))
+        mgr.wait()
+    return finish()
 
 
 def main() -> None:
@@ -103,6 +186,8 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--grad-compression", action="store_true")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--device", default=None,
                     help="default cuda; 'cpu' runs the plain versions")
@@ -112,8 +197,12 @@ def main() -> None:
     if args.reduced:
         cfg = reduced(cfg)
     loop = TrainLoopConfig(steps=args.steps, seq_len=args.seq_len,
-                           global_batch=args.batch, peak_lr=args.lr)
-    train(cfg, loop, device=args.device)
+                           global_batch=args.batch,
+                           checkpoint_dir=args.checkpoint_dir,
+                           grad_compression=args.grad_compression,
+                           peak_lr=args.lr)
+    result = train(cfg, loop, device=args.device)
+    print(f"[train] engine {json.dumps(result['engine'])}")
 
 
 if __name__ == "__main__":

@@ -1,1 +1,2 @@
-"""Optimizer of the port (``repro.optim``): AdamW."""
+"""Optimizer of the port (``repro.optim``): AdamW, and int8 gradient
+compression with error feedback."""

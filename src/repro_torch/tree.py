@@ -5,7 +5,7 @@ a sum over leaves adds in the reference's order.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Sequence
 
 
 def leaves(tree: Any) -> List[Any]:
@@ -25,3 +25,19 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     if isinstance(tree, (tuple, list)):
         return tuple(tree_map(fn, *nodes) for nodes in zip(tree, *rest))
     return fn(tree, *rest)
+
+
+def unflatten(like: Any, flat: Sequence[Any]) -> Any:
+    """A tree of ``like``'s structure whose leaves, in :func:`leaves` order,
+    are ``flat``'s items."""
+    it = iter(flat)
+
+    def build(node: Any) -> Any:
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, (tuple, list)):
+            return tuple(build(x) for x in node)
+        return next(it)
+
+    return build(like)

@@ -44,6 +44,8 @@ MODULES = (
     "repro_torch.backends.registry", "repro_torch.obs",
     "repro_torch.obs.trace", "repro_torch.obs.metrics",
     "repro_torch.obs.timing", "repro_torch.obs.export",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+    "repro_torch.optim.compress",
 )
 
 
