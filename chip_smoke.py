@@ -42,6 +42,36 @@
    kernels against the same step through the plain versions, and a
    decode step with the GEMM entries through their autograd Functions
    and through the bare wrappers.
+   Dense configs and resilience: full-width Mistral-NeMo-12B (40 layers,
+   d_model 5120, GQA 32/8 at head_dim 128: the query width 4096 is not
+   d_model; vocab 131,072) served the same way (compiled ticks against
+   the direct steps with the planted lost write, host and device time),
+   its kernels held and timed at its own shapes (the products, the decode
+   head 5120 -> 131072, paged decode at GQA 4); no pass without faults may
+   fail a tick, evict or fail a request.  Chaos on its compiled engine,
+   each against the unfaulted pass: (a) a ``serve.tick`` fault retried
+   whole, (b) a request's pool blocks poisoned after its first decode
+   tick and evicted after its retries, the others unchanged, (c) an
+   ``sma_gemm@cuda`` fault in the middle of a decode tick, after layers
+   wrote the pools in place, retried whole into the same tokens, (d) a
+   late tick counted by the watchdog, (e) ``check_numerics="raise"`` with
+   a NaN raising ``FloatingPointError``, (f) an ``engine.compile`` fault
+   on a fresh signature, the next call compiling; the report's
+   ``resilience`` section.  The deprecated slot ``Server`` (4 slots,
+   ``cache_size`` 1024) against a direct loop that re-feeds the last
+   prompt token; ``repro_torch.launch.serve.main`` at full width; a
+   3-layer model's decode logits against the plain versions with planted
+   faults (one of them every query head on KV head 0).  The input modes
+   at full width: musicgen-large on ``embeds`` through the compiled engine
+   (compiled ticks equal direct), internvl2-2b's ``lm.forward`` with 256
+   vision embeddings ahead of 256 tokens through ``sma_jit`` (launches and
+   logits equal direct); their kernels held and timed at their own shapes
+   (the products at M 4 and 1024, both heads, internvl's flash at GQA 16/8
+   and head_dim 128), and 3-layer full-width models of each against the
+   plain versions with planted faults (musicgen's decode logits,
+   internvl's forward logits).  With ``--parent DIR`` (another checkout), first
+   times the compiled StableLM decode tick's host time of both trees A B
+   B A (``host_times.py``, one process a reading).
 5. Training path: one step of a 4-layer full-width model through the
    kernels against the same step through the plain versions (loss, grad
    norm, every weight's gradient a layer at a time), and the same step with
@@ -123,12 +153,14 @@ import copy
 import dataclasses
 import functools
 import gc
+import io
 import json
 import math
 import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -139,6 +171,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 import torch.utils._pytree as pytree  # noqa: E402
 
+import repro_torch  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, DataPipeline  # noqa: E402
@@ -152,11 +185,14 @@ from repro_torch.kernels import rglru as krglru  # noqa: E402
 from repro_torch.kernels import sma_gemm as kgemm  # noqa: E402
 from repro_torch.launch.train import (TrainLoopConfig,  # noqa: E402
                                       direct_step, make_step, train)
+from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import lm, recurrent  # noqa: E402
+from repro_torch.obs import metrics  # noqa: E402
+from repro_torch.resilience import faults, guard  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.tree import leaves, tree_map  # noqa: E402
-from repro_torch.serving import (CacheConfig, Request,  # noqa: E402
-                                 SchedulerConfig, ServeEngine)
+from repro_torch.serving import (CacheConfig, PagedKVCache,  # noqa: E402
+                                 Request, SchedulerConfig, ServeEngine)
 from repro_torch.serving import model as smodel  # noqa: E402
 
 ARCH = "stablelm-1.6b"
@@ -175,11 +211,13 @@ RTOL = ATOL = 3e-2
 # of attn_controls (a 64-token tile skipped, a page misindexed) must fail
 # it on every such row.
 ATTN_ATOL, ATTN_RTOL = 2e-3, 1e-2
-# Decode-step logits after 24 bf16 layers, kernels vs plain versions: every
-# GEMM output is rounded to bf16 on both sides from sums taken in another
-# order, and the flips compound through the layers.  On an H100 that noise
-# reads 0.078 and the smallest planted fault of check_decode_logits 0.172
-# (PERF.md); the limit lies between them.
+# Logits, kernels vs plain versions, max |err| (hold_logits): every GEMM
+# output is rounded to bf16 on both sides from sums taken in another order,
+# and the flips compound through the layers.  On an H100 StableLM's decode
+# step (24 layers) reads 0.078 and its smallest planted fault 0.172; at 3
+# full-width layers Nemo's, musicgen's decode and internvl's forward over
+# 1,024 positions read 0.031 / 0.023 / 0.047 and their weakest faults
+# 0.27 / 0.45 / 0.48 (PERF.md); the limit lies between them.
 LOGIT_ATOL = 0.12
 COLD_BYTES = 160 << 20        # > 50 MB L2: rotate inputs so reads are cold
 # time_ms's device-side sleep, ~20 ms at the H100's 1.755 GHz boost
@@ -655,6 +693,19 @@ def attn_controls(q, k_pool, v_pool, table, lens, want, bs):
                  f"tolerance on a row it changes")
 
 
+def paged_table(dev, nb: int, bs: int, smax: int) -> torch.Tensor:
+    """Block tables of 8 rows of KV_LENS tokens over randomly permuted
+    pages of a pool of ``nb`` blocks; unused entries hold the sentinel."""
+    perm = np.random.default_rng(0).permutation(nb)
+    table = np.full((len(KV_LENS), smax // bs), nb, np.int32)
+    used = 0
+    for r, n in enumerate(KV_LENS):
+        pages = max(1, -(-n // bs))
+        table[r, :pages] = perm[used:used + pages]
+        used += pages
+    return torch.from_numpy(table).to(dev)
+
+
 def check_decode(gen, dev):
     """Paged entry at the engine's pool geometry, then the contiguous
     entry: B=8, Hq=Hkv=32, D=64, BS=16, ragged kv_len including 0."""
@@ -662,15 +713,7 @@ def check_decode(gen, dev):
     b, h, d, bs, nb, smax = 8, 32, 64, 16, 512, 1024
     mb = smax // bs
     lens = torch.tensor(KV_LENS, dtype=torch.int32, device=dev)
-    rng = np.random.default_rng(0)
-    perm = rng.permutation(nb)
-    table = np.full((b, mb), nb, np.int32)
-    used = 0
-    for r, n in enumerate(KV_LENS):
-        pages = max(1, -(-n // bs))
-        table[r, :pages] = perm[used:used + pages]
-        used += pages
-    table = torch.from_numpy(table).to(dev)
+    table = paged_table(dev, nb, bs, smax)
     q = torch.randn((b, h, d), generator=gen, device=dev).to(dt)
     pools = [tuple(torch.randn((nb, h, bs, d), generator=gen,
                                device=dev).to(dt) for _ in range(2))
@@ -971,10 +1014,10 @@ SERVE_CHUNK, SERVE_NEW = 256, 32
 HOST_ROUNDS, HOST_STEPS = 4, 5
 
 
-def serve_requests(cfg):
-    """The serve run's 8 requests (prompts of 64-512 tokens, seed 0)."""
+def serve_requests(cfg, n: int = 8):
+    """The serve run's ``n`` requests (prompts of 64-512 tokens, seed 0)."""
     rng = np.random.default_rng(0)
-    lens = rng.integers(64, 513, size=8)
+    lens = rng.integers(64, 513, size=n)
     return lens, [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
                                                      size=n).astype(np.int32),
                           max_new_tokens=SERVE_NEW)
@@ -1002,33 +1045,61 @@ def compile_table(eng) -> list:
                   for key, entry in e._cache.items())
 
 
-def serve(cfg, params, dev):
+def counters() -> dict:
+    """The serving engine's failure-path counters."""
+    return {k: metrics.get(k) for k in (
+        "serve.tick_failures", "serve.evictions", "serve.retries",
+        "serve.watchdog_exceeded", "serve.requests_failed")}
+
+
+def moved_since(before: dict) -> dict:
+    return {k: metrics.get(k) - v for k, v in before.items()}
+
+
+def clean_serving(where: str, before: dict, reqs) -> None:
+    """A pass without injected faults: no tick failed, no retry, nothing
+    evicted or late, no request failed (``before``: :func:`counters`
+    read before it)."""
+    moved = moved_since(before)
+    failed = [r.rid for r in reqs if r.status == "failed"]
+    if any(moved.values()) or failed:
+        fail(f"{where}: a pass without faults counted {moved}, failed "
+             f"requests {failed}")
+
+
+def serve(cfg, params, dev, path: str = "serve", n_requests: int = 8):
     """The serve run through the compiled engine: a warm-up pass of the
     same requests compiles every (phase, bucket) signature, ``reset()``
     keeps them, and the timed pass must compile nothing.  Then the same
     pass once more under ``repro_torch.profile``, whose tick spans must
-    count the scheduler's mode switches.  Returns the timed pass's
-    launches and ``sma_gemm`` routes, and the engine."""
+    count the scheduler's mode switches.  No pass may fail a tick, evict
+    or fail a request.  Returns the timed pass's launches and
+    ``sma_gemm`` routes, and the engine."""
     sched = SchedulerConfig(policy="sma", prefill_chunk=SERVE_CHUNK)
     eng = ServeEngine(cfg, params, cache=SERVE_CACHE, max_batch=8,
                       sched=sched, device=dev)
-    warm = serve_pass(eng, serve_requests(cfg)[1])
+    before = counters()
+    warm_reqs = serve_requests(cfg, n_requests)[1]
+    warm = serve_pass(eng, warm_reqs)
+    clean_serving(f"{path} warm-up pass", before, warm_reqs)
     table = compile_table(eng)
-    print(f"serve warm-up pass (compiles included): {warm:.3f} s; "
+    print(f"{path} warm-up pass (compiles included): {warm:.3f} s; "
           f"compile s and graph nodes per (phase, bucket): " + ", ".join(
               f"{p} {b}: {t:.3f} s {n}" for p, b, t, n in table))
     eng.reset()
     misses = {p: e.stats.misses for p, e in eng.engines.items()}
 
-    lens, reqs = serve_requests(cfg)
+    lens, reqs = serve_requests(cfg, n_requests)
+    before = counters()
     ops.reset_counts()
     wall = serve_pass(eng, reqs)
     counts, routed = ops.launch_counts(), dict(ops.ROUTED)
     routes = dict(kgemm.ROUTES)
-    ROUTES_BY_PATH["serve"] = check_kernel_routes("serve", counts, "tile")
+    clean_serving(f"{path} timed pass", before, reqs)
+    ROUTES_BY_PATH[path] = check_kernel_routes(path, counts, "tile")
     new = {p: e.stats.misses - misses[p] for p, e in eng.engines.items()}
     if any(new.values()):
-        fail(f"serve: the timed pass compiled {new} signatures after the "
+        fail(f"{path}: the timed pass compiled {new} signatures after the "
              f"warm-up pass")
 
     for r in reqs:
@@ -1050,28 +1121,28 @@ def serve(cfg, params, dev):
         if counts[name] != n:
             fail(f"{name}: {counts[name]} launches, expected {n}")
     if sum(routed.values()) != cfg.num_layers * len(ticks["prefill"]):
-        fail(f"serve: routed {routed}, expected one chunked-prefill call "
+        fail(f"{path}: routed {routed}, expected one chunked-prefill call "
              f"a layer a prefill tick")
     # Decode ticks (M = batch <= 8) on split-K; prefill ticks on wgmma,
     # or split-K where a tick holds 16 tokens or fewer.
     if routes["tile"] or routes["f32"] \
             or routes["splitk"] < per_layer * len(ticks["decode"]):
-        fail(f"serve: sma_gemm routes {routes}, expected wgmma and split-K "
+        fail(f"{path}: sma_gemm routes {routes}, expected wgmma and split-K "
              f"only, split-K on every decode tick")
     ttft = [r.t_first - r.t_submit for r in reqs]
     tokens = sum(len(r.out_tokens) for r in reqs)
-    print(f"serve (compiled): {len(reqs)} requests, prompts "
+    print(f"{path} (compiled): {len(reqs)} requests, prompts "
           f"{lens.tolist()}, {tokens} tokens in {wall:.3f} s: "
-          f"{tokens / wall:.1f} tokens/s (wall clock, bf16, {ARCH} full "
+          f"{tokens / wall:.1f} tokens/s (wall clock, bf16, {cfg.name} full "
           f"width, random weights)")
-    print(f"serve: TTFT mean {1e3 * np.mean(ttft):.1f} ms, max "
+    print(f"{path}: TTFT mean {1e3 * np.mean(ttft):.1f} ms, max "
           f"{1e3 * max(ttft):.1f} ms; decode tick mean "
           f"{1e3 * np.mean(ticks['decode']):.2f} ms over "
           f"{len(ticks['decode'])} ticks; prefill tick mean "
           f"{1e3 * np.mean(ticks['prefill']):.2f} ms over "
           f"{len(ticks['prefill'])} ticks; switches {eng.sched.switches}; "
           f"cache {json.dumps(eng.stats()['engines'])}")
-    print(f"serve: launches {json.dumps(counts)}; per decode tick "
+    print(f"{path}: launches {json.dumps(counts)}; per decode tick "
           f"{per_layer} sma_gemm, 1 rmsnorm_gemm, {cfg.num_layers} paged "
           f"decode; routed to plain by design {json.dumps(routed)}; "
           f"sma_gemm routes {json.dumps(routes)}")
@@ -1080,12 +1151,15 @@ def serve(cfg, params, dev):
     # the scheduler's own switches.  The compiled steps run through the
     # span-recording interpreter here, so this pass is not timed.
     eng.reset()
+    before = counters()
+    prof_reqs = serve_requests(cfg, n_requests)[1]
     with obs.profile(sync=False) as prof:
-        serve_pass(eng, serve_requests(cfg)[1])
+        serve_pass(eng, prof_reqs)
+    clean_serving(f"{path} profiled pass", before, prof_reqs)
     tick_spans = [e for e in prof.events if e["cat"] == "serve"]
     sec = obs.runtime_section(tick_spans)
     whole = prof.runtime_section()
-    print(f"serve runtime_section (profile, sync=False), tick spans: "
+    print(f"{path} runtime_section (profile, sync=False), tick spans: "
           f"{len(tick_spans)} ticks, mode_switches {sec['mode_switches']} "
           f"(scheduler {eng.sched.switches}), per mode ms "
           f"{json.dumps({m: round(us / 1e3, 3) for m, us in sec['per_mode_us'].items()})}"
@@ -1093,28 +1167,28 @@ def serve(cfg, params, dev):
           f"{whole['mode_switches']} mode switches inside and between "
           f"ticks, {len(prof.events)} events")
     for line in obs.render_mode_timeline(sec).splitlines():
-        print(f"serve {line}")
+        print(f"{path} {line}")
     if sec["mode_switches"] != eng.sched.switches \
             or len(tick_spans) != eng.sched.ticks:
-        fail(f"serve: the tick spans count {sec['mode_switches']} mode "
+        fail(f"{path}: the tick spans count {sec['mode_switches']} mode "
              f"switches over {len(tick_spans)} ticks, the scheduler "
              f"{eng.sched.switches} over {eng.sched.ticks}")
     if any(e["name"] == "engine.compile" for e in prof.events):
-        fail("serve: the profiled pass compiled a signature")
+        fail(f"{path}: the profiled pass compiled a signature")
     eng.reset()
     return counts, routes, eng
 
 
-def serve_step_inputs(cfg, dev):
-    """A ragged first chunk (8 rows, chunk 256) through its own block
+def serve_step_inputs(cfg, dev, b: int = 8):
+    """A ragged first chunk (``b`` rows, chunk 256) through its own block
     tables, as the serve run's first prefill tick has it."""
-    b, mb = 8, SERVE_CACHE.max_blocks_per_req
+    mb = SERVE_CACHE.max_blocks_per_req
     table = torch.arange(b * mb, dtype=torch.int32,
                          device=dev).reshape(b, mb) % SERVE_CACHE.num_blocks
     gen = torch.Generator(device=dev).manual_seed(2)
     toks = torch.randint(0, cfg.vocab_size, (b, SERVE_CHUNK), generator=gen,
                          device=dev, dtype=torch.int32)
-    n_tok = torch.tensor([256, 1, 17, 100, 256, 200, 8, 150],
+    n_tok = torch.tensor([256, 1, 17, 100, 256, 200, 8, 150][:b],
                          dtype=torch.int32, device=dev)
     return table, toks, n_tok
 
@@ -1136,18 +1210,28 @@ def lost_write(compiled, layer: int, layers: int):
     return faulty
 
 
-def check_compiled_serving(cfg, params, dev, eng):
-    """The engine's compiled prefill tick (bucket 8, chunk 256) and two
-    decode ticks against the direct steps on the same inputs: logits, the
+def step_batch(cfg, params, toks):
+    """A paged step's batch from token ids: the ids, or their
+    ``token_embeds`` for an ``embeds``-mode model (as the engine feeds
+    it)."""
+    if cfg.input_mode == "embeds":
+        return {"embeds": smodel.token_embeds(params, cfg, toks)}
+    return {"tokens": toks}
+
+
+def check_compiled_serving(cfg, params, dev, eng, plant: bool = True,
+                           timing: bool = True, rows: int = 8):
+    """The engine's compiled prefill tick (bucket ``rows``, chunk 256) and
+    two decode ticks against the direct steps on the same inputs: logits, the
     returned lengths and every pool's real blocks ``torch.equal``, each
-    tick's launches, routes and routed calls equal.  Then the same with
-    the first decode tick's graph missing layer 0's pool writes: the next
-    tick's logits must not be equal.  Then the host time of a compiled
-    decode tick against the direct step (A B B A) and the device time of
-    each (``torch.profiler``)."""
+    tick's launches, routes and routed calls equal.  Then (``plant``) the
+    same with the first decode tick's graph missing layer 0's pool
+    writes: the next tick's logits must not be equal.  Then (``timing``)
+    the host time of a compiled decode tick against the direct step (A B
+    B A) and the device time of each (``torch.profiler``)."""
     from torch.profiler import ProfilerActivity, profile
-    table, toks, n_tok = serve_step_inputs(cfg, dev)
-    zero = torch.zeros(8, dtype=torch.int32, device=dev)
+    table, toks, n_tok = serve_step_inputs(cfg, dev, rows)
+    zero = torch.zeros(rows, dtype=torch.int32, device=dev)
     nb = SERVE_CACHE.num_blocks
     direct = (lambda p, s, bt, cl, nt, b: smodel.paged_prefill_step(
                   p, s, bt, cl, nt, cfg, b),
@@ -1162,14 +1246,16 @@ def check_compiled_serving(cfg, params, dev, eng):
         state = smodel.init_state(cfg, SERVE_CACHE, device=dev)
         out, fed = [], []
         (logits, _, cl), *seen = counted_run(lambda: prefill(
-            params, state, table, zero, n_tok, {"tokens": toks}))
+            params, state, table, zero, n_tok, step_batch(cfg, params,
+                                                          toks)))
         out.append((logits, cl, seen))
         for i, step in enumerate((first or decode, decode)):
             nxt = feed[i] if feed else \
                 logits.argmax(-1, keepdim=True).to(torch.int32)
             fed.append(nxt)
             (logits, _, cl), *seen = counted_run(lambda: step(
-                params, state, table, cl.to(torch.int32), {"tokens": nxt}))
+                params, state, table, cl.to(torch.int32),
+                step_batch(cfg, params, nxt)))
             out.append((logits, cl, seen))
         return out, fed, [p[:, :nb] for e in state for p in e.values()]
 
@@ -1191,11 +1277,13 @@ def check_compiled_serving(cfg, params, dev, eng):
                  f"direct {wseen}")
     if not all(torch.equal(g, w) for g, w in zip(got_pools, want_pools)):
         fail("compiled ticks: the pools differ from the direct steps'")
-    print(f"compiled ticks vs direct steps (prefill bucket 8 x chunk 256, "
-          f"two decode ticks): logits, lengths and {len(got_pools)} pools "
-          f"torch.equal; launches, routes, routed equal: "
-          f"{json.dumps([s[0] for _, _, s in got])}")
+    print(f"{cfg.name}: compiled ticks vs direct steps (prefill bucket "
+          f"{rows} x chunk 256, two decode ticks): logits, lengths and "
+          f"{len(got_pools)} pools torch.equal; launches, routes, routed "
+          f"equal: {json.dumps([s[0] for _, _, s in got])}")
     del got_pools, want_pools
+    if not plant:
+        return None
 
     (decode_sig,) = [entry.compiled for key, entry in
                      eng.engines["decode"]._cache.items()
@@ -1212,6 +1300,8 @@ def check_compiled_serving(cfg, params, dev, eng):
         fail("planted lost write: the next tick's logits equal the direct "
              "step's")
     torch.cuda.empty_cache()
+    if not timing:
+        return None
 
     state = smodel.init_state(cfg, SERVE_CACHE, device=dev)
     logits, _, cl = direct[0](params, state, table, zero, n_tok,
@@ -1231,7 +1321,7 @@ def check_compiled_serving(cfg, params, dev, eng):
                 lambda: [steps[k]() for _ in range(HOST_STEPS)])
                 / HOST_STEPS)
     med = {k: float(np.median(w)) for k, w in walls.items()}
-    print(f"decode tick host time to return (8 rows, median of "
+    print(f"{cfg.name}: decode tick host time to return (8 rows, median of "
           f"{len(walls['direct'])} rounds of {HOST_STEPS} steps, A B B A): "
           f"direct {med['direct']:.3f} ms, compiled {med['compiled']:.3f} "
           f"ms ({100 * (med['compiled'] / med['direct'] - 1):+.1f} %); "
@@ -1248,7 +1338,7 @@ def check_compiled_serving(cfg, params, dev, eng):
             wall = time.perf_counter() - t0
         busy[k] = report_profile(prof, wall, HOST_STEPS,
                                  f"{k} decode tick")
-    print(f"decode tick device time (busy / step): " + ", ".join(
+    print(f"{cfg.name}: decode tick device time (busy / step): " + ", ".join(
         f"{k} {'not measured' if b is None else f'{1e3 * b / HOST_STEPS:.3f} ms'}"
         for k, b in busy.items()))
     return med, busy
@@ -1293,18 +1383,22 @@ def prefilled(cfg, params, dev):
     n_tok = torch.tensor([64, 1, 17, 33, 64, 50, 8, 40], device=dev)
     zero = torch.zeros(b, dtype=torch.int32, device=dev)
     _, state, cl = smodel.paged_prefill_step(params, state, table, zero,
-                                             n_tok, cfg, {"tokens": toks})
+                                             n_tok, cfg,
+                                             step_batch(cfg, params, toks))
     nxt = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, device=dev)
     return state, table, cl, nxt
 
 
 @contextlib.contextmanager
 def planted(fault: str, layer: int):
-    """One wrong launch in ``layer`` of a decode step, made by feeding a
-    kernel wrong inputs: the attention out projection with its last
-    64-wide K tile skipped, or the attention with the newest key dropped."""
-    gemm, attn = ops.sma_gemm, ops.paged_decode_attention
-    calls = {"gemm": 0, "attn": 0}
+    """One wrong launch in ``layer`` of a decode step or a forward, made by
+    feeding a kernel wrong inputs: the attention out projection with its
+    last 64-wide K tile skipped, the paged attention with the newest key
+    dropped, or (GQA) every query head attending to KV head 0 (the paged
+    or the flash attention)."""
+    gemm, attn, flash = (ops.sma_gemm, ops.paged_decode_attention,
+                         ops.flash_attention)
+    calls = {"gemm": 0, "attn": 0, "flash": 0}
 
     def wrong_gemm(a, w, **kw):
         calls["gemm"] += 1
@@ -1317,66 +1411,103 @@ def planted(fault: str, layer: int):
         calls["attn"] += 1
         if fault == "newest key dropped" and calls["attn"] == layer + 1:
             kv_len = (kv_len - 1).clamp(min=0)
+        if fault == "every query head on KV head 0" \
+                and calls["attn"] == layer + 1:
+            k_pool, v_pool = (p[:, :1].expand_as(p).contiguous()
+                              for p in (k_pool, v_pool))
         return attn(q, k_pool, v_pool, table, q_pos, kv_len, **kw)
 
-    ops.sma_gemm, ops.paged_decode_attention = wrong_gemm, wrong_attn
+    def wrong_flash(q, k, v, **kw):
+        calls["flash"] += 1
+        if fault == "every query head on KV head 0" \
+                and calls["flash"] == layer + 1:
+            k, v = (t[:, :1].expand_as(t).contiguous() for t in (k, v))
+        return flash(q, k, v, **kw)
+
+    ops.sma_gemm, ops.paged_decode_attention, ops.flash_attention = (
+        wrong_gemm, wrong_attn, wrong_flash)
     try:
         yield
     finally:
-        ops.sma_gemm, ops.paged_decode_attention = gemm, attn
+        ops.sma_gemm, ops.paged_decode_attention, ops.flash_attention = (
+            gemm, attn, flash)
 
 
-def check_decode_logits(cfg, params, dev):
+DECODE_FAULTS = ("wo K tile skipped", "newest key dropped")
+
+
+def check_decode_logits(cfg, params, dev, faults_=DECODE_FAULTS):
     """One decode step after a ragged prefill, through the kernels and
     through the plain versions, on the same pools; then the same step with
-    one planted fault in one layer, which the limit must catch."""
+    one planted fault (each of ``faults_``) in one layer, which the limit
+    must catch (:func:`hold_logits`)."""
     state, table, cl, nxt = prefilled(cfg, params, dev)
-    b = nxt.shape[0]
     saved = [{k: v.clone() for k, v in e.items()} for e in state]
+    batch = step_batch(cfg, params, nxt)
 
     def step():
         for e, s in zip(state, saved):
             for k in e:
                 e[k].copy_(s[k])
         return smodel.paged_decode_step(params, state, table, cl, cfg,
-                                        {"tokens": nxt})[0].float()
+                                        batch)[0].float()
 
+    hold_logits(cfg, "decode logits", step, (nxt.shape[0], cfg.vocab_size),
+                faults_)
+
+
+def hold_logits(cfg, what: str, step, shape, faults_):
+    """``step()`` (logits, float) through the kernels against the same
+    call through the plain versions: max |err| within LOGIT_ATOL, every
+    top-1 disagreement between two logits within LOGIT_ATOL of each other
+    in the plain ones; then ``step()`` with each planted fault of
+    ``faults_`` in the first, a middle and the last layer, each of which
+    must read above LOGIT_ATOL.  Prints the margins: the limit over the
+    error, and the weakest fault's reading over the limit."""
+    limit = LOGIT_ATOL
     got = step()
     with plain_kernels():
         want = step()
-    if not torch.isfinite(got).all() or got.shape != (b, cfg.vocab_size):
-        fail(f"decode logits: shape {tuple(got.shape)} or non-finite")
+    if not torch.isfinite(got).all() or got.shape != shape:
+        fail(f"{cfg.name} {what}: shape {tuple(got.shape)} or non-finite")
 
     def reading(x):
         d = x - want
         return d.abs().max().item(), (d.norm() / want.norm()).item()
 
     err, rel = reading(got)
-    top_k, top_p = got.argmax(-1), want.argmax(-1)
-    print(f"decode logits, kernels vs plain versions: max |err| {err:.4g}, "
+    rows_k = got.reshape(-1, shape[-1])
+    rows_p = want.reshape(-1, shape[-1])
+    top_k, top_p = rows_k.argmax(-1), rows_p.argmax(-1)
+    print(f"{what}, kernels vs plain versions: max |err| {err:.4g}, "
           f"relative RMS {rel:.4g} (|logit| max "
           f"{want.abs().max().item():.3g}), top-1 agree on "
-          f"{int((top_k == top_p).sum())}/{b} rows")
+          f"{int((top_k == top_p).sum())}/{rows_p.shape[0]} rows")
     controls = []
-    for fault in ("wo K tile skipped", "newest key dropped"):
+    for fault in faults_:
         for layer in (0, cfg.num_layers // 2, cfg.num_layers - 1):
             with planted(fault, layer):
                 c_err, c_rel = reading(step())
             controls.append(c_err)
-            print(f"decode logits control, {fault} in layer {layer}: "
+            print(f"{what} control, {fault} in layer {layer}: "
                   f"max |err| {c_err:.4g}, relative RMS {c_rel:.4g}")
-    for r in (top_k != top_p).nonzero()[:, 0].tolist():
-        gap = (want[r, top_p[r]] - want[r, top_k[r]]).item()
-        print(f"decode logits row {r}: top-1 {top_k[r].item()} vs "
-              f"{top_p[r].item()}, {gap:.4g} apart in the plain logits")
-        if gap > LOGIT_ATOL:
-            fail(f"decode logits row {r}: top-1 {top_k[r].item()} vs "
+    for i, r in enumerate((top_k != top_p).nonzero()[:, 0].tolist()):
+        gap = (rows_p[r, top_p[r]] - rows_p[r, top_k[r]]).item()
+        if i < 8:
+            print(f"{what} row {r}: top-1 {top_k[r].item()} vs "
+                  f"{top_p[r].item()}, {gap:.4g} apart in the plain logits")
+        if gap > limit:
+            fail(f"{cfg.name} {what} row {r}: top-1 {top_k[r].item()} vs "
                  f"{top_p[r].item()}, {gap:.4g} apart in the plain logits")
-    if err > LOGIT_ATOL:
-        fail(f"decode logits: max |err| {err:.4g} > {LOGIT_ATOL}")
-    if min(controls) <= LOGIT_ATOL:
-        fail(f"decode logits: a planted fault reads {min(controls):.4g}, "
-             f"within the limit {LOGIT_ATOL}")
+    if err > limit:
+        fail(f"{cfg.name} {what}: max |err| {err:.4g} > {limit}")
+    print(f"{cfg.name}: {what} margins: limit {limit} against the error "
+          f"{err:.4g}" + (f" ({limit / err:.2f}x)" if err else "")
+          + f"; the weakest planted fault reads "
+          f"{min(controls) / limit:.2f}x the limit")
+    if min(controls) <= limit:
+        fail(f"{cfg.name} {what}: a planted fault reads "
+             f"{min(controls):.4g}, within the limit {limit}")
 
 
 def profile_decode(cfg, params, dev, steps: int = 5):
@@ -1452,6 +1583,535 @@ def entry_overhead(cfg, params, dev, rounds: int = 4, steps: int = 5):
           f"{extra:.3f} ms ({100 * extra / med['wrapper']:.2f} %, "
           f"{1e3 * extra / (7 * cfg.num_layers + 1):.2f} us a call)")
     return med
+
+
+# ---------------------------------------------------------------------------
+# Mistral-NeMo-12B: the dense configs' full-width path, resilience, the
+# slot Server, and the input modes (musicgen-large, internvl2-2b)
+# ---------------------------------------------------------------------------
+NEMO_ARCH = "mistral-nemo-12b"
+MUSICGEN_ARCH, INTERNVL_ARCH = "musicgen-large", "internvl2-2b"
+# Nemo's products (q 5120 -> 4096, k / v -> 1024, the attention out 4096 ->
+# 5120, the MLP's silu gate 5120 -> 14336 and its 14336 -> 5120) at a
+# decode tick (M 8) and a prefill tick (M 2048).
+NEMO_GEMMS = [(m, k, n, ep) for m in (8, 2048)
+              for k, n, ep in ((5120, 4096, "none"), (5120, 1024, "none"),
+                               (4096, 5120, "none"), (5120, 14336, "silu"),
+                               (14336, 5120, "none"))]
+NEMO_LOGIT_LAYERS = 3
+NEMO_FAULTS = DECODE_FAULTS + ("every query head on KV head 0",)
+# The watchdog case: one tick delayed past the deadline.
+CHAOS_LATENCY_S, CHAOS_DEADLINE_S = 1.0, 0.5
+# The slot Server's requests: each prompt fits its one prefill chunk
+# (SchedulerConfig's default, 32), so admission prefills it whole.
+SHIM_LENS, SHIM_NEW = (5, 17, 32, 9), 16
+INTERNVL_BATCH, INTERNVL_TOKENS = 2, 256
+# musicgen-large's and internvl2-2b's products that SERVE_GEMMS lacks, at
+# musicgen's decode tick (M 4: its 4 rows; q, k, v, o 2048 -> 2048, MHA 32
+# x 64) and both prefill shapes (M 1024: musicgen's 4 rows x chunk 256,
+# internvl's B 2 x 512): internvl's k and v 2048 -> 1024 (GQA 16/8 of 128),
+# the MLPs' 2048 -> 8192 (the up product and the silu gate) and 8192 ->
+# 2048.  internvl's q and o at M 1024 are SERVE_GEMMS' 2048 -> 2048.
+INPUT_MODE_GEMMS = [(4, 2048, 2048, "none"), (4, 2048, 8192, "none"),
+                    (4, 2048, 8192, "silu"), (4, 8192, 2048, "none"),
+                    (1024, 2048, 1024, "none"), (1024, 2048, 8192, "none"),
+                    (1024, 2048, 8192, "silu"), (1024, 8192, 2048, "none")]
+# The input modes' logits against the plain versions at 3 full-width
+# layers: musicgen's decode step (check_decode_logits, LOGIT_ATOL) and
+# internvl's forward over 2 x 512 positions, whose faults are the out
+# projection's skipped K tile and (GQA) every query head on KV head 0 in
+# the flash attention.
+INPUT_MODE_LOGIT_LAYERS = 3
+FORWARD_FAULTS = ("wo K tile skipped", "every query head on KV head 0")
+
+
+def check_nemo_kernels(gen, dev):
+    """The kernels at Mistral-NeMo-12B's shapes against their plain
+    versions, timed with their bounds: ``sma_gemm`` at NEMO_GEMMS, the
+    decode head ``rmsnorm_gemm`` 5120 -> 131072 at M 8 (route ``tile``;
+    ``torch.matmul`` of the pre-normalized x beside it), and paged decode
+    at GQA 32/8, head_dim 128."""
+    cfg = get_config(NEMO_ARCH)
+    dt = torch.bfloat16
+    rows = check_sma_gemm(gen, dev, NEMO_GEMMS, " (nemo)")
+    rows.append(check_head(gen, dev, 8, cfg.d_model, lm.padded_vocab(cfg),
+                           "tile", "nemo decode head"))
+
+    b, bs, nb, smax = len(KV_LENS), 16, 512, 1024
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    lens = torch.tensor(KV_LENS, dtype=torch.int32, device=dev)
+    table = paged_table(dev, nb, bs, smax)
+    q = torch.randn((b, hq, d), generator=gen, device=dev).to(dt)
+    pools = [tuple(torch.randn((nb, hkv, bs, d), generator=gen,
+                               device=dev).to(dt) for _ in range(2))
+             for _ in range(2)]
+    got = kdecode.paged_decode_attention(q, *pools[0], table, lens)
+    err = compare(got, ref.paged_decode_attention_ref(q, *pools[0], table,
+                                                      lens),
+                  "paged_decode_attention (nemo GQA)", ATTN_ATOL, ATTN_RTOL)
+    total = sum(KV_LENS)
+    args = [(q, kp, vp, table, lens) for kp, vp in pools]
+    rows.append(entry(
+        "paged_decode_attention",
+        f"B={b} Hq={hq} Hkv={hkv} D={d} BS={bs} NB={nb} "
+        f"kv_len={list(KV_LENS)} bf16 (nemo)", err,
+        time_ms(kdecode.paged_decode_attention, args),
+        time_ms(ref.paged_decode_attention_ref, args),
+        bound(2 * 2 * b * hq * d + 2 * 2 * total * hkv * d
+              + 4 * (b * smax // bs + b), 4 * total * hq * d, dt), None))
+    rows[-1]["paced_ms"] = time_ms(kdecode.paged_decode_attention, args,
+                                   paced=True)
+    return rows
+
+
+def check_head(gen, dev, m: int, k: int, n: int, want_route: str,
+               tag: str):
+    """``rmsnorm_gemm`` at one head's shape (M ``m``, ``k`` -> ``n``)
+    against its plain version, on ``want_route``, timed with its bound and
+    ``torch.matmul`` of the pre-normalized x beside it (the GEMM alone);
+    its row."""
+    dt = torch.bfloat16
+    ws = [(torch.randn((k, n), generator=gen, device=dev)
+           * k ** -0.5).to(dt) for _ in range(copies(k * n * 2))]
+    scale = torch.rand((k,), generator=gen, device=dev) + 0.5
+    x = (torch.randn((m, k), generator=gen, device=dev) * 3).to(dt)
+    before = dict(knorm.ROUTES)
+    got = knorm.rmsnorm_gemm(x, scale, ws[0])
+    route = kernel_route(knorm.ROUTES, before, f"rmsnorm_gemm ({tag})")
+    if route != want_route:
+        fail(f"rmsnorm_gemm M={m} {k}->{n} ({tag}) took the {route} route")
+    err = compare(got, ref.rmsnorm_gemm_ref(x, scale, ws[0]),
+                  f"rmsnorm_gemm M={m} {k}->{n} ({tag})")
+    args = [(x, scale, w) for w in ws]
+    iters = 20 if m <= 16 else 5
+    row = entry("rmsnorm_gemm", f"M={m} K={k} N={n} none bf16 ({tag})", err,
+                time_ms(knorm.rmsnorm_gemm, args, iters),
+                time_ms(ref.rmsnorm_gemm_ref, args, 5),
+                bound(2 * (m * k + k * n + m * n) + 4 * k, 2 * m * n * k, dt),
+                None)
+    normed = (x.float() * ref.rms_inverse(x).reshape(m)[:, None]
+              * scale.float()).to(dt)
+    row.update(kernel_route=route,
+               paced_ms=time_ms(knorm.rmsnorm_gemm, args, iters, paced=True),
+               matmul_ms=time_ms(torch.matmul, [(normed, w) for w in ws],
+                                 iters))
+    return row
+
+
+def check_input_mode_kernels(gen, dev):
+    """The kernels at musicgen-large's and internvl2-2b's shapes against
+    their plain versions, timed with their bounds: ``sma_gemm`` at
+    INPUT_MODE_GEMMS, the heads (musicgen 2048 -> 2048 at M 4 on ``tile``,
+    internvl 2048 -> 92672 at M 1024 on ``wgmma``) and internvl's flash
+    forward (:func:`check_flash_internvl`).  musicgen's paged decode (MHA
+    32 x 64) is the shape ``check_decode`` holds."""
+    mg, iv = get_config(MUSICGEN_ARCH), get_config(INTERNVL_ARCH)
+    rows = check_sma_gemm(gen, dev, INPUT_MODE_GEMMS, " (musicgen, internvl)")
+    rows.append(check_head(gen, dev, 4, mg.d_model, lm.padded_vocab(mg),
+                           "tile", "musicgen head"))
+    rows.append(check_head(gen, dev, INTERNVL_BATCH * (
+        iv.num_vision_tokens + INTERNVL_TOKENS), iv.d_model,
+        lm.padded_vocab(iv), "wgmma", "internvl head"))
+    rows.append(check_flash_internvl(gen, dev, iv))
+    return rows
+
+
+def check_flash_internvl(gen, dev, cfg):
+    """The flash forward at internvl2-2b's prefill shape (B 2, GQA 16/8, S
+    512 = 256 vision + 256 tokens, head_dim 128, causal) against its plain
+    version, on the ``wgmma`` route, with the flash checks' limits; timed
+    beside ``scaled_dot_product_attention`` on the same inputs."""
+    dt = torch.bfloat16
+    b, hq, hkv = INTERNVL_BATCH, cfg.num_heads, cfg.num_kv_heads
+    s, d = cfg.num_vision_tokens + INTERNVL_TOKENS, cfg.resolved_head_dim
+    sets = [flash_inputs(gen, dev, hq, hkv, seq=s, b=b, d=d)[:3]
+            for _ in range(copies(2 * b * (hq + 2 * hkv) * s * d))]
+    before = dict(kflash.FWD_ROUTES)
+    out, lse = kflash.flash_attention_fwd(*sets[0])
+    route = kernel_route(kflash.FWD_ROUTES, before, "flash (internvl)")
+    if route != "wgmma":
+        fail(f"flash (internvl) took the {route} route")
+    want, want_lse = ref.flash_attention_ref(*sets[0])
+    mult = row_multiples(out, want)
+    err = (out.float() - want.float()).abs().max().item()
+    lse_err = (lse - want_lse).abs().max().item()
+    print(f"flash internvl B {b} GQA {hq}/{hkv} S {s} D {d}: out max |err| "
+          f"{err:.4g} (max limit multiple {mult.max().item():.3g} of "
+          f"{FLASH_ATOL} + {FLASH_RTOL}|plain|), lse {lse_err:.3g}")
+    if not torch.isfinite(out.float()).all() or mult.max() > 1:
+        fail("flash forward (internvl): kernel disagrees with its plain "
+             "version")
+    if lse_err > 1e-2:
+        fail(f"flash forward (internvl): lse off by {lse_err:.3g}")
+    pairs = visible_pairs(s, s, None, dev) * b * hq
+    nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d) + 4 * b * hq * s
+
+    def sdpa(q_, k_, v_):
+        return F.scaled_dot_product_attention(q_, k_, v_, is_causal=True,
+                                              enable_gqa=True)
+
+    row = entry("flash_attention",
+                f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal bf16 (internvl)",
+                err, time_ms(lambda *a: kflash.flash_attention_fwd(*a), sets),
+                time_ms(ref.flash_attention_ref, sets, 3),
+                bound(nbytes, 4 * d * pairs, dt), time_ms(sdpa, sets))
+    row["kernel_route"] = route
+    return row
+
+
+def check_forward_logits(cfg, params, dev):
+    """internvl2-2b's ``lm.forward`` (256 vision embeddings ahead of 256
+    tokens, B 2) through the kernels against the plain versions, with
+    planted faults (:func:`hold_logits`)."""
+    batch = internvl_batch(cfg, dev)
+    s = cfg.num_vision_tokens + INTERNVL_TOKENS
+
+    def step():
+        return lm.forward(params, cfg, batch)[..., :cfg.vocab_size].float()
+
+    hold_logits(cfg, "forward logits", step,
+                (INTERNVL_BATCH, s, cfg.vocab_size), FORWARD_FAULTS)
+
+
+def internvl_batch(cfg, dev) -> dict:
+    """B 2 of 256 random vision embeddings and 256 tokens (seed 3)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    return {"tokens": torch.randint(0, cfg.vocab_size,
+                                    (INTERNVL_BATCH, INTERNVL_TOKENS),
+                                    generator=gen, device=dev),
+            "vision_embeds": torch.randn(
+                (INTERNVL_BATCH, cfg.num_vision_tokens, cfg.d_model),
+                generator=gen, device=dev).to(cfg.activation_dtype)}
+
+
+def init_full_width(cfg, dev):
+    """``lm.init`` of ``cfg`` (random weights from seed 0) on the card, with
+    its shape, time and the memory it took printed."""
+    t0 = time.perf_counter()
+    params = lm.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"init: {cfg.name} full width ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, vocab {lm.padded_vocab(cfg)}, "
+          f"{cfg.param_count() / 1e9:.3f} B parameters, input "
+          f"{cfg.input_mode}) in {time.perf_counter() - t0:.3f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    return params
+
+
+def chaos_pass(eng, reqs, on_tick=None) -> dict:
+    """Submit ``reqs`` at once and step the engine until they drain, with
+    ``on_tick(ticks)`` after each step; each request's tokens."""
+    for r in reqs:
+        eng.submit(r)
+    ticks = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        while eng.queue or eng.active:
+            eng.step()
+            ticks += 1
+            if on_tick is not None:
+                on_tick(ticks)
+            if ticks > 2000:
+                fail("chaos pass: the engine did not drain")
+    torch.cuda.synchronize()
+    return {r.rid: list(r.out_tokens or []) for r in reqs}
+
+
+def serve_chaos(cfg, params, dev, eng):
+    """The chaos cases on the compiled Nemo engine (greedy, the serve run's
+    8 requests), each against the unfaulted pass's tokens:
+    (a) ``serve.tick:runtime_error:times=1``: one tick failure, every
+        request done, the same tokens;
+    (b) one request's pool blocks set to NaN after its first decode tick:
+        evicted with ``retries == max_retries + 1``, the others' tokens
+        unchanged, the pools scrubbed;
+    (c) ``sma_gemm@cuda:runtime_error:times=1,after=N``, N inside the
+        second decode tick after layer 0 wrote the pools in place: one
+        tick failure, the whole tick retried, the same tokens;
+    (d) ``serve.tick:latency`` past ``RetryPolicy.deadline_s``: the
+        watchdog counts it;
+    (e) ``check_numerics="raise"`` with ``sma_gemm@cuda:nan:times=1``: the
+        tick raises ``FloatingPointError`` (not a runtime-class failure);
+    (f) ``engine.compile:compile_error:times=1`` on a fresh signature (the
+        decode step at 2 rows): the compile raises ``InjectedFault`` and
+        caches nothing, the next call compiles and equals the direct step.
+    Prints the report's ``resilience`` section."""
+    RetryPolicy = guard.RetryPolicy
+    guard.reset()
+    eng.reset()
+    seen = []
+    with faults.inject_faults("sma_gemm:runtime_error:times=0") as (count,):
+        want = chaos_pass(eng, serve_requests(cfg)[1],
+                          on_tick=lambda t: seen.append(count._seen))
+    decode_ticks = [i for i, (p, _, _) in enumerate(eng.tick_log)
+                    if p == "decode"]
+    print(f"serve chaos: unfaulted pass {len(eng.tick_log)} ticks, "
+          f"{count._seen} sma_gemm entry calls, tokens "
+          f"{[len(t) for t in want.values()]}")
+
+    def run(case, spec, retry=RetryPolicy(), on_tick=None):
+        eng.reset()
+        eng.retry = retry
+        reqs = serve_requests(cfg)[1]
+        before = counters()
+        with faults.inject_faults(spec) as specs:
+            got = chaos_pass(eng, reqs, on_tick and (
+                lambda t: on_tick(t, reqs)))
+        moved = moved_since(before)
+        fired = sum(s._fired for s in specs)
+        same = [r.rid for r in reqs if got[r.rid] == want[r.rid]]
+        print(f"serve chaos ({case}) {spec}: fired {fired}; "
+              f"{json.dumps(moved)}; statuses "
+              f"{[r.status for r in reqs]}; tokens equal the unfaulted "
+              f"pass's for requests {same}")
+        return reqs, got, moved, fired
+
+    reqs, got, moved, fired = run("a", "serve.tick:runtime_error:times=1")
+    if fired != 1 or moved["serve.tick_failures"] != 1 \
+            or any(r.status != "done" for r in reqs) or got != want:
+        fail("serve chaos (a): a serve.tick fault was not retried into the "
+             "unfaulted tokens")
+
+    victim, hit = 3, []
+
+    def poison(tick, reqs):
+        r = reqs[victim]
+        if not hit and r.status == "active" and len(r.out_tokens) == 2:
+            hit.append(tick)
+            blocks = eng.kv.blocks_of(r.slot)
+            for e in eng.state:
+                for pool in e.values():
+                    pool[:, blocks] = float("nan")
+
+    reqs, got, moved, _ = run("b", "", RetryPolicy(max_retries=1), poison)
+    v = reqs[victim]
+    print(f"serve chaos (b): request {victim} poisoned after tick {hit}: "
+          f"{v.status}, retries {v.retries}, error {v.error!r}")
+    if not hit or v.status != "failed" or v.retries != 2 \
+            or moved["serve.evictions"] != 1:
+        fail("serve chaos (b): the poisoned request was not evicted after "
+             "its retries")
+    if any(r.status != "done" or got[r.rid] != want[r.rid]
+           for r in reqs if r is not v):
+        fail("serve chaos (b): a neighbour of the poisoned request changed")
+    if any(torch.isnan(p).any().item() for e in eng.state
+           for p in e.values()):
+        fail("serve chaos (b): NaN left in the pools after the eviction")
+
+    after = seen[decode_ticks[1] - 1] + 7 + 3
+    reqs, got, moved, fired = run(
+        "c", f"sma_gemm@cuda:runtime_error:times=1,after={after}")
+    if fired != 1 or moved["serve.tick_failures"] != 1 \
+            or any(r.status != "done" for r in reqs) or got != want:
+        fail("serve chaos (c): a kernel fault mid-tick was not retried "
+             "into the unfaulted tokens")
+
+    reqs, got, moved, fired = run(
+        "d", f"serve.tick:latency:times=1,latency_s={CHAOS_LATENCY_S}",
+        RetryPolicy(deadline_s=CHAOS_DEADLINE_S))
+    if fired != 1 or moved["serve.watchdog_exceeded"] < 1 or got != want:
+        fail("serve chaos (d): the watchdog did not count a late tick")
+
+    eng.reset()
+    eng.retry = RetryPolicy()
+    for r in serve_requests(cfg)[1]:
+        eng.submit(r)
+    raised = None
+    with repro_torch.options(check_numerics="raise"), \
+            faults.inject_faults("sma_gemm@cuda:nan:times=1") as (spec,):
+        try:
+            eng.step()
+        except FloatingPointError as exc:
+            raised = exc
+    print(f"serve chaos (e) check_numerics='raise', sma_gemm@cuda:nan: "
+          f"fired {spec._fired}, raised {type(raised).__name__}: {raised}")
+    if raised is None or spec._fired != 1:
+        fail("serve chaos (e): a NaN under check_numerics='raise' did not "
+             "raise FloatingPointError")
+
+    eng.reset()
+    dec = eng.engines["decode"]
+    mb = SERVE_CACHE.max_blocks_per_req
+    table = torch.arange(2 * mb, dtype=torch.int32,
+                         device=dev).reshape(2, mb) % SERVE_CACHE.num_blocks
+    cl = torch.tensor([5, 9], dtype=torch.int32, device=dev)
+    toks = torch.tensor([[11], [12]], dtype=torch.int32, device=dev)
+    misses, raised = dec.stats.misses, None
+    with faults.inject_faults("engine.compile:compile_error:times=1"):
+        try:
+            dec(params, eng.state, table, cl, {"tokens": toks})
+        except faults.InjectedFault as exc:
+            raised = exc
+    if raised is None or dec.stats.misses != misses:
+        fail("serve chaos (f): an engine.compile fault did not raise, or "
+             "it cached a signature")
+    got = dec(params, eng.state, table, cl, {"tokens": toks})[0]
+    want_logits = smodel.paged_decode_step(params, eng.state, table, cl, cfg,
+                                           {"tokens": toks})[0]
+    print(f"serve chaos (f) engine.compile:compile_error on the 2-row "
+          f"decode signature: raised {type(raised).__name__}; the next call "
+          f"compiled (misses {misses} -> {dec.stats.misses}), logits "
+          f"torch.equal the direct step: {torch.equal(got, want_logits)}")
+    if dec.stats.misses != misses + 1 or not torch.equal(got, want_logits):
+        fail("serve chaos (f): the call after the compile fault did not "
+             "compile, or disagrees with the direct step")
+    section = guard.resilience_section(max_events=6)
+    print(f"serve chaos: resilience section "
+          f"{json.dumps(section, default=str)}")
+    eng.reset()
+    eng.retry = RetryPolicy()
+
+
+def server_shim(cfg, params, dev):
+    """``repro_torch.launch.serve.Server`` (the deprecated slot facade) on
+    the full-width params: 4 slots, ``cache_size`` 1024, 4 requests whose
+    prompts fit one prefill chunk.  Its greedy tokens must ``torch.equal``
+    a hand-driven direct loop: each whole prompt through
+    ``paged_prefill_step`` (one row, the engine's chunk width), then
+    ``paged_decode_step`` over the 4 rows re-feeding each prompt's last
+    token at position len(prompt), then their own tokens."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", DeprecationWarning)
+        server = launch_serve.Server(cfg, params, slots=4, cache_size=1024,
+                                     device=dev)
+    if sum(issubclass(w.category, DeprecationWarning) for w in caught) != 1:
+        fail("server shim: the construction did not warn exactly once")
+    chunk = server.core.sched.config.prefill_chunk
+    if max(SHIM_LENS) > chunk:
+        fail(f"server shim: a prompt exceeds the prefill chunk {chunk}")
+    rng = np.random.default_rng(5)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=n)
+                    .astype(np.int32), max_new_tokens=SHIM_NEW)
+            for i, n in enumerate(SHIM_LENS)]
+    before = counters()
+    t0 = time.perf_counter()
+    for r in reqs:
+        if not server.admit(r) or r.status != "active":
+            fail(f"server shim: request {r.rid} not admitted ({r.error})")
+    ticks = 0
+    while server.active:
+        server.tick()
+        ticks += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    clean_serving("server shim", before, reqs)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.int32), device=dev)
+
+    kv = PagedKVCache(server.core.cache, len(reqs))
+    state = smodel.init_state(cfg, server.core.cache, device=dev)
+    for i, r in enumerate(reqs):
+        kv.admit(i, len(r.prompt), r.max_new_tokens)
+        toks = np.zeros((1, chunk), np.int32)
+        toks[0, :len(r.prompt)] = r.prompt
+        smodel.paged_prefill_step(params, state, t(kv.table_rows([i])),
+                                  t([0]), t([len(r.prompt)]), cfg,
+                                  {"tokens": t(toks)})
+    table = t(kv.table_rows(list(range(len(reqs)))))
+    cl = t([len(r.prompt) for r in reqs])
+    nxt = t([[r.prompt[-1]] for r in reqs])
+    out = []
+    for _ in range(SHIM_NEW):
+        logits, _, cl = smodel.paged_decode_step(params, state, table,
+                                                 cl.to(torch.int32), cfg,
+                                                 {"tokens": nxt})
+        nxt = logits.argmax(-1, keepdim=True).to(torch.int32)
+        out.append(nxt[:, 0])
+    want = torch.stack(out, 1).cpu()
+    got = torch.tensor([r.out_tokens for r in reqs], dtype=torch.int32)
+    print(f"server shim: {len(reqs)} requests (prompts {list(SHIM_LENS)}), "
+          f"{SHIM_NEW} tokens each in {ticks} ticks, {wall:.3f} s; tokens "
+          f"torch.equal the direct re-feed loop: {torch.equal(got, want)}")
+    if not torch.equal(got, want):
+        fail("server shim: tokens differ from the direct re-feed loop")
+
+
+def serve_main():
+    """``python -m repro_torch.launch.serve --arch mistral-nemo-12b`` in
+    this process: full-width random weights, 4 requests on 4 slots."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        launch_serve.main(["--arch", NEMO_ARCH, "--requests", "4",
+                           "--slots", "4", "--max-new", "8"])
+    for line in buf.getvalue().splitlines():
+        print(f"launch.serve main: {line}")
+    if "4 done / 0 failed of 4 requests" not in buf.getvalue():
+        fail("launch.serve main did not serve its 4 requests")
+
+
+def serve_musicgen(dev):
+    """musicgen-large at full width on ``embeds`` (no embedding table; the
+    engine feeds ``token_embeds``, a one-hot of each id) through the
+    compiled engine: 4 requests, then the compiled ticks against the
+    direct steps.  Returns the timed pass's launches."""
+    cfg = get_config(MUSICGEN_ARCH)
+    params = init_full_width(cfg, dev)
+    if "embed" in params:
+        fail("musicgen-large: an embeds-mode model holds an embedding table")
+    counts, _, eng = serve(cfg, params, dev, path="musicgen", n_requests=4)
+    check_compiled_serving(cfg, params, dev, eng, plant=False, timing=False,
+                           rows=4)
+    return counts
+
+
+def check_internvl(dev):
+    """internvl2-2b's ``lm.forward`` at full width with 256 vision
+    embeddings ahead of 256 tokens, B 2, through ``sma_jit``: the compiled
+    forward launches what the direct one launches (7 ``sma_gemm`` a layer,
+    the head, one flash a layer at head_dim 128, GQA 16/8) on the same
+    routes, and its logits equal the direct forward's bit for bit.
+    Returns the compiled forward's launches."""
+    cfg = get_config(INTERNVL_ARCH)
+    params = init_full_width(cfg, dev)
+    batch = internvl_batch(cfg, dev)
+    eng = repro_torch.sma_jit(functools.partial(lm.forward, cfg=cfg),
+                              name=f"{cfg.name}.forward")
+    want, *direct = counted_run(lambda: lm.forward(params, cfg, batch))
+    t0 = time.perf_counter()
+    eng(params, batch=batch)
+    compile_s = time.perf_counter() - t0
+    got, *compiled = counted_run(lambda: eng(params, batch=batch))
+    s = cfg.num_vision_tokens + INTERNVL_TOKENS
+    print(f"internvl2-2b lm.forward through sma_jit (B {INTERNVL_BATCH}, "
+          f"{cfg.num_vision_tokens} vision + {INTERNVL_TOKENS} tokens): "
+          f"first call {compile_s:.3f} s; launches, routes, routed "
+          f"{json.dumps(compiled)}; logits {tuple(got.shape)} torch.equal "
+          f"the direct forward: {torch.equal(got, want)}")
+    if got.shape != (INTERNVL_BATCH, s, lm.padded_vocab(cfg)) \
+            or not torch.isfinite(got[..., :cfg.vocab_size].float()).all():
+        fail("internvl2-2b: compiled logits of the wrong shape or "
+             "non-finite")
+    if compiled != direct or direct[0] != jit_launches(cfg) or direct[2]:
+        fail(f"internvl2-2b: compiled launches {compiled}, direct {direct}, "
+             f"expected {jit_launches(cfg)} with nothing routed")
+    if not torch.equal(got, want):
+        fail("internvl2-2b: compiled logits differ from the direct forward")
+    return compiled[0]
+
+
+def host_time_vs_parent(parent: Path) -> None:
+    """``host_times.py`` for ``parent`` (another checkout) and this one, A
+    B B A, each reading in its own process: the compiled StableLM decode
+    tick's host time of both trees on one card.  Prints both medians."""
+    readings = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        root = parent if who == "parent" else ROOT
+        out = subprocess.run(
+            [sys.executable, str(ROOT / "host_times.py"), "--root",
+             str(root)], check=True, capture_output=True, text=True,
+            timeout=900).stdout
+        res = json.loads(out.strip().splitlines()[-1])
+        readings[who] += res["host_ms"]
+        print(f"host time ({who}, {root}): {json.dumps(res)}")
+    med = {k: float(np.median(v)) for k, v in readings.items()}
+    spread = {k: max(v) - min(v) for k, v in readings.items()}
+    print(f"compiled decode tick host time, A B B A against {parent}: "
+          f"parent median {med['parent']:.3f} ms (spread "
+          f"{spread['parent']:.3f}), this tree {med['this']:.3f} ms "
+          f"(spread {spread['this']:.3f}); change "
+          f"{med['this'] - med['parent']:+.3f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -3237,7 +3897,14 @@ def profile_xlstm(cfg, params, dev):
     profile_serving(cfg, params, dev, XL_BATCH, XL_PROMPT)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", default=None, metavar="DIR",
+                    help="another checkout (e.g. the parent commit unpacked "
+                         "into build/parent): time the compiled StableLM "
+                         "decode tick's host time of both, A B B A, first")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
@@ -3259,6 +3926,13 @@ def main() -> int:
             print(f"ptxas {name} {fn}: {report}")
 
     phases = {"build": time.perf_counter() - t0}
+    if args.parent:
+        t = time.perf_counter()
+        host_time_vs_parent(Path(args.parent).resolve())
+        phases["host time vs parent"] = time.perf_counter() - t
+    else:
+        print("host time against the parent tree: not measured (run with "
+              "--parent DIR)")
 
     def phase(name, fn, *args):
         t = time.perf_counter()
@@ -3274,6 +3948,10 @@ def main() -> int:
                  + check_sma_gemm(gen, dev, TRAIN_GEMMS, " (train)")
                  + check_rmsnorm_gemm(gen, dev) + check_decode(gen, dev)
                  + check_flash(gen, dev))
+    torch.cuda.empty_cache()
+    rows += phase("mistral-nemo kernel checks", check_nemo_kernels, gen, dev)
+    rows += phase("input mode kernel checks", check_input_mode_kernels, gen,
+                  dev)
     phase("sma_gemm controls", gemm_controls, gen, dev)
     torch.cuda.empty_cache()
     rows += phase("recurrent kernel checks",
@@ -3304,13 +3982,7 @@ def main() -> int:
     # The serving path, without autograd.
     cfg = get_config(ARCH)
     with torch.inference_mode():
-        t0 = time.perf_counter()
-        params = lm.init(cfg, seed=0, device=dev)
-        torch.cuda.synchronize()
-        print(f"init: {ARCH} full width ({cfg.num_layers} layers, d_model "
-              f"{cfg.d_model}, vocab {lm.padded_vocab(cfg)}) in "
-              f"{time.perf_counter() - t0:.3f} s, "
-              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        params = init_full_width(cfg, dev)
         serve_counts, serve_routes, eng = phase("serve", serve, cfg, params,
                                                 dev)
         phase("compiled serving", check_compiled_serving, cfg, params, dev,
@@ -3320,6 +3992,59 @@ def main() -> int:
         phase("decode profile", profile_decode, cfg, params, dev)
         phase("entry overhead", entry_overhead, cfg, params, dev)
     del params
+    torch.cuda.empty_cache()
+
+    # Mistral-NeMo-12B: the dense configs' full-width serving path, under
+    # chaos, through the slot Server, and its logits against the plain
+    # versions; then launch/serve.py's main(); then the input modes.
+    nemo_cfg = get_config(NEMO_ARCH)
+    with torch.inference_mode():
+        params = init_full_width(nemo_cfg, dev)
+        nemo_counts, nemo_routes, eng = phase(
+            "serve mistral-nemo", serve, nemo_cfg, params, dev, "nemo")
+        phase("compiled serving mistral-nemo", check_compiled_serving,
+              nemo_cfg, params, dev, eng)
+        phase("serve chaos", serve_chaos, nemo_cfg, params, dev, eng)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase("server shim", server_shim, nemo_cfg, params, dev)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg3 = dataclasses.replace(nemo_cfg, num_groups=NEMO_LOGIT_LAYERS)
+        params = lm.init(cfg3, seed=0, device=dev)
+        phase("mistral-nemo decode logits", check_decode_logits, cfg3, params,
+              dev, NEMO_FAULTS)
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("launch.serve main", serve_main)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        musicgen_counts = phase("input modes: musicgen", serve_musicgen, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg3 = dataclasses.replace(get_config(MUSICGEN_ARCH),
+                                   num_groups=INPUT_MODE_LOGIT_LAYERS)
+        params = lm.init(cfg3, seed=0, device=dev)
+        phase("musicgen decode logits", check_decode_logits, cfg3, params,
+              dev)
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        internvl_counts = phase("input modes: internvl", check_internvl, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg3 = dataclasses.replace(get_config(INTERNVL_ARCH),
+                                   num_groups=INPUT_MODE_LOGIT_LAYERS)
+        params = lm.init(cfg3, seed=0, device=dev)
+        phase("internvl forward logits", check_forward_logits, cfg3, params,
+              dev)
+        del params
+    gc.collect()
     torch.cuda.empty_cache()
 
     # The training path.
@@ -3347,14 +4072,7 @@ def main() -> int:
     # The recurrent path, without autograd.
     rg_cfg = get_config(RG_ARCH)
     with torch.inference_mode():
-        t0 = time.perf_counter()
-        params = lm.init(rg_cfg, seed=0, device=dev)
-        torch.cuda.synchronize()
-        print(f"init: {RG_ARCH} full width ({rg_cfg.num_layers} layers, "
-              f"d_model {rg_cfg.d_model}, vocab "
-              f"{lm.padded_vocab(rg_cfg)}) in {time.perf_counter() - t0:.3f}"
-              f" s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the "
-              f"card")
+        params = init_full_width(rg_cfg, dev)
         rg_counts, rg_routes = phase(
             "serve recurrentgemma", serve_recurrent, rg_cfg, params, dev,
             rg_launches, RG_BATCH, RG_PROMPT, RG_NEW)
@@ -3367,14 +4085,7 @@ def main() -> int:
     # The xLSTM path, without autograd.
     xl_cfg = get_config(XL_ARCH)
     with torch.inference_mode():
-        t0 = time.perf_counter()
-        params = lm.init(xl_cfg, seed=0, device=dev)
-        torch.cuda.synchronize()
-        print(f"init: {XL_ARCH} full width ({xl_cfg.num_layers} layers, "
-              f"d_model {xl_cfg.d_model}, vocab "
-              f"{lm.padded_vocab(xl_cfg)}) in {time.perf_counter() - t0:.3f}"
-              f" s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the "
-              f"card")
+        params = init_full_width(xl_cfg, dev)
         xl_counts, xl_routes = phase("serve xlstm", serve_recurrent, xl_cfg,
                                      params, dev, xl_launches, XL_BATCH,
                                      XL_PROMPT, XL_NEW)
@@ -3389,6 +4100,9 @@ def main() -> int:
         by_path = {"serve": serve_counts[row["name"]],
                    "train": train_counts[row["name"]],
                    "jit": jit_counts.get(row["name"], 0),
+                   "nemo": nemo_counts[row["name"]],
+                   "musicgen": musicgen_counts[row["name"]],
+                   "internvl": internvl_counts.get(row["name"], 0),
                    "recurrentgemma": rg_counts.get(row["name"], 0),
                    "xlstm": xl_counts.get(row["name"], 0)}
         row["launches"] = sum(by_path.values())
@@ -3396,7 +4110,7 @@ def main() -> int:
         if row["launches"] == 0:
             fail(f"kernel {row['name']} was not launched on a main path")
     print(f"sma_gemm routes by path: " + json.dumps(
-        {"serve": serve_routes, "train": train_routes,
+        {"serve": serve_routes, "train": train_routes, "nemo": nemo_routes,
          "recurrentgemma": rg_routes, "xlstm": xl_routes}))
     print(f"flash routes by path: {json.dumps(FLASH_ROUTES_BY_PATH)}")
     print(f"rmsnorm_gemm, mlstm_chunkwise and rglru_scan routes by path: "

@@ -21,11 +21,17 @@ for everything inside (engine calls and compiles, dispatch sites, kernel
 launches, serving ticks) and optionally writes a Perfetto-loadable Chrome
 trace (:mod:`repro_torch.obs`).  Off by default; never part of any
 compile-cache key.
+
+Resilience: ``with repro_torch.inject_faults("sma_gemm@cuda:"
+"runtime_error:times=1"): ...`` scopes a deterministic fault schedule at
+the kernel entries, the engine's compile and the serving engine's sites;
+the rest lives under :mod:`repro_torch.resilience`.
 """
 from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch.api import SMAOptions, options, sma_jit
 from repro_torch.obs import profile
+from repro_torch.resilience import FaultSpec, inject_faults
 
-__all__ = ["SMAOptions", "obs", "options", "profile", "resolve_device",
-           "sma_jit"]
+__all__ = ["FaultSpec", "SMAOptions", "inject_faults", "obs", "options",
+           "profile", "resolve_device", "sma_jit"]

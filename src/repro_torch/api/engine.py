@@ -55,6 +55,16 @@ histogram; under a :func:`repro_torch.profile` a call runs in an
 ``engine.compile`` span, and a plan report read after a profile carries
 its ``runtime`` section (the measured mode timeline of the most recent
 profile window).
+
+Resilience (:mod:`repro_torch.resilience`), as in the reference: a
+compile runs inside :func:`~repro_torch.resilience.faults.compile_scope`
+behind the ``engine.compile`` fault probe (a failed compile caches
+nothing, so the next call compiles again); with ``check_numerics`` on,
+the call runs under that option, so its kernel entries check their
+outputs, and its outputs are checked at the engine boundary
+(``engine.{name}``).  There is no recompute on a plain path: a non-finite
+output raises under ``"raise"`` and is warned about under ``"log"``.  A
+report read carries the ``resilience`` section.
 """
 from __future__ import annotations
 
@@ -67,10 +77,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.utils._pytree as pytree
 
-from repro_torch.api.options import SMAOptions, resolve_options
+from repro_torch.api.options import SMAOptions, options, resolve_options
 from repro_torch.compiler.trace import TensorSpec
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import trace as _obs_trace
+from repro_torch.resilience import faults as _faults
+from repro_torch.resilience import guard as _res_guard
 
 __all__ = ["Engine", "EngineStats", "abstract_signature", "sma_jit"]
 
@@ -163,8 +175,9 @@ class Engine:
                  opts.cache_key()), static, dynamic)
 
     def _lookup(self, args, kwargs
-                ) -> Tuple[_CacheEntry, Dict[str, Any], bool]:
-        """``(entry, dynamic kwargs, hit)``, compiling on a miss."""
+                ) -> Tuple[_CacheEntry, Dict[str, Any], bool, SMAOptions]:
+        """``(entry, dynamic kwargs, hit, options)``, compiling on a
+        miss."""
         opts = resolve_options(self.options)
         key, static, dynamic = self._key(args, kwargs, opts)
         entry = self._cache.get(key)
@@ -173,13 +186,17 @@ class Engine:
             self.stats.hits += 1
             entry.hits += 1
             _metrics.inc("engine.cache_hits")
-            return entry, dynamic, True
+            return entry, dynamic, True, opts
 
         from repro_torch.compiler.dispatch import compile_with_options
         fn = functools.partial(self.fn, **static) if static else self.fn
         t0 = time.perf_counter()
         with _obs_trace.span("engine.compile", cat="engine",
-                             engine=self.name):
+                             engine=self.name), _faults.compile_scope():
+            # A signature whose kernels fail to build: ``engine.compile``
+            # specs (compile_error through the scope, or runtime_error /
+            # latency).
+            _faults.maybe_raise("engine.compile", self.name)
             compiled = compile_with_options(fn, *args, name=self.name,
                                             options=opts, **dynamic)
         dt = time.perf_counter() - t0
@@ -196,7 +213,7 @@ class Engine:
             self._cache.popitem(last=False)
             self.stats.evictions += 1
             _metrics.inc("engine.cache_evictions")
-        return entry, dynamic, False
+        return entry, dynamic, False, opts
 
     def _refresh_report(self, entry: _CacheEntry,
                         rep: Dict[str, Any]) -> None:
@@ -213,17 +230,28 @@ class Engine:
         tracer = _obs_trace.last_tracer()
         if tracer is not None and tracer.events:
             rep["runtime"] = tracer.runtime_section()
+        rep["resilience"] = _res_guard.resilience_section()
+
+    def _run(self, args, kwargs) -> Tuple[Any, bool]:
+        """Lookup, run, and the engine-boundary numeric guard."""
+        entry, dynamic, hit, opts = self._lookup(args, kwargs)
+        policy = opts.check_numerics
+        if policy in (None, "off"):
+            return entry.compiled(*args, **dynamic), hit
+        with options(check_numerics=policy):
+            out = entry.compiled(*args, **dynamic)
+        return _res_guard.check_numerics_value(
+            f"engine.{self.name}", "engine", out, None, policy), hit
 
     def __call__(self, *args, **kwargs):
         tracer = _obs_trace.current_tracer()
         if tracer is None:
-            entry, dynamic, _ = self._lookup(args, kwargs)
-            return entry.compiled(*args, **dynamic)
+            return self._run(args, kwargs)[0]
         with tracer.span("engine.call", cat="engine",
                          engine=self.name) as sp:
-            entry, dynamic, hit = self._lookup(args, kwargs)
+            out, hit = self._run(args, kwargs)
             sp.annotate(cache="hit" if hit else "miss")
-            return sp.block(entry.compiled(*args, **dynamic))
+            return sp.block(out)
 
     def compile(self, *args, **kwargs):
         """Compile (or fetch) the executable for this signature without

@@ -14,12 +14,20 @@ engine bakes into each cached executable and into its cache key.
 
 The port keeps only the fields that mean something in it today.  The
 reference's ``backend``, ``interpret``, ``autotune``, ``block_*``,
-``precision``, ``jit``, ``donate_argnums``, ``check_numerics``, ``verify``,
-``mesh``, ``mesh_rules`` and ``max_scan_unroll`` wait for the modules that
-give them a meaning (ROADMAP.md §1): routing is static and by device, and
-a traced graph has no scans to unroll.
+``precision``, ``jit``, ``donate_argnums``, ``verify``, ``mesh``,
+``mesh_rules`` and ``max_scan_unroll`` wait for the modules that give them
+a meaning (ROADMAP.md §1): routing is static and by device, and a traced
+graph has no scans to unroll.  ``check_numerics`` takes ``"off"``,
+``"log"`` and ``"raise"``; the reference's ``"fallback"`` (recompute on
+the plain path) is refused, since routing in the port never falls back.
 
-This module imports nothing of the port, so every layer can import it.
+An :func:`options` context that turns ``check_numerics`` on holds
+:func:`repro_torch.resilience.faults.probing` open, so a kernel entry
+reads the one flag ``faults.QUIET`` to know whether it must probe or
+check its output.
+
+This module imports nothing of the port but that module, so every layer
+can import it.
 """
 from __future__ import annotations
 
@@ -27,6 +35,8 @@ import contextlib
 import contextvars
 import dataclasses
 from typing import Any, Iterator, Optional, Tuple
+
+from repro_torch.resilience import faults as _faults
 
 __all__ = ["SMAOptions", "options", "current_options", "resolve_options",
            "DEFAULTS"]
@@ -47,16 +57,34 @@ class SMAOptions:
     engine
       * ``max_cache_entries`` -- beyond this many cached executables the
         least recently used is evicted; ``0`` means unbounded.
+
+    resilience
+      * ``check_numerics`` -- ``"off"`` | ``"log"`` | ``"raise"``: check
+        each kernel entry's output and each engine call's outputs for
+        NaN/Inf (:func:`repro_torch.resilience.guard.check_numerics_value`).
     """
 
     fuse_runtime: Optional[bool] = None
     fuse_epilogues: Optional[bool] = None
     max_epilogue_ops: Optional[int] = None
     max_cache_entries: Optional[int] = None
+    check_numerics: Optional[str] = None
     policy: Any = None
 
     _FIELDS = ("fuse_runtime", "fuse_epilogues", "max_epilogue_ops",
-               "max_cache_entries", "policy")
+               "max_cache_entries", "check_numerics", "policy")
+
+    def __post_init__(self) -> None:
+        if self.check_numerics == "fallback":
+            raise ValueError(
+                "check_numerics='fallback' recomputes a non-finite output on "
+                "the plain path, a runtime fallback that would hide the "
+                "kernel; the port routes statically and never falls back "
+                "(use 'off' | 'log' | 'raise')")
+        if self.check_numerics not in (None, "off", "log", "raise"):
+            raise ValueError(
+                f"check_numerics={self.check_numerics!r} (one of "
+                f"'off' | 'log' | 'raise')")
 
     def overlay(self, other: Optional["SMAOptions"]) -> "SMAOptions":
         """``other``'s explicitly set (non-``None``) fields override ours."""
@@ -82,7 +110,8 @@ class SMAOptions:
 
 #: The resolved defaults.
 DEFAULTS = SMAOptions(fuse_runtime=True, fuse_epilogues=True,
-                      max_epilogue_ops=4, max_cache_entries=0, policy=None)
+                      max_epilogue_ops=4, max_cache_entries=0,
+                      check_numerics="off", policy=None)
 
 _STACK: contextvars.ContextVar[Tuple[SMAOptions, ...]] = \
     contextvars.ContextVar("repro_torch_sma_options_stack", default=())
@@ -116,8 +145,10 @@ def options(opts: Optional[SMAOptions] = None, /,
         raise TypeError("pass an SMAOptions object OR keyword fields, "
                         "not both")
     layer = opts if opts is not None else SMAOptions(**fields)
-    token = _STACK.set(_STACK.get() + (layer,))
-    try:
-        yield current_options()
-    finally:
-        _STACK.reset(token)
+    checks = layer.check_numerics not in (None, "off")
+    with _faults.probing() if checks else contextlib.nullcontext():
+        token = _STACK.set(_STACK.get() + (layer,))
+        try:
+            yield current_options()
+        finally:
+            _STACK.reset(token)

@@ -64,6 +64,7 @@ from repro_torch.compiler.trace import (GEMM_SITE_OPS, KERNEL_ENTRY_OPS,
 from repro_torch.core.sma import SMAPolicy
 from repro_torch.kernels import ops
 from repro_torch.obs import trace as _obs_trace
+from repro_torch.resilience import guard as _res_guard
 
 __all__ = ["CompiledModel", "TracedRun", "build_module",
            "compile_with_options", "count_dispatch_sites"]
@@ -317,6 +318,7 @@ def compile_with_options(fn: Callable, *args, name: Optional[str] = None,
         plan, rewritten if o.fuse_runtime else None)
     report["backends"] = backends_section(collect_backend_sites(
         [n.meta["site"] for n in module.graph.nodes if "site" in n.meta]))
+    report["resilience"] = _res_guard.resilience_section()
     report["compile"] = times
     return CompiledModel(traced=traced, plan=plan, report_data=report,
                          module=module, rewritten=rewritten, options=o)

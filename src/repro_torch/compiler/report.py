@@ -10,10 +10,12 @@ reconciles what the planner *promised* with what the rewrite pass
 dispatched site (:func:`repro_torch.backends.registry.select_backend`).
 The ``runtime`` section (the measured mode timeline of a
 :func:`repro_torch.profile` window) is stamped by the engine
-(:mod:`repro_torch.api.engine`) and rendered by :func:`render_text`.  The
-reference's ``comm`` section waits for the distributed slice, and its
-``diagnostics`` and ``resilience`` sections for ``analysis`` and
-``resilience`` (ROADMAP.md).
+(:mod:`repro_torch.api.engine`) and rendered by :func:`render_text`, as
+is the ``resilience`` section
+(:func:`repro_torch.resilience.guard.resilience_section`, stamped at
+compile and restamped on every report read).  The reference's ``comm``
+section waits for the distributed slice, and its ``diagnostics`` section
+for ``analysis`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -210,6 +212,17 @@ def render_text(report: Dict[str, Any]) -> str:
             f"{rt['switch_overhead_us'] / 1e3:.2f} ms switch overhead")
         lines.extend("    " + ln
                      for ln in render_mode_timeline(rt).splitlines())
+    res = report.get("resilience")
+    if res and res.get("enabled"):
+        lines.append(
+            f"  resilience             : "
+            f"{res['numeric_events']} numeric events, "
+            f"{len(res['events'])} events on record (no failover or "
+            f"quarantine in the port)")
+        if res.get("injected_faults"):
+            injected = ", ".join(f"{k}={v}" for k, v in
+                                 sorted(res["injected_faults"].items()))
+            lines.append(f"  injected faults        : {injected}")
     return "\n".join(lines)
 
 

@@ -5,7 +5,13 @@ dtype) and ``param_dtype`` (the trainer's master weights) resolve to torch
 dtypes; ``window`` is the sliding window of ``local`` blocks.
 ``mlstm_proj_factor`` and ``mlstm_chunk`` are the mLSTM block's inner
 width factor and the chunk of its chunkwise kernel (xLSTM).
-``reduced()`` derives the same tiny CPU-test variant as the JAX package.
+``input_mode`` is ``"tokens"``, ``"embeds"`` (precomputed frame
+embeddings, the audio stub) or ``"tokens+vision"`` (``num_vision_tokens``
+patch embeddings ahead of the token embeddings, the VLM stub);
+``logits_softcap`` caps the loss's logits as ``tanh(l / c) * c``.  The
+MoE field (``moe``) waits for the MoE slice.
+``reduced()`` derives the same tiny CPU-test variant as the JAX package,
+and ``param_count()`` is the reference's analytic count.
 """
 from __future__ import annotations
 
@@ -33,10 +39,13 @@ class ModelConfig:
     head_dim: Optional[int] = None
     rope_theta: float = 10000.0
     window: Optional[int] = None
+    input_mode: str = "tokens"
+    num_vision_tokens: int = 0
     mlstm_proj_factor: float = 2.0
     mlstm_chunk: int = 128
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    logits_softcap: Optional[float] = None
     source: str = ""
 
     @property
@@ -54,6 +63,34 @@ class ModelConfig:
     @property
     def parameter_dtype(self) -> torch.dtype:
         return _DTYPES[self.param_dtype]
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head), the
+        reference's formula (which counts the embedding in every input
+        mode)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        n_q, n_kv = self.num_heads, self.num_kv_heads
+        total = self.vocab_size * d  # embedding
+        for block in self.block_pattern * self.num_groups:
+            if block in ("attn", "local"):
+                total += d * hd * (n_q + 2 * n_kv) + n_q * hd * d  # qkvo
+                total += 3 * d * self.d_ff  # gated MLP
+                total += 2 * d  # norms
+            elif block == "rglru":
+                lru = d  # recurrence width
+                total += d * 2 * lru + lru * 4 + lru * d
+                total += 3 * d * self.d_ff + 2 * d
+            elif block == "mlstm":
+                inner = int(d * self.mlstm_proj_factor)
+                total += d * 2 * inner + 3 * inner * inner // 1 + inner * d
+                total += 2 * d
+            elif block == "slstm":
+                h = self.num_heads
+                dh = d // h
+                total += 4 * d * d + 4 * h * dh * dh + d * self.d_ff * 2 \
+                    + 2 * d
+        total += d * self.vocab_size  # LM head (untied)
+        return total
 
 
 REGISTRY: Dict[str, ModelConfig] = {}
@@ -92,6 +129,7 @@ def reduced(cfg: ModelConfig, *, seq_len: int = 64) -> ModelConfig:
         d_ff=128 if cfg.d_ff else 0,
         vocab_size=256,
         window=min(cfg.window, seq_len // 2) if cfg.window else None,
+        num_vision_tokens=8 if cfg.num_vision_tokens else 0,
         mlstm_chunk=16,
         dtype="float32",
         param_dtype="float32",

@@ -38,6 +38,17 @@ Each entry point:
   route counter's key, ``kernel`` for the decode kernels, ``plain`` for a
   CPU tensor or a site routed by design, with its ``reason``).  Without a
   profile an entry costs one Python call and one ``ContextVar`` read more;
+* probes for faults (:mod:`repro_torch.resilience.faults`), with no
+  failover: ``maybe_raise(op, backend)`` before the launch and
+  ``corrupt(op, backend, out)`` after it, ``backend`` being the route name
+  ``cuda`` or ``plain``; and, under ``check_numerics`` (an
+  :func:`repro_torch.api.options.options` context, or an engine call with
+  the option), checks the output with
+  :func:`repro_torch.resilience.guard.check_numerics_value`.  While no
+  fault scope is open and no check is asked for, this costs one module
+  attribute read (``faults.QUIET``).  The compiled ``sma_jit`` modules
+  call these entries at run time (tracing swaps them only while it
+  records), so the probes fire inside a compiled step too;
 * counts kernel launches on the wrappers (:func:`launch_counts`), and the
   launches per route (the kernel that shape, dtype and alignment pick) of
   ``sma_gemm.routes`` (``wgmma``, ``splitk``, ``tile``, ``f32``),
@@ -56,7 +67,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.modes import OpKind, classify_op
+from repro_torch.api.options import current_options
+from repro_torch.core.modes import BACKEND_ROUTE, OpKind, classify_op
 from repro_torch.kernels import autograd as _autograd
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
@@ -66,6 +78,8 @@ from repro_torch.kernels import rglru as _rglru
 from repro_torch.kernels import sma_gemm as _gemm
 from repro_torch.kernels.ref import paged_attention_ref
 from repro_torch.obs import trace as _obs_trace
+from repro_torch.resilience import faults as _faults
+from repro_torch.resilience import guard as _guard
 
 __all__ = ["ROUTED", "decode_attention", "flash_attention", "launch_counts",
            "mlstm_chunkwise", "paged_decode_attention", "paged_route",
@@ -133,14 +147,25 @@ def _route_taken(x: torch.Tensor, counter: Optional[Dict[str, int]],
     return {"route": "kernel" if x.device.type == "cuda" else "plain"}
 
 
+def _backend(op: str, args: tuple, kwargs: dict) -> str:
+    """The route name a fault spec's ``@backend`` matches: ``cuda`` for a
+    CUDA tensor, ``plain`` for a CPU tensor or a paged site routed to the
+    plain version by design."""
+    if op == "paged_decode_attention" and paged_route(
+            args[0].shape[1], kwargs.get("window")) is not None:
+        return "plain"
+    return BACKEND_ROUTE.get(args[0].device.type, "plain")
+
+
 def _spanned(op: str) -> Callable[[Callable], Callable]:
-    """A ``kernel.{op}`` span around the entry while a profile is active."""
+    """The entry's wrapper: a ``kernel.{op}`` span while a profile is
+    active, and the resilience probes while a fault scope or a
+    ``check_numerics`` context is open (module docstring)."""
     mode = classify_op(_KINDS[op]).value
     counter = _ROUTE_COUNTERS.get(op)
 
     def wrap(fn: Callable) -> Callable:
-        @functools.wraps(fn)
-        def entry(*args: Any, **kwargs: Any):
+        def run(args, kwargs):
             tr = _obs_trace.current_tracer()
             if tr is None:
                 return fn(*args, **kwargs)
@@ -149,6 +174,19 @@ def _spanned(op: str) -> Callable[[Callable], Callable]:
                 out = fn(*args, **kwargs)
                 sp.annotate(**_route_taken(args[0], counter, before))
                 return sp.block(out)
+
+        def probed(args, kwargs):
+            backend = _backend(op, args, kwargs)
+            _faults.maybe_raise(op, backend)
+            out = _faults.corrupt(op, backend, run(args, kwargs))
+            return _guard.check_numerics_value(
+                op, backend, out, None, current_options().check_numerics)
+
+        @functools.wraps(fn)
+        def entry(*args: Any, **kwargs: Any):
+            if _faults.QUIET:
+                return run(args, kwargs)
+            return probed(args, kwargs)
         return entry
     return wrap
 

@@ -57,10 +57,6 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
     return {"table": table.to(dtype)}
 
 
-def embed_apply(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens.long()]
-
-
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
                theta: float = 10000.0) -> torch.Tensor:
     """x (..., S, H, hd); positions broadcastable to the S axis.  Angles

@@ -3,15 +3,23 @@ contiguous-state serving steps (counterpart of ``repro.models.lm``, block
 types ``attn``, ``local``, ``rglru``, ``mlstm`` and ``slstm``).
 
 ``init`` returns the same parameter tree as ``repro.models.lm.init``
-(without the sharding specs): ``embed``, ``blocks`` (a tuple, one dict per
-pattern position, each tensor stacked over ``num_groups`` on its leading
-axis; an xLSTM block has ``norm1`` and ``mixer`` only), ``final_norm`` and
-``head``.  :func:`forward` and :func:`loss_fn` are the train path (the
-trainer is :mod:`repro_torch.launch.train`).
+(without the sharding specs): ``embed`` (not in ``embeds`` mode),
+``blocks`` (a tuple, one dict per pattern position, each tensor stacked
+over ``num_groups`` on its leading axis; an xLSTM block has ``norm1`` and
+``mixer`` only), ``final_norm`` and ``head``.  :func:`forward` and
+:func:`loss_fn` are the train path (the trainer is
+:mod:`repro_torch.launch.train`).
 :func:`init_state`, :func:`prefill` and :func:`decode_step` serve over a
 contiguous state (KV caches and recurrent states, stacked over groups like
 the parameters); the paged serving steps of the engine are in
 :mod:`repro_torch.serving.model`.
+
+Inputs follow ``cfg.input_mode`` (:func:`embed_inputs`): ``tokens``;
+``embeds`` (the audio stub: ``batch["embeds"]`` (B, S, D) frame
+embeddings, no table); ``tokens+vision`` (the VLM stub:
+``batch["vision_embeds"]`` (B, Sv, D) ahead of the token embeddings, so
+the logits cover Sv + S positions).  :func:`decode_step` takes
+``batch["embeds"]`` (B, 1, D) in ``embeds`` mode and tokens otherwise.
 """
 from __future__ import annotations
 
@@ -84,7 +92,10 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
     dt = dtype or cfg.activation_dtype
     d, lead = cfg.d_model, (cfg.num_groups,)
     vpad = padded_vocab(cfg)
-    params = {"embed": embed_init(gen, vpad, d, dt)}
+    params = {}
+    if cfg.input_mode in ("tokens", "tokens+vision"):
+        params["embed"] = embed_init(gen, vpad, d, dt)
+
     def block(btype: str) -> dict:
         mixer = (_RECURRENT[btype].init(gen, cfg, dt, lead)
                  if btype in _RECURRENT
@@ -145,6 +156,28 @@ def _block(bparams: dict, btype: str, x: torch.Tensor,
     return _finish(bparams, btype, x + y)
 
 
+def step_inputs(params: dict, cfg: ModelConfig,
+                batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The embeddings of a batch without its vision prefix, in the
+    activation dtype: ``batch["embeds"]`` in ``embeds`` mode, the tokens'
+    rows of the table otherwise (what a decode or paged step takes)."""
+    if cfg.input_mode == "embeds":
+        return batch["embeds"].to(cfg.activation_dtype)
+    return compute_cast(params["embed"]["table"][batch["tokens"].long()],
+                        cfg.activation_dtype)
+
+
+def embed_inputs(params: dict, cfg: ModelConfig,
+                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The decoder's input (B, S, D) in the activation dtype, by
+    ``cfg.input_mode``: :func:`step_inputs`, after the vision prefix in
+    ``tokens+vision`` mode."""
+    x = step_inputs(params, cfg, batch)
+    if cfg.input_mode == "tokens+vision":
+        x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
+    return x
+
+
 def forward(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             *, remat: bool = False) -> torch.Tensor:
     """Logits (B, S, Vpad) in the activation dtype; padded-vocab columns
@@ -156,8 +189,7 @@ def forward(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     ``final_norm -> head`` is one fused ``rmsnorm_gemm`` (the JAX
     compiler's prologue-fusion rule)."""
     check_pattern(cfg)
-    dt = cfg.activation_dtype
-    x = compute_cast(params["embed"]["table"][batch["tokens"].long()], dt)
+    x = embed_inputs(params, cfg, batch)
     groups = [unstack(p, cfg.num_groups) for p in params["blocks"]]
 
     def group_body(x: torch.Tensor, g: int) -> torch.Tensor:
@@ -189,9 +221,13 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             *, remat: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy in float32; labels -1 are ignored.
-    Returns (loss, {"ce_loss", "loss", "accuracy"}), as ``repro``'s
-    ``loss_fn`` for a dense model."""
+    With ``cfg.logits_softcap`` = c the logits are first capped as
+    ``tanh(l / c) * c``.  Returns (loss, {"ce_loss", "loss", "accuracy"}),
+    as ``repro``'s ``loss_fn`` for a dense model."""
     logits32 = forward(params, cfg, batch, remat=remat).float()
+    if cfg.logits_softcap:
+        c = cfg.logits_softcap
+        logits32 = torch.tanh(logits32 / c) * c
     labels = batch["labels"].long()
     valid = labels >= 0
     safe = torch.where(valid, labels, 0)
@@ -251,14 +287,14 @@ def prefill(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             *, cache_size: int) -> Tuple[torch.Tensor, State, torch.Tensor]:
     """The whole prompt through every layer, populating the decode state.
 
-    batch ``tokens`` (B, S).  Returns (logits of the last position (B,
+    batch ``tokens`` (B, S), or the input mode's (:func:`embed_inputs`).
+    Returns (logits of the last position (B,
     Vpad), state, cache_len (B,) int32 = S).  A recurrent layer keeps the
     state its ``*_block_prefill`` returns (an ``mlstm`` layer the
     chunkwise kernel's final (C, n, m)); an attention layer its cache from
     :func:`repro_torch.models.attention.attn_prefill`."""
     check_pattern(cfg)
-    dt = cfg.activation_dtype
-    x = compute_cast(params["embed"]["table"][batch["tokens"].long()], dt)
+    x = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     groups = [unstack(p, cfg.num_groups) for p in params["blocks"]]
     per_group = []
@@ -285,13 +321,13 @@ def prefill(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 def decode_step(params: dict, state: State, cache_len: torch.Tensor,
                 cfg: ModelConfig, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, State, torch.Tensor]:
-    """One token for every row.  batch ``tokens`` (B, 1); cache_len (B,),
-    the position this step writes.  Returns (logits (B, Vpad), state,
+    """One token for every row.  batch ``tokens`` (B, 1), or ``embeds``
+    (B, 1, D) in ``embeds`` mode; cache_len (B,), the position this step
+    writes.  Returns (logits (B, Vpad), state,
     cache_len + 1).  **The state is updated in place** and returned (the
     JAX function returns a new one)."""
     check_pattern(cfg)
-    dt = cfg.activation_dtype
-    x = compute_cast(params["embed"]["table"][batch["tokens"].long()], dt)
+    x = step_inputs(params, cfg, batch)
     groups = [unstack(p, cfg.num_groups) for p in params["blocks"]]
     for g in range(cfg.num_groups):
         for p, btype in enumerate(cfg.block_pattern):

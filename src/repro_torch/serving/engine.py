@@ -33,18 +33,46 @@ the tick spans measures the realized mode switches; the counters
 ``serve.watchdog_exceeded``.  Each executed tick is also recorded in
 ``tick_log`` as (phase, rows, seconds).
 
-Per-row containment of non-finite logits is kept: only healthy rows
-advance, a poisoned request is charged a retry under :class:`RetryPolicy`
-and evicted (its blocks zeroed and freed) once the budget is spent.
-Greedy sampling is ``argmax``; with ``temperature > 0`` tokens are drawn
-with the engine's own ``torch.Generator`` (not JAX's bits).  Fault
-injection and the whole-tick retry (``repro.resilience``) are not ported.
+**Failure isolation** (:mod:`repro_torch.resilience`), as in the
+reference: per-row containment of non-finite logits (only healthy rows
+advance; a poisoned request is charged a retry under
+:class:`~repro_torch.resilience.guard.RetryPolicy` and evicted, its blocks
+zeroed and freed, once the budget is spent); the whole-tick retry (a tick
+that raises a runtime-class failure,
+:func:`~repro_torch.resilience.guard.is_runtime_failure`, charges every
+row one retry, counts ``serve.tick_failures``, backs off and leaves the
+next tick to try again; any other exception propagates); the fault sites
+``serve.admit`` and ``serve.tick``; and the soft watchdog
+(``serve.watchdog_exceeded``, warned once per site).
+
+**The retry after a mid-step fault is exact for ``attn`` layers.**  The
+compiled steps write the paged pools in place, so unlike the reference
+the state after a failed tick is not the pre-tick state: a fault at
+``serve.tick`` fires before the step and nothing is written, but a fault
+at a kernel entry fires mid-step, after some layers have written their
+keys and values at positions >= ``cache_len``.  ``cache_len`` has not
+advanced, nothing reads past it, and the retry rewrites the same slots
+with the same values, so the retried tick's tokens are the unfaulted
+ones.  The recurrent families, whose per-row state a retry would have to
+restore, are refused by the paged steps (:mod:`repro_torch.serving.
+model`).
+
+**The slot API** of the deprecated :class:`repro_torch.launch.serve.
+Server`: :meth:`admit_sync` (admit and prefill the whole prompt, emitting
+no token) and :meth:`decode_tick` (decode only, the last prompt token
+re-fed on the first tick).
+
+Inputs: an ``embeds``-mode model (musicgen) is fed
+:func:`~repro_torch.serving.model.token_embeds` of its token ids; a
+``tokens+vision`` model serves as a ``tokens`` one (no vision prefix, as
+in the reference).  Greedy sampling is ``argmax``; with ``temperature >
+0`` tokens are drawn with the engine's own ``torch.Generator`` (not JAX's
+bits).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -55,28 +83,15 @@ from repro_torch.api import SMAOptions, sma_jit
 from repro_torch.configs.base import ModelConfig
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import trace as _obs_trace
+from repro_torch.resilience import faults as _faults
+from repro_torch.resilience.guard import (RetryPolicy, is_runtime_failure,
+                                          record_event, warn_once)
 from repro_torch.serving import model as smodel
 from repro_torch.serving.kv_cache import CacheConfig, PagedKVCache
 from repro_torch.serving.scheduler import (ModeScheduler, SchedulerConfig,
                                            TickPlan)
 
 __all__ = ["Request", "RetryPolicy", "ServeEngine"]
-
-
-@dataclasses.dataclass(frozen=True)
-class RetryPolicy:
-    """Bounded retry for failure-isolated serving (the fields of
-    ``repro.resilience.guard.RetryPolicy`` that per-row containment reads;
-    its ``backoff_s`` waits for a whole-tick retry, which is not ported).
-
-    ``max_retries`` is per request: a poisoned request is evicted once its
-    budget is spent while other rows keep decoding.  ``deadline_s`` is the
-    soft watchdog bound on one tick (an overrun is counted and warned, not
-    interrupted).
-    """
-
-    max_retries: int = 1
-    deadline_s: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -91,6 +106,10 @@ class Request:
     error: Optional[str] = None
     retries: int = 0
     prefilled: int = 0           # prompt tokens already prefilled
+    #: emit the first token from the prefill logits (continuous path); the
+    #: slot API instead re-feeds the last prompt token on the first decode
+    #: tick.
+    emit_first: bool = True
     t_submit: Optional[float] = None
     t_admit: Optional[float] = None
     t_first: Optional[float] = None
@@ -126,7 +145,6 @@ class ServeEngine:
         self.seed = seed
         self.gen = torch.Generator().manual_seed(seed)
         self.retry = retry or RetryPolicy()
-        self.watchdog_exceeded = 0
 
         self.kv = PagedKVCache(self.cache, max_batch)
         self.state = smodel.init_state(cfg, self.cache, device=self.device)
@@ -195,9 +213,11 @@ class ServeEngine:
         self.queue.append(req)
         return req.status
 
-    def try_admit(self, req: Request) -> bool:
+    def try_admit(self, req: Request, *, emit_first: bool = True) -> bool:
         """Place a validated request into a free row, reserving its whole
-        KV-block budget.  False = no row or no blocks right now."""
+        KV-block budget.  False = no row or no blocks right now.
+        ``emit_first=False`` suppresses the token of the prefill's last
+        logits (the slot API's)."""
         free = self.free_rows()
         if not free:
             return False
@@ -209,6 +229,7 @@ class ServeEngine:
         req.out_tokens = []
         req.status = "active"
         req.prefilled = 0
+        req.emit_first = emit_first
         req.t_admit = now
         if req.t_submit is not None:
             _metrics.observe("serving.queue_wait_s", now - req.t_submit)
@@ -228,6 +249,41 @@ class ServeEngine:
                 return
             self.queue.pop(0)
 
+    def admit_sync(self, req: Request) -> bool:
+        """Slot-API admission (the deprecated ``Server.admit``): validate,
+        take a row, and prefill the whole prompt before returning.  No
+        first token is emitted: the first decode tick re-feeds the last
+        prompt token.
+
+        Returns True when the request was consumed (admitted, trivially
+        done, or rejected as failed) and False only when no capacity is
+        free.  A runtime-class failure during the prefill evicts the
+        request."""
+        if req.t_submit is None:
+            req.t_submit = time.perf_counter()
+        if self._validate(req):
+            return True
+        t0 = time.perf_counter()
+        if not self.try_admit(req, emit_first=False):
+            return False
+        with _obs_trace.span("serve.admit", cat="serve", rid=req.rid,
+                             slot=req.slot, prompt_len=len(req.prompt)):
+            try:
+                _faults.maybe_raise("serve.admit")
+                with _obs_trace.span("serve.warmup", cat="serve",
+                                     rid=req.rid, slot=req.slot,
+                                     tokens=len(req.prompt)):
+                    while (req.status == "active"
+                           and req.prefilled < len(req.prompt)):
+                        self._run_plan(self.sched.plan([req.slot], []))
+            except Exception as exc:
+                if not is_runtime_failure(exc):
+                    raise
+                self._evict(req, f"warmup failed: "
+                                 f"{type(exc).__name__}: {exc}")
+        self._watchdog("serve.admit", time.perf_counter() - t0)
+        return True
+
     # ----------------------------------------------------------------- ticks
     def step(self) -> Dict[int, int]:
         """One scheduler tick: admit, plan one same-mode batch, run it.
@@ -238,11 +294,33 @@ class ServeEngine:
         plan = self.sched.plan(prefill_rows, decode_rows)
         if plan.phase == "idle":
             return {}
+        return self._guarded_tick(plan)
+
+    def decode_tick(self) -> Dict[int, int]:
+        """Slot-API tick (the deprecated ``Server.tick``): one token for
+        every decode-ready request, no prefill interleaved."""
+        decode_rows = sorted(r.slot for r in self._decode_reqs())
+        if not decode_rows:
+            return {}
+        return self._guarded_tick(self.sched.plan([], decode_rows))
+
+    def _guarded_tick(self, plan: TickPlan) -> Dict[int, int]:
+        """Run one planned tick behind the ``serve.tick`` fault probe; a
+        runtime-class failure becomes a whole-tick retry
+        (:meth:`_tick_failed`), anything else propagates.  A completed
+        tick is logged in ``tick_log``."""
         t0 = time.perf_counter()
-        out = self._run_plan(plan)
-        elapsed = time.perf_counter() - t0
-        self.tick_log.append((plan.phase, len(plan.rows), elapsed))
-        self._watchdog(elapsed)
+        out: Dict[int, int] = {}
+        try:
+            _faults.maybe_raise("serve.tick")
+            out = self._run_plan(plan)
+            self.tick_log.append((plan.phase, len(plan.rows),
+                                  time.perf_counter() - t0))
+        except Exception as exc:
+            if not is_runtime_failure(exc):
+                raise
+            self._tick_failed(exc, plan.rows)
+        self._watchdog("serve.tick", time.perf_counter() - t0)
         return out
 
     def run(self, *, max_ticks: int = 100_000) -> int:
@@ -279,6 +357,15 @@ class ServeEngine:
 
     def _tensor(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _batch_of(self, toks: np.ndarray) -> Dict[str, torch.Tensor]:
+        """A step's batch: token ids, or their embeddings for an
+        ``embeds``-mode model."""
+        toks_t = self._tensor(toks)
+        if self.cfg.input_mode == "embeds":
+            return {"embeds": smodel.token_embeds(self.params, self.cfg,
+                                                  toks_t)}
+        return {"tokens": toks_t}
 
     def _sample(self, row: np.ndarray) -> int:
         if self.temperature > 0:
@@ -335,14 +422,14 @@ class ServeEngine:
         bt, cl = self._tables(rows, pad)
         logits, _, _ = self.engines["prefill"](
             self.params, self.state, bt, cl, self._tensor(n_tok),
-            {"tokens": self._tensor(toks)})
+            self._batch_of(toks))
         np_logits, good = self._healthy(logits, len(rows))
         out: Dict[int, int] = {}
         for i in good:
             req = reqs[i]
             self.cache_len[req.slot] += n_tok[i]
             req.prefilled += int(n_tok[i])
-            if req.prefilled >= len(req.prompt):
+            if req.prefilled >= len(req.prompt) and req.emit_first:
                 tok = self._sample(np_logits[i])
                 self._emit(req, tok)
                 out[req.rid] = tok
@@ -370,7 +457,7 @@ class ServeEngine:
                           else int(req.prompt[-1]))
         bt, cl = self._tables(rows, pad)
         logits, _, _ = self.engines["decode"](
-            self.params, self.state, bt, cl, {"tokens": self._tensor(toks)})
+            self.params, self.state, bt, cl, self._batch_of(toks))
         # Containment: only healthy rows advance; poisoned requests are
         # charged a bounded retry.
         np_logits, good = self._healthy(logits, len(rows))
@@ -387,6 +474,27 @@ class ServeEngine:
         return out
 
     # -------------------------------------------------------- failure paths
+    def _tick_failed(self, exc: BaseException, rows: Tuple[int, ...]
+                     ) -> None:
+        """The whole batched step failed (a runtime-class failure or an
+        injected fault): charge every participating request one retry,
+        back off, and let the next tick try again (exact for ``attn``
+        layers: module docstring)."""
+        _metrics.inc("serve.tick_failures")
+        record_event("serve_tick_failed", error=str(exc),
+                     active=len(self.active))
+        warn_once(f"serve_tick:{type(exc).__name__}",
+                  f"serve tick failed ({type(exc).__name__}: {exc}); "
+                  f"retrying active requests (bounded by RetryPolicy)")
+        by_row = self._by_row()
+        for r in rows:
+            req = by_row.get(r)
+            if req is not None:
+                self._charge_retry(req, f"tick failed: "
+                                        f"{type(exc).__name__}: {exc}")
+        if self.retry.backoff_s > 0:
+            time.sleep(self.retry.backoff_s)
+
     def _charge_retry(self, req: Request, why: str) -> None:
         req.retries += 1
         _metrics.inc("serve.retries")
@@ -414,6 +522,8 @@ class ServeEngine:
             self.kv.release(req.slot)
             self.cache_len[req.slot] = 0
         _metrics.inc("serve.evictions")
+        record_event("serve_evicted", rid=req.rid, slot=req.slot,
+                     error=error)
         self._fail(req, error)
 
     def _fail(self, req: Request, error: str) -> None:
@@ -422,16 +532,17 @@ class ServeEngine:
         self.failed[req.rid] = req
         _metrics.inc("serve.requests_failed")
 
-    def _watchdog(self, elapsed_s: float) -> None:
+    def _watchdog(self, what: str, elapsed_s: float) -> None:
+        """Soft deadline: a launch cannot be preempted, so an overrun is
+        counted and warned (once per site), not interrupted."""
         deadline = self.retry.deadline_s
         if deadline is None or elapsed_s <= deadline:
             return
-        self.watchdog_exceeded += 1
         _metrics.inc("serve.watchdog_exceeded")
-        if self.watchdog_exceeded == 1:
-            warnings.warn(f"serve tick took {elapsed_s:.3f}s "
-                          f"(RetryPolicy.deadline_s={deadline}); counted in "
-                          f"ServeEngine.watchdog_exceeded", RuntimeWarning)
+        warn_once(f"serve_watchdog:{what}",
+                  f"{what} took {elapsed_s:.3f}s "
+                  f"(RetryPolicy.deadline_s={deadline}); the launch cannot "
+                  f"be preempted -- counted as serve.watchdog_exceeded")
 
     # ------------------------------------------------------------- lifecycle
     def reset(self) -> None:

@@ -26,6 +26,11 @@ need no host sync.  Attention reads ``pool[:num_blocks]``, a contiguous
 view, so the first ``num_blocks`` blocks are the JAX pools, bit for bit,
 and nothing reads the spare block.
 
+Inputs: ``batch["tokens"]``, or ``batch["embeds"]`` (B, C, D) for an
+``embeds``-mode model (:func:`token_embeds` makes them from token ids, as
+the engine does).  As in the reference, serving takes no vision prefix: a
+``tokens+vision`` model serves as a ``tokens`` one.
+
 Weights are used as they are stored (the activation dtype); every
 projection is an :func:`repro_torch.kernels.ops.sma_gemm`, the head is
 :func:`repro_torch.kernels.ops.rmsnorm_gemm`, and attention is
@@ -41,13 +46,13 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention
-from repro_torch.models.layers import embed_apply, rmsnorm_apply
+from repro_torch.models.layers import rmsnorm_apply
 from repro_torch.models.lm import (State, check_pattern, head, mlp_residual,
-                                   unstack)
+                                   step_inputs, unstack)
 from repro_torch.serving.kv_cache import CacheConfig
 
 __all__ = ["init_state", "paged_decode_step", "paged_prefill_step",
-           "pooled_positions", "write_index"]
+           "pooled_positions", "token_embeds", "write_index"]
 
 
 def init_state(cfg: ModelConfig, cache: CacheConfig,
@@ -73,6 +78,22 @@ def pooled_positions(cfg: ModelConfig) -> Tuple[int, ...]:
     """Pattern positions whose state entry is a paged pool."""
     return tuple(p for p, bt in enumerate(cfg.block_pattern)
                  if bt in ("attn", "local"))
+
+
+def token_embeds(params: dict, cfg: ModelConfig,
+                 toks: torch.Tensor) -> torch.Tensor:
+    """Decoder-input embeddings of token ids for an ``embeds``-mode model:
+    the model's own table when ``params`` has one, else a one-hot of the id
+    modulo d_model, in the activation dtype (``repro.serving.model.
+    token_embeds``).  The one-hot is a scatter, which needs no host sync
+    (``F.one_hot`` checks its ids on the host)."""
+    table = params.get("embed")
+    dt = cfg.activation_dtype
+    if table is not None:
+        return table["table"].to(dt)[toks.long()]
+    ids = (toks.long() % cfg.d_model)[..., None]
+    out = torch.zeros(*toks.shape, cfg.d_model, dtype=dt, device=toks.device)
+    return out.scatter_(-1, ids, 1.0)
 
 
 class WriteIndex(NamedTuple):
@@ -161,8 +182,8 @@ def paged_decode_step(params: dict, state: State,
     """One token per row against the paged pool.
 
     block_table (B, MB) int32; cache_len (B,) -- the position this step
-    writes; batch ``tokens`` (B, 1).  Returns (logits (B, Vpad), state
-    (updated in place), cache_len + 1).
+    writes; batch ``tokens`` (B, 1) or ``embeds`` (B, 1, D).  Returns
+    (logits (B, Vpad), state (updated in place), cache_len + 1).
 
     A row whose new position has no block (a batch-padding row with an
     all-sentinel table) attends over nothing and gets a zero attention
@@ -173,7 +194,7 @@ def paged_decode_step(params: dict, state: State,
     q_pos = cache_len[:, None]
     widx = _start(state, block_table, q_pos, None)
     kv_len = torch.where(widx.keep[:, 0], cache_len + 1, 0)
-    x = embed_apply(params["embed"], batch["tokens"])          # (B, 1, D)
+    x = step_inputs(params, cfg, batch)                         # (B, 1, D)
     x = _layers(params, state, x, block_table, q_pos, kv_len, widx, cfg)
     return head(params, x)[:, 0], state, cache_len + 1
 
@@ -190,7 +211,7 @@ def paged_prefill_step(params: dict, state: State,
     cache_len + n_tokens).
     """
     cache_len, n_tokens = cache_len.long(), n_tokens.long()
-    x = embed_apply(params["embed"], batch["tokens"])          # (B, C, D)
+    x = step_inputs(params, cfg, batch)                         # (B, C, D)
     b, c, _ = x.shape
     steps = torch.arange(c, device=x.device)
     q_pos = cache_len[:, None] + steps[None, :]

@@ -1172,3 +1172,112 @@ def test_sma_jit_forward_is_the_direct_forward(dev):
     assert not ops.ROUTED
     assert torch.equal(got, want)
     assert (eng.stats.misses, eng.stats.hits) == (1, 1)
+
+
+# ---------------------------------------------------------------------------
+# Resilience on the card: full-width Mistral-NeMo-12B cut to 2 layers
+# ---------------------------------------------------------------------------
+def _nemo_engine(dev, **kw):
+    from repro_torch.serving import SchedulerConfig
+    cfg = dataclasses.replace(get_config("mistral-nemo-12b"), num_groups=2)
+    params = lm.init(cfg, seed=0, device=dev)
+    eng = ServeEngine(cfg, params, device=dev, max_batch=4,
+                      cache=CacheConfig(block_size=16, num_blocks=64,
+                                        max_seq_len=256),
+                      sched=SchedulerConfig(prefill_chunk=64), **kw)
+    return cfg, eng
+
+
+def _nemo_requests(cfg):
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(90)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, (n,))
+                    .astype(np.int32), max_new_tokens=6)
+            for i, n in enumerate((40, 100, 17))]
+
+
+def _serve_nemo(eng, reqs, on_tick=None):
+    import warnings
+    for r in reqs:
+        eng.submit(r)
+    ticks = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        while eng.queue or eng.active:
+            eng.step()
+            ticks += 1
+            if on_tick is not None:
+                on_tick(ticks)
+            assert ticks < 200
+    return {r.rid: list(r.out_tokens or []) for r in reqs}
+
+
+@pytest.mark.parametrize("case", ["tick fault", "poisoned row",
+                                  "kernel fault mid-tick"])
+def test_nemo_serving_chaos_on_card(dev, case):
+    """The chaos cases of ``chip_smoke.py`` at 2 full-width layers (q width
+    4096 against d_model 5120, GQA 32/8 at head_dim 128), through the
+    compiled engine: (a) a ``serve.tick`` fault is retried whole and the
+    tokens are the unfaulted pass's; (b) a request whose blocks go NaN
+    after its first decode tick is evicted after its retries, the others'
+    tokens unchanged; (c) an ``sma_gemm@cuda`` fault inside a decode tick,
+    after layer 0 wrote the pools, is retried whole, tokens unchanged."""
+    from repro_torch.obs import metrics
+    from repro_torch.resilience import faults, guard
+    guard.reset()
+    cfg, eng = _nemo_engine(dev, retry=guard.RetryPolicy(max_retries=2))
+    seen = []
+    with faults.inject_faults("sma_gemm:runtime_error:times=0") as (count,):
+        want = _serve_nemo(eng, _nemo_requests(cfg),
+                           on_tick=lambda t: seen.append(count._seen))
+    assert all(len(t) == 6 for t in want.values())
+    # the second decode tick, layer 1's 4th product (layer 0 has written)
+    second = [i for i, (p, _, _) in enumerate(eng.tick_log)
+              if p == "decode"][1]
+    after = seen[second - 1] + 7 + 3
+    eng.reset()
+    failures = metrics.get("serve.tick_failures")
+    reqs = _nemo_requests(cfg)
+    if case == "tick fault":
+        with faults.inject_faults("serve.tick:runtime_error:times=1"):
+            got = _serve_nemo(eng, reqs)
+        assert metrics.get("serve.tick_failures") == failures + 1
+        assert got == want
+    elif case == "poisoned row":
+        victim, hit = reqs[1], []
+
+        def poison(tick):
+            if not hit and victim.out_tokens and len(victim.out_tokens) == 2:
+                hit.append(tick)
+                for pool in eng.state[0].values():
+                    pool[:, eng.kv.blocks_of(victim.slot)] = float("nan")
+        got = _serve_nemo(eng, reqs, on_tick=poison)
+        assert victim.status == "failed"
+        assert victim.retries == eng.retry.max_retries + 1
+        for r in reqs:
+            if r is not victim:
+                assert r.status == "done" and got[r.rid] == want[r.rid]
+    else:
+        spec = f"sma_gemm@cuda:runtime_error:times=1,after={after}"
+        with faults.inject_faults(spec) as (fault,):
+            got = _serve_nemo(eng, reqs)
+        assert fault._fired == 1
+        assert metrics.get("serve.tick_failures") == failures + 1
+        assert got == want
+    assert all(r.status == "done" for r in reqs
+               if case != "poisoned row" or r is not reqs[1])
+
+
+def test_real_out_of_memory_is_retried_and_launch_errors_are_not(dev):
+    """The allocator's ``torch.cuda.OutOfMemoryError`` is runtime-class; a
+    kernel launch error as ``_build.check`` raises it (its text here reads
+    "out of memory") is not, and a serving tick lets it propagate."""
+    from repro_torch.kernels import _build
+    from repro_torch.resilience import guard
+    with pytest.raises(torch.cuda.OutOfMemoryError) as oom:
+        torch.empty(1 << 48, dtype=torch.uint8, device=dev)
+    assert guard.is_runtime_failure(oom.value)
+    lib = kgemm._lib()
+    with pytest.raises(RuntimeError, match="out of memory") as launch:
+        _build.check(lib, 2, "sma_gemm")
+    assert not guard.is_runtime_failure(launch.value)

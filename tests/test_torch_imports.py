@@ -45,7 +45,12 @@ MODULES = (
     "repro_torch.obs.trace", "repro_torch.obs.metrics",
     "repro_torch.obs.timing", "repro_torch.obs.export",
     "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
-    "repro_torch.optim.compress",
+    "repro_torch.optim.compress", "repro_torch.resilience",
+    "repro_torch.resilience.faults", "repro_torch.resilience.guard",
+    "repro_torch._deprecation", "repro_torch.launch.serve",
+    "repro_torch.configs.mistral_nemo_12b", "repro_torch.configs.deepseek_67b",
+    "repro_torch.configs.deepseek_coder_33b",
+    "repro_torch.configs.musicgen_large", "repro_torch.configs.internvl2_2b",
 )
 
 
