@@ -137,6 +137,20 @@
    Every path checks the routes of ``rmsnorm_gemm`` (the training head on
    ``wgmma``, decode heads on ``tile``), ``mlstm_chunkwise`` and
    ``rglru_scan``.
+   Both recurrent models also through the compiled ``ServeEngine`` at
+   full width and depth: 4 requests of 64-256-token prompts arriving one a
+   tick, chunk 64, 16 new tokens, greedy, 4 rows; each prefill chunk of a
+   recurrent layer runs token by token as one loop node.  A warm-up pass
+   under ``repro_torch.profile`` compiles every (phase, bucket)
+   (compile s, graph nodes, loop nodes and body nodes printed) and its
+   tick spans must count the scheduler's switches; the timed pass
+   compiles nothing, every tick launches as predicted, RecurrentGemma's
+   windowed sites are routed once a tick; prefill and decode tick ms,
+   TTFT, tokens/s and peak memory printed.  The compiled ticks against
+   the direct steps (``torch.equal``, the same launches); an
+   ``sma_gemm@cuda`` fault in the middle of a RecurrentGemma prefill tick
+   retried into the same tokens; a 3-layer model served in chunks against
+   the plain versions, with planted K-tile faults.
 8. Prints the kernel table as one JSON line (the redesigned kernels' rows
    with their route, the earlier design's time in the same call, and the
    ``-Xptxas -v`` registers, spills and shared memory), then the result line
@@ -1243,7 +1257,7 @@ def check_compiled_serving(cfg, params, dev, eng, plant: bool = True,
         """Prefill, two decode ticks (the first through ``first`` when
         given); each tick's (logits, lengths, launches, routes, routed),
         the tokens fed, and the pools."""
-        state = smodel.init_state(cfg, SERVE_CACHE, device=dev)
+        state = smodel.init_state(cfg, rows, SERVE_CACHE, device=dev)
         out, fed = [], []
         (logits, _, cl), *seen = counted_run(lambda: prefill(
             params, state, table, zero, n_tok, step_batch(cfg, params,
@@ -1303,7 +1317,7 @@ def check_compiled_serving(cfg, params, dev, eng, plant: bool = True,
     if not timing:
         return None
 
-    state = smodel.init_state(cfg, SERVE_CACHE, device=dev)
+    state = smodel.init_state(cfg, rows, SERVE_CACHE, device=dev)
     logits, _, cl = direct[0](params, state, table, zero, n_tok,
                               {"tokens": toks})
     cl = cl.to(torch.int32)
@@ -1373,7 +1387,7 @@ def prefilled(cfg, params, dev):
     decode step's inputs (table, cache_len, tokens)."""
     cache = CacheConfig(block_size=16, num_blocks=512, max_seq_len=1024)
     b, c = 8, 64
-    state = smodel.init_state(cfg, cache, device=dev)
+    state = smodel.init_state(cfg, b, cache, device=dev)
     mb = cache.max_blocks_per_req
     table = torch.arange(b * mb, dtype=torch.int32,
                          device=dev).reshape(b, mb) % cache.num_blocks
@@ -2001,7 +2015,8 @@ def server_shim(cfg, params, dev):
         return torch.as_tensor(np.asarray(x, np.int32), device=dev)
 
     kv = PagedKVCache(server.core.cache, len(reqs))
-    state = smodel.init_state(cfg, server.core.cache, device=dev)
+    state = smodel.init_state(cfg, len(reqs), server.core.cache,
+                                   device=dev)
     for i, r in enumerate(reqs):
         kv.admit(i, len(r.prompt), r.max_new_tokens)
         toks = np.zeros((1, chunk), np.int32)
@@ -3897,6 +3912,441 @@ def profile_xlstm(cfg, params, dev):
     profile_serving(cfg, params, dev, XL_BATCH, XL_PROMPT)
 
 
+# ---------------------------------------------------------------------------
+# The recurrent families through the compiled ServeEngine
+# ---------------------------------------------------------------------------
+# Each prefill chunk of a recurrent layer runs token by token through the
+# layer's decode step, as one loop node of the compiled graph.  4 requests
+# of 64-256-token prompts arrive one a tick; chunk 64, 16 new tokens each,
+# greedy, 4 rows.
+RECURRENT_BLOCKS = ("rglru", "mlstm", "slstm")
+ENGINE_ROWS, ENGINE_CHUNK, ENGINE_NEW = 4, 64, 16
+ENGINE_ARRIVALS = (0, 1, 2, 3)
+ENGINE_CACHE = CacheConfig(block_size=16, num_blocks=128, max_seq_len=512)
+# The 3-layer served-logits check: B 2, a 256-token prompt in chunks of 64,
+# then one decode step.
+ENGINE_LOGIT_PROMPT = 256
+# Planted faults of check_served_logits, each a product that skips its
+# last 64-wide K tile on every call with one weight (the named block
+# type's first layer): must the logit limit catch it?  One K tile of the
+# local layer's wo (1 of 40, the 3-layer model's last layer) moves the
+# logits by 0.074 on an H100 (PERF.md): a reading.
+RG_ENGINE_FAULTS = {("rglru", "w_out"): True, ("rglru", "w_in"): True,
+                    ("rglru", "w_x"): True, ("local", "wo"): False}
+XL_ENGINE_FAULTS = {("mlstm", "w_down"): True, ("mlstm", "w_k"): True,
+                    ("slstm", "w_ff2"): True}
+PLANT_K_TILE = 64
+
+
+def engine_requests(cfg):
+    """The engine runs' requests (prompts of 64-256 tokens, seed 0)."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 257, size=ENGINE_ROWS)
+    return lens, [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                     size=n).astype(np.int32),
+                          max_new_tokens=ENGINE_NEW)
+                  for i, n in enumerate(lens)]
+
+
+def engine_pass(eng, reqs, on_tick=None) -> float:
+    """Submit ``reqs[i]`` at tick ``ENGINE_ARRIVALS[i]`` and step the engine
+    until they drain, with ``on_tick()`` after each step; the host wall to
+    the card's last work."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tick = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        while tick <= max(ENGINE_ARRIVALS) or eng.queue or eng.active:
+            for r, at in zip(reqs, ENGINE_ARRIVALS):
+                if at == tick:
+                    eng.submit(r)
+            eng.step()
+            tick += 1
+            if on_tick is not None:
+                on_tick()
+            if tick > 2000:
+                fail("engine pass: the engine did not drain")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def recurrent_layers(cfg) -> dict:
+    """Layers by block type."""
+    return {b: cfg.num_groups * cfg.block_pattern.count(b)
+            for b in set(cfg.block_pattern)}
+
+
+def engine_tick_launches(cfg, phase: str) -> dict:
+    """Launches of one engine tick.  An rglru layer makes 5 products a
+    token in its loop (w_in, w_gate, w_a, w_x, w_out) and the MLP's 3 once,
+    a local layer 7, an mLSTM layer 6 a token (w_up, w_q, w_k, w_v, w_if,
+    w_down), an sLSTM layer 3 a token (w_gates, w_ff1, w_ff2); a prefill
+    tick runs ENGINE_CHUNK tokens, a decode tick 1; the head is one
+    rmsnorm_gemm.  A decode tick's mLSTM ``norm1 -> w_up`` is one
+    rmsnorm_gemm (:func:`fused_prologues`), compiled and direct.  Every paged attention site is
+    routed to its plain version (windowed, or a chunk), so none launches
+    its kernel."""
+    n = collections.Counter(recurrent_layers(cfg))
+    t = ENGINE_CHUNK if phase == "prefill" else 1
+    gemm = (n["rglru"] * (5 * t + 3) + n["local"] * 7
+            + n["mlstm"] * 6 * t + n["slstm"] * 3 * t)
+    fused = fused_prologues(cfg, phase)
+    return {"sma_gemm": gemm - fused, "rmsnorm_gemm": 1 + fused}
+
+
+def fused_prologues(cfg, phase: str) -> int:
+    """Prologue sites the rewrite makes besides the head, by the
+    reference's rule (a norm whose output feeds one product alone), and
+    the direct paged decode step runs as such: in a decode tick each mLSTM
+    layer's norm1 feeds only w_up; an sLSTM's w_gates takes a bias, an
+    rglru's norm1 feeds two products, an attention layer's three, and in a
+    prefill tick the norm's output enters the token loop."""
+    return (cfg.num_groups * cfg.block_pattern.count("mlstm")
+            if phase == "decode" else 0)
+
+
+def engine_reports(eng) -> list:
+    """(phase, bucket, plan report) of every cached signature, as compiled
+    (``report_data``: reading ``report`` would restamp its ``runtime``
+    section from the whole profile window, quadratic in its spans)."""
+    return sorted(((phase, key[1][-1][0][0], entry.compiled.report_data)
+                   for phase, e in eng.engines.items()
+                   for key, entry in e._cache.items()), key=lambda r: r[:2])
+
+
+def serve_recurrent_engine(cfg, params, dev, path: str):
+    """The engine run: a warm-up pass under ``repro_torch.profile``
+    compiles every (phase, bucket) signature (compile s, graph nodes, loop
+    nodes and body nodes printed) and its tick spans must count the
+    scheduler's mode switches; ``reset()`` keeps the signatures and the
+    timed pass compiles nothing.  No pass may fail a tick, evict or fail a
+    request.  Checks every request's tokens, the launches of every tick
+    (``engine_tick_launches``) and the routes, and that the routed calls
+    are the windowed sites' once a tick.  Returns (launches, sma_gemm
+    routes, the engine, the timed pass's tokens, sma_gemm launches before
+    each tick)."""
+    sched = SchedulerConfig(policy="sma", prefill_chunk=ENGINE_CHUNK)
+    eng = ServeEngine(cfg, params, cache=ENGINE_CACHE,
+                      max_batch=ENGINE_ROWS, sched=sched, device=dev)
+    layers = recurrent_layers(cfg)
+    n_loops = sum(n for b, n in layers.items() if b in RECURRENT_BLOCKS)
+    before = counters()
+    warm_reqs = engine_requests(cfg)[1]
+    with obs.profile(sync=False) as prof:
+        warm = engine_pass(eng, warm_reqs)
+    clean_serving(f"{path} warm-up pass", before, warm_reqs)
+    tick_spans = [e for e in prof.events if e["cat"] == "serve"]
+    sec = obs.runtime_section(tick_spans)
+    print(f"{path} warm-up pass (compiles included, under "
+          f"repro_torch.profile): {warm:.3f} s; tick spans: "
+          f"{len(tick_spans)} ticks, mode_switches {sec['mode_switches']} "
+          f"(scheduler {eng.sched.switches}); "
+          f"{sum(e['name'] == 'dispatch.loop' for e in prof.events)} loop "
+          f"spans")
+    if sec["mode_switches"] != eng.sched.switches \
+            or len(tick_spans) != eng.sched.ticks:
+        fail(f"{path}: the tick spans count {sec['mode_switches']} mode "
+             f"switches over {len(tick_spans)} ticks, the scheduler "
+             f"{eng.sched.switches} over {eng.sched.ticks}")
+    print(f"{path}: compile s and graph nodes per (phase, bucket): "
+          + ", ".join(f"{p} {b}: {t:.3f} s {n}"
+                      for p, b, t, n in compile_table(eng)))
+    for phase, bucket, rep in engine_reports(eng):
+        disp, low = rep["dispatch"], rep["lowering"]
+        bodies = {name: (b["nodes"], b["loops"], b["trip_counts"],
+                         b["systolic_dispatch_sites"])
+                  for name, b in disp["loop_bodies"].items()}
+        print(f"{path} {phase} {bucket}: {disp['loop_nodes']} loop nodes, "
+              f"bodies (nodes, loop nodes, trip counts, GEMM sites) "
+              f"{json.dumps(bodies)}; lowering {low['unrolled_scans']} "
+              f"unrolled, {low['coarsened_scans']} coarsened; compile "
+              f"{json.dumps({k: round(v, 3) for k, v in rep['compile'].items()})}")
+        want = n_loops if phase == "prefill" else 0
+        kinds = {f"{b}_block_decode" for b in layers
+                 if b in RECURRENT_BLOCKS} if phase == "prefill" else set()
+        if disp["loop_nodes"] != want or set(bodies) != kinds \
+                or low["coarsened_scans"] != want:
+            fail(f"{path} {phase} {bucket}: {disp['loop_nodes']} loop nodes "
+                 f"over bodies {sorted(bodies)}, {low['coarsened_scans']} "
+                 f"coarsened; expected {want} over {sorted(kinds)}")
+        prologues = rep["fusion"]["realized_prologue_sites"]
+        if prologues != 1 + fused_prologues(cfg, phase):
+            fail(f"{path} {phase} {bucket}: {prologues} prologue sites, "
+                 f"expected the head and {fused_prologues(cfg, phase)}")
+    eng.reset()
+    misses = {p: e.stats.misses for p, e in eng.engines.items()}
+
+    lens, reqs = engine_requests(cfg)
+    before = counters()
+    marks = []                       # sma_gemm launches before each tick
+
+    def mark():
+        if len(eng.tick_log) > len(marks) - 1:
+            marks.append(ops.launch_counts()["sma_gemm"])
+
+    ops.reset_counts()
+    marks.append(0)
+    torch.cuda.reset_peak_memory_stats()
+    wall = engine_pass(eng, reqs, on_tick=mark)
+    peak = torch.cuda.max_memory_allocated()
+    counts, routed = nonzero(ops.launch_counts()), dict(ops.ROUTED)
+    routes = nonzero(kgemm.ROUTES)
+    clean_serving(f"{path} timed pass", before, reqs)
+    ROUTES_BY_PATH[path] = check_kernel_routes(path, counts, "tile")
+    new = {p: e.stats.misses - misses[p] for p, e in eng.engines.items()}
+    if any(new.values()):
+        fail(f"{path}: the timed pass compiled {new} signatures after the "
+             f"warm-up pass")
+    for r in reqs:
+        if r.status != "done" or len(r.out_tokens) != ENGINE_NEW:
+            fail(f"{path} request {r.rid}: {r.status} with "
+                 f"{len(r.out_tokens or [])} tokens ({r.error})")
+        if not all(0 <= t < lm.padded_vocab(cfg) for t in r.out_tokens):
+            fail(f"{path} request {r.rid}: token out of range")
+    per_tick = [b - a for a, b in zip(marks, marks[1:])]
+    expect = collections.Counter()
+    for (phase, _, _), got in zip(eng.tick_log, per_tick):
+        one = engine_tick_launches(cfg, phase)
+        if got != one["sma_gemm"]:
+            fail(f"{path} {phase} tick: {got} sma_gemm launches, expected "
+                 f"{one['sma_gemm']}")
+        expect.update(one)
+    if counts != dict(expect):
+        fail(f"{path}: launches {counts}, expected {dict(expect)}")
+    windowed = layers.get("local", 0) + layers.get("attn", 0)
+    if sum(routed.values()) != windowed * len(eng.tick_log):
+        fail(f"{path}: routed {routed}, expected {windowed} windowed or "
+             f"chunked paged sites x {len(eng.tick_log)} ticks")
+    if routes.get("tile") or routes.get("f32"):
+        fail(f"{path}: sma_gemm routes {routes}, expected wgmma and split-K "
+             f"only")
+    ticks = {p: [s for ph, _, s in eng.tick_log if ph == p]
+             for p in ("prefill", "decode")}
+    ttft = [r.t_first - r.t_submit for r in reqs]
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    print(f"{path} (compiled): {len(reqs)} requests, prompts "
+          f"{lens.tolist()} arriving at ticks {list(ENGINE_ARRIVALS)}, "
+          f"{tokens} tokens in {wall:.3f} s: {tokens / wall:.2f} tokens/s "
+          f"(wall clock, bf16, {cfg.name} full width and depth, random "
+          f"weights); peak memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated)")
+    print(f"{path}: TTFT mean {np.mean(ttft):.3f} s, max {max(ttft):.3f} s; "
+          f"prefill tick mean {1e3 * np.mean(ticks['prefill']):.1f} ms over "
+          f"{len(ticks['prefill'])} ticks (rows "
+          f"{[n for p, n, _ in eng.tick_log if p == 'prefill']}); decode "
+          f"tick mean {1e3 * np.mean(ticks['decode']):.2f} ms, median "
+          f"{1e3 * np.median(ticks['decode']):.2f} ms over "
+          f"{len(ticks['decode'])} ticks; switches {eng.sched.switches}")
+    print(f"{path}: launches {json.dumps(counts)}; a prefill tick "
+          f"{json.dumps(engine_tick_launches(cfg, 'prefill'))}, a decode "
+          f"tick {json.dumps(engine_tick_launches(cfg, 'decode'))}, as "
+          f"predicted; routed to plain by design {json.dumps(routed)} "
+          f"({windowed} sites x {len(eng.tick_log)} ticks); sma_gemm routes "
+          f"{json.dumps(routes)}; rmsnorm_gemm routes "
+          f"{json.dumps(ROUTES_BY_PATH[path]['rmsnorm_gemm'])}")
+    want = {r.rid: list(r.out_tokens) for r in reqs}
+    return counts, routes, eng, want, marks
+
+
+def engine_retry(cfg, eng, want: dict, marks: list, path: str):
+    """``sma_gemm@cuda:runtime_error:times=1,after=N``, N halfway through
+    the first prefill tick with more than one row (inside a recurrent
+    layer's token loop): one tick failure, the tick retried whole from the
+    untouched recurrent state, the timed pass's tokens."""
+    tick = next(i for i, (p, rows, _) in enumerate(eng.tick_log)
+                if p == "prefill" and rows > 1)
+    after = (marks[tick] + marks[tick + 1]) // 2
+    eng.reset()
+    misses = {p: e.stats.misses for p, e in eng.engines.items()}
+    before = counters()
+    reqs = engine_requests(cfg)[1]
+    spec = f"sma_gemm@cuda:runtime_error:times=1,after={after}"
+    with faults.inject_faults(spec) as (fault,):
+        wall = engine_pass(eng, reqs)
+    moved = moved_since(before)
+    got = {r.rid: list(r.out_tokens or []) for r in reqs}
+    print(f"{path} retry: {spec} (prefill tick {tick}, "
+          f"{eng.tick_log[tick][1]} rows: launches {marks[tick]} to "
+          f"{marks[tick + 1]}): fired {fault._fired}, counters "
+          f"{json.dumps(moved)}, tokens equal the timed pass's: "
+          f"{got == want}; {wall:.3f} s")
+    if fault._fired != 1 or moved["serve.tick_failures"] != 1 \
+            or moved["serve.evictions"] or moved["serve.requests_failed"]:
+        fail(f"{path} retry: fired {fault._fired}, counters {moved}")
+    if got != want:
+        fail(f"{path} retry: the retried tokens differ from the unfaulted "
+             f"pass's")
+    if {p: e.stats.misses for p, e in eng.engines.items()} != misses:
+        fail(f"{path} retry: a signature compiled")
+    eng.reset()
+
+
+def check_compiled_recurrent(cfg, params, dev, eng, path: str):
+    """The engine's compiled prefill tick (4 rows, ragged chunks) and two
+    decode ticks against the direct steps on the same inputs: logits,
+    lengths and every state leaf (the pools' real blocks, the recurrent
+    entries) ``torch.equal``, each tick's launches, routes and routed calls
+    equal.  Then, as a reading, the direct steps through the plain
+    versions: how far the same calls move the logits when every product
+    rounds differently (a full-width xLSTM's move by units, so only the
+    same launches can agree, PERF.md)."""
+    kv = PagedKVCache(ENGINE_CACHE, ENGINE_ROWS)
+    c = ENGINE_CHUNK
+    n_tok = [c, c * 5 // 8, c // 4 + 1, 1]
+    for r in range(ENGINE_ROWS):
+        kv.admit(r, 200, ENGINE_NEW)
+    table = torch.as_tensor(kv.table_rows(list(range(ENGINE_ROWS))),
+                            device=dev)
+    toks = rg_tokens(cfg, dev, (ENGINE_ROWS, c), 5).to(torch.int32)
+    n_tok = torch.tensor(n_tok, dtype=torch.int32, device=dev)
+    zero = torch.zeros(ENGINE_ROWS, dtype=torch.int32, device=dev)
+    direct = (lambda p, s, bt, cl, nt, b: smodel.paged_prefill_step(
+                  p, s, bt, cl, nt, cfg, b),
+              lambda p, s, bt, cl, b: smodel.paged_decode_step(
+                  p, s, bt, cl, cfg, b))
+    nb = ENGINE_CACHE.num_blocks
+
+    def snapshot(state):
+        return [(v[:, :nb] if k in ("k", "v") else v).clone()
+                for e in state for k, v in e.items()]
+
+    def run(prefill, decode):
+        state = smodel.init_state(cfg, ENGINE_ROWS, ENGINE_CACHE, device=dev)
+        out = []
+        (logits, state, cl), *seen = counted_run(lambda: prefill(
+            params, state, table, zero, n_tok, {"tokens": toks}))
+        out.append((logits, cl, seen, snapshot(state)))
+        for _ in range(2):
+            nxt = logits.argmax(-1, keepdim=True).to(torch.int32)
+            cl = cl.to(torch.int32)
+            (logits, state, cl), *seen = counted_run(
+                lambda: decode(params, state, table, cl, {"tokens": nxt}))
+            out.append((logits, cl, seen, snapshot(state)))
+        return out
+
+    t0 = time.perf_counter()
+    got = run(eng.engines["prefill"], eng.engines["decode"])
+    t1 = time.perf_counter()
+    want = run(*direct)
+    t2 = time.perf_counter()
+    with plain_kernels():
+        plain = run(*direct)
+    moved = [(w[0].float() - p[0].float()).abs().max().item()
+             for w, p in zip(want, plain)]
+    for i, ((gl, gc, gs, gst), (wl, wc, ws, wst)) in enumerate(
+            zip(got, want)):
+        bad = [j for j, (g, w) in enumerate(zip(gst, wst))
+               if not torch.equal(g, w)]
+        if not (torch.equal(gl, wl) and torch.equal(gc, wc)) or bad:
+            fail(f"{path} compiled call {i}: logits (max |err| "
+                 f"{(gl.float() - wl.float()).abs().max().item():.4g}), "
+                 f"lengths or state leaves {bad} differ from the direct "
+                 f"step's")
+        if gs != ws:
+            fail(f"{path} compiled call {i}: launches, routes, routed "
+                 f"{gs}; direct {ws}")
+    print(f"{path}: compiled prefill (4 rows, n_tokens {n_tok.tolist()}, "
+          f"chunk {c}) and 2 decode ticks torch.equal the direct steps: "
+          f"logits, lengths and {len(got[0][3])} state leaves; launches a "
+          f"call {json.dumps([s[0] for _, _, s, _ in got])}, as direct; "
+          f"{t1 - t0:.3f} s compiled, {t2 - t1:.3f} s direct")
+    print(f"{path}: the direct steps through the plain versions move the "
+          f"logits by max |err| {[round(m, 4) for m in moved]} (prefill, "
+          f"decode, decode; |logit| max "
+          f"{want[0][0].float().abs().max().item():.3g}): a reading")
+
+
+@contextlib.contextmanager
+def planted_served(params, cfg, fault):
+    """``fault`` = (block type, weight): every ``sma_gemm`` call with that
+    weight of the block type's first layer skips its last ``PLANT_K_TILE``
+    rows of K (a 64-wide K tile).
+    Yields the call count."""
+    p = cfg.block_pattern.index(fault[0])
+    target = params["blocks"][p]["mixer"][fault[1]][0].data_ptr()
+    gemm = ops.sma_gemm
+    calls = {"gemm": 0}
+
+    def wrong(a, w, **kw):
+        if w.data_ptr() != target:
+            return gemm(a, w, **kw)
+        calls["gemm"] += 1
+        k = w.shape[0] - PLANT_K_TILE
+        return gemm(a[..., :k].contiguous(), w[:k], **kw)
+
+    ops.sma_gemm = wrong
+    try:
+        yield calls
+    finally:
+        ops.sma_gemm = gemm
+
+
+def check_served_logits(cfg, dev, pattern, faults_, limit, path: str):
+    """A 3-layer full-width model (``pattern`` x 1 group) served through
+    the paged steps: a B 2 x ENGINE_LOGIT_PROMPT prompt in chunks of
+    ENGINE_CHUNK (the token loop) and one decode step, the logits through
+    the kernels against the plain versions; then each planted fault of
+    ``faults_`` (:func:`planted_served`; fault -> must it be caught),
+    each marked one of which must read above ``limit``."""
+    cfg3 = dataclasses.replace(cfg, block_pattern=pattern, num_groups=1)
+    params = lm.init(cfg3, seed=0, device=dev)
+    b, c = 2, ENGINE_CHUNK
+    toks = rg_tokens(cfg3, dev, (b, ENGINE_LOGIT_PROMPT), 1).to(torch.int32)
+    nxt = rg_tokens(cfg3, dev, (b, 1), 2).to(torch.int32)
+    kv = PagedKVCache(ENGINE_CACHE, b)
+    for r in range(b):
+        kv.admit(r, ENGINE_LOGIT_PROMPT, 1)
+    table = torch.as_tensor(kv.table_rows(list(range(b))), device=dev)
+    n_tok = torch.full((b,), c, dtype=torch.int32, device=dev)
+    tag = f"{cfg3.name} 3-layer served logits"
+
+    def run():
+        state = smodel.init_state(cfg3, b, ENGINE_CACHE, device=dev)
+        cl = torch.zeros(b, dtype=torch.int32, device=dev)
+        for i in range(0, ENGINE_LOGIT_PROMPT, c):
+            logits, state, cl = smodel.paged_prefill_step(
+                params, state, table, cl.to(torch.int32), n_tok, cfg3,
+                {"tokens": toks[:, i:i + c]})
+        step = smodel.paged_decode_step(params, state, table,
+                                        cl.to(torch.int32), cfg3,
+                                        {"tokens": nxt})[0]
+        return logits.float(), step.float()
+
+    got = run()
+    with plain_kernels():
+        want = run()
+    for name, g in zip(("prefill", "decode step"), got):
+        if g.shape != (b, lm.padded_vocab(cfg3)) \
+                or not torch.isfinite(g).all():
+            fail(f"{tag}, {name}: shape {tuple(g.shape)} or non-finite")
+
+    def readings(outs) -> list:
+        return [(g - w).abs().max().item() for g, w in zip(outs, want)]
+
+    noise = readings(got)
+    print(f"{tag}, kernels vs plain versions: max |err| prefill "
+          f"{noise[0]:.4g}, decode step {noise[1]:.4g} (|logit| max "
+          f"{want[0].abs().max().item():.3g}); limit {limit}")
+    missed = []
+    for fault, must in faults_.items():
+        with planted_served(params, cfg3, fault) as made:
+            r = readings(run())
+        if not made["gemm"]:
+            fail(f"{tag} control {fault}: the planted product never ran")
+        print(f"{tag} control, {fault[0]} {fault[1]} last K tile skipped "
+              f"({made['gemm']} calls): max |err| prefill {r[0]:.4g}, "
+              f"decode step {r[1]:.4g} ({max(r) / limit:.3g} limits; "
+              f"{'must be caught' if must else 'a reading'})")
+        if must and max(r) <= limit:
+            missed.append(fault)
+    if max(noise) > limit:
+        fail(f"{tag}: max |err| {max(noise):.4g} > {limit}")
+    if missed:
+        fail(f"{tag}: planted faults within the limit: {missed}")
+    del params
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
@@ -4078,9 +4528,22 @@ def main(argv=None) -> int:
             rg_launches, RG_BATCH, RG_PROMPT, RG_NEW)
         phase("recurrent profile", profile_serving, rg_cfg, params, dev,
               RG_BATCH, RG_PROMPT)
-        del params
+        torch.cuda.empty_cache()
+        (rg_eng_counts, rg_eng_routes, eng, want,
+         marks) = phase("serve recurrentgemma engine",
+                        serve_recurrent_engine, rg_cfg, params, dev,
+                        "recurrentgemma engine")
+        phase("recurrentgemma engine retry", engine_retry, rg_cfg, eng, want,
+              marks, "recurrentgemma engine")
+        phase("compiled serving recurrentgemma", check_compiled_recurrent,
+              rg_cfg, params, dev, eng, "recurrentgemma engine")
+        del params, eng
+        gc.collect()
         torch.cuda.empty_cache()
         phase("recurrent logits", check_recurrent_logits, rg_cfg, dev)
+        phase("recurrentgemma served logits", check_served_logits, rg_cfg,
+              dev, ("rglru", "rglru", "local"), RG_ENGINE_FAULTS,
+              RG_LOGIT_ATOL, "recurrentgemma engine")
 
     # The xLSTM path, without autograd.
     xl_cfg = get_config(XL_ARCH)
@@ -4090,9 +4553,19 @@ def main(argv=None) -> int:
                                      params, dev, xl_launches, XL_BATCH,
                                      XL_PROMPT, XL_NEW)
         phase("xlstm profile", profile_xlstm, xl_cfg, params, dev)
-        del params
+        torch.cuda.empty_cache()
+        xl_eng_counts, xl_eng_routes, eng, _, _ = phase(
+            "serve xlstm engine", serve_recurrent_engine, xl_cfg, params,
+            dev, "xlstm engine")
+        phase("compiled serving xlstm", check_compiled_recurrent, xl_cfg,
+              params, dev, eng, "xlstm engine")
+        del params, eng
+        gc.collect()
         torch.cuda.empty_cache()
         phase("xlstm logits", check_xlstm_logits, xl_cfg, dev)
+        phase("xlstm served logits", check_served_logits, xl_cfg, dev,
+              ("mlstm", "mlstm", "slstm"), XL_ENGINE_FAULTS, XL_LOGIT_ATOL,
+              "xlstm engine")
     print(f"phases (s): "
           f"{json.dumps({k: round(x, 1) for k, x in phases.items()})}")
 
@@ -4104,14 +4577,19 @@ def main(argv=None) -> int:
                    "musicgen": musicgen_counts[row["name"]],
                    "internvl": internvl_counts.get(row["name"], 0),
                    "recurrentgemma": rg_counts.get(row["name"], 0),
-                   "xlstm": xl_counts.get(row["name"], 0)}
+                   "xlstm": xl_counts.get(row["name"], 0),
+                   "recurrentgemma engine": rg_eng_counts.get(row["name"],
+                                                              0),
+                   "xlstm engine": xl_eng_counts.get(row["name"], 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["launches"] == 0:
             fail(f"kernel {row['name']} was not launched on a main path")
     print(f"sma_gemm routes by path: " + json.dumps(
         {"serve": serve_routes, "train": train_routes, "nemo": nemo_routes,
-         "recurrentgemma": rg_routes, "xlstm": xl_routes}))
+         "recurrentgemma": rg_routes, "xlstm": xl_routes,
+         "recurrentgemma engine": rg_eng_routes,
+         "xlstm engine": xl_eng_routes}))
     print(f"flash routes by path: {json.dumps(FLASH_ROUTES_BY_PATH)}")
     print(f"rmsnorm_gemm, mlstm_chunkwise and rglru_scan routes by path: "
           f"{json.dumps(ROUTES_BY_PATH)}")

@@ -59,7 +59,7 @@ def main() -> int:
         params = lm.init(cfg, seed=0, device=dev)
         eng = ServeEngine(cfg, params, cache=cache, max_batch=b,
                           sched=SchedulerConfig(prefill_chunk=c), device=dev)
-        state = smodel.init_state(cfg, cache, device=dev)
+        state = eng.state          # zeroed pools, in every checkout
         mb = cache.max_blocks_per_req
         table = torch.arange(b * mb, dtype=torch.int32,
                              device=dev).reshape(b, mb) % cache.num_blocks

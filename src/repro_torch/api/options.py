@@ -14,10 +14,12 @@ engine bakes into each cached executable and into its cache key.
 
 The port keeps only the fields that mean something in it today.  The
 reference's ``backend``, ``interpret``, ``autotune``, ``block_*``,
-``precision``, ``jit``, ``donate_argnums``, ``verify``, ``mesh``,
-``mesh_rules`` and ``max_scan_unroll`` wait for the modules that give them
-a meaning (ROADMAP.md §1): routing is static and by device, and a traced
-graph has no scans to unroll.  ``check_numerics`` takes ``"off"``,
+``precision``, ``jit``, ``donate_argnums``, ``verify``, ``mesh`` and
+``mesh_rules`` wait for the modules that give them a meaning (ROADMAP.md
+§1): routing is static and by device.  ``max_scan_unroll`` bounds the trip
+count up to which the lowering unrolls a loop node
+(:func:`repro_torch.compiler.loop.scan`), as the reference's bounds a
+``scan``.  ``check_numerics`` takes ``"off"``,
 ``"log"`` and ``"raise"``; the reference's ``"fallback"`` (recompute on
 the plain path) is refused, since routing in the port never falls back.
 
@@ -46,6 +48,11 @@ __all__ = ["SMAOptions", "options", "current_options", "resolve_options",
 class SMAOptions:
     """Every knob of the trace -> plan -> rewrite -> dispatch pipeline.
 
+    lower
+      * ``max_scan_unroll`` -- loop nodes of trip count up to this unroll
+        in the plan; longer ones are costed once x the trip count behind
+        a ``RECURRENCE`` marker.
+
     plan / rewrite
       * ``fuse_runtime`` -- run the fusion patterns of the rewrite pass
         (``False`` is the spatially decoupled A/B baseline: every GEMM
@@ -69,10 +76,12 @@ class SMAOptions:
     max_epilogue_ops: Optional[int] = None
     max_cache_entries: Optional[int] = None
     check_numerics: Optional[str] = None
+    max_scan_unroll: Optional[int] = None
     policy: Any = None
 
     _FIELDS = ("fuse_runtime", "fuse_epilogues", "max_epilogue_ops",
-               "max_cache_entries", "check_numerics", "policy")
+               "max_cache_entries", "check_numerics", "max_scan_unroll",
+               "policy")
 
     def __post_init__(self) -> None:
         if self.check_numerics == "fallback":
@@ -111,7 +120,7 @@ class SMAOptions:
 #: The resolved defaults.
 DEFAULTS = SMAOptions(fuse_runtime=True, fuse_epilogues=True,
                       max_epilogue_ops=4, max_cache_entries=0,
-                      check_numerics="off", policy=None)
+                      check_numerics="off", max_scan_unroll=8, policy=None)
 
 _STACK: contextvars.ContextVar[Tuple[SMAOptions, ...]] = \
     contextvars.ContextVar("repro_torch_sma_options_stack", default=())

@@ -15,6 +15,11 @@ as one call:
   forward and backward of a gradient site, the decode attentions, the
   scans) calls its entry
   (:data:`repro_torch.compiler.trace.KERNEL_ENTRY_OPS`);
+* a loop node (``repro_torch::scan_loop``) becomes a call of a
+  :class:`ScanLoop` submodule, which runs the loop body's own dispatching
+  module (built once per body, from the body's rewrite) L times; the
+  kernel entries inside it decide their route and count their launches on
+  every step, as any other site does;
 * every other node runs its aten op natively.
 
 Nodes the rewrite left without a user (the folded upcasts, the collapsing
@@ -32,7 +37,10 @@ the same graph through :class:`TracedRun`, a ``torch.fx.Interpreter``
 that records the reference dispatcher's spans: ``dispatch.sma_gemm`` /
 ``dispatch.fused_gemm`` around each GEMM site and one
 ``dispatch.simd_region`` (mode ``simd``) per run of other nodes between
-them.  Without a profile the generated code runs, at no cost a node.
+them, and each loop node under one ``dispatch.loop`` span (its body's
+name and trip count; its steps run the body's generated code, so inside
+it only the kernel entries' ``kernel.{op}`` spans are recorded).  Without
+a profile the generated code runs, at no cost a node.
 
 :func:`compile_with_options` is the pipeline ``trace -> lower -> plan ->
 rewrite -> dispatch`` behind :func:`repro_torch.api.sma_jit`, each of the
@@ -41,6 +49,7 @@ first four stages under a ``compile.{stage}`` span.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -51,6 +60,7 @@ import torch.utils._pytree as pytree
 from repro_torch.api.options import SMAOptions, resolve_options
 from repro_torch.backends.base import OpSite
 from repro_torch.backends.registry import record_sites, select_backend
+from repro_torch.compiler import loop
 from repro_torch.compiler.fuse import ModelPlan, plan_program
 from repro_torch.compiler.lower import (MATMUL_OPS, BATCHED_MATMUL_OPS,
                                         lower_graph, op_name, sma_eligible,
@@ -66,7 +76,7 @@ from repro_torch.kernels import ops
 from repro_torch.obs import trace as _obs_trace
 from repro_torch.resilience import guard as _res_guard
 
-__all__ = ["CompiledModel", "TracedRun", "build_module",
+__all__ = ["CompiledModel", "ScanLoop", "TracedRun", "build_module",
            "compile_with_options", "count_dispatch_sites"]
 
 
@@ -88,18 +98,26 @@ def _dispatchable(node: torch.fx.Node) -> bool:
         for a in node.all_input_nodes)
 
 
-def count_dispatch_sites(graph: torch.fx.Graph) -> Dict[str, int]:
+def count_dispatch_sites(graph: torch.fx.Graph) -> Dict[str, Any]:
     """Census of the traced graph's products: ``systolic_dispatch_sites``
     (eligible products and gradient call sites, taken by
     ``sma_gemm``/``rmsnorm_gemm``) and
     ``native_dot_sites`` (batched or otherwise native), and the
-    ``kernel_entry_sites`` (flash, scans)."""
-    counts = {"systolic_dispatch_sites": 0, "native_dot_sites": 0,
-              "kernel_entry_sites": 0}
+    ``kernel_entry_sites`` (flash, scans).  Loop nodes are counted in
+    ``loop_nodes``, and each loop body once in ``loop_bodies`` (by its
+    name): its node count, its own census, the loop nodes that run it and
+    their trip counts."""
+    counts: Dict[str, Any] = {"systolic_dispatch_sites": 0,
+                              "native_dot_sites": 0,
+                              "kernel_entry_sites": 0, "loop_nodes": 0,
+                              "loop_bodies": {}}
     for node in graph.nodes:
         if node.op != "call_function":
             continue
-        if node.target in GEMM_SITE_OPS:
+        if node.target is loop.LOOP_OP:
+            counts["loop_nodes"] += 1
+            _count_body(counts["loop_bodies"], node)
+        elif node.target in GEMM_SITE_OPS:
             counts["systolic_dispatch_sites"] += 1
         elif node.target in KERNEL_ENTRY_OPS:
             counts["kernel_entry_sites"] += 1
@@ -108,6 +126,25 @@ def count_dispatch_sites(graph: torch.fx.Graph) -> Dict[str, int]:
         elif op_name(node) in MATMUL_OPS | BATCHED_MATMUL_OPS:
             counts["native_dot_sites"] += 1
     return counts
+
+
+def _count_body(bodies: Dict[str, Any], node: torch.fx.Node) -> None:
+    """One loop node's entry in ``count_dispatch_sites``' ``loop_bodies``."""
+    body_id = node.args[0]
+    body = loop.body_of(body_id)
+    name = body.name
+    if name in bodies and bodies[name]["body_id"] != body_id:
+        name = f"{name}#{body_id}"
+    entry = bodies.get(name)
+    if entry is None:
+        inner = count_dispatch_sites(body.graph_module.graph)
+        entry = bodies[name] = {"body_id": body_id,
+                                "nodes": body.num_nodes, "loops": 0,
+                                "trip_counts": [], **inner}
+    entry["loops"] += 1
+    length = int(val(node.args[2][0]).shape[0])
+    if length not in entry["trip_counts"]:
+        entry["trip_counts"].append(length)
 
 
 def collect_backend_sites(items: List[Any]) -> List[Dict[str, Any]]:
@@ -132,16 +169,66 @@ def collect_backend_sites(items: List[Any]) -> List[Dict[str, Any]]:
     return sites
 
 
-def build_module(traced: TracedModel,
-                 rewritten: RewriteResult) -> torch.fx.GraphModule:
-    """The dispatching ``GraphModule`` (see the module docstring)."""
+class ScanLoop(torch.nn.Module):
+    """A loop node at run time: ``module``, the body's dispatching module,
+    over the leading axis of the step inputs
+    (:func:`repro_torch.compiler.loop.run_body`)."""
+
+    def __init__(self, body: loop.LoopBody,
+                 module: torch.fx.GraphModule) -> None:
+        super().__init__()
+        self.body = body
+        self.module = module
+
+    def forward(self, carry, xs, consts):
+        return loop.run_body(self.body, self.module, list(carry), list(xs),
+                             list(consts))
+
+
+def _module_sites(module: torch.nn.Module) -> List[Any]:
+    """Every GEMM site and kernel-entry node of a dispatching module, a
+    loop body's once per loop node."""
+    out: List[Any] = []
+    for n in module.graph.nodes:
+        if "site" in n.meta:
+            out.append(n.meta["site"])
+        elif n.op == "call_module":
+            sub = module.get_submodule(n.target)
+            if isinstance(sub, ScanLoop):
+                out += _module_sites(sub.module)
+    return out
+
+
+def _build(root: torch.fx.GraphModule, name: str,
+           rewritten: RewriteResult) -> torch.fx.GraphModule:
+    """The dispatching module of one graph (``root`` holds its
+    attributes); a loop node's body is built by the same function."""
     graph = torch.fx.Graph()
     env: Dict[torch.fx.Node, torch.fx.Node] = {}
+    loops: Dict[str, ScanLoop] = {}
 
     def arg(n):
         return None if n is None else env[n]
 
     for item in rewritten.items:
+        if isinstance(item, torch.fx.Node) and \
+                item.target is loop.LOOP_OP:
+            body_id = item.args[0]
+            body = loop.body_of(body_id)
+            target = f"loop{body_id}"
+            if target not in loops:
+                loops[target] = ScanLoop(body, _build(
+                    body.graph_module, f"{name}_{body.name}",
+                    rewritten.bodies[body_id]))
+            new = graph.call_module(
+                target, torch.fx.node.map_arg(item.args[1:], env.get))
+            new.meta["val"] = val(item)
+            new.meta["dispatch_span"] = (
+                "dispatch.loop",
+                {"body": body.name,
+                 "len": int(val(item.args[2][0]).shape[0])})
+            env[item] = new
+            continue
         if isinstance(item, FusedGemm):
             if item.kind == "prologue":
                 new = graph.call_function(
@@ -168,9 +255,20 @@ def build_module(traced: TracedModel,
             new.target = KERNEL_ENTRY_OPS[item.target]
             new.meta["site"] = item
         env[item] = new
-    graph.eliminate_dead_code()
-    return torch.fx.GraphModule(traced.graph_module, graph,
-                                class_name=f"SMA_{traced.name}")
+    attrs: Dict[str, Any] = {
+        n.target: functools.reduce(getattr, n.target.split("."), root)
+        for n in graph.nodes if n.op == "get_attr"}
+    attrs.update(loops)
+    module = torch.fx.GraphModule(attrs, graph, class_name=f"SMA_{name}")
+    module.graph.eliminate_dead_code()
+    module.recompile()
+    return module
+
+
+def build_module(traced: TracedModel,
+                 rewritten: RewriteResult) -> torch.fx.GraphModule:
+    """The dispatching ``GraphModule`` (see the module docstring)."""
+    return _build(traced.graph_module, traced.name, rewritten)
 
 
 class TracedRun(torch.fx.Interpreter):
@@ -294,7 +392,8 @@ def compile_with_options(fn: Callable, *args, name: Optional[str] = None,
         traced = trace_model(fn, *args, name=name, **kwargs)
     t1 = time.perf_counter()
     with _obs_trace.span("compile.lower", cat="compile"):
-        program = lower_graph(traced.graph)
+        program = lower_graph(traced.graph,
+                              max_scan_unroll=o.max_scan_unroll)
     t2 = time.perf_counter()
     policy = o.policy if o.policy is not None else SMAPolicy(
         fuse_epilogues=bool(o.fuse_epilogues),
@@ -317,7 +416,7 @@ def compile_with_options(fn: Callable, *args, name: Optional[str] = None,
     report["fusion"] = fusion_section(
         plan, rewritten if o.fuse_runtime else None)
     report["backends"] = backends_section(collect_backend_sites(
-        [n.meta["site"] for n in module.graph.nodes if "site" in n.meta]))
+        _module_sites(module)))
     report["resilience"] = _res_guard.resilience_section()
     report["compile"] = times
     return CompiledModel(traced=traced, plan=plan, report_data=report,

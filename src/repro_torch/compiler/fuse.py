@@ -6,7 +6,9 @@ front-end: :class:`repro_torch.core.sma.SMAPolicy` walks the lowered ``Op``
 sequence, anchors fusion groups on SYSTOLIC ops, attaches tile-local SIMD
 epilogues, and coalesces the GEMM-incompatible remainder into SIMD groups.
 :class:`ModelPlan` packages the result (groups + summary + lowering stats)
-for the dispatcher and the report generator.
+for the dispatcher and the report generator.  A coarsened loop's
+``scan_carry`` marker is a ``RECURRENCE`` op, never tile-local, so it
+closes the open group: nothing fuses across a loop boundary.
 """
 from __future__ import annotations
 

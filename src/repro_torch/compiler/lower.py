@@ -36,8 +36,16 @@ shapes let it reach (the cache's ``Smax``, or the table's ``max_blocks x
 block_size``: an upper bound, the valid lengths are data) and their bytes
 over those keys and values; the RG-LRU and mLSTM scans -> ``RECURRENCE``.
 
-Python loops unroll while tracing, so the graph has no scan or while nodes
-to coarsen: a model's layer loop lowers layer by layer.
+Python loops unroll while tracing, so a model's layer loop lowers layer
+by layer.  A :func:`repro_torch.compiler.loop.scan` is one loop node
+(``repro_torch::scan_loop``) with its own body graph, and lowers as the
+reference lowers a ``scan`` (``repro.compiler.lower._lower_scan``): a trip
+count L up to ``max_scan_unroll`` walks the body L times
+(``unrolled_scans``), so mode switches are counted exactly; a longer loop
+emits one ``scan_carry(len=L)`` ``RECURRENCE`` op, costed on the carry (L
+x its elements in FLOPs, its bytes in and out), then the body once with
+every cost x L (``coarsened_scans``): the steady state behind a marker
+that breaks fusion across the loop boundary.
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ from typing import Dict, List
 import torch
 import torch.fx
 
+from repro_torch.compiler import loop
 from repro_torch.core.modes import Op, OpKind
 
 __all__ = ["LoweredProgram", "LowerStats", "gemm_shape", "lower_graph",
@@ -124,6 +133,8 @@ class LowerStats:
     total_eqns: int = 0          # graph nodes that compute or move data
     layout_ops_elided: int = 0
     kernel_entries: int = 0      # flash / scan nodes
+    unrolled_scans: int = 0      # loop nodes walked L times
+    coarsened_scans: int = 0     # loop nodes costed once x L
     unknown_prims: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
@@ -237,21 +248,55 @@ def attention_pairs(sq: int, skv: int, causal: bool, window) -> int:
 # The lowerer
 # --------------------------------------------------------------------------
 class _Lowerer:
-    def __init__(self) -> None:
+    def __init__(self, max_scan_unroll: int) -> None:
         self.ops: List[Op] = []
         self.stats = LowerStats()
+        self.max_scan_unroll = max_scan_unroll
+        self.path = ""          # "scan[i]/" or "scan(xL)/" inside a loop
+        self.mult = 1.0         # cost multiplier inside a coarsened loop
 
     def emit(self, name: str, kind: OpKind, *, flops: float,
              bytes_in: float, bytes_out: float, tile_local: bool) -> None:
-        self.ops.append(Op(f"{name}#{len(self.ops) + 1}", kind, flops=flops,
-                           bytes_in=bytes_in, bytes_out=bytes_out,
-                           tile_local=tile_local))
+        m = self.mult
+        self.ops.append(Op(f"{self.path}{name}#{len(self.ops) + 1}", kind,
+                           flops=flops * m, bytes_in=bytes_in * m,
+                           bytes_out=bytes_out * m, tile_local=tile_local))
+
+    def walk(self, graph: torch.fx.Graph, path: str, mult: float) -> None:
+        saved = self.path, self.mult
+        self.path, self.mult = path, mult
+        try:
+            for node in graph.nodes:
+                self.lower(node)
+        finally:
+            self.path, self.mult = saved
+
+    def _loop(self, node: torch.fx.Node) -> None:
+        """A loop node: unrolled up to ``max_scan_unroll``, else the carry
+        marker and the body once x L (module docstring)."""
+        body = loop.body_of(node.args[0]).graph_module.graph
+        length = int(val(node.args[2][0]).shape[0])
+        if length <= self.max_scan_unroll:
+            self.stats.unrolled_scans += 1
+            for i in range(length):
+                self.walk(body, f"{self.path}scan[{i}]/", self.mult)
+            return
+        self.stats.coarsened_scans += 1
+        carry = [val(c) for c in node.args[1]]
+        carry_bytes = sum(_nbytes(c) for c in carry)
+        self.emit(f"scan_carry(len={length})", OpKind.RECURRENCE,
+                  flops=_numel(carry) * length, bytes_in=carry_bytes,
+                  bytes_out=carry_bytes, tile_local=False)
+        self.walk(body, f"{self.path}scan(x{length})/", self.mult * length)
 
     def lower(self, node: torch.fx.Node) -> None:
         from repro_torch.compiler.trace import KERNEL_ENTRY_OPS
         if node.op != "call_function":
             return
         self.stats.total_eqns += 1
+        if node.target is loop.LOOP_OP:
+            self._loop(node)
+            return
         name = op_name(node)
         out = val(node)
         bin_, bout = _in_bytes(node), _nbytes(out)
@@ -386,9 +431,11 @@ class _Lowerer:
                       bytes_in=bin_, bytes_out=bout, tile_local=False)
 
 
-def lower_graph(graph: torch.fx.Graph) -> LoweredProgram:
-    """Lower a traced fx graph to the symbolic :class:`Op` program."""
-    lw = _Lowerer()
-    for node in graph.nodes:
-        lw.lower(node)
+def lower_graph(graph: torch.fx.Graph, *,
+                max_scan_unroll: int = 8) -> LoweredProgram:
+    """Lower a traced fx graph to the symbolic :class:`Op` program; loop
+    nodes of trip count up to ``max_scan_unroll`` unroll (module
+    docstring)."""
+    lw = _Lowerer(max_scan_unroll)
+    lw.walk(graph, "", 1.0)
     return LoweredProgram(ops=lw.ops, stats=lw.stats)

@@ -13,7 +13,10 @@ The ``runtime`` section (the measured mode timeline of a
 (:mod:`repro_torch.api.engine`) and rendered by :func:`render_text`, as
 is the ``resilience`` section
 (:func:`repro_torch.resilience.guard.resilience_section`, stamped at
-compile and restamped on every report read).  The reference's ``comm``
+compile and restamped on every report read).  Loop nodes show in the
+``lowering`` section (``unrolled_scans``, ``coarsened_scans``) and in the
+``dispatch`` section (``loop_nodes``, and per body its nodes, sites and
+trip counts).  The reference's ``comm``
 section waits for the distributed slice, and its ``diagnostics`` section
 for ``analysis`` (ROADMAP.md).
 """
@@ -159,6 +162,12 @@ def render_text(report: Dict[str, Any]) -> str:
         f"  systolic FLOP share    : "
         f"{report['systolic_flop_share']:.1%}",
     ]
+    low = report.get("lowering", {})
+    if low.get("unrolled_scans") or low.get("coarsened_scans"):
+        lines.append(
+            f"  loops (lowered)        : {low['unrolled_scans']} unrolled, "
+            f"{low['coarsened_scans']} coarsened (x trip count behind a "
+            f"RECURRENCE marker)")
     disp = report.get("dispatch")
     if disp:
         lines.append(
@@ -166,6 +175,12 @@ def render_text(report: Dict[str, Any]) -> str:
             f"{disp['systolic_dispatch_sites']} GEMM sites -> sma_gemm/"
             f"rmsnorm_gemm, {disp['kernel_entry_sites']} kernel entries, "
             f"{disp['native_dot_sites']} native")
+        for name, body in sorted(disp.get("loop_bodies", {}).items()):
+            lines.append(
+                f"  loop body {name}: {body['nodes']} nodes, "
+                f"{body['systolic_dispatch_sites']} GEMM sites, "
+                f"{body['loops']} loop nodes x trip counts "
+                f"{body['trip_counts']}")
     fus = report.get("fusion")
     if fus:
         lines.append(

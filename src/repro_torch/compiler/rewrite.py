@@ -42,7 +42,18 @@ Conservative fallbacks, each counted by reason in :class:`RewriteStats`
   stays a native ``mm`` (the kernels take no other dtype).
 
 A norm chain fuses only where every intermediate, the normalized matrix
-included, feeds the chain alone.  With ``fuse=False`` (``SMAOptions(
+included, feeds the chain alone, and, for a bf16/f16 x, only where the
+chain ends in the downcast to x's dtype (``rmsnorm_gemm`` returns x's
+dtype): a product followed by an f32 bias add before its downcast keeps
+the bias in its epilogue instead.
+
+A loop node (:func:`repro_torch.compiler.loop.scan`) is rewritten
+recursively, as the reference rewrites a ``scan`` body: its body graph is
+rewritten once (:attr:`RewriteResult.bodies`, by body id), and each loop
+node of trip count L adds the body's sites to the stats with their avoided
+bytes x L (``mult`` in each site record).  No chain fuses across the loop
+boundary: the body is its own graph, and a product whose value leaves the
+body is a ``graph_output`` fallback.  With ``fuse=False`` (``SMAOptions(
 fuse_runtime=False)``) only bare sites are made: the A/B baseline, where
 each epilogue runs as its own kernels on the product's f32 output.
 """
@@ -54,6 +65,7 @@ from typing import Any, Dict, List, Optional, Sequence, Set, Tuple, Union
 import torch
 import torch.fx
 
+from repro_torch.compiler import loop
 from repro_torch.compiler.lower import gemm_shape, op_name, sma_eligible, val
 from repro_torch.compiler.trace import GEMM_SITE_OPS
 
@@ -123,10 +135,13 @@ RewriteItem = Union[Node, FusedGemm]
 
 @dataclasses.dataclass
 class RewriteResult:
-    """The graph's node stream with every GEMM site's chain collapsed."""
+    """The graph's node stream with every GEMM site's chain collapsed, and
+    the rewritten body of every loop node, by body id."""
 
     items: List[RewriteItem]
     stats: RewriteStats
+    bodies: Dict[int, "RewriteResult"] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def sites(self) -> List[FusedGemm]:
@@ -307,17 +322,11 @@ def _match_prologue(anchor: Node) -> Optional[Tuple[Node, Node, Node, float,
 # --------------------------------------------------------------------------
 # The rewriter
 # --------------------------------------------------------------------------
-def _match_site(anchor: Node, fuse: bool, stats: RewriteStats
-                ) -> Optional[FusedGemm]:
-    is_addmm = op_name(anchor) == "addmm"
-    a_node, b_node = anchor.args[1:3] if is_addmm else anchor.args[:2]
-    if (val(a_node).dtype not in FUSABLE_DTYPES
-            or val(b_node).dtype not in FUSABLE_DTYPES):
-        stats.fallback("unsupported_dtype")
-        return None
-    m, n, k = gemm_shape(anchor)
-
-    prologue = _match_prologue(anchor) if fuse else None
+def _match_epilogue(anchor: Node, n: int, fuse: bool, *, with_bias: bool):
+    """The chain after a product: its collapsing view, the bias add (when
+    ``with_bias`` and the product has none of its own), an activation.
+    Returns (chain, the intermediates it elides, its last node, bias,
+    epilogue, the dtype a downcast after it casts to)."""
     chain: List[Node] = [anchor]
     saved: List[Node] = []              # intermediates that never exist
     head = anchor
@@ -325,8 +334,8 @@ def _match_site(anchor: Node, fuse: bool, stats: RewriteStats
     if _is(u, *_VIEWS) and val(u).shape[-1] == n:
         chain.append(u)
         head = u
-    bias = anchor.args[0] if is_addmm else None
-    if fuse and prologue is None and bias is None:
+    bias = anchor.args[0] if op_name(anchor) == "addmm" else None
+    if fuse and with_bias and bias is None:
         matched = _match_bias(head, n)
         if matched is not None:
             bias, add = matched
@@ -340,10 +349,29 @@ def _match_site(anchor: Node, fuse: bool, stats: RewriteStats
         chain += act[1]
         saved.append(head)
         head = act[1][-1]
-    down = _downcast(_sole_user(head))
+    return chain, saved, head, bias, epilogue, _downcast(_sole_user(head))
+
+
+def _match_site(anchor: Node, fuse: bool, stats: RewriteStats
+                ) -> Optional[FusedGemm]:
+    is_addmm = op_name(anchor) == "addmm"
+    a_node, b_node = anchor.args[1:3] if is_addmm else anchor.args[:2]
+    if (val(a_node).dtype not in FUSABLE_DTYPES
+            or val(b_node).dtype not in FUSABLE_DTYPES):
+        stats.fallback("unsupported_dtype")
+        return None
+    m, n, k = gemm_shape(anchor)
+
+    prologue = _match_prologue(anchor) if fuse else None
+    chain, saved, head, bias, epilogue, down = _match_epilogue(
+        anchor, n, fuse, with_bias=prologue is None)
     if prologue is not None and val(prologue[0]).dtype in _LOW \
             and down is not val(prologue[0]).dtype:
-        prologue = None                 # rmsnorm_gemm returns x's dtype
+        # rmsnorm_gemm returns x's dtype, and the chain does not: no
+        # prologue, and the product's own bias may fuse after all.
+        prologue = None
+        chain, saved, head, bias, epilogue, down = _match_epilogue(
+            anchor, n, fuse, with_bias=True)
     fused = prologue is not None or bias is not None or epilogue != "none"
     if fuse and not fused:
         y = chain[-1]
@@ -431,16 +459,47 @@ def _gradient_site(node: Node, stats: RewriteStats) -> FusedGemm:
     return fg
 
 
+def _add_body(stats: RewriteStats, body: RewriteStats,
+              length: int) -> None:
+    """One loop node's share of its body's sites: their avoided bytes x
+    the trip count."""
+    stats.realized_fused_sites += body.realized_fused_sites
+    stats.realized_epilogue_sites += body.realized_epilogue_sites
+    stats.realized_prologue_sites += body.realized_prologue_sites
+    stats.realized_hbm_bytes_avoided += \
+        body.realized_hbm_bytes_avoided * length
+    stats.eqns_elided += body.eqns_elided
+    for reason, n in body.fallback_reasons.items():
+        stats.fallback_reasons[reason] = \
+            stats.fallback_reasons.get(reason, 0) + n
+    stats.sites.extend(
+        dict(site, hbm_bytes_avoided=site["hbm_bytes_avoided"] * length,
+             mult=site.get("mult", 1) * length)
+        for site in body.sites)
+
+
 def rewrite_program(graph: torch.fx.Graph, *, fuse: bool = True
                     ) -> RewriteResult:
     """Collapse every GEMM site's chain in ``graph`` (left unchanged) into a
-    :class:`FusedGemm`; ``fuse=False`` makes bare sites only."""
+    :class:`FusedGemm`; ``fuse=False`` makes bare sites only.  Loop bodies
+    are rewritten recursively (module docstring)."""
     stats = RewriteStats()
+    bodies: Dict[int, RewriteResult] = {}
     nodes: Sequence[Node] = list(graph.nodes)
     order = {node: i for i, node in enumerate(nodes)}
     consumed: Set[Node] = set()
     at: Dict[Node, FusedGemm] = {}
     for node in nodes:
+        if node.op == "call_function" and node.target is loop.LOOP_OP:
+            body_id = node.args[0]
+            if body_id not in bodies:
+                bodies[body_id] = rewrite_program(
+                    loop.body_of(body_id).graph_module.graph, fuse=fuse)
+            for inner_id, inner in bodies[body_id].bodies.items():
+                bodies.setdefault(inner_id, inner)
+            _add_body(stats, bodies[body_id].stats,
+                      val(node.args[2][0]).shape[0])
+            continue
         if node.op == "call_function" and node.target in GEMM_SITE_OPS:
             at[node] = _gradient_site(node, stats)
             consumed.add(node)
@@ -461,4 +520,4 @@ def rewrite_program(graph: torch.fx.Graph, *, fuse: bool = True
             items.append(at[node])
         elif node not in consumed:
             items.append(node)
-    return RewriteResult(items=items, stats=stats)
+    return RewriteResult(items=items, stats=stats, bodies=bodies)

@@ -50,6 +50,10 @@ call site**; anything else traces as before:
   their own.  A gradient the step never reads is a node without users,
   which dispatch drops.
 
+A :func:`repro_torch.compiler.loop.scan` records one
+``repro_torch::scan_loop`` node with its own body graph (the scope holds
+:func:`repro_torch.compiler.loop.tracing` open), not its unrolled steps.
+
 The entries are swapped on the ``ops`` module for the trace only: the direct
 path never goes through a custom op's dispatcher.
 """
@@ -65,6 +69,7 @@ import torch.utils._pytree as pytree
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.fx.experimental.proxy_tensor import make_fx
 
+from repro_torch.compiler import loop
 from repro_torch.kernels import autograd as _autograd
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import norm_gemm as _norm
@@ -398,8 +403,9 @@ _LOCK = threading.Lock()
 @contextlib.contextmanager
 def kernel_entries_as_ops() -> Iterator[None]:
     """For the ``with`` scope, the ``ops`` entries trace as described in the
-    module docstring.  One trace at a time: the swap is process-wide."""
-    with _LOCK:
+    module docstring, and a ``loop.scan`` records one node.  One trace at a
+    time: the swap is process-wide."""
+    with _LOCK, loop.tracing():
         saved = {name: getattr(ops, name) for name in _TRACE_ENTRIES}
         try:
             for name, fn in _TRACE_ENTRIES.items():

@@ -24,8 +24,16 @@ def gemm_ref(a: torch.Tensor, b: torch.Tensor, *,
              bias: Optional[torch.Tensor] = None,
              epilogue: str = "none") -> torch.Tensor:
     """C = epilogue(A @ B + bias), accumulated in float32, returned in
-    A's dtype.  a (..., K); b (K, N); bias (N,)."""
-    out = torch.matmul(a.float(), b.float())
+    A's dtype.  a (..., K); b (K, N); bias (N,).  The leading dims of a
+    are collapsed by a reshape before one ``mm``, so the product runs as
+    the same op eagerly and in a traced graph (``matmul`` of a strided
+    3-D operand may take ``bmm`` in one and ``mm`` in the other)."""
+    a32 = a.float()
+    if a32.dim() == 2:
+        out = torch.mm(a32, b.float())
+    else:
+        out = torch.mm(a32.reshape(-1, a32.shape[-1]), b.float()).view(
+            *a32.shape[:-1], b.shape[-1])
     if bias is not None:
         out = out + bias.float()
     return EPILOGUES[epilogue](out).to(a.dtype)

@@ -210,12 +210,17 @@ def _headwise_rms(x: torch.Tensor, scale: torch.Tensor,
 
 
 def _mlstm_qkv_gates(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                     conv_tail: Optional[torch.Tensor] = None):
+                     conv_tail: Optional[torch.Tensor] = None,
+                     norm_scale: Optional[torch.Tensor] = None):
     """q, k, v (B, S, inner) in x's dtype, log_i and log_f (B, S, H) in
-    float32, the output gate's input z and the conv's input x_m."""
+    float32, the output gate's input z and the conv's input x_m.  With
+    ``norm_scale``, x is the block's input before its norm1 and the up
+    projection is ``rmsnorm_gemm(x, norm_scale, w_up)``."""
     dtype, h = x.dtype, cfg.num_heads
     inner, _ = _mlstm_dims(cfg)
-    up = ops.sma_gemm(x, compute_cast(params["w_up"], dtype))
+    w_up = compute_cast(params["w_up"], dtype)
+    up = (ops.sma_gemm(x, w_up) if norm_scale is None
+          else ops.rmsnorm_gemm(x, norm_scale, w_up))
     x_m, z = up[..., :inner], up[..., inner:]
     xc = F.silu(causal_conv1d(x_m, params["conv_w"], params["conv_b"],
                               tail=conv_tail))
@@ -290,14 +295,21 @@ def mlstm_block_init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
 
 
 def mlstm_block_decode(params: dict, x: torch.Tensor, state: dict,
-                       cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
+                       cfg: ModelConfig,
+                       norm_scale: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, dict]:
     """One decode step, the sequential mLSTM update in float32.  x (B, 1,
-    D) -> (y (B, 1, D), new state); ``state`` is not modified."""
+    D) -> (y (B, 1, D), new state); ``state`` is not modified.  With
+    ``norm_scale`` (the block's norm1 scale), x is the block's input and
+    norm1 -> w_up runs as one ``rmsnorm_gemm``: the site the compiler's
+    prologue rule makes of that chain, so the paged decode step
+    (:mod:`repro_torch.serving.model`) launches what its compiled tick
+    launches."""
     b = x.shape[0]
     inner, dh = _mlstm_dims(cfg)
     h = cfg.num_heads
     q, k, v, log_i, log_f, z, x_m = _mlstm_qkv_gates(
-        params, x, cfg, conv_tail=state["conv_tail"])
+        params, x, cfg, conv_tail=state["conv_tail"], norm_scale=norm_scale)
     tail = torch.cat([state["conv_tail"][:, 1:],
                       x_m.to(state["conv_tail"].dtype)], dim=1)
 

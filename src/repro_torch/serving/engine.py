@@ -45,17 +45,25 @@ next tick to try again; any other exception propagates); the fault sites
 ``serve.admit`` and ``serve.tick``; and the soft watchdog
 (``serve.watchdog_exceeded``, warned once per site).
 
-**The retry after a mid-step fault is exact for ``attn`` layers.**  The
-compiled steps write the paged pools in place, so unlike the reference
-the state after a failed tick is not the pre-tick state: a fault at
-``serve.tick`` fires before the step and nothing is written, but a fault
-at a kernel entry fires mid-step, after some layers have written their
-keys and values at positions >= ``cache_len``.  ``cache_len`` has not
-advanced, nothing reads past it, and the retry rewrites the same slots
-with the same values, so the retried tick's tokens are the unfaulted
-ones.  The recurrent families, whose per-row state a retry would have to
-restore, are refused by the paged steps (:mod:`repro_torch.serving.
-model`).
+**Recurrent rows** (RG-LRU, mLSTM, sLSTM) keep a dense per-row state
+beside the pools (:mod:`repro_torch.serving.model`), handled per tick as
+the reference handles it: :meth:`_gather` copies the tick's rows out
+(padding rows repeat the first row; pools pass through whole), the step
+consumes that copy and returns new recurrent tensors, and
+:meth:`_scatter` writes back only the rows whose logits are finite, so a
+poisoned row keeps its pre-tick state.  :meth:`_zero_row` zeroes a row's
+recurrent state on admit and on eviction.
+
+**The retry after a mid-step fault is exact.**  The compiled steps write
+the paged pools in place, so unlike the reference the pools after a
+failed tick are not the pre-tick pools: a fault at ``serve.tick`` fires
+before the step and nothing is written, but a fault at a kernel entry
+fires mid-step, after some layers have written their keys and values at
+positions >= ``cache_len``.  ``cache_len`` has not advanced, nothing
+reads past it, and the retry rewrites the same slots with the same
+values.  The recurrent entries of ``self.state`` are untouched by a
+failed tick, since the step only read their gathered copy.  So the
+retried tick's tokens are the unfaulted ones.
 
 **The slot API** of the deprecated :class:`repro_torch.launch.serve.
 Server`: :meth:`admit_sync` (admit and prefill the whole prompt, emitting
@@ -147,7 +155,8 @@ class ServeEngine:
         self.retry = retry or RetryPolicy()
 
         self.kv = PagedKVCache(self.cache, max_batch)
-        self.state = smodel.init_state(cfg, self.cache, device=self.device)
+        self.state = smodel.init_state(cfg, max_batch, self.cache,
+                                       device=self.device)
         self.cache_len = np.zeros((max_batch,), np.int32)  # host-side truth
         self._pooled = frozenset(smodel.pooled_positions(cfg))
 
@@ -233,7 +242,7 @@ class ServeEngine:
         req.t_admit = now
         if req.t_submit is not None:
             _metrics.observe("serving.queue_wait_s", now - req.t_submit)
-        self.cache_len[row] = 0
+        self._zero_row(row)
         self.active[req.rid] = req
         _metrics.inc("serving.admitted")
         return True
@@ -351,9 +360,46 @@ class ServeEngine:
     def _bucket(n: int) -> int:
         return 1 << max(0, n - 1).bit_length() if n > 1 else 1
 
-    def _pad(self, rows: List[int]) -> int:
-        """Padding rows that fill ``rows`` up to its power-of-two bucket."""
-        return min(self.max_batch, self._bucket(len(rows))) - len(rows)
+    def _padded_rows(self, rows: List[int]) -> Tuple[List[int], int]:
+        """The tick's rows filled up to their power-of-two bucket by
+        repeating the first (the rows a recurrent entry gathers), and the
+        number of padding rows."""
+        pad = min(self.max_batch, self._bucket(len(rows))) - len(rows)
+        return rows + [rows[0]] * pad, pad
+
+    def _gather(self, rows_padded: List[int]) -> smodel.State:
+        """The state a tick's step takes: pools pass through whole (no
+        batch axis); each recurrent entry is a copy of the tick's rows."""
+        if len(self._pooled) == len(self.state):
+            return self.state
+        idx = torch.tensor(rows_padded, dtype=torch.long, device=self.device)
+        return tuple(entry if p in self._pooled
+                     else {k: v[:, idx] for k, v in entry.items()}
+                     for p, entry in enumerate(self.state))
+
+    def _scatter(self, new_state: smodel.State, rows: List[int],
+                 good: List[int]) -> None:
+        """Write a tick's recurrent rows back, for the healthy rows
+        ``good`` (indices into ``rows``) only: a poisoned row keeps its
+        pre-tick state.  The pools were written in place by the step."""
+        if not good or len(self._pooled) == len(self.state):
+            return
+        src = torch.tensor(good, dtype=torch.long, device=self.device)
+        dst = torch.tensor([rows[i] for i in good], dtype=torch.long,
+                           device=self.device)
+        for p, entry in enumerate(new_state):
+            if p not in self._pooled:
+                for k, v in entry.items():
+                    self.state[p][k][:, dst] = v[:, src]
+
+    def _zero_row(self, row: int) -> None:
+        """Reset one row's recurrent state and length (pool blocks need no
+        reset on admit: every position below kv_len is freshly written)."""
+        self.cache_len[row] = 0
+        for p, entry in enumerate(self.state):
+            if p not in self._pooled:
+                for v in entry.values():
+                    v[:, row] = 0
 
     def _tensor(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
@@ -411,7 +457,7 @@ class ServeEngine:
         by_row = self._by_row()
         reqs = [by_row[r] for r in rows]
         c = self.sched.config.prefill_chunk
-        pad = self._pad(rows)
+        rows_padded, pad = self._padded_rows(rows)
         bucket = len(rows) + pad
         toks = np.zeros((bucket, c), np.int32)
         n_tok = np.zeros((bucket,), np.int32)
@@ -420,10 +466,11 @@ class ServeEngine:
             toks[i, :m] = req.prompt[req.prefilled:req.prefilled + m]
             n_tok[i] = m
         bt, cl = self._tables(rows, pad)
-        logits, _, _ = self.engines["prefill"](
-            self.params, self.state, bt, cl, self._tensor(n_tok),
-            self._batch_of(toks))
+        logits, new_state, _ = self.engines["prefill"](
+            self.params, self._gather(rows_padded), bt, cl,
+            self._tensor(n_tok), self._batch_of(toks))
         np_logits, good = self._healthy(logits, len(rows))
+        self._scatter(new_state, rows, good)
         out: Dict[int, int] = {}
         for i in good:
             req = reqs[i]
@@ -450,17 +497,19 @@ class ServeEngine:
         if not rows:
             return {}
         reqs = [by_row[r] for r in rows]
-        pad = self._pad(rows)
+        rows_padded, pad = self._padded_rows(rows)
         toks = np.zeros((len(rows) + pad, 1), np.int32)
         for i, req in enumerate(reqs):
             toks[i, 0] = (req.out_tokens[-1] if req.out_tokens
                           else int(req.prompt[-1]))
         bt, cl = self._tables(rows, pad)
-        logits, _, _ = self.engines["decode"](
-            self.params, self.state, bt, cl, self._batch_of(toks))
-        # Containment: only healthy rows advance; poisoned requests are
-        # charged a bounded retry.
+        logits, new_state, _ = self.engines["decode"](
+            self.params, self._gather(rows_padded), bt, cl,
+            self._batch_of(toks))
+        # Containment: only healthy rows advance (their recurrent state
+        # and cache_len); poisoned requests are charged a bounded retry.
         np_logits, good = self._healthy(logits, len(rows))
+        self._scatter(new_state, rows, good)
         out: Dict[int, int] = {}
         for i in good:
             req = reqs[i]
@@ -478,8 +527,8 @@ class ServeEngine:
                      ) -> None:
         """The whole batched step failed (a runtime-class failure or an
         injected fault): charge every participating request one retry,
-        back off, and let the next tick try again (exact for ``attn``
-        layers: module docstring)."""
+        back off, and let the next tick try again (exact: module
+        docstring)."""
         _metrics.inc("serve.tick_failures")
         record_event("serve_tick_failed", error=str(exc),
                      active=len(self.active))
@@ -520,7 +569,7 @@ class ServeEngine:
         if req.slot >= 0:
             self._scrub_blocks(self.kv.blocks_of(req.slot))
             self.kv.release(req.slot)
-            self.cache_len[req.slot] = 0
+            self._zero_row(req.slot)
         _metrics.inc("serve.evictions")
         record_event("serve_evicted", rid=req.rid, slot=req.slot,
                      error=error)
@@ -550,7 +599,7 @@ class ServeEngine:
         keeping the compiled signatures: a second identical workload
         compiles nothing."""
         self.kv = PagedKVCache(self.cache, self.max_batch)
-        self.state = smodel.init_state(self.cfg, self.cache,
+        self.state = smodel.init_state(self.cfg, self.max_batch, self.cache,
                                        device=self.device)
         self.cache_len = np.zeros((self.max_batch,), np.int32)
         self.queue.clear()

@@ -257,7 +257,7 @@ def test_paged_steps_match_jax(name):
     n_tok = np.array([7, 5, 8], np.int32)
     rt = Runtime()
     jstate = jmodel.init_state(jcfg, b, jkv.CacheConfig(4, 32, 64))
-    tstate = tmodel.init_state(tcfg, cc, device="cpu")
+    tstate = tmodel.init_state(tcfg, b, cc, device="cpu")
 
     def inputs(s, seed):
         batch = _inputs(tcfg, b=b, s=s, seed=seed, labels=False)

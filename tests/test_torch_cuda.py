@@ -365,7 +365,7 @@ def test_serving_steps_on_card_match_cpu(dev):
 
     def run(where, feed=None):
         params = _to(lm.init(cfg, seed=0, device="cpu"), where)
-        state = smodel.init_state(cfg, cc, device=where)
+        state = smodel.init_state(cfg, 3, cc, device=where)
         logits, state, cl = smodel.paged_prefill_step(
             params, state, table.to(where),
             torch.zeros(3, dtype=torch.int32, device=where),
@@ -411,7 +411,7 @@ def test_compiled_serving_ticks_equal_direct_on_card(dev):
                      dict(kgemm.ROUTES), dict(knorm.ROUTES), dict(ops.ROUTED))
 
     def run(prefill, decode):
-        state = smodel.init_state(cfg, cc, device=dev)
+        state = smodel.init_state(cfg, 4, cc, device=dev)
         zero = torch.zeros(4, dtype=torch.int32, device=dev)
         (logits, _, cl), seen = counted(prefill, params, state, table, zero,
                                         n_tok, {"tokens": toks})

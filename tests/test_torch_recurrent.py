@@ -28,6 +28,8 @@ from repro.kernels.rglru import rglru_scan as j_rglru_scan
 from repro.models import lm as jlm
 from repro.models import recurrent as jrec
 from repro.models.layers import Runtime
+from repro.serving import kv_cache as jkv
+from repro.serving import model as jsmodel
 from repro_torch import convert
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import ops, ref
@@ -357,12 +359,19 @@ def test_port_init_draws_the_jax_tree():
         assert 0.744 <= t.min().item() and t.max().item() <= 0.999
 
 
-def test_paged_serving_steps_refuse_recurrent_blocks():
-    """The paged engine steps run ``attn`` blocks only."""
-    with pytest.raises(NotImplementedError, match="rglru"):
-        smodel.init_state(reduced(get_config(RG)),
-                          CacheConfig(block_size=4, num_blocks=8,
-                                      max_seq_len=32), device="cpu")
+def test_paged_serving_state_refuses_an_unknown_block_type():
+    """The paged serving state takes the five block types and raises
+    ``ValueError`` for any other, as ``repro.serving.model.init_state``
+    does."""
+    cfg = dataclasses.replace(reduced(get_config(RG)),
+                              block_pattern=("rglru", "moe_ffn"))
+    jcfg = dataclasses.replace(C.reduced(C.get_config(RG)),
+                               block_pattern=("rglru", "moe_ffn"))
+    with pytest.raises(ValueError, match="unknown block type moe_ffn"):
+        smodel.init_state(cfg, 2, CacheConfig(block_size=4, num_blocks=8,
+                                              max_seq_len=32), device="cpu")
+    with pytest.raises(ValueError, match="unknown block type moe_ffn"):
+        jsmodel.init_state(jcfg, 2, jkv.CacheConfig(4, 8, 32))
 
 
 def test_prefill_and_decode_run_the_serving_dtype():

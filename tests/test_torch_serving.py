@@ -85,7 +85,7 @@ def test_paged_prefill_then_decode_match_jax(models):
     n_tok = np.array([7, 5, 8], np.int32)
     rt = Runtime()
     jstate = jmodel.init_state(jcfg, b, jkv.CacheConfig(4, 32, 64))
-    tstate = tmodel.init_state(tcfg, cc, device="cpu")
+    tstate = tmodel.init_state(tcfg, b, cc, device="cpu")
 
     def check(jl, tl):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
@@ -156,12 +156,12 @@ def test_decode_padding_rows_attend_over_nothing(models, monkeypatch):
 
     monkeypatch.setattr(ops, "paged_decode_attention", spy)
     toks = {"tokens": torch.tensor([[5], [5]])}
-    state = tmodel.init_state(tcfg, cc, device="cpu")
+    state = tmodel.init_state(tcfg, 2, cc, device="cpu")
     both, _, cl = tmodel.paged_decode_step(
         tparams, state, table, torch.tensor([3, 0]), tcfg, toks)
     assert seen == [[4, 0]] * tcfg.num_layers
     assert cl.tolist() == [4, 1]
-    state = tmodel.init_state(tcfg, cc, device="cpu")
+    state = tmodel.init_state(tcfg, 1, cc, device="cpu")
     alone, _, _ = tmodel.paged_decode_step(
         tparams, state, table[:1], torch.tensor([3]), tcfg,
         {"tokens": toks["tokens"][:1]})
@@ -375,5 +375,5 @@ def test_entry_points_refuse_to_default_to_cpu(models, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(tcfg, tparams)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        tmodel.init_state(tcfg, CacheConfig())
+        tmodel.init_state(tcfg, 1, CacheConfig())
     assert lm.init(tcfg, device="cpu")["head"]["w"].shape == (64, 256)

@@ -79,7 +79,7 @@ def _steps(tcfg, tparams, prefill, decode, n_decode=3):
     """A prefill chunk then ``n_decode`` greedy decode steps through the
     given step callables; every step's (logits, cache_len, pools)."""
     table, toks, n_tok = _inputs(tcfg)
-    state = tmodel.init_state(tcfg, CC, device="cpu")
+    state = tmodel.init_state(tcfg, 3, CC, device="cpu")
     zero = torch.zeros(3, dtype=torch.int32)
     logits, _, cl = prefill(tparams, state, table, zero, n_tok,
                             {"tokens": toks})
@@ -133,7 +133,7 @@ def test_compiled_steps_match_jax(models):
     table, toks, n_tok = _inputs(tcfg)
     rt = Runtime()
     jstate = jmodel.init_state(jcfg, 3, jkv.CacheConfig(4, 32, 64))
-    tstate = tmodel.init_state(tcfg, CC, device="cpu")
+    tstate = tmodel.init_state(tcfg, 3, CC, device="cpu")
 
     def check(jl, tl):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
@@ -270,7 +270,7 @@ def test_routing_is_counted_at_run_time(models):
     zero = torch.zeros(3, dtype=torch.int32)
     with torch.inference_mode():
         for call in range(1, 4):
-            state = tmodel.init_state(tcfg, CC, device="cpu")
+            state = tmodel.init_state(tcfg, 3, CC, device="cpu")
             ops.reset_counts()
             _, _, cl = eng.engines["prefill"](tparams, state, table, zero,
                                               n_tok, {"tokens": toks})

@@ -270,7 +270,7 @@ def _serving_args(cfg, phase):
     for r in range(2):
         assert kv.admit(r, 5, 3)
     table = torch.from_numpy(kv.table_rows([0, 1]))
-    state = smodel.init_state(cfg, cc, device="cpu")
+    state = smodel.init_state(cfg, 2, cc, device="cpu")
     params = lm.init(cfg, seed=0, device="cpu")
     zero = torch.zeros(2, dtype=torch.int32)
     if phase == "prefill":
