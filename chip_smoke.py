@@ -151,7 +151,25 @@
    ``sma_gemm@cuda`` fault in the middle of a RecurrentGemma prefill tick
    retried into the same tokens; a 3-layer model served in chunks against
    the plain versions, with planted K-tile faults.
-8. Prints the kernel table as one JSON line (the redesigned kernels' rows
+8. MoE path: the kernels at Qwen3-30B-A3B's shapes (its products and
+   router, the decode head 2048 -> 152064, paged decode at GQA 32/4 of
+   128), each with a planted fault, and its expert products (library
+   ``bmm``s) timed with their bounds.  Then, on a clean card (at most 1
+   GiB left allocated), full-width, full-depth Qwen3-30B-A3B (48 layers,
+   128 experts top 8; 56.9 GiB of random bf16 weights from a seed, the
+   init's peak printed) through the compiled ``ServeEngine``, the serve
+   run of item 4: compiles, launches (5 ``sma_gemm`` a layer: q, k, v, o,
+   the router), routes, mode switches and peak memory checked, and the
+   mean ``moe_drop_frac`` of its prefill ticks read from the direct steps
+   serving the same tokens.  The compiled ticks against the direct steps
+   with the planted lost write, each run twice ``torch.equal`` (top-k and
+   the combine are deterministic), host and device time of a decode tick
+   and its device time by kind of kernel; the decode tick's bytes bound
+   with every expert and with the experts the rows choose; a 3-layer
+   model's decode logits against the plain versions pinned to the
+   kernels' expert choices, the routing flips counted, with planted
+   faults (the router's K tile dropped among them).
+9. Prints the kernel table as one JSON line (the redesigned kernels' rows
    with their route, the earlier design's time in the same call, and the
    ``-Xptxas -v`` registers, spills and shared memory), then the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -200,7 +218,7 @@ from repro_torch.kernels import sma_gemm as kgemm  # noqa: E402
 from repro_torch.launch.train import (TrainLoopConfig,  # noqa: E402
                                       direct_step, make_step, train)
 from repro_torch.launch import serve as launch_serve  # noqa: E402
-from repro_torch.models import lm, recurrent  # noqa: E402
+from repro_torch.models import lm, moe, recurrent  # noqa: E402
 from repro_torch.obs import metrics  # noqa: E402
 from repro_torch.resilience import faults, guard  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -1081,17 +1099,25 @@ def clean_serving(where: str, before: dict, reqs) -> None:
              f"requests {failed}")
 
 
+def gemms_per_layer(cfg) -> int:
+    """``sma_gemm`` launches of an ``attn`` layer a step: q, k, v, the
+    out projection, then the MLP's three products or an MoE's router."""
+    return 4 + (1 if cfg.moe is not None else 3)
+
+
 def serve(cfg, params, dev, path: str = "serve", n_requests: int = 8):
     """The serve run through the compiled engine: a warm-up pass of the
     same requests compiles every (phase, bucket) signature, ``reset()``
     keeps them, and the timed pass must compile nothing.  Then the same
     pass once more under ``repro_torch.profile``, whose tick spans must
     count the scheduler's mode switches.  No pass may fail a tick, evict
-    or fail a request.  Returns the timed pass's launches and
-    ``sma_gemm`` routes, and the engine."""
+    or fail a request.  For an MoE model, the same requests once more
+    through the direct steps (:func:`served_drop_fraction`).  Returns the
+    timed pass's launches and ``sma_gemm`` routes, and the engine."""
     sched = SchedulerConfig(policy="sma", prefill_chunk=SERVE_CHUNK)
     eng = ServeEngine(cfg, params, cache=SERVE_CACHE, max_batch=8,
                       sched=sched, device=dev)
+    torch.cuda.reset_peak_memory_stats()
     before = counters()
     warm_reqs = serve_requests(cfg, n_requests)[1]
     warm = serve_pass(eng, warm_reqs)
@@ -1128,7 +1154,7 @@ def serve(cfg, params, dev, path: str = "serve", n_requests: int = 8):
     ticks = {p: [s for ph, _, s in eng.tick_log if ph == p]
              for p in ("prefill", "decode")}
     n_ticks = len(eng.tick_log)
-    per_layer = 7 * cfg.num_layers
+    per_layer = gemms_per_layer(cfg) * cfg.num_layers
     expect = {"sma_gemm": per_layer * n_ticks, "rmsnorm_gemm": n_ticks,
               "paged_decode_attention": cfg.num_layers * len(ticks["decode"])}
     for name, n in expect.items():
@@ -1155,7 +1181,8 @@ def serve(cfg, params, dev, path: str = "serve", n_requests: int = 8):
           f"{len(ticks['decode'])} ticks; prefill tick mean "
           f"{1e3 * np.mean(ticks['prefill']):.2f} ms over "
           f"{len(ticks['prefill'])} ticks; switches {eng.sched.switches}; "
-          f"cache {json.dumps(eng.stats()['engines'])}")
+          f"cache {json.dumps(eng.stats()['engines'])}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"{path}: launches {json.dumps(counts)}; per decode tick "
           f"{per_layer} sma_gemm, 1 rmsnorm_gemm, {cfg.num_layers} paged "
           f"decode; routed to plain by design {json.dumps(routed)}; "
@@ -1190,6 +1217,9 @@ def serve(cfg, params, dev, path: str = "serve", n_requests: int = 8):
     if any(e["name"] == "engine.compile" for e in prof.events):
         fail(f"{path}: the profiled pass compiled a signature")
     eng.reset()
+    if cfg.moe is not None:
+        served_drop_fraction(eng, cfg, n_requests,
+                             {r.rid: r.out_tokens for r in reqs}, path)
     return counts, routes, eng
 
 
@@ -1238,7 +1268,10 @@ def check_compiled_serving(cfg, params, dev, eng, plant: bool = True,
     """The engine's compiled prefill tick (bucket ``rows``, chunk 256) and
     two decode ticks against the direct steps on the same inputs: logits, the
     returned lengths and every pool's real blocks ``torch.equal``, each
-    tick's launches, routes and routed calls equal.  Then (``plant``) the
+    tick's launches, routes and routed calls equal.  The direct and the
+    compiled ticks each run once more on the same inputs and must
+    ``torch.equal`` their first runs (no step sums in an unfixed order;
+    an MoE's top-k and combine included).  Then (``plant``) the
     same with the first decode tick's graph missing layer 0's pool
     writes: the next tick's logits must not be equal.  Then (``timing``)
     the host time of a compiled decode tick against the direct step (A B
@@ -1295,6 +1328,20 @@ def check_compiled_serving(cfg, params, dev, eng, plant: bool = True,
           f"{rows} x chunk 256, two decode ticks): logits, lengths and "
           f"{len(got_pools)} pools torch.equal; launches, routes, routed "
           f"equal: {json.dumps([s[0] for _, _, s in got])}")
+    for steps, first, first_pools in ((direct, want, want_pools),
+                                      (compiled, got, got_pools)):
+        again, _, again_pools = run(*steps, feed=fed)
+        for i, (a, f) in enumerate(zip(again, first)):
+            if not (torch.equal(a[0], f[0]) and torch.equal(a[1], f[1])):
+                err = (a[0].float() - f[0].float()).abs().max().item()
+                fail(f"{cfg.name}: tick {i} run twice gives other logits "
+                     f"(max |err| {err:.4g})")
+        if not all(torch.equal(a, f)
+                   for a, f in zip(again_pools, first_pools)):
+            fail(f"{cfg.name}: the ticks run twice write other pools")
+        del again_pools
+    print(f"{cfg.name}: the direct and the compiled ticks each run twice: "
+          f"logits, lengths and pools torch.equal")
     del got_pools, want_pools
     if not plant:
         return None
@@ -1352,6 +1399,8 @@ def check_compiled_serving(cfg, params, dev, eng, plant: bool = True,
             wall = time.perf_counter() - t0
         busy[k] = report_profile(prof, wall, HOST_STEPS,
                                  f"{k} decode tick")
+        if cfg.moe is not None:
+            profile_groups(prof, HOST_STEPS, f"{k} decode tick")
     print(f"{cfg.name}: decode tick device time (busy / step): " + ", ".join(
         f"{k} {'not measured' if b is None else f'{1e3 * b / HOST_STEPS:.3f} ms'}"
         for k, b in busy.items()))
@@ -1404,19 +1453,25 @@ def prefilled(cfg, params, dev):
 
 
 @contextlib.contextmanager
-def planted(fault: str, layer: int):
+def planted(fault: str, layer: int, per_layer: int):
     """One wrong launch in ``layer`` of a decode step or a forward, made by
     feeding a kernel wrong inputs: the attention out projection with its
     last 64-wide K tile skipped, the paged attention with the newest key
     dropped, or (GQA) every query head attending to KV head 0 (the paged
-    or the flash attention)."""
+    or the flash attention).  ``per_layer`` is the layer's ``sma_gemm``
+    launches (:func:`gemms_per_layer`).  An MoE's "router K tile dropped"
+    skips the router's last 64-wide K tile on every call, in every
+    layer."""
     gemm, attn, flash = (ops.sma_gemm, ops.paged_decode_attention,
                          ops.flash_attention)
     calls = {"gemm": 0, "attn": 0, "flash": 0}
 
     def wrong_gemm(a, w, **kw):
         calls["gemm"] += 1
-        if fault == "wo K tile skipped" and calls["gemm"] == 7 * layer + 4:
+        if (fault == "wo K tile skipped"
+                and calls["gemm"] == per_layer * layer + 4) or (
+                fault == "router K tile dropped"
+                and calls["gemm"] % per_layer == 0):
             k = w.shape[0] - 64
             return gemm(a[..., :k].contiguous(), w[:k], **kw)
         return gemm(a, w, **kw)
@@ -1448,6 +1503,8 @@ def planted(fault: str, layer: int):
 
 
 DECODE_FAULTS = ("wo K tile skipped", "newest key dropped")
+# Faults that :func:`planted` puts in every layer at once.
+EVERY_LAYER_FAULTS = ("router K tile dropped",)
 
 
 def check_decode_logits(cfg, params, dev, faults_=DECODE_FAULTS):
@@ -1470,18 +1527,20 @@ def check_decode_logits(cfg, params, dev, faults_=DECODE_FAULTS):
                 faults_)
 
 
-def hold_logits(cfg, what: str, step, shape, faults_):
+def hold_logits(cfg, what: str, step, shape, faults_, plain_step=None):
     """``step()`` (logits, float) through the kernels against the same
-    call through the plain versions: max |err| within LOGIT_ATOL, every
+    call through the plain versions (``plain_step()`` there, when given):
+    max |err| within LOGIT_ATOL, every
     top-1 disagreement between two logits within LOGIT_ATOL of each other
     in the plain ones; then ``step()`` with each planted fault of
-    ``faults_`` in the first, a middle and the last layer, each of which
-    must read above LOGIT_ATOL.  Prints the margins: the limit over the
-    error, and the weakest fault's reading over the limit."""
+    ``faults_`` in the first, a middle and the last layer (once, for a
+    fault of EVERY_LAYER_FAULTS), each of which must read above
+    LOGIT_ATOL.  Prints the margins: the limit over the error, and the
+    weakest fault's reading over the limit."""
     limit = LOGIT_ATOL
     got = step()
     with plain_kernels():
-        want = step()
+        want = (plain_step or step)()
     if not torch.isfinite(got).all() or got.shape != shape:
         fail(f"{cfg.name} {what}: shape {tuple(got.shape)} or non-finite")
 
@@ -1499,11 +1558,14 @@ def hold_logits(cfg, what: str, step, shape, faults_):
           f"{int((top_k == top_p).sum())}/{rows_p.shape[0]} rows")
     controls = []
     for fault in faults_:
-        for layer in (0, cfg.num_layers // 2, cfg.num_layers - 1):
-            with planted(fault, layer):
+        every = fault in EVERY_LAYER_FAULTS
+        for layer in ((0,) if every else
+                      (0, cfg.num_layers // 2, cfg.num_layers - 1)):
+            with planted(fault, layer, gemms_per_layer(cfg)):
                 c_err, c_rel = reading(step())
             controls.append(c_err)
-            print(f"{what} control, {fault} in layer {layer}: "
+            print(f"{what} control, {fault} in "
+                  f"{'every layer' if every else f'layer {layer}'}: "
                   f"max |err| {c_err:.4g}, relative RMS {c_rel:.4g}")
     for i, r in enumerate((top_k != top_p).nonzero()[:, 0].tolist()):
         gap = (rows_p[r, top_p[r]] - rows_p[r, top_k[r]]).item()
@@ -1644,13 +1706,20 @@ def check_nemo_kernels(gen, dev):
     versions, timed with their bounds: ``sma_gemm`` at NEMO_GEMMS, the
     decode head ``rmsnorm_gemm`` 5120 -> 131072 at M 8 (route ``tile``;
     ``torch.matmul`` of the pre-normalized x beside it), and paged decode
-    at GQA 32/8, head_dim 128."""
+    at GQA 32/8, head_dim 128 (:func:`check_paged_gqa`)."""
     cfg = get_config(NEMO_ARCH)
-    dt = torch.bfloat16
     rows = check_sma_gemm(gen, dev, NEMO_GEMMS, " (nemo)")
     rows.append(check_head(gen, dev, 8, cfg.d_model, lm.padded_vocab(cfg),
                            "tile", "nemo decode head"))
+    rows.append(check_paged_gqa(gen, dev, cfg, "nemo"))
+    return rows
 
+
+def check_paged_gqa(gen, dev, cfg, tag: str):
+    """Paged decode at ``cfg``'s heads (B 8 of KV_LENS, block 16, 512
+    blocks) against its plain version with the planted faults of
+    :func:`attn_controls`, timed with its bound; its row."""
+    dt = torch.bfloat16
     b, bs, nb, smax = len(KV_LENS), 16, 512, 1024
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     lens = torch.tensor(KV_LENS, dtype=torch.int32, device=dev)
@@ -1660,22 +1729,23 @@ def check_nemo_kernels(gen, dev):
                                device=dev).to(dt) for _ in range(2))
              for _ in range(2)]
     got = kdecode.paged_decode_attention(q, *pools[0], table, lens)
-    err = compare(got, ref.paged_decode_attention_ref(q, *pools[0], table,
-                                                      lens),
-                  "paged_decode_attention (nemo GQA)", ATTN_ATOL, ATTN_RTOL)
+    want = ref.paged_decode_attention_ref(q, *pools[0], table, lens)
+    err = compare(got, want, f"paged_decode_attention ({tag} GQA)",
+                  ATTN_ATOL, ATTN_RTOL)
+    attn_controls(q, *pools[0], table, lens, want, bs)
     total = sum(KV_LENS)
     args = [(q, kp, vp, table, lens) for kp, vp in pools]
-    rows.append(entry(
+    row = entry(
         "paged_decode_attention",
         f"B={b} Hq={hq} Hkv={hkv} D={d} BS={bs} NB={nb} "
-        f"kv_len={list(KV_LENS)} bf16 (nemo)", err,
+        f"kv_len={list(KV_LENS)} bf16 ({tag})", err,
         time_ms(kdecode.paged_decode_attention, args),
         time_ms(ref.paged_decode_attention_ref, args),
         bound(2 * 2 * b * hq * d + 2 * 2 * total * hkv * d
-              + 4 * (b * smax // bs + b), 4 * total * hq * d, dt), None))
-    rows[-1]["paced_ms"] = time_ms(kdecode.paged_decode_attention, args,
-                                   paced=True)
-    return rows
+              + 4 * (b * smax // bs + b), 4 * total * hq * d, dt), None)
+    row["paced_ms"] = time_ms(kdecode.paged_decode_attention, args,
+                              paced=True)
+    return row
 
 
 def check_head(gen, dev, m: int, k: int, n: int, want_route: str,
@@ -1800,7 +1870,8 @@ def internvl_batch(cfg, dev) -> dict:
 
 def init_full_width(cfg, dev):
     """``lm.init`` of ``cfg`` (random weights from seed 0) on the card, with
-    its shape, time and the memory it took printed."""
+    its shape, time, the memory it took and its peak printed."""
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -1809,7 +1880,8 @@ def init_full_width(cfg, dev):
           f"{cfg.resolved_head_dim}, vocab {lm.padded_vocab(cfg)}, "
           f"{cfg.param_count() / 1e9:.3f} B parameters, input "
           f"{cfg.input_mode}) in {time.perf_counter() - t0:.3f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return params
 
 
@@ -4347,6 +4419,331 @@ def check_served_logits(cfg, dev, pattern, faults_, limit, path: str):
     del params
 
 
+# ---------------------------------------------------------------------------
+# Qwen3-30B-A3B: the MoE path at full width and depth
+# ---------------------------------------------------------------------------
+QWEN3_ARCH = "qwen3-moe-30b-a3b"
+# Qwen3's sma_gemm products: q 2048 -> 4096, k / v 2048 -> 512, the
+# attention out 4096 -> 2048 and the router 2048 -> 128, at a decode tick
+# (M 8) and a prefill tick (M 2048: 8 rows x chunk 256).
+QWEN3_GEMMS = [(m, k, n, "none") for m in (8, 2048)
+               for k, n in ((2048, 4096), (2048, 512), (4096, 2048),
+                            (2048, 128))]
+QWEN3_LOGIT_LAYERS = 3
+QWEN3_FAULTS = NEMO_FAULTS + ("router K tile dropped",)
+# Kernel names in a decode tick's profile, by what they compute (the first
+# group whose words a name holds); the rest is elementwise work.
+QWEN3_PROFILE_GROUPS = (
+    ("sma_gemm (split-K)", ("splitk",)),
+    ("head (rmsnorm_gemm, tile)", ("gemm_tc_kernel",)),
+    ("decode attention", ("decode_",)),
+    ("expert bmm (cuBLAS)", LIBRARY_GEMM_WORDS),
+    ("sort, scan, scatter, gather, index (routing, dispatch, combine; the "
+     "pool writes and the embedding)",
+     ("sort", "Sort", "scan", "Scan", "scatter", "gather", "index")),
+)
+
+
+def clean_card(what: str) -> None:
+    """After every earlier model is gone: the card's free memory printed,
+    and no more than 1 GiB may still be allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    held = torch.cuda.memory_allocated()
+    print(f"{what}: card memory free {free / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB, {held / 2**30:.3f} GiB allocated")
+    if held > 2**30:
+        fail(f"{what}: {held / 2**30:.2f} GiB still allocated before it")
+
+
+def fault_control(what: str, bad, plain_bad, want, multiples) -> None:
+    """A planted fault: ``bad`` is the kernel's output on the faulty
+    inputs, ``plain_bad`` its plain version's, ``want`` the plain version
+    of the right inputs.  The check (``multiples`` above 1) must fail on
+    every element the fault moves by more than FAULT_MARGIN limits."""
+    effect, got = multiples(plain_bad, want), multiples(bad, want)
+    must = effect > FAULT_MARGIN
+    n_must, n_caught = int(must.sum()), int((got[must] > 1).sum())
+    print(f"{what}: moves {n_must} of {must.numel()} elements by > "
+          f"{FAULT_MARGIN} limits; the check fails {n_caught} of them")
+    if n_must == 0 or n_caught < n_must:
+        fail(f"{what}: passes the check where it moves the output")
+
+
+def check_qwen3_kernels(gen, dev):
+    """The kernels at Qwen3-30B-A3B's shapes against their plain versions,
+    timed with their bounds, each with a planted fault the check must
+    catch: ``sma_gemm`` at QWEN3_GEMMS (B's last 64-row K tile zeroed),
+    the decode head ``rmsnorm_gemm`` 2048 -> 152064 at M 8 (route
+    ``tile``; W's last K tile zeroed) and paged decode at GQA 32/4,
+    head_dim 128 (``attn_controls``).  Then the expert products, library
+    ``bmm``s the port calls as the reference calls ``einsum``
+    (:func:`time_expert_bmms`)."""
+    cfg = get_config(QWEN3_ARCH)
+    dt = torch.bfloat16
+    rows = check_sma_gemm(gen, dev, QWEN3_GEMMS, " (qwen3)")
+    for m, k, n, _ in QWEN3_GEMMS:
+        a = torch.randn((m, k), generator=gen, device=dev).to(dt)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             * k ** -0.5).to(dt)
+        bad = w.clone()
+        bad[-64:] = 0
+        fault_control(f"sma_gemm control (qwen3) M={m} {k}->{n}, last K "
+                      f"tile of B zeroed", kgemm.sma_gemm(a, bad),
+                      ref.gemm_ref(a, bad), ref.gemm_ref(a, w),
+                      gemm_multiples)
+    vpad = lm.padded_vocab(cfg)
+    rows.append(check_head(gen, dev, 8, cfg.d_model, vpad, "tile",
+                           "qwen3 decode head"))
+    x = (torch.randn((8, cfg.d_model), generator=gen, device=dev)
+         * 3).to(dt)
+    scale = torch.rand((cfg.d_model,), generator=gen, device=dev) + 0.5
+    w = (torch.randn((cfg.d_model, vpad), generator=gen, device=dev)
+         * cfg.d_model ** -0.5).to(dt)
+    bad = w.clone()
+    bad[-64:] = 0
+    fault_control("rmsnorm_gemm control (qwen3 decode head), last K tile "
+                  "of W zeroed", knorm.rmsnorm_gemm(x, scale, bad),
+                  ref.rmsnorm_gemm_ref(x, scale, bad),
+                  ref.rmsnorm_gemm_ref(x, scale, w), gemm_multiples)
+    del w, bad
+    rows.append(check_paged_gqa(gen, dev, cfg, "qwen3"))
+    time_expert_bmms(gen, dev, cfg)
+    return rows
+
+
+def time_expert_bmms(gen, dev, cfg) -> None:
+    """The expert products as ``moe_ffn`` runs them, ``torch.bmm`` over E
+    on (E, B·C, d) operands (cuBLAS; the port writes no kernel for them,
+    as the reference's are plain ``einsum``s): the up and gate products d
+    -> f and the down product f -> d of one layer, at a decode tick (8
+    rows x capacity 1) and a prefill tick (8 rows x capacity(256)), each
+    timed with the bound of its bytes (every expert's weights) and
+    operations; printed, with one tick's 48 layers."""
+    dt = torch.bfloat16
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    w_up = (torch.randn((e, d, f), generator=gen, device=dev)
+            * d ** -0.5).to(dt)
+    w_down = (torch.randn((e, f, d), generator=gen, device=dev)
+              * f ** -0.5).to(dt)
+    for tick, s in (("decode", 1), ("prefill", SERVE_CHUNK)):
+        m = 8 * moe.capacity(s, cfg.moe)
+        x = torch.randn((e, m, d), generator=gen, device=dev).to(dt)
+        h = torch.randn((e, m, f), generator=gen, device=dev).to(dt)
+        up = time_ms(torch.bmm, [(x, w_up)])
+        down = time_ms(torch.bmm, [(h, w_down)])
+        b_up = bound(2 * (e * m * d + e * d * f + e * m * f),
+                     2 * e * m * d * f, dt)
+        b_down = bound(2 * (e * m * f + e * f * d + e * m * d),
+                       2 * e * m * d * f, dt)
+        layer, layer_bound = 2 * up + down, 2 * b_up[0] + b_down[0]
+        print(f"qwen3 expert bmm (library, {tick} tick, E={e} M={m} "
+              f"(8 rows x capacity {m // 8}) d={d} f={f}): up/gate "
+              f"{up:.4f} ms (bound {b_up[0]:.4f}, {b_up[1]}), down "
+              f"{down:.4f} ms (bound {b_down[0]:.4f}, {b_down[1]}); a layer "
+              f"{layer:.4f} ms (bound {layer_bound:.4f}), "
+              f"{cfg.num_layers} layers {layer * cfg.num_layers:.3f} ms "
+              f"(bound {layer_bound * cfg.num_layers:.3f})")
+        del x, h
+
+
+def served_drop_fraction(eng, cfg, n_requests: int, tokens: dict,
+                         path: str) -> None:
+    """The serve run's requests once more through the same engine with
+    its ticks run by the direct steps, each MoE layer's routing recorded
+    (``moe.moe_ffn``'s, outside any compiled tick): the fraction of
+    choices dropped (the reference's ``moe_drop_frac``, over every
+    position of the chunk) of every layer of every prefill tick, and
+    their mean; and the same over the rows' real tokens alone.  The
+    tokens must be the compiled pass's (``tokens``: request id ->
+    tokens)."""
+    fracs, real, ffn, n_tok = [], [], moe.moe_ffn, []
+
+    def recorded(params, x, cfg_):
+        y, r = ffn(params, x, cfg_)
+        if x.shape[1] > 1:                       # a prefill chunk
+            fracs.append(1.0 - r.keep.float().mean())
+            valid = torch.arange(x.shape[1], device=x.device) < n_tok[-1]
+            real.append(1.0 - r.keep[valid].float().mean())
+        return y, r
+
+    def prefill(p, s, bt, cl, nt, b):
+        n_tok.append(nt.long()[:, None])
+        return smodel.paged_prefill_step(p, s, bt, cl, nt, cfg, b)
+
+    compiled = dict(eng.engines)
+    eng.engines.update(
+        prefill=prefill,
+        decode=lambda p, s, bt, cl, b: smodel.paged_decode_step(
+            p, s, bt, cl, cfg, b))
+    moe.moe_ffn = recorded
+    try:
+        reqs = serve_requests(cfg, n_requests)[1]
+        serve_pass(eng, reqs)
+    finally:
+        moe.moe_ffn = ffn
+        eng.engines.update(compiled)
+    eng.reset()
+    if any(r.out_tokens != tokens[r.rid] for r in reqs):
+        fail(f"{path}: the direct steps served other tokens than the "
+             f"compiled ticks")
+    table = torch.stack(fracs).reshape(-1, cfg.num_layers)
+    by_layer = table.mean(0).tolist()
+    real = torch.stack(real).reshape(-1, cfg.num_layers)
+    print(f"{path}: moe_drop_frac of the prefill ticks (direct steps, "
+          f"capacity {moe.capacity(SERVE_CHUNK, cfg.moe)} of a 256-token "
+          f"chunk; tokens equal the compiled pass's): mean "
+          f"{table.mean().item():.4f}, by tick "
+          f"{[round(x, 4) for x in table.mean(1).tolist()]}, by layer "
+          f"(every 8th) {[round(x, 4) for x in by_layer[::8]]}; over the "
+          f"rows' real tokens alone: mean {real.mean().item():.4f}, by "
+          f"layer (every 8th) "
+          f"{[round(x, 4) for x in real.mean(0).tolist()[::8]]}")
+
+
+@contextlib.contextmanager
+def routes_seen(pin=None):
+    """Every ``moe.route`` call inside the block, as (router logits,
+    the choices top-k of them gives).  With ``pin`` (expert ids, one
+    tensor a call) each call routes to the pinned choices instead, its
+    gate values its own probabilities at them."""
+    seen, route = [], moe.route
+
+    def wrapped(logits32, mcfg):
+        probs, gate, expert = route(logits32, mcfg)
+        seen.append((logits32, expert))
+        if pin is not None:
+            expert = pin[len(seen) - 1]
+            gate = probs.gather(-1, expert)
+            if mcfg.norm_topk_prob:
+                gate = gate / gate.sum(-1, keepdim=True)
+        return probs, gate, expert
+
+    moe.route = wrapped
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def check_moe_logits(cfg, params, dev):
+    """One decode step of a 3-layer full-width MoE model after a ragged
+    prefill, through the kernels against the plain versions, with the
+    planted faults of QWEN3_FAULTS (:func:`hold_logits`).
+
+    Routing is discontinuous: a rounding difference in a router logit can
+    swap one of a token's k experts at a near tie, which moves that
+    token's logits by far more than rounding.  So the plain run is pinned
+    to the kernels' choices (its gate values its own), and the logits are
+    held to LOGIT_ATOL as elsewhere.  The flips are counted: the (token,
+    layer) pairs where top-k of the plain run's own router logits chooses
+    other experts than the kernels.  A flip is told from a fault by the
+    router logits: they must agree within LOGIT_ATOL (a rounding reading;
+    the router's dropped K tile moves them by far more), and the experts
+    a flip swaps must lie within 2 LOGIT_ATOL of each other in the plain
+    logits (the most two readings within LOGIT_ATOL can reorder)."""
+    state, table, cl, nxt = prefilled(cfg, params, dev)
+    saved = [{k: v.clone() for k, v in e.items()} for e in state]
+    batch = step_batch(cfg, params, nxt)
+
+    def step():
+        for e, s in zip(state, saved):
+            for k in e:
+                e[k].copy_(s[k])
+        return smodel.paged_decode_step(params, state, table, cl, cfg,
+                                        batch)[0][:, :cfg.vocab_size].float()
+
+    with routes_seen() as kern:
+        step()
+    plain = []
+
+    def plain_step():
+        with routes_seen(pin=[e for _, e in kern]) as seen:
+            out = step()
+        plain[:] = seen
+        return out
+
+    with plain_kernels():
+        plain_step()
+    k = cfg.moe.top_k
+    flips, worst = [], 0.0
+    for layer, ((lk, ek), (lp, ep)) in enumerate(zip(kern, plain)):
+        lk, lp = lk.reshape(-1, lk.shape[-1]), lp.reshape(-1, lp.shape[-1])
+        worst = max(worst, (lk - lp).abs().max().item())
+        ek, ep = ek.reshape(-1, k), ep.reshape(-1, k)
+        for t in range(ek.shape[0]):
+            gone = sorted(set(ek[t].tolist()) - set(ep[t].tolist()))
+            came = sorted(set(ep[t].tolist()) - set(ek[t].tolist()))
+            if gone:
+                gap = max(abs(lp[t, a] - lp[t, b]).item()
+                          for a in gone for b in came)
+                flips.append((t, layer, gone, came, gap))
+    print(f"qwen3 decode logits: router logits, kernels vs the pinned "
+          f"plain run, max |err| {worst:.4g} over {len(kern)} layers x "
+          f"{kern[0][1].numel() // k} tokens; {len(flips)} (token, layer) "
+          f"choices differ from the plain run's own top-{k}")
+    for t, layer, gone, came, gap in flips:
+        print(f"qwen3 flip: token {t} layer {layer}: kernels chose "
+              f"{gone}, plain {came}, {gap:.4g} apart in the plain router "
+              f"logits")
+    if worst > LOGIT_ATOL:
+        fail(f"qwen3 decode logits: router logits off by {worst:.4g} > "
+             f"{LOGIT_ATOL}")
+    if any(gap > 2 * LOGIT_ATOL for *_, gap in flips):
+        fail("qwen3 decode logits: a choice differs between experts "
+             "further apart than rounding can reorder")
+    hold_logits(cfg, "qwen3 decode logits", step,
+                (nxt.shape[0], cfg.vocab_size), QWEN3_FAULTS, plain_step)
+
+
+def profile_groups(prof, steps: int, what: str) -> None:
+    """A decode tick's device time by QWEN3_PROFILE_GROUPS (ms a step),
+    the rest as elementwise work."""
+    sums = collections.Counter()
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        group = next((g for g, words in QWEN3_PROFILE_GROUPS
+                      if any(w in ev.key for w in words)),
+                     "elementwise and other")
+        sums[group] += dev_us
+    print(f"profile {what} by kind (ms a step): " + ", ".join(
+        f"{g} {us / steps / 1e3:.3f}" for g, us in sums.most_common()))
+
+
+def moe_decode_bounds(cfg, params, dev) -> None:
+    """A decode tick's bytes bound at 3.35 TB/s two ways: every expert's
+    weights (the dense dispatch gives each expert a slot, so a tick reads
+    them all), and only the experts this tick's 8 rows choose (counted from
+    the routing of one direct decode step after the ragged prefill)."""
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    hd, layers = cfg.resolved_head_dim, cfg.num_layers
+    expert = 3 * d * f * 2
+    attn = (d * hd * (cfg.num_heads + 2 * cfg.num_kv_heads)
+            + cfg.num_heads * hd * d) * 2
+    head_b = d * lm.padded_vocab(cfg) * 2
+    router = d * e * 2
+    state, table, cl, nxt = prefilled(cfg, params, dev)
+    with routes_seen() as seen:
+        smodel.paged_decode_step(params, state, table, cl, cfg,
+                                 {"tokens": nxt})
+    used = [int(torch.unique(ex).numel()) for _, ex in seen]
+    rest = layers * (attn + router) + head_b
+    dense = layers * e * expert + rest
+    active = sum(used) * expert + rest
+    print(f"qwen3 decode tick bytes (weights, bf16): experts "
+          f"{layers * e * expert / 1e9:.2f} GB, attention "
+          f"{layers * attn / 1e9:.2f} GB, head {head_b / 1e9:.2f} GB, router "
+          f"{layers * router / 1e9:.3f} GB; every expert {dense / 1e9:.2f} GB "
+          f"= {1e3 * dense / PEAK_BYTES:.2f} ms at 3.35 TB/s; the experts "
+          f"this tick's 8 rows choose (mean {np.mean(used):.1f} of {e} a "
+          f"layer) {active / 1e9:.2f} GB = {1e3 * active / PEAK_BYTES:.2f} "
+          f"ms")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
@@ -4402,6 +4799,8 @@ def main(argv=None) -> int:
     rows += phase("mistral-nemo kernel checks", check_nemo_kernels, gen, dev)
     rows += phase("input mode kernel checks", check_input_mode_kernels, gen,
                   dev)
+    rows += phase("qwen3 kernel checks", check_qwen3_kernels, gen, dev)
+    torch.cuda.empty_cache()
     phase("sma_gemm controls", gemm_controls, gen, dev)
     torch.cuda.empty_cache()
     rows += phase("recurrent kernel checks",
@@ -4566,6 +4965,28 @@ def main(argv=None) -> int:
         phase("xlstm served logits", check_served_logits, xl_cfg, dev,
               ("mlstm", "mlstm", "slstm"), XL_ENGINE_FAULTS, XL_LOGIT_ATOL,
               "xlstm engine")
+
+    # Qwen3-30B-A3B, the MoE path, on a clean card: full width and depth
+    # through the compiled engine, then a 3-layer model's logits.
+    clean_card("qwen3")
+    q_cfg = get_config(QWEN3_ARCH)
+    with torch.inference_mode():
+        params = phase("init qwen3", init_full_width, q_cfg, dev)
+        q_counts, q_routes, eng = phase("serve qwen3", serve, q_cfg, params,
+                                        dev, "qwen3")
+        phase("compiled serving qwen3", check_compiled_serving, q_cfg,
+              params, dev, eng)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase("qwen3 decode bounds", moe_decode_bounds, q_cfg, params, dev)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg3 = dataclasses.replace(q_cfg, num_groups=QWEN3_LOGIT_LAYERS)
+        params = lm.init(cfg3, seed=0, device=dev)
+        phase("qwen3 decode logits", check_moe_logits, cfg3, params, dev)
+        del params
     print(f"phases (s): "
           f"{json.dumps({k: round(x, 1) for k, x in phases.items()})}")
 
@@ -4580,7 +5001,8 @@ def main(argv=None) -> int:
                    "xlstm": xl_counts.get(row["name"], 0),
                    "recurrentgemma engine": rg_eng_counts.get(row["name"],
                                                               0),
-                   "xlstm engine": xl_eng_counts.get(row["name"], 0)}
+                   "xlstm engine": xl_eng_counts.get(row["name"], 0),
+                   "qwen3": q_counts[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["launches"] == 0:
@@ -4589,7 +5011,7 @@ def main(argv=None) -> int:
         {"serve": serve_routes, "train": train_routes, "nemo": nemo_routes,
          "recurrentgemma": rg_routes, "xlstm": xl_routes,
          "recurrentgemma engine": rg_eng_routes,
-         "xlstm engine": xl_eng_routes}))
+         "xlstm engine": xl_eng_routes, "qwen3": q_routes}))
     print(f"flash routes by path: {json.dumps(FLASH_ROUTES_BY_PATH)}")
     print(f"rmsnorm_gemm, mlstm_chunkwise and rglru_scan routes by path: "
           f"{json.dumps(ROUTES_BY_PATH)}")

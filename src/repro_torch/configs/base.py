@@ -8,10 +8,13 @@ width factor and the chunk of its chunkwise kernel (xLSTM).
 ``input_mode`` is ``"tokens"``, ``"embeds"`` (precomputed frame
 embeddings, the audio stub) or ``"tokens+vision"`` (``num_vision_tokens``
 patch embeddings ahead of the token embeddings, the VLM stub);
-``logits_softcap`` caps the loss's logits as ``tanh(l / c) * c``.  The
-MoE field (``moe``) waits for the MoE slice.
-``reduced()`` derives the same tiny CPU-test variant as the JAX package,
-and ``param_count()`` is the reference's analytic count.
+``logits_softcap`` caps the loss's logits as ``tanh(l / c) * c``.
+``moe`` (a :class:`MoEConfig`) makes every ``attn``/``local`` block's FFN
+a mixture of experts (:mod:`repro_torch.models.moe`).
+``reduced()`` derives the same tiny CPU-test variant as the JAX package
+(an MoE one keeps 4 experts, top 2, ``d_ff_expert`` 64), and
+``param_count()`` / ``active_param_count()`` are the reference's analytic
+counts.
 """
 from __future__ import annotations
 
@@ -26,6 +29,21 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Top-k routing over ``num_experts`` SwiGLU experts of width
+    ``d_ff_expert``; each batch row gives an expert at most
+    ``ceil(S * top_k / num_experts) * capacity_factor`` tokens of its S.
+    ``norm_topk_prob`` renormalizes the k gate values to sum to 1."""
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    lb_loss_coef: float = 0.01
+    z_loss_coef: float = 1e-3
+    norm_topk_prob: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str
@@ -37,6 +55,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None
+    moe: Optional[MoEConfig] = None
     rope_theta: float = 10000.0
     window: Optional[int] = None
     input_mode: str = "tokens"
@@ -74,7 +93,12 @@ class ModelConfig:
         for block in self.block_pattern * self.num_groups:
             if block in ("attn", "local"):
                 total += d * hd * (n_q + 2 * n_kv) + n_q * hd * d  # qkvo
-                total += 3 * d * self.d_ff  # gated MLP
+                if self.moe is not None:
+                    total += self.moe.num_experts * (
+                        3 * d * self.moe.d_ff_expert) \
+                        + d * self.moe.num_experts
+                else:
+                    total += 3 * d * self.d_ff  # gated MLP
                 total += 2 * d  # norms
             elif block == "rglru":
                 lru = d  # recurrence width
@@ -91,6 +115,15 @@ class ModelConfig:
                     + 2 * d
         total += d * self.vocab_size  # LM head (untied)
         return total
+
+    def active_param_count(self) -> int:
+        """Parameters a token touches (MoE: only its top-k experts), the
+        reference's count."""
+        if self.moe is None:
+            return self.param_count()
+        per_expert = 3 * self.d_model * self.moe.d_ff_expert
+        return self.param_count() - self.num_layers * per_expert * (
+            self.moe.num_experts - self.moe.top_k)
 
 
 REGISTRY: Dict[str, ModelConfig] = {}
@@ -118,6 +151,10 @@ def reduced(cfg: ModelConfig, *, seq_len: int = 64) -> ModelConfig:
         kv = 4
     else:
         kv = 2
+    kw = {}
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(cfg.moe, num_experts=4, top_k=2,
+                                        d_ff_expert=64)
     return dataclasses.replace(
         cfg,
         name=cfg.name + "-smoke",
@@ -133,4 +170,5 @@ def reduced(cfg: ModelConfig, *, seq_len: int = 64) -> ModelConfig:
         mlstm_chunk=16,
         dtype="float32",
         param_dtype="float32",
+        **kw,
     )

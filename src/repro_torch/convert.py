@@ -10,7 +10,10 @@ per-call casts produce), which serving uses; the trainer's tests pass
 ``cfg.parameter_dtype`` for float32 masters.  The leaves the JAX code reads
 in float32 stay float32: norm scales, the RG-LRU's ``lambda_raw``, the
 mLSTM's gate bias ``b_if``, the xLSTM blocks' ``gn_scale`` and the sLSTM's
-recurrent matrix ``r_gates``.
+recurrent matrix ``r_gates``.  An MoE block's ``ffn`` leaves (``router``,
+``wi``, ``wg``, ``wo``) are matrices like any other and take ``dtype``:
+the reference casts each, the router included, to the activation dtype
+where it is used.
 
 ``from_jax_state`` takes the state ``repro.models.lm.init_state`` or
 ``prefill`` returns (a tuple of dicts of stacked numpy arrays) and returns

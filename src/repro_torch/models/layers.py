@@ -30,11 +30,24 @@ def variance_scaling_init(gen: torch.Generator, shape: Tuple[int, ...],
                           dtype: torch.dtype,
                           fan_in: Optional[int] = None) -> torch.Tensor:
     """N(0, 1/fan_in) drawn in float32, then cast; ``fan_in`` defaults to
-    the second-to-last dim (the input dim of a (…, in, out) matrix)."""
+    the second-to-last dim (the input dim of a (…, in, out) matrix).  A
+    leaf of three dims or more (stacked over groups, or over experts) is
+    drawn one leading slice at a time into a tensor of ``dtype``, so the
+    float32 draw never holds more than one slice (a Qwen3 expert leaf is
+    9.66 G elements)."""
     fan_in = fan_in if fan_in is not None else shape[-2]
-    w = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return (w * fan_in ** -0.5).to(dtype)
+    scale = fan_in ** -0.5
+
+    def draw(part: Tuple[int, ...]) -> torch.Tensor:
+        return torch.randn(part, generator=gen, device=gen.device,
+                           dtype=torch.float32).mul_(scale)
+
+    if len(shape) < 3:
+        return draw(shape).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for i in range(shape[0]):
+        out[i] = draw(shape[1:])
+    return out
 
 
 def rmsnorm_init(d: int, device: torch.device,

@@ -1,14 +1,18 @@
 """Decoder LM: parameters, the forward and the loss, and the
 contiguous-state serving steps (counterpart of ``repro.models.lm``, block
-types ``attn``, ``local``, ``rglru``, ``mlstm`` and ``slstm``).
+types ``attn``, ``local``, ``rglru``, ``mlstm`` and ``slstm``; an
+``attn``/``local`` block's FFN is a mixture of experts when ``cfg.moe`` is
+set, :mod:`repro_torch.models.moe`).
 
 ``init`` returns the same parameter tree as ``repro.models.lm.init``
 (without the sharding specs): ``embed`` (not in ``embeds`` mode),
 ``blocks`` (a tuple, one dict per pattern position, each tensor stacked
 over ``num_groups`` on its leading axis; an xLSTM block has ``norm1`` and
-``mixer`` only), ``final_norm`` and ``head``.  :func:`forward` and
-:func:`loss_fn` are the train path (the trainer is
-:mod:`repro_torch.launch.train`).
+``mixer`` only; an MoE block's ``ffn`` is ``router``, ``wi``, ``wg``,
+``wo``), ``final_norm`` and ``head``.  :func:`forward` and :func:`loss_fn`
+are the train path (the trainer is :mod:`repro_torch.launch.train`);
+:func:`loss_fn` adds an MoE model's auxiliary losses, which
+:func:`forward_aux` returns beside the logits.
 :func:`init_state`, :func:`prefill` and :func:`decode_step` serve over a
 contiguous state (KV caches and recurrent states, stacked over groups like
 the parameters); the paged serving steps of the engine are in
@@ -32,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models import attention, recurrent
+from repro_torch.models import attention, moe, recurrent
 from repro_torch.models.layers import (compute_cast, embed_init,
                                        gated_mlp_apply, gated_mlp_init,
                                        rmsnorm_apply, rmsnorm_init,
@@ -50,6 +54,9 @@ BLOCK_TYPES = ("attn", "local", "rglru", "mlstm", "slstm")
 
 #: Block types that are ``norm1`` + ``mixer`` only, with no MLP after.
 _MIXER_ONLY = ("mlstm", "slstm")
+
+#: The auxiliary values of an MoE model (:func:`forward_aux`).
+AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 
 
 class _Recurrent(NamedTuple):
@@ -103,7 +110,9 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
         out = {"norm1": rmsnorm_init(d, dev, lead), "mixer": mixer}
         if btype not in _MIXER_ONLY:
             out.update(norm2=rmsnorm_init(d, dev, lead),
-                       ffn=gated_mlp_init(gen, d, cfg.d_ff, dt, lead))
+                       ffn=moe.moe_init(gen, cfg, dt, lead)
+                       if _is_moe(btype, cfg)
+                       else gated_mlp_init(gen, d, cfg.d_ff, dt, lead))
         return out
 
     params["blocks"] = tuple(block(bt) for bt in cfg.block_pattern)
@@ -132,28 +141,48 @@ def _cache_slots(btype: str, cfg: ModelConfig, cache_size: int) -> int:
     return min(cfg.window, cache_size) if btype == "local" else cache_size
 
 
+def _is_moe(btype: str, cfg: ModelConfig) -> bool:
+    """Whether a block's FFN is a mixture of experts: an ``attn`` or
+    ``local`` block of an MoE config (the reference's rule)."""
+    return cfg.moe is not None and btype in ("attn", "local")
+
+
 def mlp_residual(bparams: dict, x: torch.Tensor) -> torch.Tensor:
-    """A block's second half: x + mlp(norm2 x)."""
+    """A dense block's second half: x + mlp(norm2 x)."""
     return x + gated_mlp_apply(bparams["ffn"],
                                rmsnorm_apply(bparams["norm2"], x))
 
 
-def _finish(bparams: dict, btype: str, x: torch.Tensor) -> torch.Tensor:
-    """After the mixer's residual: + mlp(norm2 x), except in an xLSTM
-    block."""
-    return x if btype in _MIXER_ONLY else mlp_residual(bparams, x)
+def ffn_residual(bparams: dict, btype: str, x: torch.Tensor,
+                 cfg: ModelConfig,
+                 aux: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> torch.Tensor:
+    """After the mixer's residual: + ffn(norm2 x), the gated MLP or the
+    mixture of experts, except in an xLSTM block.  An MoE layer adds its
+    auxiliary values into ``aux`` when one is given."""
+    if btype in _MIXER_ONLY:
+        return x
+    if not _is_moe(btype, cfg):
+        return mlp_residual(bparams, x)
+    h = rmsnorm_apply(bparams["norm2"], x)
+    if aux is None:
+        return x + moe.moe_ffn(bparams["ffn"], h, cfg)[0]
+    y, layer_aux = moe.moe_apply(bparams["ffn"], h, cfg)
+    for k, v in layer_aux.items():
+        aux[k] = aux[k] + v
+    return x + y
 
 
-def _block(bparams: dict, btype: str, x: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
-    """One block: x + mixer(norm1 x), then + mlp(norm2 x)."""
+def _block(bparams: dict, btype: str, x: torch.Tensor, cfg: ModelConfig,
+           aux: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """One block: x + mixer(norm1 x), then + ffn(norm2 x)."""
     h = rmsnorm_apply(bparams["norm1"], x)
     if btype in _RECURRENT:
         y = _RECURRENT[btype].apply(bparams["mixer"], h, cfg)
     else:
         y = attention.attn_apply(bparams["mixer"], h, cfg,
                                  window=_window(btype, cfg))
-    return _finish(bparams, btype, x + y)
+    return ffn_residual(bparams, btype, x + y, cfg, aux)
 
 
 def step_inputs(params: dict, cfg: ModelConfig,
@@ -181,7 +210,17 @@ def embed_inputs(params: dict, cfg: ModelConfig,
 def forward(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             *, remat: bool = False) -> torch.Tensor:
     """Logits (B, S, Vpad) in the activation dtype; padded-vocab columns
-    are -1e30.
+    are -1e30 (:func:`forward_aux` without its auxiliary values)."""
+    return forward_aux(params, cfg, batch, remat=remat)[0]
+
+
+def forward_aux(params: dict, cfg: ModelConfig,
+                batch: Dict[str, torch.Tensor], *, remat: bool = False
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(logits (B, S, Vpad) in the activation dtype, padded-vocab columns
+    -1e30; the auxiliary values).  An MoE model's are :data:`AUX_KEYS`,
+    float32 scalars: each summed over its MoE layers and divided by their
+    number; a dense model has none.
 
     ``remat`` recomputes each group in the backward
     (``torch.utils.checkpoint``, the counterpart of ``Runtime.remat`` with
@@ -191,23 +230,28 @@ def forward(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     check_pattern(cfg)
     x = embed_inputs(params, cfg, batch)
     groups = [unstack(p, cfg.num_groups) for p in params["blocks"]]
+    aux = ({k: torch.zeros((), device=x.device) for k in AUX_KEYS}
+           if cfg.moe is not None else {})
 
-    def group_body(x: torch.Tensor, g: int) -> torch.Tensor:
+    def group_body(x: torch.Tensor, aux: Dict[str, torch.Tensor], g: int
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        aux = dict(aux)
         for p, btype in enumerate(cfg.block_pattern):
-            x = _block(groups[p][g], btype, x, cfg)
-        return x
+            x = _block(groups[p][g], btype, x, cfg, aux)
+        return x, aux
 
     for g in range(cfg.num_groups):
         if remat:
-            x = checkpoint(group_body, x, g, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, aux = checkpoint(group_body, x, aux, g, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            x = group_body(x, g)
+            x, aux = group_body(x, aux, g)
     logits = head(params, x)
     if logits.shape[-1] != cfg.vocab_size:
         col = torch.arange(logits.shape[-1], device=logits.device)
         logits = logits.masked_fill(col >= cfg.vocab_size, -1e30)
-    return logits
+    n_moe = cfg.num_groups * sum(_is_moe(bt, cfg) for bt in cfg.block_pattern)
+    return logits, {k: v / float(n_moe) for k, v in aux.items()}
 
 
 def head(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -222,9 +266,11 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy in float32; labels -1 are ignored.
     With ``cfg.logits_softcap`` = c the logits are first capped as
-    ``tanh(l / c) * c``.  Returns (loss, {"ce_loss", "loss", "accuracy"}),
-    as ``repro``'s ``loss_fn`` for a dense model."""
-    logits32 = forward(params, cfg, batch, remat=remat).float()
+    ``tanh(l / c) * c``.  An MoE model adds its load-balance and z losses.
+    Returns (loss, {"ce_loss", the auxiliary values, "loss",
+    "accuracy"}), as ``repro``'s ``loss_fn``."""
+    logits, aux = forward_aux(params, cfg, batch, remat=remat)
+    logits32 = logits.float()
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         logits32 = torch.tanh(logits32 / c) * c
@@ -236,11 +282,15 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     ce = torch.where(valid, lse - label_logit, 0.0)
     denom = valid.float().sum().clamp(min=1.0)
     loss = ce.sum() / denom
+    total = loss
+    if cfg.moe is not None:
+        total = total + aux["moe_lb_loss"] + aux["moe_z_loss"]
     with torch.no_grad():
         hit = (logits32.argmax(-1) == safe) & valid
         acc = hit.float().sum() / denom
-    return loss, {"ce_loss": loss.detach(), "loss": loss.detach(),
-                  "accuracy": acc}
+    return total, {"ce_loss": loss.detach(),
+                   **{k: v.detach() for k, v in aux.items()},
+                   "loss": total.detach(), "accuracy": acc}
 
 
 # ---------------------------------------------------------------------------
@@ -310,7 +360,7 @@ def prefill(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                     bp["mixer"], h, cfg, window=_window(btype, cfg),
                     cache_size=_cache_slots(btype, cfg, cache_size))
             entries.append(st)
-            x = _finish(bp, btype, x + y)
+            x = ffn_residual(bp, btype, x + y, cfg)
         per_group.append(entries)
     logits = head(params, x[:, -1:])
     cache_len = torch.full((b,), s, dtype=torch.int32, device=x.device)
@@ -342,5 +392,5 @@ def decode_step(params: dict, state: State, cache_len: torch.Tensor,
                 y, _ = attention.attn_decode(
                     bp["mixer"], h, {"k": entry["k"][g], "v": entry["v"][g]},
                     cache_len, cfg, window=_window(btype, cfg))
-            x = _finish(bp, btype, x + y)
+            x = ffn_residual(bp, btype, x + y, cfg)
     return head(params, x)[:, 0], state, cache_len + 1

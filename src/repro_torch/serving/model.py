@@ -1,6 +1,6 @@
 """Paged-state model steps: decode and chunked prefill over block tables
 (counterpart of ``repro.serving.model``; block types ``attn``, ``local``,
-``rglru``, ``mlstm`` and ``slstm``).
+``rglru``, ``mlstm`` and ``slstm``, dense or MoE).
 
 State is a tuple with one entry per pattern position.  An ``attn`` or
 ``local`` entry is ``{"k", "v"}: (num_groups, num_blocks + 1, Hkv,
@@ -43,8 +43,15 @@ Inputs: ``batch["tokens"]``, or ``batch["embeds"]`` (B, C, D) for an
 the engine does).  As in the reference, serving takes no vision prefix: a
 ``tokens+vision`` model serves as a ``tokens`` one.
 
+An MoE model's FFN (:func:`repro_torch.models.moe.moe_ffn`) routes each
+row of a step on its own, as the reference's does: a prefill chunk's
+capacity comes from the chunk length C, so the served tokens depend on
+the chunking, and a row's padding positions follow its real ones in every
+expert's queue, so they never take a real token's slot.
+
 Weights are used as they are stored (the activation dtype); every
-projection is an :func:`repro_torch.kernels.ops.sma_gemm`, the head is
+projection is an :func:`repro_torch.kernels.ops.sma_gemm` (an MoE's
+router too; its expert products are ``bmm`` over experts), the head is
 :func:`repro_torch.kernels.ops.rmsnorm_gemm` (so is a decode step's
 mLSTM norm1 -> w_up, :func:`_decode_mixer`), and attention is
 :func:`repro_torch.kernels.ops.paged_decode_attention` (a chunk, C > 1, or
@@ -64,8 +71,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention
 from repro_torch.models.layers import rmsnorm_apply
-from repro_torch.models.lm import (_RECURRENT, State, _finish, _window, head,
-                                   mlp_residual, step_inputs, unstack)
+from repro_torch.models.lm import (_RECURRENT, State, _window, ffn_residual,
+                                   head, step_inputs, unstack)
 from repro_torch.serving.kv_cache import CacheConfig
 
 __all__ = ["init_state", "paged_decode_step", "paged_prefill_step",
@@ -244,13 +251,13 @@ def _layers(params: dict, state: State, x: torch.Tensor,
             if btype in ("attn", "local"):
                 pools = {"k": entry["k"][g], "v": entry["v"][g]}
                 x = x + attend(bparams, x, pools, _window(btype, cfg))
-                x = mlp_residual(bparams, x)
+                x = ffn_residual(bparams, btype, x, cfg)
                 continue
             if btype not in _RECURRENT:
                 raise ValueError(f"unknown block type {btype}")
             y, ns = mix(btype, bparams, x,
                         {k: v[g] for k, v in entry.items()})
-            x = _finish(bparams, btype, x + y)
+            x = ffn_residual(bparams, btype, x + y, cfg)
             new.setdefault(p, []).append(ns)
     out = tuple({k: torch.stack([ns[k] for ns in new[p]]) for k in entry}
                 if p in new else entry for p, entry in enumerate(state))

@@ -1,9 +1,10 @@
 """The dense ``attn`` configs, the input modes and the logits softcap
 against the JAX package, on the CPU.
 
-* Every registered config of the port (all but the MoE ones) equals
-  ``repro.configs``' field for field, with the same ``param_count()``,
-  and ``reduced()`` gives the reference's reduced config.
+* Every config of the reference is registered in the port and equals
+  ``repro.configs``' field for field (an MoE config's ``moe`` too), with
+  the same ``param_count()`` and ``active_param_count()``, and
+  ``reduced()`` gives the reference's reduced config.
 * Reduced ``mistral-nemo-12b`` (tokens), ``musicgen-large`` (``embeds``:
   frame embeddings, no table) and ``internvl2-2b`` (``tokens+vision``:
   patch embeddings ahead of the tokens), a softcap variant
@@ -45,7 +46,8 @@ from repro_torch.tree import leaves
 TOL = dict(rtol=2e-4, atol=2e-4)
 PORTED = ("stablelm-1.6b", "mistral-nemo-12b", "deepseek-67b",
           "deepseek-coder-33b", "musicgen-large", "internvl2-2b",
-          "recurrentgemma-2b", "xlstm-1.3b")
+          "recurrentgemma-2b", "xlstm-1.3b", "qwen3-moe-30b-a3b",
+          "dbrx-132b")
 NEMO, MUSICGEN, INTERNVL = "mistral-nemo-12b", "musicgen-large", \
     "internvl2-2b"
 #: (arch, fields replaced in both packages' reduced config)
@@ -63,18 +65,25 @@ def _fields(cfg: ModelConfig):
     return [f.name for f in dataclasses.fields(cfg)]
 
 
-def test_every_non_moe_config_is_registered():
-    assert sorted(REGISTRY) == sorted(PORTED)
-    moe = {n for n in C.ARCH_IDS if C.get_config(n).moe is not None}
-    assert set(C.ARCH_IDS) - moe == set(PORTED)
+def _value(cfg, name):
+    """A field's value; an ``MoEConfig`` as the dict of its fields (the
+    two packages' classes never compare equal)."""
+    v = getattr(cfg, name)
+    return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
+
+
+def test_every_config_is_registered():
+    assert sorted(REGISTRY) == sorted(PORTED) == sorted(C.ARCH_IDS)
 
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_config_equals_the_reference(arch):
     tc, jc = get_config(arch), C.get_config(arch)
     for name in _fields(tc):
-        assert getattr(tc, name) == getattr(jc, name), name
+        assert _value(tc, name) == _value(jc, name), name
+    assert set(_fields(tc)) <= set(_fields(jc))
     assert tc.param_count() == jc.param_count()
+    assert tc.active_param_count() == jc.active_param_count()
     assert tc.resolved_head_dim == jc.resolved_head_dim
     assert tc.num_layers == jc.num_layers
 
@@ -85,8 +94,9 @@ def test_reduced_equals_the_reference(arch, seq_len):
     tc = reduced(get_config(arch), seq_len=seq_len)
     jc = C.reduced(C.get_config(arch), seq_len=seq_len)
     for name in _fields(tc):
-        assert getattr(tc, name) == getattr(jc, name), name
+        assert _value(tc, name) == _value(jc, name), name
     assert tc.param_count() == jc.param_count()
+    assert tc.active_param_count() == jc.active_param_count()
 
 
 def test_nemo_full_width_sizes():
@@ -97,6 +107,19 @@ def test_nemo_full_width_sizes():
     assert cfg.num_heads // cfg.num_kv_heads == 4
     assert cfg.param_count() == 12_247_777_280
     assert lm.padded_vocab(cfg) == 131072
+
+
+def test_qwen3_full_width_sizes():
+    """The shapes the card serves: 128 experts of 768, top 8, 32 query
+    heads on 4 KV heads of 128; 30.53 B parameters (3.35 B active), 61.06
+    GB in bf16; the vocabulary padded to 152,064."""
+    cfg = get_config("qwen3-moe-30b-a3b")
+    assert (cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.d_ff_expert) \
+        == (128, 8, 768)
+    assert cfg.num_heads * cfg.resolved_head_dim == 4096 != cfg.d_model
+    assert cfg.param_count() == 30_532_108_288
+    assert cfg.active_param_count() == 3_353_018_368
+    assert lm.padded_vocab(cfg) == 152_064
 
 
 @functools.lru_cache(maxsize=None)

@@ -1281,3 +1281,110 @@ def test_real_out_of_memory_is_retried_and_launch_errors_are_not(dev):
     with pytest.raises(RuntimeError, match="out of memory") as launch:
         _build.check(lib, 2, "sma_gemm")
     assert not guard.is_runtime_failure(launch.value)
+
+
+# ---------------------------------------------------------------------------
+# The mixture of experts (qwen3-moe-30b-a3b)
+# ---------------------------------------------------------------------------
+def _moe_cfg(**kw):
+    cfg = get_config("qwen3-moe-30b-a3b")
+    return dataclasses.replace(cfg, **kw)
+
+
+def test_moe_apply_on_card_is_deterministic(dev):
+    """One MoE layer of a reduced Qwen3 widened to 16 experts, bf16, on
+    the card: finite, the router one ``sma_gemm`` launch, and a second
+    run ``torch.equal`` to the first (top-k and the combine have no
+    unordered step); against the same layer on the CPU in float32 at the
+    bf16 tolerance on every token whose choices agree."""
+    from repro_torch.models import moe
+    red = reduced(get_config("qwen3-moe-30b-a3b"))
+    cfg = dataclasses.replace(red, dtype="bfloat16", d_model=256,
+                              moe=dataclasses.replace(red.moe,
+                                                      num_experts=16,
+                                                      top_k=4))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = moe.moe_init(gen, cfg, torch.bfloat16)
+    x = torch.randn((4, 64, 256), generator=gen, device=dev).to(
+        torch.bfloat16)
+    with torch.inference_mode():
+        ops.reset_counts()
+        y1, r1 = moe.moe_ffn(params, x, cfg)
+        assert ops.launch_counts()["sma_gemm"] == 1
+        y2, r2 = moe.moe_ffn(params, x, cfg)
+        torch.cuda.synchronize()
+        assert torch.isfinite(y1.float()).all() and y1.shape == x.shape
+        assert torch.equal(y1, y2) and torch.equal(r1.keep, r2.keep)
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        cpu = {k: v.float().cpu() for k, v in params.items()}
+        y3, r3 = moe.moe_ffn(cpu, x.float().cpu(), f32)
+    same = (r1.onehot.cpu() == r3.onehot).all(-1).all(-1)       # (B, S)
+    assert same.float().mean() > 0.9
+    torch.testing.assert_close(y1.float().cpu()[same], y3[same],
+                               rtol=3e-2, atol=3e-2)
+
+
+def test_moe_route_ties_on_card(dev):
+    """Equal probabilities route to the lower expert id on the card as on
+    the CPU (``jax.lax.top_k``'s order)."""
+    from repro_torch.models import moe
+    mcfg = _moe_cfg().moe
+    logits = torch.zeros((64, 128))
+    logits[:, ::3] = 1.0                  # 43 tied leaders a row
+    logits[1::2, 5] = 2.0
+    want = moe.route(logits, mcfg)[2]
+    got = moe.route(logits.to(dev), mcfg)[2]
+    assert torch.equal(got.cpu(), want)
+    assert want[0].tolist() == [0, 3, 6, 9, 12, 15, 18, 21]
+
+
+def test_moe_compiled_ticks_equal_direct_on_card(dev):
+    """Qwen3-30B-A3B at full width, 2 layers, bf16: the engine's compiled
+    prefill tick (4 ragged rows, chunk 64) and two decode ticks against
+    the direct steps, each run twice: logits, lengths and pools
+    ``torch.equal``, the same launches (5 ``sma_gemm`` a layer: q, k, v,
+    o and the router)."""
+    cfg = _moe_cfg(num_groups=2)
+    cc = CacheConfig(block_size=16, num_blocks=64, max_seq_len=256)
+    kv = PagedKVCache(cc, 4)
+    for r, n in enumerate((64, 17, 40, 1)):
+        assert kv.admit(r, n, 4)
+    table = torch.from_numpy(kv.table_rows([0, 1, 2, 3])).to(dev)
+    toks = torch.from_numpy(np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (4, 64)).astype(np.int32)).to(dev)
+    n_tok = torch.tensor([64, 17, 40, 1], dtype=torch.int32, device=dev)
+
+    def run(prefill, decode):
+        state = smodel.init_state(cfg, 4, cc, device=dev)
+        ops.reset_counts()
+        logits, _, cl = prefill(params, state, table,
+                                torch.zeros(4, dtype=torch.int32,
+                                            device=dev), n_tok,
+                                {"tokens": toks})
+        outs = [logits.clone(), cl.clone()]
+        for _ in range(2):
+            nxt = logits.argmax(-1, keepdim=True).to(torch.int32)
+            logits, _, cl = decode(params, state, table, cl.to(torch.int32),
+                                   {"tokens": nxt})
+            outs += [logits.clone(), cl.clone()]
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in ops.launch_counts().items() if n}
+        return outs, [p[:, :cc.num_blocks].clone() for e in state
+                      for p in e.values()], counts
+
+    with torch.inference_mode():
+        params = lm.init(cfg, seed=0, device=dev)
+        eng = ServeEngine(cfg, params, cache=cc, max_batch=4, device=dev)
+        compiled = (eng.engines["prefill"], eng.engines["decode"])
+        direct = (lambda p, s, bt, cl, nt, b: smodel.paged_prefill_step(
+                      p, s, bt, cl, nt, cfg, b),
+                  lambda p, s, bt, cl, b: smodel.paged_decode_step(
+                      p, s, bt, cl, cfg, b))
+        runs = [run(*compiled), run(*direct), run(*compiled), run(*direct)]
+    for outs, pools, counts in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs, runs[0][0]))
+        assert all(torch.equal(a, b) for a, b in zip(pools, runs[0][1]))
+        assert counts == runs[0][2]
+    assert runs[0][2] == {"sma_gemm": 3 * 5 * 2, "rmsnorm_gemm": 3,
+                          "paged_decode_attention": 2 * 2}
+    assert all(torch.isfinite(o.float()).all() for o in runs[0][0][::2])
