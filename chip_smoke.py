@@ -42,10 +42,11 @@
    kernels against the same step through the plain versions, and a
    decode step with the GEMM entries through their autograd Functions
    and through the bare wrappers.
-   Dense configs and resilience: full-width Mistral-NeMo-12B (40 layers,
-   d_model 5120, GQA 32/8 at head_dim 128: the query width 4096 is not
-   d_model; vocab 131,072) served the same way (compiled ticks against
-   the direct steps with the planted lost write, host and device time),
+   Dense configs and resilience: full-width Mistral-NeMo-12B (20 of its
+   40 layers, NEMO_SERVE_LAYERS; d_model 5120, GQA 32/8 at head_dim 128:
+   the query width 4096 is not d_model; vocab 131,072) served the same
+   way (compiled ticks against the direct steps with the planted lost
+   write, host and device time),
    its kernels held and timed at its own shapes (the products, the decode
    head 5120 -> 131072, paged decode at GQA 4); no pass without faults may
    fail a tick, evict or fail a request.  Chaos on its compiled engine,
@@ -138,9 +139,10 @@
    ``wgmma``, decode heads on ``tile``), ``mlstm_chunkwise`` and
    ``rglru_scan``.
    Both recurrent models also through the compiled ``ServeEngine`` at
-   full width and depth: 4 requests of 64-256-token prompts arriving one a
-   tick, chunk 64, 16 new tokens, greedy, 4 rows; each prefill chunk of a
-   recurrent layer runs token by token as one loop node.  A warm-up pass
+   full width (xLSTM at 8 of its 48 layers, XL_CUT_GROUPS): 4 requests
+   of 64-256-token prompts arriving one a tick, chunk 64, 16 new tokens,
+   greedy, 4 rows; each prefill chunk of a recurrent layer runs token by
+   token as one loop node.  A warm-up pass
    under ``repro_torch.profile`` compiles every (phase, bucket)
    (compile s, graph nodes, loop nodes and body nodes printed) and its
    tick spans must count the scheduler's switches; the timed pass
@@ -169,7 +171,31 @@
    model's decode logits against the plain versions pinned to the
    kernels' expert choices, the routing flips counted, with planted
    faults (the router's K tile dropped among them).
-9. Prints the kernel table as one JSON line (the redesigned kernels' rows
+9. Training beyond the dense family.  The RG-LRU backward kernel against
+   its plain version at the training shape (B 2, S 4096, D 2560), bit for
+   bit on its ``tma`` route and on ``simt`` (timed beside it), with and
+   without h0 and a gradient of h_last, fed two planted faults (the
+   reverse carry reset at S/2, a shifted by one step); the flash forward
+   and backward at Qwen3's call (GQA 32/4, D 128) and at head_dim 256 at
+   RecurrentGemma's (MQA 10/1, window 2048) and a GQA one, each D 256 case
+   with a planted fault (the middle key tile dropped), RecurrentGemma's
+   backward timed against scaled_dot_product_attention's; ``sma_gemm`` at
+   both cells' training shapes (every product forward, its dA and dB, the
+   head's dW and dnormed) and the head ``rmsnorm_gemm`` at 8,192 tokens,
+   each with a planted K-tile fault.  The MoE layer's routing backward at
+   Qwen3's full width, twice, which must be bit for bit, with the kernels
+   autograd makes of its gathers.  Then, each on a clean card,
+   ``train()`` of full-width Qwen3-30B-A3B at 2 layers (B 4 x S 2048) and
+   of full-width RecurrentGemma-2B at one group (13 layers, B 2 x S 4096):
+   5 compiled steps, finite losses, 1 miss and 4 hits, every kernel of
+   the path launched on its route (every scan and its backward on
+   ``tma``), step time, tokens/s, MFU over the parameters in a token's
+   products, ``moe_drop_frac``, peak memory; the compiled step against the
+   direct one (event time A B B A, peak memory; the loss and the
+   gradients upstream of every flash dQ bit for bit, the rest within
+   max(2 x the direct step's spread, JIT_TRAIN_FLOOR)); a profile of one
+   compiled step.
+10. Prints the kernel table as one JSON line (the redesigned kernels' rows
    with their route, the earlier design's time in the same call, and the
    ``-Xptxas -v`` registers, spills and shared memory), then the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -280,6 +306,11 @@ FAULT_MARGIN = 3.0
 # faults of STEP_FAULTS must read above these limits (PERF.md).
 STEP_LIMITS = {"loss": 1e-4, "grad_norm": 1e-3, "grad": 3e-2}
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 5, 2048, 4
+# RecurrentGemma trains at full width, one group of its pattern (9 rglru + 4
+# local layers), B 2 x S 4096: the window (2048) bites in the backward.
+RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_TRAIN_GROUPS = 2, 4096, 1
+# Qwen3-30B-A3B at full width, 2 layers (1.87 B parameters, 0.74 B active).
+QWEN3_TRAIN_BATCH, QWEN3_TRAIN_SEQ, QWEN3_TRAIN_LAYERS = 4, 2048, 2
 # The trainer's peak rate (1 warmup step, cosine to 0 at step 5).  At the
 # reference's default 3e-3 the full-width loss rises again after step 2,
 # and by 0.4 nats more or less from dQ's summation order alone (PERF.md);
@@ -326,6 +357,9 @@ RG_LOGIT_ATOL = 0.1
 # are 16 chunks of 128, so the mLSTM state crosses 15 chunk boundaries.
 XL_ARCH = "xlstm-1.3b"
 XL_BATCH, XL_PROMPT, XL_NEW = 4, 2048, 32
+# Its engine runs the first XL_CUT_GROUPS of its 6 groups (8 of 48 layers,
+# full width), so that the training phases fit the script's time limit.
+XL_CUT_GROUPS = 1
 # mLSTM kernel vs its plain version.  h, per element, |err| <= atol + rtol
 # * |plain|, (atol, rtol) by h's dtype: both sum the same f32 terms in
 # other orders, so for bf16 rtol passes one rounding flip of h (2^-7) and
@@ -365,6 +399,11 @@ KERNEL_SOURCES = {
                             "src/repro/kernels/flash_attention.py:101"),
     "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru.py:55"),
+    # The TPU kernel has no backward either (the reference's gradient comes
+    # from its XLA associative scan); this kernel is the gradient of the one
+    # it replaces.
+    "rglru_scan_bwd": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                       "src/repro/kernels/rglru.py:55"),
     "mlstm_chunkwise": ("src/repro_torch/kernels/csrc/mlstm_chunkwise.cu",
                         "src/repro/kernels/mlstm.py:108"),
 }
@@ -410,21 +449,30 @@ def copies(nbytes: int) -> int:
     return max(1, min(16, math.ceil(COLD_BYTES / max(nbytes, 1))))
 
 
+# Leading-axis rows compared at a time: the f32 temporaries of a training
+# head's (8192, 256000) output stay ~1 GB each.
+CHECK_ROWS = 1024
+
+
 def limit_multiples(got: torch.Tensor, want: torch.Tensor, atol: float,
                     rtol: float) -> torch.Tensor:
     """Per leading-axis row, the largest |err| / (atol + rtol * |want|):
     above 1 where the row fails the tolerance."""
-    got, want = got.float(), want.float()
-    ratio = (got - want).abs() / (atol + rtol * want.abs())
-    return ratio.reshape(ratio.shape[0], -1).amax(1)
+    out = []
+    for g, w in zip(got.split(CHECK_ROWS), want.split(CHECK_ROWS)):
+        g, w = g.float(), w.float()
+        ratio = (g - w).abs() / (atol + rtol * w.abs())
+        out.append(ratio.reshape(ratio.shape[0], -1).amax(1))
+    return torch.cat(out)
 
 
 def compare(got: torch.Tensor, want: torch.Tensor, what: str,
             atol: float = ATOL, rtol: float = RTOL) -> float:
-    if got.shape != want.shape or not torch.isfinite(got.float()).all():
+    if got.shape != want.shape or not torch.isfinite(got).all():
         fail(f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)} or "
              f"non-finite output")
-    err = (got.float() - want.float()).abs().max().item()
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got.split(CHECK_ROWS), want.split(CHECK_ROWS)))
     if limit_multiples(got, want, atol, rtol).max().item() > 1:
         fail(f"{what}: kernel disagrees with its plain version "
              f"(max |err| {err:.4g})")
@@ -801,12 +849,23 @@ def check_decode(gen, dev):
 # ---------------------------------------------------------------------------
 # Flash attention, forward and backward, at the trainer's shapes
 # ---------------------------------------------------------------------------
-FLASH_CASES = {   # B 4, S 2048, bf16, causal; Hq/Hkv, window and D vary
-    "causal": (32, 32, None, 64),
-    "GQA 32/8": (32, 8, None, 64),
-    "window 512": (32, 32, 512, 64),
-    "GQA 32/8 D 128": (32, 8, None, 128),
+FLASH_CASES = {   # bf16, causal: (B, S, Hq, Hkv, window, D)
+    "causal": (TRAIN_BATCH, TRAIN_SEQ, 32, 32, None, 64),
+    "GQA 32/8": (TRAIN_BATCH, TRAIN_SEQ, 32, 8, None, 64),
+    "window 512": (TRAIN_BATCH, TRAIN_SEQ, 32, 32, 512, 64),
+    "GQA 32/8 D 128": (TRAIN_BATCH, TRAIN_SEQ, 32, 8, None, 128),
+    # Qwen3-30B-A3B's training call
+    "GQA 32/4 D 128": (QWEN3_TRAIN_BATCH, QWEN3_TRAIN_SEQ, 32, 4, None, 128),
+    # RecurrentGemma-2B's training call, and a GQA one at D 256
+    "MQA 10/1 D 256 window 2048": (RG_TRAIN_BATCH, RG_TRAIN_SEQ, 10, 1, 2048,
+                                   256),
+    "GQA 4/2 D 256 window 64": (2, 512, 4, 2, 64, 256),
 }
+#: The cases timed: in which directions (the D 256 forward is timed at
+#: RecurrentGemma's prefill shape, check_flash_mqa), and the launches timed
+#: of the kernel, its plain version and the library call.
+FLASH_TIMED = {"causal": (("fwd", "bwd"), (20, 3, 20)),
+               "MQA 10/1 D 256 window 2048": (("bwd",), (5, 1, 3))}
 # The wgmma kernels' tiles (csrc/flash_attention.cu): 128 query rows and
 # 128 keys a forward block (64 keys at D 256), 64 query rows a backward tile.
 FLASH_BQ, FLASH_TK, FLASH_BWD_BQ = 128, 128, 64
@@ -959,17 +1018,20 @@ def check_flash_routes(where: str, counts: dict) -> dict:
 def check_flash(gen, dev):
     """Each case: forward (out, lse) and backward (dq, dk, dv, fed the
     kernel's out and lse) against the plain versions; the causal case also
-    feeds the planted faults and is timed."""
-    dt = torch.bfloat16
+    feeds the planted faults of :func:`flash_controls`, each D 128 case
+    :func:`flash_box_control`, and each D 256 case the backward's own
+    planted fault (the middle key tile dropped: ``plant`` 1), which must
+    fail the dq, dk and dv checks.  The cases of FLASH_TIMED are timed."""
     rows = []
     ops.reset_counts()
-    for case, (hq, hkv, window, d) in FLASH_CASES.items():
-        q, k, v, dout = flash_inputs(gen, dev, hq, hkv, d=d)
+    for case, (b, s, hq, hkv, window, d) in FLASH_CASES.items():
+        q, k, v, dout = flash_inputs(gen, dev, hq, hkv, seq=s, b=b, d=d)
         out, lse = kflash.flash_attention_fwd(q, k, v, window=window)
         want, want_lse = ref.flash_attention_ref(q, k, v, window=window)
         mult = row_multiples(out, want)
         err = (out.float() - want.float()).abs().max().item()
         lse_err = (lse - want_lse).abs().max().item()
+        del want_lse
         grads = kflash.flash_attention_bwd(q, k, v, out, lse, dout,
                                            window=window)
         wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
@@ -978,9 +1040,9 @@ def check_flash(gen, dev):
                 for n, g, w in zip(("dq", "dk", "dv"), grads, wants)}
         gabs = {n: (g.float() - w.float()).abs().max().item()
                 for n, g, w in zip(("dq", "dk", "dv"), grads, wants)}
-        print(f"flash {case}: out max |err| {err:.4g} (max limit multiple "
-              f"{mult.max().item():.3g} of {FLASH_ATOL} + {FLASH_RTOL}"
-              f"|plain|), lse {lse_err:.3g}; grads max |err| "
+        print(f"flash {case} (B {b}, S {s}): out max |err| {err:.4g} (max "
+              f"limit multiple {mult.max().item():.3g} of {FLASH_ATOL} + "
+              f"{FLASH_RTOL}|plain|), lse {lse_err:.3g}; grads max |err| "
               f"{json.dumps({n: round(x, 5) for n, x in gabs.items()})}, "
               f"relative to max |plain| "
               f"{json.dumps({n: round(x, 5) for n, x in gerr.items()})} "
@@ -994,45 +1056,92 @@ def check_flash(gen, dev):
             fail(f"flash backward {case}: {gerr} over {FLASH_GRAD_LIMIT}")
         if d == 128:
             flash_box_control(q, k, v, want)
-        if case != "causal":
-            continue
-        routes = check_flash_routes("flash checks", ops.launch_counts())
-        print(f"flash routes of the checks so far: {json.dumps(routes)}")
-        flash_controls(q, k, v, dout, out, lse)
-        b, _, s, d = q.shape
-        pairs = visible_pairs(s, s, window, dev) * b * hq
-        sets = [(q, k, v, dout)] + [flash_inputs(gen, dev, hq, hkv)]
-        fwd_args = [x[:3] for x in sets]
-        outs = [kflash.flash_attention_fwd(*a) for a in fwd_args]
-        bwd_args = [(*a[:3], o, l, a[3]) for a, (o, l) in zip(sets, outs)]
-        io = 2 * q.numel()                      # bytes of one (B,H,S,D)
-        shape = f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal bf16"
+        del want, grads
+        if d == 256:
+            bad = kflash._run_bwd(q, k, v, out, lse, dout, True, window,
+                                  None, plant=1)
+            berr = {n: grad_error(g, w)
+                    for n, g, w in zip(("dq", "dk", "dv"), bad, wants)}
+            print(f"flash control, {case}, the middle key tile dropped: "
+                  f"{json.dumps({n: round(x, 5) for n, x in berr.items()})}")
+            if min(berr.values()) <= FLASH_GRAD_LIMIT:
+                fail(f"flash control '{case}: the middle key tile dropped' "
+                     f"passes the check: {berr}")
+            del bad
+        if case == "causal":
+            routes = check_flash_routes("flash checks", ops.launch_counts())
+            print(f"flash routes of the checks so far: {json.dumps(routes)}")
+            flash_controls(q, k, v, dout, out, lse)
+        if case in FLASH_TIMED:
+            rows += flash_rows(gen, dev, (q, k, v, dout), window, gabs,
+                               err, *FLASH_TIMED[case])
+        del q, k, v, dout, out, lse, wants
+        torch.cuda.empty_cache()
+    check_flash_routes("flash checks", ops.launch_counts())
+    return rows
 
-        def sdpa(q_, k_, v_):
-            return F.scaled_dot_product_attention(q_, k_, v_, is_causal=True)
 
+def flash_rows(gen, dev, first, window, gabs, err, directions, iters):
+    """The kernel rows of one flash case, timed on ``first`` (q, k, v, dO)
+    and cold copies of it, beside the plain versions and
+    scaled_dot_product_attention (with the window as a mask; an MQA's
+    K and V expanded over the query heads), each over its ``iters``."""
+    kernel_iters, plain_iters, library_iters = iters
+    dt = torch.bfloat16
+    q, k = first[:2]
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    pairs = visible_pairs(s, s, window, dev) * b * hq
+    sets = [first] + [flash_inputs(gen, dev, hq, hkv, seq=s, b=b, d=d)
+                      for _ in range(copies(sum(2 * t.numel()
+                                                for t in first)) - 1)]
+    fwd_args = [x[:3] for x in sets]
+    outs = [kflash.flash_attention_fwd(*a, window=window) for a in fwd_args]
+    bwd_args = [(*a[:3], o, l, a[3]) for a, (o, l) in zip(sets, outs)]
+    io = 2 * (q.numel() + k.numel())         # bytes of one q- and k-sized
+    shape = (f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal"
+             f"{f' window={window}' if window else ''} bf16")
+    mask = (None if window is None else
+            ref.flash_mask(s, s, causal=True, window=window, device=dev))
+
+    def sdpa(q_, k_, v_):
+        if hkv != hq:
+            k_, v_ = k_.expand(-1, hq, -1, -1), v_.expand(-1, hq, -1, -1)
+        return F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask,
+                                              is_causal=mask is None)
+
+    def sdpa_bwd(o_, leaves_, do_):
+        return torch.autograd.grad(o_, leaves_, do_, retain_graph=True)
+
+    rows = []
+    if "fwd" in directions:
+        rows.append(entry(
+            "flash_attention", shape, err,
+            time_ms(lambda *a: kflash.flash_attention_fwd(
+                *a, window=window), fwd_args, kernel_iters),
+            time_ms(lambda *a: ref.flash_attention_ref(*a, window=window),
+                    fwd_args, plain_iters),
+            bound(2 * io + 4 * b * hq * s, 4 * d * pairs, dt),
+            time_ms(sdpa, fwd_args, library_iters)))
+    if "bwd" in directions:
         lib_sets = []
         for q_, k_, v_, do_ in sets:
             leaves_ = [t.detach().clone().requires_grad_() for t in
                        (q_, k_, v_)]
             lib_sets.append((sdpa(*leaves_), leaves_, do_))
-
-        def sdpa_bwd(o_, leaves_, do_):
-            return torch.autograd.grad(o_, leaves_, do_, retain_graph=True)
-
-        rows.append(entry(
-            "flash_attention", shape, err,
-            time_ms(lambda *a: kflash.flash_attention_fwd(*a), fwd_args),
-            time_ms(ref.flash_attention_ref, fwd_args, 3),
-            bound(4 * io + 4 * b * hq * s, 4 * d * pairs, dt),
-            time_ms(sdpa, fwd_args)))
         rows.append(entry(
             "flash_attention_bwd", shape, max(gabs.values()),
-            time_ms(lambda *a: kflash.flash_attention_bwd(*a), bwd_args),
-            time_ms(ref.flash_attention_bwd_ref, bwd_args, 3),
-            bound(8 * io + 4 * b * hq * s, 10 * d * pairs, dt),
-            time_ms(sdpa_bwd, lib_sets)))
-        del lib_sets, outs, sets
+            time_ms(lambda *a: kflash.flash_attention_bwd(
+                *a, window=window), bwd_args, kernel_iters),
+            time_ms(lambda *a: ref.flash_attention_bwd_ref(
+                *a, window=window), bwd_args, plain_iters),
+            bound(4 * io + 4 * b * hq * s, 10 * d * pairs, dt),
+            time_ms(sdpa_bwd, lib_sets, library_iters)))
+        if d == 256:
+            rows[-1].update(kernel_route="wgmma",
+                            ptxas=ptxas_entries("flash_attention", "bwd256"),
+                            smem_bytes=kflash.smem_bytes(d, backward=True))
+        del lib_sets
     return rows
 
 
@@ -1418,6 +1527,7 @@ def plain_kernels():
                  ref.paged_decode_attention_ref,
              (kdecode, "decode_attention"): ref.decode_attention_ref,
              (krglru, "rglru_scan"): ref.rglru_scan_ref,
+             (krglru, "rglru_scan_bwd"): ref.rglru_scan_bwd_ref,
              (kmlstm, "mlstm_chunkwise"): ref.mlstm_chunkwise_ref,
              (kflash, "flash_attention_fwd"): ref.flash_attention_ref,
              (kflash, "flash_attention_bwd"): ref.flash_attention_bwd_ref}
@@ -1667,6 +1777,10 @@ def entry_overhead(cfg, params, dev, rounds: int = 4, steps: int = 5):
 # ---------------------------------------------------------------------------
 NEMO_ARCH = "mistral-nemo-12b"
 MUSICGEN_ARCH, INTERNVL_ARCH = "musicgen-large", "internvl2-2b"
+# Nemo's serve runs at full width and half its 40 layers, so that the
+# training phases fit the script's time limit (launch.serve's main() still
+# serves Nemo at full depth).
+NEMO_SERVE_LAYERS = 20
 # Nemo's products (q 5120 -> 4096, k / v -> 1024, the attention out 4096 ->
 # 5120, the MLP's silu gate 5120 -> 14336 and its 14336 -> 5120) at a
 # decode tick (M 8) and a prefill tick (M 2048).
@@ -2225,18 +2339,56 @@ def compiled_step_launches(cfg) -> dict:
     return out
 
 
-def matmul_params(cfg) -> int:
-    """Parameters that enter a matrix product (the embedding gather does
-    not): the MFU's N."""
+def layer_products(cfg, block: str) -> list:
+    """(K, N, epilogue) of each ``sma_gemm`` product of one ``block``
+    layer of ``cfg`` in the forward: the mixer's (attention: q, k, v, o;
+    RG-LRU: w_in, w_gate, w_a, w_x, w_out), then the FFN's (the gated MLP;
+    an MoE's router, whose experts are library ``bmm``s)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    attn = d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
-    return cfg.num_layers * (attn + 3 * d * cfg.d_ff) \
-        + d * lm.padded_vocab(cfg)
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    if block in ("attn", "local"):
+        out = [(d, q, "none"), (d, kv, "none"), (d, kv, "none"),
+               (q, d, "none")]
+    elif block == "rglru":
+        out = [(d, d, "none"), (d, d, "gelu")] + [(d, d, "none")] * 3
+    else:
+        raise ValueError(f"no training products listed for {block!r}")
+    if cfg.moe is not None:
+        return out + [(d, cfg.moe.num_experts, "none")]
+    return out + [(d, cfg.d_ff, "silu"), (d, cfg.d_ff, "none"),
+                  (cfg.d_ff, d, "none")]
 
 
-def train_batch(cfg, dev):
-    return next(DataPipeline(DataConfig(cfg.vocab_size, TRAIN_SEQ,
-                                        TRAIN_BATCH, seed=0), device=dev))
+def matmul_params(cfg) -> int:
+    """Parameters that enter a matrix product for one token, the MFU's N:
+    every layer's products (:func:`layer_products`), the experts an MoE
+    token chooses, and the head; the embedding gather does not count."""
+    n = cfg.d_model * lm.padded_vocab(cfg)
+    for block in cfg.block_pattern * cfg.num_groups:
+        n += sum(k * m for k, m, _ in layer_products(cfg, block))
+        if cfg.moe is not None:
+            n += cfg.moe.top_k * 3 * cfg.d_model * cfg.moe.d_ff_expert
+    return n
+
+
+def train_gemms(cfg, tokens: int) -> list:
+    """The distinct (M, K, N, epilogue) of a training step's ``sma_gemm``
+    launches at ``tokens`` a step: each product K -> N forward (M tokens),
+    its dA (tokens, N -> K) and dB (K, tokens -> N), and the head's dW and
+    dnormed (its forward is ``rmsnorm_gemm``)."""
+    out = []
+    for block in dict.fromkeys(cfg.block_pattern):
+        for k, n, ep in layer_products(cfg, block):
+            out += [(tokens, k, n, ep), (tokens, n, k, "none"),
+                    (k, tokens, n, "none")]
+    d, vocab = cfg.d_model, lm.padded_vocab(cfg)
+    out += [(d, tokens, vocab, "none"), (tokens, vocab, d, "none")]
+    return list(dict.fromkeys(out))
+
+
+def train_batch(cfg, dev, seq=TRAIN_SEQ, batch=TRAIN_BATCH):
+    return next(DataPipeline(DataConfig(cfg.vocab_size, seq, batch, seed=0),
+                             device=dev))
 
 
 def named_leaves(tree, prefix: str = "") -> list:
@@ -2506,7 +2658,8 @@ def step_ocfg():
                              total_steps=TRAIN_STEPS)
 
 
-def time_train_step(cfg, params, cm, dev, card: str):
+def time_train_step(cfg, params, cm, dev, card: str, seq=TRAIN_SEQ,
+                    batch_size=TRAIN_BATCH):
     """The compiled step (train()'s) against the direct step at full width,
     on the trained parameters and a fresh optimizer state: each one's peak
     memory (each after a collection, with the memory held before it
@@ -2517,7 +2670,7 @@ def time_train_step(cfg, params, cm, dev, card: str):
     direct = functools.partial(direct_step, cfg=cfg, ocfg=step_ocfg(),
                                remat=True, grad_compression=False)
     opt = adamw.init(params)
-    batch = train_batch(cfg, dev)
+    batch = train_batch(cfg, dev, seq, batch_size)
     calls = {"direct": lambda: direct(params, opt, {}, batch),
              "compiled": lambda: cm(params, opt, {}, batch)}
     peaks, held = {}, {}
@@ -2536,7 +2689,7 @@ def time_train_step(cfg, params, cm, dev, card: str):
         times.setdefault(name, []).append((ev, host_ms(calls[name])))
     for name, runs in times.items():
         print(f"train step timing, {name}, {cfg.num_layers} layers, S "
-              f"{TRAIN_SEQ} x B {TRAIN_BATCH} ({card}): event ms a step "
+              f"{seq} x B {batch_size} ({card}): event ms a step "
               f"{[round(r[0], 3) for r in runs]}, host ms to return "
               f"{[round(r[1], 3) for r in runs]}; peak memory "
               f"{peaks[name]:.3f} GiB, {held[name]:.3f} of it held before "
@@ -2545,14 +2698,16 @@ def time_train_step(cfg, params, cm, dev, card: str):
     print(f"train step timing: compiled / direct event ms "
           f"{ev['compiled'] / ev['direct']:.4f}, peak memory "
           f"{peaks['compiled'] / peaks['direct']:.4f}")
+    return ev, peaks
 
 
-def profile_train_step(cfg, params, dev, cm):
+def profile_train_step(cfg, params, dev, cm, seq=TRAIN_SEQ,
+                       batch_size=TRAIN_BATCH):
     """torch.profiler over one more compiled training step (fresh AdamW
     state): device busy share and device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
     opt = adamw.init(params)
-    batch = train_batch(cfg, dev)
+    batch = train_batch(cfg, dev, seq, batch_size)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4461,11 +4616,17 @@ def fault_control(what: str, bad, plain_bad, want, multiples) -> None:
     """A planted fault: ``bad`` is the kernel's output on the faulty
     inputs, ``plain_bad`` its plain version's, ``want`` the plain version
     of the right inputs.  The check (``multiples`` above 1) must fail on
-    every element the fault moves by more than FAULT_MARGIN limits."""
-    effect, got = multiples(plain_bad, want), multiples(bad, want)
-    must = effect > FAULT_MARGIN
-    n_must, n_caught = int(must.sum()), int((got[must] > 1).sum())
-    print(f"{what}: moves {n_must} of {must.numel()} elements by > "
+    every element the fault moves by more than FAULT_MARGIN limits.
+    Tensors are compared CHECK_ROWS leading rows at a time."""
+    parts = [(bad, plain_bad, want)] if isinstance(want, tuple) else zip(
+        *(t.split(CHECK_ROWS) for t in (bad, plain_bad, want)))
+    n_must = n_caught = total = 0
+    for bad_, plain_, want_ in parts:
+        must = multiples(plain_, want_) > FAULT_MARGIN
+        n_must += int(must.sum())
+        n_caught += int((multiples(bad_, want_)[must] > 1).sum())
+        total += must.numel()
+    print(f"{what}: moves {n_must} of {total} elements by > "
           f"{FAULT_MARGIN} limits; the check fails {n_caught} of them")
     if n_must == 0 or n_caught < n_must:
         fail(f"{what}: passes the check where it moves the output")
@@ -4481,35 +4642,74 @@ def check_qwen3_kernels(gen, dev):
     ``bmm``s the port calls as the reference calls ``einsum``
     (:func:`time_expert_bmms`)."""
     cfg = get_config(QWEN3_ARCH)
-    dt = torch.bfloat16
     rows = check_sma_gemm(gen, dev, QWEN3_GEMMS, " (qwen3)")
-    for m, k, n, _ in QWEN3_GEMMS:
+    gemm_k_tile_controls(gen, dev, QWEN3_GEMMS, "qwen3")
+    rows.append(check_head(gen, dev, 8, cfg.d_model, lm.padded_vocab(cfg),
+                           "tile", "qwen3 decode head"))
+    head_k_tile_control(gen, dev, 8, cfg, "qwen3 decode head")
+    rows.append(check_paged_gqa(gen, dev, cfg, "qwen3"))
+    time_expert_bmms(gen, dev, cfg)
+    return rows
+
+
+def gemm_k_tile_controls(gen, dev, shapes, tag: str) -> None:
+    """At each (M, K, N, epilogue) of ``shapes``, a planted fault fed to
+    ``sma_gemm`` (epilogue none): B's last K // 4096 64-row K tiles (at
+    least one) zeroed.  One tile of a head's dnormed (K 256,000: 4,000
+    tiles) moves no output by FAULT_MARGIN limits, so a longer K drops
+    more tiles."""
+    dt = torch.bfloat16
+    for m, k, n, _ in shapes:
         a = torch.randn((m, k), generator=gen, device=dev).to(dt)
         w = (torch.randn((k, n), generator=gen, device=dev)
              * k ** -0.5).to(dt)
+        tiles = max(1, k // 4096)
         bad = w.clone()
-        bad[-64:] = 0
-        fault_control(f"sma_gemm control (qwen3) M={m} {k}->{n}, last K "
-                      f"tile of B zeroed", kgemm.sma_gemm(a, bad),
+        bad[-64 * tiles:] = 0
+        fault_control(f"sma_gemm control ({tag}) M={m} {k}->{n}, last "
+                      f"{tiles} K tile(s) of B zeroed",
+                      kgemm.sma_gemm(a, bad),
                       ref.gemm_ref(a, bad), ref.gemm_ref(a, w),
                       gemm_multiples)
-    vpad = lm.padded_vocab(cfg)
-    rows.append(check_head(gen, dev, 8, cfg.d_model, vpad, "tile",
-                           "qwen3 decode head"))
-    x = (torch.randn((8, cfg.d_model), generator=gen, device=dev)
-         * 3).to(dt)
-    scale = torch.rand((cfg.d_model,), generator=gen, device=dev) + 0.5
-    w = (torch.randn((cfg.d_model, vpad), generator=gen, device=dev)
-         * cfg.d_model ** -0.5).to(dt)
+        del a, w, bad
+
+
+def head_k_tile_control(gen, dev, m: int, cfg, tag: str) -> None:
+    """A planted fault fed to ``rmsnorm_gemm`` at ``cfg``'s head with M
+    ``m``: W's last 64-row K tile zeroed."""
+    dt, k, n = torch.bfloat16, cfg.d_model, lm.padded_vocab(cfg)
+    x = (torch.randn((m, k), generator=gen, device=dev) * 3).to(dt)
+    scale = torch.rand((k,), generator=gen, device=dev) + 0.5
+    w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(dt)
     bad = w.clone()
     bad[-64:] = 0
-    fault_control("rmsnorm_gemm control (qwen3 decode head), last K tile "
-                  "of W zeroed", knorm.rmsnorm_gemm(x, scale, bad),
+    fault_control(f"rmsnorm_gemm control ({tag}), last K tile of W zeroed",
+                  knorm.rmsnorm_gemm(x, scale, bad),
                   ref.rmsnorm_gemm_ref(x, scale, bad),
                   ref.rmsnorm_gemm_ref(x, scale, w), gemm_multiples)
-    del w, bad
-    rows.append(check_paged_gqa(gen, dev, cfg, "qwen3"))
-    time_expert_bmms(gen, dev, cfg)
+
+
+def check_train_kernels(gen, dev):
+    """The GEMM kernels at the shapes of the two training cells below
+    (Qwen3-30B-A3B at B 4 x S 2048, RecurrentGemma-2B at B 2 x S 4096:
+    8,192 tokens each) against their plain versions, timed with their
+    bounds, each with a planted fault the check must catch: ``sma_gemm``
+    at :func:`train_gemms` (every product forward, its dA and its dB,
+    the head's dW and dnormed; B's last K tiles zeroed) and the head
+    ``rmsnorm_gemm`` at M 8,192 on ``wgmma`` (W's last K tile zeroed).
+    Their flash calls are cases of FLASH_CASES."""
+    rows = []
+    for arch, tokens in ((QWEN3_ARCH, QWEN3_TRAIN_BATCH * QWEN3_TRAIN_SEQ),
+                         (RG_ARCH, RG_TRAIN_BATCH * RG_TRAIN_SEQ)):
+        cfg, tag = get_config(arch), arch.split("-")[0]
+        shapes = train_gemms(cfg, tokens)
+        rows += check_sma_gemm(gen, dev, shapes, f" ({tag} train)")
+        gemm_k_tile_controls(gen, dev, shapes, f"{tag} train")
+        rows.append(check_head(gen, dev, tokens, cfg.d_model,
+                               lm.padded_vocab(cfg), "wgmma",
+                               f"{tag} train head"))
+        head_k_tile_control(gen, dev, tokens, cfg, f"{tag} train head")
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -4744,6 +4944,307 @@ def moe_decode_bounds(cfg, params, dev) -> None:
           f"ms")
 
 
+# ---------------------------------------------------------------------------
+# Training beyond the dense family: the RG-LRU backward, the flash backward
+# at head_dim 256, Qwen3-30B-A3B (an MoE) and RecurrentGemma-2B
+# ---------------------------------------------------------------------------
+RG_LRU_WIDTH = 2560
+
+
+def bwd_multiples(got, want):
+    """Per element of (da, du), the RG-LRU limit multiples."""
+    return torch.cat([rglru_multiples(g, w).reshape(-1)
+                      for g, w in zip(got[:2], want[:2])])
+
+
+def check_rglru_bwd(gen, dev):
+    """The RG-LRU backward kernel against its plain version
+    (``ref.rglru_scan_bwd_ref``) at the training shape, B 2, S 4096, D 2560
+    bf16, without h0 (the trainer's call) and with h0 and a gradient of
+    h_last: bit for bit on its ``tma`` route, and on ``simt``; planted
+    faults fed to it, each held against the plain version of the right
+    inputs: the reverse carry reset at t = S/2 (the sequence run as two
+    halves) and a shifted by one step (a_{t+1} read as a_t).  Timed beside
+    the ``simt`` kernel; no PyTorch call computes the reverse recurrence."""
+    b, s, d, dt = RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_LRU_WIDTH, torch.bfloat16
+    a, u, h0 = scan_inputs(gen, dev, b, s, d, dt)
+    dh = torch.randn((b, s, d), generator=gen, device=dev).to(dt)
+    dl = torch.randn((b, d), generator=gen, device=dev).to(dt)
+    rows = []
+    for with_h0 in (False, True):
+        h0_, dl_ = (h0, dl) if with_h0 else (None, None)
+        hs = krglru.rglru_scan(a, u, h0_)[0]
+        before = dict(krglru.BWD_ROUTES)
+        got = krglru.rglru_scan_bwd(a, hs, dh, h0_, dl_)
+        route = kernel_route(krglru.BWD_ROUTES, before, "rglru_scan_bwd")
+        want = ref.rglru_scan_bwd_ref(a, hs, dh, h0_, dl_)
+        simt = krglru._run_bwd(a, hs, dh, h0_, dl_, "simt")
+        pairs = [(g, w) for g, w in zip(got, want) if w is not None]
+        equal = all(torch.equal(g, w) for g, w in pairs)
+        simt_equal = all(torch.equal(g, w) for g, w in zip(simt, want)
+                         if w is not None)
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in pairs)
+        shape = f"B={b} S={s} D={d} bf16{' h0 dh_last' if with_h0 else ''}"
+        print(f"rglru backward {shape} ({route}): max |err| {err:.4g}; bit "
+              f"for bit: {equal}; simt bit for bit: {simt_equal}")
+        if route != "tma" or not equal or not simt_equal or not all(
+                torch.isfinite(g.float()).all() for g, _ in pairs):
+            fail(f"rglru_scan_bwd {shape}: kernel disagrees with its plain "
+                 f"version (route {route})")
+        if with_h0:
+            continue
+        half = s // 2
+        shifted = torch.cat([a[:, 1:], a[:, -1:]], 1)
+
+        def reset(fn):
+            lo = fn(a[:, :half], hs[:, :half], dh[:, :half], None, None)
+            hi = fn(a[:, half:], hs[:, half:], dh[:, half:],
+                    hs[:, half - 1].contiguous(), None)
+            return tuple(torch.cat([x, y], 1) for x, y in zip(lo[:2], hi[:2]))
+
+        faults = {f"reverse carry reset at t={half}": reset,
+                  "a shifted by one step": lambda fn: fn(shifted, hs, dh,
+                                                         None, None)}
+        for name, run in faults.items():
+            fault_control(f"rglru backward control, {name}",
+                          run(krglru.rglru_scan_bwd),
+                          run(ref.rglru_scan_bwd_ref), want, bwd_multiples)
+        nbytes = 5 * a.numel() * a.element_size()
+        row = entry("rglru_scan_bwd", shape, err,
+                    time_ms(krglru.rglru_scan_bwd, [(a, hs, dh)]),
+                    time_ms(ref.rglru_scan_bwd_ref, [(a, hs, dh)], 1),
+                    bound(nbytes, 4 * a.numel(), torch.float32), None)
+        row.update(kernel_route=route,
+                   simt_ms=time_ms(lambda *x: krglru._run_bwd(
+                       *x, None, None, "simt"), [(a, hs, dh)]),
+                   ptxas=ptxas_entries("rglru_scan", "scan_bwd"))
+        rows.append(row)
+        del got, want, simt
+    return rows
+
+
+def check_moe_backward(cfg, dev):
+    """The MoE layer's routing backward, at Qwen3's full width and the
+    training shape (B 4 x S 2048, 128 experts top 8): which kernels
+    autograd makes of the dispatch gather ``x_pad[rows]`` and the combine
+    gather ``ye[slot]`` (their backward adds k = 8 slot gradients into
+    each token row and every empty slot's into the sentinel row), and
+    whether two backward passes give the same bits.  Printed: the kernel
+    names of the backward by device time, and which gradients equal; fails
+    unless every gradient of the two passes is ``torch.equal``."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dt = torch.bfloat16
+    params = lm.init(dataclasses.replace(cfg, num_groups=1), seed=0,
+                     device=dev)["blocks"][0]["ffn"]
+    params = {k: v[0].detach().requires_grad_() for k, v in params.items()}
+    x = (torch.randn((QWEN3_TRAIN_BATCH, QWEN3_TRAIN_SEQ, cfg.d_model),
+                     generator=gen, device=dev)).to(dt).requires_grad_()
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(dt)
+    leaves_ = [x] + [params[k] for k in sorted(params)]
+
+    def backward():
+        y, _ = moe.moe_ffn(params, x, cfg)
+        return torch.autograd.grad(y, leaves_, dy)
+
+    first = backward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        second = backward()
+        torch.cuda.synchronize()
+    names = ["x"] + sorted(params)
+    same = {n: torch.equal(a, b) for n, a, b in zip(names, first, second)}
+    kernels = sorted(((ev.self_device_time_total, ev.key)
+                      for ev in prof.key_averages()
+                      if ev.self_device_time_total > 0
+                      and ev.device_type == torch.autograd.DeviceType.CUDA
+                      and any(w in ev.key.lower() for w in (
+                          "index", "scatter", "gather", "sort", "put",
+                          "atomic"))), reverse=True)
+    print(f"moe backward (qwen3, B {QWEN3_TRAIN_BATCH} x S "
+          f"{QWEN3_TRAIN_SEQ}, one layer): two passes bit for bit "
+          f"{json.dumps(same)}; routing kernels of a pass (device us, "
+          f"name): {[(round(t, 1), k[:90]) for t, k in kernels[:10]]}")
+    del first, second, params, x
+    torch.cuda.empty_cache()
+    if not all(same.values()):
+        fail(f"moe backward: two passes differ: {same}")
+
+
+def train_family(cfg, dev, card: str, path: str, seq: int, batch: int):
+    """``train()`` on ``cfg`` at full width for TRAIN_STEPS compiled steps
+    (B ``batch`` x S ``seq``, remat, f32 masters + AdamW at TRAIN_LR, bf16
+    compute): finite losses, 1 miss and 4 hits, every kernel of the path
+    launched and on its route, nothing routed; step time (median of steps
+    2-5), tokens/s, MFU = 6 N tokens / step / 989 TFLOP/s with N the
+    parameters that enter a token's products (:func:`matmul_params`, as
+    the StableLM trainer's), the MoE's
+    ``moe_drop_frac`` each step, peak memory.  Then the compiled step
+    against the direct one on the trained parameters: the loss and the
+    gradients upstream of every flash dQ bit for bit, every other gradient
+    within max(2 x the direct step's own spread, JIT_TRAIN_FLOOR); their
+    event time A B B A and peak memory; a profile of one compiled step.
+    Returns the launches of the 5 steps."""
+    from repro_torch import sma_jit
+    loop = TrainLoopConfig(steps=TRAIN_STEPS, seq_len=seq,
+                           global_batch=batch, log_every=1, seed=0,
+                           peak_lr=TRAIN_LR, remat=True)
+    clean_card(path)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    with captured_compiles() as built:
+        result = train(cfg, loop, device=dev)
+    torch.cuda.synchronize()
+    counts, routed = ops.launch_counts(), dict(ops.ROUTED)
+    routes = nonzero(kgemm.ROUTES)
+    peak = torch.cuda.max_memory_allocated()
+    engine, hist = result["engine"], result["history"]
+    if (engine["misses"], engine["hits"], len(built)) != \
+            (1, TRAIN_STEPS - 1, 1):
+        fail(f"{path}: the step engine compiled {len(built)} times, "
+             f"{engine}; expected 1 miss and {TRAIN_STEPS - 1} hits")
+    for h in hist:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                and h["grad_norm"] > 0):
+            fail(f"{path} step {h['step']}: loss {h['loss']}, grad norm "
+                 f"{h['grad_norm']}")
+    need = ["sma_gemm", "rmsnorm_gemm", "flash_attention",
+            "flash_attention_bwd"]
+    if "rglru" in cfg.block_pattern:
+        need += ["rglru_scan", "rglru_scan_bwd"]
+        rg = cfg.block_pattern.count("rglru") * cfg.num_groups
+        want = {"rglru_scan": 2 * rg * TRAIN_STEPS,
+                "rglru_scan_bwd": rg * TRAIN_STEPS}
+        if {k: counts[k] for k in want} != want:
+            fail(f"{path}: scan launches {counts}, expected {want}")
+        if nonzero(krglru.ROUTES) != {"tma": want["rglru_scan"]} or \
+                nonzero(krglru.BWD_ROUTES) != {"tma": want["rglru_scan_bwd"]}:
+            fail(f"{path}: scan routes {krglru.ROUTES} / "
+                 f"{krglru.BWD_ROUTES}, expected every launch on tma")
+    attn = sum(bt in ("attn", "local") for bt in cfg.block_pattern) \
+        * cfg.num_groups
+    want = {"flash_attention": 2 * attn * TRAIN_STEPS,
+            "flash_attention_bwd": attn * TRAIN_STEPS,
+            "rmsnorm_gemm": TRAIN_STEPS}
+    if {k: counts[k] for k in want} != want:
+        fail(f"{path}: launches {counts}, expected {want}")
+    missing = [k for k in need if not counts[k]]
+    if missing or routed:
+        fail(f"{path}: kernels not launched {missing}; routed {routed}")
+    if routes != {"wgmma": counts["sma_gemm"]}:
+        fail(f"{path}: sma_gemm routes {routes}, expected every launch on "
+             f"wgmma")
+    FLASH_ROUTES_BY_PATH[path] = check_flash_routes(path, counts)
+    ROUTES_BY_PATH[path] = check_kernel_routes(path, counts, "wgmma")
+    walls = [h["wall_s"] for h in hist]
+    steps = [y - x for x, y in zip(walls, walls[1:])]
+    step_s = float(np.median(steps))
+    tokens = seq * batch
+    n_mm = matmul_params(cfg)
+    losses = [h["loss"] for h in hist]
+    drops = [round(h["moe_drop_frac"], 4) for h in hist
+             if "moe_drop_frac" in h]
+    print_compile(f"{path}: {cfg.name}.train_step", built[0])
+    print(f"{path}: {cfg.name} full width, {cfg.num_layers} layers, seq "
+          f"{seq}, batch {batch}, remat, f32 masters + AdamW, peak_lr "
+          f"{TRAIN_LR}, bf16 compute ({cfg.param_count()} parameters, "
+          f"{cfg.active_param_count()} a token touches, {n_mm} in its "
+          f"products; engine {json.dumps(engine)}); losses "
+          f"{[round(x, 4) for x in losses]} (fell "
+          f"{losses[0] - losses[-1]:.4f}), grad norms "
+          f"{[round(h['grad_norm'], 4) for h in hist]}"
+          + (f", moe_drop_frac {drops}" if drops else ""))
+    print(f"{path}: step 1 {walls[0]:.3f} s (compile and first launches), "
+          f"steps 2-5 {[round(x, 4) for x in steps]} s, median "
+          f"{step_s:.4f} s: {tokens / step_s:.1f} tokens/s, MFU "
+          f"{100 * 6 * n_mm * tokens / step_s / H100_BF16:.2f}% (6 N tokens "
+          f"/ step / 989 TFLOP/s, N = {n_mm}; bound "
+          f"{6 * n_mm * tokens / H100_BF16:.4f} s); peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated)")
+    print(f"{path}: launches over {TRAIN_STEPS} steps "
+          f"{json.dumps(nonzero(counts))}; sma_gemm routes "
+          f"{json.dumps(routes)}; flash routes "
+          f"{json.dumps(FLASH_ROUTES_BY_PATH[path])}; rmsnorm_gemm, mlstm, "
+          f"rglru routes {json.dumps(ROUTES_BY_PATH[path])}")
+    params, cm = result["params"], built[0]
+    del result, built
+    gc.collect()
+    torch.cuda.empty_cache()
+    time_train_step(cfg, params, cm, dev, card, seq, batch)
+    profile_train_step(cfg, params, dev, cm, seq, batch)
+    del cm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The compiled loss and gradients against the direct ones.
+    names = [n for n, _ in named_leaves(params)]
+    tbatch = train_batch(cfg, dev, seq, batch)
+
+    def loss_and_grads(params, batch):
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, _ = lm.loss_fn(live, cfg, batch, remat=True)
+        return loss.detach(), torch.autograd.grad(loss, leaves(live))
+
+    def grads_run(fn):
+        ops.reset_counts()
+        loss, grads = fn(params, tbatch)
+        torch.cuda.synchronize()
+        return loss, grad_pieces(names, grads)
+
+    grad_eng = sma_jit(loss_and_grads, name=f"{cfg.name}.loss_and_grads")
+    grad_eng.compile(params, tbatch)
+    want = grads_run(loss_and_grads)
+    again = grads_run(loss_and_grads)
+    spread = relative_errors(again[1], want[1])
+    del again
+    got = grads_run(grad_eng)
+    last = max(i for i, bt in enumerate(cfg.block_pattern)
+               if bt in ("attn", "local"))
+    top = cfg.num_groups - 1
+    exact = [k for k in got[1] if k in ("head.w", "final_norm.scale") or any(
+        k.startswith(f"blocks.{p}.") and k.endswith(f"[{top}]")
+        and (p > last or p == last and k.split(".")[2] in ("ffn", "norm2"))
+        for p in range(len(cfg.block_pattern)))]
+    unequal = [k for k in exact if not torch.equal(got[1][k], want[1][k])]
+    mult = spread_multiples(relative_errors(got[1], want[1]), spread)
+    worst = max(mult, key=mult.get)
+    print(f"{path}: loss and gradients compiled vs direct: loss "
+          f"{got[0].item():.6f} vs {want[0].item():.6f} (torch.equal "
+          f"{torch.equal(got[0], want[0])}); {len(exact)} gradients "
+          f"upstream of every dQ, unequal {unequal}; direct-vs-direct "
+          f"spread max {max(spread.values()):.4g}, median "
+          f"{np.median(list(spread.values())):.4g}; largest limit multiple "
+          f"{mult[worst]:.4g} ({worst})")
+    if not torch.equal(got[0], want[0]) or unequal or mult[worst] > 1:
+        fail(f"{path}: the compiled loss and gradients part from the "
+             f"direct ones beyond the rule")
+    del got, want, params, grad_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_qwen3(dev, card: str):
+    """The MoE's routing backward, bit for bit (:func:`check_moe_backward`),
+    then Qwen3-30B-A3B at full width, QWEN3_TRAIN_LAYERS layers, through
+    :func:`train_family`."""
+    cfg = dataclasses.replace(get_config(QWEN3_ARCH),
+                              num_groups=QWEN3_TRAIN_LAYERS)
+    check_moe_backward(cfg, dev)
+    return train_family(cfg, dev, card, "train qwen3", QWEN3_TRAIN_SEQ,
+                        QWEN3_TRAIN_BATCH)
+
+
+def train_recurrentgemma(dev, card: str):
+    cfg = dataclasses.replace(get_config(RG_ARCH),
+                              num_groups=RG_TRAIN_GROUPS)
+    return train_family(cfg, dev, card, "train recurrentgemma",
+                        RG_TRAIN_SEQ, RG_TRAIN_BATCH)
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
@@ -4808,12 +5309,18 @@ def main(argv=None) -> int:
                   + check_decode_mqa(gen, dev))
     torch.cuda.empty_cache()
     rows += phase("mlstm kernel checks", check_mlstm, gen, dev)
+    torch.cuda.empty_cache()
+    rows += phase("rglru backward kernel checks", check_rglru_bwd, gen, dev)
+    torch.cuda.empty_cache()
+    rows += phase("train kernel checks", check_train_kernels, gen, dev)
+    torch.cuda.empty_cache()
     for row in rows:
         route = row.get("gemm_route", row.get("kernel_route"))
         route = f" {route}" if route else ""
         extra = "".join(
             f", {key} {row[key]:.4f}" for key in ("paced_ms", "earlier_ms",
-                                                  "matmul_ms", "add_ms")
+                                                  "simt_ms", "matmul_ms",
+                                                  "add_ms")
             if key in row)
         print(f"kernel {row['name']}{route} [{row['shape']}]: max|err| "
               f"{row['max_abs_err']:.3g}, {row['ms']:.4f} ms{extra}, plain "
@@ -4846,7 +5353,8 @@ def main(argv=None) -> int:
     # Mistral-NeMo-12B: the dense configs' full-width serving path, under
     # chaos, through the slot Server, and its logits against the plain
     # versions; then launch/serve.py's main(); then the input modes.
-    nemo_cfg = get_config(NEMO_ARCH)
+    nemo_cfg = dataclasses.replace(get_config(NEMO_ARCH),
+                                   num_groups=NEMO_SERVE_LAYERS)
     with torch.inference_mode():
         params = init_full_width(nemo_cfg, dev)
         nemo_counts, nemo_routes, eng = phase(
@@ -4944,7 +5452,8 @@ def main(argv=None) -> int:
               dev, ("rglru", "rglru", "local"), RG_ENGINE_FAULTS,
               RG_LOGIT_ATOL, "recurrentgemma engine")
 
-    # The xLSTM path, without autograd.
+    # The xLSTM path, without autograd: served and profiled at full depth,
+    # then its engine at XL_CUT_GROUPS groups.
     xl_cfg = get_config(XL_ARCH)
     with torch.inference_mode():
         params = init_full_width(xl_cfg, dev)
@@ -4953,6 +5462,9 @@ def main(argv=None) -> int:
                                      XL_PROMPT, XL_NEW)
         phase("xlstm profile", profile_xlstm, xl_cfg, params, dev)
         torch.cuda.empty_cache()
+        xl_cfg = dataclasses.replace(xl_cfg, num_groups=XL_CUT_GROUPS)
+        params = {**params, "blocks": [tree_map(lambda x: x[:XL_CUT_GROUPS],
+                                                b) for b in params["blocks"]]}
         xl_eng_counts, xl_eng_routes, eng, _, _ = phase(
             "serve xlstm engine", serve_recurrent_engine, xl_cfg, params,
             dev, "xlstm engine")
@@ -4987,6 +5499,13 @@ def main(argv=None) -> int:
         params = lm.init(cfg3, seed=0, device=dev)
         phase("qwen3 decode logits", check_moe_logits, cfg3, params, dev)
         del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Training beyond the dense family, on a clean card each.
+    q_train_counts = phase("train qwen3", train_qwen3, dev, card)
+    rg_train_counts = phase("train recurrentgemma", train_recurrentgemma,
+                            dev, card)
     print(f"phases (s): "
           f"{json.dumps({k: round(x, 1) for k, x in phases.items()})}")
 
@@ -5002,7 +5521,9 @@ def main(argv=None) -> int:
                    "recurrentgemma engine": rg_eng_counts.get(row["name"],
                                                               0),
                    "xlstm engine": xl_eng_counts.get(row["name"], 0),
-                   "qwen3": q_counts[row["name"]]}
+                   "qwen3": q_counts[row["name"]],
+                   "train qwen3": q_train_counts[row["name"]],
+                   "train recurrentgemma": rg_train_counts[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["launches"] == 0:

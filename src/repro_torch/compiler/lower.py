@@ -419,15 +419,21 @@ class _Lowerer:
                       flops=4.0 * b * hq * c * keys * d,
                       bytes_in=_nbytes(q) + kv_bytes + lens,
                       bytes_out=bout, tile_local=True)
-        elif name == "rglru_scan":
+        elif name in ("rglru_scan", "rglru_scan_bwd"):
+            # Forward: a product and a sum a step; backward: two products
+            # and a sum (the carry, da) and the carried sum.
+            per = 2.0 if name == "rglru_scan" else 4.0
             self.emit(name, OpKind.RECURRENCE,
-                      flops=2.0 * _numel(val(node.args[0])), bytes_in=bin_,
+                      flops=per * _numel(val(node.args[0])), bytes_in=bin_,
                       bytes_out=bout, tile_local=False)
-        else:                               # the mLSTM, with or without state
+        else:       # the mLSTM, with or without state, and its backward
             b, h, s, d = val(node.args[0]).shape
             chunk = min(node.args[5], s)
+            # The backward recomputes the forward's products and makes two
+            # more for each: 2x the forward's FLOPs.
+            mult = 8.0 if name == "mlstm_chunkwise_bwd" else 4.0
             self.emit(name, OpKind.RECURRENCE,
-                      flops=4.0 * b * h * s * d * (chunk + d),
+                      flops=mult * b * h * s * d * (chunk + d),
                       bytes_in=bin_, bytes_out=bout, tile_local=False)
 
 

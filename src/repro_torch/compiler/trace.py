@@ -45,9 +45,13 @@ call site**; anything else traces as before:
   :mod:`repro_torch.kernels.autograd`, written in ``repro_torch::sma_gemm``
   and ``repro_torch::flash_attention_bwd`` nodes and the same elementwise
   aten ops, so each kernel launch of the direct step is one node of the
-  joint graph.  A remat group's recomputation (``torch.utils.checkpoint``)
-  is traced where the backward asks for it, its sites gradient sites of
-  their own.  A gradient the step never reads is a node without users,
+  joint graph.  The scans' nodes carry a backward too: ``rglru_scan``'s is
+  one ``repro_torch::rglru_scan_bwd`` node (the reverse-scan kernel on
+  the card), and ``mlstm_chunkwise`` / ``mlstm_chunkwise_state``'s one
+  ``repro_torch::mlstm_chunkwise_bwd`` node (the plain version's gradient
+  on the CPU; on the card it raises: no backward kernel yet).  A remat
+  group's recomputation (``torch.utils.checkpoint``) is traced where the
+  backward asks for it, its sites gradient sites of their own.  A gradient the step never reads is a node without users,
   which dispatch drops.
 
 A :func:`repro_torch.compiler.loop.scan` records one
@@ -74,6 +78,7 @@ from repro_torch.kernels import autograd as _autograd
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import norm_gemm as _norm
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rglru as _rglru
 from repro_torch.kernels import sma_gemm as _gemm
 
 __all__ = ["GEMM_SITE_OPS", "GRADIENT_OPS", "KERNEL_ENTRY_OPS",
@@ -283,12 +288,60 @@ def _flash_backward(ctx, dout, dlse):
         **ctx.args), None, None, None)
 
 
+def rglru_bwd_entry(a: torch.Tensor, h_seq: torch.Tensor,
+                    h0: Optional[torch.Tensor], dh_seq: torch.Tensor,
+                    dh_last: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The RG-LRU backward kernel: (da, du, dh0), dh0 of shape (0,)
+    without an h0."""
+    da, du, dh0 = _rglru.rglru_scan_bwd(a, h_seq, dh_seq, h0=h0,
+                                        dh_last=dh_last)
+    return _dense(da, du, dh0 if dh0 is not None else a.new_empty((0,)))
+
+
+def mlstm_bwd_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    log_f: torch.Tensor, log_i: torch.Tensor, chunk: int,
+                    dh: torch.Tensor, dc: Optional[torch.Tensor],
+                    dn: Optional[torch.Tensor], dm: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv, dlog_f, dlog_i) of the mLSTM's h (and state)."""
+    return _dense(*_autograd.mlstm_chunkwise_backward(
+        (q, k, v, log_f, log_i), chunk, (dh, dc, dn, dm)))
+
+
+def _rglru_setup(ctx, inputs, output) -> None:
+    a, u, h0 = inputs
+    ctx.has_h0 = h0 is not None
+    ctx.save_for_backward(a, output[0], *((h0,) if ctx.has_h0 else ()))
+
+
+def _rglru_backward(ctx, dh_seq, dh_last):
+    a, h_seq, *h0 = ctx.saved_tensors
+    da, du, dh0 = torch.ops.repro_torch.rglru_scan_bwd(
+        a, h_seq, h0[0] if h0 else None, dh_seq.contiguous(), dh_last)
+    return da, du, dh0 if ctx.has_h0 else None
+
+
+def _mlstm_setup(ctx, inputs, output) -> None:
+    *ins, chunk = inputs
+    ctx.save_for_backward(*ins)
+    ctx.chunk = chunk
+
+
+def _mlstm_backward(ctx, dh, *dstate):
+    grads = tuple(dstate) if dstate else (None, None, None)
+    return (*torch.ops.repro_torch.mlstm_chunkwise_bwd(
+        *ctx.saved_tensors, ctx.chunk, dh.contiguous(), *grads), None)
+
+
 def _gemm_out(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _empty(a, tuple(a.shape[:-1]) + (w.shape[1],))
 
 
-#: The gradient call sites' custom ops -> their entries (see the module
-#: docstring); the GEMM two are :data:`GEMM_SITE_OPS`.
+#: The gradient call sites' custom ops, and the scans' backward ops, ->
+#: their entries (see the module docstring); the GEMM two are
+#: :data:`GEMM_SITE_OPS`.
 GRADIENT_OPS = {
     _register("sma_gemm", gemm_entry,
               lambda a, b, bias, epilogue: _gemm_out(a, b),
@@ -304,6 +357,15 @@ GRADIENT_OPS = {
               lambda q, k, v, out, lse, dout, causal, window, scale:
               (_empty(q, q.shape), _empty(k, k.shape), _empty(v, v.shape))):
         flash_bwd_entry,
+    _register("rglru_scan_bwd", rglru_bwd_entry,
+              lambda a, h_seq, h0, dh_seq, dh_last:
+              (_empty(a, a.shape), _empty(a, a.shape),
+               _empty(a, h0.shape if h0 is not None else (0,)))):
+        rglru_bwd_entry,
+    _register("mlstm_chunkwise_bwd", mlstm_bwd_entry,
+              lambda q, k, v, log_f, log_i, chunk, dh, dc, dn, dm:
+              tuple(_empty(t, t.shape) for t in (q, k, v, log_f, log_i))):
+        mlstm_bwd_entry,
 }
 
 #: The GEMM gradient sites: the rewriter makes each one GEMM site.
@@ -326,13 +388,14 @@ KERNEL_ENTRY_OPS = {
               scale: _empty(q, q.shape)): paged_entry,
     _register("rglru_scan", rglru_entry,
               lambda a, u, h0: (_empty(a, a.shape),
-                                _empty(a, (a.shape[0], a.shape[2])))):
-        rglru_entry,
+                                _empty(a, (a.shape[0], a.shape[2]))),
+              _rglru_backward, _rglru_setup): rglru_entry,
     _register("mlstm_chunkwise", mlstm_entry,
-              lambda q, k, v, log_f, log_i, chunk: _empty(q, q.shape)):
-        mlstm_entry,
+              lambda q, k, v, log_f, log_i, chunk: _empty(q, q.shape),
+              _mlstm_backward, _mlstm_setup): mlstm_entry,
     _register("mlstm_chunkwise_state", mlstm_state_entry,
-              _fake_mlstm_state): mlstm_state_entry,
+              _fake_mlstm_state, _mlstm_backward, _mlstm_setup):
+        mlstm_state_entry,
     **GRADIENT_OPS,
 }
 

@@ -19,6 +19,13 @@ plain versions, which is what the CPU tests hold against ``jax.grad``.
   to ``dx`` and ``dscale`` is elementwise torch in f32.
 * :class:`FlashAttention` -- the forward kernel saves ``lse``; the
   backward kernel recomputes P from it.
+* :class:`RgluScan` -- the RG-LRU scan; the forward saves a and h_seq,
+  the backward is one ``rglru_scan_bwd`` launch (the reverse recurrence),
+  which gives (da, du, dh0), dh0 None without h0.
+
+The mLSTM has no backward kernel yet: :func:`mlstm_chunkwise_backward`
+is the gradient of its plain version on CPU tensors and raises on the
+card.
 
 The GEMM backward formulas are :func:`sma_gemm_backward` and
 :func:`rmsnorm_gemm_backward`, written over the ``gemm`` that makes each
@@ -35,8 +42,9 @@ import torch
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import norm_gemm as _norm
+from repro_torch.kernels import rglru as _rglru
 from repro_torch.kernels import sma_gemm as _gemm
-from repro_torch.kernels.ref import rms_inverse
+from repro_torch.kernels.ref import mlstm_chunkwise_ref, rms_inverse
 
 _GELU_C = math.sqrt(2.0 / math.pi)
 
@@ -133,6 +141,27 @@ def flash_attention_backward(bwd: Callable, saved: Sequence[torch.Tensor],
     return bwd(q, k, v, out, lse, dout.contiguous(), causal, window, scale)
 
 
+def mlstm_chunkwise_backward(ins: Sequence[torch.Tensor], chunk: int,
+                             grads: Sequence[Optional[torch.Tensor]]):
+    """(dq, dk, dv, dlog_f, dlog_i) of the chunkwise mLSTM's (h, C, n, m)
+    (``ins`` = q, k, v, log_f, log_i; ``grads`` the gradients of h and of
+    the state, None where the output is not read): the gradient of the
+    plain version :func:`repro_torch.kernels.ref.mlstm_chunkwise_ref` on
+    CPU tensors.  On the card there is no backward kernel yet, so this
+    raises, and does not fall back to the plain version."""
+    if ins[0].device.type == "cuda":
+        raise NotImplementedError(
+            "mlstm_chunkwise has no backward kernel on the card yet "
+            "(csrc/mlstm_chunkwise.cu); run it without a gradient")
+    with torch.enable_grad():
+        live = [t.detach().requires_grad_() for t in ins]
+        h, state = mlstm_chunkwise_ref(*live, chunk=chunk,
+                                       return_state=True)
+        outs = [(o, g) for o, g in zip((h, *state), grads) if g is not None]
+        return torch.autograd.grad([o for o, _ in outs], live,
+                                   [g for _, g in outs])
+
+
 def _launch_flash_bwd(q, k, v, out, lse, dout, causal, window, scale):
     return _flash.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
                                       window=window, scale=scale)
@@ -189,3 +218,18 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout: torch.Tensor):
         return (*flash_attention_backward(_launch_flash_bwd, ctx.saved_tensors,
                                           dout, **ctx.args), None, None, None)
+
+
+class RgluScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, u: torch.Tensor,
+                h0: Optional[torch.Tensor]):
+        h_seq, h_last = _rglru.rglru_scan(a, u, h0)
+        ctx.save_for_backward(a, h_seq, h0)
+        return h_seq, h_last
+
+    @staticmethod
+    def backward(ctx, dh_seq: torch.Tensor, dh_last: torch.Tensor):
+        a, h_seq, h0 = ctx.saved_tensors
+        return _rglru.rglru_scan_bwd(a, h_seq, dh_seq.contiguous(), h0=h0,
+                                     dh_last=dh_last)

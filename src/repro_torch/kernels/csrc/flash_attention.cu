@@ -45,8 +45,9 @@
 //   D 256:  64-key tiles; Q 64 KB + 2 x (K + V) 64 KB = 192 KB; O is
 //          64 x 256 f32, 128 registers a consumer thread.
 //
-// Backward (head_dim 64, 128; FlashAttention-2).  A first pass computes
-// delta = rowsum(dO * O) per query row.  Then a block owns 128 keys of one
+// Backward (head_dim 64, 128; 256 on its own tiling below;
+// FlashAttention-2).  A first pass computes delta = rowsum(dO * O) per
+// query row.  Then a block owns 128 keys of one
 // (batch, KV head), 64 per consumer warpgroup, with K and V loaded once.
 // The producer walks every query head of the group and every 64-row query
 // tile that can see those keys (the same `run` bounds, transposed),
@@ -704,6 +705,283 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// ------------------------------------------------------- backward, D 256
+// At head_dim 256 the tiling above does not fit: 128 keys a block give
+// 428,088 bytes of shared memory, and 64 keys' dK and dV accumulators (64 x
+// 256 each, f32) are 256 registers a thread of one warpgroup.  So here a
+// block owns 64 keys of one (batch, KV head) and two warpgroups split the
+// head dim: consumer c keeps dK and dV of columns [128 c, 128 c + 128) (64 +
+// 64 registers) and adds dQ's same columns.  Both compute the whole S^T =
+// K Q^T and dP^T = V dO^T (64 keys x 64 query rows, the contraction over
+// all 256 columns), so those two products run twice: 7 products a tile
+// where 5 would do.  There is no producer warpgroup: a block of 256 threads
+// lets ptxas give a thread up to 255 registers (a 384-thread block gets
+// 168).  Thread 0 TMA-loads K and V once and keeps a ring of two stages of
+// Q and dO (64 rows, 4 boxes of 64 columns each) in flight, refilling a
+// stage once every thread is past it; the first 64 threads copy the lse *
+// log2(e) and delta of the tile a stage will hold beside it.  Per tile:
+//   S^T, dP^T      wgmma from shared memory (both warpgroups);
+//   P^T, dS^T      in f32 registers, masked as above;
+//   dS^T           written once (consumer 0) into the stage, swizzled;
+//   dV += P^T dO, dK += dS^T Q   register A operands, B the consumer's 128
+//                  columns of dO and Q (MN-major);
+//   dQ = dS K      A = dS^T read MN-major, B the consumer's 128 columns of
+//                  K; added into the f32 dQ from registers with f32
+//                  atomics (no staged f32 tile), in no fixed order.
+// Shared memory: K + V 64 KB, 2 x (Q + dO 64 KB + dS^T 8 KB), lse / delta:
+// 215,064 bytes.  plant = 1 (a planted fault, chip_smoke.py; 0 on every
+// real call): the block of the middle key tile skips its tiles, as if that
+// tile were dropped (its dK, dV are zeros, its dQ terms missing).
+struct Bwd256 {
+  static constexpr int D = 256;
+  static constexpr int BK = 64;            // keys a block
+  static constexpr int BQ = 64;            // query rows a tile
+  static constexpr int BOXES = D / 64;
+  static constexpr int KV_BOX = BK * 128;
+  static constexpr int KV_BYTES = BOXES * KV_BOX;
+  static constexpr int Q_BOX = BQ * 128;
+  static constexpr int Q_BYTES = BOXES * Q_BOX;
+  static constexpr int STAGES = 2;
+  static constexpr int DS_BYTES = BK * BQ * 2;
+  static constexpr int STAGE_BYTES = 2 * Q_BYTES + DS_BYTES;
+  static constexpr int LD_BYTES = 2 * BQ * 4;
+  static constexpr int BARS = 1 + STAGES;
+  static constexpr int THREADS = 256;
+  static constexpr int SMEM = 2 * KV_BYTES + STAGES * STAGE_BYTES +
+                              STAGES * LD_BYTES + 1024 + 8 * BARS;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(Bwd256::THREADS, 1)
+    flash_bwd256_kernel(__grid_constant__ const CUtensorMap tmQ,
+                        __grid_constant__ const CUtensorMap tmK,
+                        __grid_constant__ const CUtensorMap tmV,
+                        __grid_constant__ const CUtensorMap tmdO,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, T* __restrict__ dk,
+                        T* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv,
+                        float scale, int causal, int window, int plant) {
+  using F = Bwd256;
+  constexpr int D = F::D, BK = F::BK, BQ = F::BQ, STAGES = F::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* stages = smem + 2 * F::KV_BYTES;
+  float* lds = reinterpret_cast<float*>(stages + STAGES * F::STAGE_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(lds + STAGES * 2 * BQ);
+  // bars[0]: K and V have arrived; bars[1 + s]: Q and dO of stage s have.
+  const uint32_t kv_bar = smem_u32(&bars[0]);
+  const uint32_t sK = smem_u32(smem), sV = sK + F::KV_BYTES;
+
+  const int jt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int group = Hq / Hkv;
+  const int off = Skv - Sq;
+  const int k0 = jt * BK;
+  const int klast = min(k0 + BK, Skv) - 1;
+  int q_lo = 0, q_hi = Sq;
+  if (causal) q_lo = max(q_lo, k0 - off);
+  if (window > 0) q_hi = min(q_hi, klast + window - off);
+  const int it0 = q_lo / BQ;
+  int nq = q_hi > q_lo ? (q_hi + BQ - 1) / BQ - it0 : 0;
+  if ((plant & 1) && jt == static_cast<int>(gridDim.x) / 2) nq = 0;
+  const int tiles = group * nq;  // (query head, query tile) pairs
+
+  const int tid = threadIdx.x;
+  // Stage s's tile i: TMA loads (thread 0), lse * log2(e) and delta (the
+  // first 64 threads; read after a __syncthreads that follows).
+  auto load = [&](int i) {
+    const int s = i % STAGES;
+    const int hh = hk * group + i / nq, q0 = (it0 + i % nq) * BQ;
+    if (tid == 0) {
+      const uint32_t full = smem_u32(&bars[1 + s]);
+      mbar_expect_tx(full, 2 * F::Q_BYTES);
+      const uint32_t sq = smem_u32(stages + s * F::STAGE_BYTES);
+#pragma unroll
+      for (int x = 0; x < F::BOXES; ++x) {
+        tma_load(sq + x * F::Q_BOX, &tmQ, x * 64, q0, b * Hq + hh, full);
+        tma_load(sq + F::Q_BYTES + x * F::Q_BOX, &tmdO, x * 64, q0,
+                 b * Hq + hh, full);
+      }
+    }
+    if (tid < BQ) {
+      const bool in = q0 + tid < Sq;
+      const size_t r = (static_cast<size_t>(b) * Hq + hh) * Sq + q0 + tid;
+      lds[s * 2 * BQ + tid] = in ? lse[r] * kLog2e : INFINITY;
+      lds[s * 2 * BQ + BQ + tid] = in ? delta[r] : 0.f;
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(kv_bar, 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(smem_u32(&bars[1 + s]), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0 && tiles > 0) {
+    mbar_expect_tx(kv_bar, 2 * F::KV_BYTES);
+#pragma unroll
+    for (int x = 0; x < F::BOXES; ++x) {
+      tma_load(sK + x * F::KV_BOX, &tmK, x * 64, k0, b * Hkv + hk, kv_bar);
+      tma_load(sV + x * F::KV_BOX, &tmV, x * 64, k0, b * Hkv + hk, kv_bar);
+    }
+  }
+  for (int i = 0; i < STAGES && i < tiles; ++i) load(i);
+  __syncthreads();  // lse / delta of the first stages
+
+  const int c = tid / 128;  // this consumer's 128 columns
+  const int t = tid % 128, w = t / 32, lane = t % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int kr = w * 16 + g;                // key rows kr and kr + 8
+  const int kp0 = k0 + kr, kp1 = kp0 + 8;
+  const int big = 1 << 30;
+  const int qlo0 = kp0 >= Skv ? big : causal ? kp0 : -big;
+  const int qlo1 = kp1 >= Skv ? big : causal ? kp1 : -big;
+  const int qhi0 = window > 0 ? kp0 + window : big;
+  const int qhi1 = window > 0 ? kp1 + window : big;
+  const float sl2 = scale * kLog2e;
+  const uint32_t col0 = 2 * c;  // the consumer's first 64-column box
+
+  float dka[64], dva[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dka[i] = dva[i] = 0.f;
+
+  if (tiles > 0) mbar_wait(kv_bar, 0);
+  for (int i = 0; i < tiles; ++i) {
+    const int s = i % STAGES;
+    const int hh = hk * group + i / nq, q0 = (it0 + i % nq) * BQ;
+    mbar_wait(smem_u32(&bars[1 + s]), (i / STAGES) & 1);
+    unsigned char* stg = stages + s * F::STAGE_BYTES;
+    const uint32_t sq = smem_u32(stg), sdo = sq + F::Q_BYTES;
+    const uint32_t sds = sdo + F::Q_BYTES;
+    const uint32_t ski = opaque(sK), svi = opaque(sV);
+    const float* sl = lds + s * 2 * BQ;
+
+    float st[BQ / 2], dpt[BQ / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t ko = (kk / 4) * F::KV_BOX + (kk % 4) * 32;
+      const uint32_t qo = (kk / 4) * F::Q_BOX + (kk % 4) * 32;
+      wgmma_ss<0, 0, T>(st, smem_desc(ski + ko, 16, 1024),
+                        smem_desc(sq + qo, 16, 1024), kk > 0);
+      wgmma_ss<0, 0, T>(dpt, smem_desc(svi + ko, 16, 1024),
+                        smem_desc(sdo + qo, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(st);
+    fence_acc(dpt);
+
+    const bool need_mask = !all_visible(k0, k0 + BK - 1, q0 + off,
+                                        q0 + BQ - 1 + off, Skv, causal,
+                                        window);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = 8 * j + 2 * tq + e;
+        const int qp = q0 + qi + off;
+        const float l2 = sl[qi], dd = sl[BQ + qi];
+        float p0 = exp2_approx(fmaf(st[4 * j + e], sl2, -l2));
+        float p1 = exp2_approx(fmaf(st[4 * j + 2 + e], sl2, -l2));
+        if (need_mask) {
+          if (qp < qlo0 || qp >= qhi0) p0 = 0.f;
+          if (qp < qlo1 || qp >= qhi1) p1 = 0.f;
+        }
+        st[4 * j + e] = p0;
+        st[4 * j + 2 + e] = p1;
+        dpt[4 * j + e] = p0 * (dpt[4 * j + e] - dd);
+        dpt[4 * j + 2 + e] = p1 * (dpt[4 * j + 2 + e] - dd);
+      }
+    uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
+    to_a_frags<T, BQ / 8>(st, pa);
+    to_a_frags<T, BQ / 8>(dpt, sa);
+
+    if (c == 0) {  // dS^T into the stage, [key][query], 128-byte swizzle
+      unsigned char* dsrow = stg + 2 * F::Q_BYTES;
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const int sw = (j ^ (kr % 8)) * 16 + 4 * tq;
+        *reinterpret_cast<uint32_t*>(dsrow + kr * 128 + sw) =
+            sa[j / 2][j % 2 ? 2 : 0];
+        *reinterpret_cast<uint32_t*>(dsrow + (kr + 8) * 128 + sw) =
+            sa[j / 2][j % 2 ? 3 : 1];
+      }
+      fence_proxy_async();
+    }
+
+    // dV += P^T dO and dK += dS^T Q over this consumer's columns.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wgmma_rs<1, T>(dva, pa[kk],
+                     smem_desc(sdo + col0 * F::Q_BOX + kk * 2048, F::Q_BOX,
+                               1024),
+                     1);
+      wgmma_rs<1, T>(dka, sa[kk],
+                     smem_desc(sq + col0 * F::Q_BOX + kk * 2048, F::Q_BOX,
+                               1024),
+                     1);
+    }
+    wgmma_commit();
+    named_sync(1, F::THREADS);  // dS^T is written
+    wgmma_wait<0>();
+    fence_acc(dva);
+    fence_acc(dka);
+    fence_regs(pa);
+    fence_regs(sa);
+
+    // dQ = dS K over the block's 64 keys, this consumer's columns.
+    float dqa[64];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_ss<1, 1, T>(dqa, smem_desc(sds + kk * 2048, F::DS_BYTES, 1024),
+                        smem_desc(ski + col0 * F::KV_BOX + kk * 2048,
+                                  F::KV_BOX, 1024),
+                        kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dqa);
+    float* dqb = dq + (static_cast<size_t>(b) * Hq + hh) * Sq * D;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 128 * c + 8 * j + 2 * tq;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = q0 + w * 16 + g + 8 * half;
+        if (r < Sq) {
+          float* dst = dqb + static_cast<size_t>(r) * D + col;
+          atomicAdd(dst, dqa[4 * j + 2 * half] * scale);
+          atomicAdd(dst + 1, dqa[4 * j + 2 * half + 1] * scale);
+        }
+      }
+    }
+    __syncthreads();  // every thread is past stage s
+    if (i + STAGES < tiles) load(i + STAGES);
+  }
+
+  const size_t kvoff = (static_cast<size_t>(b) * Hkv + hk) * Skv * D;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 128 * c + 8 * j + 2 * tq;
+    if (kp0 < Skv) {
+      const size_t o = kvoff + static_cast<size_t>(kp0) * D + col;
+      *reinterpret_cast<uint32_t*>(dk + o) =
+          pack2<T>(dka[4 * j] * scale, dka[4 * j + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + o) =
+          pack2<T>(dva[4 * j], dva[4 * j + 1]);
+    }
+    if (kp1 < Skv) {
+      const size_t o = kvoff + static_cast<size_t>(kp1) * D + col;
+      *reinterpret_cast<uint32_t*>(dk + o) =
+          pack2<T>(dka[4 * j + 2] * scale, dka[4 * j + 3] * scale);
+      *reinterpret_cast<uint32_t*>(dv + o) =
+          pack2<T>(dva[4 * j + 2], dva[4 * j + 3]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 // q/k/v-shaped (B, H, S, D) 16-bit tensor as a 3-D map (D, S, B * H), boxes
 // of 64 columns x `rows` rows of one head.  S = 0 (no keys) maps one row
@@ -745,12 +1023,31 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_bwd256(const CUtensorMap& tq, const CUtensorMap& tk,
+                  const CUtensorMap& tv, const CUtensorMap& tdo,
+                  const float* lse, const float* delta, float* dq, void* dk,
+                  void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
+                  float scale, int causal, int window, int plant,
+                  cudaStream_t stream) {
+  using F = Bwd256;
+  if (int err = allow_smem(flash_bwd256_kernel<T>, F::SMEM)) return err;
+  dim3 grid((Skv + F::BK - 1) / F::BK, Hkv, B);
+  flash_bwd256_kernel<T><<<grid, F::THREADS, F::SMEM, stream>>>(
+      tq, tk, tv, tdo, lse, delta, dq, static_cast<T*>(dk),
+      static_cast<T*>(dv), Hq, Hkv, Sq, Skv, scale, causal, window, plant);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                const void* dout, const float* lse, float* delta, float* dq,
                void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
-               float scale, int causal, int window, cudaStream_t stream) {
-  using F = Bwd<D>;
+               float scale, int causal, int window, int plant,
+               cudaStream_t stream) {
+  using F = Bwd<D>;  // the D 64 / 128 tiling; D 256 has Bwd256
+  constexpr int BQ = D == 256 ? Bwd256::BQ : F::BQ;
+  constexpr int BK = D == 256 ? Bwd256::BK : F::BK;
   const size_t rows = static_cast<size_t>(B) * Hq * Sq;
   flash_bwd_dot_kernel<T, D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
                                  stream>>>(
@@ -760,35 +1057,44 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   constexpr bool f16 = std::is_same<T, __half>::value;
   CUtensorMap tq, tk, tv, tdo, tdq;
-  const uint64_t dq_dims[3] = {static_cast<uint64_t>(D),
-                               static_cast<uint64_t>(Sq),
-                               static_cast<uint64_t>(B) * Hq};
-  const uint32_t dq_box[3] = {32, F::BQ, 1};
-  if (!encode(fn, &tdq, dq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 3, dq_dims,
-              dq_box) ||
-      !encode_bhsd(fn, &tq, q, q, f16, D, Sq, B * Hq, F::BQ) ||
-      !encode_bhsd(fn, &tdo, dout, q, f16, D, Sq, B * Hq, F::BQ) ||
-      !encode_bhsd(fn, &tk, k, q, f16, D, Skv, B * Hkv, F::BK) ||
-      !encode_bhsd(fn, &tv, v, q, f16, D, Skv, B * Hkv, F::BK))
+  if (!encode_bhsd(fn, &tq, q, q, f16, D, Sq, B * Hq, BQ) ||
+      !encode_bhsd(fn, &tdo, dout, q, f16, D, Sq, B * Hq, BQ) ||
+      !encode_bhsd(fn, &tk, k, q, f16, D, Skv, B * Hkv, BK) ||
+      !encode_bhsd(fn, &tv, v, q, f16, D, Skv, B * Hkv, BK))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (int err = allow_smem(flash_bwd_kernel<T, D>, F::SMEM)) return err;
-  dim3 grid((Skv + F::BK - 1) / F::BK, Hkv, B);
-  flash_bwd_kernel<T, D><<<grid, THREADS, F::SMEM, stream>>>(
-      tq, tk, tv, tdo, tdq, lse, delta, static_cast<T*>(dk),
-      static_cast<T*>(dv), Hq, Hkv, Sq, Skv, scale, causal, window);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (D == 256) {
+    return launch_bwd256<T>(tq, tk, tv, tdo, lse, delta, dq, dk, dv, B, Hq,
+                            Hkv, Sq, Skv, scale, causal, window, plant,
+                            stream);
+  } else {
+    const uint64_t dq_dims[3] = {static_cast<uint64_t>(D),
+                                 static_cast<uint64_t>(Sq),
+                                 static_cast<uint64_t>(B) * Hq};
+    const uint32_t dq_box[3] = {32, F::BQ, 1};
+    if (!encode(fn, &tdq, dq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 3, dq_dims,
+                dq_box))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (int err = allow_smem(flash_bwd_kernel<T, D>, F::SMEM)) return err;
+    dim3 grid((Skv + F::BK - 1) / F::BK, Hkv, B);
+    flash_bwd_kernel<T, D><<<grid, THREADS, F::SMEM, stream>>>(
+        tq, tk, tv, tdo, tdq, lse, delta, static_cast<T*>(dk),
+        static_cast<T*>(dv), Hq, Hkv, Sq, Skv, scale, causal, window);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 }  // namespace flash
 }  // namespace repro
 
-// The forward takes head_dim 64, 128 and 256; the backward 64 and 128 (at
-// 256 its dK and dV accumulators alone would be 256 registers a thread).
+// Both directions take head_dim 64, 128 and 256 (the backward at 256 on
+// its own tiling, flash_bwd256_kernel).
 #define REPRO_FLASH_CASES(CALL)                                      \
   case repro::kBF16 * 1000 + 64: return CALL(__nv_bfloat16, 64);    \
   case repro::kBF16 * 1000 + 128: return CALL(__nv_bfloat16, 128);  \
+  case repro::kBF16 * 1000 + 256: return CALL(__nv_bfloat16, 256);  \
   case repro::kF16 * 1000 + 64: return CALL(__half, 64);            \
-  case repro::kF16 * 1000 + 128: return CALL(__half, 128);
+  case repro::kF16 * 1000 + 128: return CALL(__half, 128);          \
+  case repro::kF16 * 1000 + 256: return CALL(__half, 256);
 
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* out, void* lse, int B,
@@ -800,8 +1106,6 @@ extern "C" int flash_attention_fwd_launch(
                                   static_cast<cudaStream_t>(stream))
   switch (dtype * 1000 + D) {
     REPRO_FLASH_CASES(REPRO_FWD)
-    case repro::kBF16 * 1000 + 256: return REPRO_FWD(__nv_bfloat16, 256);
-    case repro::kF16 * 1000 + 256: return REPRO_FWD(__half, 256);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_FWD
@@ -811,12 +1115,13 @@ extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int B, int Hq, int Hkv, int Sq, int Skv, int D, float scale,
-    int causal, int window, int dtype, void* stream) {
+    int causal, int window, int dtype, int plant, void* stream) {
 #define REPRO_BWD(T, DD)                                                   \
   repro::flash::launch_bwd<T, DD>(                                        \
       q, k, v, out, dout, static_cast<const float*>(lse),                 \
       static_cast<float*>(delta), static_cast<float*>(dq), dk, dv, B, Hq, \
-      Hkv, Sq, Skv, scale, causal, window, static_cast<cudaStream_t>(stream))
+      Hkv, Sq, Skv, scale, causal, window, plant,                         \
+      static_cast<cudaStream_t>(stream))
   switch (dtype * 1000 + D) {
     REPRO_FLASH_CASES(REPRO_BWD)
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -829,7 +1134,11 @@ extern "C" int flash_attention_bwd_launch(
 // wrapper's tests hold repro_torch.kernels.flash_attention.smem_bytes to it.
 extern "C" int flash_attention_smem(int D, int backward) {
   using namespace repro::flash;
-  if (backward) return D == 64 ? Bwd<64>::SMEM : D == 128 ? Bwd<128>::SMEM : 0;
+  if (backward)
+    return D == 64    ? Bwd<64>::SMEM
+           : D == 128 ? Bwd<128>::SMEM
+           : D == 256 ? Bwd256::SMEM
+                      : 0;
   return D == 64 ? Fwd<64>::SMEM
          : D == 128 ? Fwd<128>::SMEM
          : D == 256 ? Fwd<256>::SMEM : 0;

@@ -29,9 +29,12 @@ route statically):
   counts once.
 
 Each runs its plain version only for CPU tensors; for CUDA tensors it
-launches the kernel or raises.  The kernels take bf16/f16; the forward
-head_dim 64, 128 or 256, the backward 64 or 128.  Anything else on the
-card raises.
+launches the kernel or raises.  The kernels take bf16/f16 and head_dim
+64, 128 or 256.  Anything else on the card raises.  At head_dim 256 the
+backward has its own tiling (``flash_bwd256_kernel``): 64 keys a block,
+two warpgroups splitting dK, dV and dQ by columns, each recomputing the
+whole S and dP, and no producer warpgroup (so ptxas may give a thread up
+to 255 registers), dQ added from registers with f32 atomics.
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ from repro_torch.kernels.sma_gemm import DTYPE_CODES
 
 #: head_dims each kernel takes.
 FWD_HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (64, 128, 256)
 #: Shared memory a block can use on an H100 (227 KB).
 SMEM_LIMIT = 232_448
 
@@ -55,9 +58,10 @@ SMEM_LIMIT = 232_448
 #: dtype; stream.
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                  + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-#: q, k, v, out, dout, lse, delta, dq, dk, dv; then as the forward.
+#: q, k, v, out, dout, lse, delta, dq, dk, dv; then as the forward, with
+#: the planted faults' mask after the dtype.
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _lib() -> ctypes.CDLL:
@@ -82,6 +86,10 @@ def smem_bytes(d: int, backward: bool = False) -> int:
     ``Bwd<D>::SMEM``): 64-column boxes of 128-byte rows, 1 KB to align
     the swizzled tiles, 8 bytes an mbarrier."""
     boxes = d // 64
+    if backward and d == 256:  # K, V (64 keys); 2 x (Q, dO of 64 rows,
+        #           dS^T 64 x 64); 2 x lse / delta; 1 + 2 mbarriers
+        return (2 * boxes * 64 * 128 + 2 * (2 * boxes * 64 * 128 + 64 * 64 * 2)
+                + 2 * 2 * 64 * 4 + 1024 + 8 * 3)
     if backward:  # K, V (128 keys); a ring of (Q, dO of 64 rows, dS^T,
         #           lse / delta); 2 dQ tiles (64 x d f32); 1 + 3 x stages
         #           mbarriers
@@ -188,6 +196,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or lse.dtype != torch.float32:
         raise ValueError(f"out/dout must be {q.dtype} and lse float32, got "
                          f"{out.dtype}, {dout.dtype}, {lse.dtype}")
+    out = _run_bwd(q, k, v, out, lse, dout, causal, window, scale)
+    if q.numel() and k.numel():
+        flash_attention_bwd.launches += 1
+        BWD_ROUTES[_route(d, q.dtype, backward=True)] += 1
+    return out
+
+
+def _run_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+             causal: bool, window: Optional[int], scale: Optional[float],
+             plant: int = 0
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of the backward kernels on checked CUDA inputs; counts
+    nothing.  ``plant`` feeds the D 256 kernel its planted fault (1: the
+    middle key tile dropped; ``chip_smoke.py``), 0 on every real call."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
     win = _window(window)
     q, k, v, out, dout = (_aligned(t) for t in (q, k, v, out, dout))
     lse = lse.contiguous()
@@ -205,10 +230,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq,
                 skv, d, scale, int(causal), win, DTYPE_CODES[q.dtype],
-                _build.stream_of(q))
+                int(plant), _build.stream_of(q))
         _build.check(lib, err, f"flash_attention_bwd ({route})")
-        flash_attention_bwd.launches += 1
-        BWD_ROUTES[route] += 1
     else:
         dk.zero_()
         dv.zero_()

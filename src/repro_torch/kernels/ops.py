@@ -22,9 +22,8 @@ Each entry point:
   too.  With grad mode off (the serving engine's ``torch.inference_mode()``)
   it calls the wrapper directly: ``Function.apply`` costs about 10 us a
   call on an H100 machine's host, 3.9 % of a full-width decode step
-  (``chip_smoke.py``, ``entry_overhead``).  :func:`rglru_scan` and
-  :func:`mlstm_chunkwise` have no backward kernel yet and refuse a
-  gradient on the card;
+  (``chip_smoke.py``, ``entry_overhead``).  :func:`mlstm_chunkwise` has
+  no backward kernel yet and refuses a gradient on the card;
 * routes statically, mirroring the JAX package: a paged-attention site with
   more than one query token per row (a chunked-prefill tile) or a window
   goes to the plain :func:`repro_torch.kernels.ref.paged_attention_ref`, as
@@ -54,8 +53,8 @@ Each entry point:
   ``sma_gemm.routes`` (``wgmma``, ``splitk``, ``tile``, ``f32``),
   ``rmsnorm_gemm.routes`` (``wgmma``, ``tile``, ``f32``),
   ``mlstm_chunkwise.routes`` (``wgmma``, ``simt``),
-  ``rglru_scan.routes`` (``tma``, ``simt``) and the flash wrappers'
-  ``.routes``.
+  ``rglru_scan.routes`` and ``rglru_scan_bwd.routes`` (``tma``,
+  ``simt``) and the flash wrappers' ``.routes``.
 
 The JAX package's backend registry and ladder are not ported.
 """
@@ -97,6 +96,7 @@ WRAPPERS = {
     "paged_decode_attention": _decode.paged_decode_attention,
     "decode_attention": _decode.decode_attention,
     "rglru_scan": _rglru.rglru_scan,
+    "rglru_scan_bwd": _rglru.rglru_scan_bwd,
     "mlstm_chunkwise": _mlstm.mlstm_chunkwise,
 }
 
@@ -108,12 +108,13 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_counts() -> None:
     """Zero every wrapper's launches, the routes of ``sma_gemm``,
-    ``rmsnorm_gemm``, ``mlstm_chunkwise``, ``rglru_scan`` and the flash
-    kernels, and :data:`ROUTED`."""
+    ``rmsnorm_gemm``, ``mlstm_chunkwise``, ``rglru_scan`` (forward and
+    backward) and the flash kernels, and :data:`ROUTED`."""
     for fn in WRAPPERS.values():
         fn.launches = 0
     for routes in (_gemm.ROUTES, _norm.ROUTES, _mlstm.ROUTES,
-                   _rglru.ROUTES, _flash.FWD_ROUTES, _flash.BWD_ROUTES):
+                   _rglru.ROUTES, _rglru.BWD_ROUTES, _flash.FWD_ROUTES,
+                   _flash.BWD_ROUTES):
         routes.update(dict.fromkeys(routes, 0))
     ROUTED.clear()
 
@@ -238,14 +239,12 @@ def rglru_scan(a: torch.Tensor, u: torch.Tensor,
                h0: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``h_t = a_t * h_{t-1} + u_t`` with a float32 carry.  a, u (B, S, D);
-    h0 (B, D) or None.  Returns (h_seq, h_last) in a's dtype.
-
-    On the card there is no backward kernel: with grad mode on and an
-    input that requires a gradient this raises, and does not fall back to
-    the plain version.  On the CPU the plain version is differentiable."""
-    _refuse_gradient("rglru_scan", "a reverse scan, csrc/rglru_scan.cu",
-                     (a, u) if h0 is None else (a, u, h0))
-    return _rglru.rglru_scan(a, u, h0)
+    h0 (B, D) or None.  Returns (h_seq, h_last) in a's dtype.  With grad
+    mode on it goes through :class:`repro_torch.kernels.autograd.RgluScan`,
+    whose backward is the ``rglru_scan_bwd`` kernel."""
+    if not torch.is_grad_enabled():
+        return _rglru.rglru_scan(a, u, h0)
+    return _autograd.RgluScan.apply(a, u, h0)
 
 
 @_spanned("mlstm_chunkwise")

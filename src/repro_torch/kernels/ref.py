@@ -299,6 +299,36 @@ def rglru_scan_ref(a: torch.Tensor, u: torch.Tensor,
     return out, h.to(a.dtype)
 
 
+def rglru_scan_bwd_ref(a: torch.Tensor, h_seq: torch.Tensor,
+                       dh: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                       dh_last: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor,
+                                  Optional[torch.Tensor]]:
+    """Plain version of the RG-LRU scan's backward: the explicit reverse
+    loop with a float32 carry c (``dh_last``, or zeros), for t = S - 1
+    down to 0: ``g = dh_t + c`` (the gradient of h_t), ``du_t = g``,
+    ``da_t = g * h_{t-1}``, ``c = a_t * g``; each product and sum rounded
+    to f32.  h_{t-1} is read from the forward's ``h_seq`` (h0, or zeros,
+    at t = 0), so in f32 this is the gradient of :func:`rglru_scan_ref`
+    exactly; in a 16-bit dtype h_seq is the carry rounded once.  a, h_seq,
+    dh (B, S, D); h0, dh_last (B, D) or None.  Returns (da, du, dh0 = c
+    after t = 0, or None without h0), in a's (and h0's) dtype."""
+    b, s, d = a.shape
+    c = (torch.zeros((b, d), dtype=torch.float32, device=a.device)
+         if dh_last is None else dh_last.float())
+    zero = torch.zeros((b, d), dtype=torch.float32, device=a.device)
+    da = torch.empty_like(a)
+    du = torch.empty_like(a)
+    for t in range(s - 1, -1, -1):
+        g = dh[:, t].float() + c
+        du[:, t] = g
+        prev = h_seq[:, t - 1].float() if t > 0 else (
+            h0.float() if h0 is not None else zero)
+        da[:, t] = g * prev
+        c = a[:, t].float() * g
+    return da, du, (c.to(h0.dtype) if h0 is not None else None)
+
+
 #: Planted faults of the ``tma`` scan kernel and of
 #: :func:`rglru_scan_planted_ref` (a bit mask; must match
 #: ``csrc/rglru_scan.cu``), each at ring stage nst // 2 of nst: the stage

@@ -124,7 +124,11 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, *,
     pipe = DataPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                    seq_len=loop.seq_len,
                                    global_batch=loop.global_batch,
-                                   seed=loop.seed), device=dev)
+                                   seed=loop.seed,
+                                   input_mode=cfg.input_mode,
+                                   d_model=cfg.d_model,
+                                   num_vision_tokens=cfg.num_vision_tokens),
+                        device=dev)
     start_step = 0
 
     mgr = (CheckpointManager(loop.checkpoint_dir)

@@ -639,7 +639,7 @@ def test_train_steps_on_card_match_cpu(dev):
         "sma_gemm": 28 * layers + 2, "rmsnorm_gemm": 1,
         "flash_attention": 2 * layers, "flash_attention_bwd": layers,
         "paged_decode_attention": 0, "decode_attention": 0,
-        "rglru_scan": 0, "mlstm_chunkwise": 0}
+        "rglru_scan": 0, "rglru_scan_bwd": 0, "mlstm_chunkwise": 0}
     assert not ops.ROUTED
     got = train(cfg, loop, device=dev, params=copy(dev))
     np.testing.assert_allclose([h["loss"] for h in got["history"]],
@@ -832,12 +832,112 @@ def test_rglru_scan_tma_shared_memory_fits_a_block(dev):
 
 
 def test_rglru_scan_refuses_a_gradient_on_card(dev):
+    """The scan refused a gradient on the card until its backward kernel;
+    now a gradient through ``ops.rglru_scan`` launches ``rglru_scan_bwd``
+    once (and the mLSTM, which has none yet, still refuses)."""
     a = torch.full((1, 4, 8), 0.5, device=dev, requires_grad=True)
     u = torch.ones((1, 4, 8), device=dev)
+    ops.reset_counts()
+    h_seq, _ = ops.rglru_scan(a, u)
+    (da,) = torch.autograd.grad(h_seq.sum(), [a])
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rglru_scan_bwd"] == 1
+    want = ref.rglru_scan_bwd_ref(a.detach(), h_seq.detach(),
+                                  torch.ones_like(h_seq))[0]
+    assert torch.equal(da, want)
+    q = torch.zeros((1, 1, 4, 8), device=dev, requires_grad=True)
+    f = torch.zeros((1, 1, 4), device=dev)
     with pytest.raises(NotImplementedError, match="backward"):
-        ops.rglru_scan(a, u)
-    with torch.no_grad():
-        assert torch.isfinite(ops.rglru_scan(a, u)[0]).all()
+        ops.mlstm_chunkwise(q, q, q, f, f, chunk=4)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,s,d,h0,last", [
+    (2, 4096, 2560, False, False),   # RecurrentGemma's training call
+    (2, 100, 256, True, True), (1, 1, 128, True, False),
+    (3, 77, 130, True, True), (1, 257, 7, False, True)])
+def test_rglru_scan_bwd_matches_plain_bit_for_bit(dev, dtype, b, s, d, h0,
+                                                  last):
+    """The reverse-scan kernel rounds each product and sum to f32 as the
+    plain version's tensor ops do: da, du and dh0 equal, on the route
+    ``_route`` picks and on ``simt``."""
+    dt = DTYPES[dtype]
+    a = torch.rand((b, s, d), device=dev).to(dt)
+    u = randn((b, s, d), dt, dev, 1)
+    hh0 = randn((b, d), dt, dev, 2) if h0 else None
+    dh = randn((b, s, d), dt, dev, 3)
+    dl = randn((b, d), dt, dev, 4) if last else None
+    hs = rglru_scan(a, u, hh0)[0]
+    want = ref.rglru_scan_bwd_ref(a, hs, dh, hh0, dl)
+    before = dict(krglru.BWD_ROUTES)
+    got = krglru.rglru_scan_bwd(a, hs, dh, hh0, dl)
+    simt = krglru._run_bwd(a, hs, dh, hh0, dl, "simt")
+    torch.cuda.synchronize()
+    route = krglru._route(b, s, d, dt, True)
+    assert krglru.BWD_ROUTES[route] == before[route] + 1
+    for g, sm, w in zip(got, simt, want):
+        if w is None:
+            assert g is None and sm is None
+            continue
+        assert torch.equal(g, w) and torch.equal(sm, w)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,causal,window", [
+    (2, 10, 1, 1024, 1024, True, 256),     # RecurrentGemma's MQA, windowed
+    (1, 4, 2, 300, 300, True, None),       # GQA, ragged S
+    (1, 2, 2, 200, 260, False, None),      # Sq < Skv, no mask
+    (2, 4, 1, 130, 130, True, 64)])
+def test_flash_backward_head_dim_256(dev, dtype, b, hq, hkv, sq, skv,
+                                     causal, window):
+    """The D 256 backward (its own tiling: 64 keys a block, dK/dV/dQ split
+    by columns) against ``flash_attention_bwd_ref`` fed the kernel's out
+    and lse: max |err| within 2e-2 of each gradient's largest value
+    (``chip_smoke.py``'s FLASH_GRAD_LIMIT; dropping one key tile reads
+    ~0.03 on dv at RecurrentGemma's shape)."""
+    dt = DTYPES[dtype]
+    q = randn((b, hq, sq, 256), dt, dev, 5)
+    k = randn((b, hkv, skv, 256), dt, dev, 6)
+    v = randn((b, hkv, skv, 256), dt, dev, 7)
+    do = randn((b, hq, sq, 256), dt, dev, 8)
+    kw = dict(causal=causal, window=window)
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g.float()).all()
+        scale = w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= 2e-2 * scale
+
+
+def test_qwen3_two_backward_passes_on_card(dev):
+    """Two backward passes of a full-width 2-layer Qwen3-30B-A3B (S 512 x
+    B 2, remat): the loss and every gradient no flash dQ feeds (the head,
+    the final norm, the top layer's MoE FFN and norm2: the routing
+    backward's gathers and the expert products included) torch.equal;
+    the rest within 1e-2 relative (the flash backward's dQ order)."""
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), num_groups=2)
+    params = lm.init(cfg, seed=0, device=dev, dtype=cfg.parameter_dtype)
+    names = _names(params)
+    batch = next(DataPipeline(DataConfig(cfg.vocab_size, 512, 2, seed=0),
+                              device=dev))
+
+    def run():
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, _ = lm.loss_fn(live, cfg, batch, remat=True)
+        grads = torch.autograd.grad(loss, leaves(live))
+        torch.cuda.synchronize()
+        return loss.detach(), _pieces(names, grads)
+
+    (l1, g1), (l2, g2) = run(), run()
+    assert torch.equal(l1, l2)
+    exact = ["head.w", "final_norm.scale", "blocks.0.norm2.scale[1]"] + [
+        f"blocks.0.ffn.{k}[1]" for k in ("router", "wg", "wi", "wo")]
+    for name in exact:
+        assert torch.equal(g1[name], g2[name]), name
+    assert max(_rel(g2[n], g1[n]) for n in g1) <= 1e-2
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
@@ -847,7 +947,8 @@ def test_rglru_scan_refuses_a_gradient_on_card(dev):
                                             (1, 10, 4096, 2048)])
 def test_flash_forward_head_dim_256(dev, dtype, b, hq, sq, window):
     """recurrentgemma's attention: MQA (Hkv = 1), head_dim 256, windowed or
-    not, ragged S; the backward at head_dim 256 is refused."""
+    not, ragged S; the backward at head_dim 256, which was refused until
+    its own tiling, now matches its plain version."""
     dt = DTYPES[dtype]
     q = randn((b, hq, sq, 256), dt, dev, 50)
     k = randn((b, 1, sq, 256), dt, dev, 51)
@@ -856,8 +957,12 @@ def test_flash_forward_head_dim_256(dev, dtype, b, hq, sq, window):
     want, want_lse = ref.flash_attention_ref(q, k, v, window=window)
     close(out, want, dt)
     torch.testing.assert_close(lse, want_lse, rtol=1e-3, atol=1e-3)
-    with pytest.raises(ValueError, match="backward kernel takes head_dim"):
-        flash_attention_bwd(q, k, v, out, lse, q)
+    got = flash_attention_bwd(q, k, v, out, lse, q, window=window)
+    wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, q, window=window)
+    torch.cuda.synchronize()
+    for g, w in zip(got, wants):
+        scale = w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= 2e-2 * scale
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

@@ -51,6 +51,10 @@ MODULES = (
     "repro_torch.configs.mistral_nemo_12b", "repro_torch.configs.deepseek_67b",
     "repro_torch.configs.deepseek_coder_33b",
     "repro_torch.configs.musicgen_large", "repro_torch.configs.internvl2_2b",
+    "repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b",
+    "repro_torch.configs.dbrx_132b", "repro_torch.data.pipeline",
+    "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+    "repro_torch.compiler.loop",
 )
 
 
@@ -63,3 +67,27 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
     names = set(proc.stdout.strip().splitlines()[-1].split())
     assert len(names) >= 18
     assert not set(MODULES) - names, set(MODULES) - names
+
+
+def test_the_scans_gradients_are_entries_of_the_port():
+    """What the fifteenth slice added is reachable where the trainer and
+    the compiler look for it: the RG-LRU backward wrapper with its own
+    counter and routes, its plain version and autograd Function, the
+    scans' backward custom ops, the flash backward at head_dim 256, and
+    the data pipeline's input modes."""
+    import dataclasses
+
+    from repro_torch.compiler import trace
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import autograd, flash_attention, ops, ref, rglru
+
+    assert ops.WRAPPERS["rglru_scan_bwd"] is rglru.rglru_scan_bwd
+    assert rglru.rglru_scan_bwd.routes is rglru.BWD_ROUTES
+    assert callable(ref.rglru_scan_bwd_ref)
+    assert issubclass(autograd.RgluScan, __import__("torch").autograd.Function)
+    names = {getattr(op, "_schema").name for op in trace.GRADIENT_OPS}
+    assert {"repro_torch::rglru_scan_bwd",
+            "repro_torch::mlstm_chunkwise_bwd"} <= names
+    assert 256 in flash_attention.BWD_HEAD_DIMS
+    fields = {f.name for f in dataclasses.fields(DataConfig)}
+    assert {"input_mode", "d_model", "num_vision_tokens"} <= fields

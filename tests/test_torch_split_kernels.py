@@ -241,14 +241,14 @@ def test_routes_count_in_one_dict_that_reset_clears():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d,backward", [(64, False), (128, False),
                                         (256, False), (64, True),
-                                        (128, True)])
+                                        (128, True), (256, True)])
 def test_flash_route_is_wgmma_for_what_the_kernels_take(dtype, d, backward):
     assert kflash._route(d, dtype, backward) == "wgmma"
 
 
 @pytest.mark.parametrize("dtype,d,backward", [
     (torch.float32, 64, False), (torch.bfloat16, 32, False),
-    (torch.bfloat16, 192, False), (torch.bfloat16, 256, True),
+    (torch.bfloat16, 192, False), (torch.bfloat16, 192, True),
     (torch.float16, 512, False)])
 def test_flash_route_refuses_what_the_kernels_do_not_take(dtype, d,
                                                           backward):
@@ -258,14 +258,19 @@ def test_flash_route_refuses_what_the_kernels_do_not_take(dtype, d,
 
 @pytest.mark.parametrize("d,backward", [(64, False), (128, False),
                                         (256, False), (64, True),
-                                        (128, True)])
+                                        (128, True), (256, True)])
 def test_flash_shared_memory_fits_a_block(d, backward):
     """Every (head_dim, direction) the kernels take fits the 227 KB a
     block may use, with the tiles the kernel's header states."""
     got = kflash.smem_bytes(d, backward)
     assert got <= kflash.SMEM_LIMIT
     kb = 1 << 10
-    if backward:   # K + V, a ring of (Q, dO, dS^T, lse / delta: 3 at
+    if backward and d == 256:   # K + V of 64 keys, 2 stages of (Q, dO of
+        #            64 rows, dS^T 64 x 64), their lse / delta, 1 + 2
+        #            mbarriers; no dQ tiles (added from registers)
+        assert got == 64 * kb + 2 * (64 * kb + 8 * kb) + kb + kb + 8 * 3
+        assert got == 215_064
+    elif backward:   # K + V, a ring of (Q, dO, dS^T, lse / delta: 3 at
         #            D 64, 2 at D 128), two dQ tiles, 1 + 3 x stages
         #            mbarriers
         kv = {64: 32 * kb, 128: 64 * kb}[d]
