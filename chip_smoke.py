@@ -133,8 +133,9 @@
    with launch counts as predicted, nothing routed, every mLSTM launch on
    ``wgmma`` and every head on ``tile``; a 3-layer
    full-width model's logits through the kernels against the plain
-   versions, with planted faults; a profile of one prefill and a few
-   decode steps, and the host time of one sLSTM block's step loop.
+   versions, with planted faults; at XL_CUT_GROUPS groups a profile of
+   one prefill and a few decode steps, and the host time of one sLSTM
+   block's step loop.
    Every path checks the routes of ``rmsnorm_gemm`` (the training head on
    ``wgmma``, decode heads on ``tile``), ``mlstm_chunkwise`` and
    ``rglru_scan``.
@@ -184,17 +185,25 @@
    head's dW and dnormed) and the head ``rmsnorm_gemm`` at 8,192 tokens,
    each with a planted K-tile fault.  The MoE layer's routing backward at
    Qwen3's full width, twice, which must be bit for bit, with the kernels
-   autograd makes of its gathers.  Then, each on a clean card,
-   ``train()`` of full-width Qwen3-30B-A3B at 2 layers (B 4 x S 2048) and
-   of full-width RecurrentGemma-2B at one group (13 layers, B 2 x S 4096):
-   5 compiled steps, finite losses, 1 miss and 4 hits, every kernel of
-   the path launched on its route (every scan and its backward on
-   ``tma``), step time, tokens/s, MFU over the parameters in a token's
-   products, ``moe_drop_frac``, peak memory; the compiled step against the
-   direct one (event time A B B A, peak memory; the loss and the
-   gradients upstream of every flash dQ bit for bit, the rest within
-   max(2 x the direct step's spread, JIT_TRAIN_FLOOR)); a profile of one
-   compiled step.
+   autograd makes of its gathers.  The mLSTM backward kernel against its
+   plain version (the closed form) at xLSTM's training shape (B 4, H 4, S
+   2048, D 1024, bf16), with the gradient of h alone and with the final
+   state's, fed three planted faults (the reverse state gradient reset at
+   chunk nc/2, dq's inter-chunk terms dropped, dlog_f's reverse cumsum one
+   step short); ``sma_gemm`` at xLSTM's training shapes too.  Then, each
+   on a clean card, ``train()`` of full-width Qwen3-30B-A3B at 2 layers (B
+   4 x S 2048), of full-width RecurrentGemma-2B at one group (13 layers, B
+   2 x S 4096) and of full-width xlstm-1.3b at one group (8 layers, B 4 x
+   S 2048; the sLSTM loop one loop node and one reverse loop node): 5
+   compiled steps, finite losses, 1 miss and 4 hits, every kernel of the
+   path launched on its route (every scan and its backward on ``tma``,
+   the mLSTM forward on ``wgmma`` twice a layer a step, its backward on
+   ``simt`` once), step time, tokens/s, MFU over the parameters in a
+   token's products, ``moe_drop_frac``, peak memory; the compiled step
+   against the direct one (event time A B B A, peak memory; the loss and
+   the gradients upstream of every flash dQ bit for bit, every gradient
+   without attention, the rest within max(2 x the direct step's spread,
+   JIT_TRAIN_FLOOR)); a profile of one compiled step.
 10. Prints the kernel table as one JSON line (the redesigned kernels' rows
    with their route, the earlier design's time in the same call, and the
    ``-Xptxas -v`` registers, spills and shared memory), then the result line
@@ -311,6 +320,10 @@ TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 5, 2048, 4
 RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_TRAIN_GROUPS = 2, 4096, 1
 # Qwen3-30B-A3B at full width, 2 layers (1.87 B parameters, 0.74 B active).
 QWEN3_TRAIN_BATCH, QWEN3_TRAIN_SEQ, QWEN3_TRAIN_LAYERS = 4, 2048, 2
+# xLSTM-1.3b at full width, one group of its pattern (7 mLSTM + 1 sLSTM
+# layers, XL_CUT_GROUPS; 0.756 B parameters), B 4 x S 2048: 16 chunks of
+# 128 a sequence, 2,048 sLSTM steps.
+XL_TRAIN_BATCH, XL_TRAIN_SEQ = 4, 2048
 # The trainer's peak rate (1 warmup step, cosine to 0 at step 5).  At the
 # reference's default 3e-3 the full-width loss rises again after step 2,
 # and by 0.4 nats more or less from dQ's summation order alone (PERF.md);
@@ -376,6 +389,13 @@ MLSTM_CASES = [(XL_BATCH, 4, XL_PROMPT, 1024, torch.bfloat16),
                (XL_BATCH, 4, 2000, 1024, torch.bfloat16),
                (2, 4, 1000, 64, torch.float32)]
 MLSTM_CHUNK = 128
+# mLSTM backward kernel vs its plain version (the f32 closed form), per
+# gradient max |err| / max |plain|: dq, dk and dv are rounded to bf16 (2^-9
+# of the largest), and the kernel sums the same f32 terms in another
+# order (by chunk, through the state).  On an H100 the noise reads at most
+# 0.0046 (dk; dlog_f, dlog_i 1.1e-5, 1.7e-5) and the weakest planted fault
+# of check_mlstm_bwd 0.243 (dlog_f's cumsum one step short; PERF.md).
+MLSTM_BWD_LIMIT = 1e-2
 # Logits of the 3-layer xLSTM model (prefill's last position, then one
 # decode step), kernels vs plain versions, max |err|; the faults of
 # XL_FAULTS marked must lie above it (PERF.md).
@@ -406,6 +426,11 @@ KERNEL_SOURCES = {
                        "src/repro/kernels/rglru.py:55"),
     "mlstm_chunkwise": ("src/repro_torch/kernels/csrc/mlstm_chunkwise.cu",
                         "src/repro/kernels/mlstm.py:108"),
+    # The TPU kernel has no backward (the reference's gradient comes from
+    # JAX differentiating its XLA chunkwise path); this kernel is the
+    # gradient of the one it replaces.
+    "mlstm_chunkwise_bwd": ("src/repro_torch/kernels/csrc/mlstm_chunkwise.cu",
+                            "src/repro/kernels/mlstm.py:108"),
 }
 
 
@@ -2342,8 +2367,10 @@ def compiled_step_launches(cfg) -> dict:
 def layer_products(cfg, block: str) -> list:
     """(K, N, epilogue) of each ``sma_gemm`` product of one ``block``
     layer of ``cfg`` in the forward: the mixer's (attention: q, k, v, o;
-    RG-LRU: w_in, w_gate, w_a, w_x, w_out), then the FFN's (the gated MLP;
-    an MoE's router, whose experts are library ``bmm``s)."""
+    RG-LRU: w_in, w_gate, w_a, w_x, w_out; mLSTM: w_up, w_q, w_k, w_v,
+    w_if, w_down; sLSTM: w_gates, w_ff1, w_ff2), then the FFN's (the gated
+    MLP; an MoE's router, whose experts are library ``bmm``s; none in the
+    xLSTM blocks)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
     if block in ("attn", "local"):
@@ -2351,6 +2378,13 @@ def layer_products(cfg, block: str) -> list:
                (q, d, "none")]
     elif block == "rglru":
         out = [(d, d, "none"), (d, d, "gelu")] + [(d, d, "none")] * 3
+    elif block == "mlstm":     # no FFN: the block is its mixer
+        inner = int(d * cfg.mlstm_proj_factor)
+        return ([(d, 2 * inner, "none")] + [(inner, inner, "none")] * 3
+                + [(inner, 2 * cfg.num_heads, "none"), (inner, d, "none")])
+    elif block == "slstm":     # w_gates (with its bias), the post-FF
+        ff = -(-math.ceil(4 * d / 3) // 128) * 128
+        return [(d, 4 * d, "none"), (d, ff, "gelu"), (ff, d, "none")]
     else:
         raise ValueError(f"no training products listed for {block!r}")
     if cfg.moe is not None:
@@ -2361,11 +2395,14 @@ def layer_products(cfg, block: str) -> list:
 
 def matmul_params(cfg) -> int:
     """Parameters that enter a matrix product for one token, the MFU's N:
-    every layer's products (:func:`layer_products`), the experts an MoE
-    token chooses, and the head; the embedding gather does not count."""
+    every layer's products (:func:`layer_products`), an sLSTM step's
+    recurrent ``r_gates`` (H x dh x 4 dh), the experts an MoE token
+    chooses, and the head; the embedding gather does not count."""
     n = cfg.d_model * lm.padded_vocab(cfg)
     for block in cfg.block_pattern * cfg.num_groups:
         n += sum(k * m for k, m, _ in layer_products(cfg, block))
+        if block == "slstm":
+            n += cfg.d_model * 4 * cfg.d_model // cfg.num_heads
         if cfg.moe is not None:
             n += cfg.moe.top_k * 3 * cfg.d_model * cfg.moe.d_ff_expert
     return n
@@ -2659,14 +2696,17 @@ def step_ocfg():
 
 
 def time_train_step(cfg, params, cm, dev, card: str, seq=TRAIN_SEQ,
-                    batch_size=TRAIN_BATCH):
+                    batch_size=TRAIN_BATCH, steps: int = TIME_STEPS):
     """The compiled step (train()'s) against the direct step at full width,
     on the trained parameters and a fresh optimizer state: each one's peak
     memory (each after a collection, with the memory held before it
     printed: a step may leave tensors in reference cycles), compiled,
-    direct, compiled; then A B B A: CUDA-event ms a
-    step over TIME_STEPS steps queued back to back behind a device-side
-    sleep, and the host's wall until one step returns."""
+    direct, compiled, untimed, so that every reading below is of a warm
+    path; then A B B A: CUDA-event ms a step over ``steps`` steps queued
+    back to back behind a device-side sleep, and the host's wall until one
+    step returns.  With ``steps`` 1 (a step of seconds, host-bound) a
+    reading is one step after a collection: CUDA events around it and the
+    host's wall until it returns."""
     direct = functools.partial(direct_step, cfg=cfg, ocfg=step_ocfg(),
                                remat=True, grad_compression=False)
     opt = adamw.init(params)
@@ -2685,8 +2725,13 @@ def time_train_step(cfg, params, cm, dev, card: str, seq=TRAIN_SEQ,
         peaks[name] = torch.cuda.max_memory_allocated() / 2**30
     times = {}
     for name in ("direct", "compiled", "compiled", "direct"):
-        ev = time_ms(calls[name], [()], iters=TIME_STEPS)
-        times.setdefault(name, []).append((ev, host_ms(calls[name])))
+        if steps == 1:
+            gc.collect()
+            reading = one_step_ms(calls[name])
+        else:
+            reading = (time_ms(calls[name], [()], iters=steps),
+                       host_ms(calls[name]))
+        times.setdefault(name, []).append(reading)
     for name, runs in times.items():
         print(f"train step timing, {name}, {cfg.num_layers} layers, S "
               f"{seq} x B {batch_size} ({card}): event ms a step "
@@ -2701,16 +2746,33 @@ def time_train_step(cfg, params, cm, dev, card: str, seq=TRAIN_SEQ,
     return ev, peaks
 
 
+def one_step_ms(fn) -> tuple:
+    """(CUDA-event ms, host ms until it returns) of one call, the card idle
+    before it."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    wall = time.perf_counter() - t
+    end.synchronize()
+    return start.elapsed_time(end), 1e3 * wall
+
+
 def profile_train_step(cfg, params, dev, cm, seq=TRAIN_SEQ,
                        batch_size=TRAIN_BATCH):
     """torch.profiler over one more compiled training step (fresh AdamW
-    state): device busy share and device time by kernel."""
+    state): device busy share and device time by kernel.  Device activity
+    only, as ``profile_serving``'s prefill: the report reads device rows
+    only, and a CPU-side trace of xLSTM's ~450,000 host ops a step takes
+    minutes to reduce (148 s against 65 on an H100; PERF.md)."""
     from torch.profiler import ProfilerActivity, profile
     opt = adamw.init(params)
     batch = train_batch(cfg, dev, seq, batch_size)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         cm(params, opt, {}, batch)
         torch.cuda.synchronize()
@@ -4690,20 +4752,27 @@ def head_k_tile_control(gen, dev, m: int, cfg, tag: str) -> None:
 
 
 def check_train_kernels(gen, dev):
-    """The GEMM kernels at the shapes of the two training cells below
-    (Qwen3-30B-A3B at B 4 x S 2048, RecurrentGemma-2B at B 2 x S 4096:
-    8,192 tokens each) against their plain versions, timed with their
-    bounds, each with a planted fault the check must catch: ``sma_gemm``
-    at :func:`train_gemms` (every product forward, its dA and its dB,
-    the head's dW and dnormed; B's last K tiles zeroed) and the head
-    ``rmsnorm_gemm`` at M 8,192 on ``wgmma`` (W's last K tile zeroed).
-    Their flash calls are cases of FLASH_CASES."""
+    """The GEMM kernels at the shapes of the three training cells below
+    (Qwen3-30B-A3B at B 4 x S 2048, RecurrentGemma-2B at B 2 x S 4096,
+    xLSTM-1.3b at B 4 x S 2048: 8,192 tokens each) against their plain
+    versions, timed with their bounds, each with a planted fault the check
+    must catch: ``sma_gemm`` at :func:`train_gemms` (every product
+    forward, its dA and its dB, the head's dW and dnormed; B's last K
+    tiles zeroed; every one on ``wgmma``, xLSTM's w_if at N 8 and its dA
+    at K 8 among them) and the head ``rmsnorm_gemm`` at M 8,192 on
+    ``wgmma`` (W's last K tile zeroed).  Their flash calls are cases of
+    FLASH_CASES."""
     rows = []
     for arch, tokens in ((QWEN3_ARCH, QWEN3_TRAIN_BATCH * QWEN3_TRAIN_SEQ),
-                         (RG_ARCH, RG_TRAIN_BATCH * RG_TRAIN_SEQ)):
+                         (RG_ARCH, RG_TRAIN_BATCH * RG_TRAIN_SEQ),
+                         (XL_ARCH, XL_TRAIN_BATCH * XL_TRAIN_SEQ)):
         cfg, tag = get_config(arch), arch.split("-")[0]
         shapes = train_gemms(cfg, tokens)
-        rows += check_sma_gemm(gen, dev, shapes, f" ({tag} train)")
+        checked = check_sma_gemm(gen, dev, shapes, f" ({tag} train)")
+        off = [r["shape"] for r in checked if r["gemm_route"] != "wgmma"]
+        if off:
+            fail(f"{tag} train: sma_gemm off the wgmma route at {off}")
+        rows += checked
         gemm_k_tile_controls(gen, dev, shapes, f"{tag} train")
         rows.append(check_head(gen, dev, tokens, cfg.d_model,
                                lm.padded_vocab(cfg), "wgmma",
@@ -5024,6 +5093,101 @@ def check_rglru_bwd(gen, dev):
     return rows
 
 
+def mlstm_bwd_errors(got, want) -> list:
+    """Per gradient (dq, dk, dv, dlog_f, dlog_i), max |err| / max |plain|."""
+    return [((g.float() - w.float()).abs().max()
+             / w.float().abs().max().clamp(min=1e-30)).item()
+            for g, w in zip(got, want)]
+
+
+def check_mlstm_bwd(gen, dev):
+    """The mLSTM backward kernel against its plain version, the closed form
+    ``ref.mlstm_chunkwise_bwd_ref`` (f32, over the whole causal matrix), at
+    the training shape (B 4, H 4, S 2048, D 1024, chunk 128, bf16): with
+    the gradient of h alone (the trainer's call) and with the final (C,
+    n)'s; every gradient within MLSTM_BWD_LIMIT of its largest entry, its
+    recompute of the forward on the ``wgmma`` route.  Planted faults fed to the kernel, each of which
+    must move some gradient past the limit: the reverse state gradient
+    reset at chunk nc / 2, dq's inter-chunk terms dropped, dlog_f's
+    reverse cumulative sum shifted by one step.  Timed with its bound;
+    no PyTorch call computes it."""
+    cfg = get_config(XL_ARCH)
+    b, h, s, dt = XL_TRAIN_BATCH, cfg.num_heads, XL_TRAIN_SEQ, torch.bfloat16
+    d = int(cfg.d_model * cfg.mlstm_proj_factor) // h
+    chunk = cfg.mlstm_chunk
+    ins = mlstm_inputs(gen, dev, b, h, s, d, dt)
+    dh = torch.randn((b, h, s, d), generator=gen, device=dev).to(dt)
+    dc = torch.randn((b, h, d, d), generator=gen, device=dev)
+    dn = torch.randn((b, h, d), generator=gen, device=dev)
+    rows = []
+    for state in (False, True):
+        grads = (dh, dc, dn) if state else (dh, None, None)
+        before = dict(kmlstm.BWD_ROUTES)
+        got = kmlstm.mlstm_chunkwise_bwd(*ins, *grads, chunk=chunk)
+        route = kernel_route(kmlstm.BWD_ROUTES, before,
+                             "mlstm_chunkwise_bwd")
+        want = ref.mlstm_chunkwise_bwd_ref(*ins, *grads, chunk=chunk)
+        errs = mlstm_bwd_errors(got, want)
+        shape = (f"B={b} H={h} S={s} D={d} chunk={chunk} bf16"
+                 + (" dC dn" if state else ""))
+        print(f"mlstm backward {shape} ({route}): max |err| / max |plain| "
+              f"of dq, dk, dv, dlog_f, dlog_i "
+              f"{[float(f'{x:.3g}') for x in errs]} (limit "
+              f"{MLSTM_BWD_LIMIT})")
+        if route != "wgmma" or max(errs) > MLSTM_BWD_LIMIT or not all(
+                torch.isfinite(g.float()).all() for g in got):
+            fail(f"mlstm_chunkwise_bwd {shape}: kernel disagrees with its "
+                 f"plain version")
+        if state:
+            continue
+        lf32, li32 = ins[3].float().contiguous(), ins[4].float().contiguous()
+        for name, plant in (("reverse state gradient reset at chunk nc/2",
+                             kmlstm.BWD_PLANT_RESET),
+                            ("dq's inter-chunk terms dropped",
+                             kmlstm.BWD_PLANT_DQ_INTER),
+                            ("dlog_f's reverse cumsum one step short",
+                             kmlstm.BWD_PLANT_SHIFT)):
+            bad = kmlstm._run_bwd(*ins[:3], lf32, li32, dh, None, None,
+                                  chunk, plant)
+            worst = max(mlstm_bwd_errors(bad, want))
+            print(f"mlstm backward control, {name}: max |err| / max |plain| "
+                  f"{worst:.4g} ({worst / MLSTM_BWD_LIMIT:.3g} limits)")
+            if not worst > MLSTM_BWD_LIMIT:
+                fail(f"mlstm backward control, {name}: passes the check")
+            del bad
+
+        def run(*a):
+            return kmlstm.mlstm_chunkwise_bwd(*a, chunk=chunk)
+
+        def plain(*a):
+            return ref.mlstm_chunkwise_bwd_ref(*a, chunk=chunk)
+
+        # Bytes: q, k, v, dh read and dq, dk, dv written in bf16, the f32
+        # gates read and their gradients written, each once.
+        args = [(*ins, dh)]
+        nbytes = 7 * dh.numel() * dh.element_size() + 4 * 4 * b * h * s
+        row = entry("mlstm_chunkwise_bwd", shape, max(
+            (g.float() - w.float()).abs().max().item()
+            for g, w in zip(got, want)),
+            time_ms(run, args, 5), time_ms(plain, args, 2),
+            bound(nbytes, kmlstm.bwd_flops(b, h, s, d, chunk), dt), None)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        run(*args[0])
+        row.update(kernel_route=route, relative_errors=errs,
+                   scratch_peak_bytes=torch.cuda.max_memory_allocated()
+                   - base,
+                   ptxas={k: v for k, v in ptxas_entries(
+                       "mlstm_chunkwise", "mlstm_bwd").items()
+                       if "__half" not in k and "kernelIf" not in k})
+        rows.append(row)
+        del got, want
+        torch.cuda.empty_cache()
+    del ins, dh, dc, dn
+    torch.cuda.empty_cache()
+    return rows
+
+
 def check_moe_backward(cfg, dev):
     """The MoE layer's routing backward, at Qwen3's full width and the
     training shape (B 4 x S 2048, 128 experts top 8): which kernels
@@ -5073,7 +5237,44 @@ def check_moe_backward(cfg, dev):
         fail(f"moe backward: two passes differ: {same}")
 
 
-def train_family(cfg, dev, card: str, path: str, seq: int, batch: int):
+@contextlib.contextmanager
+def young_heap(seconds: list):
+    """For the block, every object alive at its start out of the
+    collector's sight (``gc.freeze``: late in the script a full collection
+    walks everything the earlier phases keep, the compiled graphs among
+    them), so the block's ``gc.collect`` calls walk what the block made;
+    the seconds its collections took are appended to ``seconds``."""
+    began, spent = [0.0], [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            began[0] = time.perf_counter()
+        else:
+            spent[0] += time.perf_counter() - began[0]
+    gc.freeze()
+    gc.callbacks.append(on_gc)
+    try:
+        yield
+    finally:
+        gc.callbacks.remove(on_gc)
+        gc.unfreeze()
+        seconds.append(spent[0])
+
+
+def train_family(cfg, dev, card: str, path: str, seq: int, batch: int,
+                 timing_steps: int = TIME_STEPS):
+    """:func:`family_run` on a clean card, the earlier phases' objects
+    frozen out of the collector (:func:`young_heap`)."""
+    clean_card(path)
+    spent = []
+    with young_heap(spent):
+        counts = family_run(cfg, dev, card, path, seq, batch, timing_steps)
+    print(f"{path}: {spent[0]:.1f} s in the garbage collector")
+    return counts
+
+
+def family_run(cfg, dev, card: str, path: str, seq: int, batch: int,
+               timing_steps: int):
     """``train()`` on ``cfg`` at full width for TRAIN_STEPS compiled steps
     (B ``batch`` x S ``seq``, remat, f32 masters + AdamW at TRAIN_LR, bf16
     compute): finite losses, 1 miss and 4 hits, every kernel of the path
@@ -5083,21 +5284,24 @@ def train_family(cfg, dev, card: str, path: str, seq: int, batch: int):
     the StableLM trainer's), the MoE's
     ``moe_drop_frac`` each step, peak memory.  Then the compiled step
     against the direct one on the trained parameters: the loss and the
-    gradients upstream of every flash dQ bit for bit, every other gradient
-    within max(2 x the direct step's own spread, JIT_TRAIN_FLOOR); their
-    event time A B B A and peak memory; a profile of one compiled step.
-    Returns the launches of the 5 steps."""
+    gradients upstream of every flash dQ bit for bit (all of them without
+    attention), every other gradient within max(2 x the direct step's own
+    spread, JIT_TRAIN_FLOOR); their event time A B B A over
+    ``timing_steps`` steps a reading and peak memory; a profile of one
+    compiled step; the seconds each part took.  Returns the launches of the
+    5 steps."""
     from repro_torch import sma_jit
     loop = TrainLoopConfig(steps=TRAIN_STEPS, seq_len=seq,
                            global_batch=batch, log_every=1, seed=0,
                            peak_lr=TRAIN_LR, remat=True)
-    clean_card(path)
+    marks = [("start", time.perf_counter())]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     torch.cuda.synchronize()
     with captured_compiles() as built:
         result = train(cfg, loop, device=dev)
     torch.cuda.synchronize()
+    marks.append(("train()", time.perf_counter()))
     counts, routed = ops.launch_counts(), dict(ops.ROUTED)
     routes = nonzero(kgemm.ROUTES)
     peak = torch.cuda.max_memory_allocated()
@@ -5111,8 +5315,20 @@ def train_family(cfg, dev, card: str, path: str, seq: int, batch: int):
                 and h["grad_norm"] > 0):
             fail(f"{path} step {h['step']}: loss {h['loss']}, grad norm "
                  f"{h['grad_norm']}")
-    need = ["sma_gemm", "rmsnorm_gemm", "flash_attention",
-            "flash_attention_bwd"]
+    need = ["sma_gemm", "rmsnorm_gemm"]
+    if any(bt in ("attn", "local") for bt in cfg.block_pattern):
+        need += ["flash_attention", "flash_attention_bwd"]
+    if "mlstm" in cfg.block_pattern:
+        need += ["mlstm_chunkwise", "mlstm_chunkwise_bwd"]
+        ml = cfg.block_pattern.count("mlstm") * cfg.num_groups
+        want = {"mlstm_chunkwise": 2 * ml * TRAIN_STEPS,
+                "mlstm_chunkwise_bwd": ml * TRAIN_STEPS}
+        if {k: counts[k] for k in want} != want:
+            fail(f"{path}: mLSTM launches {counts}, expected {want}")
+        if nonzero(kmlstm.BWD_ROUTES) != {
+                "wgmma": want["mlstm_chunkwise_bwd"]}:
+            fail(f"{path}: mlstm_chunkwise_bwd routes {kmlstm.BWD_ROUTES}, "
+                 f"expected every launch's recompute on wgmma")
     if "rglru" in cfg.block_pattern:
         need += ["rglru_scan", "rglru_scan_bwd"]
         rg = cfg.block_pattern.count("rglru") * cfg.num_groups
@@ -5168,13 +5384,17 @@ def train_family(cfg, dev, card: str, path: str, seq: int, batch: int):
           f"{json.dumps(nonzero(counts))}; sma_gemm routes "
           f"{json.dumps(routes)}; flash routes "
           f"{json.dumps(FLASH_ROUTES_BY_PATH[path])}; rmsnorm_gemm, mlstm, "
-          f"rglru routes {json.dumps(ROUTES_BY_PATH[path])}")
+          f"rglru routes {json.dumps(ROUTES_BY_PATH[path])}; "
+          f"mlstm_chunkwise_bwd routes "
+          f"{json.dumps(nonzero(kmlstm.BWD_ROUTES))}")
     params, cm = result["params"], built[0]
     del result, built
     gc.collect()
     torch.cuda.empty_cache()
-    time_train_step(cfg, params, cm, dev, card, seq, batch)
+    time_train_step(cfg, params, cm, dev, card, seq, batch, timing_steps)
+    marks.append(("step timing", time.perf_counter()))
     profile_train_step(cfg, params, dev, cm, seq, batch)
+    marks.append(("profile", time.perf_counter()))
     del cm
     gc.collect()
     torch.cuda.empty_cache()
@@ -5201,8 +5421,10 @@ def train_family(cfg, dev, card: str, path: str, seq: int, batch: int):
     spread = relative_errors(again[1], want[1])
     del again
     got = grads_run(grad_eng)
-    last = max(i for i, bt in enumerate(cfg.block_pattern)
-               if bt in ("attn", "local"))
+    # Without attention (xLSTM) no kernel of the step sums in a varying
+    # order, and every gradient is held bit for bit.
+    last = max((i for i, bt in enumerate(cfg.block_pattern)
+                if bt in ("attn", "local")), default=-1)
     top = cfg.num_groups - 1
     exact = [k for k in got[1] if k in ("head.w", "final_norm.scale") or any(
         k.startswith(f"blocks.{p}.") and k.endswith(f"[{top}]")
@@ -5221,6 +5443,10 @@ def train_family(cfg, dev, card: str, path: str, seq: int, batch: int):
     if not torch.equal(got[0], want[0]) or unequal or mult[worst] > 1:
         fail(f"{path}: the compiled loss and gradients part from the "
              f"direct ones beyond the rule")
+    marks.append(("compiled vs direct", time.perf_counter()))
+    print(f"{path}: seconds by part " + json.dumps(
+        {name: round(t - marks[i][1], 1)
+         for i, (name, t) in enumerate(marks[1:])}))
     del got, want, params, grad_eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -5243,6 +5469,18 @@ def train_recurrentgemma(dev, card: str):
                               num_groups=RG_TRAIN_GROUPS)
     return train_family(cfg, dev, card, "train recurrentgemma",
                         RG_TRAIN_SEQ, RG_TRAIN_BATCH)
+
+
+def train_xlstm(dev, card: str):
+    """xLSTM-1.3b at full width, XL_CUT_GROUPS group(s) (7 mLSTM and 1
+    sLSTM layers), B 4 x S 2048, through :func:`train_family`: the mLSTM
+    forward kernel twice a layer a step (the remat recomputation), its
+    backward kernel once; the sLSTM step loop one loop node forward and
+    one reverse loop node backward.  Its step takes seconds on the host
+    (the sLSTM loop), so the A B B A timing reads one step a reading."""
+    cfg = dataclasses.replace(get_config(XL_ARCH), num_groups=XL_CUT_GROUPS)
+    return train_family(cfg, dev, card, "train xlstm", XL_TRAIN_SEQ,
+                        XL_TRAIN_BATCH, timing_steps=1)
 
 
 def main(argv=None) -> int:
@@ -5311,6 +5549,7 @@ def main(argv=None) -> int:
     rows += phase("mlstm kernel checks", check_mlstm, gen, dev)
     torch.cuda.empty_cache()
     rows += phase("rglru backward kernel checks", check_rglru_bwd, gen, dev)
+    rows += phase("mlstm backward kernel checks", check_mlstm_bwd, gen, dev)
     torch.cuda.empty_cache()
     rows += phase("train kernel checks", check_train_kernels, gen, dev)
     torch.cuda.empty_cache()
@@ -5452,19 +5691,21 @@ def main(argv=None) -> int:
               dev, ("rglru", "rglru", "local"), RG_ENGINE_FAULTS,
               RG_LOGIT_ATOL, "recurrentgemma engine")
 
-    # The xLSTM path, without autograd: served and profiled at full depth,
-    # then its engine at XL_CUT_GROUPS groups.
+    # The xLSTM path, without autograd: served at full depth, then
+    # profiled and served through its engine at XL_CUT_GROUPS groups (the
+    # profile's 6 sLSTM blocks cost ~60 s of the script's time limit,
+    # which "train xlstm" needs).
     xl_cfg = get_config(XL_ARCH)
     with torch.inference_mode():
         params = init_full_width(xl_cfg, dev)
         xl_counts, xl_routes = phase("serve xlstm", serve_recurrent, xl_cfg,
                                      params, dev, xl_launches, XL_BATCH,
                                      XL_PROMPT, XL_NEW)
-        phase("xlstm profile", profile_xlstm, xl_cfg, params, dev)
-        torch.cuda.empty_cache()
         xl_cfg = dataclasses.replace(xl_cfg, num_groups=XL_CUT_GROUPS)
         params = {**params, "blocks": [tree_map(lambda x: x[:XL_CUT_GROUPS],
                                                 b) for b in params["blocks"]]}
+        phase("xlstm profile", profile_xlstm, xl_cfg, params, dev)
+        torch.cuda.empty_cache()
         xl_eng_counts, xl_eng_routes, eng, _, _ = phase(
             "serve xlstm engine", serve_recurrent_engine, xl_cfg, params,
             dev, "xlstm engine")
@@ -5506,6 +5747,7 @@ def main(argv=None) -> int:
     q_train_counts = phase("train qwen3", train_qwen3, dev, card)
     rg_train_counts = phase("train recurrentgemma", train_recurrentgemma,
                             dev, card)
+    xl_train_counts = phase("train xlstm", train_xlstm, dev, card)
     print(f"phases (s): "
           f"{json.dumps({k: round(x, 1) for k, x in phases.items()})}")
 
@@ -5523,7 +5765,8 @@ def main(argv=None) -> int:
                    "xlstm engine": xl_eng_counts.get(row["name"], 0),
                    "qwen3": q_counts[row["name"]],
                    "train qwen3": q_train_counts[row["name"]],
-                   "train recurrentgemma": rg_train_counts[row["name"]]}
+                   "train recurrentgemma": rg_train_counts[row["name"]],
+                   "train xlstm": xl_train_counts[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["launches"] == 0:

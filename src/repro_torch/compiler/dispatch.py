@@ -171,7 +171,9 @@ def collect_backend_sites(items: List[Any]) -> List[Dict[str, Any]]:
 
 class ScanLoop(torch.nn.Module):
     """A loop node at run time: ``module``, the body's dispatching module,
-    over the leading axis of the step inputs
+    over the leading axis of the step inputs, from the last index down
+    for a backward's loop node (``reverse``), returning the stacked input
+    carries too where the node saves them for its backward
     (:func:`repro_torch.compiler.loop.run_body`)."""
 
     def __init__(self, body: loop.LoopBody,
@@ -180,9 +182,9 @@ class ScanLoop(torch.nn.Module):
         self.body = body
         self.module = module
 
-    def forward(self, carry, xs, consts):
+    def forward(self, carry, xs, consts, reverse=False, save_carries=False):
         return loop.run_body(self.body, self.module, list(carry), list(xs),
-                             list(consts))
+                             list(consts), reverse, save_carries)
 
 
 def _module_sites(module: torch.nn.Module) -> List[Any]:

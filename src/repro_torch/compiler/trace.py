@@ -48,8 +48,8 @@ call site**; anything else traces as before:
   joint graph.  The scans' nodes carry a backward too: ``rglru_scan``'s is
   one ``repro_torch::rglru_scan_bwd`` node (the reverse-scan kernel on
   the card), and ``mlstm_chunkwise`` / ``mlstm_chunkwise_state``'s one
-  ``repro_torch::mlstm_chunkwise_bwd`` node (the plain version's gradient
-  on the CPU; on the card it raises: no backward kernel yet).  A remat
+  ``repro_torch::mlstm_chunkwise_bwd`` node (the backward kernel on the
+  card, the plain version's gradient on the CPU).  A remat
   group's recomputation (``torch.utils.checkpoint``) is traced where the
   backward asks for it, its sites gradient sites of their own.  A gradient the step never reads is a node without users,
   which dispatch drops.

@@ -3,7 +3,7 @@
 mLSTM blocks carry the matrix memory (chunkwise-parallel in prefill through
 the ``mlstm_chunkwise`` kernel); sLSTM blocks are sequential scalar
 memories.  As configured here (d_model 2048, 4 heads, mLSTM inner width
-4096, so head dim 1024) the model has 3.575 B parameters, despite its
+4096, so head dim 1024) the model has 3.503 B parameters, despite its
 name.  [arXiv:2405.04517]
 """
 from repro_torch.configs.base import ModelConfig, register

@@ -22,10 +22,11 @@ plain versions, which is what the CPU tests hold against ``jax.grad``.
 * :class:`RgluScan` -- the RG-LRU scan; the forward saves a and h_seq,
   the backward is one ``rglru_scan_bwd`` launch (the reverse recurrence),
   which gives (da, du, dh0), dh0 None without h0.
-
-The mLSTM has no backward kernel yet: :func:`mlstm_chunkwise_backward`
-is the gradient of its plain version on CPU tensors and raises on the
-card.
+* :class:`MlstmChunkwise` -- the chunkwise mLSTM, with or without its
+  final state; the forward saves its inputs, the backward
+  (:func:`mlstm_chunkwise_backward`) is one ``mlstm_chunkwise_bwd`` call:
+  the kernel on the card (which recomputes the chunk states), the gradient
+  of the plain forward by autograd on the CPU.
 
 The GEMM backward formulas are :func:`sma_gemm_backward` and
 :func:`rmsnorm_gemm_backward`, written over the ``gemm`` that makes each
@@ -41,10 +42,11 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mlstm as _mlstm
 from repro_torch.kernels import norm_gemm as _norm
 from repro_torch.kernels import rglru as _rglru
 from repro_torch.kernels import sma_gemm as _gemm
-from repro_torch.kernels.ref import mlstm_chunkwise_ref, rms_inverse
+from repro_torch.kernels.ref import rms_inverse
 
 _GELU_C = math.sqrt(2.0 / math.pi)
 
@@ -145,21 +147,14 @@ def mlstm_chunkwise_backward(ins: Sequence[torch.Tensor], chunk: int,
                              grads: Sequence[Optional[torch.Tensor]]):
     """(dq, dk, dv, dlog_f, dlog_i) of the chunkwise mLSTM's (h, C, n, m)
     (``ins`` = q, k, v, log_f, log_i; ``grads`` the gradients of h and of
-    the state, None where the output is not read): the gradient of the
-    plain version :func:`repro_torch.kernels.ref.mlstm_chunkwise_ref` on
-    CPU tensors.  On the card there is no backward kernel yet, so this
-    raises, and does not fall back to the plain version."""
-    if ins[0].device.type == "cuda":
-        raise NotImplementedError(
-            "mlstm_chunkwise has no backward kernel on the card yet "
-            "(csrc/mlstm_chunkwise.cu); run it without a gradient")
-    with torch.enable_grad():
-        live = [t.detach().requires_grad_() for t in ins]
-        h, state = mlstm_chunkwise_ref(*live, chunk=chunk,
-                                       return_state=True)
-        outs = [(o, g) for o, g in zip((h, *state), grads) if g is not None]
-        return torch.autograd.grad([o for o, _ in outs], live,
-                                   [g for _, g in outs])
+    the state, None where the output is not read): one
+    ``mlstm_chunkwise_bwd`` call (the kernel for CUDA tensors, which takes
+    no gradient of m; for CPU tensors the gradient of the plain version
+    :func:`repro_torch.kernels.ref.mlstm_chunkwise_ref` by autograd)."""
+    dh, dc, dn, dm = (tuple(grads) + (None,) * 4)[:4]
+    return _mlstm.mlstm_chunkwise_bwd(
+        *ins, dh.contiguous() if dh is not None else None, dc, dn, dm,
+        chunk=chunk)
 
 
 def _launch_flash_bwd(q, k, v, out, lse, dout, causal, window, scale):
@@ -233,3 +228,21 @@ class RgluScan(torch.autograd.Function):
         a, h_seq, h0 = ctx.saved_tensors
         return _rglru.rglru_scan_bwd(a, h_seq, dh_seq.contiguous(), h0=h0,
                                      dh_last=dh_last)
+
+
+class MlstmChunkwise(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                log_f: torch.Tensor, log_i: torch.Tensor, chunk: int,
+                return_state: bool):
+        ctx.save_for_backward(q, k, v, log_f, log_i)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        out = _mlstm.mlstm_chunkwise(q, k, v, log_f, log_i, chunk=chunk,
+                                     return_state=return_state)
+        return (out[0], *out[1]) if return_state else out
+
+    @staticmethod
+    def backward(ctx, dh: Optional[torch.Tensor], *dstate):
+        return (*mlstm_chunkwise_backward(ctx.saved_tensors, ctx.chunk,
+                                          (dh, *dstate)), None, None)

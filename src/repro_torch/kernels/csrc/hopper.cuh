@@ -416,8 +416,20 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled, fetched through the runtime (the libraries link
-// no libcuda); nullptr where the driver has none.
+// no libcuda); nullptr where the driver has none.  The driver call fails
+// unless the calling thread has a current context, which the runtime binds
+// only at the first of its own calls there that needs one; a thread whose
+// first CUDA call is an encode (PyTorch's autograd thread, running a
+// backward that starts with a TMA kernel) binds the current device's
+// context here first, once.
 inline EncodeTiled encode_tiled() {
+  static thread_local bool bound = false;
+  if (!bound) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+      return nullptr;
+    bound = true;
+  }
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;

@@ -75,11 +75,27 @@
 // with S recomputed by each of the D / 128 column blocks, took 10.3 ms;
 // route wgmma does twice the function's products (the hi / lo halves)
 // on the tensor cores plus ~2 GB of C_k traffic (~0.6 ms of bytes).
+//
+// The backward (mlstm_bwd, below) recomputes the forward's chunk states
+// with these same kernels: asked for it, route simt also writes its gate
+// scratch and every chunk's C_k and n_k (f32), and route wgmma runs its
+// gate and state passes alone.
 #include <math.h>
 
 #include "hopper.cuh"
 
 namespace repro {
+
+// What both routes hand the backward.  Gate scratch, f32 [BH][SLOTS][Sp],
+// Sp = nc * L: per step a = log i - b, g, w = exp(a - g_L), decay0 =
+// exp(m0 - g), minv = exp(-(b + g)).  Chunk scratch, f32 [BH][3][nc]:
+// scale_c = exp(m0 - g_L), m0, g_L (route simt writes scale_c only).  C_k
+// and n_k, the state entering chunk k, of every chunk but the first: slot
+// bh * (nc - 1) + k - 1 of [BH * (nc - 1)][D][D] and [BH * (nc - 1)][D]
+// (route wgmma: C_k as hi and lo halves in T, two such arrays).
+enum { kA = 0, kG = 1, kW = 2, kDecay = 3, kMinv = 4, SLOTS = 5 };
+enum { kScale = 0, kM0 = 1, kGL = 2 };
+
 namespace mlstm {
 
 constexpr int THREADS = 256;
@@ -124,8 +140,11 @@ __global__ void __launch_bounds__(THREADS, 1)
                            const float* __restrict__ log_i,
                            T* __restrict__ out, float* __restrict__ C,
                            float* __restrict__ n_out,
-                           float* __restrict__ m_out, int S, int D, int L,
-                           float scale) {
+                           float* __restrict__ m_out,
+                           float* __restrict__ gates,
+                           float* __restrict__ chunks,
+                           float* __restrict__ ck, float* __restrict__ nk,
+                           int S, int D, int L, float scale) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   float* qt = sm + Smem::kQt;
@@ -164,9 +183,18 @@ __global__ void __launch_bounds__(THREADS, 1)
   float m0 = 0.f;  // the stabilizer, carried by thread 0
 
   const int n_chunks = (S + L - 1) / L;
+  const size_t Sp = static_cast<size_t>(n_chunks) * L;
+  const bool keep = ck != nullptr;  // the backward's recompute
   for (int ic = 0; ic < n_chunks; ++ic) {
     const int t0 = ic * L;
     const bool first = ic == 0;
+    // The state entering the chunk is read from Cr and the state after it
+    // written to Cw: both C, or (keep) C_ic's slot and C_{ic+1}'s, the
+    // last to C.
+    const size_t slot = static_cast<size_t>(bh) * (n_chunks - 1);
+    const float* Cr =
+        keep && !first ? ck + (slot + ic - 1) * D * D : Cb;
+    float* Cw = keep && ic + 1 < n_chunks ? ck + (slot + ic) * D * D : Cb;
     // ---- 1. the gate scan ------------------------------------------------
     if (tid < LMAX) {
       const bool ok = tid < L && t0 + tid < S;
@@ -215,7 +243,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int idx = tid + THREADS * p;
         const int kr = idx / E, e = idx % E;
         const bool ok = !first && d0 + kr < D && e0 + e < D;
-        cs[idx] = ok ? Cb[static_cast<size_t>(d0 + kr) * D + e0 + e] : 0.f;
+        cs[idx] = ok ? Cr[static_cast<size_t>(d0 + kr) * D + e0 + e] : 0.f;
       }
       __syncthreads();
 #pragma unroll 2
@@ -253,6 +281,17 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     // ---- 3. S . D (causal, decayed) into shared memory; v's tile ---------
     if (tid < LMAX) s_qn[tid] = qn * scale;
+    if (keep && blockIdx.y == 0 && tid < L) {
+      float* gb = gates + bh * SLOTS * Sp + t0 + tid;
+      gb[kA * Sp] = s_a[tid];
+      gb[kG * Sp] = s_g[tid];
+      gb[kW * Sp] = s_w[tid];
+      gb[kDecay * Sp] = s_decay[tid];
+      gb[kMinv * Sp] = s_minv[tid];
+      if (tid == 0)
+        chunks[static_cast<size_t>(bh) * 3 * n_chunks + kScale * n_chunks +
+               ic] = s_scalars[0];
+    }
     {
       float part[8];
 #pragma unroll
@@ -359,17 +398,20 @@ __global__ void __launch_bounds__(THREADS, 1)
         float sum = 0.f;
         for (int s = 0; s < L; ++s) sum += kw[s * KP + tid];
         ns[dt0 + tid] = scale_c * ns[dt0 + tid] + sum;
+        if (keep && blockIdx.y == 0 && ic + 1 < n_chunks)
+          nk[(slot + ic) * D + dt0 + tid] = ns[dt0 + tid];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int d = dt0 + ty * 4 + i;
         if (d >= D) continue;
-        float* crow = Cb + static_cast<size_t>(d) * D + e0;
+        const float* rrow = Cr + static_cast<size_t>(d) * D + e0;
+        float* wrow = Cw + static_cast<size_t>(d) * D + e0;
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
           const int e = row_of(tx, jj);
           if (e0 + e >= D) continue;
-          crow[e] = first ? acc[i][jj] : scale_c * crow[e] + acc[i][jj];
+          wrow[e] = first ? acc[i][jj] : scale_c * rrow[e] + acc[i][jj];
         }
       }
       __syncthreads();
@@ -385,7 +427,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* log_f,
            const float* log_i, void* out, float* C, float* n, float* m,
-           int BH, int S, int D, int L, cudaStream_t stream) {
+           float* gates, float* chunks, float* ck, float* nk, int BH, int S,
+           int D, int L, cudaStream_t stream) {
   const size_t smem = Smem::bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
       mlstm_chunkwise_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -395,7 +438,7 @@ int launch(const void* q, const void* k, const void* v, const float* log_f,
   mlstm_chunkwise_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), log_f, log_i, static_cast<T*>(out), C, n, m,
-      S, D, L, rsqrtf(static_cast<float>(D)));
+      gates, chunks, ck, nk, S, D, L, rsqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,11 +461,6 @@ constexpr int BOX = 128 * 128;  // bytes of a 128-row box of 64 16-bit columns
 constexpr int HALF = 64 * 128;  // bytes of a 64-row one
 constexpr int GATE_WARPS = 16;
 constexpr float NEG_BIG = -1e30f;
-// Gate scratch, f32 [BH][SLOTS][Sp], Sp = nc * L: per step a = log i - b,
-// g, w = exp(a - g_L), decay0 = exp(m0 - g), minv = exp(-(b + g)).
-enum { kA = 0, kG = 1, kW = 2, kDecay = 3, kMinv = 4, SLOTS = 5 };
-// Chunk scratch, f32 [BH][3][nc]: scale_c = exp(m0 - g_L), m0, g_L.
-enum { kScale = 0, kM0 = 1, kGL = 2 };
 // Planted faults of chip_smoke.py's controls (a bit mask, 0 on every real
 // call; must match repro_torch.kernels.ref.PLANT_*): the lo half of the
 // state update dropped; the outputs of chunk nc / 2 reading the C of the
@@ -1144,7 +1182,8 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* log_f,
            const float* log_i, void* out, float* C, float* n, float* m,
            float* gates, float* chunks, void* sd, float* rowsum, void* ck,
-           float* nk, int BH, int S, int D, int plant, cudaStream_t stream) {
+           float* nk, int BH, int S, int D, int plant, bool state_only,
+           cudaStream_t stream) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   constexpr bool f16 = std::is_same<T, __half>::value;
@@ -1158,12 +1197,12 @@ int launch(const void* q, const void* k, const void* v, const float* log_f,
   const uint64_t sdims[3] = {L, L, 2ull * BH * nc};
   const uint32_t box128[3] = {64, 128, 1}, box64[3] = {64, 64, 1};
   CUtensorMap tq, tk, tk64, tv64, tc, tsd;
-  if (!encode(fn, &tq, q, f16, 3, seq, box128) ||
-      !encode(fn, &tk, k, f16, 3, seq, box128) ||
-      !encode(fn, &tk64, k, f16, 3, seq, box64) ||
+  if (!encode(fn, &tk64, k, f16, 3, seq, box64) ||
       !encode(fn, &tv64, v, f16, 3, seq, box64) ||
       !encode(fn, &tc, ck, f16, 3, cdims, box64) ||
-      !encode(fn, &tsd, sd, f16, 3, sdims, box128))
+      (!state_only && (!encode(fn, &tq, q, f16, 3, seq, box128) ||
+                       !encode(fn, &tk, k, f16, 3, seq, box128) ||
+                       !encode(fn, &tsd, sd, f16, 3, sdims, box128))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if ((err = allow_smem(intra_kernel<T>, Intra::SMEM)) ||
@@ -1175,13 +1214,16 @@ int launch(const void* q, const void* k, const void* v, const float* log_f,
   gates_kernel<<<BH, 32 * GATE_WARPS, 0, stream>>>(log_f, log_i, gates,
                                                    chunks, m, S, nc);
   if ((err = cudaGetLastError())) return static_cast<int>(err);
-  intra_kernel<T><<<BH * nc, THREADS, Intra::SMEM, stream>>>(
-      tq, tk, gates, sdp, rowsum, D, nc, BH, scale);
-  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  if (!state_only) {
+    intra_kernel<T><<<BH * nc, THREADS, Intra::SMEM, stream>>>(
+        tq, tk, gates, sdp, rowsum, D, nc, BH, scale);
+    if ((err = cudaGetLastError())) return static_cast<int>(err);
+  }
   const int tiles = (D + 127) / 128;
   state_kernel<T><<<dim3(tiles * tiles, BH), THREADS, State::SMEM, stream>>>(
       tk64, tv64, tc, gates, chunks, nk, C, n, D, nc, BH, plant);
   if ((err = cudaGetLastError())) return static_cast<int>(err);
+  if (state_only) return 0;
   output_kernel<T><<<dim3(tiles, nc, BH), THREADS, Out::SMEM, stream>>>(
       tq, tc, tsd, tv64, gates, rowsum, nk, static_cast<T*>(out), S, D, nc,
       BH, scale, plant);
@@ -1193,13 +1235,17 @@ int launch(const void* q, const void* k, const void* v, const float* log_f,
 
 // q, k, v, out (B*H, S, D) in `dtype`; log_f, log_i (B*H, S) f32; C (B*H, D,
 // D), n (B*H, D), m (B*H) f32, written with the state after S steps (C
-// needs no zeroing).  1 <= L <= 128.  Returns cudaGetLastError() after the
-// launch.
+// needs no zeroing).  gates, chunks, ck, nk: null, or the backward's
+// recompute, f32, nc = ceil(S / L): gates [B*H][5][nc*L], chunks
+// [B*H][3][nc], ck [B*H*max(nc-1, 1)][D][D], nk [B*H*max(nc-1, 1)*D].
+// 1 <= L <= 128.  Returns cudaGetLastError() after the launch.
 extern "C" int mlstm_chunkwise_launch(const void* q, const void* k,
                                       const void* v, const void* log_f,
                                       const void* log_i, void* out, void* C,
-                                      void* n, void* m, int BH, int S, int D,
-                                      int L, int dtype, void* stream) {
+                                      void* n, void* m, void* gates,
+                                      void* chunks, void* ck, void* nk,
+                                      int BH, int S, int D, int L, int dtype,
+                                      void* stream) {
   if (L < 1 || L > repro::mlstm::LMAX || S < 1 || D < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1208,16 +1254,23 @@ extern "C" int mlstm_chunkwise_launch(const void* q, const void* k,
   float* c = static_cast<float*>(C);
   float* nn = static_cast<float*>(n);
   float* mm = static_cast<float*>(m);
+  float* g = static_cast<float*>(gates);
+  float* ch = static_cast<float*>(chunks);
+  float* cks = static_cast<float*>(ck);
+  float* nks = static_cast<float*>(nk);
+  if ((cks == nullptr) != (nks == nullptr) ||
+      (cks == nullptr) != (g == nullptr) || (g == nullptr) != (ch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case repro::kF32:
-      return repro::mlstm::launch<float>(q, k, v, lf, li, out, c, nn, mm, BH,
-                                         S, D, L, s);
+      return repro::mlstm::launch<float>(q, k, v, lf, li, out, c, nn, mm, g,
+                                         ch, cks, nks, BH, S, D, L, s);
     case repro::kBF16:
-      return repro::mlstm::launch<__nv_bfloat16>(q, k, v, lf, li, out, c, nn,
-                                                 mm, BH, S, D, L, s);
+      return repro::mlstm::launch<__nv_bfloat16>(
+          q, k, v, lf, li, out, c, nn, mm, g, ch, cks, nks, BH, S, D, L, s);
     case repro::kF16:
-      return repro::mlstm::launch<__half>(q, k, v, lf, li, out, c, nn, mm, BH,
-                                          S, D, L, s);
+      return repro::mlstm::launch<__half>(q, k, v, lf, li, out, c, nn, mm, g,
+                                          ch, cks, nks, BH, S, D, L, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1228,12 +1281,14 @@ extern "C" int mlstm_chunkwise_launch(const void* q, const void* k,
 // [B*H][5][nc*128], chunks f32 [B*H][3][nc], sd (dtype) [2][B*H*nc][128]
 // [128], rowsum f32 [B*H*nc*128], ck (dtype) [2][B*H*max(nc-1, 1)][D][D],
 // nk f32 [B*H*max(nc-1, 1)*D].  plant: chip_smoke.py's planted faults, 0
-// otherwise.  Returns cudaGetLastError() after the last launch.
+// otherwise.  state_only: the gate and state passes alone (the backward's
+// recompute; q, out, sd and rowsum are not read).  Returns
+// cudaGetLastError() after the last launch.
 extern "C" int mlstm_chunkwise_wgmma_launch(
     const void* q, const void* k, const void* v, const void* log_f,
     const void* log_i, void* out, void* C, void* n, void* m, void* gates,
     void* chunks, void* sd, void* rowsum, void* ck, void* nk, int BH, int S,
-    int D, int dtype, int plant, void* stream) {
+    int D, int dtype, int plant, int state_only, void* stream) {
   if (S < 1 || D < 64 || D % 64)
     return static_cast<int>(cudaErrorInvalidValue);
 #define REPRO_MLSTM_WG(T)                                                   \
@@ -1243,7 +1298,7 @@ extern "C" int mlstm_chunkwise_wgmma_launch(
       static_cast<float*>(n), static_cast<float*>(m),                       \
       static_cast<float*>(gates), static_cast<float*>(chunks), sd,          \
       static_cast<float*>(rowsum), ck, static_cast<float*>(nk), BH, S, D,   \
-      plant, static_cast<cudaStream_t>(stream))
+      plant, state_only != 0, static_cast<cudaStream_t>(stream))
   switch (dtype) {
     case repro::kBF16: return REPRO_MLSTM_WG(__nv_bfloat16);
     case repro::kF16: return REPRO_MLSTM_WG(__half);
@@ -1257,4 +1312,779 @@ extern "C" int mlstm_chunkwise_wgmma_launch(
 extern "C" int mlstm_chunkwise_wgmma_smem(int pass) {
   using namespace repro::mlstm_wg;
   return pass == 0 ? Intra::SMEM : pass == 1 ? State::SMEM : Out::SMEM;
+}
+
+// ===========================================================================
+// The backward, mlstm_chunkwise_bwd.  It replaces no TPU kernel (the Pallas
+// kernel has no gradient; the reference differentiates its XLA chunkwise
+// path, repro/backends/xla_backend.py:116): the port's own kernel, so that
+// xLSTM trains on the card.  It takes q, k, v, dh (B*H, S, D) in T, the
+// f32 gates, dC (B*H, D, D) and dn (B*H, D) or null (the final state's
+// gradients) and the forward's recompute (see the top of the file: the
+// gate scratch, C_k, n_k and the final C, n), and writes dq, dk, dv in T
+// and dlog_f, dlog_i in f32.
+//
+// Every product P o dP is formed in the forward's stabilized frame (the
+// same chunk chain of m, g and den), where the scales cancel.  Per chunk k
+// of L steps, with Sd_ts = scale (q_t.k_s) exp(a_s - g_t) (s <= t), den_t =
+// decay0_t scale q_t.n_k + sum_s Sd_ts, Dv_t = max(|den_t|, minv_t):
+//   dnum_t = dh_t / Dv_t;  dden_t = -sign(den_t) (dh_t . num_t) / Dv_t^2
+//   where |den_t| > minv_t, else 0;  G_ts = exp(a_s - g_t) scale (dnum_t .
+//   v_s + dden_t);  u_t = decay0_t scale / Dv_t;  z_t = decay0_t scale dden_t
+//   dq = G k + u (C_k dh) + z n_k
+//   dk = G^T q + w (G_k v + gn_k),   dv = (Sd / Dv)^T dh + w (G_k^T k)
+// with G_k, gn_k the gradients of the state after chunk k, walked from the
+// last chunk down: G_{k-1} = sc_k G_k + sum_{t in k} u_t q_t dh_t^T (dC at
+// the end), gn_{k-1} = sc_k gn_k + sum_t z_t q_t.  The row and column sums
+// of P o dP are q_t.dq_t and k_s.dk_s: dlog_i = k.dk and dlog_f_j =
+// sum_{t >= j} (q.dq - k.dk)_t, plus the final state's own terms: <C, dC>
+// + <n, dn> up to s*, and its stabilizer m = F_{S-1} + max(0, li_s* - F_s*)
+// taking it back from li_s* (ref.mlstm_chunkwise_bwd_ref is this in plain
+// PyTorch over the whole (S, S) matrix).
+//
+// The wrapper first recomputes the forward's chunk states with the
+// forward's own route (kernels/mlstm.py `_route`): route wgmma's gate and
+// state passes (C_k in hi + lo halves), or route simt's kernel writing its
+// gates, C_k and n_k in f32.  Then six launches, all arithmetic f32 on the
+// CUDA cores, 128 x 128 output tiles register-tiled 8 x 8 a thread over
+// 32-deep slices in shared memory:
+//   intra_kernel  one block a (chunk, batch * head): Sd, W = dh v^T, den
+//                 and sum_s Sd W;
+//   y_kernel      one block a (128 columns, chunk, batch * head): C_k dh
+//                 and its partial q . (C_k dh);
+//   rows_kernel   Dv, dden, u, z per step; G and Sd / Dv in place;
+//   walk_kernel   one block a (128 x 128 tile of the state, batch * head):
+//                 G_k and gn_k from dC, dn down (and the partials of <C,
+//                 dC> + <n, dn>);
+//   grads_kernel  one block a (128 columns, chunk, batch * head): dq, dk,
+//                 dv and the partial row and column sums;
+//   final_kernel  one block a (batch, head): s*, dlog_i and the reverse
+//                 cumulative sum of dlog_f.
+// Scratch comes from the wrapper; the largest are C_k (route wgmma: hi +
+// lo in T) and G_k (f32) of every chunk, 2.1 GB together at the xLSTM
+// training shape B 4, H 4, S 2048, D 1024.
+//
+// What bounds it on an H100: operations (kernels/mlstm.py bwd_flops: 343.8
+// GFLOP at that shape, 0.348 ms at 989 TFLOP/s); the six launches run them
+// at the f32 CUDA-core rate (PERF.md has the time).
+// ===========================================================================
+namespace repro {
+namespace mlstm_bwd {
+
+constexpr int THREADS = 256;
+constexpr int LMAX = 128;
+constexpr int TILE = 128;       // rows and columns of a block's output tile
+constexpr int KS = 32;          // depth of a slice
+constexpr int LP = TILE + 4;    // pitch of a [KS][TILE] slice
+// The backward's own per-step scratch, f32 [BH][RSLOTS][Sp] (the gates
+// are the forward's, repro::kA .. kMinv): den, sum_s Sd W, u, z.
+enum { kDen = 0, kHn, kU, kZ, RSLOTS };
+// Planted faults of chip_smoke.py's controls (a bit mask, 0 on every real
+// call; must match repro_torch.kernels.mlstm.BWD_PLANT_*): the reverse
+// state gradient reset at chunk nc / 2; dq's inter-chunk terms dropped;
+// dlog_f's reverse cumulative sum shifted by one step.
+enum { kPlantReset = 1, kPlantDqInter = 2, kPlantShift = 4 };
+
+__device__ __forceinline__ int rc(int t, int i) {
+  return (i < 4 ? 0 : 64) + t * 4 + (i & 3);
+}
+
+// Sum over the 16 threads of a half warp that share a row (tx).
+__device__ __forceinline__ float row_sum16(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// base[at], plus lo[at] where the operand comes as hi and lo halves.
+template <typename Tin>
+__device__ __forceinline__ float elem(const Tin* base, const Tin* lo,
+                                      long at) {
+  const float x = to_f(base[at]);
+  return lo != nullptr ? x + to_f(lo[at]) : x;
+}
+
+// dst[kk][i] (pitch LP) = element (i, k0 + kk) of an operand whose element
+// (i, k) is base[i * si + k * sk] (+ lo[...] where given), times
+// kscale[k0 + kk] where given; 0 outside i < imax, k < kmax.  KFAST: k is
+// the contiguous index (lane kk of each warp, rows by warp); else i is
+// (consecutive threads, consecutive i).
+template <typename Tin, bool KFAST>
+__device__ __forceinline__ void load_slice(float* dst, const Tin* base,
+                                           long si, long sk, int imax,
+                                           int kmax, int k0,
+                                           const float* kscale,
+                                           const Tin* lo) {
+  const int tid = threadIdx.x;
+  if (KFAST) {
+    const int kk = tid & 31, w = tid >> 5, k = k0 + kk;
+    const bool kok = k < kmax;
+    const float f = (kscale != nullptr && kok) ? kscale[k] : 1.f;
+#pragma unroll 4
+    for (int p = 0; p < TILE / 8; ++p) {
+      const int i = w + 8 * p;
+      dst[kk * LP + i] =
+          (kok && i < imax) ? f * elem(base, lo, i * si + k * sk) : 0.f;
+    }
+  } else {
+#pragma unroll 4
+    for (int p = 0; p < KS * TILE / THREADS; ++p) {
+      const int idx = tid + THREADS * p;
+      const int i = idx % TILE, kk = idx / TILE, k = k0 + kk;
+      const bool ok = k < kmax && i < imax;
+      float x = ok ? elem(base, lo, i * si + k * sk) : 0.f;
+      if (ok && kscale != nullptr) x *= kscale[k];
+      dst[kk * LP + i] = x;
+    }
+  }
+}
+
+// acc[i][j] += sum_kk As[kk][rc(ty, i)] * Bs[kk][rc(tx, j)].
+__device__ __forceinline__ void fma_slice(float (&acc)[8][8],
+                                          const float* As, const float* Bs,
+                                          int ty, int tx) {
+#pragma unroll 4
+  for (int kk = 0; kk < KS; ++kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(As + kk * LP + ty * 4);
+    const float4 a1 =
+        *reinterpret_cast<const float4*>(As + kk * LP + 64 + ty * 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(Bs + kk * LP + tx * 4);
+    const float4 b1 =
+        *reinterpret_cast<const float4*>(Bs + kk * LP + 64 + tx * 4);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * b[j];
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[8][8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+}
+
+// acc (+)= A B over K, A's element (m, k) a[m * asi + k * ask] (m < am), B's
+// element (n, k) b[n * bsi + k * bsk] (+ blo[...] where given; n < bn), B's
+// k-th row times bscale[k] where given.  AK / BK: the operand's k is its
+// contiguous index.
+template <typename TA, bool AK, typename TB, bool BK>
+__device__ void block_gemm(float (&acc)[8][8], float* As, float* Bs,
+                           const TA* a, long asi, long ask, int am,
+                           const TB* b, long bsi, long bsk, int bn, int K,
+                           const float* bscale, const TB* blo = nullptr) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  for (int k0 = 0; k0 < K; k0 += KS) {
+    load_slice<TA, AK>(As, a, asi, ask, am, K, k0, nullptr, nullptr);
+    load_slice<TB, BK>(Bs, b, bsi, bsk, bn, K, k0, bscale, blo);
+    __syncthreads();
+    fma_slice(acc, As, Bs, ty, tx);
+    __syncthreads();
+  }
+}
+
+// n_k of chunk c (slot bh * (nc - 1) + c - 1), or null for the first.
+__device__ __forceinline__ const float* n_at(const float* nk, int bh, int c,
+                                             int nc, int D) {
+  return c > 0 ? nk + (static_cast<size_t>(bh) * (nc - 1) + c - 1) * D
+               : nullptr;
+}
+
+// ---------------------------------------------------------------- walk
+// One block a (128 x 128 tile of the state's gradient, batch * head), from
+// (dC, dn) at the last chunk down to the first with the tile in registers:
+// out_c[k] = G_k, the gradient of the state after chunk k, then G <- sc_k
+// G + (u q)^T dh over chunk k.  The column block at e = 0 also carries gn
+// (f32, 128 rows a block) with z for u.  Where dC or dn is given, first
+// the block's share of <C, dC> + <n, dn> (C, n the final state) to ep.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+    walk_kernel(const T* __restrict__ q, const T* __restrict__ dh,
+                const float* __restrict__ rows,
+                const float* __restrict__ chunks,
+                const float* __restrict__ dc, const float* __restrict__ dn,
+                const float* __restrict__ C, const float* __restrict__ n,
+                float* __restrict__ out_c, float* __restrict__ out_n,
+                float* __restrict__ ep, int S, int D, int L, int nc,
+                int plant) {
+  __shared__ __align__(16) float As[KS * LP];
+  __shared__ __align__(16) float Bs[KS * LP];
+  __shared__ float red[THREADS];
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int td = (D + TILE - 1) / TILE, bh = blockIdx.y;
+  const int d0 = (blockIdx.x / td) * TILE, e0 = (blockIdx.x % td) * TILE;
+  const size_t Sp = static_cast<size_t>(nc) * L;
+  const float* fm = rows + (static_cast<size_t>(bh) * RSLOTS + kU) * Sp;
+  const float* fn = rows + (static_cast<size_t>(bh) * RSLOTS + kZ) * Sp;
+  const float* sc = chunks + static_cast<size_t>(bh) * 3 * nc + kScale * nc;
+  const T* qb = q + static_cast<size_t>(bh) * S * D;
+  const T* yb = dh + static_cast<size_t>(bh) * S * D;
+  const size_t DD = static_cast<size_t>(D) * D;
+  const bool do_n = e0 == 0 && tid < TILE && d0 + tid < D;
+  float acc[8][8];
+  float nv = 0.f, part = 0.f;
+  zero(acc);
+  if (dc != nullptr) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int r = d0 + rc(ty, i), col = e0 + rc(tx, j);
+        if (r < D && col < D) {
+          const size_t at = bh * DD + static_cast<size_t>(r) * D + col;
+          acc[i][j] = dc[at];
+          part += dc[at] * C[at];
+        }
+      }
+  }
+  if (do_n && dn != nullptr) {
+    const size_t at = static_cast<size_t>(bh) * D + d0 + tid;
+    nv = dn[at];
+    part += nv * n[at];
+  }
+  if (ep != nullptr) {
+    red[tid] = part;
+    __syncthreads();
+    for (int o = THREADS / 2; o > 0; o >>= 1) {
+      if (tid < o) red[tid] += red[tid + o];
+      __syncthreads();
+    }
+    if (tid == 0)
+      ep[static_cast<size_t>(bh) * gridDim.x + blockIdx.x] = red[0];
+  }
+  for (int c = nc - 1; c >= 0; --c) {
+    if ((plant & kPlantReset) && c == nc / 2) {
+      zero(acc);
+      nv = 0.f;
+    }
+    float* oc = out_c + (static_cast<size_t>(bh) * nc + c) * DD;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int r = d0 + rc(ty, i), col = e0 + rc(tx, j);
+        if (r < D && col < D) oc[static_cast<size_t>(r) * D + col] = acc[i][j];
+      }
+    if (do_n)
+      out_n[(static_cast<size_t>(bh) * nc + c) * D + d0 + tid] = nv;
+    if (c == 0) break;
+    const float f = sc[c];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] *= f;
+    nv *= f;
+    const int t0 = c * L, lv = min(L, S - t0);
+    for (int k0 = 0; k0 < lv; k0 += KS) {
+      // A = q^T (element (d, s) = q[t0 + s][d0 + d]), B = u dh.
+      load_slice<T, false>(As, qb + static_cast<size_t>(t0) * D + d0, 1, D,
+                           D - d0, lv, k0, nullptr, nullptr);
+      load_slice<T, false>(Bs, yb + static_cast<size_t>(t0) * D + e0, 1, D,
+                           D - e0, lv, k0, fm + t0, nullptr);
+      __syncthreads();
+      if (do_n) {
+        const int kmax = min(KS, lv - k0);
+        float x = 0.f;
+        for (int kk = 0; kk < kmax; ++kk)
+          x += fn[t0 + k0 + kk] * As[kk * LP + tid];
+        nv += x;
+      }
+      fma_slice(acc, As, Bs, ty, tx);
+      __syncthreads();
+    }
+  }
+}
+
+// ---------------------------------------------------------------- intra
+// One block a (chunk, batch * head): S = q k^T over D (with q . n_k beside
+// it), Sd = S scale exp(a_s - g_t) for s <= t to sdm [L][L] and its row
+// sums; then W = dh v^T to wm [L][L] and sum_s Sd_ts W_ts.  Per step: den
+// = decay0 scale q . n_k + rowsum and that sum (kDen, kHn).
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+    intra_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dh,
+                 const float* __restrict__ gates, float* __restrict__ rows,
+                 const float* __restrict__ nk, float* __restrict__ sdm,
+                 float* __restrict__ wm, int S, int D, int L, int nc,
+                 float scale) {
+  __shared__ __align__(16) float As[KS * LP];
+  __shared__ __align__(16) float Bs[KS * LP];
+  __shared__ float s_row[LMAX], s_hn[LMAX];
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int c = blockIdx.x, bh = blockIdx.y, t0 = c * L;
+  const int lv = min(L, S - t0);
+  const size_t Sp = static_cast<size_t>(nc) * L;
+  const float* g = gates + static_cast<size_t>(bh) * SLOTS * Sp;
+  float* rw = rows + static_cast<size_t>(bh) * RSLOTS * Sp;
+  const size_t seq = (static_cast<size_t>(bh) * S + t0) * D;
+  const float* nb = n_at(nk, bh, c, nc, D);
+  const size_t blk = (static_cast<size_t>(bh) * nc + c) * L * L;
+  float acc[8][8];
+  float qn = 0.f;
+  zero(acc);
+  for (int k0 = 0; k0 < D; k0 += KS) {
+    load_slice<T, true>(As, q + seq, D, 1, lv, D, k0, nullptr, nullptr);
+    load_slice<T, true>(Bs, k + seq, D, 1, lv, D, k0, nullptr, nullptr);
+    __syncthreads();
+    if (tid < LMAX && nb != nullptr) {
+      const int kmax = min(KS, D - k0);
+      for (int kk = 0; kk < kmax; ++kk) qn += As[kk * LP + tid] * nb[k0 + kk];
+    }
+    fma_slice(acc, As, Bs, ty, tx);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int t = rc(ty, i);
+    const float gt = t < L ? g[kG * Sp + t0 + t] : 0.f;
+    float part = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int s = rc(tx, j);
+      float val = 0.f;
+      if (s <= t && t < L)
+        val = acc[i][j] * scale * expf(g[kA * Sp + t0 + s] - gt);
+      if (t < L && s < L) sdm[blk + t * L + s] = val;
+      part += val;
+    }
+    part = row_sum16(part);
+    if (tx == 0 && t < L) s_row[t] = part;
+  }
+  zero(acc);
+  block_gemm<T, true, T, true>(acc, As, Bs, dh + seq, D, 1, lv, v + seq, D,
+                               1, lv, D, nullptr);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int t = rc(ty, i);
+    float part = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int s = rc(tx, j);
+      if (t < L && s < L) {
+        wm[blk + t * L + s] = acc[i][j];
+        part += sdm[blk + t * L + s] * acc[i][j];
+      }
+    }
+    part = row_sum16(part);
+    if (tx == 0 && t < L) s_hn[t] = part;
+  }
+  __syncthreads();
+  if (tid < L) {
+    const size_t t = t0 + tid;
+    rw[kDen * Sp + t] = g[kDecay * Sp + t] * scale * qn + s_row[tid];
+    rw[kHn * Sp + t] = s_hn[tid];
+  }
+}
+
+// ---------------------------------------------------------------- C_k dh
+// One block a (128 columns j, chunk, batch * head): Y[t][j] = sum_e dh_t[e]
+// C_k[j][e] to y [BH][Sp][D], and sum_j q_t[j] Y[t][j] to qy [tile][BH][Sp]
+// (0 for the first chunk, whose C is 0).  C_k in TC: f32, or hi + lo
+// halves in T (ck_lo).
+template <typename T, typename TC>
+__global__ void __launch_bounds__(THREADS, 1)
+    y_kernel(const T* __restrict__ q, const T* __restrict__ dh,
+             const TC* __restrict__ ck, const TC* __restrict__ ck_lo,
+             float* __restrict__ y, float* __restrict__ qy, int S, int D,
+             int L, int nc, int BH) {
+  __shared__ __align__(16) float As[KS * LP];
+  __shared__ __align__(16) float Bs[KS * LP];
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int j0 = blockIdx.x * TILE, c = blockIdx.y, bh = blockIdx.z;
+  const int t0 = c * L, lv = min(L, S - t0);
+  const size_t Sp = static_cast<size_t>(nc) * L;
+  const size_t seq = (static_cast<size_t>(bh) * S + t0) * D;
+  float acc[8][8];
+  zero(acc);
+  if (c > 0) {
+    const size_t at =
+        ((static_cast<size_t>(bh) * (nc - 1) + c - 1) * D + j0) * D;
+    block_gemm<T, true, TC, true>(acc, As, Bs, dh + seq, D, 1, lv, ck + at,
+                                  D, 1, D - j0, D, nullptr,
+                                  ck_lo != nullptr ? ck_lo + at : nullptr);
+  }
+  float* yb = y + (static_cast<size_t>(bh) * Sp + t0) * D;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int t = rc(ty, i);
+    float part = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = j0 + rc(tx, j);
+      if (t < L && col < D) {
+        yb[static_cast<size_t>(t) * D + col] = acc[i][j];
+        if (t < lv) part += to_f(q[seq + static_cast<size_t>(t) * D + col]) *
+                            acc[i][j];
+      }
+    }
+    part = row_sum16(part);
+    if (tx == 0 && t < L)
+      qy[(static_cast<size_t>(blockIdx.x) * BH + bh) * Sp + t0 + t] = part;
+  }
+}
+
+// ---------------------------------------------------------------- rows
+// One block a (chunk, batch * head): per step Dv, dden, u = decay0 scale /
+// Dv, z = decay0 scale dden (kU, kZ); then in place G (over W in wm) and
+// Sd / Dv (over Sd in sdm).
+__global__ void rows_kernel(const float* __restrict__ gates,
+                            float* __restrict__ rows,
+                            const float* __restrict__ qy,
+                            float* __restrict__ sdm, float* __restrict__ wm,
+                            int L, int nc, int BH, int td, float scale) {
+  __shared__ float s_dv[LMAX], s_dd[LMAX];
+  const int tid = threadIdx.x, c = blockIdx.x, bh = blockIdx.y, t0 = c * L;
+  const size_t Sp = static_cast<size_t>(nc) * L;
+  const float* g = gates + static_cast<size_t>(bh) * SLOTS * Sp;
+  float* rw = rows + static_cast<size_t>(bh) * RSLOTS * Sp;
+  if (tid < L) {
+    const size_t t = t0 + tid;
+    float qyv = 0.f;
+    for (int tile = 0; tile < td; ++tile)
+      qyv += qy[(static_cast<size_t>(tile) * BH + bh) * Sp + t];
+    const float den = rw[kDen * Sp + t], minv = g[kMinv * Sp + t];
+    const float dec = g[kDecay * Sp + t] * scale;
+    const float dv = fmaxf(fabsf(den), minv);
+    const float hn = dec * qyv + rw[kHn * Sp + t];
+    const float dd =
+        fabsf(den) > minv ? -copysignf(1.f, den) * hn / (dv * dv) : 0.f;
+    s_dv[tid] = dv;
+    s_dd[tid] = dd;
+    rw[kU * Sp + t] = dec / dv;
+    rw[kZ * Sp + t] = dec * dd;
+  }
+  __syncthreads();
+  const size_t blk = (static_cast<size_t>(bh) * nc + c) * L * L;
+  for (int idx = tid; idx < L * L; idx += THREADS) {
+    const int t = idx / L, s = idx % L;
+    float gv = 0.f;
+    if (s <= t)
+      gv = expf(g[kA * Sp + t0 + s] - g[kG * Sp + t0 + t]) * scale *
+           (wm[blk + idx] / s_dv[t] + s_dd[t]);
+    wm[blk + idx] = gv;
+    sdm[blk + idx] /= s_dv[t];
+  }
+}
+
+// ---------------------------------------------------------------- grads
+// One block a (128 columns j, chunk, batch * head), the three gradients
+// one after the other in one accumulator:
+//   dq = G k + u Y + z n_k          (and q . dq to rp [tile][BH][Sp])
+//   dk = w (v G_k^T + gn_k) + G^T q (and k . dk to cp)
+//   dv = w (k G_k) + (Sd / Dv)^T dh
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+    grads_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dh,
+                 const float* __restrict__ gates,
+                 const float* __restrict__ rows,
+                 const float* __restrict__ nk, const float* __restrict__ gk,
+                 const float* __restrict__ gn, const float* __restrict__ sdm,
+                 const float* __restrict__ wm, const float* __restrict__ y,
+                 T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+                 float* __restrict__ rp, float* __restrict__ cp, int S,
+                 int D, int L, int nc, int BH, int plant) {
+  __shared__ __align__(16) float As[KS * LP];
+  __shared__ __align__(16) float Bs[KS * LP];
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int j0 = blockIdx.x * TILE, c = blockIdx.y, bh = blockIdx.z;
+  const int t0 = c * L, lv = min(L, S - t0);
+  const size_t Sp = static_cast<size_t>(nc) * L;
+  const float* g = gates + static_cast<size_t>(bh) * SLOTS * Sp;
+  const float* rw = rows + static_cast<size_t>(bh) * RSLOTS * Sp;
+  const size_t seq = (static_cast<size_t>(bh) * S + t0) * D;
+  const size_t slot = static_cast<size_t>(bh) * nc + c;
+  const float* gm = wm + slot * L * L;
+  const float* sn = sdm + slot * L * L;
+  const float* gkb = gk + slot * D * D;
+  const float* gnb = gn + slot * D;
+  const float* nkb = n_at(nk, bh, c, nc, D);
+  const float* yb = y + (static_cast<size_t>(bh) * Sp + t0) * D;
+  const size_t part_at = (static_cast<size_t>(blockIdx.x) * BH + bh) * Sp + t0;
+  float acc[8][8];
+
+  // dq = G k + u Y + z n_k.
+  zero(acc);
+  block_gemm<float, true, T, false>(acc, As, Bs, gm, L, 1, lv, k + seq + j0,
+                                    1, D, D - j0, lv, nullptr);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int t = rc(ty, i);
+    const bool ok = t < lv;
+    const float u = ok ? rw[kU * Sp + t0 + t] : 0.f;
+    const float z = ok ? rw[kZ * Sp + t0 + t] : 0.f;
+    float part = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = j0 + rc(tx, j);
+      if (ok && col < D) {
+        const size_t at = static_cast<size_t>(t) * D + col;
+        float val = acc[i][j];
+        if (!(plant & kPlantDqInter))
+          val += u * yb[at] + (nkb != nullptr ? z * nkb[col] : 0.f);
+        part += to_f(q[seq + at]) * val;
+        dq[seq + at] = from_f<T>(val);
+      }
+    }
+    part = row_sum16(part);
+    if (tx == 0 && ok) rp[part_at + t] = part;
+  }
+
+  // dk = w (v G_k^T + gn_k) + G^T q.
+  zero(acc);
+  block_gemm<T, true, float, true>(acc, As, Bs, v + seq, D, 1, lv,
+                                   gkb + static_cast<size_t>(j0) * D, D, 1,
+                                   D - j0, D, nullptr);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int s = rc(ty, i);
+    const float w = s < lv ? g[kW * Sp + t0 + s] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = j0 + rc(tx, j);
+      acc[i][j] = w * (acc[i][j] + (col < D ? gnb[col] : 0.f));
+    }
+  }
+  block_gemm<float, false, T, false>(acc, As, Bs, gm, 1, L, lv,
+                                     q + seq + j0, 1, D, D - j0, lv, nullptr);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int s = rc(ty, i);
+    const bool ok = s < lv;
+    float part = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = j0 + rc(tx, j);
+      if (ok && col < D) {
+        const size_t at = static_cast<size_t>(s) * D + col;
+        part += to_f(k[seq + at]) * acc[i][j];
+        dk[seq + at] = from_f<T>(acc[i][j]);
+      }
+    }
+    part = row_sum16(part);
+    if (tx == 0 && ok) cp[part_at + s] = part;
+  }
+
+  // dv = w (k G_k) + (Sd / Dv)^T dh.
+  zero(acc);
+  block_gemm<T, true, float, false>(acc, As, Bs, k + seq, D, 1, lv,
+                                    gkb + j0, 1, D, D - j0, D, nullptr);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int s = rc(ty, i);
+    const float w = s < lv ? g[kW * Sp + t0 + s] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] *= w;
+  }
+  block_gemm<float, false, T, false>(acc, As, Bs, sn, 1, L, lv,
+                                     dh + seq + j0, 1, D, D - j0, lv,
+                                     nullptr);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int s = rc(ty, i);
+    if (s >= lv) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = j0 + rc(tx, j);
+      if (col < D)
+        dv[seq + static_cast<size_t>(s) * D + col] = from_f<T>(acc[i][j]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- final
+// One block a (batch, head): r_t, c_t summed over the column tiles; dlog_i
+// = c - E [t = s*]; dlog_f = reverse cumsum of r - c + E [t <= s*], where
+// the state has a gradient: E = <C, dC> + <n, dn> (summed from ep), s* the
+// first step of the largest li_s - F_s above 0 (F the cumsum of log f over
+// the sequence), or none.  Each thread takes a segment of steps; thread 0
+// scans the segments' totals.
+__global__ void final_kernel(const float* __restrict__ log_f,
+                             const float* __restrict__ log_i,
+                             const float* __restrict__ rp,
+                             const float* __restrict__ cp,
+                             const float* __restrict__ ep,
+                             float* __restrict__ dlf, float* __restrict__ dli,
+                             int S, int nc, int L, int BH, int td, int nep,
+                             int plant) {
+  __shared__ float seg[THREADS];
+  __shared__ float s_best[THREADS];
+  __shared__ int s_arg[THREADS];
+  const int tid = threadIdx.x, bh = blockIdx.x;
+  const size_t Sp = static_cast<size_t>(nc) * L;
+  const int per = (S + THREADS - 1) / THREADS;
+  const int lo = min(S, tid * per), hi = min(S, lo + per);
+  float e = 0.f;
+  int st = -1;
+  if (nep > 0) {
+    for (int i = 0; i < nep; ++i) e += ep[static_cast<size_t>(bh) * nep + i];
+    const float* lf = log_f + static_cast<size_t>(bh) * S;
+    const float* li = log_i + static_cast<size_t>(bh) * S;
+    float f = 0.f;
+    for (int t = lo; t < hi; ++t) f += lf[t];
+    seg[tid] = f;
+    __syncthreads();
+    if (tid == 0) {
+      float run = 0.f;
+      for (int i = 0; i < THREADS; ++i) {
+        const float x = seg[i];
+        seg[i] = run;
+        run += x;
+      }
+    }
+    __syncthreads();
+    float fg = seg[tid], best = 0.f;
+    int arg = -1;
+    for (int t = lo; t < hi; ++t) {
+      fg += lf[t];
+      if (li[t] - fg > best) {
+        best = li[t] - fg;
+        arg = t;
+      }
+    }
+    s_best[tid] = best;
+    s_arg[tid] = arg;
+    __syncthreads();
+    if (tid == 0) {
+      float b = 0.f;
+      int a = -1;
+      for (int i = 0; i < THREADS; ++i)
+        if (s_arg[i] >= 0 && s_best[i] > b) {
+          b = s_best[i];
+          a = s_arg[i];
+        }
+      s_arg[0] = a;
+    }
+    __syncthreads();
+    st = s_arg[0];
+    __syncthreads();  // seg is reused below
+  }
+  float sum = 0.f;
+  for (int t = lo; t < hi; ++t)
+    for (int tile = 0; tile < td; ++tile) {
+      const size_t at = (static_cast<size_t>(tile) * BH + bh) * Sp + t;
+      sum += rp[at] - cp[at];
+    }
+  seg[tid] = sum;
+  __syncthreads();
+  if (tid == 0) {
+    float run = 0.f;
+    for (int i = THREADS - 1; i >= 0; --i) {
+      const float x = seg[i];
+      seg[i] = run;
+      run += x;
+    }
+  }
+  __syncthreads();
+  float run = seg[tid];
+  for (int t = hi - 1; t >= lo; --t) {
+    float r = 0.f, cc = 0.f;
+    for (int tile = 0; tile < td; ++tile) {
+      const size_t at = (static_cast<size_t>(tile) * BH + bh) * Sp + t;
+      r += rp[at];
+      cc += cp[at];
+    }
+    const float before = run;
+    run += r - cc;
+    const size_t o = static_cast<size_t>(bh) * S + t;
+    dlf[o] = ((plant & kPlantShift) ? before : run) + (t <= st ? e : 0.f);
+    dli[o] = cc - (t == st ? e : 0.f);
+  }
+}
+
+template <typename T>
+int launch(const T* q, const T* k, const T* v, const float* lf,
+           const float* li, const T* dh, const float* dc, const float* dn,
+           const float* C, const float* n, const float* gates,
+           const float* chunks, const void* ck, const void* ck_lo,
+           const float* nk, T* dq, T* dk, T* dv, float* dlf, float* dli,
+           float* rows, float* gk, float* gn, float* sdm, float* wm,
+           float* y, float* qy, float* rp, float* cp, float* ep, int BH,
+           int S, int D, int L, int plant, cudaStream_t st) {
+  const int nc = (S + L - 1) / L, td = (D + TILE - 1) / TILE;
+  const bool has_state = dc != nullptr || dn != nullptr;
+  const float scale = rsqrtf(static_cast<float>(D));
+  cudaError_t err;
+  intra_kernel<T><<<dim3(nc, BH), THREADS, 0, st>>>(q, k, v, dh, gates, rows,
+                                                    nk, sdm, wm, S, D, L, nc,
+                                                    scale);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  if (ck_lo != nullptr)
+    y_kernel<T, T><<<dim3(td, nc, BH), THREADS, 0, st>>>(
+        q, dh, static_cast<const T*>(ck), static_cast<const T*>(ck_lo), y, qy,
+        S, D, L, nc, BH);
+  else
+    y_kernel<T, float><<<dim3(td, nc, BH), THREADS, 0, st>>>(
+        q, dh, static_cast<const float*>(ck), nullptr, y, qy, S, D, L, nc,
+        BH);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  rows_kernel<<<dim3(nc, BH), THREADS, 0, st>>>(gates, rows, qy, sdm, wm, L,
+                                                nc, BH, td, scale);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  walk_kernel<T><<<dim3(td * td, BH), THREADS, 0, st>>>(
+      q, dh, rows, chunks, dc, dn, C, n, gk, gn, has_state ? ep : nullptr, S,
+      D, L, nc, plant);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  grads_kernel<T><<<dim3(td, nc, BH), THREADS, 0, st>>>(
+      q, k, v, dh, gates, rows, nk, gk, gn, sdm, wm, y, dq, dk, dv, rp, cp, S,
+      D, L, nc, BH, plant);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  final_kernel<<<BH, THREADS, 0, st>>>(lf, li, rp, cp, ep, dlf, dli, S, nc, L,
+                                       BH, td, has_state ? td * td : 0,
+                                       plant);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace mlstm_bwd
+}  // namespace repro
+
+// The backward.  q, k, v, dh, dq, dk, dv (B*H, S, D) in `dtype`; log_f,
+// log_i, dlog_f, dlog_i (B*H, S) f32; dc (B*H, D, D), dn (B*H, D) f32 or
+// null.  The forward's recompute on the same inputs (the top of the file):
+// C, n the final state, gates, chunks, ck (and ck_lo: route wgmma's lo
+// halves, else null, ck then f32) and nk.  Scratch from the wrapper, nc =
+// ceil(S / L), Sp = nc * L, td = ceil(D / 128), all f32: rows [B*H][4][Sp],
+// gk [B*H][nc][D][D], gn [B*H][nc][D], sdm and wm [B*H][nc][L][L], y
+// [B*H][Sp][D], qy, rp and cp [td][B*H][Sp], ep [B*H][td * td].  plant:
+// chip_smoke.py's planted faults, 0 otherwise.  1 <= L <= 128.  Returns
+// cudaGetLastError() after the last launch.
+extern "C" int mlstm_chunkwise_bwd_launch(
+    const void* q, const void* k, const void* v, const void* log_f,
+    const void* log_i, const void* dh, const void* dc, const void* dn,
+    const void* C, const void* n, const void* gates, const void* chunks,
+    const void* ck, const void* ck_lo, const void* nk, void* dq, void* dk,
+    void* dv, void* dlog_f, void* dlog_i, void* rows, void* gk, void* gn,
+    void* sdm, void* wm, void* y, void* qy, void* rp, void* cp, void* ep,
+    int BH, int S, int D, int L, int dtype, int plant, void* stream) {
+  if (L < 1 || L > repro::mlstm_bwd::LMAX || S < 1 || D < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_MLSTM_BWD(T)                                                  \
+  repro::mlstm_bwd::launch<T>(                                              \
+      static_cast<const T*>(q), static_cast<const T*>(k),                   \
+      static_cast<const T*>(v), static_cast<const float*>(log_f),           \
+      static_cast<const float*>(log_i), static_cast<const T*>(dh),          \
+      static_cast<const float*>(dc), static_cast<const float*>(dn),         \
+      static_cast<const float*>(C), static_cast<const float*>(n),           \
+      static_cast<const float*>(gates), static_cast<const float*>(chunks),  \
+      ck, ck_lo, static_cast<const float*>(nk), static_cast<T*>(dq),        \
+      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(dlog_f), \
+      static_cast<float*>(dlog_i), static_cast<float*>(rows),               \
+      static_cast<float*>(gk), static_cast<float*>(gn),                     \
+      static_cast<float*>(sdm), static_cast<float*>(wm),                    \
+      static_cast<float*>(y), static_cast<float*>(qy),                      \
+      static_cast<float*>(rp), static_cast<float*>(cp),                     \
+      static_cast<float*>(ep), BH, S, D, L, plant,                          \
+      static_cast<cudaStream_t>(stream))
+  switch (dtype) {
+    case repro::kF32: return REPRO_MLSTM_BWD(float);
+    case repro::kBF16: return REPRO_MLSTM_BWD(__nv_bfloat16);
+    case repro::kF16: return REPRO_MLSTM_BWD(__half);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_MLSTM_BWD
 }

@@ -38,19 +38,40 @@ alignment, and ``mlstm_chunkwise.routes`` counts the launches of each
 The wrapper runs the plain version :func:`repro_torch.kernels.ref.
 mlstm_chunkwise_ref` only for CPU tensors; for CUDA tensors it launches its
 route's kernel or raises, and counts one launch a call in
-``mlstm_chunkwise.launches``.  There is no backward kernel (the TPU kernel
-has none either); :func:`repro_torch.kernels.ops.mlstm_chunkwise` refuses
-a gradient on the card.
+``mlstm_chunkwise.launches``.
+
+:func:`mlstm_chunkwise_bwd` is the gradient, which the TPU kernel does not
+have (the reference's comes from JAX differentiating its XLA chunkwise
+path): (dq, dk, dv, dlog_f, dlog_i) of h and, where given, of the final C
+and n.  It first recomputes the forward's chunk states with the forward's
+own route (:func:`_route`, counted in ``mlstm_chunkwise_bwd.routes``):
+``"wgmma"``'s gate and state passes, which hand it every chunk's C_k in
+hi + lo, or the ``"simt"`` kernel writing its gates, C_k and n_k in f32.
+Then six launches (``csrc/mlstm_chunkwise.cu``, ``mlstm_bwd``), f32 on
+the CUDA cores in 128 x 128 tiles: per chunk S = q k^T, W = dh v^T and
+the denominators; C_k dh; the per-step dnum / dden factors; the reverse
+walk of the state's gradient G_k from (dC, dn) down; dq, dk, dv with the
+partial row and column sums of P o dP; dlog_i and dlog_f's reverse
+cumulative sum.  ~2.2 GB of scratch at the xLSTM training shape (C_k and
+G_k of every chunk).  Bound: operations
+(:func:`bwd_flops`, 343.8 GFLOP at B 4, H 4, S 2048, D 1024, chunk 128:
+0.348 ms at 989 TFLOP/s).  A gradient of the final m raises on the card
+(training never returns the state).  On CPU tensors the wrapper returns
+the gradient of the plain forward by autograd (:func:`repro_torch.kernels.
+ref.mlstm_chunkwise_autograd_ref`); its closed form, the kernel's plain
+version on the card, is :func:`repro_torch.kernels.ref.
+mlstm_chunkwise_bwd_ref`.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import mlstm_chunkwise_ref
+from repro_torch.kernels.ref import (mlstm_chunkwise_autograd_ref,
+                                     mlstm_chunkwise_ref)
 from repro_torch.kernels.sma_gemm import DTYPE_CODES
 
 #: The longest chunk the kernels hold.
@@ -58,19 +79,37 @@ MAX_CHUNK = 128
 #: The chunk of the ``wgmma`` route.
 WGMMA_CHUNK = 128
 
-#: simt: q, k, v, log_f, log_i, out, C, n, m; B*H, S, D, L, dtype; stream.
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+#: simt: q, k, v, log_f, log_i, out, C, n, m, gates, chunks, ck, nk; B*H,
+#: S, D, L, dtype; stream.
+_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 #: wgmma: q, k, v, log_f, log_i, out, C, n, m, gates, chunks, sd, rowsum,
-#: ck, nk; B*H, S, D, dtype, plant; stream.
-_WG_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+#: ck, nk; B*H, S, D, dtype, plant, state_only; stream.
+_WG_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
                 + [ctypes.c_void_p])
+
+
+#: backward: q, k, v, log_f, log_i, dh, dc, dn, C, n, gates, chunks, ck,
+#: ck_lo, nk, dq, dk, dv, dlog_f, dlog_i, rows, gk, gn, sdm, wm, y, qy, rp,
+#: cp, ep; B*H, S, D, L, dtype, plant; stream.
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p])
+#: Planted faults of the backward (a bit mask; must match
+#: ``csrc/mlstm_chunkwise.cu``, ``mlstm_bwd``): the reverse state gradient
+#: reset at chunk nc // 2; dq's inter-chunk terms dropped; dlog_f's reverse
+#: cumulative sum shifted by one step.
+BWD_PLANT_RESET, BWD_PLANT_DQ_INTER, BWD_PLANT_SHIFT = 1, 2, 4
+#: Per-step scratch slots of the forward's gates (``repro::SLOTS``) and
+#: of the backward's own (``mlstm_bwd::RSLOTS``).
+_SLOTS, _BWD_SLOTS = 5, 4
+_TILE = 128
 
 
 def _lib() -> ctypes.CDLL:
     return _build.load("mlstm_chunkwise",
                        {"mlstm_chunkwise_launch": _ARGTYPES,
                         "mlstm_chunkwise_wgmma_launch": _WG_ARGTYPES,
-                        "mlstm_chunkwise_wgmma_smem": [ctypes.c_int]})
+                        "mlstm_chunkwise_wgmma_smem": [ctypes.c_int],
+                        "mlstm_chunkwise_bwd_launch": _BWD_ARGTYPES})
 
 
 def wgmma_smem() -> dict:
@@ -92,6 +131,15 @@ def _route(s: int, d: int, chunk: int, dtype: torch.dtype,
     return "simt"
 
 
+def _route_of(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              chunk: int) -> str:
+    """:func:`_route` of contiguous q, k, v: the forward's, and the route of
+    the backward's recompute."""
+    _, _, s, d = q.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    return _route(s, d, chunk, q.dtype, aligned)
+
+
 def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          lf: torch.Tensor, li: torch.Tensor, L: int, route: str,
          plant: int = 0) -> Tuple[torch.Tensor, ...]:
@@ -102,45 +150,67 @@ def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     beside the ``wgmma`` one on the same inputs and to feed the ``wgmma``
     kernels the planted faults of ``plant`` (``ref.PLANT_*``, 0
     otherwise)."""
+    return _launch(q, k, v, lf, li, L, route, plant, False)[:4]
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            lf: torch.Tensor, li: torch.Tensor, L: int, route: str,
+            plant: int, recompute: bool) -> Tuple:
+    """:func:`_run`, returning (h, C, n, m, scratch).  With ``recompute``
+    (the backward's) the launch also hands over what the backward reads,
+    scratch = (gates, chunks, C_k, C_k's lo halves or None, n_k), and route
+    ``wgmma`` runs its gate and state passes alone (h is not written)."""
     b, h, s, d = q.shape
-    bh = b * h
+    bh, nc = b * h, -(-s // L)
+    slabs = bh * max(nc - 1, 1)
+    f32 = dict(dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
-    c = torch.empty((b, h, d, d), dtype=torch.float32, device=q.device)
-    n = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    c = torch.empty((b, h, d, d), **f32)
+    n = torch.empty((b, h, d), **f32)
+    m = torch.empty((b, h), **f32)
     lib = _lib()
+    scratch = None
+    if route == "wgmma" or recompute:
+        gates = torch.empty(bh * (_SLOTS * nc * L + 3 * nc), **f32)
+        chunks = gates[bh * _SLOTS * nc * L:]
+        nk = torch.empty(slabs * d, **f32)
     if route == "simt":
         if plant:
             raise ValueError("the simt kernel takes no planted faults")
+        ptrs = [None] * 4
+        if recompute:
+            ck = torch.empty((slabs, d, d), **f32)
+            scratch = (gates, chunks, ck, None, nk)
+            ptrs = [t.data_ptr() for t in (gates, chunks, ck, nk)]
         with torch.cuda.device(q.device):
             err = lib.mlstm_chunkwise_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), lf.data_ptr(),
                 li.data_ptr(), out.data_ptr(), c.data_ptr(), n.data_ptr(),
-                m.data_ptr(), bh, s, d, L, DTYPE_CODES[q.dtype],
+                m.data_ptr(), *ptrs, bh, s, d, L, DTYPE_CODES[q.dtype],
                 _build.stream_of(q))
     elif route == "wgmma" and L == WGMMA_CHUNK:
-        nc = -(-s // L)
-        slabs = bh * max(nc - 1, 1)
-        f32 = dict(dtype=torch.float32, device=q.device)
-        gates = torch.empty(bh * (5 * nc * L + 3 * nc), **f32)
-        chunks = gates[bh * 5 * nc * L:]
-        sd = torch.empty((2, bh * nc, L, L), dtype=q.dtype, device=q.device)
-        rowsum = torch.empty(bh * nc * L, **f32)
+        sd = rowsum = None
+        if not recompute:
+            sd = torch.empty((2, bh * nc, L, L), dtype=q.dtype,
+                             device=q.device)
+            rowsum = torch.empty(bh * nc * L, **f32)
         ck = torch.empty((2, slabs, d, d), dtype=q.dtype, device=q.device)
-        nk = torch.empty(slabs * d, **f32)
+        scratch = (gates, chunks, ck[0], ck[1], nk)
         with torch.cuda.device(q.device):
             err = lib.mlstm_chunkwise_wgmma_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), lf.data_ptr(),
                 li.data_ptr(), out.data_ptr(), c.data_ptr(), n.data_ptr(),
                 m.data_ptr(), gates.data_ptr(), chunks.data_ptr(),
-                sd.data_ptr(), rowsum.data_ptr(), ck.data_ptr(),
-                nk.data_ptr(), bh, s, d, DTYPE_CODES[q.dtype], plant,
+                sd.data_ptr() if sd is not None else None,
+                rowsum.data_ptr() if rowsum is not None else None,
+                ck.data_ptr(), nk.data_ptr(), bh, s, d,
+                DTYPE_CODES[q.dtype], plant, int(recompute),
                 _build.stream_of(q))
     else:
         raise ValueError(f"mlstm_chunkwise has no route {route!r} for "
                          f"chunks of {L}")
     _build.check(lib, err, f"mlstm_chunkwise ({route})")
-    return out, c, n, m
+    return out, c, n, m, scratch
 
 
 def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -177,8 +247,7 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"the kernel takes chunks of 1..{MAX_CHUNK} steps, "
                          f"got {chunk}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
-    route = _route(s, d, chunk, q.dtype, aligned)
+    route = _route_of(q, k, v, chunk)
     out, c, n, m = _run(q, k, v, log_f.float().contiguous(),
                         log_i.float().contiguous(), L, route)
     mlstm_chunkwise.launches += 1
@@ -186,9 +255,124 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, (c, n, m)) if return_state else out
 
 
-#: Launches per route (:func:`_route`), read as ``mlstm_chunkwise.routes``;
-#: ``ops.reset_counts`` clears them.  A module dict, so a stand-in that
-#: takes the wrapper's name (a planted fault) still counts into it.
+def bwd_flops(b: int, h: int, s: int, d: int, chunk: int) -> float:
+    """Operations of the backward's products at these shapes with the
+    gradient of h alone (the trainer's call), counting the causal (query,
+    key) pairs only: per chunk the five L x L x D products (S, W, G k, G^T
+    q, (Sd / Dv)^T dh); the D x D products of the chunks that have a state
+    before them (C_k dh, the reverse walk) and of those that have a
+    gradient after them (C_k's update, dk's and dv's inter-chunk terms)."""
+    L = min(chunk, s)
+    rows = [min(L, s - c) for c in range(0, s, L)]
+    pairs = sum(r * (r + 1) // 2 for r in rows)
+    before, after = sum(rows[1:]), sum(rows[:-1])
+    return float(2 * b * h * (5 * pairs * d + d * d * (2 * before
+                                                        + 3 * after)))
+
+
+def _run_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             lf: torch.Tensor, li: torch.Tensor, dh: torch.Tensor,
+             dc: Optional[torch.Tensor], dn: Optional[torch.Tensor], L: int,
+             plant: int = 0) -> Tuple[torch.Tensor, ...]:
+    """The backward on contiguous (B, H, S, D) q, k, v, dh, f32 gates and
+    f32 dc, dn or None, chunks of L steps: the forward's recompute on its
+    route (:func:`_route_of`), then the backward's launches; returns (dq,
+    dk, dv, dlog_f, dlog_i), the last two f32.  Counts nothing
+    (``chip_smoke.py`` feeds it the planted faults of ``plant``,
+    ``BWD_PLANT_*``, 0 otherwise)."""
+    b, h, s, d = q.shape
+    bh, nc, td = b * h, -(-s // L), -(-d // _TILE)
+    sp = nc * L
+    route = _route_of(q, k, v, L)
+    _, c, n, _, (gates, chunks, ck, ck_lo, nk) = _launch(
+        q, k, v, lf, li, L, route, 0, True)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dlf, dli = torch.empty((b, h, s), **f32), torch.empty((b, h, s), **f32)
+    rows = torch.empty(bh * _BWD_SLOTS * sp, **f32)
+    gk = torch.empty((bh, nc, d, d), **f32)
+    gn = torch.empty((bh, nc, d), **f32)
+    sdm, wm = (torch.empty((bh, nc, L, L), **f32) for _ in range(2))
+    y = torch.empty((bh, sp, d), **f32)
+    qy, rp, cp = (torch.empty((td, bh, sp), **f32) for _ in range(3))
+    ep = torch.empty((bh, td * td), **f32)
+    lib = _lib()
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+    with torch.cuda.device(q.device):
+        err = lib.mlstm_chunkwise_bwd_launch(
+            *(ptr(t) for t in (q, k, v, lf, li, dh, dc, dn, c, n, gates,
+                               chunks, ck, ck_lo, nk, dq, dk, dv, dlf, dli,
+                               rows, gk, gn, sdm, wm, y, qy, rp, cp, ep)),
+            bh, s, d, L, DTYPE_CODES[q.dtype], plant, _build.stream_of(q))
+    _build.check(lib, err, f"mlstm_chunkwise_bwd ({route})")
+    return dq, dk, dv, dlf, dli
+
+
+def mlstm_chunkwise_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        log_f: torch.Tensor, log_i: torch.Tensor,
+                        dh: Optional[torch.Tensor],
+                        dc: Optional[torch.Tensor] = None,
+                        dn: Optional[torch.Tensor] = None,
+                        dm: Optional[torch.Tensor] = None, *,
+                        chunk: int = 128) -> Tuple[torch.Tensor, ...]:
+    """Gradients (dq, dk, dv, dlog_f, dlog_i) of :func:`mlstm_chunkwise`
+    given the gradients of h (``dh``, None: zero) and of the final state
+    (``dc``, ``dn``, ``dm``; None where not read), each in its input's
+    dtype.  On the card ``dm`` must be None (module docstring)."""
+    if not _build.on_card("mlstm_chunkwise_bwd", q):
+        return mlstm_chunkwise_autograd_ref((q, k, v, log_f, log_i), chunk,
+                                            (dh, dc, dn, dm))
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k and v must share one (B, H, S, D) shape, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, h, s, d = q.shape
+    if dm is not None:
+        raise NotImplementedError(
+            "mlstm_chunkwise_bwd takes no gradient of the final m on the "
+            "card (csrc/mlstm_chunkwise.cu); read the state without m")
+    if dh is None:
+        dh = torch.zeros_like(q)
+    if dh.shape != q.shape or log_f.shape != (b, h, s) \
+            or log_i.shape != (b, h, s):
+        raise ValueError(f"dh must be {tuple(q.shape)} and log_f, log_i "
+                         f"{(b, h, s)}, got {tuple(dh.shape)}, "
+                         f"{tuple(log_f.shape)}, {tuple(log_i.shape)}")
+    if (dc is not None and dc.shape != (b, h, d, d)) or \
+            (dn is not None and dn.shape != (b, h, d)):
+        raise ValueError(f"dc must be {(b, h, d, d)} and dn {(b, h, d)}")
+    if q.dtype not in DTYPE_CODES or any(t.dtype != q.dtype
+                                         for t in (k, v, dh)):
+        raise ValueError(f"q, k, v and dh must share one of f32/bf16/f16, "
+                         f"got {[t.dtype for t in (q, k, v, dh)]}")
+    ins = [t for t in (k, v, log_f, log_i, dh, dc, dn) if t is not None]
+    if any(t.device != q.device for t in ins):
+        raise ValueError(f"all inputs must be on {q.device}")
+    if s < 1 or d < 1:
+        raise ValueError(f"S and D must be positive, got {(s, d)}")
+    L = min(chunk, s)
+    if not 1 <= L <= MAX_CHUNK:
+        raise ValueError(f"the kernel takes chunks of 1..{MAX_CHUNK} steps, "
+                         f"got {chunk}")
+    q, k, v, dh = (t.contiguous() for t in (q, k, v, dh))
+    dc, dn = (t.float().contiguous() if t is not None else None
+              for t in (dc, dn))
+    dq, dk, dv, dlf, dli = _run_bwd(q, k, v, log_f.float().contiguous(),
+                                    log_i.float().contiguous(), dh, dc, dn, L)
+    mlstm_chunkwise_bwd.launches += 1
+    BWD_ROUTES[_route_of(q, k, v, L)] += 1
+    return dq, dk, dv, dlf.to(log_f.dtype), dli.to(log_i.dtype)
+
+
+#: Launches per route (:func:`_route`), read as ``mlstm_chunkwise.routes``
+#: and ``mlstm_chunkwise_bwd.routes``; ``ops.reset_counts`` clears them.
+#: Module dicts, so a stand-in that takes a wrapper's name (a planted fault)
+#: still counts into them.
 ROUTES = dict.fromkeys(("wgmma", "simt"), 0)
+BWD_ROUTES = dict.fromkeys(("wgmma", "simt"), 0)
 mlstm_chunkwise.launches = 0
 mlstm_chunkwise.routes = ROUTES
+mlstm_chunkwise_bwd.launches = 0
+mlstm_chunkwise_bwd.routes = BWD_ROUTES

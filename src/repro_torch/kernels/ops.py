@@ -22,8 +22,7 @@ Each entry point:
   too.  With grad mode off (the serving engine's ``torch.inference_mode()``)
   it calls the wrapper directly: ``Function.apply`` costs about 10 us a
   call on an H100 machine's host, 3.9 % of a full-width decode step
-  (``chip_smoke.py``, ``entry_overhead``).  :func:`mlstm_chunkwise` has
-  no backward kernel yet and refuses a gradient on the card;
+  (``chip_smoke.py``, ``entry_overhead``);
 * routes statically, mirroring the JAX package: a paged-attention site with
   more than one query token per row (a chunked-prefill tile) or a window
   goes to the plain :func:`repro_torch.kernels.ref.paged_attention_ref`, as
@@ -53,6 +52,8 @@ Each entry point:
   ``sma_gemm.routes`` (``wgmma``, ``splitk``, ``tile``, ``f32``),
   ``rmsnorm_gemm.routes`` (``wgmma``, ``tile``, ``f32``),
   ``mlstm_chunkwise.routes`` (``wgmma``, ``simt``),
+  ``mlstm_chunkwise_bwd.routes`` (the route of its recompute of the
+  forward: ``wgmma``, ``simt``),
   ``rglru_scan.routes`` and ``rglru_scan_bwd.routes`` (``tma``,
   ``simt``) and the flash wrappers' ``.routes``.
 
@@ -98,6 +99,7 @@ WRAPPERS = {
     "rglru_scan": _rglru.rglru_scan,
     "rglru_scan_bwd": _rglru.rglru_scan_bwd,
     "mlstm_chunkwise": _mlstm.mlstm_chunkwise,
+    "mlstm_chunkwise_bwd": _mlstm.mlstm_chunkwise_bwd,
 }
 
 
@@ -108,12 +110,12 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_counts() -> None:
     """Zero every wrapper's launches, the routes of ``sma_gemm``,
-    ``rmsnorm_gemm``, ``mlstm_chunkwise``, ``rglru_scan`` (forward and
+    ``rmsnorm_gemm``, ``mlstm_chunkwise`` and ``rglru_scan`` (forward and
     backward) and the flash kernels, and :data:`ROUTED`."""
     for fn in WRAPPERS.values():
         fn.launches = 0
     for routes in (_gemm.ROUTES, _norm.ROUTES, _mlstm.ROUTES,
-                   _rglru.ROUTES, _rglru.BWD_ROUTES, _flash.FWD_ROUTES,
+                   _mlstm.BWD_ROUTES, _rglru.ROUTES, _rglru.BWD_ROUTES, _flash.FWD_ROUTES,
                    _flash.BWD_ROUTES):
         routes.update(dict.fromkeys(routes, 0))
     ROUTED.clear()
@@ -255,23 +257,15 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S).  Returns h (B, H, S, D) in q's dtype and, with ``return_state``,
     also the final (C (B, H, D, D), n (B, H, D), m (B, H)) in float32: the
     kernel computes the state itself, so nothing is routed (the JAX
-    package sends such a site down its XLA path).
-
-    On the card there is no backward kernel: with grad mode on and an
-    input that requires a gradient this raises, and does not fall back to
-    the plain version."""
-    _refuse_gradient("mlstm_chunkwise", "csrc/mlstm_chunkwise.cu",
-                     (q, k, v, log_f, log_i))
-    return _mlstm.mlstm_chunkwise(q, k, v, log_f, log_i, chunk=chunk,
-                                  return_state=return_state)
-
-
-def _refuse_gradient(name: str, where: str, ins) -> None:
-    if ins[0].device.type == "cuda" and torch.is_grad_enabled() \
-            and any(t.requires_grad for t in ins):
-        raise NotImplementedError(
-            f"{name} has no backward kernel on the card yet ({where}); run "
-            f"it without a gradient")
+    package sends such a site down its XLA path).  With grad mode on it
+    goes through :class:`repro_torch.kernels.autograd.MlstmChunkwise`,
+    whose backward is the ``mlstm_chunkwise_bwd`` kernel."""
+    if not torch.is_grad_enabled():
+        return _mlstm.mlstm_chunkwise(q, k, v, log_f, log_i, chunk=chunk,
+                                      return_state=return_state)
+    out = _autograd.MlstmChunkwise.apply(q, k, v, log_f, log_i, chunk,
+                                         return_state)
+    return (out[0], tuple(out[1:])) if return_state else out
 
 
 def paged_route(c: int, window: Optional[int]) -> Optional[str]:

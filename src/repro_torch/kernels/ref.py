@@ -418,6 +418,120 @@ def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, (c, n, m)) if return_state else out
 
 
+def mlstm_chunkwise_autograd_ref(ins, chunk: int, grads):
+    """(dq, dk, dv, dlog_f, dlog_i) of :func:`mlstm_chunkwise_ref`'s (h, C,
+    n, m) by autograd of the plain forward: ``ins`` = (q, k, v, log_f,
+    log_i), ``grads`` the gradients of h, C, n and m, None where the output
+    is not read (what the ``mlstm_chunkwise_bwd`` wrapper returns for CPU
+    tensors)."""
+    with torch.enable_grad():
+        live = [t.detach().requires_grad_() for t in ins]
+        h, state = mlstm_chunkwise_ref(*live, chunk=chunk, return_state=True)
+        outs = [(o, g) for o, g in zip((h, *state), grads) if g is not None]
+        if not outs:
+            return tuple(torch.zeros_like(t) for t in ins)
+        return torch.autograd.grad([o for o, _ in outs], live,
+                                   [g for _, g in outs])
+
+
+def mlstm_final_m(log_f: torch.Tensor, log_i: torch.Tensor, *,
+                  chunk: int) -> torch.Tensor:
+    """The stabilizer m of :func:`mlstm_chunkwise_ref`'s final state (B, H),
+    from the gates alone: per chunk of L = min(chunk, S) steps (the ragged
+    tail padded as there), g_L = max(m, max(log i - cumsum(log f))) and m
+    <- sum(log f) + g_L, from m = 0."""
+    s = log_f.shape[-1]
+    L = min(chunk, s)
+    pad = (-s) % L
+    lf = torch.nn.functional.pad(log_f.float(), (0, pad))
+    li = torch.nn.functional.pad(log_i.float(), (0, pad), value=NEG_INF)
+    m = lf.new_zeros(lf.shape[:-1])
+    for t0 in range(0, s + pad, L):
+        b_cum = lf[..., t0:t0 + L].cumsum(-1)
+        g_last = torch.maximum(m, (li[..., t0:t0 + L] - b_cum).amax(-1))
+        m = b_cum[..., -1] + g_last
+    return m
+
+
+def mlstm_chunkwise_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, log_f: torch.Tensor,
+                            log_i: torch.Tensor, dh: torch.Tensor,
+                            dc: Optional[torch.Tensor] = None,
+                            dn: Optional[torch.Tensor] = None, *,
+                            chunk: int) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the ``mlstm_chunkwise_bwd`` kernel: the gradients
+    (dq, dk, dv, dlog_f, dlog_i) of :func:`mlstm_chunkwise_ref`'s h, and of
+    its final (C, n) where ``dc`` (B, H, D, D) / ``dn`` (B, H, D) are given,
+    in closed form over the whole causal (S, S) matrix, in float32.
+
+    With F = cumsum(log f), P_ts = exp(F_t - F_s + li_s) (q_t . k_s) / sqrt(D)
+    for s <= t, h_t = num_t / max(|den_t|, 1), num = P v, den = P 1: dnum_t
+    = dh_t / max(|den_t|, 1); dden_t = -sign(den_t) (dh_t . h_t) / |den_t|
+    where |den_t| > 1, else 0; dP_ts = dnum_t . v_s + dden_t.  Then dq = (P
+    / (q k^T) o dP) k, dk = its transpose times q, dv = P^T dnum; dlog_i the
+    column sums of P o dP, dlog_f_j = sum_{t>=j} (row sum - column sum)_t
+    plus <C, dC> + <n, dn>.  Each row is stabilized by its own max
+    exponent M_t (the max compares |den_t| with exp(-M_t)), which cancels.
+    The final state carries the forward's stabilizer m
+    (:func:`mlstm_final_m`), so ``chunk`` matters only with ``dc``/``dn``.
+    Returns dq, dk, dv in q's dtype, dlog_f and dlog_i in their inputs'."""
+    b, h, s, d = q.shape
+    scale = d ** -0.5
+    q32, k32, v32, dh32 = q.float(), k.float(), v.float(), dh.float()
+    lf, li = log_f.float(), log_i.float()
+    fc = lf.cumsum(-1)
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    expo = torch.where(causal, fc[..., :, None] - fc[..., None, :]
+                       + li[..., None, :], -math.inf)        # (B, H, t, s)
+    row_max = expo.amax(-1)
+    e = torch.exp(expo - row_max[..., None])
+    p = e * (q32 @ k32.transpose(-1, -2)) * scale
+    den = p.sum(-1)
+    floor = torch.exp(-row_max)
+    div = torch.maximum(den.abs(), floor)
+    hh = (p @ v32) / div[..., None]
+    dnum = dh32 / div[..., None]
+    dden = torch.where(den.abs() > floor,
+                       -torch.sign(den) * (dh32 * hh).sum(-1) / div, 0.0)
+    dp = dnum @ v32.transpose(-1, -2) + dden[..., None]
+    g = e * dp * scale
+    dq = g @ k32
+    dk = g.transpose(-1, -2) @ q32
+    dv = p.transpose(-1, -2) @ dnum
+    r = (p * dp).sum(-1)
+    c = (p * dp).sum(-2)
+    extra = torch.zeros_like(r[..., 0])
+    if dc is not None or dn is not None:
+        m = mlstm_final_m(log_f, log_i, chunk=chunk)
+        w = torch.exp(fc[..., -1:] - fc + li - m[..., None])   # (B, H, S)
+        inner = torch.zeros_like(k32)
+        if dc is not None:
+            inner = inner + v32 @ dc.float().transpose(-1, -2)
+            dv = dv + w[..., None] * (k32 @ dc.float())
+        if dn is not None:
+            inner = inner + dn.float()[..., None, :]
+        dk = dk + w[..., None] * inner
+        fin = w * (k32 * inner).sum(-1)
+        c = c + fin
+        extra = fin.sum(-1)
+    dlog_f = (r - c).flip(-1).cumsum(-1).flip(-1)
+    if dc is not None or dn is not None:
+        # The returned state is C exp(-m) with m = F_{S-1} + max(0, li_s* -
+        # F_s*) (s* the argmax): its gradient moves log f up to s* by
+        # <C, dC> + <n, dn>, which the frame's exp(-m) takes back after s*
+        # and from li_s*.
+        cand = li - fc
+        top, star = cand.max(-1)
+        wins = top > 0
+        upto = torch.arange(s, device=q.device) <= star[..., None]
+        dlog_f = dlog_f + extra[..., None] * (upto & wins[..., None])
+        c = c - torch.where(
+            wins[..., None] & (torch.arange(s, device=q.device)
+                               == star[..., None]), extra[..., None], 0.0)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+            dlog_f.to(log_f.dtype), c.to(log_i.dtype))
+
+
 #: Planted faults of the mLSTM ``wgmma`` kernels and of
 #: :func:`mlstm_chunkwise_two_pass_ref` (a bit mask; must match
 #: ``csrc/mlstm_chunkwise.cu``): the lo half of the state update (w k)

@@ -33,7 +33,7 @@ import dataclasses
 import functools
 import json
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -182,7 +182,7 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, *,
     return finish()
 
 
-def main() -> None:
+def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)
@@ -195,7 +195,8 @@ def main() -> None:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--device", default=None,
                     help="default cuda; 'cpu' runs the plain versions")
-    args = ap.parse_args()
+    ap.add_argument("--out", default=None, help="write history JSON here")
+    args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -207,6 +208,9 @@ def main() -> None:
                            peak_lr=args.lr)
     result = train(cfg, loop, device=args.device)
     print(f"[train] engine {json.dumps(result['engine'])}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result["history"], f, indent=1)
 
 
 if __name__ == "__main__":

@@ -50,14 +50,17 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-               window: Optional[int] = None) -> torch.Tensor:
+               window: Optional[int] = None,
+               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Training / prefill forward.  x (B, S, D) -> (B, S, D).
 
-    Project and rope, then causal (optionally windowed) flash attention in
+    Project and rope at ``positions`` ((1 or B, S) integers; default
+    ``arange(S)``), then causal (optionally windowed) flash attention in
     the kernel's (B, H, S, hd) layout -- the transposes are copies -- and
     the output projection."""
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None, :]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(params, x, cfg, positions)       # (B, S, H, hd)
     out = ops.flash_attention(q.transpose(1, 2).contiguous(),
                               k.transpose(1, 2).contiguous(),

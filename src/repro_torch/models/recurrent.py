@@ -20,12 +20,14 @@ width is d_model (recurrentgemma-2b).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compiler import loop
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import compute_cast, variance_scaling_init
@@ -393,19 +395,27 @@ def _slstm_out(params: dict, hs: torch.Tensor, h_heads: int
     return ops.sma_gemm(ff, compute_cast(params["w_ff2"], hs.dtype))
 
 
+def _slstm_body(h_heads: int, state: dict, wx_t: torch.Tensor,
+                r_gates: torch.Tensor) -> Tuple[dict, torch.Tensor]:
+    """:func:`_slstm_step` as a scan body: (new state, its h)."""
+    new = _slstm_step(r_gates, wx_t, state, h_heads)
+    return new, new["h"]
+
+
 def slstm_block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig
                         ) -> Tuple[torch.Tensor, dict]:
     """The block over a whole sequence, one step at a time from the zero
-    state.  x (B, S, D) -> (y (B, S, D), the final state)."""
+    state, as one :func:`repro_torch.compiler.loop.scan` (the reference's
+    ``lax.scan``): eagerly a Python loop, in a compiled step one loop node
+    (and one reverse loop node in its backward).  x (B, S, D) -> (y (B, S,
+    D), the final state)."""
     b, s, d = x.shape
     wx = _slstm_gates(params, x).float()   # read in f32 by every step
-    r_gates = params["r_gates"].float()
     state = slstm_block_init_state(cfg, b, x.dtype, x.device)
-    hs = []
-    for t in range(s):
-        state = _slstm_step(r_gates, wx[:, t], state, cfg.num_heads)
-        hs.append(state["h"])
-    hs = torch.stack(hs, 1).reshape(b, s, d).to(x.dtype)
+    state, hs = loop.scan(functools.partial(_slstm_body, cfg.num_heads),
+                          state, wx.transpose(0, 1),
+                          params["r_gates"].float(), name="slstm_step")
+    hs = hs.transpose(0, 1).reshape(b, s, d).to(x.dtype)
     return _slstm_out(params, hs, cfg.num_heads), state
 
 

@@ -18,7 +18,8 @@ boxes), the flash forward and the contiguous decode at MQA with
 head_dim 256, and ``lm.prefill`` / ``lm.decode_step`` of a small recurrent
 model; and the xLSTM ones: the chunkwise mLSTM (h and its final state, at
 small and full head dim, ragged S, every dtype; its wgmma route against
-its simt route and the plain version) and the serving steps of a small
+its simt route and the plain version; its backward kernel against the
+closed form ``ref.mlstm_chunkwise_bwd_ref``) and the serving steps of a small
 xLSTM; the head's rmsnorm_gemm on its wgmma route against the tile route
 and the plain version.
 Tolerances: the reference's ``tol_for`` (3e-2 for 16-bit outputs, one
@@ -639,7 +640,8 @@ def test_train_steps_on_card_match_cpu(dev):
         "sma_gemm": 28 * layers + 2, "rmsnorm_gemm": 1,
         "flash_attention": 2 * layers, "flash_attention_bwd": layers,
         "paged_decode_attention": 0, "decode_attention": 0,
-        "rglru_scan": 0, "rglru_scan_bwd": 0, "mlstm_chunkwise": 0}
+        "rglru_scan": 0, "rglru_scan_bwd": 0, "mlstm_chunkwise": 0,
+        "mlstm_chunkwise_bwd": 0}
     assert not ops.ROUTED
     got = train(cfg, loop, device=dev, params=copy(dev))
     np.testing.assert_allclose([h["loss"] for h in got["history"]],
@@ -832,9 +834,10 @@ def test_rglru_scan_tma_shared_memory_fits_a_block(dev):
 
 
 def test_rglru_scan_refuses_a_gradient_on_card(dev):
-    """The scan refused a gradient on the card until its backward kernel;
-    now a gradient through ``ops.rglru_scan`` launches ``rglru_scan_bwd``
-    once (and the mLSTM, which has none yet, still refuses)."""
+    """The scans refused a gradient on the card until their backward
+    kernels; now a gradient through ``ops.rglru_scan`` launches
+    ``rglru_scan_bwd`` once, and one through ``ops.mlstm_chunkwise``
+    ``mlstm_chunkwise_bwd`` once."""
     a = torch.full((1, 4, 8), 0.5, device=dev, requires_grad=True)
     u = torch.ones((1, 4, 8), device=dev)
     ops.reset_counts()
@@ -847,8 +850,11 @@ def test_rglru_scan_refuses_a_gradient_on_card(dev):
     assert torch.equal(da, want)
     q = torch.zeros((1, 1, 4, 8), device=dev, requires_grad=True)
     f = torch.zeros((1, 1, 4), device=dev)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.mlstm_chunkwise(q, q, q, f, f, chunk=4)
+    (dq,) = torch.autograd.grad(
+        ops.mlstm_chunkwise(q, q, q, f, f, chunk=4).sum(), [q])
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mlstm_chunkwise_bwd"] == 1
+    assert torch.isfinite(dq).all()
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -1173,11 +1179,14 @@ def test_mlstm_wgmma_shared_memory_fits_a_block(dev):
 
 
 def test_mlstm_chunkwise_refuses_what_it_does_not_take(dev):
-    """A gradient (no backward kernel), a chunk past 128, mixed dtypes."""
+    """A gradient of the final m (the backward kernel takes none), a chunk
+    past 128, mixed dtypes."""
     q, k, v, lf, li = mlstm_inputs(1, 1, 16, 8, torch.float32, dev, 60)
     q.requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.mlstm_chunkwise(q, k, v, lf, li, chunk=16)
+    _, (_, _, m) = ops.mlstm_chunkwise(q, k, v, lf, li, chunk=16,
+                                       return_state=True)
+    with pytest.raises(NotImplementedError, match="final m"):
+        torch.autograd.grad(m.sum(), [q])
     with torch.no_grad():
         assert torch.isfinite(ops.mlstm_chunkwise(q, k, v, lf, li,
                                                   chunk=16)).all()
@@ -1187,6 +1196,68 @@ def test_mlstm_chunkwise_refuses_what_it_does_not_take(dev):
         mlstm_chunkwise(*long_ins, chunk=256)
     with pytest.raises(ValueError, match="share one of"):
         mlstm_chunkwise(q, k.bfloat16(), v, lf, li, chunk=16)
+
+
+#: The backward kernel against its closed form, each output's largest
+#: error over its largest entry; the gate gradients' over the largest
+#: term dlog_f sums: dlog_f is the difference of the row and column sums
+#: dlog_i is made of, plus E = <C, dC> + <n, dn> where the final state has
+#: a gradient, and cancels to 0 at S 1.  f32 sums the same terms in other
+#: orders; a 16-bit output adds its own rounding (2^-9 of bf16).
+MLSTM_BWD_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 1e-2,
+                   torch.float16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,h,s,d,chunk,state", [
+    (1, 2, 128, 32, 32, False), (2, 1, 100, 64, 32, True),   # ragged S
+    (2, 2, 257, 200, 16, True),                # D not a multiple of 128
+    (1, 1, 300, 1024, 128, False),             # xLSTM's head dim
+    (1, 2, 1, 16, 128, True)])                 # one step
+def test_mlstm_chunkwise_bwd_matches_closed_form(dev, dtype, b, h, s, d,
+                                                 chunk, state):
+    """(dq, dk, dv, dlog_f, dlog_i) of the backward kernel against
+    ``ref.mlstm_chunkwise_bwd_ref`` on the same inputs, with the gradient of
+    h alone or with the final (C, n)'s, within MLSTM_BWD_LIMIT; one launch,
+    its recompute on the forward's route."""
+    dt = DTYPES[dtype]
+    ins = mlstm_inputs(b, h, s, d, dt, dev, 3 * s + d)
+    dh = randn((b, h, s, d), dt, dev, 9)
+    dc = randn((b, h, d, d), torch.float32, dev, 10) if state else None
+    dn = randn((b, h, d), torch.float32, dev, 11) if state else None
+    ops.reset_counts()
+    got = kmlstm.mlstm_chunkwise_bwd(*ins, dh, dc, dn, chunk=chunk)
+    torch.cuda.synchronize()
+    fwd = kmlstm._route_of(*ins[:3], chunk)
+    assert kmlstm.BWD_ROUTES == {"wgmma": int(fwd == "wgmma"),
+                                 "simt": int(fwd == "simt")}
+    want = ref.mlstm_chunkwise_bwd_ref(*ins, dh, dc, dn, chunk=chunk)
+    gates = max(w.abs().max().item() for w in want[3:])
+    if state:
+        _, (c, n, _) = ref.mlstm_chunkwise_ref(*ins, chunk=chunk,
+                                               return_state=True)
+        e = (c * dc).sum((-1, -2)) + (n * dn).sum(-1)
+        gates = max(gates, e.abs().max().item())
+    for i, (g, w, x) in enumerate(zip(got, want, ins)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        scale = w.float().abs().max().item() if i < 3 else gates
+        err = (g.float() - w.float()).abs().max().item() / scale
+        assert err <= MLSTM_BWD_LIMIT[dt], (i, err)
+
+
+def test_mlstm_gradient_reaches_weights_on_card(dev):
+    """``ops.mlstm_chunkwise`` under autograd on the card: the gradients
+    of q, k, v and the gates equal one ``mlstm_chunkwise_bwd`` call's."""
+    ins = mlstm_inputs(2, 2, 200, 64, torch.bfloat16, dev, 77)
+    live = [t.detach().requires_grad_() for t in ins]
+    dh = randn((2, 2, 200, 64), torch.bfloat16, dev, 78)
+    ops.reset_counts()
+    got = torch.autograd.grad(ops.mlstm_chunkwise(*live, chunk=128), live,
+                              dh)
+    want = kmlstm.mlstm_chunkwise_bwd(*ins, dh, chunk=128)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mlstm_chunkwise_bwd"] == 2
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_xlstm_serving_on_card_matches_cpu(dev):

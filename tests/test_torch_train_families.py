@@ -56,6 +56,7 @@ from repro_torch.compiler.trace import KERNEL_ENTRY_OPS
 from repro_torch.configs import get_config, reduced
 from repro_torch.data import pipeline as tpipe
 from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import mlstm as kmlstm
 from repro_torch.kernels import norm_gemm as knorm
 from repro_torch.kernels import rglru as krglru
 from repro_torch.kernels import sma_gemm as kgemm
@@ -219,7 +220,9 @@ WRAPPERS = {"sma_gemm": (kgemm, "sma_gemm"),
             "flash_attention_fwd": (kflash, "flash_attention_fwd"),
             "flash_attention_bwd": (kflash, "flash_attention_bwd"),
             "rglru_scan": (krglru, "rglru_scan"),
-            "rglru_scan_bwd": (krglru, "rglru_scan_bwd")}
+            "rglru_scan_bwd": (krglru, "rglru_scan_bwd"),
+            "mlstm_chunkwise": (kmlstm, "mlstm_chunkwise"),
+            "mlstm_chunkwise_bwd": (kmlstm, "mlstm_chunkwise_bwd")}
 
 
 @pytest.fixture
@@ -235,14 +238,17 @@ def calls(monkeypatch):
     return seen
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "recurrentgemma-2b",
+                                  "xlstm-1.3b"])
 def test_one_gradient_node_per_direct_launch_by_family(arch, calls):
     """The traced step of an MoE (the router an ``sma_gemm`` site, counted
-    forward and backward) and of RecurrentGemma (the scans and their
-    reverse-scan backward, the windowed flash) holds one node per kernel
-    call of the direct step; the compiled step calls each kernel once per
-    node but the remat groups' recomputed last products, which nothing
-    reads (``tests/test_torch_train_jit.py``)."""
+    forward and backward), of RecurrentGemma (the scans and their
+    reverse-scan backward, the windowed flash) and of xLSTM (the chunkwise
+    mLSTM, forward and recomputed, and its backward; the sLSTM's loop
+    nodes launch no kernel) holds one node per kernel call of the direct
+    step; the compiled step calls each kernel once per node but the remat
+    groups' recomputed last products, which nothing reads
+    (``tests/test_torch_train_jit.py``)."""
     cfg = _configs(arch)[1]
     ocfg = adamw.AdamWConfig(peak_lr=1e-2, warmup_steps=1, total_steps=4)
     kw = dict(cfg=cfg, ocfg=ocfg, remat=True, grad_compression=False)
@@ -257,10 +263,14 @@ def test_one_gradient_node_per_direct_launch_by_family(arch, calls):
         # q, k, v, o and the router, each forward, recomputed, dA and dB;
         # the head's dW through sma_gemm; its forward and dnormed fused.
         assert direct_calls["sma_gemm"] == 5 * 4 * layers + 2
-    else:
+    elif "rglru" in cfg.block_pattern:
         rg = sum(b == "rglru" for b in cfg.block_pattern) * cfg.num_groups
         assert direct_calls["rglru_scan"] == 2 * rg
         assert direct_calls["rglru_scan_bwd"] == rg
+    else:
+        ml = sum(b == "mlstm" for b in cfg.block_pattern) * cfg.num_groups
+        assert direct_calls["mlstm_chunkwise"] == 2 * ml
+        assert direct_calls["mlstm_chunkwise_bwd"] == ml
     cm = make_step(cfg, ocfg, remat=True,
                    grad_compression=False).compile(*state, batch)
     nodes = collections.Counter(
@@ -272,5 +282,6 @@ def test_one_gradient_node_per_direct_launch_by_family(arch, calls):
     assert set(calls) == set(direct_calls)
     for name, n in calls.items():
         assert n <= direct_calls[name], name
-    for name in ("rglru_scan_bwd", "flash_attention_bwd", "rmsnorm_gemm"):
+    for name in ("rglru_scan_bwd", "mlstm_chunkwise_bwd",
+                 "flash_attention_bwd", "rmsnorm_gemm"):
         assert calls.get(name) == direct_calls.get(name), name
