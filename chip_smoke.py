@@ -223,6 +223,7 @@ import gc
 import io
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -392,10 +393,19 @@ MLSTM_CHUNK = 128
 # mLSTM backward kernel vs its plain version (the f32 closed form), per
 # gradient max |err| / max |plain|: dq, dk and dv are rounded to bf16 (2^-9
 # of the largest), and the kernel sums the same f32 terms in another
-# order (by chunk, through the state).  On an H100 the noise reads at most
-# 0.0046 (dk; dlog_f, dlog_i 1.1e-5, 1.7e-5) and the weakest planted fault
-# of check_mlstm_bwd 0.243 (dlog_f's cumsum one step short; PERF.md).
+# order (by chunk, through the state; its wgmma route with every f32
+# operand in hi + lo halves).  On an H100 the noise reads at most 0.0046
+# (dk; dlog_f, dlog_i 1.1e-5, 1.7e-5; the wgmma route 0.00368, 1.3e-5,
+# 2.4e-5) and the weakest planted fault of check_mlstm_bwd 0.243 (dlog_f's
+# cumsum one step short; PERF.md).
 MLSTM_BWD_LIMIT = 1e-2
+# The backward's simt route at an f32 shape (B, H, S, D, chunk; S ragged,
+# D not a multiple of 64), per gradient max |err| / max |plain|: both sides
+# sum the same f32 terms in other orders, as the card tests' f32 limit
+# (tests/test_torch_cuda.py MLSTM_BWD_LIMIT); on an H100 it reads at most
+# 1.8e-5 (PERF.md).
+MLSTM_BWD_SIMT_CASE = (2, 4, 1000, 200, 128)
+MLSTM_BWD_F32_LIMIT = 1e-4
 # Logits of the 3-layer xLSTM model (prefill's last position, then one
 # decode step), kernels vs plain versions, max |err|; the faults of
 # XL_FAULTS marked must lie above it (PERF.md).
@@ -5100,17 +5110,48 @@ def mlstm_bwd_errors(got, want) -> list:
             for g, w in zip(got, want)]
 
 
+def device_ms_by_kernel(fn, args) -> dict:
+    """Device ms of each kernel in one call of ``fn(*args)``
+    (``torch.profiler``, device activity only), largest first, keyed by
+    the kernel's name cut before its template and parameters."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                ev.self_device_time_total > 0:
+            name = ev.key.split("<")[0].split("(")[0].split("::")[-1]
+            out[name] = out.get(name, 0.0) + ev.self_device_time_total / 1e3
+    return dict(sorted(((k, round(v, 4)) for k, v in out.items()),
+                       key=lambda kv: -kv[1]))
+
+
+def no_spills(ptxas: dict, what: str) -> None:
+    """Fail where ``-Xptxas -v`` reported spill stores for a kernel of
+    ``ptxas`` (:func:`ptxas_entries`)."""
+    spilled = {fn: rep for fn, rep in ptxas.items()
+               if re.search(r"[1-9]\d* bytes spill stores", rep)}
+    if spilled:
+        fail(f"{what}: ptxas spills registers in {spilled}")
+
+
 def check_mlstm_bwd(gen, dev):
     """The mLSTM backward kernel against its plain version, the closed form
     ``ref.mlstm_chunkwise_bwd_ref`` (f32, over the whole causal matrix), at
     the training shape (B 4, H 4, S 2048, D 1024, chunk 128, bf16): with
     the gradient of h alone (the trainer's call) and with the final (C,
-    n)'s; every gradient within MLSTM_BWD_LIMIT of its largest entry, its
-    recompute of the forward on the ``wgmma`` route.  Planted faults fed to the kernel, each of which
-    must move some gradient past the limit: the reverse state gradient
-    reset at chunk nc / 2, dq's inter-chunk terms dropped, dlog_f's
-    reverse cumulative sum shifted by one step.  Timed with its bound;
-    no PyTorch call computes it."""
+    n)'s; every gradient within MLSTM_BWD_LIMIT of its largest entry, on
+    the backward's own ``wgmma`` route (its products on the tensor cores).
+    Planted faults fed to that route, each of which must move some
+    gradient past the limit: the reverse state gradient reset at chunk nc
+    / 2, dq's inter-chunk terms dropped, dlog_f's reverse cumulative sum
+    shifted by one step.  Timed with its bound and beside route ``simt``
+    on the same inputs (the CUDA-core design, ``simt_ms``); the ``wgmma``
+    kernels' ptxas report (no spills) and dynamic shared memory (each
+    within a block's 232,448 bytes).  No PyTorch call computes it."""
     cfg = get_config(XL_ARCH)
     b, h, s, dt = XL_TRAIN_BATCH, cfg.num_heads, XL_TRAIN_SEQ, torch.bfloat16
     d = int(cfg.d_model * cfg.mlstm_proj_factor) // h
@@ -5140,6 +5181,14 @@ def check_mlstm_bwd(gen, dev):
                  f"plain version")
         if state:
             continue
+        smem = kmlstm.bwd_smem()
+        if max(smem.values()) > 232448:
+            fail(f"mlstm backward wgmma kernels: dynamic shared memory "
+                 f"{smem} past a block's 232,448 bytes")
+        ptxas = {k: v for k, v in ptxas_entries(
+            "mlstm_chunkwise", "mlstm_bwd").items()
+            if "wg_kernel" in k and "__half" not in k}
+        no_spills(ptxas, "mlstm backward wgmma kernels")
         lf32, li32 = ins[3].float().contiguous(), ins[4].float().contiguous()
         for name, plant in (("reverse state gradient reset at chunk nc/2",
                              kmlstm.BWD_PLANT_RESET),
@@ -5174,18 +5223,70 @@ def check_mlstm_bwd(gen, dev):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         run(*args[0])
+        peak = torch.cuda.max_memory_allocated() - base
+        row["passes_ms"] = device_ms_by_kernel(run, args[0])
+        print(f"mlstm backward {shape}: device ms of one call by kernel "
+              f"{json.dumps(row['passes_ms'])}")
         row.update(kernel_route=route, relative_errors=errs,
-                   scratch_peak_bytes=torch.cuda.max_memory_allocated()
-                   - base,
-                   ptxas={k: v for k, v in ptxas_entries(
-                       "mlstm_chunkwise", "mlstm_bwd").items()
-                       if "__half" not in k and "kernelIf" not in k})
-        rows.append(row)
+                   scratch_peak_bytes=peak, ptxas=ptxas, smem_bytes=smem)
         del got, want
+        torch.cuda.empty_cache()
+        row["simt_ms"] = time_ms(lambda *a: kmlstm._run_bwd(
+            *a, None, None, chunk, route="simt"),
+            [(*ins[:3], lf32, li32, dh)], 2)
+        rows.append(row)
         torch.cuda.empty_cache()
     del ins, dh, dc, dn
     torch.cuda.empty_cache()
     return rows
+
+
+def check_mlstm_bwd_simt(gen, dev):
+    """The backward's ``simt`` route (f32 on the CUDA cores: f32 inputs, D
+    not a multiple of 64, chunks under 128) against the closed form at
+    MLSTM_BWD_SIMT_CASE (f32, ragged S, with the final (C, n)'s
+    gradients): every gradient within MLSTM_BWD_F32_LIMIT of its largest
+    entry; timed with its bound (f32 operations on the CUDA cores) and its
+    ptxas report."""
+    b, h, s, d, chunk = MLSTM_BWD_SIMT_CASE
+    dt = torch.float32
+    ins = mlstm_inputs(gen, dev, b, h, s, d, dt)
+    dh = torch.randn((b, h, s, d), generator=gen, device=dev)
+    dc = torch.randn((b, h, d, d), generator=gen, device=dev)
+    dn = torch.randn((b, h, d), generator=gen, device=dev)
+    before = dict(kmlstm.BWD_ROUTES)
+    got = kmlstm.mlstm_chunkwise_bwd(*ins, dh, dc, dn, chunk=chunk)
+    route = kernel_route(kmlstm.BWD_ROUTES, before, "mlstm_chunkwise_bwd")
+    want = ref.mlstm_chunkwise_bwd_ref(*ins, dh, dc, dn, chunk=chunk)
+    errs = mlstm_bwd_errors(got, want)
+    shape = f"B={b} H={h} S={s} D={d} chunk={chunk} f32 dC dn"
+    print(f"mlstm backward {shape} ({route}): max |err| / max |plain| of "
+          f"dq, dk, dv, dlog_f, dlog_i {[float(f'{x:.3g}') for x in errs]} "
+          f"(limit {MLSTM_BWD_F32_LIMIT})")
+    if route != "simt" or max(errs) > MLSTM_BWD_F32_LIMIT or not all(
+            torch.isfinite(g).all() for g in got):
+        fail(f"mlstm_chunkwise_bwd {shape}: the simt route disagrees with "
+             f"its plain version")
+
+    def run(*a):
+        return kmlstm.mlstm_chunkwise_bwd(*a, dc, dn, chunk=chunk)
+
+    def plain(*a):
+        return ref.mlstm_chunkwise_bwd_ref(*a, dc, dn, chunk=chunk)
+
+    args = [(*ins, dh)]
+    nbytes = 4 * (7 * dh.numel() + 4 * b * h * s + dc.numel() + dn.numel())
+    row = entry("mlstm_chunkwise_bwd", shape, max(
+        (g - w).abs().max().item() for g, w in zip(got, want)),
+        time_ms(run, args, 3), time_ms(plain, args, 2),
+        bound(nbytes, kmlstm.bwd_flops(b, h, s, d, chunk), dt), None)
+    row.update(kernel_route=route, relative_errors=errs,
+               ptxas={k: v for k, v in ptxas_entries(
+                   "mlstm_chunkwise", "mlstm_bwd").items()
+                   if "wg_kernel" not in k and "kernelIf" in k})
+    del got, want, ins, dh, dc, dn
+    torch.cuda.empty_cache()
+    return [row]
 
 
 def check_moe_backward(cfg, dev):
@@ -5549,7 +5650,9 @@ def main(argv=None) -> int:
     rows += phase("mlstm kernel checks", check_mlstm, gen, dev)
     torch.cuda.empty_cache()
     rows += phase("rglru backward kernel checks", check_rglru_bwd, gen, dev)
-    rows += phase("mlstm backward kernel checks", check_mlstm_bwd, gen, dev)
+    rows += phase("mlstm backward kernel checks",
+                  lambda: check_mlstm_bwd(gen, dev)
+                  + check_mlstm_bwd_simt(gen, dev))
     torch.cuda.empty_cache()
     rows += phase("train kernel checks", check_train_kernels, gen, dev)
     torch.cuda.empty_cache()

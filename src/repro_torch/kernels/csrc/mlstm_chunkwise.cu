@@ -1343,11 +1343,46 @@ extern "C" int mlstm_chunkwise_wgmma_smem(int pass) {
 // PyTorch over the whole (S, S) matrix).
 //
 // The wrapper first recomputes the forward's chunk states with the
-// forward's own route (kernels/mlstm.py `_route`): route wgmma's gate and
-// state passes (C_k in hi + lo halves), or route simt's kernel writing its
-// gates, C_k and n_k in f32.  Then six launches, all arithmetic f32 on the
-// CUDA cores, 128 x 128 output tiles register-tiled 8 x 8 a thread over
-// 32-deep slices in shared memory:
+// forward's own route (kernels/mlstm.py `_route`), then runs the backward on
+// the same route.
+//
+// Route wgmma (bf16/f16, D % 64 == 0, chunks of 128 steps, 16-byte-aligned
+// bases): the forward's gate and state passes hand over C_k in hi + lo
+// halves; then four launches on the tensor cores, each 384 threads (a TMA
+// producer warpgroup, two consumer warpgroups of 64 output rows), and
+// final_kernel:
+//   y_wg_kernel      one block a (128 columns j, chunk >= 1, batch * head):
+//                    Y = dh C_k^T over D and its row dots q . Y.  A pass of
+//                    its own because dden needs the whole row's q . Y
+//                    before any G exists; it hands Y to the grads pass in
+//                    f32 (134 MB at the training shape, written and read
+//                    once: ~0.08 ms of bytes, where forming it again there
+//                    would cost ~0.13 ms of tensor-core time and a C_k
+//                    phase more in that kernel).
+//   intra_wg_kernel  one block a (batch * head, chunk): S = q k^T and W =
+//                    dh v^T (both sides exact), den, Dv, dden, u, z per step
+//                    in registers, G and Sd / Dv to the grads pass in hi +
+//                    lo (the simt route's intra and rows kernels in one).
+//   walk_wg_kernel   one block a (128 x 128 tile of the state's gradient,
+//                    batch * head): the forward's state_kernel in reverse,
+//                    the tile the f32 accumulator from (dC, dn) down, A =
+//                    (u q)^T rewritten from q's TMA'd boxes as hi / lo, each
+//                    chunk's G_k handed over in hi + lo by TMA store, gn_k
+//                    beside it in f32.
+//   grads_wg_kernel  one block a (128 columns, chunk, batch * head): dq = G
+//                    k + u Y + z n_k, dk = w (v G_k^T + gn_k) + G^T q, dv =
+//                    w (k G_k) + (Sd / Dv)^T dh in one accumulator, in 48 KB
+//                    stages of TMA'd boxes; q . dq and k . dk from the f32
+//                    accumulator before the rounding to T, per column tile.
+// Deterministic: every sum across blocks goes through per-tile partials
+// summed in a fixed order (no atomics), so a gradient is the same bits call
+// to call.  Scratch comes from the wrapper; the largest are C_k and G_k of
+// every chunk in hi + lo (~1.0 GB each) and Y (f32) at the training shape.
+//
+// Route simt (f32, D not a multiple of 64, chunks under 128, a single
+// step): the simt forward kernel writes its gates, C_k and n_k in f32;
+// then six launches, all arithmetic f32 on the CUDA cores, 128 x 128 output
+// tiles register-tiled 8 x 8 a thread over 32-deep slices in shared memory:
 //   intra_kernel  one block a (chunk, batch * head): Sd, W = dh v^T, den
 //                 and sum_s Sd W;
 //   y_kernel      one block a (128 columns, chunk, batch * head): C_k dh
@@ -1360,13 +1395,16 @@ extern "C" int mlstm_chunkwise_wgmma_smem(int pass) {
 //                 dv and the partial row and column sums;
 //   final_kernel  one block a (batch, head): s*, dlog_i and the reverse
 //                 cumulative sum of dlog_f.
-// Scratch comes from the wrapper; the largest are C_k (route wgmma: hi +
-// lo in T) and G_k (f32) of every chunk, 2.1 GB together at the xLSTM
-// training shape B 4, H 4, S 2048, D 1024.
 //
 // What bounds it on an H100: operations (kernels/mlstm.py bwd_flops: 343.8
-// GFLOP at that shape, 0.348 ms at 989 TFLOP/s); the six launches run them
-// at the f32 CUDA-core rate (PERF.md has the time).
+// GFLOP at B 4, H 4, S 2048, D 1024, chunk 128, 0.348 ms at 989 TFLOP/s; 5.1
+// ms at the 67 TFLOP/s of f32 CUDA cores, route simt's floor).  Route wgmma
+// runs them on the tensor cores at about twice the count (every product
+// with an f32 side is two wgmma, its hi and lo halves: ~690 GFLOP, ~0.7 ms
+// at peak) and moves ~4.4 GB of hand-offs (C_k written and read, G_k
+// written and read twice, Y; ~1.3 ms at 3.35 TB/s): 2.99 ms on an H100
+// (11.6 % of the bound; 2.46 GB of scratch and outputs); route simt at
+// that shape 31.9 ms (PERF.md row 6b).
 // ===========================================================================
 namespace repro {
 namespace mlstm_bwd {
@@ -1397,16 +1435,8 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-// base[at], plus lo[at] where the operand comes as hi and lo halves.
-template <typename Tin>
-__device__ __forceinline__ float elem(const Tin* base, const Tin* lo,
-                                      long at) {
-  const float x = to_f(base[at]);
-  return lo != nullptr ? x + to_f(lo[at]) : x;
-}
-
 // dst[kk][i] (pitch LP) = element (i, k0 + kk) of an operand whose element
-// (i, k) is base[i * si + k * sk] (+ lo[...] where given), times
+// (i, k) is base[i * si + k * sk], times
 // kscale[k0 + kk] where given; 0 outside i < imax, k < kmax.  KFAST: k is
 // the contiguous index (lane kk of each warp, rows by warp); else i is
 // (consecutive threads, consecutive i).
@@ -1414,8 +1444,7 @@ template <typename Tin, bool KFAST>
 __device__ __forceinline__ void load_slice(float* dst, const Tin* base,
                                            long si, long sk, int imax,
                                            int kmax, int k0,
-                                           const float* kscale,
-                                           const Tin* lo) {
+                                           const float* kscale) {
   const int tid = threadIdx.x;
   if (KFAST) {
     const int kk = tid & 31, w = tid >> 5, k = k0 + kk;
@@ -1425,7 +1454,7 @@ __device__ __forceinline__ void load_slice(float* dst, const Tin* base,
     for (int p = 0; p < TILE / 8; ++p) {
       const int i = w + 8 * p;
       dst[kk * LP + i] =
-          (kok && i < imax) ? f * elem(base, lo, i * si + k * sk) : 0.f;
+          (kok && i < imax) ? f * to_f(base[i * si + k * sk]) : 0.f;
     }
   } else {
 #pragma unroll 4
@@ -1433,7 +1462,7 @@ __device__ __forceinline__ void load_slice(float* dst, const Tin* base,
       const int idx = tid + THREADS * p;
       const int i = idx % TILE, kk = idx / TILE, k = k0 + kk;
       const bool ok = k < kmax && i < imax;
-      float x = ok ? elem(base, lo, i * si + k * sk) : 0.f;
+      float x = ok ? to_f(base[i * si + k * sk]) : 0.f;
       if (ok && kscale != nullptr) x *= kscale[k];
       dst[kk * LP + i] = x;
     }
@@ -1469,18 +1498,18 @@ __device__ __forceinline__ void zero(float (&acc)[8][8]) {
 }
 
 // acc (+)= A B over K, A's element (m, k) a[m * asi + k * ask] (m < am), B's
-// element (n, k) b[n * bsi + k * bsk] (+ blo[...] where given; n < bn), B's
+// element (n, k) b[n * bsi + k * bsk] (n < bn), B's
 // k-th row times bscale[k] where given.  AK / BK: the operand's k is its
 // contiguous index.
 template <typename TA, bool AK, typename TB, bool BK>
 __device__ void block_gemm(float (&acc)[8][8], float* As, float* Bs,
                            const TA* a, long asi, long ask, int am,
                            const TB* b, long bsi, long bsk, int bn, int K,
-                           const float* bscale, const TB* blo = nullptr) {
+                           const float* bscale) {
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   for (int k0 = 0; k0 < K; k0 += KS) {
-    load_slice<TA, AK>(As, a, asi, ask, am, K, k0, nullptr, nullptr);
-    load_slice<TB, BK>(Bs, b, bsi, bsk, bn, K, k0, bscale, blo);
+    load_slice<TA, AK>(As, a, asi, ask, am, K, k0, nullptr);
+    load_slice<TB, BK>(Bs, b, bsi, bsk, bn, K, k0, bscale);
     __syncthreads();
     fma_slice(acc, As, Bs, ty, tx);
     __syncthreads();
@@ -1582,9 +1611,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int k0 = 0; k0 < lv; k0 += KS) {
       // A = q^T (element (d, s) = q[t0 + s][d0 + d]), B = u dh.
       load_slice<T, false>(As, qb + static_cast<size_t>(t0) * D + d0, 1, D,
-                           D - d0, lv, k0, nullptr, nullptr);
+                           D - d0, lv, k0, nullptr);
       load_slice<T, false>(Bs, yb + static_cast<size_t>(t0) * D + e0, 1, D,
-                           D - e0, lv, k0, fm + t0, nullptr);
+                           D - e0, lv, k0, fm + t0);
       __syncthreads();
       if (do_n) {
         const int kmax = min(KS, lv - k0);
@@ -1628,8 +1657,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   float qn = 0.f;
   zero(acc);
   for (int k0 = 0; k0 < D; k0 += KS) {
-    load_slice<T, true>(As, q + seq, D, 1, lv, D, k0, nullptr, nullptr);
-    load_slice<T, true>(Bs, k + seq, D, 1, lv, D, k0, nullptr, nullptr);
+    load_slice<T, true>(As, q + seq, D, 1, lv, D, k0, nullptr);
+    load_slice<T, true>(Bs, k + seq, D, 1, lv, D, k0, nullptr);
     __syncthreads();
     if (tid < LMAX && nb != nullptr) {
       const int kmax = min(KS, D - k0);
@@ -1684,13 +1713,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 // ---------------------------------------------------------------- C_k dh
 // One block a (128 columns j, chunk, batch * head): Y[t][j] = sum_e dh_t[e]
 // C_k[j][e] to y [BH][Sp][D], and sum_j q_t[j] Y[t][j] to qy [tile][BH][Sp]
-// (0 for the first chunk, whose C is 0).  C_k in TC: f32, or hi + lo
-// halves in T (ck_lo).
-template <typename T, typename TC>
+// (0 for the first chunk, whose C is 0).  C_k in f32.
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     y_kernel(const T* __restrict__ q, const T* __restrict__ dh,
-             const TC* __restrict__ ck, const TC* __restrict__ ck_lo,
-             float* __restrict__ y, float* __restrict__ qy, int S, int D,
+             const float* __restrict__ ck, float* __restrict__ y, float* __restrict__ qy, int S, int D,
              int L, int nc, int BH) {
   __shared__ __align__(16) float As[KS * LP];
   __shared__ __align__(16) float Bs[KS * LP];
@@ -1704,9 +1731,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (c > 0) {
     const size_t at =
         ((static_cast<size_t>(bh) * (nc - 1) + c - 1) * D + j0) * D;
-    block_gemm<T, true, TC, true>(acc, As, Bs, dh + seq, D, 1, lv, ck + at,
-                                  D, 1, D - j0, D, nullptr,
-                                  ck_lo != nullptr ? ck_lo + at : nullptr);
+    block_gemm<T, true, float, true>(acc, As, Bs, dh + seq, D, 1, lv,
+                                     ck + at, D, 1, D - j0, D, nullptr);
   }
   float* yb = y + (static_cast<size_t>(bh) * Sp + t0) * D;
 #pragma unroll
@@ -2001,8 +2027,7 @@ template <typename T>
 int launch(const T* q, const T* k, const T* v, const float* lf,
            const float* li, const T* dh, const float* dc, const float* dn,
            const float* C, const float* n, const float* gates,
-           const float* chunks, const void* ck, const void* ck_lo,
-           const float* nk, T* dq, T* dk, T* dv, float* dlf, float* dli,
+           const float* chunks, const float* ck, const float* nk, T* dq, T* dk, T* dv, float* dlf, float* dli,
            float* rows, float* gk, float* gn, float* sdm, float* wm,
            float* y, float* qy, float* rp, float* cp, float* ep, int BH,
            int S, int D, int L, int plant, cudaStream_t st) {
@@ -2014,14 +2039,8 @@ int launch(const T* q, const T* k, const T* v, const float* lf,
                                                     nk, sdm, wm, S, D, L, nc,
                                                     scale);
   if ((err = cudaGetLastError())) return static_cast<int>(err);
-  if (ck_lo != nullptr)
-    y_kernel<T, T><<<dim3(td, nc, BH), THREADS, 0, st>>>(
-        q, dh, static_cast<const T*>(ck), static_cast<const T*>(ck_lo), y, qy,
-        S, D, L, nc, BH);
-  else
-    y_kernel<T, float><<<dim3(td, nc, BH), THREADS, 0, st>>>(
-        q, dh, static_cast<const float*>(ck), nullptr, y, qy, S, D, L, nc,
-        BH);
+  y_kernel<T><<<dim3(td, nc, BH), THREADS, 0, st>>>(q, dh, ck, y, qy, S, D,
+                                                    L, nc, BH);
   if ((err = cudaGetLastError())) return static_cast<int>(err);
   rows_kernel<<<dim3(nc, BH), THREADS, 0, st>>>(gates, rows, qy, sdm, wm, L,
                                                 nc, BH, td, scale);
@@ -2040,14 +2059,982 @@ int launch(const T* q, const T* k, const T* v, const float* lf,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ===========================================================================
+// Route wgmma of the backward (bf16/f16, D % 64 == 0, chunks of 128 steps,
+// 16-byte-aligned bases: where the forward takes its wgmma route).  After
+// the forward's gate and state passes (C_k in hi + lo), four launches on
+// the tensor cores and final_kernel.  Every product has one side exact in
+// T (q, k, v or dh) and, where the other is f32, that side split into hi +
+// lo halves in T, two wgmma into one f32 accumulator, as in the forward.
+// 384 threads a block: a producer warpgroup (one thread issues the TMA
+// loads of a ring of stages) and two consumer warpgroups, each 64 rows of
+// the block's 128-row output tile.
+// ===========================================================================
+using mlstm_wg::BOX;
+using mlstm_wg::HALF;
+constexpr int WG_THREADS = mlstm_wg::THREADS;
+constexpr int WL = mlstm_wg::L;  // steps a chunk
+
+// A ring of TMA-fed stages: bars[s] full (the producer's expect_tx),
+// bars[STAGES + s] free (one arrival per consumer).
+template <int STAGES>
+__device__ __forceinline__ void ring_init(uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(&bars[s]), 1);
+      mbar_init(smem_u32(&bars[STAGES + s]), 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// The producer: wait until step st's stage is free, arm its barrier for
+// `bytes`; returns the barrier the loads complete on.
+template <int STAGES>
+__device__ __forceinline__ uint32_t ring_fill(uint64_t* bars, int st,
+                                              int bytes) {
+  const int s = st % STAGES;
+  if (st >= STAGES)
+    mbar_wait(smem_u32(&bars[STAGES + s]), (st / STAGES - 1) & 1);
+  const uint32_t full = smem_u32(&bars[s]);
+  mbar_expect_tx(full, bytes);
+  return full;
+}
+
+// A consumer: wait until step st's stage is full; returns its address.
+template <int STAGES>
+__device__ __forceinline__ uint32_t ring_wait(uint64_t* bars,
+                                              unsigned char* smem, int st,
+                                              int stage_bytes) {
+  mbar_wait(smem_u32(&bars[st % STAGES]), (st / STAGES) & 1);
+  return smem_u32(smem + (st % STAGES) * stage_bytes);
+}
+
+// A consumer, after issuing step st's products: wait for those of step st
+// - 1 and free its stage.
+template <int STAGES>
+__device__ __forceinline__ void ring_retire(float (&acc)[64], uint64_t* bars,
+                                           int st, int t) {
+  wgmma_commit();
+  fence_acc(acc);
+  wgmma_wait<1>();
+  fence_acc(acc);
+  if (st > 0 && t == 0)
+    mbar_arrive(smem_u32(&bars[STAGES + (st - 1) % STAGES]));
+}
+
+// acc (+)= A B over one 64-deep stage, both K-major (A: the consumer's 64
+// rows of a 128-row box at a; B: a 128-row box at b), B as hi at b and lo
+// at b_lo (0: B exact).
+template <typename T>
+__device__ __forceinline__ void mma_kk(float (&acc)[64], uint32_t a,
+                                       uint32_t b, uint32_t b_lo) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_ss<0, 0, T>(acc, smem_desc(a + kk * 32, 16, 1024),
+                      smem_desc(b + kk * 32, 16, 1024), 1);
+    if (b_lo)
+      wgmma_ss<0, 0, T>(acc, smem_desc(a + kk * 32, 16, 1024),
+                        smem_desc(b_lo + kk * 32, 16, 1024), 1);
+  }
+}
+
+// acc += A B over one 64-deep stage, A K-major (the consumer's 64 rows of
+// a 128-row box) as hi at a and lo at a_lo, or exact (a_lo 0); B MN-major,
+// two 64-column boxes HALF bytes apart at b.
+template <typename T>
+__device__ __forceinline__ void mma_kn(float (&acc)[64], uint32_t a,
+                                       uint32_t a_lo, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = smem_desc(b + kk * 2048, HALF, 1024);
+    wgmma_ss<0, 1, T>(acc, smem_desc(a + kk * 32, 16, 1024), db, 1);
+    if (a_lo)
+      wgmma_ss<0, 1, T>(acc, smem_desc(a_lo + kk * 32, 16, 1024), db, 1);
+  }
+}
+
+// acc += A B over one 64-deep stage, A MN-major (a 64-column box, the
+// consumer's 64 rows) as hi at a and lo at a_lo; B MN-major, two 64-column
+// boxes HALF bytes apart at b.
+template <typename T>
+__device__ __forceinline__ void mma_nn(float (&acc)[64], uint32_t a,
+                                       uint32_t a_lo, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = smem_desc(b + kk * 2048, HALF, 1024);
+    wgmma_ss<1, 1, T>(acc, smem_desc(a + kk * 2048, HALF, 1024), db, 1);
+    wgmma_ss<1, 1, T>(acc, smem_desc(a_lo + kk * 2048, HALF, 1024), db, 1);
+  }
+}
+
+// Two T at p as floats.
+template <typename T>
+__device__ __forceinline__ float2 load2(const T* p) {
+  const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
+  const T* x = reinterpret_cast<const T*>(&raw);
+  return make_float2(to_f(x[0]), to_f(x[1]));
+}
+
+// hi and lo of (x0, x1) to hi[at], lo[at].
+template <typename T>
+__device__ __forceinline__ void put_split(T* hi, T* lo, size_t at, float x0,
+                                          float x1) {
+  uint32_t h, l;
+  mlstm_wg::split2<T>(x0, x1, h, l);
+  *reinterpret_cast<uint32_t*>(hi + at) = h;
+  *reinterpret_cast<uint32_t*>(lo + at) = l;
+}
+
+struct YPass {
+  static constexpr int STAGES = 4;
+  static constexpr int STAGE_BYTES = 3 * BOX;  // dh, C_k hi, C_k lo
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+};
+
+// ---------------------------------------------------------------- Y
+// One block a (128 columns j, chunk ci >= 1, batch * head): Y = dh C_k^T
+// over e (dh K-major, C_k's rows j K-major as hi and lo, D / 64 stages) to
+// y [BH][Sp][D] in f32, and sum_j q_t[j] Y[t][j] to qy [tile][BH][Sp].
+// Chunk 0 has C_0 = 0: no block, and its readers take Y = 0.
+template <typename T>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    y_wg_kernel(__grid_constant__ const CUtensorMap tmDh,
+                __grid_constant__ const CUtensorMap tmC,
+                const T* __restrict__ q, float* __restrict__ y,
+                float* __restrict__ qy, int S, int D, int nc, int BH) {
+  using F = YPass;
+  constexpr int STAGES = F::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = mlstm_wg::align1024(smem_raw);
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(smem + STAGES * F::STAGE_BYTES);
+  const int j0 = blockIdx.x * 128, ci = blockIdx.y + 1, bh = blockIdx.z;
+  const int t0 = ci * WL, nk = D / 64;
+  ring_init<STAGES>(bars);
+  if (threadIdx.x < 128) {  // the producer
+    if (threadIdx.x == 0) {
+      const int c_hi = bh * (nc - 1) + ci - 1, c_lo = c_hi + BH * (nc - 1);
+      for (int st = 0; st < nk; ++st) {
+        const uint32_t full = ring_fill<STAGES>(bars, st, F::STAGE_BYTES);
+        const uint32_t sb = smem_u32(smem + (st % STAGES) * F::STAGE_BYTES);
+        tma_load(sb, &tmDh, st * 64, t0, bh, full);
+        tma_load(sb + BOX, &tmC, st * 64, j0, c_hi, full);
+        tma_load(sb + 2 * BOX, &tmC, st * 64, j0, c_lo, full);
+      }
+    }
+    return;
+  }
+  const int c = threadIdx.x / 128 - 1;
+  const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+  const int g = lane / 4, tq = lane % 4;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int st = 0; st < nk; ++st) {
+    const uint32_t sb = ring_wait<STAGES>(bars, smem, st, F::STAGE_BYTES);
+    fence_acc(acc);
+    wgmma_fence();
+    mma_kk<T>(acc, sb + c * HALF, sb + BOX, sb + 2 * BOX);
+    ring_retire<STAGES>(acc, bars, st, t);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  const size_t Sp = static_cast<size_t>(nc) * WL;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int tp = t0 + c * 64 + w * 16 + g + 8 * h;
+    const T* qr = q + (static_cast<size_t>(bh) * S + tp) * D;
+    float* yr = y + (static_cast<size_t>(bh) * Sp + tp) * D;
+    float part = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const int col = j0 + 8 * jj + 2 * tq;
+      if (col >= D) continue;  // D % 64 == 0: col + 1 < D too
+      const float a0 = acc[4 * jj + 2 * h], a1 = acc[4 * jj + 2 * h + 1];
+      *reinterpret_cast<float2*>(yr + col) = make_float2(a0, a1);
+      if (tp < S) {
+        const float2 qv = load2(qr + col);
+        part += qv.x * a0 + qv.y * a1;
+      }
+    }
+    part = mlstm_wg::quad_sum(part);
+    if (tq == 0) qy[(static_cast<size_t>(blockIdx.x) * BH + bh) * Sp + tp] = part;
+  }
+}
+
+struct IntraB {
+  static constexpr int STAGES = 3;
+  static constexpr int STAGE_BYTES = 4 * BOX;  // q, k, dh, v
+  static constexpr int SMEM =
+      STAGES * STAGE_BYTES + WL * 4 + 1024 + 2 * STAGES * 8;
+};
+
+// ---------------------------------------------------------------- intra
+// One block a (batch * head, chunk): S = q k^T and W = dh v^T over D on
+// wgmma (every operand a 128-step K-major box, 64 columns a stage; each
+// consumer 64 query rows), q . n_k beside them on the CUDA cores by the
+// producer warpgroup's three idle warps (from global memory, so the
+// consumers keep their registers for the two accumulators).  Then in
+// registers, per row t and key s: Sd = S E (E = scale exp(a_s - g_t), s <=
+// t), den = decay0 scale q . n_k + sum_s Sd, Dv = max(|den|, minv), dden
+// = -sign(den) (decay0 scale qy + sum_s Sd W) / Dv^2 where |den| > minv
+// (qy the Y pass's partials summed over its td tiles, 0 in chunk 0); u =
+// decay0 scale / Dv and z = decay0 scale dden to rows (kU, kZ); G = E (W /
+// Dv + dden) and P = Sd / Dv in hi + lo halves to gp [4][BH * nc][128]
+// [128] (G hi, G lo, P hi, P lo; row t, column s).
+template <typename T>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    intra_wg_kernel(__grid_constant__ const CUtensorMap tmQ,
+                    __grid_constant__ const CUtensorMap tmK,
+                    __grid_constant__ const CUtensorMap tmDh,
+                    __grid_constant__ const CUtensorMap tmV,
+                    const float* __restrict__ gates,
+                    const float* __restrict__ nk,
+                    const float* __restrict__ qy, const T* __restrict__ q,
+                    float* __restrict__ rows, T* __restrict__ gp, int S,
+                    int D, int nc, int BH, int td, float scale) {
+  using F = IntraB;
+  constexpr int STAGES = F::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = mlstm_wg::align1024(smem_raw);
+  float* qn_s = reinterpret_cast<float*>(smem + STAGES * F::STAGE_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(qn_s + WL);
+  const int blk = blockIdx.x, bh = blk / nc, ci = blk % nc, t0 = ci * WL;
+  const int nks = D / 64;
+  ring_init<STAGES>(bars);
+  if (threadIdx.x < 128) {  // the producer
+    if (threadIdx.x == 0) {
+      for (int st = 0; st < nks; ++st) {
+        const uint32_t full = ring_fill<STAGES>(bars, st, F::STAGE_BYTES);
+        const uint32_t sb = smem_u32(smem + (st % STAGES) * F::STAGE_BYTES);
+        tma_load(sb, &tmQ, st * 64, t0, bh, full);
+        tma_load(sb + BOX, &tmK, st * 64, t0, bh, full);
+        tma_load(sb + 2 * BOX, &tmDh, st * 64, t0, bh, full);
+        tma_load(sb + 3 * BOX, &tmV, st * 64, t0, bh, full);
+      }
+    } else if (threadIdx.x >= 32) {
+      // q . n_k (0 in chunk 0): warp wp takes rows wp, wp + 3, ..., each
+      // lane 8 columns of every 256.
+      const int wp = threadIdx.x / 32 - 1, ln = threadIdx.x % 32;
+      const float* nb =
+          nk + (static_cast<size_t>(bh) * (nc - 1) + ci - 1) * D;
+      for (int r = wp; r < WL; r += 3) {
+        float x = 0.f;
+        if (ci > 0 && t0 + r < S) {
+          const T* qrow = q + (static_cast<size_t>(bh) * S + t0 + r) * D;
+          for (int d = 8 * ln; d < D; d += 256) {
+            const uint4 raw = *reinterpret_cast<const uint4*>(qrow + d);
+            const T* xv = reinterpret_cast<const T*>(&raw);
+            const float4 na = *reinterpret_cast<const float4*>(nb + d);
+            const float4 nn = *reinterpret_cast<const float4*>(nb + d + 4);
+            x += to_f(xv[0]) * na.x + to_f(xv[1]) * na.y +
+                 to_f(xv[2]) * na.z + to_f(xv[3]) * na.w +
+                 to_f(xv[4]) * nn.x + to_f(xv[5]) * nn.y +
+                 to_f(xv[6]) * nn.z + to_f(xv[7]) * nn.w;
+          }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          x += __shfl_xor_sync(0xffffffffu, x, o);
+        if (ln == 0) qn_s[r] = x;
+      }
+      named_sync(4, 352);  // qn_s is written: the consumers may read it
+    }
+    return;
+  }
+  const int c = threadIdx.x / 128 - 1;
+  const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const size_t Sp = static_cast<size_t>(nc) * WL;
+  float acc_s[64], acc_w[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc_s[i] = acc_w[i] = 0.f;
+  for (int st = 0; st < nks; ++st) {
+    const int s = st % STAGES;
+    mbar_wait(smem_u32(&bars[s]), (st / STAGES) & 1);
+    const uint32_t sb = smem_u32(smem + s * F::STAGE_BYTES);
+    fence_acc(acc_s);
+    fence_acc(acc_w);
+    wgmma_fence();
+    mma_kk<T>(acc_s, sb + c * HALF, sb + BOX, 0u);
+    mma_kk<T>(acc_w, sb + 2 * BOX + c * HALF, sb + 3 * BOX, 0u);
+    wgmma_commit();
+    fence_acc(acc_s);
+    fence_acc(acc_w);
+    wgmma_wait<1>();
+    fence_acc(acc_s);
+    fence_acc(acc_w);
+    if (st > 0 && t == 0)
+      mbar_arrive(smem_u32(&bars[STAGES + (st - 1) % STAGES]));
+  }
+  wgmma_wait<0>();
+  fence_acc(acc_s);
+  fence_acc(acc_w);
+  // Both consumers' products are done (the stage ring is free) and the
+  // producer's warps have written qn_s.
+  named_sync(4, 352);
+  // Park W in the ring, f32, interleaved by thread: its 64 registers go to
+  // the epilogue's temporaries (ptxas spills otherwise).
+  float* wsm = reinterpret_cast<float*>(smem) + c * 64 * 128 + t;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) wsm[i * 128] = acc_w[i];
+  asm volatile("" ::: "memory");  // read W back from shared memory below
+
+  // Accumulators: rows j = 64 c + 16 w + g (+ 8 h); register 4 jj + 2 h +
+  // e is column (key step) 8 jj + 2 tq + e.
+  const float* gb = gates + static_cast<size_t>(bh) * SLOTS * Sp + t0;
+  float* rw = rows + static_cast<size_t>(bh) * RSLOTS * Sp + t0;
+  float gt[2], dvv[2], ddv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = c * 64 + w * 16 + g + 8 * h;
+    gt[h] = gb[kG * Sp + j];
+    float rs = 0.f, hn = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int s = 8 * jj + 2 * tq + e, r = 4 * jj + 2 * h + e;
+        const float sd =
+            s <= j ? acc_s[r] * scale * expf(gb[kA * Sp + s] - gt[h]) : 0.f;
+        acc_s[r] = sd;
+        rs += sd;
+        hn += sd * wsm[r * 128];
+      }
+    rs = mlstm_wg::quad_sum(rs);
+    hn = mlstm_wg::quad_sum(hn);
+    float qyv = 0.f;
+    if (ci > 0)
+      for (int tile = 0; tile < td; ++tile)
+        qyv += qy[(static_cast<size_t>(tile) * BH + bh) * Sp + t0 + j];
+    const float dec = gb[kDecay * Sp + j] * scale, minv = gb[kMinv * Sp + j];
+    const float den = dec * qn_s[j] + rs;
+    const float dv = fmaxf(fabsf(den), minv);
+    const float dd = fabsf(den) > minv
+                         ? -copysignf(1.f, den) * (dec * qyv + hn) / (dv * dv)
+                         : 0.f;
+    dvv[h] = dv;
+    ddv[h] = dd;
+    if (tq == 0) {
+      rw[kU * Sp + j] = dec / dv;
+      rw[kZ * Sp + j] = dec * dd;
+    }
+  }
+  const size_t LL = static_cast<size_t>(WL) * WL, part = BH * nc * LL;
+  T* gh = gp + blk * LL;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = c * 64 + w * 16 + g + 8 * h;
+    const float inv = 1.f / dvv[h];
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const int s = 8 * jj + 2 * tq, r = 4 * jj + 2 * h;
+      float gv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        gv[e] = s + e <= j ? scale * expf(gb[kA * Sp + s + e] - gt[h]) *
+                                 (wsm[(r + e) * 128] * inv + ddv[h])
+                           : 0.f;
+      const size_t at = static_cast<size_t>(j) * WL + s;
+      put_split<T>(gh, gh + part, at, gv[0], gv[1]);
+      put_split<T>(gh + 2 * part, gh + 3 * part, at, acc_s[r] * inv,
+                   acc_s[r + 1] * inv);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- walk
+struct WalkB {
+  // A ring of half-chunk stages (64 steps): q (two 64-column boxes,
+  // rewritten in place as hi of u q), lo (two), dh (two), 8 KB a box.
+  static constexpr int STAGES = 3;
+  static constexpr int STAGE_BYTES = 6 * HALF;
+  // G_k for the TMA store: [consumer][hi, lo][2 boxes of 64 x 64].
+  static constexpr int OUT_BYTES = 2 * 2 * 2 * HALF;
+  // gn's column partials: [consumer][chunk parity][16 row groups][64] f32.
+  static constexpr int RED_BYTES = 2 * 2 * 16 * 64 * 4;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + OUT_BYTES + RED_BYTES +
+                              1024 + 2 * STAGES * 8;
+};
+
+// Walk: hand the tile over as G of slab `slab` (lo halves at slab + lo):
+// round it into hi + lo boxes of shared memory at ob (swizzled) and store
+// them with TMA.  No product in flight.
+template <typename T>
+__device__ __forceinline__ void store_g(const float (&acc)[64],
+                                        unsigned char* ob,
+                                        const CUtensorMap* tmG, int t, int c,
+                                        int d0, int e0, int slab, int lo) {
+  const int lane = t % 32, orow = (t / 32) * 16 + lane / 4, tq = lane % 4;
+  if (t == 0) bulk_wait_read();  // the last hand-over's stores read ob
+  named_sync(1 + c, 128);
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = orow + 8 * h;
+      const int o =
+          (jj / 8) * HALF + r * 128 + ((jj % 8) ^ (r % 8)) * 16 + 4 * tq;
+      uint32_t hv, lv;
+      mlstm_wg::split2<T>(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1], hv,
+                          lv);
+      *reinterpret_cast<uint32_t*>(ob + o) = hv;
+      *reinterpret_cast<uint32_t*>(ob + 2 * HALF + o) = lv;
+    }
+  fence_proxy_async();
+  named_sync(1 + c, 128);
+  if (t == 0) {
+    const uint32_t o0 = smem_u32(ob);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      tma_store(tmG, o0 + u * HALF, e0 + 64 * u, d0 + c * 64, slab);
+      tma_store(tmG, o0 + (2 + u) * HALF, e0 + 64 * u, d0 + c * 64,
+                slab + lo);
+    }
+    bulk_commit();
+  }
+}
+
+// One block a (128 x 128 tile of the state's gradient, rows d and columns
+// e, batch * head): the forward's state pass run in reverse.  The tile is
+// the f32 wgmma accumulator from dC (or 0) down through the chunks; at the
+// start of chunk ci it is G_ci, the gradient of the state after chunk ci,
+// handed to the grads pass in hi + lo (TMA stores to gk, slab bh * ncs +
+// ci; ncs = nc, or nc - 1 where the state has no gradient: the last
+// chunk's G is then 0 and not stored), then G <-
+// scale_c[ci] G + (u q)^T dh over the chunk: A MN-major from q's TMA'd
+// boxes rewritten in place as hi(u_t q_t) with lo beside them, B = dh
+// MN-major, half-chunk stages of 64 steps.  The column block at e = 0
+// carries gn the same way in f32 on the CUDA cores (sum_t z_t q_t, from the
+// unrounded q) and stores gn_ci beside G_ci.  Where dC or dn is given, the
+// block's share of <C, dC> + <n, dn> (C, n the final state) goes to ep
+// first.
+template <typename T>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    walk_wg_kernel(__grid_constant__ const CUtensorMap tmQ,
+                   __grid_constant__ const CUtensorMap tmDh,
+                   __grid_constant__ const CUtensorMap tmG,
+                   const float* __restrict__ rows,
+                   const float* __restrict__ chunks,
+                   const float* __restrict__ dc, const float* __restrict__ dn,
+                   const float* __restrict__ C, const float* __restrict__ n,
+                   float* __restrict__ gn_out, float* __restrict__ ep, int D,
+                   int nc, int ncs, int BH, int plant) {
+  using F = WalkB;
+  constexpr int STAGES = F::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = mlstm_wg::align1024(smem_raw);
+  unsigned char* obuf = smem + STAGES * F::STAGE_BYTES;
+  float* red = reinterpret_cast<float*>(obuf + F::OUT_BYTES);
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(obuf + F::OUT_BYTES + F::RED_BYTES);
+  const int tiles = (D + 127) / 128;
+  const int bh = blockIdx.y;
+  const int d0 = (blockIdx.x / tiles) * 128, e0 = (blockIdx.x % tiles) * 128;
+  const int nh = 2 * (nc - 1);  // half-chunks of chunks nc - 1 .. 1
+  const bool has_state = dc != nullptr || dn != nullptr;
+  ring_init<STAGES>(bars);
+  if (threadIdx.x < 128) {  // the producer
+    if (threadIdx.x == 0) {
+      for (int p = 0; p < nh; ++p) {
+        const uint32_t full = ring_fill<STAGES>(bars, p, 4 * HALF);
+        const uint32_t sb = smem_u32(smem + (p % STAGES) * F::STAGE_BYTES);
+        const int row = (nc - 1 - p / 2) * WL + (p % 2) * 64;
+        tma_load(sb, &tmQ, d0, row, bh, full);
+        tma_load(sb + HALF, &tmQ, d0 + 64, row, bh, full);
+        tma_load(sb + 4 * HALF, &tmDh, e0, row, bh, full);
+        tma_load(sb + 5 * HALF, &tmDh, e0 + 64, row, bh, full);
+      }
+    }
+    return;
+  }
+  const int c = threadIdx.x / 128 - 1;
+  const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const size_t Sp = static_cast<size_t>(nc) * WL;
+  const float* uv = rows + static_cast<size_t>(bh) * RSLOTS * Sp + kU * Sp;
+  const float* zv = rows + static_cast<size_t>(bh) * RSLOTS * Sp + kZ * Sp;
+  const float* sc = chunks + static_cast<size_t>(bh) * 3 * nc + kScale * nc;
+  const bool do_n = e0 == 0;
+  const int lc = (t % 8) ^ ((t / 8) % 8);
+  const int nd = d0 + c * 64 + t;  // the row of gn thread t < 64 carries
+  unsigned char* ob = obuf + c * 4 * HALF;  // hi boxes, then lo boxes
+  const int row0 = d0 + c * 64 + w * 16 + g, col0 = e0 + 2 * tq;
+  const size_t DD = static_cast<size_t>(D) * D;
+  float acc[64];
+  float gnv = 0.f, prt = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float2 x = make_float2(0.f, 0.f);
+      const int row = row0 + 8 * h, col = col0 + 8 * jj;
+      if (dc != nullptr && row < D && col < D) {
+        const size_t at = bh * DD + static_cast<size_t>(row) * D + col;
+        x = *reinterpret_cast<const float2*>(dc + at);
+        const float2 cv = *reinterpret_cast<const float2*>(C + at);
+        prt += x.x * cv.x + x.y * cv.y;
+      }
+      acc[4 * jj + 2 * h] = x.x;
+      acc[4 * jj + 2 * h + 1] = x.y;
+    }
+  if (do_n && t < 64 && dn != nullptr && nd < D) {
+    gnv = dn[static_cast<size_t>(bh) * D + nd];
+    prt += gnv * n[static_cast<size_t>(bh) * D + nd];
+  }
+  if (has_state) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      prt += __shfl_xor_sync(0xffffffffu, prt, o);
+    if (lane == 0) red[c * 4 + w] = prt;
+    named_sync(3, 256);
+    if (c == 0 && t == 0) {
+      float sum = 0.f;
+      for (int i = 0; i < 8; ++i) sum += red[i];
+      ep[static_cast<size_t>(bh) * gridDim.x + blockIdx.x] = sum;
+    }
+    named_sync(3, 256);  // red is reused for gn below
+  }
+  float part[8];
+  for (int p = 0; p < nh; ++p) {
+    const int s = p % STAGES, ci = nc - 1 - p / 2, half = p % 2;
+    const size_t r0 = static_cast<size_t>(ci) * WL + half * 64 + t / 8;
+    float ucur[4], zcur[4];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      ucur[ii] = uv[r0 + 16 * ii];
+      zcur[ii] = zv[r0 + 16 * ii];
+    }
+    mbar_wait(smem_u32(&bars[s]), (p / STAGES) & 1);
+    unsigned char* kb = smem + s * F::STAGE_BYTES + c * HALF;
+    unsigned char* lb = kb + 2 * HALF;
+    if (half == 0) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) part[e] = 0.f;
+    }
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      const int r = t / 8 + 16 * ii;
+      const int off = r * 128 + (t % 8) * 16;
+      const uint4 raw = *reinterpret_cast<const uint4*>(kb + off);
+      const T* x = reinterpret_cast<const T*>(&raw);
+      uint32_t hv[4], lv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x0 = to_f(x[2 * e]), x1 = to_f(x[2 * e + 1]);
+        part[2 * e] += zcur[ii] * x0;
+        part[2 * e + 1] += zcur[ii] * x1;
+        mlstm_wg::split2<T>(ucur[ii] * x0, ucur[ii] * x1, hv[e], lv[e]);
+      }
+      *reinterpret_cast<uint4*>(kb + off) =
+          make_uint4(hv[0], hv[1], hv[2], hv[3]);
+      *reinterpret_cast<uint4*>(lb + off) =
+          make_uint4(lv[0], lv[1], lv[2], lv[3]);
+    }
+    float* rb = red + (c * 2 + ((p / 2) & 1)) * 16 * 64;
+    if (do_n && half == 1) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) rb[(t / 8) * 64 + lc * 8 + e] = part[e];
+    }
+    fence_proxy_async();
+    named_sync(1 + c, 128);
+    if (half == 0) {
+      // The chunk after this one is done: free its last stage, hand G_ci
+      // over, decay the tile.
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (p > 0 && t == 0)
+        mbar_arrive(smem_u32(&bars[STAGES + (p - 1) % STAGES]));
+      if ((plant & kPlantReset) && ci == nc / 2) {
+#pragma unroll
+        for (int x = 0; x < 64; ++x) acc[x] = 0.f;
+        gnv = 0.f;
+      }
+      if (ci < ncs) {
+        store_g<T>(acc, ob, &tmG, t, c, d0, e0, bh * ncs + ci, BH * ncs);
+        if (do_n && t < 64 && nd < D)
+          gn_out[(static_cast<size_t>(bh) * nc + ci) * D + nd] = gnv;
+      }
+      const float f = sc[ci];
+#pragma unroll
+      for (int x = 0; x < 64; ++x) acc[x] *= f;
+    }
+    if (do_n && half == 1 && t < 64) {
+      float colsum = 0.f;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) colsum += rb[r * 64 + t];
+      gnv = sc[ci] * gnv + colsum;
+    }
+    const uint32_t ka = smem_u32(kb), la = smem_u32(lb);
+    const uint32_t vb = smem_u32(smem + s * F::STAGE_BYTES + 4 * HALF);
+    fence_acc(acc);
+    wgmma_fence();
+    mma_nn<T>(acc, ka, la, vb);
+    wgmma_commit();
+    if (half == 1) {
+      // The chunk's first half has retired: free its stage.
+      fence_acc(acc);
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (t == 0) mbar_arrive(smem_u32(&bars[STAGES + (p - 1) % STAGES]));
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  if ((plant & kPlantReset) && nc / 2 == 0) {
+#pragma unroll
+    for (int x = 0; x < 64; ++x) acc[x] = 0.f;
+    gnv = 0.f;
+  }
+  if (ncs > 0) {
+    store_g<T>(acc, ob, &tmG, t, c, d0, e0, bh * ncs, BH * ncs);
+    if (do_n && t < 64 && nd < D)
+      gn_out[static_cast<size_t>(bh) * nc * D + nd] = gnv;
+  }
+  if (t == 0) bulk_wait();  // the G_k stores have landed
+}
+
+struct GradsB {
+  static constexpr int STAGES = 4;
+  static constexpr int STAGE_BYTES = 3 * BOX;  // three 16 KB operand slots
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+};
+
+// Grads: rows r0 and r0 + 8 of the consumer's tile (steps t0 + row, those
+// below S) in T to out at base + row * D + col (columns j0 + 8 jj + 2 tq +
+// e below D); with x, each row's f32 dot with x's (the accumulator before
+// rounding), summed over the tile's columns, to sums[row].
+template <typename T>
+__device__ __forceinline__ void store_rows(const float (&acc)[64], T* out,
+                                           const T* x, float* sums,
+                                           size_t base, int r0, int j0,
+                                           int tq, int left, int D) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    const bool ok = row < left;
+    float dot = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const int col = j0 + 8 * jj + 2 * tq;
+      if (!ok || col >= D) continue;
+      const size_t at = base + static_cast<size_t>(row) * D + col;
+      const float a0 = acc[4 * jj + 2 * h], a1 = acc[4 * jj + 2 * h + 1];
+      if (x != nullptr) {
+        const float2 xv = load2(x + at);
+        dot += xv.x * a0 + xv.y * a1;
+      }
+      mlstm_wg::store2<T>(out + at, a0, a1);
+    }
+    if (x != nullptr) {
+      dot = mlstm_wg::quad_sum(dot);
+      if (tq == 0 && ok) sums[row] = dot;
+    }
+  }
+}
+
+// ---------------------------------------------------------------- grads
+// One block a (128 columns j, chunk ci, batch * head), the three gradients
+// one after the other in one accumulator, each consumer 64 rows (steps):
+//   dq = G k + u Y + z n_k     2 stages {G hi, k, G lo} (64 keys each);
+//                              u Y + z n_k and q . dq (to rp) in the
+//                              epilogue, from the f32 accumulator
+//   dk = w (v G_ci^T + gn_ci)  D / 64 stages {v, G_ci hi, G_ci lo}
+//        + G^T q               2 stages {G hi, q, G lo} (64 queries each);
+//                              k . dk to cp
+//   dv = w (k G_ci)            D / 64 stages {k, G_ci hi, G_ci lo}
+//        + P^T dh              2 stages {P hi, dh, P lo}
+// G_ci's stages (slab bh * ncs + ci) only where the state after the chunk
+// has a gradient (ci < ncs: not the last chunk without dC, dn).  The accumulator is scaled between the
+// stages of a gradient, with no product in flight.
+template <typename T>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    grads_wg_kernel(__grid_constant__ const CUtensorMap tmQ64,
+                    __grid_constant__ const CUtensorMap tmK64,
+                    __grid_constant__ const CUtensorMap tmDh64,
+                    __grid_constant__ const CUtensorMap tmK128,
+                    __grid_constant__ const CUtensorMap tmV128,
+                    __grid_constant__ const CUtensorMap tmGp128,
+                    __grid_constant__ const CUtensorMap tmGp64,
+                    __grid_constant__ const CUtensorMap tmGk128,
+                    __grid_constant__ const CUtensorMap tmGk64,
+                    const T* __restrict__ q, const T* __restrict__ k,
+                    const float* __restrict__ gates,
+                    const float* __restrict__ rows,
+                    const float* __restrict__ nk,
+                    const float* __restrict__ gn,
+                    const float* __restrict__ y, T* __restrict__ dq,
+                    T* __restrict__ dk, T* __restrict__ dv,
+                    float* __restrict__ rp, float* __restrict__ cp, int S,
+                    int D, int nc, int ncs, int BH, int plant) {
+  using F = GradsB;
+  constexpr int STAGES = F::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = mlstm_wg::align1024(smem_raw);
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(smem + STAGES * F::STAGE_BYTES);
+  const int j0 = blockIdx.x * 128, ci = blockIdx.y, bh = blockIdx.z;
+  const int t0 = ci * WL, blk = bh * nc + ci, P = BH * nc;
+  const int gs = bh * ncs + ci, GP = BH * ncs;
+  const int n1 = ci < ncs ? D / 64 : 0;
+  ring_init<STAGES>(bars);
+  if (threadIdx.x < 128) {  // the producer
+    if (threadIdx.x == 0) {
+      int st = 0;
+      for (int u = 0; u < 2; ++u, ++st) {  // dq: G k
+        const uint32_t full = ring_fill<STAGES>(bars, st, F::STAGE_BYTES);
+        const uint32_t sb = smem_u32(smem + (st % STAGES) * F::STAGE_BYTES);
+        tma_load(sb, &tmGp128, 64 * u, 0, blk, full);
+        tma_load(sb + BOX, &tmK64, j0, t0 + 64 * u, bh, full);
+        tma_load(sb + BOX + HALF, &tmK64, j0 + 64, t0 + 64 * u, bh, full);
+        tma_load(sb + 2 * BOX, &tmGp128, 64 * u, 0, blk + P, full);
+      }
+      for (int e = 0; e < n1; ++e, ++st) {  // dk: v G_ci^T
+        const uint32_t full = ring_fill<STAGES>(bars, st, F::STAGE_BYTES);
+        const uint32_t sb = smem_u32(smem + (st % STAGES) * F::STAGE_BYTES);
+        tma_load(sb, &tmV128, 64 * e, t0, bh, full);
+        tma_load(sb + BOX, &tmGk128, 64 * e, j0, gs, full);
+        tma_load(sb + 2 * BOX, &tmGk128, 64 * e, j0, gs + GP, full);
+      }
+      for (int u = 0; u < 2; ++u, ++st) {  // dk: G^T q
+        const uint32_t full = ring_fill<STAGES>(bars, st, F::STAGE_BYTES);
+        const uint32_t sb = smem_u32(smem + (st % STAGES) * F::STAGE_BYTES);
+        tma_load(sb, &tmGp64, 0, 64 * u, blk, full);
+        tma_load(sb + HALF, &tmGp64, 64, 64 * u, blk, full);
+        tma_load(sb + BOX, &tmQ64, j0, t0 + 64 * u, bh, full);
+        tma_load(sb + BOX + HALF, &tmQ64, j0 + 64, t0 + 64 * u, bh, full);
+        tma_load(sb + 2 * BOX, &tmGp64, 0, 64 * u, blk + P, full);
+        tma_load(sb + 2 * BOX + HALF, &tmGp64, 64, 64 * u, blk + P, full);
+      }
+      for (int e = 0; e < n1; ++e, ++st) {  // dv: k G_ci
+        const uint32_t full = ring_fill<STAGES>(bars, st, F::STAGE_BYTES);
+        const uint32_t sb = smem_u32(smem + (st % STAGES) * F::STAGE_BYTES);
+        tma_load(sb, &tmK128, 64 * e, t0, bh, full);
+        tma_load(sb + BOX, &tmGk64, j0, 64 * e, gs, full);
+        tma_load(sb + BOX + HALF, &tmGk64, j0 + 64, 64 * e, gs, full);
+        tma_load(sb + 2 * BOX, &tmGk64, j0, 64 * e, gs + GP, full);
+        tma_load(sb + 2 * BOX + HALF, &tmGk64, j0 + 64, 64 * e, gs + GP,
+                 full);
+      }
+      for (int u = 0; u < 2; ++u, ++st) {  // dv: P^T dh
+        const uint32_t full = ring_fill<STAGES>(bars, st, F::STAGE_BYTES);
+        const uint32_t sb = smem_u32(smem + (st % STAGES) * F::STAGE_BYTES);
+        tma_load(sb, &tmGp64, 0, 64 * u, blk + 2 * P, full);
+        tma_load(sb + HALF, &tmGp64, 64, 64 * u, blk + 2 * P, full);
+        tma_load(sb + BOX, &tmDh64, j0, t0 + 64 * u, bh, full);
+        tma_load(sb + BOX + HALF, &tmDh64, j0 + 64, t0 + 64 * u, bh, full);
+        tma_load(sb + 2 * BOX, &tmGp64, 0, 64 * u, blk + 3 * P, full);
+        tma_load(sb + 2 * BOX + HALF, &tmGp64, 64, 64 * u, blk + 3 * P,
+                 full);
+      }
+    }
+    return;
+  }
+  const int c = threadIdx.x / 128 - 1;
+  const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const size_t Sp = static_cast<size_t>(nc) * WL;
+  const float* gb = gates + static_cast<size_t>(bh) * SLOTS * Sp + t0;
+  const float* rw = rows + static_cast<size_t>(bh) * RSLOTS * Sp + t0;
+  const size_t seq = (static_cast<size_t>(bh) * S + t0) * D;
+  const size_t part_at = (static_cast<size_t>(blockIdx.x) * BH + bh) * Sp + t0;
+  const int r0 = c * 64 + w * 16 + g;  // this thread's rows r0, r0 + 8
+  const int left = S - t0;
+  float acc[64];
+  int st = 0;
+
+  // dq = G k + u Y + z n_k.
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int u = 0; u < 2; ++u, ++st) {
+    const uint32_t sb = ring_wait<STAGES>(bars, smem, st, F::STAGE_BYTES);
+    fence_acc(acc);
+    wgmma_fence();
+    mma_kn<T>(acc, sb + c * HALF, sb + 2 * BOX + c * HALF, sb + BOX);
+    ring_retire<STAGES>(acc, bars, st, t);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  if (ci > 0 && !(plant & kPlantDqInter)) {
+    const float* nb = nk + (static_cast<size_t>(bh) * (nc - 1) + ci - 1) * D;
+    const float* yb = y + (static_cast<size_t>(bh) * Sp + t0) * D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      const float u = rw[kU * Sp + row], z = rw[kZ * Sp + row];
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const int col = j0 + 8 * jj + 2 * tq;
+        if (col >= D) continue;
+        const float2 yv = *reinterpret_cast<const float2*>(
+            yb + static_cast<size_t>(row) * D + col);
+        const float2 nv = *reinterpret_cast<const float2*>(nb + col);
+        acc[4 * jj + 2 * h] += u * yv.x + z * nv.x;
+        acc[4 * jj + 2 * h + 1] += u * yv.y + z * nv.y;
+      }
+    }
+  }
+  store_rows<T>(acc, dq, q, rp + part_at, seq, r0, j0, tq, left, D);
+
+  // dk = w (v G_ci^T + gn_ci) + G^T q.
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int e = 0; e < n1; ++e, ++st) {
+    const uint32_t sb = ring_wait<STAGES>(bars, smem, st, F::STAGE_BYTES);
+    fence_acc(acc);
+    wgmma_fence();
+    mma_kk<T>(acc, sb + c * HALF, sb + BOX, sb + 2 * BOX);
+    ring_retire<STAGES>(acc, bars, st, t);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  if (n1 > 0) {
+    const float* gnb = gn + static_cast<size_t>(blk) * D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float wr = gb[kW * Sp + r0 + 8 * h];
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const int col = j0 + 8 * jj + 2 * tq;
+        const float2 gv = col < D
+                              ? *reinterpret_cast<const float2*>(gnb + col)
+                              : make_float2(0.f, 0.f);
+        acc[4 * jj + 2 * h] = wr * (acc[4 * jj + 2 * h] + gv.x);
+        acc[4 * jj + 2 * h + 1] = wr * (acc[4 * jj + 2 * h + 1] + gv.y);
+      }
+    }
+  }
+  for (int u = 0; u < 2; ++u, ++st) {
+    const uint32_t sb = ring_wait<STAGES>(bars, smem, st, F::STAGE_BYTES);
+    fence_acc(acc);
+    wgmma_fence();
+    mma_nn<T>(acc, sb + c * HALF, sb + 2 * BOX + c * HALF, sb + BOX);
+    ring_retire<STAGES>(acc, bars, st, t);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  store_rows<T>(acc, dk, k, cp + part_at, seq, r0, j0, tq, left, D);
+
+  // dv = w (k G_ci) + P^T dh.
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int e = 0; e < n1; ++e, ++st) {
+    const uint32_t sb = ring_wait<STAGES>(bars, smem, st, F::STAGE_BYTES);
+    fence_acc(acc);
+    wgmma_fence();
+    mma_kn<T>(acc, sb + c * HALF, 0u, sb + BOX);
+    mma_kn<T>(acc, sb + c * HALF, 0u, sb + 2 * BOX);
+    ring_retire<STAGES>(acc, bars, st, t);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  if (n1 > 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float wr = gb[kW * Sp + r0 + 8 * h];
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        acc[4 * jj + 2 * h] *= wr;
+        acc[4 * jj + 2 * h + 1] *= wr;
+      }
+    }
+  }
+  for (int u = 0; u < 2; ++u, ++st) {
+    const uint32_t sb = ring_wait<STAGES>(bars, smem, st, F::STAGE_BYTES);
+    fence_acc(acc);
+    wgmma_fence();
+    mma_nn<T>(acc, sb + c * HALF, sb + 2 * BOX + c * HALF, sb + BOX);
+    ring_retire<STAGES>(acc, bars, st, t);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  store_rows<T>(acc, dv, static_cast<const T*>(nullptr), nullptr, seq, r0,
+                j0, tq, left, D);
+}
+
+template <typename T>
+int launch_wg(const void* q, const void* k, const void* v, const float* lf,
+              const float* li, const void* dh, const float* dc,
+              const float* dn, const float* C, const float* n,
+              const float* gates, const float* chunks, const void* ck,
+              const float* nk, void* dq, void* dk, void* dv, float* dlf,
+              float* dli, float* rows, float* y, float* qy, void* gp,
+              void* gk, float* gn, float* rp, float* cp, float* ep, int BH,
+              int S, int D, int plant, cudaStream_t st) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  constexpr bool f16 = std::is_same<T, __half>::value;
+  const int nc = (S + WL - 1) / WL, td = (D + 127) / 128;
+  const bool has_state = dc != nullptr || dn != nullptr;
+  const int ncs = has_state ? nc : nc - 1;  // G_k slabs a batch * head
+  const uint64_t seq[3] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
+                           static_cast<uint64_t>(BH)};
+  const uint64_t cdims[3] = {static_cast<uint64_t>(D),
+                             static_cast<uint64_t>(D),
+                             2ull * BH * (nc > 1 ? nc - 1 : 1)};
+  const uint64_t kdims[3] = {static_cast<uint64_t>(D),
+                             static_cast<uint64_t>(D),
+                             2ull * BH * (ncs > 0 ? ncs : 1)};
+  const uint64_t pdims[3] = {WL, WL, 4ull * BH * nc};
+  const uint32_t b128[3] = {64, 128, 1}, b64[3] = {64, 64, 1};
+  CUtensorMap tq128, tk128, tv128, tdh128, tq64, tk64, tdh64, tc128, tgp128,
+      tgp64, tgk128, tgk64;
+  if (!encode(fn, &tq128, q, f16, 3, seq, b128) ||
+      !encode(fn, &tk128, k, f16, 3, seq, b128) ||
+      !encode(fn, &tv128, v, f16, 3, seq, b128) ||
+      !encode(fn, &tdh128, dh, f16, 3, seq, b128) ||
+      !encode(fn, &tq64, q, f16, 3, seq, b64) ||
+      !encode(fn, &tk64, k, f16, 3, seq, b64) ||
+      !encode(fn, &tdh64, dh, f16, 3, seq, b64) ||
+      !encode(fn, &tc128, ck, f16, 3, cdims, b128) ||
+      !encode(fn, &tgp128, gp, f16, 3, pdims, b128) ||
+      !encode(fn, &tgp64, gp, f16, 3, pdims, b64) ||
+      !encode(fn, &tgk128, gk, f16, 3, kdims, b128) ||
+      !encode(fn, &tgk64, gk, f16, 3, kdims, b64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if ((err = mlstm_wg::allow_smem(y_wg_kernel<T>, YPass::SMEM)) ||
+      (err = mlstm_wg::allow_smem(intra_wg_kernel<T>, IntraB::SMEM)) ||
+      (err = mlstm_wg::allow_smem(walk_wg_kernel<T>, WalkB::SMEM)) ||
+      (err = mlstm_wg::allow_smem(grads_wg_kernel<T>, GradsB::SMEM)))
+    return static_cast<int>(err);
+  const float scale = rsqrtf(static_cast<float>(D));
+  if (nc > 1) {
+    y_wg_kernel<T><<<dim3(td, nc - 1, BH), WG_THREADS, YPass::SMEM, st>>>(
+        tdh128, tc128, static_cast<const T*>(q), y, qy, S, D, nc, BH);
+    if ((err = cudaGetLastError())) return static_cast<int>(err);
+  }
+  intra_wg_kernel<T><<<BH * nc, WG_THREADS, IntraB::SMEM, st>>>(
+      tq128, tk128, tdh128, tv128, gates, nk, qy, static_cast<const T*>(q),
+      rows, static_cast<T*>(gp), S, D, nc, BH, td, scale);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  walk_wg_kernel<T><<<dim3(td * td, BH), WG_THREADS, WalkB::SMEM, st>>>(
+      tq64, tdh64, tgk64, rows, chunks, dc, dn, C, n, gn,
+      has_state ? ep : nullptr, D, nc, ncs, BH, plant);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  grads_wg_kernel<T><<<dim3(td, nc, BH), WG_THREADS, GradsB::SMEM, st>>>(
+      tq64, tk64, tdh64, tk128, tv128, tgp128, tgp64, tgk128, tgk64,
+      static_cast<const T*>(q), static_cast<const T*>(k), gates, rows, nk, gn,
+      y, static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), rp,
+      cp, S, D, nc, ncs, BH, plant);
+  if ((err = cudaGetLastError())) return static_cast<int>(err);
+  final_kernel<<<BH, THREADS, 0, st>>>(lf, li, rp, cp, ep, dlf, dli, S, nc,
+                                       WL, BH, td, has_state ? td * td : 0,
+                                       plant);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
 }  // namespace mlstm_bwd
 }  // namespace repro
 
-// The backward.  q, k, v, dh, dq, dk, dv (B*H, S, D) in `dtype`; log_f,
-// log_i, dlog_f, dlog_i (B*H, S) f32; dc (B*H, D, D), dn (B*H, D) f32 or
-// null.  The forward's recompute on the same inputs (the top of the file):
-// C, n the final state, gates, chunks, ck (and ck_lo: route wgmma's lo
-// halves, else null, ck then f32) and nk.  Scratch from the wrapper, nc =
+// The backward's simt route.  q, k, v, dh, dq, dk, dv (B*H, S, D) in
+// `dtype`; log_f, log_i, dlog_f, dlog_i (B*H, S) f32; dc (B*H, D, D), dn
+// (B*H, D) f32 or null.  The simt forward's recompute on the same inputs
+// (the top of the file): C, n the final state, gates, chunks, ck and nk,
+// all f32.  Scratch from the wrapper, nc =
 // ceil(S / L), Sp = nc * L, td = ceil(D / 128), all f32: rows [B*H][4][Sp],
 // gk [B*H][nc][D][D], gn [B*H][nc][D], sdm and wm [B*H][nc][L][L], y
 // [B*H][Sp][D], qy, rp and cp [td][B*H][Sp], ep [B*H][td * td].  plant:
@@ -2057,8 +3044,8 @@ extern "C" int mlstm_chunkwise_bwd_launch(
     const void* q, const void* k, const void* v, const void* log_f,
     const void* log_i, const void* dh, const void* dc, const void* dn,
     const void* C, const void* n, const void* gates, const void* chunks,
-    const void* ck, const void* ck_lo, const void* nk, void* dq, void* dk,
-    void* dv, void* dlog_f, void* dlog_i, void* rows, void* gk, void* gn,
+    const void* ck, const void* nk, void* dq, void* dk, void* dv,
+    void* dlog_f, void* dlog_i, void* rows, void* gk, void* gn,
     void* sdm, void* wm, void* y, void* qy, void* rp, void* cp, void* ep,
     int BH, int S, int D, int L, int dtype, int plant, void* stream) {
   if (L < 1 || L > repro::mlstm_bwd::LMAX || S < 1 || D < 1)
@@ -2071,7 +3058,8 @@ extern "C" int mlstm_chunkwise_bwd_launch(
       static_cast<const float*>(dc), static_cast<const float*>(dn),         \
       static_cast<const float*>(C), static_cast<const float*>(n),           \
       static_cast<const float*>(gates), static_cast<const float*>(chunks),  \
-      ck, ck_lo, static_cast<const float*>(nk), static_cast<T*>(dq),        \
+      static_cast<const float*>(ck), static_cast<const float*>(nk),         \
+      static_cast<T*>(dq),                                                  \
       static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(dlog_f), \
       static_cast<float*>(dlog_i), static_cast<float*>(rows),               \
       static_cast<float*>(gk), static_cast<float*>(gn),                     \
@@ -2087,4 +3075,55 @@ extern "C" int mlstm_chunkwise_bwd_launch(
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_MLSTM_BWD
+}
+
+// The backward's wgmma route (where the forward takes its own: bf16/f16, D
+// % 64 == 0, chunks of 128, 16-byte-aligned q, k, v, dh).  The arguments
+// of mlstm_chunkwise_bwd_launch but the chunk (128), with the forward's
+// wgmma recompute: ck its C_k hi halves (lo after them, [2][B*H*max(nc-1,
+// 1)][D][D] in `dtype`).  Scratch from the wrapper, nc = ceil(S / 128), Sp
+// = nc * 128, td = ceil(D / 128): rows f32 [B*H][4][Sp]; y f32 [B*H][Sp]
+// [D] (null where nc == 1); qy, rp, cp f32 [td][B*H][Sp]; gp (dtype) [4]
+// [B*H*nc][128][128]; gk (dtype) [2][B*H*max(ncs, 1)][D][D] (ncs = nc,
+// or nc - 1 where neither dc nor dn is given); gn f32 [B*H][nc][D]; ep
+// f32 [B*H][td * td].  Returns cudaGetLastError() after the last launch.
+extern "C" int mlstm_chunkwise_bwd_wgmma_launch(
+    const void* q, const void* k, const void* v, const void* log_f,
+    const void* log_i, const void* dh, const void* dc, const void* dn,
+    const void* C, const void* n, const void* gates, const void* chunks,
+    const void* ck, const void* nk, void* dq, void* dk, void* dv,
+    void* dlog_f, void* dlog_i, void* rows, void* y, void* qy, void* gp,
+    void* gk, void* gn, void* rp, void* cp, void* ep, int BH, int S, int D,
+    int dtype, int plant, void* stream) {
+  if (S < 1 || D < 64 || D % 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_MLSTM_BWD_WG(T)                                               \
+  repro::mlstm_bwd::launch_wg<T>(                                           \
+      q, k, v, static_cast<const float*>(log_f),                            \
+      static_cast<const float*>(log_i), dh, static_cast<const float*>(dc),  \
+      static_cast<const float*>(dn), static_cast<const float*>(C),          \
+      static_cast<const float*>(n), static_cast<const float*>(gates),       \
+      static_cast<const float*>(chunks), ck, static_cast<const float*>(nk), \
+      dq, dk, dv, static_cast<float*>(dlog_f), static_cast<float*>(dlog_i), \
+      static_cast<float*>(rows), static_cast<float*>(y),                    \
+      static_cast<float*>(qy), gp, gk, static_cast<float*>(gn),             \
+      static_cast<float*>(rp), static_cast<float*>(cp),                     \
+      static_cast<float*>(ep), BH, S, D, plant,                             \
+      static_cast<cudaStream_t>(stream))
+  switch (dtype) {
+    case repro::kBF16: return REPRO_MLSTM_BWD_WG(__nv_bfloat16);
+    case repro::kF16: return REPRO_MLSTM_BWD_WG(__half);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_MLSTM_BWD_WG
+}
+
+// Dynamic shared memory of the backward's wgmma kernels in bytes: pass 0
+// (Y), 1 (intra), 2 (walk), 3 (grads).
+extern "C" int mlstm_chunkwise_bwd_wgmma_smem(int pass) {
+  using namespace repro::mlstm_bwd;
+  return pass == 0 ? YPass::SMEM
+         : pass == 1 ? IntraB::SMEM
+         : pass == 2 ? WalkB::SMEM
+                     : GradsB::SMEM;
 }

@@ -44,23 +44,38 @@ route's kernel or raises, and counts one launch a call in
 have (the reference's comes from JAX differentiating its XLA chunkwise
 path): (dq, dk, dv, dlog_f, dlog_i) of h and, where given, of the final C
 and n.  It first recomputes the forward's chunk states with the forward's
-own route (:func:`_route`, counted in ``mlstm_chunkwise_bwd.routes``):
-``"wgmma"``'s gate and state passes, which hand it every chunk's C_k in
-hi + lo, or the ``"simt"`` kernel writing its gates, C_k and n_k in f32.
-Then six launches (``csrc/mlstm_chunkwise.cu``, ``mlstm_bwd``), f32 on
-the CUDA cores in 128 x 128 tiles: per chunk S = q k^T, W = dh v^T and
-the denominators; C_k dh; the per-step dnum / dden factors; the reverse
-walk of the state's gradient G_k from (dC, dn) down; dq, dk, dv with the
-partial row and column sums of P o dP; dlog_i and dlog_f's reverse
-cumulative sum.  ~2.2 GB of scratch at the xLSTM training shape (C_k and
-G_k of every chunk).  Bound: operations
-(:func:`bwd_flops`, 343.8 GFLOP at B 4, H 4, S 2048, D 1024, chunk 128:
-0.348 ms at 989 TFLOP/s).  A gradient of the final m raises on the card
-(training never returns the state).  On CPU tensors the wrapper returns
-the gradient of the plain forward by autograd (:func:`repro_torch.kernels.
-ref.mlstm_chunkwise_autograd_ref`); its closed form, the kernel's plain
-version on the card, is :func:`repro_torch.kernels.ref.
-mlstm_chunkwise_bwd_ref`.
+own route (:func:`_route`), then runs the backward on the same route,
+counted in ``mlstm_chunkwise_bwd.routes`` (``csrc/mlstm_chunkwise.cu``,
+``mlstm_bwd``):
+
+* ``"wgmma"`` -- the forward's gate and state passes hand over every
+  chunk's C_k in hi + lo; then four launches on the tensor cores: Y = dh
+  C_k^T with its row dots q . Y (a pass of its own: the denominators'
+  gradient needs the whole row before any G exists); per chunk S = q k^T
+  and W = dh v^T, the per-step factors, G and Sd / Dv in hi + lo; the
+  reverse walk of the state's gradient G_k from (dC, dn) down, the tile
+  the f32 ``wgmma`` accumulator (the forward's state pass in reverse),
+  handing each G_k over in hi + lo; dq, dk, dv with the f32 row and
+  column sums of P o dP; then dlog_i and dlog_f's reverse cumulative sum
+  on the CUDA cores.  Every product has one side exact in the 16-bit type
+  and the f32 side split into hi + lo (:func:`repro_torch.kernels.ref.
+  mlstm_chunkwise_bwd_split_ref` is this algorithm in plain PyTorch);
+  2.46 GB of scratch and outputs at the xLSTM training shape (C_k and G_k
+  of every chunk in hi + lo, Y in f32);
+* ``"simt"`` -- after the ``simt`` forward kernel writes its gates, C_k
+  and n_k in f32, six launches f32 on the CUDA cores in 128 x 128 tiles:
+  per chunk S = q k^T, W = dh v^T and the denominators; C_k dh; the
+  per-step dnum / dden factors; the reverse walk of G_k; dq, dk, dv with
+  the partial row and column sums; dlog_i and dlog_f.
+
+Bound: operations (:func:`bwd_flops`, 343.8 GFLOP at B 4, H 4, S 2048, D
+1024, chunk 128: 0.348 ms at 989 TFLOP/s; the ``wgmma`` route runs about
+twice that on the tensor cores, the hi + lo halves).  A gradient of the
+final m raises on the card (training never returns the state).  On CPU
+tensors the wrapper returns the gradient of the plain forward by autograd
+(:func:`repro_torch.kernels.ref.mlstm_chunkwise_autograd_ref`); its closed
+form, the kernel's plain version on the card, is
+:func:`repro_torch.kernels.ref.mlstm_chunkwise_bwd_ref`.
 """
 from __future__ import annotations
 
@@ -70,7 +85,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (mlstm_chunkwise_autograd_ref,
+from repro_torch.kernels.ref import (BWD_PLANT_DQ_INTER, BWD_PLANT_RESET,
+                                     BWD_PLANT_SHIFT,
+                                     mlstm_chunkwise_autograd_ref,
                                      mlstm_chunkwise_ref)
 from repro_torch.kernels.sma_gemm import DTYPE_CODES
 
@@ -88,16 +105,20 @@ _WG_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
                 + [ctypes.c_void_p])
 
 
-#: backward: q, k, v, log_f, log_i, dh, dc, dn, C, n, gates, chunks, ck,
-#: ck_lo, nk, dq, dk, dv, dlog_f, dlog_i, rows, gk, gn, sdm, wm, y, qy, rp,
-#: cp, ep; B*H, S, D, L, dtype, plant; stream.
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 6
+#: backward, route simt: q, k, v, log_f, log_i, dh, dc, dn, C, n, gates,
+#: chunks, ck, nk, dq, dk, dv, dlog_f, dlog_i, rows, gk, gn, sdm, wm, y, qy,
+#: rp, cp, ep; B*H, S, D, L, dtype, plant; stream.
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 29 + [ctypes.c_int] * 6
                  + [ctypes.c_void_p])
-#: Planted faults of the backward (a bit mask; must match
-#: ``csrc/mlstm_chunkwise.cu``, ``mlstm_bwd``): the reverse state gradient
-#: reset at chunk nc // 2; dq's inter-chunk terms dropped; dlog_f's reverse
-#: cumulative sum shifted by one step.
-BWD_PLANT_RESET, BWD_PLANT_DQ_INTER, BWD_PLANT_SHIFT = 1, 2, 4
+#: backward, route wgmma: q, k, v, log_f, log_i, dh, dc, dn, C, n, gates,
+#: chunks, ck, nk, dq, dk, dv, dlog_f, dlog_i, rows, y, qy, gp, gk, gn, rp,
+#: cp, ep; B*H, S, D, dtype, plant; stream.
+_BWD_WG_ARGTYPES = ([ctypes.c_void_p] * 28 + [ctypes.c_int] * 5
+                    + [ctypes.c_void_p])
+#: The backward's planted faults, ``BWD_PLANT_*`` (from ``ref``, shared
+#: with its plain version ``ref.mlstm_chunkwise_bwd_split_ref``): the
+#: reverse state gradient reset at chunk nc // 2; dq's inter-chunk terms
+#: dropped; dlog_f's reverse cumulative sum shifted by one step.
 #: Per-step scratch slots of the forward's gates (``repro::SLOTS``) and
 #: of the backward's own (``mlstm_bwd::RSLOTS``).
 _SLOTS, _BWD_SLOTS = 5, 4
@@ -109,7 +130,9 @@ def _lib() -> ctypes.CDLL:
                        {"mlstm_chunkwise_launch": _ARGTYPES,
                         "mlstm_chunkwise_wgmma_launch": _WG_ARGTYPES,
                         "mlstm_chunkwise_wgmma_smem": [ctypes.c_int],
-                        "mlstm_chunkwise_bwd_launch": _BWD_ARGTYPES})
+                        "mlstm_chunkwise_bwd_launch": _BWD_ARGTYPES,
+                        "mlstm_chunkwise_bwd_wgmma_launch": _BWD_WG_ARGTYPES,
+                        "mlstm_chunkwise_bwd_wgmma_smem": [ctypes.c_int]})
 
 
 def wgmma_smem() -> dict:
@@ -118,6 +141,14 @@ def wgmma_smem() -> dict:
     lib = _lib()
     return {name: lib.mlstm_chunkwise_wgmma_smem(i)
             for i, name in enumerate(("intra", "state", "output"))}
+
+
+def bwd_smem() -> dict:
+    """Dynamic shared memory (bytes) of the backward's ``wgmma`` kernels
+    (Y, intra, walk, grads), as the built library sizes them."""
+    lib = _lib()
+    return {name: lib.mlstm_chunkwise_bwd_wgmma_smem(i)
+            for i, name in enumerate(("y", "intra", "walk", "grads"))}
 
 
 def _route(s: int, d: int, chunk: int, dtype: torch.dtype,
@@ -158,13 +189,16 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             plant: int, recompute: bool) -> Tuple:
     """:func:`_run`, returning (h, C, n, m, scratch).  With ``recompute``
     (the backward's) the launch also hands over what the backward reads,
-    scratch = (gates, chunks, C_k, C_k's lo halves or None, n_k), and route
-    ``wgmma`` runs its gate and state passes alone (h is not written)."""
+    scratch = (gates, chunks, C_k, n_k), C_k f32 (route ``simt``) or its
+    hi halves followed by its lo halves in q's dtype (``wgmma``), and route
+    ``wgmma`` runs its gate and state passes alone (h is neither written
+    nor allocated: None)."""
     b, h, s, d = q.shape
     bh, nc = b * h, -(-s // L)
     slabs = bh * max(nc - 1, 1)
     f32 = dict(dtype=torch.float32, device=q.device)
-    out = torch.empty_like(q)
+    # Route wgmma's recompute writes no h.
+    out = None if recompute and route == "wgmma" else torch.empty_like(q)
     c = torch.empty((b, h, d, d), **f32)
     n = torch.empty((b, h, d), **f32)
     m = torch.empty((b, h), **f32)
@@ -180,7 +214,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ptrs = [None] * 4
         if recompute:
             ck = torch.empty((slabs, d, d), **f32)
-            scratch = (gates, chunks, ck, None, nk)
+            scratch = (gates, chunks, ck, nk)
             ptrs = [t.data_ptr() for t in (gates, chunks, ck, nk)]
         with torch.cuda.device(q.device):
             err = lib.mlstm_chunkwise_launch(
@@ -195,12 +229,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              device=q.device)
             rowsum = torch.empty(bh * nc * L, **f32)
         ck = torch.empty((2, slabs, d, d), dtype=q.dtype, device=q.device)
-        scratch = (gates, chunks, ck[0], ck[1], nk)
+        scratch = (gates, chunks, ck, nk)
         with torch.cuda.device(q.device):
             err = lib.mlstm_chunkwise_wgmma_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), lf.data_ptr(),
-                li.data_ptr(), out.data_ptr(), c.data_ptr(), n.data_ptr(),
-                m.data_ptr(), gates.data_ptr(), chunks.data_ptr(),
+                li.data_ptr(), out.data_ptr() if out is not None else None,
+                c.data_ptr(), n.data_ptr(), m.data_ptr(), gates.data_ptr(),
+                chunks.data_ptr(),
                 sd.data_ptr() if sd is not None else None,
                 rowsum.data_ptr() if rowsum is not None else None,
                 ck.data_ptr(), nk.data_ptr(), bh, s, d,
@@ -273,27 +308,25 @@ def bwd_flops(b: int, h: int, s: int, d: int, chunk: int) -> float:
 def _run_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              lf: torch.Tensor, li: torch.Tensor, dh: torch.Tensor,
              dc: Optional[torch.Tensor], dn: Optional[torch.Tensor], L: int,
-             plant: int = 0) -> Tuple[torch.Tensor, ...]:
+             plant: int = 0, route: Optional[str] = None
+             ) -> Tuple[torch.Tensor, ...]:
     """The backward on contiguous (B, H, S, D) q, k, v, dh, f32 gates and
-    f32 dc, dn or None, chunks of L steps: the forward's recompute on its
-    route (:func:`_route_of`), then the backward's launches; returns (dq,
-    dk, dv, dlog_f, dlog_i), the last two f32.  Counts nothing
-    (``chip_smoke.py`` feeds it the planted faults of ``plant``,
-    ``BWD_PLANT_*``, 0 otherwise)."""
+    f32 dc, dn or None, chunks of L steps: the forward's recompute on
+    ``route`` (default :func:`_route_of`, the forward's), then the
+    backward's launches on the same route; returns (dq, dk, dv, dlog_f,
+    dlog_i), the last two f32.  Counts nothing (``chip_smoke.py`` feeds it
+    the planted faults of ``plant``, ``BWD_PLANT_*``, 0 otherwise, and
+    times route ``simt`` beside ``wgmma`` on the same inputs)."""
     b, h, s, d = q.shape
     bh, nc, td = b * h, -(-s // L), -(-d // _TILE)
     sp = nc * L
-    route = _route_of(q, k, v, L)
-    _, c, n, _, (gates, chunks, ck, ck_lo, nk) = _launch(
+    route = route or _route_of(q, k, v, L)
+    _, c, n, _, (gates, chunks, ck, nk) = _launch(
         q, k, v, lf, li, L, route, 0, True)
     f32 = dict(dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dlf, dli = torch.empty((b, h, s), **f32), torch.empty((b, h, s), **f32)
     rows = torch.empty(bh * _BWD_SLOTS * sp, **f32)
-    gk = torch.empty((bh, nc, d, d), **f32)
-    gn = torch.empty((bh, nc, d), **f32)
-    sdm, wm = (torch.empty((bh, nc, L, L), **f32) for _ in range(2))
-    y = torch.empty((bh, sp, d), **f32)
     qy, rp, cp = (torch.empty((td, bh, sp), **f32) for _ in range(3))
     ep = torch.empty((bh, td * td), **f32)
     lib = _lib()
@@ -301,11 +334,33 @@ def _run_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def ptr(t):
         return t.data_ptr() if t is not None else None
     with torch.cuda.device(q.device):
-        err = lib.mlstm_chunkwise_bwd_launch(
-            *(ptr(t) for t in (q, k, v, lf, li, dh, dc, dn, c, n, gates,
-                               chunks, ck, ck_lo, nk, dq, dk, dv, dlf, dli,
-                               rows, gk, gn, sdm, wm, y, qy, rp, cp, ep)),
-            bh, s, d, L, DTYPE_CODES[q.dtype], plant, _build.stream_of(q))
+        if route == "wgmma":
+            y = torch.empty((bh, sp, d), **f32) if nc > 1 else None
+            gp = torch.empty((4, bh * nc, L, L), dtype=q.dtype,
+                             device=q.device)
+            # G_k of the chunks with a gradient after them: the last only
+            # with dc or dn.
+            ncs = nc if dc is not None or dn is not None else nc - 1
+            gk = torch.empty((2, bh * max(ncs, 1), d, d), dtype=q.dtype,
+                             device=q.device)
+            gn = torch.empty((bh, nc, d), **f32)
+            err = lib.mlstm_chunkwise_bwd_wgmma_launch(
+                *(ptr(t) for t in (q, k, v, lf, li, dh, dc, dn, c, n, gates,
+                                   chunks, ck, nk, dq, dk, dv, dlf, dli,
+                                   rows, y, qy, gp, gk, gn, rp, cp, ep)),
+                bh, s, d, DTYPE_CODES[q.dtype], plant, _build.stream_of(q))
+        else:
+            gk = torch.empty((bh, nc, d, d), **f32)
+            gn = torch.empty((bh, nc, d), **f32)
+            sdm, wm = (torch.empty((bh, nc, L, L), **f32) for _ in range(2))
+            y = torch.empty((bh, sp, d), **f32)
+            err = lib.mlstm_chunkwise_bwd_launch(
+                *(ptr(t) for t in (q, k, v, lf, li, dh, dc, dn, c, n, gates,
+                                   chunks, ck, nk, dq, dk, dv, dlf, dli,
+                                   rows, gk, gn, sdm, wm, y, qy, rp, cp,
+                                   ep)),
+                bh, s, d, L, DTYPE_CODES[q.dtype], plant,
+                _build.stream_of(q))
     _build.check(lib, err, f"mlstm_chunkwise_bwd ({route})")
     return dq, dk, dv, dlf, dli
 

@@ -453,6 +453,34 @@ def mlstm_final_m(log_f: torch.Tensor, log_i: torch.Tensor, *,
     return m
 
 
+def _mlstm_gate_grads(r: torch.Tensor, c: torch.Tensor,
+                      log_f: torch.Tensor, log_i: torch.Tensor,
+                      extra: Optional[torch.Tensor] = None,
+                      shift: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dlog_f, dlog_i) (B, H, S) from the row sums r_t = q_t . dq_t and
+    the column sums c_s = k_s . dk_s of P o dP (c with the final state's
+    own terms): dlog_i = c and dlog_f_j = sum_{t >= j} (r - c)_t (with
+    ``shift``, a planted fault, t > j).  ``extra`` (B, H) = <C, dC> + <n,
+    dn> where the final state has a gradient: the returned state is C
+    exp(-m) with m = F_{S-1} + max(0, li_s* - F_s*) (F = cumsum(log f), s*
+    the first argmax), so its gradient moves log f up to s* by ``extra``,
+    which the frame's exp(-m) takes back after s* and from li_s*."""
+    diff = r - c
+    dlog_f = diff.flip(-1).cumsum(-1).flip(-1)
+    if shift:
+        dlog_f = dlog_f - diff
+    if extra is not None:
+        top, star = (log_i.float() - log_f.float().cumsum(-1)).max(-1)
+        wins = top > 0
+        steps = torch.arange(r.shape[-1], device=r.device)
+        dlog_f = dlog_f + extra[..., None] * ((steps <= star[..., None])
+                                              & wins[..., None])
+        c = c - torch.where(wins[..., None] & (steps == star[..., None]),
+                            extra[..., None], 0.0)
+    return dlog_f, c
+
+
 def mlstm_chunkwise_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, log_f: torch.Tensor,
                             log_i: torch.Tensor, dh: torch.Tensor,
@@ -500,7 +528,7 @@ def mlstm_chunkwise_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dv = p.transpose(-1, -2) @ dnum
     r = (p * dp).sum(-1)
     c = (p * dp).sum(-2)
-    extra = torch.zeros_like(r[..., 0])
+    extra = None
     if dc is not None or dn is not None:
         m = mlstm_final_m(log_f, log_i, chunk=chunk)
         w = torch.exp(fc[..., -1:] - fc + li - m[..., None])   # (B, H, S)
@@ -514,20 +542,7 @@ def mlstm_chunkwise_bwd_ref(q: torch.Tensor, k: torch.Tensor,
         fin = w * (k32 * inner).sum(-1)
         c = c + fin
         extra = fin.sum(-1)
-    dlog_f = (r - c).flip(-1).cumsum(-1).flip(-1)
-    if dc is not None or dn is not None:
-        # The returned state is C exp(-m) with m = F_{S-1} + max(0, li_s* -
-        # F_s*) (s* the argmax): its gradient moves log f up to s* by
-        # <C, dC> + <n, dn>, which the frame's exp(-m) takes back after s*
-        # and from li_s*.
-        cand = li - fc
-        top, star = cand.max(-1)
-        wins = top > 0
-        upto = torch.arange(s, device=q.device) <= star[..., None]
-        dlog_f = dlog_f + extra[..., None] * (upto & wins[..., None])
-        c = c - torch.where(
-            wins[..., None] & (torch.arange(s, device=q.device)
-                               == star[..., None]), extra[..., None], 0.0)
+    dlog_f, c = _mlstm_gate_grads(r, c, log_f, log_i, extra)
     return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
             dlog_f.to(log_f.dtype), c.to(log_i.dtype))
 
@@ -547,6 +562,77 @@ def _split16(x: torch.Tensor, dtype: torch.dtype
     ``dtype``, both returned in f32."""
     hi = x.to(dtype).float()
     return hi, (x - hi).to(dtype).float()
+
+
+def _two_pass_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     log_f: torch.Tensor, log_i: torch.Tensor, L: int,
+                     *more: torch.Tensor):
+    """q, k, v (and ``more`` of their shape) in f32, padded to whole chunks
+    of L steps as the reference pads them and reshaped (B, H, nc, L, D);
+    log_f, log_i likewise (B, H, nc, L)."""
+    b, h, s, d = q.shape
+    nc = -(-s // L)
+    pad = nc * L - s
+    xs = [torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+          .reshape(b, h, nc, L, d) for t in (q, k, v, *more)]
+    lf = torch.nn.functional.pad(log_f.float(), (0, pad)).reshape(b, h, nc, L)
+    li = torch.nn.functional.pad(log_i.float(), (0, pad), value=NEG_INF
+                                 ).reshape(b, h, nc, L)
+    return xs, lf, li
+
+
+def _two_pass_gates(lf: torch.Tensor, li: torch.Tensor) -> dict:
+    """The ``wgmma`` route's gate pre-scan over (B, H, nc, L) gates: per
+    chunk b = cumsum(log f), a = log i - b, cm = cummax(a); the stabilizer
+    chain g_L = max(m0, cm_L), m0' = b_L + g_L over the chunks from m0 = 0;
+    then g = max(m0, cm), decay0 = exp(m0 - g), minv = exp(-(b + g)), w =
+    exp(a - g_L), scale_c = exp(m0 - g_L) and the final m."""
+    bc = lf.cumsum(-1)
+    a = li - bc
+    cm = torch.cummax(a, -1).values
+    m = lf.new_zeros(lf.shape[:2])
+    m0s = []
+    for c in range(lf.shape[2]):
+        m0s.append(m)
+        m = bc[..., c, -1] + torch.maximum(m, cm[..., c, -1])
+    m0 = torch.stack(m0s, -1)                                  # (B, H, nc)
+    g = torch.maximum(m0[..., None], cm)
+    g_last = g[..., -1]
+    return dict(a=a, g=g, decay0=torch.exp(m0[..., None] - g),
+                minv=torch.exp(-(bc + g)),
+                w=torch.exp(a - g_last[..., None]),
+                scale_c=torch.exp(m0 - g_last), m=m)
+
+
+def _two_pass_chain(k32: torch.Tensor, v32: torch.Tensor, gates: dict,
+                    half: torch.dtype, drop_lo: bool = False):
+    """The ``wgmma`` route's C_k chain: C_0 = 0, C_{k+1} = scale_c C_k +
+    (hi + lo of w k)^T v (the lo half dropped with ``drop_lo``), n from the
+    unsplit w k.  Returns the states entering each chunk, [C_k], [n_k], and
+    the final C and n."""
+    b, h, nc, _, d = k32.shape
+    wk = gates["w"][..., None] * k32
+    wk_hi, wk_lo = _split16(wk, half)
+    if drop_lo:
+        wk_lo = torch.zeros_like(wk_lo)
+    c_state = k32.new_zeros((b, h, d, d))
+    n = k32.new_zeros((b, h, d))
+    cs, ns = [], []
+    for c in range(nc):
+        cs.append(c_state)
+        ns.append(n)
+        sc = gates["scale_c"][..., c]
+        c_state = (sc[..., None, None] * c_state
+                   + (wk_hi[:, :, c] + wk_lo[:, :, c]).transpose(-1, -2)
+                   @ v32[:, :, c])
+        n = sc[..., None] * n + wk[:, :, c].sum(-2)
+    return cs, ns, c_state, n
+
+
+def _half_of(dtype: torch.dtype) -> torch.dtype:
+    """The 16-bit type the split halves take: q's, or bf16 for f32."""
+    return dtype if dtype in (torch.bfloat16, torch.float16) \
+        else torch.bfloat16
 
 
 def mlstm_chunkwise_two_pass_ref(q: torch.Tensor, k: torch.Tensor,
@@ -574,33 +660,14 @@ def mlstm_chunkwise_two_pass_ref(q: torch.Tensor, k: torch.Tensor,
     in it.  ``plant`` is a mask of ``PLANT_*`` faults (0: none).  Returns
     what :func:`mlstm_chunkwise_ref` returns."""
     b, h, s, d = q.shape
-    half = q.dtype if q.dtype in (torch.bfloat16, torch.float16) \
-        else torch.bfloat16
+    half = _half_of(q.dtype)
     scale = d ** -0.5
     L = min(chunk, s)
-    nc = -(-s // L)
-    pad = nc * L - s
-    q32, k32, v32 = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
-                     .reshape(b, h, nc, L, d) for t in (q, k, v))
-    lf = torch.nn.functional.pad(log_f.float(), (0, pad)).reshape(b, h, nc, L)
-    li = torch.nn.functional.pad(log_i.float(), (0, pad), value=NEG_INF
-                                 ).reshape(b, h, nc, L)
+    (q32, k32, v32), lf, li = _two_pass_chunks(q, k, v, log_f, log_i, L)
+    nc = q32.shape[2]
     # 1. gates
-    bc = lf.cumsum(-1)
-    a = li - bc
-    cm = torch.cummax(a, -1).values
-    m = q.new_zeros((b, h), dtype=torch.float32)
-    m0s = []
-    for c in range(nc):
-        m0s.append(m)
-        m = bc[..., c, -1] + torch.maximum(m, cm[..., c, -1])
-    m0 = torch.stack(m0s, -1)                                  # (B, H, nc)
-    g = torch.maximum(m0[..., None], cm)
-    g_last = g[..., -1]
-    decay0 = torch.exp(m0[..., None] - g)
-    minv = torch.exp(-(bc + g))
-    w = torch.exp(a - g_last[..., None])
-    scale_c = torch.exp(m0 - g_last)
+    gates = _two_pass_gates(lf, li)
+    a, g, decay0, minv = (gates[x] for x in ("a", "g", "decay0", "minv"))
     # 2. S . D, once per chunk
     tri = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
     sd = (q32 @ k32.transpose(-1, -2)) * scale * torch.where(
@@ -608,21 +675,8 @@ def mlstm_chunkwise_two_pass_ref(q: torch.Tensor, k: torch.Tensor,
     rowsum = sd.sum(-1)
     sd_hi, sd_lo = _split16(sd, half)
     # 3. the C_k chain
-    wk = w[..., None] * k32
-    wk_hi, wk_lo = _split16(wk, half)
-    if plant & PLANT_LO:
-        wk_lo = torch.zeros_like(wk_lo)
-    c_state = q.new_zeros((b, h, d, d), dtype=torch.float32)
-    n = q.new_zeros((b, h, d), dtype=torch.float32)
-    cs, ns = [], []
-    for c in range(nc):
-        cs.append(c_state)
-        ns.append(n)
-        sc = scale_c[..., c]
-        c_state = (sc[..., None, None] * c_state
-                   + (wk_hi[:, :, c] + wk_lo[:, :, c]).transpose(-1, -2)
-                   @ v32[:, :, c])
-        n = sc[..., None] * n + wk[:, :, c].sum(-2)
+    cs, ns, c_state, n = _two_pass_chain(k32, v32, gates, half,
+                                         drop_lo=bool(plant & PLANT_LO))
     # 4. outputs
     cf = nc // 2
     outs = []
@@ -643,7 +697,114 @@ def mlstm_chunkwise_two_pass_ref(q: torch.Tensor, k: torch.Tensor,
         outs.append(num / den[..., None])
     out = torch.stack(outs, 2).reshape(b, h, nc * L, d)[:, :, :s]
     out = out.to(q.dtype)
-    return (out, (c_state, n, m)) if return_state else out
+    return (out, (c_state, n, gates["m"])) if return_state else out
+
+
+#: Planted faults of the mLSTM backward kernels (both routes) and of
+#: :func:`mlstm_chunkwise_bwd_split_ref` (a bit mask; must match
+#: ``csrc/mlstm_chunkwise.cu``, ``mlstm_bwd``): the reverse state gradient
+#: reset at chunk nc // 2; dq's inter-chunk terms dropped; dlog_f's reverse
+#: cumulative sum shifted by one step.
+BWD_PLANT_RESET, BWD_PLANT_DQ_INTER, BWD_PLANT_SHIFT = 1, 2, 4
+
+
+def mlstm_chunkwise_bwd_split_ref(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, log_f: torch.Tensor,
+                                  log_i: torch.Tensor, dh: torch.Tensor,
+                                  dc: Optional[torch.Tensor] = None,
+                                  dn: Optional[torch.Tensor] = None, *,
+                                  chunk: int, plant: int = 0
+                                  ) -> Tuple[torch.Tensor, ...]:
+    """The algorithm of the mLSTM backward's ``wgmma`` route in plain
+    PyTorch: the function of :func:`mlstm_chunkwise_bwd_ref`, computed in
+    the route's passes and with its roundings, for the tests (never on a
+    main path).  Per chunk of L steps, in the forward's stabilized frame
+    (E_ts = D^-0.5 exp(a_s - g_t) for s <= t, else 0; dec = decay0 D^-0.5):
+
+    0. The forward's gate and state passes (:func:`_two_pass_gates`,
+       :func:`_two_pass_chain`): C_k entering each chunk, split hi + lo.
+    1. Y = dh (hi + lo of C_k)^T and qy = q . Y per step (0 in chunk 0).
+    2. S = q k^T, W = dh v^T (both sides exact); Sd = S o E, den = dec q .
+       n_k + sum_s Sd, Dv = max(|den|, minv), dden = -sign(den) (dec qy +
+       sum_s Sd o W) / Dv^2 where |den| > minv, else 0; u = dec / Dv, z =
+       dec dden; G = E o (W / Dv + dden), P = Sd / Dv, each split hi + lo.
+    3. From (dC, dn) down, G_k the gradient of the state after chunk k, in
+       f32, handed over split hi + lo: G_{k-1} = scale_c G_k + (hi + lo of
+       u q)^T dh, gn_{k-1} = scale_c gn_k + sum_t z_t q_t.
+    4. dq = G k + u Y + z n_k; dk = w (v G_k^T + gn_k) + G^T q; dv = w (k
+       G_k) + P^T dh, with the f32 sums q . dq and k . dk.
+    5. dlog_i, dlog_f from them and <C, dC> + <n, dn> (C, n the final
+       state of pass 0), as :func:`_mlstm_gate_grads`.
+
+    The split type is q's (bf16 for f32 inputs); q, k, v and dh are read
+    as exact in it.  ``plant`` is a mask of ``BWD_PLANT_*`` faults (0:
+    none).  Returns what :func:`mlstm_chunkwise_bwd_ref` returns."""
+    b, h, s, d = q.shape
+    half = _half_of(q.dtype)
+    scale = d ** -0.5
+    L = min(chunk, s)
+    (q32, k32, v32, dh32), lf, li = _two_pass_chunks(q, k, v, log_f, log_i,
+                                                     L, dh)
+    nc = q32.shape[2]
+    # 0. the forward's recompute
+    gates = _two_pass_gates(lf, li)
+    a, g, minv, w = (gates[x] for x in ("a", "g", "minv", "w"))
+    dec = gates["decay0"] * scale
+    cs, ns, c_fin, n_fin = _two_pass_chain(k32, v32, gates, half)
+    ck = torch.stack([sum(_split16(x, half)) for x in cs], 2)
+    nk = torch.stack(ns, 2)                                  # (B, H, nc, D)
+    # 1. Y = dh C_k^T
+    y = dh32 @ ck.transpose(-1, -2)
+    qy = (q32 * y).sum(-1)
+    # 2. the chunk's own products and the per-step factors
+    tri = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    e = torch.where(tri, scale * torch.exp(a[..., None, :] - g[..., :, None]),
+                    0.0)
+    sd = (q32 @ k32.transpose(-1, -2)) * e
+    wm = dh32 @ v32.transpose(-1, -2)
+    den = dec * (q32 @ nk[..., None])[..., 0] + sd.sum(-1)
+    dv_ = torch.maximum(den.abs(), minv)
+    dden = torch.where(den.abs() > minv, -torch.sign(den)
+                       * (dec * qy + (sd * wm).sum(-1)) / dv_ ** 2, 0.0)
+    u, z = dec / dv_, dec * dden
+    gm = sum(_split16(e * (wm / dv_[..., None] + dden[..., None]), half))
+    pm = sum(_split16(sd / dv_[..., None], half))
+    # 3. the reverse walk of the state's gradient
+    gk = dc.float() if dc is not None else q32.new_zeros((b, h, d, d))
+    gn = dn.float() if dn is not None else q32.new_zeros((b, h, d))
+    uq = sum(_split16(u[..., None] * q32, half))
+    gks, gns = [None] * nc, [None] * nc
+    for c in range(nc - 1, -1, -1):
+        if plant & BWD_PLANT_RESET and c == nc // 2:
+            gk, gn = torch.zeros_like(gk), torch.zeros_like(gn)
+        gks[c], gns[c] = sum(_split16(gk, half)), gn
+        sc = gates["scale_c"][..., c]
+        gk = sc[..., None, None] * gk + uq[:, :, c].transpose(-1, -2) \
+            @ dh32[:, :, c]
+        gn = sc[..., None] * gn + (z[:, :, c, :, None] * q32[:, :, c]).sum(-2)
+    gks, gns = torch.stack(gks, 2), torch.stack(gns, 2)
+    # 4. the gradients
+    dq = gm @ k32
+    if not plant & BWD_PLANT_DQ_INTER:
+        dq = dq + u[..., None] * y + z[..., None] * nk[..., None, :]
+    dk = (w[..., None] * (v32 @ gks.transpose(-1, -2) + gns[..., None, :])
+          + gm.transpose(-1, -2) @ q32)
+    dv = w[..., None] * (k32 @ gks) + pm.transpose(-1, -2) @ dh32
+    # 5. the gates' gradients
+    r, cc = ((x * dx).sum(-1).reshape(b, h, -1)[..., :s]
+             for x, dx in ((q32, dq), (k32, dk)))
+    extra = None
+    if dc is not None or dn is not None:
+        extra = q32.new_zeros((b, h))
+        if dc is not None:
+            extra = extra + (c_fin * dc.float()).sum((-1, -2))
+        if dn is not None:
+            extra = extra + (n_fin * dn.float()).sum(-1)
+    dlog_f, dlog_i = _mlstm_gate_grads(r, cc, log_f, log_i, extra,
+                                       shift=bool(plant & BWD_PLANT_SHIFT))
+    dq, dk, dv = (x.reshape(b, h, -1, d)[:, :, :s] for x in (dq, dk, dv))
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+            dlog_f.to(log_f.dtype), dlog_i.to(log_i.dtype))
 
 
 def mlstm_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

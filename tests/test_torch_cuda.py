@@ -19,7 +19,9 @@ head_dim 256, and ``lm.prefill`` / ``lm.decode_step`` of a small recurrent
 model; and the xLSTM ones: the chunkwise mLSTM (h and its final state, at
 small and full head dim, ragged S, every dtype; its wgmma route against
 its simt route and the plain version; its backward kernel against the
-closed form ``ref.mlstm_chunkwise_bwd_ref``) and the serving steps of a small
+closed form ``ref.mlstm_chunkwise_bwd_ref`` on both routes, and on its
+wgmma route against its algorithm ``ref.mlstm_chunkwise_bwd_split_ref``)
+and the serving steps of a small
 xLSTM; the head's rmsnorm_gemm on its wgmma route against the tile route
 and the plain version.
 Tolerances: the reference's ``tol_for`` (3e-2 for 16-bit outputs, one
@@ -1178,6 +1180,14 @@ def test_mlstm_wgmma_shared_memory_fits_a_block(dev):
     assert 0 < min(smem.values()) and max(smem.values()) <= 232448
 
 
+def test_mlstm_bwd_wgmma_shared_memory_fits_a_block(dev):
+    """The backward's built wgmma kernels' dynamic shared memory, each
+    within the 227 KB a block may use."""
+    smem = kmlstm.bwd_smem()
+    assert set(smem) == {"y", "intra", "walk", "grads"}
+    assert 0 < min(smem.values()) and max(smem.values()) <= 232448
+
+
 def test_mlstm_chunkwise_refuses_what_it_does_not_take(dev):
     """A gradient of the final m (the backward kernel takes none), a chunk
     past 128, mixed dtypes."""
@@ -1213,6 +1223,7 @@ MLSTM_BWD_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 1e-2,
     (1, 2, 128, 32, 32, False), (2, 1, 100, 64, 32, True),   # ragged S
     (2, 2, 257, 200, 16, True),                # D not a multiple of 128
     (1, 1, 300, 1024, 128, False),             # xLSTM's head dim
+    (2, 1, 256, 128, 128, True),               # 16-bit: wgmma with dC, dn
     (1, 2, 1, 16, 128, True)])                 # one step
 def test_mlstm_chunkwise_bwd_matches_closed_form(dev, dtype, b, h, s, d,
                                                  chunk, state):
@@ -1243,6 +1254,39 @@ def test_mlstm_chunkwise_bwd_matches_closed_form(dev, dtype, b, h, s, d,
         scale = w.float().abs().max().item() if i < 3 else gates
         err = (g.float() - w.float()).abs().max().item() / scale
         assert err <= MLSTM_BWD_LIMIT[dt], (i, err)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("b,h,s,d,state", [(1, 2, 300, 128, True),
+                                           (2, 1, 128, 64, False)])
+def test_mlstm_bwd_wgmma_matches_its_algorithm(dev, dtype, b, h, s, d,
+                                               state):
+    """The backward's wgmma route against its algorithm in plain PyTorch
+    (``ref.mlstm_chunkwise_bwd_split_ref``: the same passes and hi + lo
+    roundings) on the same inputs: dq, dk, dv within 4e-3 of their largest
+    entry (both round f32 values that differ in summation order to 16
+    bits: up to a flip of 2^-8 of the largest), dlog_f and dlog_i within
+    5e-5 of the larger of their largest and <C, dC> + <n, dn>."""
+    dt = DTYPES[dtype]
+    ins = mlstm_inputs(b, h, s, d, dt, dev, 5 * s + d)
+    dh = randn((b, h, s, d), dt, dev, 12)
+    dc = randn((b, h, d, d), torch.float32, dev, 13) if state else None
+    dn = randn((b, h, d), torch.float32, dev, 14) if state else None
+    ops.reset_counts()
+    got = kmlstm.mlstm_chunkwise_bwd(*ins, dh, dc, dn, chunk=128)
+    torch.cuda.synchronize()
+    assert kmlstm.BWD_ROUTES == {"wgmma": 1, "simt": 0}
+    want = ref.mlstm_chunkwise_bwd_split_ref(*ins, dh, dc, dn, chunk=128)
+    gates = max(w.abs().max().item() for w in want[3:])
+    if state:
+        _, (c, n, _) = ref.mlstm_chunkwise_ref(*ins, chunk=128,
+                                               return_state=True)
+        e = (c * dc).sum((-1, -2)) + (n * dn).sum(-1)
+        gates = max(gates, e.abs().max().item())
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = w.float().abs().max().item() if i < 3 else gates
+        err = (g.float() - w.float()).abs().max().item() / scale
+        assert err <= (4e-3 if i < 3 else 5e-5), (i, err)
 
 
 def test_mlstm_gradient_reaches_weights_on_card(dev):
