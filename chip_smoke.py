@@ -81,7 +81,8 @@
    loss and the gradients upstream of every flash dQ bit for bit, every
    other gradient, and each parameter's update and moment after one step,
    within twice the direct step's own run-to-run spread (the flash
-   backward sums dQ in no fixed order) or a stated floor; the same
+   backward at head_dim 64 sums dQ in no fixed order) or a stated floor;
+   the same
    launches and routes but the recomputations nothing reads; a zeroed
    weight-gradient site and a dropped AdamW write planted in the compiled
    modules, which must be caught.  ``train()`` with ``grad_compression``
@@ -178,9 +179,12 @@
    without h0 and a gradient of h_last, fed two planted faults (the
    reverse carry reset at S/2, a shifted by one step); the flash forward
    and backward at Qwen3's call (GQA 32/4, D 128) and at head_dim 256 at
-   RecurrentGemma's (MQA 10/1, window 2048) and a GQA one, each D 256 case
-   with a planted fault (the middle key tile dropped), RecurrentGemma's
-   backward timed against scaled_dot_product_attention's; ``sma_gemm`` at
+   RecurrentGemma's (MQA 10/1, window 2048) and a GQA one, each D 256
+   backward called twice (``torch.equal``) and fed two planted faults (the
+   middle key tile dropped in pass 1; one key tile left out of every dQ
+   sum in pass 2, which must fail dq alone), RecurrentGemma's backward
+   timed against scaled_dot_product_attention's, with each pass's device
+   ms, ptxas report, shared memory and dS scratch; ``sma_gemm`` at
    both cells' training shapes (every product forward, its dA and dB, the
    head's dW and dnormed) and the head ``rmsnorm_gemm`` at 8,192 tokens,
    each with a planted K-tile fault.  The MoE layer's routing backward at
@@ -200,10 +204,12 @@
    the mLSTM forward on ``wgmma`` twice a layer a step, its backward on
    ``simt`` once), step time, tokens/s, MFU over the parameters in a
    token's products, ``moe_drop_frac``, peak memory; the compiled step
-   against the direct one (event time A B B A, peak memory; the loss and
-   the gradients upstream of every flash dQ bit for bit, every gradient
-   without attention, the rest within max(2 x the direct step's spread,
-   JIT_TRAIN_FLOOR)); a profile of one compiled step.
+   against the direct one (event time A B B A, peak memory; the direct
+   step's run-to-run spread a gradient printed; the loss and the
+   gradients upstream of every flash dQ bit for bit, every gradient where
+   that spread reads 0 for all of them (without attention, or with it
+   only at head_dim 256), the rest within max(2 x the direct step's
+   spread, JIT_TRAIN_FLOOR)); a profile of one compiled step.
 10. Prints the kernel table as one JSON line (the redesigned kernels' rows
    with their route, the earlier design's time in the same call, and the
    ``-Xptxas -v`` registers, spills and shared memory), then the result line
@@ -299,9 +305,9 @@ QUEUE_CYCLES = 35_000_000
 # the first run read 1.19 limits (PERF.md).
 FLASH_ATOL, FLASH_RTOL = 4e-3, 2e-2
 # Flash backward vs its plain version (fed the same out and lse): max |err|
-# over a gradient tensor, relative to that tensor's max |plain|.  dq is
-# summed by reduce-adds in the L2 in no fixed order, so its low bits vary
-# by run.
+# over a gradient tensor, relative to that tensor's max |plain|.  At head_dim
+# 64 and 128 dq is summed by reduce-adds in the L2 in no fixed order, so its
+# low bits vary by run; at 256 two calls give the same bits.
 FLASH_GRAD_LIMIT = 2e-2
 # A planted fault must fail the check on every row it moves by more than
 # this many limits (measured on the plain version of the faulty inputs).
@@ -335,8 +341,9 @@ H100_BF16 = 989e12            # dense bf16 tensor-core peak, for the MFU
 # check_train_options): the relative error (Frobenius, a layer at a time)
 # of every gradient, and of every parameter's update and moment after one
 # step, must stay within max(2 x the direct step's own run-to-run spread,
-# JIT_TRAIN_FLOOR).  The flash backward sums dQ with reduce-adds in no
-# fixed order, so nothing downstream of a dQ is bit-reproducible: on an
+# JIT_TRAIN_FLOOR).  The flash backward at head_dim 64 and 128 sums dQ with
+# reduce-adds in no fixed order, so nothing downstream of such a dQ is
+# bit-reproducible (at head_dim 256 it sums in a fixed order): on an
 # H100 the direct-vs-direct spread of a gradient reads up to 8e-7, of an
 # update from a stepped state up to 5.3e-3 (from zero moments, where
 # Adam's update is about sign(g), 4.8e-2; PERF.md).  The planted faults of
@@ -1054,9 +1061,8 @@ def check_flash(gen, dev):
     """Each case: forward (out, lse) and backward (dq, dk, dv, fed the
     kernel's out and lse) against the plain versions; the causal case also
     feeds the planted faults of :func:`flash_controls`, each D 128 case
-    :func:`flash_box_control`, and each D 256 case the backward's own
-    planted fault (the middle key tile dropped: ``plant`` 1), which must
-    fail the dq, dk and dv checks.  The cases of FLASH_TIMED are timed."""
+    :func:`flash_box_control`, and each D 256 case
+    :func:`flash_bwd256_controls`.  The cases of FLASH_TIMED are timed."""
     rows = []
     ops.reset_counts()
     for case, (b, s, hq, hkv, window, d) in FLASH_CASES.items():
@@ -1091,18 +1097,11 @@ def check_flash(gen, dev):
             fail(f"flash backward {case}: {gerr} over {FLASH_GRAD_LIMIT}")
         if d == 128:
             flash_box_control(q, k, v, want)
-        del want, grads
+        del want
         if d == 256:
-            bad = kflash._run_bwd(q, k, v, out, lse, dout, True, window,
-                                  None, plant=1)
-            berr = {n: grad_error(g, w)
-                    for n, g, w in zip(("dq", "dk", "dv"), bad, wants)}
-            print(f"flash control, {case}, the middle key tile dropped: "
-                  f"{json.dumps({n: round(x, 5) for n, x in berr.items()})}")
-            if min(berr.values()) <= FLASH_GRAD_LIMIT:
-                fail(f"flash control '{case}: the middle key tile dropped' "
-                     f"passes the check: {berr}")
-            del bad
+            flash_bwd256_controls(case, (q, k, v, out, lse, dout), window,
+                                  grads, wants)
+        del grads
         if case == "causal":
             routes = check_flash_routes("flash checks", ops.launch_counts())
             print(f"flash routes of the checks so far: {json.dumps(routes)}")
@@ -1114,6 +1113,37 @@ def check_flash(gen, dev):
         torch.cuda.empty_cache()
     check_flash_routes("flash checks", ops.launch_counts())
     return rows
+
+
+def flash_bwd256_controls(case, args, window, grads, wants):
+    """The D 256 backward sums in a fixed order: a second call gives the
+    same dq, dk and dv (``torch.equal``).  Its planted faults: the middle
+    key tile dropped in pass 1 (``plant`` 1) must fail the dq, dk and dv
+    checks; one key tile left out of every query tile's dQ sum in pass 2
+    (``plant`` 2) must fail dq while dk and dv pass."""
+    again = kflash.flash_attention_bwd(*args, window=window)
+    equal = {n: torch.equal(g, a)
+             for n, g, a in zip(("dq", "dk", "dv"), grads, again)}
+    print(f"flash {case}: a second backward call torch.equal "
+          f"{json.dumps(equal)}")
+    if not all(equal.values()):
+        fail(f"flash backward {case}: two calls differ: {equal}")
+    del again
+    for plant, what, must in (
+            (ref.FLASH_PLANT_KEY_TILE, "the middle key tile dropped",
+             ("dq", "dk", "dv")),
+            (ref.FLASH_PLANT_DQ_TILE, "one key tile left out of each dQ sum",
+             ("dq",))):
+        bad = kflash._run_bwd(*args, True, window, None, plant=plant)
+        berr = {n: grad_error(g, w)
+                for n, g, w in zip(("dq", "dk", "dv"), bad, wants)}
+        print(f"flash control, {case}, {what} (plant {plant}): "
+              f"{json.dumps({n: round(x, 5) for n, x in berr.items()})} "
+              f"(must fail {list(must)}, the rest pass)")
+        if any(berr[n] <= FLASH_GRAD_LIMIT for n in must) or any(
+                berr[n] > FLASH_GRAD_LIMIT for n in berr if n not in must):
+            fail(f"flash control '{case}: {what}' reads {berr}")
+        del bad
 
 
 def flash_rows(gen, dev, first, window, gabs, err, directions, iters):
@@ -1172,10 +1202,26 @@ def flash_rows(gen, dev, first, window, gabs, err, directions, iters):
                 *a, window=window), bwd_args, plain_iters),
             bound(4 * io + 4 * b * hq * s, 10 * d * pairs, dt),
             time_ms(sdpa_bwd, lib_sets, library_iters)))
-        if d == 256:
-            rows[-1].update(kernel_route="wgmma",
-                            ptxas=ptxas_entries("flash_attention", "bwd256"),
-                            smem_bytes=kflash.smem_bytes(d, backward=True))
+        if d == 256:  # the scratch as this call allocated it; the shared
+            #           memory the library launches each pass with
+            kflash.flash_attention_bwd.scratch_bytes = 0
+            passes = device_ms_by_kernel(
+                lambda *a: kflash.flash_attention_bwd(*a, window=window),
+                bwd_args[0])
+            lib = kflash._lib()
+            rows[-1].update(
+                kernel_route="wgmma", passes_ms=passes,
+                ptxas=ptxas_entries("flash_attention", "bwd256"),
+                scratch_bytes=kflash.flash_attention_bwd.scratch_bytes,
+                smem_bytes={"dkv": lib.flash_attention_smem(d, 1),
+                            "dq": lib.flash_attention_smem(d, 2)})
+            if not rows[-1]["scratch_bytes"]:
+                fail(f"flash_attention_bwd {shape}: no dS scratch recorded")
+            print(f"flash_attention_bwd {shape}: device ms by pass "
+                  f"{json.dumps(rows[-1]['passes_ms'])}; dS scratch "
+                  f"{rows[-1]['scratch_bytes']} bytes; shared memory "
+                  f"{json.dumps(rows[-1]['smem_bytes'])}; ptxas "
+                  f"{json.dumps(rows[-1]['ptxas'])}")
         del lib_sets
     return rows
 
@@ -5384,10 +5430,12 @@ def family_run(cfg, dev, card: str, path: str, seq: int, batch: int,
     parameters that enter a token's products (:func:`matmul_params`, as
     the StableLM trainer's), the MoE's
     ``moe_drop_frac`` each step, peak memory.  Then the compiled step
-    against the direct one on the trained parameters: the loss and the
-    gradients upstream of every flash dQ bit for bit (all of them without
-    attention), every other gradient within max(2 x the direct step's own
-    spread, JIT_TRAIN_FLOOR); their event time A B B A over
+    against the direct one on the trained parameters: the direct step's
+    run-to-run spread a gradient printed; the loss and the gradients
+    upstream of every flash dQ bit for bit (all of them where that spread
+    reads 0 for every gradient: without attention, or with attention only
+    at head_dim 256), every other gradient within max(2 x the direct
+    step's own spread, JIT_TRAIN_FLOOR); their event time A B B A over
     ``timing_steps`` steps a reading and peak memory; a profile of one
     compiled step; the seconds each part took.  Returns the launches of the
     5 steps."""
@@ -5521,13 +5569,18 @@ def family_run(cfg, dev, card: str, path: str, seq: int, batch: int,
     again = grads_run(loss_and_grads)
     spread = relative_errors(again[1], want[1])
     del again
+    print(f"{path}: the direct step's run-to-run spread, a gradient: "
+          f"{json.dumps({k: float(f'{x:.3g}') for k, x in spread.items()})}")
     got = grads_run(grad_eng)
-    # Without attention (xLSTM) no kernel of the step sums in a varying
-    # order, and every gradient is held bit for bit.
+    # Where the direct step reads the same bits twice (no attention, as
+    # xLSTM; or attention only at head_dim 256, whose backward sums in a
+    # fixed order, as RecurrentGemma), every gradient is held bit for bit;
+    # else those upstream of every flash dQ summed in no fixed order.
     last = max((i for i, bt in enumerate(cfg.block_pattern)
                 if bt in ("attn", "local")), default=-1)
     top = cfg.num_groups - 1
-    exact = [k for k in got[1] if k in ("head.w", "final_norm.scale") or any(
+    exact = [k for k in got[1] if not any(spread.values())
+             or k in ("head.w", "final_norm.scale") or any(
         k.startswith(f"blocks.{p}.") and k.endswith(f"[{top}]")
         and (p > last or p == last and k.split(".")[2] in ("ffn", "norm2"))
         for p in range(len(cfg.block_pattern)))]
@@ -5536,8 +5589,8 @@ def family_run(cfg, dev, card: str, path: str, seq: int, batch: int,
     worst = max(mult, key=mult.get)
     print(f"{path}: loss and gradients compiled vs direct: loss "
           f"{got[0].item():.6f} vs {want[0].item():.6f} (torch.equal "
-          f"{torch.equal(got[0], want[0])}); {len(exact)} gradients "
-          f"upstream of every dQ, unequal {unequal}; direct-vs-direct "
+          f"{torch.equal(got[0], want[0])}); {len(exact)} of {len(got[1])} "
+          f"gradients held bit for bit, unequal {unequal}; direct-vs-direct "
           f"spread max {max(spread.values()):.4g}, median "
           f"{np.median(list(spread.values())):.4g}; largest limit multiple "
           f"{mult[worst]:.4g} ({worst})")

@@ -8,7 +8,8 @@ Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), builds
 its kernels there, and times each entry at the main paths' shapes (the
 ``SERVE_GEMMS`` and ``TRAIN_GEMMS`` of ``chip_smoke.py``, its paged and
 contiguous decode shapes, the flash forward and backward at the training
-shape and the forward at RecurrentGemma's prefill shape, the head's
+shape, the forward at RecurrentGemma's prefill shape and the backward at
+its training call (head_dim 256), the head's
 ``rmsnorm_gemm`` at decode (M 8) and training (M 8192) sizes, the chunkwise
 mLSTM at xLSTM's prefill shape with its state, the RG-LRU scan at
 RecurrentGemma's prefill shape with and without h0) two ways, over inputs
@@ -193,6 +194,21 @@ def main() -> int:
         lambda *a: kflash.flash_attention_fwd(*a, window=win), args, 10,
         sdpa_ms=timed(sdpa_mqa, args, 5, True))
     del args
+    # ... and its backward at RecurrentGemma's training call (B 2).
+    b = 2
+    sets = qkv(b, hq, 1, s, 256)
+    bwd_args = [(*x[:3], *kflash.flash_attention_fwd(*x[:3], window=win),
+                 x[3]) for x in sets]
+    lib_sets = []
+    for q_, k_, v_, do_ in sets:
+        leaves = [t.detach().clone().requires_grad_() for t in (q_, k_, v_)]
+        lib_sets.append((sdpa_mqa(*leaves), leaves, do_))
+    row("flash_attention_bwd",
+        f"B={b} Hq={hq} Hkv=1 S={s} D=256 window={win}",
+        lambda *a: kflash.flash_attention_bwd(*a, window=win), bwd_args, 10,
+        sdpa_ms=timed(lambda o, lv, do_: torch.autograd.grad(
+            o, lv, do_, retain_graph=True), lib_sets, 3, True))
+    del sets, bwd_args, lib_sets
 
     # The head: final_norm -> head, 2048 -> 100352 (StableLM's padded
     # vocab), at a decode tick (M 8) and the training step (M 8192).

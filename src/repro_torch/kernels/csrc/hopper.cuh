@@ -294,6 +294,25 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), \
   "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
 
+// d (64 x 16, f32) (+)= A (64 x 16) * B (16 x 16), both from shared memory.
+template <int TA, int TB, typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t da,
+                                         uint64_t db, int accumulate) {
+#define REPRO_WG_SS(TY)                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " "  \
+               "{%0, %1, %2, %3, %4, %5, %6, %7}, "                         \
+               "%8, %9, p, 1, 1, %11, %12;\n}\n"                           \
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),            \
+                 "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])             \
+               : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB))
+  if constexpr (std::is_same<T, __half>::value)
+    REPRO_WG_SS("f16");
+  else
+    REPRO_WG_SS("bf16");
+#undef REPRO_WG_SS
+}
+
 // d (64 x 64, f32) (+)= A (64 x 16) * B (16 x 64), both from shared memory.
 template <int TA, int TB, typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,

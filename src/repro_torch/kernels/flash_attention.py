@@ -8,8 +8,17 @@ each.  The forward gives a block 128 query rows of one (batch, head) and
 loops over the visible KV tiles inside the block, with the online softmax
 in f32 registers; the backward (FlashAttention-2) gives a block 128 keys
 of one (batch, KV head), recomputes ``P`` from the forward's ``lse``,
-sums dK/dV over the group in registers, and adds dQ into an f32 buffer
-with TMA reduce-adds.
+sums dK/dV over the group in registers, and (head_dim 64 and 128) adds dQ
+into an f32 buffer with TMA reduce-adds, in no fixed order.  At head_dim
+256 the backward runs in two passes with no unordered add, so its
+gradients are the same bits from run to run: pass 1 gives a block 64 keys
+of one (batch, KV head), a producer warpgroup and two consumers split by
+role (one computes S and P and sums dV, the other dP and dS and sums dK:
+each score product once), and stores each rounded dS tile to a banded
+scratch (one 64 x 64 tile a visible (query tile, key tile) pair; the
+library's ``flash_attention_bwd256_slots`` counts them); pass 2 gives a
+block 64 query rows of one (batch, query head) and sums dS K over the key
+tiles they see in ascending order.
 KV tiles wholly in the future or before the window are skipped, keys past
 ``Skv`` are masked in the kernel, and query head ``h`` reads KV head
 ``h // group``.
@@ -25,16 +34,16 @@ route statically):
   :func:`repro_torch.kernels.ref.flash_attention_ref`.
 * :func:`flash_attention_bwd` -- ``(dq, dk, dv)``; plain version
   :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`.  One call
-  launches two kernels (``D = rowsum(dO * O)``, then the main pass) and
-  counts once.
+  launches two kernels (``D = rowsum(dO * O)``, then the main pass; at
+  head_dim 256 three: the delta pass, pass 1 and pass 2) and counts once.
+  The D 256 passes' algorithm in plain PyTorch is
+  :func:`repro_torch.kernels.ref.flash_attention_bwd256_split_ref`.
 
 Each runs its plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises.  The kernels take bf16/f16 and head_dim
-64, 128 or 256.  Anything else on the card raises.  At head_dim 256 the
-backward has its own tiling (``flash_bwd256_kernel``): 64 keys a block,
-two warpgroups splitting dK, dV and dQ by columns, each recomputing the
-whole S and dP, and no producer warpgroup (so ptxas may give a thread up
-to 255 registers), dQ added from registers with f32 atomics.
+64, 128 or 256.  Anything else on the card raises.  The D 256 backward's
+dS scratch is B * Hq * 8 KB a visible (query tile, key tile) pair
+(0.26 GB at RecurrentGemma's training call), allocated per call.
 """
 from __future__ import annotations
 
@@ -53,22 +62,27 @@ FWD_HEAD_DIMS = (64, 128, 256)
 BWD_HEAD_DIMS = (64, 128, 256)
 #: Shared memory a block can use on an H100 (227 KB).
 SMEM_LIMIT = 232_448
+#: Rows and columns of a dS tile of the D 256 backward's scratch
+#: (``Bwd256::TILE``).
+BWD256_TILE = 64
 
 #: q, k, v, out, lse; B, Hq, Hkv, Sq, Skv, D; scale; causal, window,
 #: dtype; stream.
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                  + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-#: q, k, v, out, dout, lse, delta, dq, dk, dv; then as the forward, with
-#: the planted faults' mask after the dtype.
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+#: q, k, v, out, dout, lse, delta, dq, dk, dv, the D 256 dS scratch; then
+#: as the forward, with the scratch's slots a (batch, query head) and the
+#: planted faults' mask after the dtype.
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                 + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def _lib() -> ctypes.CDLL:
     return _build.load("flash_attention",
                        {"flash_attention_fwd_launch": _FWD_ARGTYPES,
                         "flash_attention_bwd_launch": _BWD_ARGTYPES,
-                        "flash_attention_smem": [ctypes.c_int] * 2})
+                        "flash_attention_smem": [ctypes.c_int] * 2,
+                        "flash_attention_bwd256_slots": [ctypes.c_int] * 4})
 
 
 def _route(d: int, dtype: torch.dtype, backward: bool = False) -> str:
@@ -80,27 +94,39 @@ def _route(d: int, dtype: torch.dtype, backward: bool = False) -> str:
     return "wgmma"
 
 
-def smem_bytes(d: int, backward: bool = False) -> int:
+def smem_bytes(d: int, backward: bool = False, dq_pass: bool = False
+               ) -> int:
     """Dynamic shared memory of the kernel for head_dim ``d``, as
     ``csrc/flash_attention.cu`` sizes it (``Fwd<D>::SMEM``,
-    ``Bwd<D>::SMEM``): 64-column boxes of 128-byte rows, 1 KB to align
-    the swizzled tiles, 8 bytes an mbarrier."""
+    ``Bwd<D>::SMEM``; at D 256 the backward's pass 1 ``Bwd256::SMEM``, or
+    with ``dq_pass`` its pass 2 ``Bwd256::DQ_SMEM``): 64-column boxes of
+    128-byte rows, 1 KB to align the swizzled tiles, 8 bytes an mbarrier.
+    Asserts that it fits the 227 KB a block may use."""
     boxes = d // 64
-    if backward and d == 256:  # K, V (64 keys); 2 x (Q, dO of 64 rows,
-        #           dS^T 64 x 64); 2 x lse / delta; 1 + 2 mbarriers
-        return (2 * boxes * 64 * 128 + 2 * (2 * boxes * 64 * 128 + 64 * 64 * 2)
-                + 2 * 2 * 64 * 4 + 1024 + 8 * 3)
-    if backward:  # K, V (128 keys); a ring of (Q, dO of 64 rows, dS^T,
-        #           lse / delta); 2 dQ tiles (64 x d f32); 1 + 3 x stages
-        #           mbarriers
+    tile = boxes * 64 * 128  # a 64-row tile of K, V, Q or dO
+    if backward and d == 256 and dq_pass:  # 4 x (K, 2 x dS 64 x 64);
+        #                                    2 x 4 mbarriers
+        size = 4 * (tile + 2 * 64 * 64 * 2) + 1024 + 8 * 8
+    elif backward and d == 256:  # K, V; 2 x (Q, dO); 2 P^T parts (64 x 16
+        #                          f32); dS^T 64 x 64; 2 x (lse, delta, 4
+        #                          words of metadata); 1 + 2 x 2 + 4
+        #                          mbarriers
+        size = (2 * tile + 2 * 2 * tile + 2 * 64 * 16 * 4 + 64 * 64 * 2
+                + 2 * (2 * 64 + 4) * 4 + 1024 + 8 * 9)
+    elif backward:  # K, V (128 keys); a ring of (Q, dO of 64 rows, dS^T,
+        #             lse / delta); 2 dQ tiles (64 x d f32); 1 + 3 x stages
+        #             mbarriers
         stages = 3 if d == 64 else 2
-        return (2 * boxes * 128 * 128
+        size = (2 * boxes * 128 * 128
                 + stages * (2 * boxes * 64 * 128 + 128 * 64 * 2 + 2 * 64 * 4)
                 + 2 * 64 * d * 4 + 1024 + 8 * (1 + 3 * stages))
-    tk, stages = (64, 2) if d > 128 else (128, 3)
-    # Q (128 rows); a ring of (K, V of tk keys); 1 + 2 x stages mbarriers
-    return (boxes * 128 * 128 + stages * 2 * boxes * tk * 128 + 1024
-            + 8 * (1 + 2 * stages))
+    else:  # Q (128 rows); a ring of (K, V of tk keys); 1 + 2 x stages
+        #    mbarriers
+        tk, stages = (64, 2) if d > 128 else (128, 3)
+        size = (boxes * 128 * 128 + stages * 2 * boxes * tk * 128 + 1024
+                + 8 * (1 + 2 * stages))
+    assert size <= SMEM_LIMIT, f"{size} bytes of shared memory"
+    return size
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -209,33 +235,44 @@ def _run_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              plant: int = 0
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One launch of the backward kernels on checked CUDA inputs; counts
-    nothing.  ``plant`` feeds the D 256 kernel its planted fault (1: the
-    middle key tile dropped; ``chip_smoke.py``), 0 on every real call."""
+    nothing.  ``plant`` feeds the D 256 kernels their planted faults (a
+    mask of ``ref.FLASH_PLANT_*``; ``chip_smoke.py``), 0 on every real
+    call; a planted call zeroes the dS scratch first, so that a slot pass 1
+    skipped reads as zeros.  Records the D 256 scratch's bytes on
+    ``flash_attention_bwd.scratch_bytes``."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     win = _window(window)
     q, k, v, out, dout = (_aligned(t) for t in (q, k, v, out, dout))
     lse = lse.contiguous()
-    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if q.numel() and k.numel():
-        delta = torch.empty((b, hq, sq), dtype=torch.float32,
-                            device=q.device)
-        route = _route(d, q.dtype, backward=True)
-        scale = float(scale) if scale is not None else d ** -0.5
-        lib = _lib()
-        with torch.cuda.device(q.device):
-            err = lib.flash_attention_bwd_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq,
-                skv, d, scale, int(causal), win, DTYPE_CODES[q.dtype],
-                int(plant), _build.stream_of(q))
-        _build.check(lib, err, f"flash_attention_bwd ({route})")
-    else:
+    if not (q.numel() and k.numel()):
         dk.zero_()
         dv.zero_()
-    return dq.to(q.dtype), dk, dv
+        return torch.zeros_like(q), dk, dv
+    lib = _lib()
+    slots, ds = 0, None
+    if d == 256:  # dQ written once in q's dtype; dS through the scratch
+        slots = lib.flash_attention_bwd256_slots(sq, skv, int(causal), win)
+        dq = torch.empty_like(q)
+        ds = (torch.zeros if plant else torch.empty)(
+            (max(b * hq * slots, 1) * BWD256_TILE, BWD256_TILE),
+            dtype=q.dtype, device=q.device)
+        flash_attention_bwd.scratch_bytes = ds.nbytes
+    else:         # dQ summed into a zeroed f32 buffer
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    route = _route(d, q.dtype, backward=True)
+    scale = float(scale) if scale is not None else d ** -0.5
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), ds.data_ptr() if ds is not None
+            else None, b, hq, hkv, sq, skv, d, scale, int(causal), win,
+            DTYPE_CODES[q.dtype], slots, int(plant), _build.stream_of(q))
+    _build.check(lib, err, f"flash_attention_bwd ({route})")
+    return (dq if d == 256 else dq.to(q.dtype)), dk, dv
 
 
 #: Launches per route (:func:`_route`), read as ``.routes`` on each
@@ -247,3 +284,5 @@ flash_attention_fwd.launches = 0
 flash_attention_fwd.routes = FWD_ROUTES
 flash_attention_bwd.launches = 0
 flash_attention_bwd.routes = BWD_ROUTES
+#: Bytes of the dS scratch of the last D 256 backward on the card.
+flash_attention_bwd.scratch_bytes = 0

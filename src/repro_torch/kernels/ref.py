@@ -246,6 +246,124 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
             dv.to(v.dtype))
 
 
+#: Rows of a query tile, keys of a key tile and of a dS slot in the flash
+#: backward at head_dim 256 (``csrc/flash_attention.cu``, ``Bwd256``).
+BWD256_TILE = 64
+#: Planted faults of the flash backward at head_dim 256 and of
+#: :func:`flash_attention_bwd256_split_ref` (a bit mask; must match
+#: ``csrc/flash_attention.cu``): pass 1 skips the middle key tile (its dK,
+#: dV zeros, its dS slots zeros); pass 2 leaves the last key tile out of
+#: every query tile's sum.
+FLASH_PLANT_KEY_TILE, FLASH_PLANT_DQ_TILE = 1, 2
+
+
+def bwd256_scratch_layout(sq: int, skv: int, *, causal: bool,
+                          window: Optional[int]
+                          ) -> Tuple[list, list, int]:
+    """The banded dS scratch of the flash backward at head_dim 256: for
+    each 64-row query tile, the key tiles ``[kt0, kt1)`` it sees (the
+    forward's ``run`` bounds) and its first slot, one 64 x 64 dS tile a
+    (query tile, key tile) pair in ascending key order.  Returns (bands,
+    bases, slots), ``slots`` those of one (batch, query head); the kernel
+    computes the same (``key_band``, ``slot_base``)."""
+    t = BWD256_TILE
+    off = skv - sq
+    bands, bases, total = [], [], 0
+    for it in range(-(-sq // t)):
+        first, last = it * t + off, min(it * t + t, sq) - 1 + off
+        lo, hi = 0, skv
+        if causal:
+            hi = min(hi, last + 1)
+        if window:
+            lo = max(lo, first - window + 1)
+        kt0 = lo // t
+        kt1 = -(-hi // t) if hi > lo else kt0
+        bands.append((kt0, kt1))
+        bases.append(total)
+        total += kt1 - kt0
+    return bands, bases, total
+
+
+def flash_attention_bwd256_split_ref(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor, out: torch.Tensor,
+                                     lse: torch.Tensor, dout: torch.Tensor, *,
+                                     causal: bool = True,
+                                     window: Optional[int] = None,
+                                     scale: Optional[float] = None,
+                                     plant: int = 0
+                                     ) -> Tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """The algorithm of the flash backward's two passes at head_dim 256 in
+    plain PyTorch: the function of :func:`flash_attention_bwd_ref`,
+    computed in the kernels' passes and with their roundings, for the
+    tests (never on a main path).
+
+    1. Per 64-key tile: dV = sum of P^T dO with P rounded to q's dtype; dS
+       = P (dP - D) in f32, rounded once to q's dtype; dK = scale * sum of
+       dS^T Q; each dS tile the tile's query tiles see goes to its slot of
+       the banded scratch (:func:`bwd256_scratch_layout`).
+    2. Per 64-row query tile: dQ = scale * the sum of dS K over the key
+       tiles it sees, in ascending order.
+
+    ``plant`` is a mask of ``FLASH_PLANT_*`` faults (0: none).  Returns
+    (dq, dk, dv) in the inputs' dtype."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    t = BWD256_TILE
+    scale = scale if scale is not None else d ** -0.5
+    bands, bases, slots = bwd256_scratch_layout(sq, skv, causal=causal,
+                                                window=window)
+    mask = flash_mask(sq, skv, causal=causal, window=window, device=q.device)
+    q5 = q.reshape(b, hkv, g, sq, d).float()
+    s = _flash_scores(q, k, scale)
+    p = torch.exp(torch.where(mask, s - lse.reshape(b, hkv, g, sq, 1).float(),
+                              -math.inf))
+    do5 = dout.reshape(b, hkv, g, sq, d).float()
+    delta = (do5 * out.reshape(b, hkv, g, sq, d).float()).sum(-1,
+                                                               keepdim=True)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", do5, v.float())
+    ds = (p * (dp - delta)).to(q.dtype)
+    p16 = p.to(q.dtype).float()
+    # 1. dK, dV and the dS scratch, [slot][key][query], a key tile at a time
+    dk = q5.new_zeros((b, hkv, skv, d))
+    dv = torch.zeros_like(dk)
+    scratch = q.new_zeros((b, hkv, g, slots, t, t))
+    nkt = -(-skv // t)
+    skip = nkt // 2 if plant & FLASH_PLANT_KEY_TILE else -1
+    for jt in range(nkt):
+        if jt == skip:
+            continue
+        keys = slice(jt * t, min(jt * t + t, skv))
+        dv[:, :, keys] = torch.einsum("bhgqk,bhgqd->bhkd", p16[..., keys],
+                                      do5)
+        dk[:, :, keys] = torch.einsum("bhgqk,bhgqd->bhkd",
+                                      ds[..., keys].float(), q5) * scale
+        for it, (kt0, kt1) in enumerate(bands):
+            if kt0 <= jt < kt1:
+                rows = slice(it * t, min(it * t + t, sq))
+                scratch[:, :, :, bases[it] + jt - kt0,
+                        :keys.stop - keys.start, :rows.stop - rows.start] = \
+                    ds[:, :, :, rows, keys].transpose(-1, -2)
+    # 2. dQ, a query tile at a time, its key tiles in ascending order
+    dq = torch.zeros_like(q5)
+    kf = k.float()
+    for it, (kt0, kt1) in enumerate(bands):
+        rows = slice(it * t, min(it * t + t, sq))
+        if plant & FLASH_PLANT_DQ_TILE and kt1 > kt0:
+            kt1 -= 1
+        acc = torch.zeros_like(dq[:, :, :, rows])
+        for jt in range(kt0, kt1):
+            keys = slice(jt * t, min(jt * t + t, skv))
+            tile = scratch[:, :, :, bases[it] + jt - kt0,
+                           :keys.stop - keys.start, :rows.stop - rows.start]
+            acc = acc + torch.einsum("bhgkq,bhkd->bhgqd", tile.float(),
+                                     kf[:, :, keys])
+        dq[:, :, :, rows] = acc * scale
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                         v_pool: torch.Tensor, block_table: torch.Tensor,
                         q_pos: torch.Tensor, kv_len: torch.Tensor, *,

@@ -511,7 +511,8 @@ def test_flash_matches_plain(dev, dtype, b, hq, hkv, sq, skv, d, causal,
 def test_flash_routes_as_recorded(dev):
     """Each launch counts into its route (:func:`_route`): a forward at
     every head_dim and a backward at 64 and 128 all take ``wgmma``; the
-    library sizes each kernel's shared memory as ``smem_bytes`` says."""
+    library sizes each kernel's shared memory (the D 256 backward's two
+    passes each) as ``smem_bytes`` says."""
     ops.reset_counts()
     for d in kflash.FWD_HEAD_DIMS:
         q = randn((1, 2, 130, d), torch.bfloat16, dev, 24)
@@ -527,6 +528,8 @@ def test_flash_routes_as_recorded(dev):
         assert lib.flash_attention_smem(d, 0) == kflash.smem_bytes(d)
     for d in kflash.BWD_HEAD_DIMS:
         assert lib.flash_attention_smem(d, 1) == kflash.smem_bytes(d, True)
+    assert lib.flash_attention_smem(256, 2) == kflash.smem_bytes(
+        256, True, dq_pass=True)
 
 
 def test_flash_refuses_what_it_does_not_take(dev):
@@ -895,14 +898,23 @@ def test_rglru_scan_bwd_matches_plain_bit_for_bit(dev, dtype, b, s, d, h0,
     (2, 10, 1, 1024, 1024, True, 256),     # RecurrentGemma's MQA, windowed
     (1, 4, 2, 300, 300, True, None),       # GQA, ragged S
     (1, 2, 2, 200, 260, False, None),      # Sq < Skv, no mask
-    (2, 4, 1, 130, 130, True, 64)])
+    (2, 4, 1, 130, 130, True, 64),
+    (1, 4, 2, 130, 333, True, 100)])       # Sq < Skv, windowed
 def test_flash_backward_head_dim_256(dev, dtype, b, hq, hkv, sq, skv,
                                      causal, window):
-    """The D 256 backward (its own tiling: 64 keys a block, dK/dV/dQ split
-    by columns) against ``flash_attention_bwd_ref`` fed the kernel's out
-    and lse: max |err| within 2e-2 of each gradient's largest value
-    (``chip_smoke.py``'s FLASH_GRAD_LIMIT; dropping one key tile reads
-    ~0.03 on dv at RecurrentGemma's shape)."""
+    """The D 256 backward (two passes: dK, dV and the banded dS scratch,
+    then dQ summed over key tiles in ascending order) against
+    ``flash_attention_bwd_ref`` fed the kernel's out and lse: max |err|
+    within 2e-2 of each gradient's largest value (``chip_smoke.py``'s
+    FLASH_GRAD_LIMIT; dropping one key tile reads ~0.03 on dv at
+    RecurrentGemma's shape); against its algorithm
+    ``ref.flash_attention_bwd256_split_ref`` (the same passes, sums and
+    roundings) within one ulp of the dtype (``torch.finfo(dtype).eps``:
+    2^-7 bf16, 2^-10 f16) of each gradient's largest value, as both round
+    to the dtype f32 sums that differ only in their order inside a
+    product, a flip of at most one ulp of a value no larger than the
+    largest; and with no unordered add, a second call gives the same
+    bits."""
     dt = DTYPES[dtype]
     q = randn((b, hq, sq, 256), dt, dev, 5)
     k = randn((b, hkv, skv, 256), dt, dev, 6)
@@ -911,12 +923,36 @@ def test_flash_backward_head_dim_256(dev, dtype, b, hq, hkv, sq, skv,
     kw = dict(causal=causal, window=window)
     out, lse = flash_attention_fwd(q, k, v, **kw)
     got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
     want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    split = ref.flash_attention_bwd256_split_ref(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
+    ulp = torch.finfo(dt).eps
+    for g, a, w, sp in zip(got, again, want, split):
         assert g.shape == w.shape and torch.isfinite(g.float()).all()
+        assert torch.equal(g, a)
         scale = w.float().abs().max().item()
         assert (g.float() - w.float()).abs().max().item() <= 2e-2 * scale
+        assert (g.float() - sp.float()).abs().max().item() \
+            <= ulp * sp.float().abs().max().item()
+
+
+def test_flash_bwd256_slots_as_the_reference_counts(dev):
+    """The library's slot count of the D 256 dS scratch, which the wrapper
+    sizes the scratch with, is the plain layout's
+    (``ref.bwd256_scratch_layout``, itself held against a brute-force count
+    on the CPU) over ragged, Sq < Skv, Sq > Skv, causal, windowed and
+    unmasked shapes."""
+    lib = kflash._lib()
+    for sq in (1, 63, 64, 65, 130, 333, 1000, 4096):
+        for skv in (1, 64, 100, 130, 333, 1024, 4096):
+            for causal in (False, True):
+                for window in (None, 1, 64, 100, 2048):
+                    want = ref.bwd256_scratch_layout(
+                        sq, skv, causal=causal, window=window)[2]
+                    assert lib.flash_attention_bwd256_slots(
+                        sq, skv, int(causal), window or 0) == want, (
+                            sq, skv, causal, window)
 
 
 def test_qwen3_two_backward_passes_on_card(dev):

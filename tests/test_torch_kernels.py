@@ -217,7 +217,8 @@ def test_plain_references_agree_with_each_other():
 
 # -------------------------------------------------------- flash attention
 # The cases of tests/test_kernels.py's flash sweep: GQA, MQA + window,
-# padding (S not a multiple of the blocks), non-causal, Sq < Skv.
+# padding (S not a multiple of the blocks), non-causal, Sq < Skv; and
+# head_dim 256 (RecurrentGemma's MQA with a window).
 FLASH_CASES = [
     (2, 4, 4, 256, 256, 64, True, None),
     (1, 8, 2, 256, 256, 64, True, None),
@@ -225,6 +226,7 @@ FLASH_CASES = [
     (2, 2, 2, 100, 100, 64, True, None),
     (1, 2, 2, 128, 128, 64, False, None),
     (1, 4, 4, 64, 256, 64, True, None),
+    (1, 4, 1, 192, 192, 256, True, 64),
 ]
 
 

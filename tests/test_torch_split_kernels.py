@@ -265,11 +265,17 @@ def test_flash_shared_memory_fits_a_block(d, backward):
     got = kflash.smem_bytes(d, backward)
     assert got <= kflash.SMEM_LIMIT
     kb = 1 << 10
-    if backward and d == 256:   # K + V of 64 keys, 2 stages of (Q, dO of
-        #            64 rows, dS^T 64 x 64), their lse / delta, 1 + 2
-        #            mbarriers; no dQ tiles (added from registers)
-        assert got == 64 * kb + 2 * (64 * kb + 8 * kb) + kb + kb + 8 * 3
-        assert got == 215_064
+    if backward and d == 256:   # pass 1: K + V of 64 keys, 2 stages of
+        #            (Q, dO of 64 rows), two f32 P^T parts 64 x 16, the dS^T
+        #            staging tile 64 x 64, 2 x (lse, delta, 4 words of
+        #            metadata), 1 + 2 x 2 + 4 mbarriers; pass 2: 4 stages
+        #            of (K of 64 keys, two dS 64 x 64), 2 x 4 mbarriers
+        assert got == (64 * kb + 2 * 64 * kb + 2 * 4 * kb + 8 * kb
+                       + 2 * 528 + kb + 8 * 9)
+        assert got == 215_144
+        dq = kflash.smem_bytes(d, backward, dq_pass=True)
+        assert dq == 4 * (32 * kb + 2 * 8 * kb) + kb + 8 * 8 == 197_696
+        assert dq <= kflash.SMEM_LIMIT
     elif backward:   # K + V, a ring of (Q, dO, dS^T, lse / delta: 3 at
         #            D 64, 2 at D 128), two dQ tiles, 1 + 3 x stages
         #            mbarriers
