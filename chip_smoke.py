@@ -210,7 +210,40 @@
    that spread reads 0 for all of them (without attention, or with it
    only at head_dim 256), the rest within max(2 x the direct step's
    spread, JIT_TRAIN_FLOOR)); a profile of one compiled step.
-10. Prints the kernel table as one JSON line (the redesigned kernels' rows
+10. Distribution (the "distributed" phase): ranks spawned with
+   ``torch.multiprocessing`` on this one card over ``gloo`` (a
+   ``file://`` store under ``build/dist``; NCCL refuses two ranks of one
+   communicator on one device), each rank's collectives on CUDA tensors
+   staged through pinned host memory over four gloo lanes, so nothing
+   here measures NVLink.  The ranks report through files; only this
+   process prints.  (a) ``sma_gemm_sharded`` at StableLM's MLP product
+   (M 8192, 2048 -> 5632, bf16, silu) on a 1 x 2 and a 2 x 2 grid against
+   one rank's ``ops.sma_gemm``: overlapped == serial, one ``wgmma`` launch
+   a step, step 1's A-panel left unbroadcast caught; (b) ``pipeline_apply``
+   over 2 stages of 2 full-width layers, 4 microbatches of (1, 2048),
+   ``torch.equal`` to the layers run unpipelined, a dropped hand-off
+   caught; (c) ``train(mesh=smoke_mesh())`` of full-width StableLM at
+   ``DIST_TRAIN_LAYERS`` of its 24 layers on 2 ranks (B 2 a rank x S
+   2048, the trainer phase's loop): every step's master digests (in the
+   history) equal across the ranks and the masters ``torch.equal`` at the
+   end, each rank's moments its block, each step's loss and grad norm
+   within ``dist_limits`` of two unmeshed runs at the same depth (one a
+   rank, at once; their spread printed), step time, peak memory and the
+   bytes and milliseconds staged through host; a 2-step run with two
+   planted faults: a wrong block in the ZeRO-1 update, which keeps the
+   replicas equal, read at step 2 against the limits, and rank 1 keeping
+   its local gradient at one all-reduce, caught by the replicas' digests;
+   (d)
+   ``compressed_psum`` on 4 ranks of (2048, 5632) f32 within one scale
+   step a rank of the f32 mean, and a world-1 ``nccl`` group in this
+   process running each ``repro_torch::`` collective once; (e)
+   ``sma_jit(lm.forward)`` with ``SMAOptions(mesh=)`` on the 1 x 2 grid, 2
+   full-width layers, B 4 x S 2048: logits within ``LOGIT_ATOL`` of the
+   single-rank compiled forward, the report's comm bytes equal to
+   ``summa_comm_stats`` over its sites and to the ``comm.bcast_*`` spans
+   of a profiled call.  A rank that raises, or is not done in
+   ``DIST_TIMEOUT``, fails the smoke.
+11. Prints the kernel table as one JSON line (the redesigned kernels' rows
    with their route, the earlier design's time in the same call, and the
    ``-Xptxas -v`` registers, spills and shared memory), then the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -2893,7 +2926,7 @@ def grad_output_site(cm, index: int, layer: int):
     return node
 
 
-def zero_site(a, b, bias, *, epilogue, shape):
+def zero_site(a, b, bias, *, epilogue, shape, mesh=False):
     """A planted fault: the GEMM site returns zeros and launches nothing."""
     out = a.new_zeros(tuple(a.shape[:-1]) + (b.shape[1],))
     return out if shape is None else out.view(shape)
@@ -5637,6 +5670,593 @@ def train_xlstm(dev, card: str):
                         XL_TRAIN_BATCH, timing_steps=1)
 
 
+# --------------------------------------------------------------------------
+# The distributed phase: ranks spawned on the one card over gloo
+# --------------------------------------------------------------------------
+DIST_DIR = ROOT / "build" / "dist"
+DIST_TIMEOUT = 900                 # a world's deadline, s
+DIST_SUMMA = (TRAIN_BATCH * TRAIN_SEQ, 2048, 5632, "silu")  # M, K, N, ep.
+DIST_PIPE_LAYERS, DIST_MICRO = 4, 4          # 2 stages of 2 layers
+DIST_JIT_LAYERS = 2
+DIST_PSUM_SHAPE = (2048, 5632)
+#: (c)'s depth: half of StableLM's 24 layers, so that the phase, with its
+#: unmeshed references and its planted-fault run at the same depth, fits
+#: the script's time limit beside full-depth serving.
+DIST_TRAIN_LAYERS = 12
+DIST_FAULT_STEPS = 2
+#: train(mesh=)'s loss and grad norm against the unmeshed runs' at the
+#: same depth, each relative, by step (step 1, from the same masters:
+#: STEP_LIMITS).  On the H100 (12 layers): at step 2 the unmeshed pair
+#: differ by 1.3e-5 / 1.3e-3 and the meshed run reads 2.3e-5 / 1.7e-3 from
+#: the farther (full depth, earlier: up to 3.5e-5 / 4.7e-3); the planted
+#: wrong block in the ZeRO-1 update, which keeps the replicas equal, reads
+#: 1.04e-3 / 4.7e-2 there.  Later steps follow every earlier update and
+#: spread more (the flash backward at D 64 adds dQ in no fixed order): up
+#: to 2.2e-4 / 1.2e-2 at 12 layers, 4.7e-4 / 3.5e-2 at full depth.
+DIST_STEP2_LIMITS = {"loss": 3e-4, "grad_norm": 1.5e-2}
+DIST_TRAIN_LIMITS = {"loss": 2e-3, "grad_norm": 0.1}
+
+
+def dist_limits(step: int) -> dict:
+    """The limits of train(mesh=)'s metrics at ``step`` (from 1)."""
+    return {1: STEP_LIMITS, 2: DIST_STEP2_LIMITS}.get(step,
+                                                      DIST_TRAIN_LIMITS)
+
+
+def dist_drift(hist: list, refs: list) -> list:
+    """Each step's largest relative |loss| and |grad norm| from the
+    histories ``refs``, as multiples of that step's limits."""
+    return [{k: max(abs(h[k] - ref[i][k]) / abs(ref[i][k]) for ref in refs)
+             / dist_limits(i + 1)[k] for k in ("loss", "grad_norm")}
+            for i, h in enumerate(hist)]
+
+
+def dist_run(steps: int = TRAIN_STEPS):
+    """(c)'s model and loop: StableLM at full width, DIST_TRAIN_LAYERS
+    layers, the trainer phase's loop."""
+    cfg = dataclasses.replace(get_config(ARCH), num_groups=DIST_TRAIN_LAYERS)
+    return cfg, TrainLoopConfig(steps=steps, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH, log_every=1,
+                                seed=0, peak_lr=TRAIN_LR, remat=True)
+
+
+def metrics_of(history: list) -> list:
+    """A train history without its host clock."""
+    return [{k: v for k, v in h.items() if k != "wall_s"} for h in history]
+
+
+def dist_summa(mesh, dev) -> dict:
+    """(a): sma_gemm_sharded at StableLM's MLP product against one rank's
+    ops.sma_gemm of the whole product; overlap and serial equal; the local
+    products on wgmma, one a step; step 1's A-panel not broadcast caught."""
+    from repro_torch.distributed import summa
+    m, k, n, ep = DIST_SUMMA
+    marks = [time.perf_counter()]
+    gen = torch.Generator(device=dev).manual_seed(7)      # every rank alike
+    a = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    b = (torch.randn(k, n, generator=gen, device=dev)
+         / math.sqrt(k)).to(torch.bfloat16)
+    bias = (0.1 * torch.randn(n, generator=gen, device=dev)).to(
+        torch.bfloat16)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    want = ops.sma_gemm(a, b, bias=bias, epilogue=ep, mesh=False)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    ops.reset_counts()
+    got = summa.sma_gemm_sharded(a, b, mesh=mesh, bias=bias, epilogue=ep)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    launches = ops.launch_counts()["sma_gemm"]
+    routes = nonzero(kgemm.ROUTES)
+    serial = summa.sma_gemm_sharded(a, b, mesh=mesh, bias=bias, epilogue=ep,
+                                    overlap=False)
+    bad = summa._summa(a, b, mesh=mesh, axes=None, bias=bias, epilogue=ep,
+                       overlap=True, skip_a_step=1)
+    _, _, pr, pc = summa.summa_grid(mesh)
+
+    def ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / reps
+
+    first = dict(zip(("inputs", "first local product", "first sharded"),
+                     np.diff(marks).round(2).tolist()))
+    return {"grid": [pr, pc], "launches": launches, "routes": routes,
+            "first_s": first,
+            "steps": math.lcm(pr, pc),
+            "mult": gemm_multiples(got, want).max().item(),
+            "err": (got.float() - want.float()).abs().max().item(),
+            "equal": torch.equal(got, serial),
+            "fault_mult": gemm_multiples(bad, want).max().item(),
+            "ms_overlap": ms(lambda: summa.sma_gemm_sharded(
+                a, b, mesh=mesh, bias=bias, epilogue=ep)),
+            "ms_serial": ms(lambda: summa.sma_gemm_sharded(
+                a, b, mesh=mesh, bias=bias, epilogue=ep, overlap=False)),
+            "ms_local": ms(lambda: ops.sma_gemm(a, b, bias=bias,
+                                                epilogue=ep, mesh=False))}
+
+
+def dist_pipeline(dev, world: int) -> dict:
+    """(b): pipeline_apply over 2 stages of full-width StableLM layers, 4
+    microbatches of (1, TRAIN_SEQ), against the same layers run unpipelined
+    on one rank; one tick's send dropped (zeros sent) caught."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import pipeline as dpipe
+    from repro_torch.launch.mesh import Mesh
+    cfg = dataclasses.replace(get_config(ARCH), num_groups=DIST_PIPE_LAYERS)
+    params = lm.init(cfg, seed=0, device=dev)
+    blocks = params["blocks"][0]
+    per = DIST_PIPE_LAYERS // world
+    staged = tree_map(lambda t: t.reshape((world, per) + t.shape[1:]),
+                      blocks)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(DIST_MICRO, 1, TRAIN_SEQ, cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+
+    def stage_fn(p, h):
+        for g in range(per):
+            h = lm._block(tree_map(lambda t: t[g], p), "attn", h, cfg)
+        return h
+
+    mesh = Mesh((world,), ("stage",))
+    with torch.no_grad():
+        ops.reset_counts()
+        collectives.reset_counts()
+        got = dpipe.pipeline_apply(stage_fn, mesh, "stage", staged, x)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        calls = collectives.CALLS["sendrecv"]
+        want = torch.stack([_unpiped(stage_fn, staged, xi, world)
+                            for xi in x])
+        orig, ticks = dpipe.collectives.sendrecv, [0]
+
+        def dropped(y, key, dst, src, span="comm.sendrecv"):
+            ticks[0] += 1
+            if ticks[0] == 2:              # the second tick's hand-off
+                y = torch.zeros_like(y)
+            return orig(y, key, dst, src, span=span)
+
+        dpipe.collectives.sendrecv = dropped
+        try:
+            bad = dpipe.pipeline_apply(stage_fn, mesh, "stage", staged, x)
+        finally:
+            dpipe.collectives.sendrecv = orig
+    return {"equal": torch.equal(got, want), "sendrecv_calls": calls,
+            "launches": launches,
+            "err": (got.float() - want.float()).abs().max().item(),
+            "fault_err": (bad.float() - want.float()).abs().max().item(),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def _unpiped(stage_fn, staged, xi, world):
+    """The pipeline's stages run in turn on one rank."""
+    for s in range(world):
+        xi = stage_fn(tree_map(lambda t: t[s], staged), xi)
+    return xi
+
+
+def dist_unmeshed(dev) -> dict:
+    """(c)'s reference: train() of :func:`dist_run` unmeshed, the global
+    batch on this rank alone (both ranks run one at once, so the two
+    histories also read the run-to-run noise)."""
+    cfg, loop = dist_run()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    result = train(cfg, loop, device=dev)
+    torch.cuda.synchronize()
+    return {"history": result["history"], "engine": result["engine"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def dist_train(mesh, dev, fault: bool = False) -> dict:
+    """(c): train(mesh=) of :func:`dist_run` for TRAIN_STEPS steps: the
+    history (with each step's master digests), the
+    moments' shapes, launches, step times, peak memory and the bytes
+    staged through host.  ``fault``: DIST_FAULT_STEPS steps with two
+    planted faults.  In every step's update rank 1 takes rank 0's block
+    of the head's gradient (a wrong block in the ZeRO-1 update; the
+    all-gather then gives every rank the same wrong master), read at step
+    2 against the limits.  At step 2 rank 1 keeps its local gradient of
+    the first norm scale (it still joins the all-reduce; the scales are
+    not split), so the replicas part there."""
+    from repro_torch.distributed import collectives
+    from repro_torch.optim import adamw
+    cfg, loop = dist_run(DIST_FAULT_STEPS if fault else TRAIN_STEPS)
+    params = lm.init(cfg, seed=loop.seed, device=dev,
+                     dtype=cfg.parameter_dtype)
+    norm_grad = (cfg.num_groups, cfg.d_model)     # a stacked norm scale's
+    per_step = sum(tuple(p.shape) == norm_grad for p in leaves(params))
+    orig_reduce, orig_update, count = (collectives._run_all_reduce,
+                                       adamw.update, [0])
+
+    def kept_local(x, key, op, span):
+        out = orig_reduce(x, key, op, span)
+        if tuple(x.shape) == norm_grad:
+            count[0] += 1
+            if count[0] == per_step + 1 and mesh.rank == 1:
+                return x.contiguous().clone()   # the local gradient
+        return out
+
+    def wrong_block(grads, state, params, cfg, **kw):
+        if mesh.rank == 1:
+            w = grads["head"]["w"]             # split along its dim 0
+            half = w.shape[0] // 2
+            grads = {**grads, "head": {
+                "w": torch.cat([w[half:], w[:half]])}}
+        return orig_update(grads, state, params, cfg, **kw)
+
+    if fault:
+        collectives._run_all_reduce = kept_local
+        adamw.update = wrong_block
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    collectives.reset_counts()
+    try:
+        result = train(cfg, loop, device=dev, params=params, mesh=mesh)
+    finally:
+        collectives._run_all_reduce = orig_reduce
+        adamw.update = orig_update
+    torch.cuda.synchronize()
+    out = {"history": result["history"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": ops.launch_counts(), "engine": result["engine"],
+           "staged_bytes": dict(collectives.STAGED_BYTES),
+           "staged_ms": dict(collectives.STAGED_MS),
+           "calls": dict(collectives.CALLS),
+           "routes": dict(collectives.ROUTES), "layers": cfg.num_layers}
+    if fault:
+        return out
+    # The moments: this rank's block of each split master.
+    from repro_torch.launch.train import DataParallel
+    dp = DataParallel(cfg, loop, mesh, result["params"])
+    split = wrong = 0
+    for p, m, sh in zip(leaves(result["params"]), leaves(result["opt"]["m"]),
+                        leaves(dp.shardings)):
+        split += bool(sh.splits)
+        if tuple(m.shape) != sh.local_shape(p.shape):
+            wrong += 1
+    out["moments"] = {"split": split, "leaves": len(leaves(dp.shardings)),
+                      "wrong_shape": wrong}
+    # The masters bit for bit: rank 0's broadcast to every rank.
+    key = mesh.group_key("data")
+    same = all(torch.equal(p, collectives.broadcast(p, key, 0))
+               for p in leaves(result["params"]))
+    out["masters_equal"] = same
+    return out
+
+
+def dist_front_door(mesh, dev) -> dict:
+    """(e): sma_jit(lm.forward) with SMAOptions(mesh=) at full width and
+    DIST_JIT_LAYERS layers, B x S = TRAIN_BATCH x TRAIN_SEQ, against the
+    single-rank compiled forward; the report's comm bytes against
+    summa_comm_stats over its sites and against the comm.bcast_* spans of
+    a profiled call."""
+    from repro_torch import SMAOptions, sma_jit
+    from repro_torch.compiler.dispatch import collect_comm_sites
+    from repro_torch.distributed.summa import summa_comm_stats, summa_grid
+    cfg = dataclasses.replace(get_config(ARCH), num_groups=DIST_JIT_LAYERS)
+    params = lm.init(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                         generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": toks}
+    fwd = functools.partial(lm.forward, cfg=cfg)
+    with torch.no_grad():
+        want = sma_jit(fwd)(params, batch=batch)
+        eng = sma_jit(fwd, options=SMAOptions(mesh=mesh))
+        ops.reset_counts()
+        got = eng(params, batch=batch)
+        torch.cuda.synchronize()
+        sharded = ops.ROUTED.get(ops.SHARDED_REASON, 0)
+        launches = ops.launch_counts()
+        cm = eng.compile(params, batch=batch)
+        comm = cm.report["comm"]
+        _, _, pr, pc = summa_grid(mesh)
+        sites = collect_comm_sites(cm.rewritten)
+        want_bytes = sum(summa_comm_stats(
+            s["m"], s["n"], s["k"], pr=pr, pc=pc, itemsize_a=s["itemsize_a"],
+            itemsize_b=s["itemsize_b"])["bytes_total"] for s in sites)
+        with repro_torch.profile() as prof:
+            eng(params, batch=batch)
+        span_bytes = sum(e["args"]["bytes"] for e in prof.events
+                         if e["name"].startswith("comm.bcast_"))
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got.split(1), want.split(1)))
+    return {"err": err, "finite": bool(torch.isfinite(got).all()),
+            "sharded_calls": sharded, "sites": len(sites),
+            "report_bytes": comm["bytes_total"], "want_bytes": want_bytes,
+            "span_bytes": span_bytes, "plan_bytes": comm["plan_comm_bytes"],
+            "launches": launches, "grid": comm["grid"]}
+
+
+def dist_psum(mesh, dev, world: int) -> dict:
+    """(d): compressed_psum of CUDA f32 tensors of a full-width gradient's
+    size against the f32 mean, within one scale step a rank."""
+    from repro_torch.optim.compress import compressed_psum
+    xs = []
+    for r in range(world):
+        gen = torch.Generator(device=dev).manual_seed(100 + r)
+        xs.append(torch.randn(*DIST_PSUM_SHAPE, generator=gen, device=dev)
+                  * (r + 1))
+    got = compressed_psum(xs[mesh.rank], mesh, "data")
+    want = torch.stack(xs).mean(0)
+    limit = sum(x.abs().max().item() / 127.0 for x in xs) / world
+    return {"err": (got - want).abs().max().item(), "limit": limit,
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def dist_rank(rank: int, world: int, plan: dict) -> dict:
+    """One spawned rank of the distributed phase (its results go back to
+    the parent through a file)."""
+    dev = torch.device(plan["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, times = {"backend": torch.distributed.get_backend(),
+                  "started": time.time()}, {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out[name] = fn(*args)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+
+    log = DIST_DIR / f"world{world}" / f"rank{rank}.log"
+    with open(log, "w") as f, contextlib.redirect_stdout(f):
+        dist_checks(world, plan, dev, timed)
+    out["seconds"] = times
+    return out
+
+
+def dist_checks(world: int, plan: dict, dev, timed) -> None:
+    """The sub-checks one rank of a ``world``-rank group runs."""
+    from repro_torch.launch.mesh import fake_mesh, smoke_mesh
+    grid = fake_mesh(world)
+    timed("summa", dist_summa, grid, dev)
+    if world == 4:
+        timed("psum", dist_psum, smoke_mesh(), dev, world)
+    if world == 2:
+        timed("pipeline", dist_pipeline, dev, world)
+        timed("front_door", dist_front_door, grid, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed("unmeshed", dist_unmeshed, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed("train", dist_train, smoke_mesh(), dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed("train_fault", dist_train, smoke_mesh(), dev, True)
+
+
+def nccl_world_one(dev) -> dict:
+    """(d): a world-1 nccl group runs each repro_torch:: collective once."""
+    import torch.distributed as tdist
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import init_mesh
+    DIST_DIR.mkdir(parents=True, exist_ok=True)
+    store = DIST_DIR / "nccl_store"
+    if store.exists():
+        store.unlink()
+    mesh = init_mesh((1,), ("data",), rank=0, world=1,
+                     init_method=f"file://{store}", device=dev,
+                     backend="nccl", timeout=120, verbose=False)
+    try:
+        key = mesh.group_key("data")
+        collectives.reset_counts()
+        x = torch.arange(12.0, device=dev).reshape(3, 4)
+        op = collectives.COLLECTIVE_OPS        # the custom ops themselves
+        outs = [op["all_reduce"](x, key, "sum", "comm.all_reduce"),
+                op["broadcast"](x, key, 0, "comm.broadcast"),
+                op["all_gather"](x, key, 0, "comm.all_gather"),
+                op["sendrecv"](x, key, -1, -1, "comm.sendrecv")]
+        torch.cuda.synchronize()
+        ok = (torch.equal(outs[0], x) and torch.equal(outs[1], x)
+              and torch.equal(outs[2], x) and not outs[3].any())
+        return {"backend": mesh.backend, "routes": dict(collectives.ROUTES),
+                "calls": dict(collectives.CALLS), "ok": ok}
+    finally:
+        tdist.destroy_process_group()
+
+
+def check_dist_train(ranks: list, card: str, launches) -> None:
+    """(c)'s checks on the results of the 2-rank world (``ranks``, in rank
+    order); adds the main-path run's launches to ``launches``."""
+    trs = [res["train"] for res in ranks]
+    hist = trs[0]["history"]
+    refs = [res["unmeshed"]["history"] for res in ranks]
+    if any(len(ref) != len(hist) for ref in refs):
+        fail(f"distributed (c): {len(hist)} logged steps against "
+             f"{[len(ref) for ref in refs]} unmeshed")
+    for r, tr in enumerate(trs):
+        walls = [h["wall_s"] for h in tr["history"]]
+        steps = [b - a for a, b in zip(walls, walls[1:])]
+        staged = sum(tr["staged_bytes"].values())
+        nsteps = len(tr["history"])
+        print(f"distributed (c): rank {r}: {ARCH} full width, "
+              f"{tr['layers']} layers, B {TRAIN_BATCH} global ({TRAIN_BATCH // 2}"
+              f" a rank) x S {TRAIN_SEQ}: losses "
+              f"{[h['loss'] for h in tr['history']]}, grad norms "
+              f"{[h['grad_norm'] for h in tr['history']]}; step 1 "
+              f"{walls[0]:.2f} s (compile), steps 2-{nsteps} "
+              f"{[round(x, 3) for x in steps]} s; peak {tr['peak_gib']:.2f} "
+              f"GiB; staged through host {staged / nsteps / 1e9:.3f} GB a "
+              f"step in {sum(tr['staged_ms'].values()) / nsteps:.1f} ms a "
+              f"step ({json.dumps(tr['calls'])} calls, routes "
+              f"{json.dumps(tr['routes'])}); launches sma_gemm "
+              f"{tr['launches']['sma_gemm']}, rmsnorm_gemm "
+              f"{tr['launches']['rmsnorm_gemm']}, flash "
+              f"{tr['launches']['flash_attention']} / "
+              f"{tr['launches']['flash_attention_bwd']}; engine "
+              f"{json.dumps(tr['engine'])}; moments {tr['moments']} "
+              f"({card})")
+        # The master digests ride in the history: equal histories are
+        # replicas equal at every step.
+        if metrics_of(tr["history"]) != metrics_of(hist):
+            fail(f"distributed (c): rank {r}'s metrics or master digests "
+                 f"differ from rank 0's")
+        if not tr["masters_equal"]:
+            fail("distributed (c): the ranks' final masters differ")
+        mo = tr["moments"]
+        if mo["wrong_shape"] or not mo["split"]:
+            fail(f"distributed (c): the moments are not each rank's block: "
+                 f"{mo}")
+        if tr["engine"]["misses"] != 1:
+            fail(f"distributed (c): the step compiled {tr['engine']}")
+        for name in ("sma_gemm", "rmsnorm_gemm", "flash_attention",
+                     "flash_attention_bwd"):
+            launches[name] += tr["launches"][name]
+    for r, res in enumerate(ranks):
+        un = res["unmeshed"]
+        print(f"distributed (c): rank {r}'s unmeshed reference, "
+              f"{DIST_TRAIN_LAYERS} layers, B {TRAIN_BATCH} (both ranks at "
+              f"once on the card): losses {[h['loss'] for h in un['history']]}"
+              f", grad norms {[h['grad_norm'] for h in un['history']]}; peak "
+              f"{un['peak_gib']:.2f} GiB; engine {json.dumps(un['engine'])}")
+
+    def limits(drift):
+        return "; ".join(f"{i + 1}: {d['loss']:.3g} / {d['grad_norm']:.3g}"
+                         for i, d in enumerate(drift))
+
+    drift = dist_drift(hist, refs)
+    print(f"distributed (c): relative |loss| / |grad norm| by step in "
+          f"multiples of the step's limits (step 1 "
+          f"{ {k: STEP_LIMITS[k] for k in DIST_STEP2_LIMITS} }, step 2 "
+          f"{DIST_STEP2_LIMITS}, later {DIST_TRAIN_LIMITS}): the two "
+          f"unmeshed runs apart {limits(dist_drift(refs[0], refs[1:]))}; "
+          f"train(mesh=) from the farther {limits(drift)}")
+    if any(v > 1 for d in drift for v in d.values()):
+        fail(f"distributed (c): train(mesh=) left the unmeshed history "
+             f"(multiples of the limits by step): {drift}")
+    fl = [res["train_fault"] for res in ranks]
+    same = [a["masters_digest"] == b["masters_digest"]
+            for a, b in zip(fl[0]["history"], fl[1]["history"])]
+    fdrift = dist_drift(fl[0]["history"], refs)
+    wrong_block = max(fdrift[1].values())
+    print(f"distributed (c): planted faults, {DIST_FAULT_STEPS} steps at "
+          f"{DIST_TRAIN_LAYERS} layers: (1) rank 1 updates its block of the head with rank "
+          f"0's gradient block: step 2 on rank 0 |loss| "
+          f"{fdrift[1]['loss']:.2f} limits, |grad norm| "
+          f"{fdrift[1]['grad_norm']:.2f} limits (step 1 "
+          f"{fdrift[0]['loss']:.2f} / {fdrift[0]['grad_norm']:.2f}); losses "
+          f"{[h['loss'] for h in fl[0]['history']]}, grad norms "
+          f"{[h['grad_norm'] for h in fl[0]['history']]}; (2) rank 1 keeps "
+          f"its local gradient of the first norm scale at step 2: master "
+          f"digests equal across the ranks by step {same}")
+    if not same[0]:
+        fail("distributed (c): the planted wrong block parted the replicas "
+             "(it must keep them equal)")
+    if wrong_block <= 1:
+        fail(f"distributed (c): a wrong block in the ZeRO-1 update stayed "
+             f"within the limits at step 2 ({fdrift[1]})")
+    if same[1]:
+        fail("distributed (c): the planted all-reduce fault was not caught")
+
+
+def distributed(dev, card: str) -> dict:
+    """The "distributed" phase (module docstring, step 10): returns the
+    phase's launches by kernel, summed over its ranks (the main-path run
+    of (c) and the SUMMA, pipeline and front-door calls)."""
+    from repro_torch.launch.mesh import spawn
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"distributed: card memory free {free / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB before the ranks are spawned ({card})")
+    seconds = {}
+    t = time.perf_counter()
+    nccl = nccl_world_one(dev)
+    seconds["nccl world 1"] = time.perf_counter() - t
+    print(f"distributed (d): world-1 group, backend {nccl['backend']}: "
+          f"calls {nccl['calls']}, routes {nccl['routes']}")
+    if not nccl["ok"] or nccl["routes"].get("nccl", 0) < 4:
+        fail(f"distributed: the world-1 nccl group's collectives: {nccl}")
+    plan = {"device": "cuda:0" if dev.type == "cuda" else "cpu"}
+    results = {}
+    for world in (2, 4):
+        t, wall = time.perf_counter(), time.time()
+        results[world] = spawn(dist_rank, world, plan, backend="gloo",
+                               device=plan["device"], timeout=DIST_TIMEOUT,
+                               workdir=str(DIST_DIR / f"world{world}"))
+        seconds[f"world {world}"] = time.perf_counter() - t
+        for r, res in enumerate(results[world]):
+            print(f"distributed: world {world} rank {r} backend "
+                  f"{res['backend']}, running {res['started'] - wall:.1f} s "
+                  f"after the spawn, sub-checks (s) "
+                  f"{json.dumps({k: round(v, 1) for k, v in res['seconds'].items()})}")
+    launches = collections.Counter()
+    # (a) SUMMA.
+    for world, rs in results.items():
+        for r, res in enumerate(rs):
+            s = res["summa"]
+            print(f"distributed (a): world {world} rank {r} grid {s['grid']}"
+                  f": max|err| {s['err']:.4g} ({s['mult']:.3f} limits), "
+                  f"overlap == serial {s['equal']}, local launches "
+                  f"{s['launches']} {s['routes']}, planted A-panel fault "
+                  f"{s['fault_mult']:.1f} limits; {s['ms_overlap']:.3f} ms "
+                  f"overlapped, {s['ms_serial']:.3f} serial, one rank's "
+                  f"whole product {s['ms_local']:.3f} ({card}); first "
+                  f"calls (s) {s['first_s']}")
+            if s["mult"] > 1 or not s["equal"]:
+                fail(f"distributed (a): SUMMA on {s['grid']} disagrees: {s}")
+            if s["launches"] != s["steps"] or \
+                    s["routes"] != {"wgmma": s["steps"]}:
+                fail(f"distributed (a): the local products {s['routes']}, "
+                     f"expected {s['steps']} on wgmma")
+            if s["fault_mult"] <= FAULT_MARGIN and r > 0:
+                fail(f"distributed (a): a skipped A-panel broadcast was not "
+                     f"caught on rank {r} ({s['fault_mult']:.2f} limits)")
+            launches["sma_gemm"] += s["launches"]
+    # (b) Pipeline.
+    for r, res in enumerate(results[2]):
+        p = res["pipeline"]
+        print(f"distributed (b): rank {r}: pipelined == unpipelined "
+              f"{p['equal']} (max|err| {p['err']:.3g}), sendrecv calls "
+              f"{p['sendrecv_calls']}, a dropped send moves the output by "
+              f"{p['fault_err']:.3g}")
+        if not (p["equal"] and p["finite"]) or p["fault_err"] <= LOGIT_ATOL:
+            fail(f"distributed (b): pipeline {p}")
+        for name in ("sma_gemm", "flash_attention"):
+            launches[name] += p["launches"][name]
+    # (c) train(mesh=).
+    check_dist_train(results[2], card, launches)
+    # (d) compressed_psum.
+    for r, res in enumerate(results[4]):
+        ps = res["psum"]
+        print(f"distributed (d): rank {r}: compressed_psum of "
+              f"{DIST_PSUM_SHAPE} f32 on 4 ranks: max|err| {ps['err']:.4g} "
+              f"against the f32 mean (limit {ps['limit']:.4g})")
+        if not ps["finite"] or ps["err"] > ps["limit"]:
+            fail(f"distributed (d): compressed_psum {ps}")
+    # (e) The front door with a mesh.
+    for r, res in enumerate(results[2]):
+        fd = res["front_door"]
+        print(f"distributed (e): rank {r}: sma_jit(lm.forward) on the "
+              f"{fd['grid']} mesh, {DIST_JIT_LAYERS} layers: logits max|err| "
+              f"{fd['err']:.4g} against the single-rank compiled forward "
+              f"(limit {LOGIT_ATOL}); {fd['sharded_calls']} sharded calls of "
+              f"{fd['sites']} sites; comm bytes: report {fd['report_bytes']}"
+              f", summa_comm_stats {fd['want_bytes']}, comm.bcast_* spans "
+              f"{fd['span_bytes']}, plan {fd['plan_bytes']}")
+        if not fd["finite"] or fd["err"] > LOGIT_ATOL:
+            fail(f"distributed (e): the meshed forward's logits {fd}")
+        if not (fd["report_bytes"] == fd["want_bytes"] == fd["span_bytes"]
+                and fd["sharded_calls"] == fd["sites"] > 0):
+            fail(f"distributed (e): comm bytes do not reconcile: {fd}")
+        for name in ("sma_gemm", "rmsnorm_gemm", "flash_attention"):
+            launches[name] += fd["launches"][name]
+    staged = sum(sum(res["train"]["staged_bytes"].values())
+                 for res in results[2])
+    print(f"distributed: seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
+          f"host-staged collectives in (c) {sum(res['train']['routes'].get('host', 0) for res in results[2])} calls, "
+          f"{staged / 1e9:.2f} GB over both ranks")
+    return dict(launches)
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
@@ -5644,6 +6264,8 @@ def main(argv=None) -> int:
                     help="another checkout (e.g. the parent commit unpacked "
                          "into build/parent): time the compiled StableLM "
                          "decode tick's host time of both, A B B A, first")
+    ap.add_argument("--only-distributed", action="store_true",
+                    help="build and run the distributed phase only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5681,6 +6303,13 @@ def main(argv=None) -> int:
         phases[name] = time.perf_counter() - t
         print(f"phase {name}: {phases[name]:.1f} s", flush=True)
         return out
+
+    if args.only_distributed:
+        counts = phase("distributed", distributed, dev, card)
+        print(f"distributed launches {json.dumps(counts)}")
+        print(f"phases (s): "
+              f"{json.dumps({k: round(x, 1) for k, x in phases.items()})}")
+        return 0
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = phase("kernel checks", lambda: check_sma_gemm(gen, dev,
@@ -5904,6 +6533,8 @@ def main(argv=None) -> int:
     rg_train_counts = phase("train recurrentgemma", train_recurrentgemma,
                             dev, card)
     xl_train_counts = phase("train xlstm", train_xlstm, dev, card)
+    # Distribution: ranks spawned on this card over gloo.
+    dist_counts = phase("distributed", distributed, dev, card)
     print(f"phases (s): "
           f"{json.dumps({k: round(x, 1) for k, x in phases.items()})}")
 
@@ -5922,7 +6553,8 @@ def main(argv=None) -> int:
                    "qwen3": q_counts[row["name"]],
                    "train qwen3": q_train_counts[row["name"]],
                    "train recurrentgemma": rg_train_counts[row["name"]],
-                   "train xlstm": xl_train_counts[row["name"]]}
+                   "train xlstm": xl_train_counts[row["name"]],
+                   "distributed": dist_counts.get(row["name"], 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if row["launches"] == 0:

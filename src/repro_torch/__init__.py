@@ -22,6 +22,13 @@ launches, serving ticks) and optionally writes a Perfetto-loadable Chrome
 trace (:mod:`repro_torch.obs`).  Off by default; never part of any
 compile-cache key.
 
+Distribution: :mod:`repro_torch.launch.mesh` lays the ranks of a
+``torch.distributed`` group on named axes, :mod:`repro_torch.distributed`
+holds the collectives, the sharding rules, the SUMMA sharded GEMM
+(``SMAOptions(mesh=...)`` shards a compiled program's GEMM sites) and the
+pipeline, and ``train(cfg, loop, mesh=...)`` is data parallelism over the
+ranks.
+
 Resilience: ``with repro_torch.inject_faults("sma_gemm@cuda:"
 "runtime_error:times=1"): ...`` scopes a deterministic fault schedule at
 the kernel entries, the engine's compile and the serving engine's sites;

@@ -14,9 +14,15 @@ engine bakes into each cached executable and into its cache key.
 
 The port keeps only the fields that mean something in it today.  The
 reference's ``backend``, ``interpret``, ``autotune``, ``block_*``,
-``precision``, ``jit``, ``donate_argnums``, ``verify``, ``mesh`` and
-``mesh_rules`` wait for the modules that give them a meaning (ROADMAP.md
-§1): routing is static and by device.  ``max_scan_unroll`` bounds the trip
+``precision``, ``jit``, ``donate_argnums`` and ``verify`` wait for the
+modules that give them a meaning (ROADMAP.md §1): routing is static and by
+device.  ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) routes the
+GEMM sites of a compiled program through the SUMMA sharded GEMM, prices
+their collective bytes in the plan and fills the report's ``comm``
+section; ``mesh_rules`` (a :class:`repro_torch.distributed.MeshRules`,
+the stock table when ``mesh`` is set without one) is the ambient rule
+context while the model traces.  Both are part of the cache key: a new
+mesh recompiles, an equal one hits.  ``max_scan_unroll`` bounds the trip
 count up to which the lowering unrolls a loop node
 (:func:`repro_torch.compiler.loop.scan`), as the reference's bounds a
 ``scan``.  ``check_numerics`` takes ``"off"``,
@@ -41,7 +47,7 @@ from typing import Any, Iterator, Optional, Tuple
 from repro_torch.resilience import faults as _faults
 
 __all__ = ["SMAOptions", "options", "current_options", "resolve_options",
-           "DEFAULTS"]
+           "ambient_mesh", "DEFAULTS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +75,16 @@ class SMAOptions:
       * ``check_numerics`` -- ``"off"`` | ``"log"`` | ``"raise"``: check
         each kernel entry's output and each engine call's outputs for
         NaN/Inf (:func:`repro_torch.resilience.guard.check_numerics_value`).
+
+    distributed
+      * ``mesh`` -- a :class:`repro_torch.launch.mesh.Mesh`: the GEMM
+        sites of the compiled program run as SUMMA sharded GEMMs
+        (:func:`repro_torch.distributed.summa.sma_gemm_sharded`), the
+        plan costs their collective bytes, and the report gains its
+        ``comm`` section.  The mesh is hashable, so the options stay so.
+      * ``mesh_rules`` -- a :class:`repro_torch.distributed.MeshRules`
+        installed as the ambient rule context while the model traces
+        (the stock table when ``mesh`` is set without one).
     """
 
     fuse_runtime: Optional[bool] = None
@@ -78,10 +94,12 @@ class SMAOptions:
     check_numerics: Optional[str] = None
     max_scan_unroll: Optional[int] = None
     policy: Any = None
+    mesh: Any = None
+    mesh_rules: Any = None
 
     _FIELDS = ("fuse_runtime", "fuse_epilogues", "max_epilogue_ops",
                "max_cache_entries", "check_numerics", "max_scan_unroll",
-               "policy")
+               "policy", "mesh", "mesh_rules")
 
     def __post_init__(self) -> None:
         if self.check_numerics == "fallback":
@@ -114,13 +132,20 @@ class SMAOptions:
         out = {f: getattr(self, f) for f in self._FIELDS}
         if self.policy is not None:
             out["policy"] = type(self.policy).__name__
+        if self.mesh is not None:
+            out["mesh"] = {"axes": {str(k): int(s) for k, s in
+                                    dict(self.mesh.shape).items()},
+                           "devices": int(self.mesh.size)}
+        if self.mesh_rules is not None:
+            out["mesh_rules"] = type(self.mesh_rules).__name__
         return out
 
 
 #: The resolved defaults.
 DEFAULTS = SMAOptions(fuse_runtime=True, fuse_epilogues=True,
                       max_epilogue_ops=4, max_cache_entries=0,
-                      check_numerics="off", max_scan_unroll=8, policy=None)
+                      check_numerics="off", max_scan_unroll=8, policy=None,
+                      mesh=None, mesh_rules=None)
 
 _STACK: contextvars.ContextVar[Tuple[SMAOptions, ...]] = \
     contextvars.ContextVar("repro_torch_sma_options_stack", default=())
@@ -133,6 +158,15 @@ def current_options() -> SMAOptions:
     for layer in _STACK.get():
         merged = merged.overlay(layer)
     return merged
+
+
+def ambient_mesh() -> Any:
+    """The ``mesh`` :func:`current_options` would give, without building
+    the merged options (a kernel entry asks on every call)."""
+    for layer in reversed(_STACK.get()):
+        if layer.mesh is not None:
+            return layer.mesh
+    return DEFAULTS.mesh
 
 
 def resolve_options(*overlays: Optional[SMAOptions]) -> SMAOptions:

@@ -19,8 +19,14 @@
   each other leaf (a data cursor's int) a numpy array.
 
 Leaves are tensors, numpy arrays or Python numbers; a tensor numpy cannot
-hold (bfloat16) is not taken.  The reference's ``shardings`` argument
-waits for the distributed slice (ROADMAP.md §1 item 10).
+hold (bfloat16) is not taken.
+
+* **Elastic restore** -- checkpoints are unsharded (``train(mesh=)``
+  gathers its ZeRO-split moments before it saves, and only the first rank
+  writes).  ``restore(..., shardings=)`` lays each stored array out for
+  this rank (:class:`repro_torch.distributed.sharding.LeafSharding`:
+  this rank's block of a split leaf), so a run saved on 2 ranks resumes on
+  1 or 4.
 """
 from __future__ import annotations
 
@@ -128,11 +134,17 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: Dict[str, Any], *, step: Optional[int] = None
+    def restore(self, like: Dict[str, Any], *, step: Optional[int] = None,
+                shardings: Optional[Dict[str, Any]] = None
                 ) -> Tuple[int, Dict[str, Any]]:
         """``(step, tree)``: the checkpoint of ``step`` (default the
         latest) in the structure of ``like``, each tensor leaf on its
-        ``like`` leaf's device and in its dtype."""
+        ``like`` leaf's device and in its dtype.  ``shardings``: a tree
+        of ``like``'s structure whose leaves are ``LeafSharding`` or None
+        (a missing key is None); a leaf with a sharding takes this rank's
+        block of the stored array (``like`` holds the block's shape)."""
+        layout = dict(_flatten_with_paths(shardings)) \
+            if shardings is not None else {}
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -145,6 +157,8 @@ class CheckpointManager:
                 if key not in manifest:
                     raise KeyError(f"checkpoint missing leaf {key!r}")
                 arr = data[f"a{manifest[key]['idx']}"]
+                if layout.get(key) is not None:
+                    arr = np.ascontiguousarray(layout[key].local(arr))
                 if isinstance(leaf, torch.Tensor):
                     if tuple(arr.shape) != tuple(leaf.shape):
                         raise ValueError(

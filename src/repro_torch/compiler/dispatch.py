@@ -7,14 +7,19 @@ whose GEMM sites and kernel-entry nodes call the port's kernel entries
 as one call:
 
 * a fused epilogue site and a bare site call
-  :func:`repro_torch.kernels.ops.sma_gemm` (``bias=``, ``epilogue=``);
-* a fused prologue site calls :func:`repro_torch.kernels.ops.rmsnorm_gemm`;
+  :func:`repro_torch.kernels.ops.sma_gemm` (``bias=``, ``epilogue=``,
+  and ``mesh=``: the engine's ``SMAOptions.mesh``, which shards the site
+  by SUMMA, or ``False``);
+* a fused prologue site calls :func:`repro_torch.kernels.ops.rmsnorm_gemm`,
+  device-local under a mesh too;
 * a gradient call site (``repro_torch::sma_gemm`` / ``rmsnorm_gemm``)
   is a site as well, fused or bare as its arguments say;
 * a kernel-entry node (``repro_torch::flash_attention``, the flash
   forward and backward of a gradient site, the decode attentions, the
   scans) calls its entry
-  (:data:`repro_torch.compiler.trace.KERNEL_ENTRY_OPS`);
+  (:data:`repro_torch.compiler.trace.KERNEL_ENTRY_OPS`), and a collective
+  node (``repro_torch::all_reduce`` and its kin) its implementation
+  (:data:`repro_torch.distributed.collectives.IMPLS`);
 * a loop node (``repro_torch::scan_loop``) becomes a call of a
   :class:`ScanLoop` submodule, which runs the loop body's own dispatching
   module (built once per body, from the body's rewrite) L times; the
@@ -48,6 +53,7 @@ first four stages under a ``compile.{stage}`` span.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import time
@@ -65,25 +71,29 @@ from repro_torch.compiler.fuse import ModelPlan, plan_program
 from repro_torch.compiler.lower import (MATMUL_OPS, BATCHED_MATMUL_OPS,
                                         lower_graph, op_name, sma_eligible,
                                         val)
-from repro_torch.compiler.report import (backends_section, fusion_section,
-                                         plan_report)
+from repro_torch.compiler.report import (backends_section, comm_section,
+                                         fusion_section, plan_report)
 from repro_torch.compiler.rewrite import (FUSABLE_DTYPES, FusedGemm,
                                           RewriteResult, rewrite_program)
 from repro_torch.compiler.trace import (GEMM_SITE_OPS, KERNEL_ENTRY_OPS,
                                         TracedModel, trace_model)
 from repro_torch.core.sma import SMAPolicy
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops
 from repro_torch.obs import trace as _obs_trace
 from repro_torch.resilience import guard as _res_guard
 
 __all__ = ["CompiledModel", "ScanLoop", "TracedRun", "build_module",
-           "compile_with_options", "count_dispatch_sites"]
+           "collect_comm_sites", "compile_with_options",
+           "count_dispatch_sites"]
 
 
-def sma_gemm_site(a, b, bias, *, epilogue, shape):
+def sma_gemm_site(a, b, bias, *, epilogue, shape, mesh=False):
     """One ``sma_gemm`` site; ``shape`` views the output where the chain's
-    value had another shape (the collapsed leading dims)."""
-    out = ops.sma_gemm(a, b, bias=bias, epilogue=epilogue)
+    value had another shape (the collapsed leading dims); ``mesh`` is the
+    engine's (``False`` without one: the local path even inside an
+    ambient ``options(mesh=...)``)."""
+    out = ops.sma_gemm(a, b, bias=bias, epilogue=epilogue, mesh=mesh)
     return out if shape is None else out.view(shape)
 
 
@@ -201,13 +211,44 @@ def _module_sites(module: torch.nn.Module) -> List[Any]:
     return out
 
 
+def collect_comm_sites(rewritten: RewriteResult) -> List[Dict[str, Any]]:
+    """``(m, n, k, itemsizes)`` of every GEMM site a mesh shards: the
+    epilogue and bare sites (a prologue site runs device-local), each loop
+    body's once, unmultiplied (``repro.compiler.dispatch.
+    collect_comm_sites``)."""
+    sites: List[Dict[str, Any]] = []
+
+    def walk(rw: RewriteResult) -> None:
+        for item in rw.items:
+            if isinstance(item, FusedGemm) and item.kind != "prologue":
+                a, b = val(item.inputs[0]), val(item.inputs[1])
+                m = 1
+                for d in a.shape[:-1]:
+                    m *= int(d)
+                sites.append({"m": m, "n": int(b.shape[1]),
+                              "k": int(b.shape[0]),
+                              "itemsize_a": a.element_size(),
+                              "itemsize_b": b.element_size()})
+        for body in rw.bodies.values():
+            walk(body)
+
+    walk(rewritten)
+    return sites
+
+
 def _build(root: torch.fx.GraphModule, name: str,
-           rewritten: RewriteResult) -> torch.fx.GraphModule:
+           rewritten: RewriteResult, mesh: Any = None
+           ) -> torch.fx.GraphModule:
     """The dispatching module of one graph (``root`` holds its
-    attributes); a loop node's body is built by the same function."""
+    attributes); a loop node's body is built by the same function.  With a
+    ``mesh``, each epilogue and bare site passes it to ``sma_gemm`` (held
+    as the module's ``_mesh`` attribute)."""
     graph = torch.fx.Graph()
     env: Dict[torch.fx.Node, torch.fx.Node] = {}
     loops: Dict[str, ScanLoop] = {}
+    mesh_arg: Any = False
+    if mesh is not None:
+        mesh_arg = graph.get_attr("_mesh")
 
     def arg(n):
         return None if n is None else env[n]
@@ -221,7 +262,7 @@ def _build(root: torch.fx.GraphModule, name: str,
             if target not in loops:
                 loops[target] = ScanLoop(body, _build(
                     body.graph_module, f"{name}_{body.name}",
-                    rewritten.bodies[body_id]))
+                    rewritten.bodies[body_id], mesh))
             new = graph.call_module(
                 target, torch.fx.node.map_arg(item.args[1:], env.get))
             new.meta["val"] = val(item)
@@ -240,7 +281,8 @@ def _build(root: torch.fx.GraphModule, name: str,
             else:
                 new = graph.call_function(
                     sma_gemm_site, tuple(arg(n) for n in item.inputs),
-                    {"epilogue": item.epilogue, "shape": item.shape})
+                    {"epilogue": item.epilogue, "shape": item.shape,
+                     "mesh": mesh_arg})
             new.meta["val"] = val(item.out)
             new.meta["site"] = item
             new.meta["dispatch_span"] = (
@@ -256,21 +298,25 @@ def _build(root: torch.fx.GraphModule, name: str,
         if item.op == "call_function" and item.target in KERNEL_ENTRY_OPS:
             new.target = KERNEL_ENTRY_OPS[item.target]
             new.meta["site"] = item
+        elif item.op == "call_function" and item.target in collectives.IMPLS:
+            new.target = collectives.IMPLS[item.target]
         env[item] = new
     attrs: Dict[str, Any] = {
         n.target: functools.reduce(getattr, n.target.split("."), root)
-        for n in graph.nodes if n.op == "get_attr"}
+        for n in graph.nodes if n.op == "get_attr" and n.target != "_mesh"}
     attrs.update(loops)
+    if mesh is not None:
+        attrs["_mesh"] = mesh
     module = torch.fx.GraphModule(attrs, graph, class_name=f"SMA_{name}")
     module.graph.eliminate_dead_code()
     module.recompile()
     return module
 
 
-def build_module(traced: TracedModel,
-                 rewritten: RewriteResult) -> torch.fx.GraphModule:
+def build_module(traced: TracedModel, rewritten: RewriteResult,
+                 mesh: Any = None) -> torch.fx.GraphModule:
     """The dispatching ``GraphModule`` (see the module docstring)."""
-    return _build(traced.graph_module, traced.name, rewritten)
+    return _build(traced.graph_module, traced.name, rewritten, mesh)
 
 
 class TracedRun(torch.fx.Interpreter):
@@ -386,16 +432,30 @@ def compile_with_options(fn: Callable, *args, name: Optional[str] = None,
                          **kwargs) -> CompiledModel:
     """Trace -> lower -> plan -> rewrite -> dispatch, configured by one
     :class:`SMAOptions` (``options`` overlaid on the ambient context).  The
-    report's ``compile`` section times each stage on the host clock."""
+    report's ``compile`` section times each stage on the host clock.  With
+    ``SMAOptions.mesh``, its rules are the ambient ones while the model
+    traces, the plan's GEMM ops carry their SUMMA comm bytes, the
+    epilogue and bare sites run sharded, and the report's ``comm``
+    section prices them (:func:`collect_comm_sites`)."""
     o = resolve_options(options)
     times: Dict[str, float] = {}
+    # A mesh: its rule table is the ambient one while the model traces,
+    # and its SUMMA cost model prices the plan's GEMM sites.
+    comm_coster, rules_ctx = None, contextlib.nullcontext()
+    if o.mesh is not None:
+        from repro_torch.distributed.sharding import MeshRules, use_rules
+        from repro_torch.distributed.summa import comm_coster_for
+        comm_coster = comm_coster_for(o.mesh)
+        rules_ctx = use_rules(o.mesh_rules or MeshRules(),
+                              tuple(o.mesh.axis_names))
     t0 = time.perf_counter()
-    with _obs_trace.span("compile.trace", cat="compile"):
+    with _obs_trace.span("compile.trace", cat="compile"), rules_ctx:
         traced = trace_model(fn, *args, name=name, **kwargs)
     t1 = time.perf_counter()
     with _obs_trace.span("compile.lower", cat="compile"):
         program = lower_graph(traced.graph,
-                              max_scan_unroll=o.max_scan_unroll)
+                              max_scan_unroll=o.max_scan_unroll,
+                              comm_coster=comm_coster)
     t2 = time.perf_counter()
     policy = o.policy if o.policy is not None else SMAPolicy(
         fuse_epilogues=bool(o.fuse_epilogues),
@@ -406,7 +466,7 @@ def compile_with_options(fn: Callable, *args, name: Optional[str] = None,
     with _obs_trace.span("compile.rewrite", cat="compile"):
         rewritten = rewrite_program(traced.graph, fuse=bool(o.fuse_runtime))
     t4 = time.perf_counter()
-    module = build_module(traced, rewritten)
+    module = build_module(traced, rewritten, o.mesh)
     t5 = time.perf_counter()
     times.update(trace_s=t1 - t0, lower_s=t2 - t1, plan_s=t3 - t2,
                  rewrite_s=t4 - t3, dispatch_s=t5 - t4)
@@ -419,6 +479,8 @@ def compile_with_options(fn: Callable, *args, name: Optional[str] = None,
         plan, rewritten if o.fuse_runtime else None)
     report["backends"] = backends_section(collect_backend_sites(
         _module_sites(module)))
+    report["comm"] = comm_section(o.mesh, collect_comm_sites(rewritten),
+                                  plan_comm_bytes=program.total_comm_bytes)
     report["resilience"] = _res_guard.resilience_section()
     report["compile"] = times
     return CompiledModel(traced=traced, plan=plan, report_data=report,

@@ -46,13 +46,20 @@ emits one ``scan_carry(len=L)`` ``RECURRENCE`` op, costed on the carry (L
 x its elements in FLOPs, its bytes in and out), then the body once with
 every cost x L (``coarsened_scans``): the steady state behind a marker
 that breaks fusion across the loop boundary.
+
+With a comm coster (:func:`repro_torch.distributed.summa.comm_coster_for`,
+built from ``SMAOptions.mesh`` by the dispatch pipeline) every eligible
+product and every GEMM gradient site carries the collective bytes the
+SUMMA schedule moves for it (``Op.comm_bytes``), priced on the operands'
+dtype before the plain chain's f32 upcast, as the dispatched site moves
+them.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import operator
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.fx
@@ -60,8 +67,12 @@ import torch.fx
 from repro_torch.compiler import loop
 from repro_torch.core.modes import Op, OpKind
 
-__all__ = ["LoweredProgram", "LowerStats", "gemm_shape", "lower_graph",
-           "sma_eligible"]
+__all__ = ["CommCoster", "LoweredProgram", "LowerStats", "gemm_shape",
+           "lower_graph", "operand_itemsize", "sma_eligible"]
+
+#: ``(m, n, k, itemsize_a, itemsize_b) -> collective bytes`` for one GEMM
+#: site on a mesh (:func:`repro_torch.distributed.summa.comm_coster_for`).
+CommCoster = Callable[[int, int, int, int, int], float]
 
 #: Pure layout ops: zero-cost at plan level.
 LAYOUT_OPS = frozenset({
@@ -146,6 +157,10 @@ class LoweredProgram:
     ops: List[Op]
     stats: LowerStats
 
+    @property
+    def total_comm_bytes(self) -> float:
+        return sum(op.comm_bytes for op in self.ops)
+
 
 # --------------------------------------------------------------------------
 # Node helpers
@@ -219,6 +234,21 @@ def gemm_shape(node: torch.fx.Node):
     return int(m), int(val(b).shape[1]), int(k)
 
 
+def operand_itemsize(node) -> int:
+    """The element size of a product operand as the program holds it: the
+    source of the plain chain's f32 upcast (``_to_copy``, through views),
+    else the operand's own."""
+    seen = node
+    while isinstance(seen, torch.fx.Node) and seen.op == "call_function" \
+            and op_name(seen) in ("_to_copy", "view", "_unsafe_view",
+                                  "reshape", "clone", "contiguous"):
+        seen = seen.args[0]
+    value = val(seen) if isinstance(seen, torch.fx.Node) else None
+    if not isinstance(value, torch.Tensor):
+        value = val(node)
+    return value.element_size()
+
+
 def _reduced_dims(node: torch.fx.Node, ndim: int):
     """The reduced axes of a reduction node, normalized; all axes when the
     node names none."""
@@ -248,7 +278,9 @@ def attention_pairs(sq: int, skv: int, causal: bool, window) -> int:
 # The lowerer
 # --------------------------------------------------------------------------
 class _Lowerer:
-    def __init__(self, max_scan_unroll: int) -> None:
+    def __init__(self, max_scan_unroll: int,
+                 comm_coster: Optional[CommCoster] = None) -> None:
+        self.comm_coster = comm_coster
         self.ops: List[Op] = []
         self.stats = LowerStats()
         self.max_scan_unroll = max_scan_unroll
@@ -256,11 +288,21 @@ class _Lowerer:
         self.mult = 1.0         # cost multiplier inside a coarsened loop
 
     def emit(self, name: str, kind: OpKind, *, flops: float,
-             bytes_in: float, bytes_out: float, tile_local: bool) -> None:
+             bytes_in: float, bytes_out: float, tile_local: bool,
+             comm_bytes: float = 0.0) -> None:
         m = self.mult
         self.ops.append(Op(f"{self.path}{name}#{len(self.ops) + 1}", kind,
                            flops=flops * m, bytes_in=bytes_in * m,
-                           bytes_out=bytes_out * m, tile_local=tile_local))
+                           bytes_out=bytes_out * m, tile_local=tile_local,
+                           comm_bytes=comm_bytes * m))
+
+    def comm(self, m: int, n: int, k: int, a, b) -> float:
+        """The collective bytes of a product site on the mesh (0 without
+        one); ``a``, ``b`` its operand nodes."""
+        if self.comm_coster is None:
+            return 0.0
+        return self.comm_coster(m, n, k, operand_itemsize(a),
+                                operand_itemsize(b))
 
     def walk(self, graph: torch.fx.Graph, path: str, mult: float) -> None:
         saved = self.path, self.mult
@@ -316,8 +358,14 @@ class _Lowerer:
             k = a.shape[-1] if isinstance(a, torch.Tensor) else 0
             kind = (OpKind.ATTENTION_MATMUL if name in BATCHED_MATMUL_OPS
                     else OpKind.MATMUL)
+            comm = 0.0
+            if sma_eligible(node):
+                gm, gn, gk = gemm_shape(node)
+                ops_ = (node.args[:2] if name == "mm" else node.args[1:3])
+                comm = self.comm(gm, gn, gk, *ops_)
             self.emit(name, kind, flops=2.0 * _numel(out) * k,
-                      bytes_in=bin_, bytes_out=bout, tile_local=True)
+                      bytes_in=bin_, bytes_out=bout, tile_local=True,
+                      comm_bytes=comm)
         elif name == "convolution":
             w = val(node.args[1])
             per_out = w.numel() / max(w.shape[0], 1)
@@ -372,7 +420,9 @@ class _Lowerer:
         k, n = w.shape
         m = a.numel() // max(k, 1)
         self.emit(name, OpKind.MATMUL, flops=2.0 * m * n * k, bytes_in=bin_,
-                  bytes_out=bout, tile_local=True)
+                  bytes_out=bout, tile_local=True,
+                  comm_bytes=self.comm(m, n, k, node.args[0],
+                                       node.args[2 if prologue else 1]))
         if prologue:
             self.emit(f"{name}.rmsnorm", OpKind.NORMALIZATION,
                       flops=4.0 * m * k,
@@ -437,11 +487,11 @@ class _Lowerer:
                       bytes_in=bin_, bytes_out=bout, tile_local=False)
 
 
-def lower_graph(graph: torch.fx.Graph, *,
-                max_scan_unroll: int = 8) -> LoweredProgram:
+def lower_graph(graph: torch.fx.Graph, *, max_scan_unroll: int = 8,
+                comm_coster: Optional[CommCoster] = None) -> LoweredProgram:
     """Lower a traced fx graph to the symbolic :class:`Op` program; loop
-    nodes of trip count up to ``max_scan_unroll`` unroll (module
-    docstring)."""
-    lw = _Lowerer(max_scan_unroll)
+    nodes of trip count up to ``max_scan_unroll`` unroll; ``comm_coster``
+    prices each GEMM site's collective bytes (module docstring)."""
+    lw = _Lowerer(max_scan_unroll, comm_coster)
     lw.walk(graph, "", 1.0)
     return LoweredProgram(ops=lw.ops, stats=lw.stats)

@@ -16,9 +16,11 @@ is the ``resilience`` section
 compile and restamped on every report read).  Loop nodes show in the
 ``lowering`` section (``unrolled_scans``, ``coarsened_scans``) and in the
 ``dispatch`` section (``loop_nodes``, and per body its nodes, sites and
-trip counts).  The reference's ``comm``
-section waits for the distributed slice, and its ``diagnostics`` section
-for ``analysis`` (ROADMAP.md).
+trip counts).  ``comm_section`` prices the collective bytes of a compiled
+program's sharded GEMM sites on ``SMAOptions.mesh`` through
+:func:`repro_torch.distributed.summa.summa_comm_stats`, the cost model the
+SUMMA schedule is built from.  The reference's ``diagnostics`` section
+waits for ``analysis`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -148,6 +150,72 @@ def backends_section(records: List[Dict[str, Any]], *,
     }
 
 
+def comm_section(mesh, sites, *, plan_comm_bytes: float = 0.0,
+                 overlap: bool = True, max_sites: int = 20
+                 ) -> Dict[str, Any]:
+    """Predicted collective traffic for one compiled model on ``mesh``
+    (``repro.compiler.report.comm_section``).
+
+    ``sites`` are :func:`repro_torch.compiler.dispatch.collect_comm_sites`'
+    dicts, each priced through :func:`repro_torch.distributed.summa.
+    summa_comm_stats`, so the bytes reconcile with what the sharded GEMM
+    moves.  ``plan_comm_bytes`` is the lowered plan's total: loop bodies
+    times their trip count, and every eligible product, the head's
+    prologue site too (the plan does not know yet which chain the rewrite
+    makes a device-local prologue), so it can differ from the per-site sum
+    by those.  No mesh, or a mesh of one rank: ``enabled`` False and zero
+    traffic."""
+    out: Dict[str, Any] = {
+        "enabled": False,
+        "grid": [1, 1],
+        "axes": {},
+        "devices": 1,
+        "steps_per_gemm": 0,
+        "num_gemm_sites": len(sites),
+        "bytes_a": 0.0,
+        "bytes_b": 0.0,
+        "bytes_total": 0.0,
+        "hidden_bytes": 0.0,
+        "predicted_overlap_fraction": 0.0,
+        "collectives_per_axis": {},
+        "plan_comm_bytes": float(plan_comm_bytes),
+        "sites": [],
+    }
+    if mesh is None:
+        return out
+    from repro_torch.distributed.summa import summa_comm_stats, summa_grid
+
+    row, col, pr, pc = summa_grid(mesh)
+    out["grid"] = [pr, pc]
+    out["axes"] = {"row": row, "col": col}
+    out["devices"] = int(getattr(mesh, "size", pr * pc))
+    if pr * pc <= 1:
+        return out
+    out["enabled"] = True
+    collectives: Dict[str, int] = {}
+    site_stats = []
+    for s in sites:
+        st = summa_comm_stats(s["m"], s["n"], s["k"], pr=pr, pc=pc,
+                              itemsize_a=s["itemsize_a"],
+                              itemsize_b=s["itemsize_b"], overlap=overlap,
+                              row_axis=row, col_axis=col)
+        out["bytes_a"] += st["bytes_a"]
+        out["bytes_b"] += st["bytes_b"]
+        out["bytes_total"] += st["bytes_total"]
+        out["hidden_bytes"] += st["hidden_bytes"]
+        out["steps_per_gemm"] = st["steps"]
+        for ax, cnt in st["collectives_per_axis"].items():
+            collectives[ax] = collectives.get(ax, 0) + cnt
+        site_stats.append({**s, "bytes_total": st["bytes_total"],
+                           "steps": st["steps"]})
+    out["collectives_per_axis"] = collectives
+    out["predicted_overlap_fraction"] = \
+        (out["hidden_bytes"] / out["bytes_total"]) if out["bytes_total"] \
+        else 0.0
+    out["sites"] = site_stats[:max_sites]
+    return out
+
+
 def render_text(report: Dict[str, Any]) -> str:
     """One-screen human rendering of a plan report."""
     lines = [
@@ -204,6 +272,16 @@ def render_text(report: Dict[str, Any]) -> str:
         lines.append(
             f"  backends               : {per_backend or 'no op sites'}"
             f"{'; routes ' + per_route if per_route else ''}")
+    comm = report.get("comm")
+    if comm and comm.get("enabled"):
+        per_axis = ", ".join(f"{k}x{v}" for k, v in
+                             sorted(comm["collectives_per_axis"].items()))
+        lines.append(
+            f"  comm (mesh {comm['grid'][0]}x{comm['grid'][1]})    : "
+            f"{comm['bytes_total'] / 1e6:.2f} MB over "
+            f"{comm['num_gemm_sites']} GEMM sites "
+            f"({comm['predicted_overlap_fraction']:.0%} predicted hidden; "
+            f"collectives {per_axis or 'none'})")
     comp = report.get("compile")
     if comp:
         lines.append(

@@ -407,7 +407,9 @@ def _gradient_site(*ins: Optional[torch.Tensor]) -> bool:
         t is not None and t.requires_grad for t in ins)
 
 
-def _trace_gemm(a, b, *, bias=None, epilogue="none"):
+def _trace_gemm(a, b, *, bias=None, epilogue="none", mesh=None):
+    # ``mesh`` is the dispatcher's decision at run time (its GEMM sites
+    # carry the engine's mesh), not the trace's.
     if _gradient_site(a, b, bias):
         return torch.ops.repro_torch.sma_gemm(a, b, bias, epilogue)
     return ref.gemm_ref(a, b, bias=bias, epilogue=epilogue)

@@ -1,0 +1,477 @@
+"""Collectives over a mesh axis: the port's counterpart of the
+``lax.psum``, ``all_gather`` and ``ppermute`` calls the reference makes
+inside ``shard_map``.
+
+Each one is a ``torch.library`` custom op (``repro_torch::all_reduce``,
+``broadcast``, ``all_gather``, ``sendrecv``) with a fake, so a graph that
+``sma_jit`` traces keeps each collective as one node; the dispatcher puts
+the op's implementation in the node's place (:data:`IMPLS`), so the
+compiled program runs the collective itself, as an eager call does (a
+custom op's first call imports ``torch._dynamo``: 2.4 s on an 8-core CPU
+host, ~11 s on the H100 machine's host, in every process).  Every op
+returns a new tensor that the program reads: a collective is never a dead
+node the dispatcher could drop, and the compiled program issues them in
+the order traced, the same on every rank.
+
+The group of an axis is named by a string key (:meth:`repro_torch.launch.
+mesh.Mesh.group_key`), registered when the mesh is made.  A key with no
+process group (one rank, no ``torch.distributed`` group) makes every
+collective the identity.
+
+Routing is static, by the group's backend:
+
+* ``nccl``: CUDA tensors go into the collective directly;
+* ``gloo`` with CUDA tensors: the op copies through pinned host buffers
+  in pieces, runs the collective on the host and copies back.  The pieces
+  go over the line's lanes, :data:`GLOO_LANES` process groups of the same
+  ranks, one piece a lane at once (one gloo group moves ~0.7 GB/s over
+  loopback, four ~1.7 GB/s on an 8-core host), with at most
+  :data:`BUCKET_BYTES` in flight (every op, :func:`broadcast_async`
+  included, through one helper and cached buffers).  Each such call is
+  counted in :data:`repro_torch.kernels.ops.ROUTED` under
+  ``"collective: gloo stages through host"``, and its bytes in
+  :data:`STAGED_BYTES`; it is the group's route, not a fallback;
+* ``gloo`` with CPU tensors: the collective runs on them.
+
+Every call counts in :data:`CALLS` (by op) and :data:`ROUTES` (``nccl``,
+``gloo``, ``host``) and, while a :func:`repro_torch.profile` is active, is
+a ``comm.*`` span on the ``comm`` lane with its bytes and axis key.
+"""
+from __future__ import annotations
+
+import collections
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
+
+from repro_torch.obs import trace as _obs_trace
+
+__all__ = ["BUCKET_BYTES", "CALLS", "ROUTES", "STAGED_BYTES", "STAGED_MS",
+           "COLLECTIVE_OPS", "IMPLS", "all_gather", "all_reduce", "broadcast",
+           "broadcast_async", "index_of", "register", "reset_counts",
+           "sendrecv", "size_of"]
+
+#: The most a staged collective holds in pinned memory at once (all lanes).
+BUCKET_BYTES = 256 << 20
+#: Process groups a ``gloo`` mesh line gets (:class:`repro_torch.launch.
+#: mesh.Mesh`), for staged pieces in flight together.
+GLOO_LANES = 4
+
+#: Calls by op, and by route.
+CALLS: Dict[str, int] = collections.Counter()
+ROUTES: Dict[str, int] = collections.Counter()
+#: Bytes copied to the host by staged collectives (each tensor once), and
+#: the host milliseconds those calls took (copies and collective).
+STAGED_BYTES: Dict[str, int] = collections.Counter()
+STAGED_MS: Dict[str, float] = collections.Counter()
+
+STAGED_REASON = "collective: gloo stages through host"
+
+#: key -> (the line's process groups (its lanes) or None, its global
+#: ranks, backend)
+_GROUPS: Dict[str, Tuple[Optional[List[Any]], List[int], Optional[str]]] = {}
+_PINNED: Dict[Any, torch.Tensor] = {}
+
+
+def register(key: str, groups: Optional[List[Any]], ranks: List[int],
+             backend: Optional[str]) -> None:
+    """Name the process groups of one mesh axis line (``Mesh`` calls it):
+    one a lane, each of the same ranks; None without a process group."""
+    _GROUPS[key] = (list(groups) if groups else None, list(ranks), backend)
+
+
+def size_of(key: str) -> int:
+    """Ranks in the group under ``key``."""
+    return len(_GROUPS[key][1])
+
+
+def index_of(key: str) -> int:
+    """This rank's index in the group under ``key``."""
+    ranks = _GROUPS[key][1]
+    return ranks.index(dist.get_rank()) if dist.is_initialized() else 0
+
+
+def reset_counts() -> None:
+    for c in (CALLS, ROUTES, STAGED_BYTES, STAGED_MS):
+        c.clear()
+
+
+def _lookup(key: str):
+    if key not in _GROUPS:
+        raise KeyError(f"no process group registered under {key!r}: build "
+                       f"the Mesh (every rank, same order) before the "
+                       f"program that uses it")
+    return _GROUPS[key]
+
+
+def _route(x: torch.Tensor, backend: Optional[str]) -> str:
+    if x.device.type == "cuda" and backend != "nccl":
+        return "host"
+    return "nccl" if backend == "nccl" else "gloo"
+
+
+def _pinned(slot, nbytes: int) -> torch.Tensor:
+    """A cached pinned byte buffer of at least ``nbytes`` (one a slot)."""
+    buf = _PINNED.get(slot)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        _PINNED[slot] = buf
+    return buf
+
+
+def _host(slot, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``n`` elements of ``dtype`` in slot ``slot``'s pinned buffer."""
+    size = dtype.itemsize
+    return _pinned(slot, n * size)[:n * size].view(dtype)
+
+
+def _count(op: str, route: str) -> None:
+    CALLS[op] += 1
+    ROUTES[route] += 1
+    if route == "host":
+        from repro_torch.kernels import ops
+        ops.ROUTED[STAGED_REASON] += 1
+
+
+class _Staged:
+    """Times a staged call on the host clock into :data:`STAGED_MS`."""
+
+    def __init__(self, op: str, route: str) -> None:
+        self.op, self.on = op, route == "host"
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.on:
+            STAGED_MS[self.op] += (time.perf_counter() - self.t0) * 1e3
+
+
+def _span(name: str, key: str, nbytes: int):
+    tr = _obs_trace.current_tracer()
+    if tr is None:
+        return _obs_trace._NULL
+    return tr.span(name, cat="comm", mode="comm", axis=key,
+                   bytes=int(nbytes))
+
+
+# --------------------------------------------------------------------------
+# Implementations
+# --------------------------------------------------------------------------
+def _lane_pieces(numel: int, itemsize: int, lanes: int):
+    """Pieces of a staged tensor: at most :data:`BUCKET_BYTES` in flight
+    over all lanes, and at least one piece a lane."""
+    step = max(1, min(BUCKET_BYTES // lanes // itemsize,
+                      -(-numel // lanes)))
+    return [(lo, min(numel, lo + step)) for lo in range(0, numel, step)]
+
+
+def _staged(flat: torch.Tensor, outs, groups, issue,
+            tag: Any = "sync") -> "_InFlight":
+    """Move ``flat`` through pinned host memory in pieces, one piece a
+    lane (a process group of the same ranks) in flight: ``issue(group,
+    slot, host_in)`` starts the collective and returns ``(work,
+    host_outs)``; each of ``host_outs`` is then copied into the piece's
+    place in the matching flat tensor of ``outs``.  The first round of
+    pieces is issued now; the handle's ``wait()`` completes it and runs
+    the rest.  ``tag`` names the pinned buffers (one set a tag): a call
+    left in flight while others run has a tag of its own."""
+    return _InFlight(flat, outs, groups, issue, tag)
+
+
+class _InFlight:
+    """A staged collective (:func:`_staged`): at most one round of pieces,
+    :data:`BUCKET_BYTES` over all lanes, in flight."""
+
+    def __init__(self, flat, outs, groups, issue, tag) -> None:
+        self.flat, self.outs, self.groups = flat, outs, groups
+        self.issue, self.tag = issue, tag
+        lanes = len(groups)
+        pieces = _lane_pieces(flat.numel(), flat.element_size(), lanes)
+        self.rounds = [pieces[i:i + lanes]
+                       for i in range(0, len(pieces), lanes)]
+        self.pending = self._issue()
+
+    def _issue(self) -> list:
+        pending = []
+        if self.rounds:
+            for lane, (lo, hi) in enumerate(self.rounds.pop(0)):
+                slot = (self.tag, lane)
+                host_in = _host(slot + (0,), hi - lo, self.flat.dtype)
+                host_in.copy_(self.flat[lo:hi])
+                pending.append((lo, hi, *self.issue(self.groups[lane], slot,
+                                                    host_in)))
+        return pending
+
+    def wait(self) -> None:
+        while self.pending:
+            for lo, hi, work, host_outs in self.pending:
+                work.wait()
+                for out, host in zip(self.outs, host_outs):
+                    out[lo:hi].copy_(host)
+            self.pending = self._issue()
+
+
+class _Works:
+    """Several works as one (a piece's send and receive)."""
+
+    def __init__(self, works) -> None:
+        self.works = works
+
+    def wait(self) -> None:
+        for w in self.works:
+            w.wait()
+
+
+def _all_reduce_impl(x: torch.Tensor, key: str, op: str, span: str
+                     ) -> torch.Tensor:
+    return _run_all_reduce(x, key, op, span)
+
+
+def _run_all_reduce(x: torch.Tensor, key: str, op: str, span: str
+                    ) -> torch.Tensor:
+    """The all-reduce a ``repro_torch::all_reduce`` node runs (looked up
+    on the module at each call, so a check can stand a planted fault in
+    its place)."""
+    groups, ranks, backend = _lookup(key)
+    out = x.contiguous().clone()
+    if groups is None:
+        return out
+    route = _route(x, backend)
+    _count("all_reduce", route)
+    red = dist.ReduceOp.SUM
+    with _span(span, key, out.numel() * out.element_size()), \
+            _Staged("all_reduce", route):
+        if route != "host":
+            dist.all_reduce(out, op=red, group=groups[0])
+        else:
+            def issue(group, slot, buf):
+                return (dist.all_reduce(buf, op=red, group=group,
+                                        async_op=True), [buf])
+            _staged(out.view(-1), [out.view(-1)], groups, issue).wait()
+            STAGED_BYTES["all_reduce"] += out.numel() * out.element_size()
+    if op == "mean":
+        out = out / len(ranks)
+    return out
+
+
+def _broadcast_impl(x: torch.Tensor, key: str, src: int, span: str
+                    ) -> torch.Tensor:
+    groups, ranks, backend = _lookup(key)
+    out = x.contiguous().clone()
+    if groups is None:
+        return out
+    route = _route(x, backend)
+    _count("broadcast", route)
+    with _span(span, key, out.numel() * out.element_size()
+               * (len(ranks) - 1)), _Staged("broadcast", route):
+        if route != "host":
+            dist.broadcast(out, src=ranks[src], group=groups[0])
+        else:
+            def issue(group, slot, buf):
+                return (dist.broadcast(buf, src=ranks[src], group=group,
+                                       async_op=True), [buf])
+            _staged(out.view(-1), [out.view(-1)], groups, issue).wait()
+            STAGED_BYTES["broadcast"] += out.numel() * out.element_size()
+    return out
+
+
+def _all_gather_impl(x: torch.Tensor, key: str, dim: int, span: str
+                     ) -> torch.Tensor:
+    groups, ranks, backend = _lookup(key)
+    x = x.contiguous()
+    if groups is None:
+        return x.clone()
+    n = len(ranks)
+    route = _route(x, backend)
+    _count("all_gather", route)
+    parts = [torch.empty_like(x) for _ in range(n)]
+    with _span(span, key, x.numel() * x.element_size() * (n - 1)), \
+            _Staged("all_gather", route):
+        if route != "host":
+            dist.all_gather(parts, x, group=groups[0])
+        else:
+            def issue(group, slot, mine):
+                bufs = [_host(slot + (1 + r,), mine.numel(), mine.dtype)
+                        for r in range(n)]
+                return dist.all_gather(bufs, mine, group=group,
+                                       async_op=True), bufs
+            _staged(x.view(-1), [p.view(-1) for p in parts], groups,
+                    issue).wait()
+            STAGED_BYTES["all_gather"] += x.numel() * x.element_size()
+    return torch.cat(parts, dim=dim)
+
+
+def _sendrecv_impl(x: torch.Tensor, key: str, dst: int, src: int,
+                   span: str) -> torch.Tensor:
+    """Send ``x`` to index ``dst`` of the group and receive a tensor like it
+    from index ``src`` (-1: none; the result is then zeros)."""
+    groups, ranks, backend = _lookup(key)
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    if groups is None:
+        return out
+    route = _route(x, backend)
+    _count("sendrecv", route)
+    with _span(span, key, x.numel() * x.element_size() * (dst >= 0)), \
+            _Staged("sendrecv", route):
+        def issue(group, slot, send):
+            recv = (_host(slot + (1,), send.numel(), send.dtype)
+                    if route == "host" else torch.empty_like(send))
+            reqs = []
+            if dst >= 0:
+                reqs.append(dist.P2POp(dist.isend, send, ranks[dst], group))
+            if src >= 0:
+                reqs.append(dist.P2POp(dist.irecv, recv, ranks[src], group))
+            works = dist.batch_isend_irecv(reqs) if reqs else []
+            return _Works(works), [recv] if src >= 0 else []
+
+        if route != "host":
+            work, recvs = issue(groups[0], None, x)
+            work.wait()
+            for recv in recvs:
+                out.copy_(recv)
+        else:
+            _staged(x.view(-1), [out.view(-1)], groups, issue).wait()
+            STAGED_BYTES["sendrecv"] += x.numel() * x.element_size()
+    return out
+
+
+def _gathered_shape(x: torch.Tensor, key: str, dim: int):
+    shape = list(x.shape)
+    shape[dim] *= size_of(key)
+    return shape
+
+
+def _op(name: str, impl, fake):
+    op = torch.library.custom_op(f"repro_torch::{name}", impl,
+                                 mutates_args=())
+    op.register_fake(fake)
+    return getattr(torch.ops.repro_torch, name).default
+
+
+#: The collectives' custom ops (each a node of a traced graph).
+COLLECTIVE_OPS = {
+    "all_reduce": _op("all_reduce", _all_reduce_impl,
+                      lambda x, key, op, span: torch.empty_like(
+                          x, memory_format=torch.contiguous_format)),
+    "broadcast": _op("broadcast", _broadcast_impl,
+                     lambda x, key, src, span: torch.empty_like(
+                         x, memory_format=torch.contiguous_format)),
+    "all_gather": _op("all_gather", _all_gather_impl,
+                      lambda x, key, dim, span: x.new_empty(
+                          _gathered_shape(x, key, dim))),
+    "sendrecv": _op("sendrecv", _sendrecv_impl,
+                    lambda x, key, dst, src, span: torch.empty_like(
+                        x, memory_format=torch.contiguous_format)),
+}
+
+
+#: Each op -> the implementation a dispatched graph calls in its place.
+IMPLS = {COLLECTIVE_OPS["all_reduce"]: _all_reduce_impl,
+         COLLECTIVE_OPS["broadcast"]: _broadcast_impl,
+         COLLECTIVE_OPS["all_gather"]: _all_gather_impl,
+         COLLECTIVE_OPS["sendrecv"]: _sendrecv_impl}
+
+
+# --------------------------------------------------------------------------
+# Entry points: the op while a graph is traced (fake tensors), else the
+# implementation
+# --------------------------------------------------------------------------
+def _traced(x: torch.Tensor) -> bool:
+    return isinstance(x, FakeTensor)
+
+
+def all_reduce(x: torch.Tensor, key: str, op: str = "sum",
+               span: str = "comm.all_reduce") -> torch.Tensor:
+    """The sum (``op="mean"``: the mean) of ``x`` over the group, on every
+    rank."""
+    if op not in ("sum", "mean"):
+        raise ValueError(f"all_reduce op {op!r} (sum | mean)")
+    if _traced(x):
+        return torch.ops.repro_torch.all_reduce(x, key, op, span)
+    return _all_reduce_impl(x, key, op, span)
+
+
+def broadcast(x: torch.Tensor, key: str, src: int,
+              span: str = "comm.broadcast") -> torch.Tensor:
+    """Index ``src``'s ``x`` on every rank of the group."""
+    if _traced(x):
+        return torch.ops.repro_torch.broadcast(x, key, src, span)
+    return _broadcast_impl(x, key, src, span)
+
+
+class _Pending:
+    """An issued broadcast: :meth:`wait` gives the tensor (and records its
+    ``comm.*`` span, from issue to completion)."""
+
+    def __init__(self, out, work, staged, key, span, nbytes, attrs) -> None:
+        self.out, self.work, self.staged = out, work, staged
+        self.key, self.span, self.nbytes, self.attrs = (key, span, nbytes,
+                                                        attrs)
+        self.tracer = _obs_trace.current_tracer()
+        self.t0 = self.tracer.now_us() if self.tracer is not None else 0.0
+        self.h0 = time.perf_counter()
+
+    def wait(self) -> torch.Tensor:
+        if self.work is not None:
+            self.work.wait()
+            self.work = None
+            if self.staged:
+                STAGED_MS["broadcast"] += (time.perf_counter()
+                                           - self.h0) * 1e3
+            if self.tracer is not None:
+                self.tracer.add_event(
+                    self.span, cat="comm", mode="comm",
+                    ts=self.t0, dur=self.tracer.now_us() - self.t0,
+                    axis=self.key, bytes=int(self.nbytes), **self.attrs)
+        return self.out
+
+
+def broadcast_async(x: torch.Tensor, key: str, src: int,
+                    span: str = "comm.broadcast", **attrs: Any) -> _Pending:
+    """:func:`broadcast`, issued now and completed by the handle's
+    ``wait()`` (the overlapped SUMMA's panels; one broadcast a ``key`` in
+    flight at once).  Staged through host as :func:`broadcast` is, in its
+    first round of pieces until ``wait()``.  Not an op of a traced
+    graph: a compiled program calls the sharded GEMM at run time."""
+    groups, ranks, backend = _lookup(key)
+    out = x.contiguous().clone()
+    nbytes = out.numel() * out.element_size() * (len(ranks) - 1)
+    if groups is None:
+        return _Pending(out, None, False, key, span, nbytes, attrs)
+    route = _route(x, backend)
+    _count("broadcast", route)
+    if route == "host":
+        def issue(group, slot, buf):
+            return (dist.broadcast(buf, src=ranks[src], group=group,
+                                   async_op=True), [buf])
+        work = _staged(out.view(-1), [out.view(-1)], groups, issue,
+                       tag=("async", key))
+        STAGED_BYTES["broadcast"] += out.numel() * out.element_size()
+    else:
+        work = dist.broadcast(out, src=ranks[src], group=groups[0],
+                              async_op=True)
+    return _Pending(out, work, route == "host", key, span, nbytes, attrs)
+
+
+def all_gather(x: torch.Tensor, key: str, dim: int = 0,
+               span: str = "comm.all_gather") -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in group order."""
+    dim = dim % max(x.dim(), 1)
+    if _traced(x):
+        return torch.ops.repro_torch.all_gather(x, key, dim, span)
+    return _all_gather_impl(x, key, dim, span)
+
+
+def sendrecv(x: torch.Tensor, key: str, dst: int, src: int,
+             span: str = "comm.sendrecv") -> torch.Tensor:
+    """Send ``x`` to group index ``dst`` and return what index ``src``
+    sent (-1 for no peer; zeros are returned when there is no ``src``)."""
+    if _traced(x):
+        return torch.ops.repro_torch.sendrecv(x, key, dst, src, span)
+    return _sendrecv_impl(x, key, dst, src, span)

@@ -67,7 +67,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.api.options import current_options
+from repro_torch.api.options import ambient_mesh, current_options
 from repro_torch.core.modes import BACKEND_ROUTE, OpKind, classify_op
 from repro_torch.kernels import autograd as _autograd
 from repro_torch.kernels import decode_attention as _decode
@@ -85,8 +85,13 @@ __all__ = ["ROUTED", "decode_attention", "flash_attention", "launch_counts",
            "mlstm_chunkwise", "paged_decode_attention", "paged_route",
            "reset_counts", "rglru_scan", "rmsnorm_gemm", "sma_gemm"]
 
-#: Calls routed to a plain version by design, keyed by reason.
+#: Calls routed by design away from the one-rank kernel path (to a plain
+#: version, to the SUMMA sharded GEMM, a collective through host memory),
+#: keyed by reason.
 ROUTED: Dict[str, int] = collections.Counter()
+
+#: The reason a GEMM that a mesh shards is counted under.
+SHARDED_REASON = "mesh: sma_gemm sharded by SUMMA"
 
 #: The kernel wrappers whose ``.launches`` the counters read.
 WRAPPERS = {
@@ -194,11 +199,51 @@ def _spanned(op: str) -> Callable[[Callable], Callable]:
     return wrap
 
 
-@_spanned("sma_gemm")
+def _mesh_routable(a: torch.Tensor, b: torch.Tensor, mesh: Any) -> bool:
+    """True when a resolved ``mesh`` knob routes this GEMM through the
+    SUMMA sharded GEMM: a grid of more than one rank and the ``(..., K) @
+    (K, N)`` shape."""
+    if mesh is None or mesh is False:
+        return False
+    if getattr(b, "ndim", 0) != 2 or getattr(a, "ndim", 0) < 2:
+        return False
+    from repro_torch.distributed.summa import summa_grid
+    _, _, pr, pc = summa_grid(mesh)
+    return pr * pc > 1
+
+
 def sma_gemm(a: torch.Tensor, b: torch.Tensor, *,
              bias: Optional[torch.Tensor] = None,
-             epilogue: str = "none") -> torch.Tensor:
-    """``epilogue(A @ B + bias)`` in A's dtype; a (..., K), b (K, N)."""
+             epilogue: str = "none", mesh: Any = None) -> torch.Tensor:
+    """``epilogue(A @ B + bias)`` in A's dtype; a (..., K), b (K, N).
+
+    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`; ``None`` takes
+    ``SMAOptions.mesh`` from the ambient options) routes a call of that
+    shape on a grid of more than one rank through
+    :func:`repro_torch.distributed.summa.sma_gemm_sharded`, counted in
+    :data:`ROUTED` under :data:`SHARDED_REASON`; ``mesh=False`` forces the
+    local path (the sharded GEMM's own per-step products)."""
+    if mesh is None:
+        mesh = ambient_mesh()
+    if mesh and _mesh_routable(a, b, mesh):
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            raise NotImplementedError(
+                "sma_gemm sharded over a mesh has no backward: call it "
+                "under torch.no_grad() (train(mesh=) shards the batch, "
+                "not the products)")
+        from repro_torch.distributed.summa import sma_gemm_sharded
+        ROUTED[SHARDED_REASON] += 1
+        return sma_gemm_sharded(a, b, mesh=mesh, bias=bias,
+                                epilogue=epilogue)
+    return _local_gemm(a, b, bias=bias, epilogue=epilogue)
+
+
+@_spanned("sma_gemm")
+def _local_gemm(a: torch.Tensor, b: torch.Tensor, *,
+                bias: Optional[torch.Tensor] = None,
+                epilogue: str = "none") -> torch.Tensor:
+    """One rank's ``sma_gemm``: the kernel, through its autograd Function
+    with grad mode on."""
     if not torch.is_grad_enabled():
         return _gemm.sma_gemm(a, b, bias=bias, epilogue=epilogue)
     return _autograd.SmaGemm.apply(a, b, bias, epilogue)

@@ -23,8 +23,25 @@ masters do not require grad outside the step.
 ``checkpoint_dir`` (parameters, optimizer state, error-feedback state and
 the data cursor travel together), checkpoints every ``checkpoint_every``
 steps, and with ``halt_at_step`` checkpoints and stops there (a simulated
-fault: the resumed run equals an unbroken one).  The reference's mesh
-waits for the distributed slice (ROADMAP.md §1 item 10).
+fault: the resumed run equals an unbroken one).
+
+``train(cfg, loop, mesh=...)`` is data parallelism over the ranks of a
+:class:`repro_torch.launch.mesh.Mesh` (:class:`DataParallel`):
+``rules_for(cfg, mesh, batch_size=loop.global_batch, kind="train")``
+decides the batch axes; every rank draws the same global batch from one
+data cursor and keeps its own rows.  Inside the compiled step the count
+of valid labels and every gradient are all-reduced over the batch axes
+(the loss and its gradient are the global batch's, and the grad norm is
+taken after the all-reduce); the AdamW moments are split along each
+parameter's ``embed`` dim over ``data`` where it divides (ZeRO-1 by the
+rules' ``embed -> data``), each rank updates its block of the masters and
+moments, and the masters are all-gathered.  Every collective is a node of
+the compiled program (:mod:`repro_torch.distributed.collectives`).
+Checkpoints stay unsharded: the moments are gathered and the first rank
+writes; a restore lays them out for the ranks it runs on, so a run saved
+on 2 ranks resumes on 1 or 4.  A ``model`` axis of more than one rank is
+refused: tensor parallelism by the rules is queued (ROADMAP.md §1 item
+3).
 """
 from __future__ import annotations
 
@@ -42,6 +59,10 @@ from repro_torch.api import SMAOptions, sma_jit
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig, get_config, reduced
 from repro_torch.data.pipeline import DataConfig, DataPipeline, PipelineState
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import (logical_to_spec, rules_for,
+                                              spec_tree_to_shardings,
+                                              use_rules)
 from repro_torch.models import lm
 from repro_torch.obs import trace as _obs_trace
 from repro_torch.optim import adamw
@@ -67,34 +88,115 @@ class TrainLoopConfig:
     remat: bool = True
 
 
+class DataParallel:
+    """``train(mesh=)``'s plan on one rank (module docstring): the batch
+    axes and this rank's rows, the all-reduce over them, and the ZeRO-1
+    shardings of the moments with the all-gather that puts each master
+    back whole."""
+
+    def __init__(self, cfg: ModelConfig, loop: "TrainLoopConfig", mesh,
+                 params: dict) -> None:
+        if mesh.shape.get("model", 1) > 1:
+            raise NotImplementedError(
+                f"train(mesh=) runs data parallelism only; a 'model' axis "
+                f"of {mesh.shape['model']} ranks needs tensor parallelism "
+                f"by the rules, which is not ported yet (ROADMAP.md §1 item "
+                f"3, queue entry 1)")
+        self.mesh = mesh
+        self.rules = rules_for(cfg, mesh, batch_size=loop.global_batch,
+                               kind="train")
+        axes = tuple(a for a in (self.rules.batch or ())
+                     if mesh.shape.get(a, 1) > 1)
+        self.keys = [mesh.group_key(a) for a in axes]
+        self.ranks, self.index = 1, 0
+        for a in axes:
+            self.index = self.index * mesh.shape[a] + mesh.coords[a]
+            self.ranks *= mesh.shape[a]
+        specs = logical_to_spec(lm.param_specs(cfg), self.rules,
+                                mesh.axis_names)
+        self.shardings = spec_tree_to_shardings(mesh, specs, like=params)
+
+    def rows(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        """This rank's rows of the global batch."""
+        b = next(iter(batch.values())).shape[0] // self.ranks
+        return {k: v[self.index * b:(self.index + 1) * b]
+                for k, v in batch.items()}
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the batch axes (an all-reduce a non-trivial
+        axis)."""
+        for key in self.keys:
+            x = collectives.all_reduce(x, key, span="comm.grad_all_reduce")
+        return x
+
+    def gather(self, x: torch.Tensor, sharding) -> torch.Tensor:
+        """Every rank's block ``x`` of a split leaf, whole."""
+        for dim, axes, _, _ in sharding.splits:
+            for axis in reversed(axes):
+                x = collectives.all_gather(x, self.mesh.group_key(axis),
+                                           dim=dim,
+                                           span="comm.master_all_gather")
+        return x
+
+    def full_moments(self, opt_state: Dict) -> Dict:
+        """The optimizer state with whole moments (for a checkpoint)."""
+        def whole(m, sh):
+            return self.gather(m, sh) if sh.splits else m
+        return {**opt_state,
+                "m": tree_map(whole, opt_state["m"], self.shardings),
+                "v": tree_map(whole, opt_state["v"], self.shardings)}
+
+
 def direct_step(params, opt_state, ef, batch, *, cfg: ModelConfig,
                 ocfg: adamw.AdamWConfig, remat: bool,
-                grad_compression: bool):
+                grad_compression: bool, dp: Optional[DataParallel] = None):
     """One step, run as written: ``(params, opt_state, ef, metrics)``.
 
     The gradient is taken with respect to detached copies of the masters
     (so the masters need not require grad); ``params`` and the moments are
     then updated in place and returned, ``opt_state["step"]`` and ``ef``
-    replaced.  This is the function :func:`make_step` compiles."""
+    replaced.  With ``dp`` (``train(mesh=)``), ``batch`` is this rank's
+    rows and the step is the data-parallel one of the module docstring.
+    This is the function :func:`make_step` compiles."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss, metrics = lm.loss_fn(live, cfg, batch, remat=remat)
-    grads = unflatten(live, torch.autograd.grad(loss, leaves(live)))
+    if dp is None:
+        loss, metrics = lm.loss_fn(live, cfg, batch, remat=remat)
+        grads = unflatten(live, torch.autograd.grad(loss, leaves(live)))
+    else:
+        with use_rules(dp.rules, dp.mesh.axis_names):
+            loss, metrics = lm.loss_fn(live, cfg, batch, remat=remat,
+                                       dp_sum=dp.sum, dp_ranks=dp.ranks)
+            grads = unflatten(live, [dp.sum(g) for g in torch.autograd.grad(
+                loss, leaves(live))])
     if grad_compression:
         grads, ef = gcomp.roundtrip(grads, ef)
-    params, opt_state, om = adamw.update(grads, opt_state, params, ocfg)
+    params, opt_state, om = adamw.update(
+        grads, opt_state, params, ocfg,
+        shardings=dp.shardings if dp is not None else None,
+        gather=dp.gather if dp is not None else None)
     return params, opt_state, ef, {**metrics, **om}
 
 
 def make_step(cfg: ModelConfig, ocfg: adamw.AdamWConfig, *, remat: bool,
-              grad_compression: bool, options: Optional[SMAOptions] = None):
+              grad_compression: bool, options: Optional[SMAOptions] = None,
+              dp: Optional[DataParallel] = None):
     """The train step on the ``sma_jit`` front door:
     ``step(params, opt_state, ef, batch) -> (params, opt_state, ef,
     metrics)``, :func:`direct_step` traced forward, backward and optimizer
     as one program and cached per abstract signature (a new sequence
     length or batch compiles once)."""
     step = functools.partial(direct_step, cfg=cfg, ocfg=ocfg, remat=remat,
-                             grad_compression=grad_compression)
+                             grad_compression=grad_compression, dp=dp)
     return sma_jit(step, options=options, name=f"{cfg.name}.train_step")
+
+
+def masters_digest(params) -> List[int]:
+    """One checksum a master: the sum of its bits read as integers of
+    its width (equal masters give equal digests; one changed element
+    changes its leaf's)."""
+    ints = {2: torch.int16, 4: torch.int32}
+    return torch.stack([p.view(ints[p.element_size()]).sum(dtype=torch.int64)
+                        for p in leaves(params)]).tolist()
 
 
 def _state(params, opt_state, ef, pipe: DataPipeline) -> Dict[str, Any]:
@@ -104,22 +206,30 @@ def _state(params, opt_state, ef, pipe: DataPipeline) -> Dict[str, Any]:
 
 def train(cfg: ModelConfig, loop: TrainLoopConfig, *,
           device: DeviceLike = None, params: Optional[dict] = None,
-          options: Optional[SMAOptions] = None) -> Dict[str, Any]:
+          options: Optional[SMAOptions] = None, mesh=None
+          ) -> Dict[str, Any]:
     """Train for ``loop.steps`` steps through :func:`make_step`'s engine.
     Runs on ``cuda`` unless ``device`` says otherwise.  ``params`` (float32
     masters on ``device``, updated in place) default to ``lm.init(cfg,
-    seed=loop.seed)`` in ``cfg.parameter_dtype``.  Returns ``{"history",
-    "params", "engine"}``: history has one entry per logged step with the
+    seed=loop.seed)`` in ``cfg.parameter_dtype``.  ``mesh``: data
+    parallelism over its ranks (module docstring; every rank calls
+    ``train`` with the same arguments).  Returns ``{"history", "params",
+    "opt", "engine"}`` (``"opt"`` the optimizer state, this rank's block
+    of each split moment): history has one entry per logged step with the
     metrics, ``step`` and ``wall_s`` (host seconds since the first step of
-    this run began, taken after the metrics reach the host); ``engine`` is
-    the step engine's cache statistics."""
+    this run began, taken after the metrics reach the host), and with a
+    ``mesh`` ``masters_digest`` (:func:`masters_digest`: the replicas
+    agree at that step when their digests do); ``engine`` is the step
+    engine's cache statistics."""
     dev = resolve_device(device)
     if params is None:
         params = lm.init(cfg, seed=loop.seed, device=dev,
                          dtype=cfg.parameter_dtype)
     for p in leaves(params):
         p.requires_grad_(False)
-    opt_state = adamw.init(params)
+    dp = DataParallel(cfg, loop, mesh, params) if mesh is not None else None
+    lead = dp is None or mesh.rank == 0
+    opt_state = adamw.init(params, dp.shardings if dp is not None else None)
     ef = gcomp.init_error(params) if loop.grad_compression else {}
     pipe = DataPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                    seq_len=loop.seq_len,
@@ -134,8 +244,10 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, *,
     mgr = (CheckpointManager(loop.checkpoint_dir)
            if loop.checkpoint_dir else None)
     if mgr is not None and mgr.latest_step() is not None:
+        layout = ({"opt": {"m": dp.shardings, "v": dp.shardings}}
+                  if dp is not None else None)
         start_step, restored = mgr.restore(_state(params, opt_state, ef,
-                                                  pipe))
+                                                  pipe), shardings=layout)
         params, opt_state, ef = (restored["params"], restored["opt"],
                                  restored["ef"])
         pipe.state = PipelineState.from_dict(restored["data"])
@@ -146,39 +258,57 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, *,
                              total_steps=loop.steps)
     step_fn = make_step(cfg, ocfg, remat=loop.remat,
                         grad_compression=loop.grad_compression,
-                        options=options)
+                        options=options, dp=dp)
+
+    def save(step: int) -> None:
+        """Every rank gathers the moments; the first one writes."""
+        opt = dp.full_moments(opt_state) if dp is not None else opt_state
+        if lead:
+            mgr.save(step, _state(params, opt, ef, pipe))
+
+    def commit() -> None:
+        if lead:
+            mgr.wait()
+        if dp is not None:         # no rank reads before the commit
+            dp.sum(torch.zeros((), device=dev))
 
     def finish() -> Dict[str, Any]:
-        return {"history": history, "params": params,
+        return {"history": history, "params": params, "opt": opt_state,
                 "engine": step_fn.stats.asdict()}
 
     history = []
     t0 = time.perf_counter()
     for i in range(start_step, loop.steps):
         batch = next(pipe)
+        if dp is not None:
+            batch = dp.rows(batch)
         with _obs_trace.span("train.step", cat="train", step=i):
             params, opt_state, ef, metrics = step_fn(params, opt_state, ef,
                                                      batch)
         if (i + 1) % loop.log_every == 0 or i == loop.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             m["step"] = i + 1
+            if dp is not None:
+                m["masters_digest"] = masters_digest(params)
             m["wall_s"] = time.perf_counter() - t0
             history.append(m)
-            print(f"[train] step {i + 1:5d} loss={m['loss']:.4f} "
-                  f"acc={m['accuracy']:.3f} gnorm={m['grad_norm']:.2f}",
-                  flush=True)
+            if lead:
+                print(f"[train] step {i + 1:5d} loss={m['loss']:.4f} "
+                      f"acc={m['accuracy']:.3f} "
+                      f"gnorm={m['grad_norm']:.2f}", flush=True)
         if mgr is not None and (i + 1) % loop.checkpoint_every == 0:
-            mgr.save(i + 1, _state(params, opt_state, ef, pipe))
+            save(i + 1)
         if loop.halt_at_step is not None and (i + 1) == loop.halt_at_step:
             if mgr is not None:
                 if (i + 1) % loop.checkpoint_every != 0:
-                    mgr.save(i + 1, _state(params, opt_state, ef, pipe))
-                mgr.wait()
-            print(f"[train] simulated fault: halted at step {i + 1}")
+                    save(i + 1)
+                commit()
+            if lead:
+                print(f"[train] simulated fault: halted at step {i + 1}")
             return finish()
     if mgr is not None:
-        mgr.save(loop.steps, _state(params, opt_state, ef, pipe))
-        mgr.wait()
+        save(loop.steps)
+        commit()
     return finish()
 
 

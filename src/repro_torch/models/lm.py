@@ -27,8 +27,8 @@ the logits cover Sv + S positions).  :func:`decode_step` takes
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, \
-    Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, \
+    Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -119,6 +119,80 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
     params["final_norm"] = rmsnorm_init(d, dev)
     params["head"] = {"w": variance_scaling_init(gen, (d, vpad), dt)}
     return params
+
+
+#: Logical-axis specs of one group's mixer and FFN, by block type: the
+#: spec trees the reference's ``*_init`` functions return beside their
+#: parameters (``repro.models.{attention,layers,moe,recurrent}``).
+_MIXER_SPECS = {
+    "attn": {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+             "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")},
+    "rglru": {"w_in": ("embed", "mlp"), "w_gate": ("embed", "mlp"),
+              "conv_w": (None, "mlp"), "conv_b": ("mlp",),
+              "w_a": ("embed", "mlp"), "b_a": ("mlp",),
+              "w_x": ("embed", "mlp"), "b_x": ("mlp",),
+              "lambda_raw": ("mlp",), "w_out": ("mlp", "embed")},
+    "mlstm": {"w_up": ("embed", "mlp"), "conv_w": (None, "mlp"),
+              "conv_b": ("mlp",), "w_q": ("embed", "mlp"),
+              "w_k": ("embed", "mlp"), "w_v": ("embed", "mlp"),
+              "w_if": ("embed", None), "b_if": (None,),
+              "gn_scale": ("mlp",), "w_down": ("mlp", "embed")},
+    "slstm": {"w_gates": ("embed", "mlp"), "r_gates": ("heads", None, None),
+              "b_gates": ("mlp",), "gn_scale": (None,),
+              "w_ff1": ("embed", "mlp"), "w_ff2": ("mlp", "embed")},
+}
+_MIXER_SPECS["local"] = _MIXER_SPECS["attn"]
+_MLP_SPECS = {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+              "wo": ("mlp", "embed")}
+_MOE_SPECS = {"router": ("embed", None), "wi": ("expert", "embed", None),
+              "wg": ("expert", "embed", None),
+              "wo": ("expert", None, "embed")}
+_NORM_SPECS = {"scale": (None,)}
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The logical-axis spec tree of :func:`init`'s parameters: one tuple
+    of logical axis names (or ``None``) a tensor, stacked block tensors
+    led by ``"layers"`` (the tree ``repro.models.lm.init`` returns as its
+    second output)."""
+    check_pattern(cfg)
+
+    def block(btype: str) -> dict:
+        out = {"norm1": _NORM_SPECS, "mixer": _MIXER_SPECS[btype]}
+        if btype not in _MIXER_ONLY:
+            out.update(norm2=_NORM_SPECS,
+                       ffn=_MOE_SPECS if _is_moe(btype, cfg) else _MLP_SPECS)
+        return {k: {n: ("layers",) + spec for n, spec in v.items()}
+                for k, v in out.items()}
+
+    specs: dict = {}
+    if cfg.input_mode in ("tokens", "tokens+vision"):
+        specs["embed"] = {"table": ("vocab", "embed")}
+    specs["blocks"] = tuple(block(bt) for bt in cfg.block_pattern)
+    specs["final_norm"] = dict(_NORM_SPECS)
+    specs["head"] = {"w": ("embed", "vocab")}
+    return specs
+
+
+def state_specs(cfg: ModelConfig) -> Tuple[Any, ...]:
+    """Logical-axis specs matching :func:`init_state`'s structure."""
+    specs = []
+    for btype in cfg.block_pattern:
+        if btype in ("attn", "local"):
+            kv = ("layers", "batch", "kv_heads", "kv_seq", "head_dim")
+            specs.append({"k": kv, "v": kv})
+        elif btype == "rglru":
+            specs.append({"h": ("layers", "batch", "mlp"),
+                          "conv_tail": ("layers", "batch", None, "mlp")})
+        elif btype == "mlstm":
+            specs.append({"c": ("layers", "batch", None, None, None),
+                          "n": ("layers", "batch", None, None),
+                          "m": ("layers", "batch", None),
+                          "conv_tail": ("layers", "batch", None, "mlp")})
+        elif btype == "slstm":
+            z = ("layers", "batch", None, None)
+            specs.append({"c": z, "n": z, "m": z, "h": z})
+    return tuple(specs)
 
 
 def unstack(tree, n: int) -> List:
@@ -262,13 +336,24 @@ def head(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            *, remat: bool = False
+            *, remat: bool = False,
+            dp_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+            dp_ranks: int = 1
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy in float32; labels -1 are ignored.
     With ``cfg.logits_softcap`` = c the logits are first capped as
     ``tanh(l / c) * c``.  An MoE model adds its load-balance and z losses.
     Returns (loss, {"ce_loss", the auxiliary values, "loss",
-    "accuracy"}), as ``repro``'s ``loss_fn``."""
+    "accuracy"}), as ``repro``'s ``loss_fn``.
+
+    Data parallelism (``train(mesh=)``): ``batch`` is this rank's rows of
+    the global batch and ``dp_sum`` sums a tensor over the ``dp_ranks``
+    ranks.  The loss is a ratio, so the count of valid labels is summed
+    first: the returned loss is this rank's share, sum of its
+    cross-entropies over the global count (plus its auxiliary losses over
+    ``dp_ranks``), whose gradient summed over the ranks is the global
+    batch's; the metrics are the global batch's (each numerator summed).
+    """
     logits, aux = forward_aux(params, cfg, batch, remat=remat)
     logits32 = logits.float()
     if cfg.logits_softcap:
@@ -280,17 +365,26 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     lse = torch.logsumexp(logits32, dim=-1)
     label_logit = logits32.gather(-1, safe[..., None])[..., 0]
     ce = torch.where(valid, lse - label_logit, 0.0)
-    denom = valid.float().sum().clamp(min=1.0)
+    count = valid.float().sum()
+    if dp_sum is not None:
+        count = dp_sum(count)
+        aux = {k: v / dp_ranks for k, v in aux.items()}
+    denom = count.clamp(min=1.0)
     loss = ce.sum() / denom
     total = loss
     if cfg.moe is not None:
         total = total + aux["moe_lb_loss"] + aux["moe_z_loss"]
     with torch.no_grad():
         hit = (logits32.argmax(-1) == safe) & valid
-        acc = hit.float().sum() / denom
-    return total, {"ce_loss": loss.detach(),
+        hits = hit.float().sum()
+        metrics = {"ce_loss": loss.detach(),
                    **{k: v.detach() for k, v in aux.items()},
-                   "loss": total.detach(), "accuracy": acc}
+                   "loss": total.detach()}
+        if dp_sum is not None:
+            metrics = {k: dp_sum(v) for k, v in metrics.items()}
+            hits = dp_sum(hits)
+        metrics["accuracy"] = hits / denom
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------

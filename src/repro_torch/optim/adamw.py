@@ -8,12 +8,20 @@ overwritten (the clipped gradients too), so a step holds no second copy
 of the model or of the optimizer state.  It returns the same (params,
 state, metrics) triple, with ``params`` and the state the objects passed
 in.
+
+ZeRO-1 (``train(mesh=)``): with ``shardings`` (a tree of
+:class:`repro_torch.distributed.sharding.LeafSharding` like the
+parameters) :func:`init` makes each moment this rank's block of it, and
+:func:`update` updates this rank's block of each split master from the
+full (all-reduced) gradient, then ``gather`` (an all-gather over the
+split's axes) puts the whole master back on every rank.  The update is
+elementwise, so a split changes no bit of it.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -51,12 +59,19 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.peak_lr * warm * decay
 
 
-def init(params) -> Dict:
-    """Zero moments in float32 beside each parameter, and step 0."""
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+def init(params, shardings=None) -> Dict:
+    """Zero moments in float32 beside each parameter (this rank's block of
+    it under ``shardings``), and step 0."""
+    def zeros(p, sh=None):
+        shape = p.shape if sh is None else sh.local_shape(p.shape)
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
     dev = leaves(params)[0].device
-    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+    if shardings is None:
+        m, v = tree_map(zeros, params), tree_map(zeros, params)
+    else:
+        m = tree_map(zeros, params, shardings)
+        v = tree_map(zeros, params, shardings)
+    return {"m": m, "v": v,
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
@@ -65,9 +80,12 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(grads, state: Dict, params, cfg: AdamWConfig
+def update(grads, state: Dict, params, cfg: AdamWConfig, *,
+           shardings=None, gather: Optional[Callable] = None
            ) -> Tuple[object, Dict, Dict[str, torch.Tensor]]:
-    """One AdamW step, in place.  Returns (params, state, metrics)."""
+    """One AdamW step, in place.  Returns (params, state, metrics).
+    ``shardings`` / ``gather``: ZeRO-1 (module docstring); ``gather(x,
+    sharding)`` returns the whole tensor of every rank's block ``x``."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     flat_g = [g.float() for g in leaves(grads)]
@@ -78,14 +96,28 @@ def update(grads, state: Dict, params, cfg: AdamWConfig
     lr = lr_at(cfg, step)
     b1c = 1.0 - cfg.b1 ** step.to(torch.float32)
     b2c = 1.0 - cfg.b2 ** step.to(torch.float32)
-    for p, g, m, v in zip(leaves(params), flat_g, leaves(state["m"]),
-                          leaves(state["v"])):
+    flat_sh = (leaves(shardings) if shardings is not None
+               else [None] * len(flat_g))
+    for p, g, m, v, sh in zip(leaves(params), flat_g, leaves(state["m"]),
+                              leaves(state["v"]), flat_sh):
+        split = sh is not None and sh.splits
+        if split:
+            g = sh.local(g)
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
         delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        p32 = p.float()
+        p32 = (sh.local(p) if split else p).float()
         if cfg.weight_decay:
             delta.add_(cfg.weight_decay * p32)
-        p.copy_(p32 - lr * delta)
+        new = p32 - lr * delta
+        if split:
+            new = gather(new.to(p.dtype), sh)
+        p.copy_(new)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def state_specs(param_specs) -> Dict:
+    """Optimizer-state logical specs mirror the parameter specs (ZeRO):
+    ``{"m": param_specs, "v": param_specs, "step": ()}``."""
+    return {"m": param_specs, "v": param_specs, "step": ()}

@@ -9,9 +9,10 @@ carried to the next step.  The payloads, scales and errors equal the JAX
 functions' exactly on the same float32 inputs.
 
 Trees are nested dicts and tuples of tensors (:mod:`repro_torch.tree`);
-``grads`` and ``error`` have one structure.  The reference's
-``compressed_psum`` (the int8 all-gather over a mesh axis) waits for the
-distributed slice (ROADMAP.md §1 item 10).
+``grads`` and ``error`` have one structure.  :func:`compressed_psum` is
+the collective: each rank's int8 payload and scale are all-gathered over
+a mesh axis (:mod:`repro_torch.distributed.collectives`) and the mean of
+the dequantized values is taken in float32 on every rank.
 """
 from __future__ import annotations
 
@@ -63,3 +64,23 @@ def compression_ratio(grads: Any) -> float:
     flat = leaves(grads)
     n = sum(g.numel() for g in flat)
     return (4.0 * n) / (n + 4.0 * len(flat))
+
+
+def compressed_psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The mean over ``mesh``'s ``axis`` of each rank's int8-quantized
+    ``x`` (scale ``max(max|x|, 1e-12) / 127``, rounding half to even):
+    an all-gather of the int8 payloads and the float32 scales, then the
+    mean of the dequantized values in float32, in ``x``'s dtype.  A
+    quarter of an f32 all-reduce's bytes on the wire, at int8 rounding
+    (``repro.optim.compress.compressed_psum``)."""
+    from repro_torch.distributed import collectives
+    key = mesh.group_key(axis)
+    x32 = x.float()
+    scale = torch.clamp_min(x32.abs().amax(), 1e-12) / 127.0
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    qs = collectives.all_gather(q[None], key, dim=0,
+                                span="comm.compressed_psum")
+    ss = collectives.all_gather(scale.reshape(1), key, dim=0,
+                                span="comm.compressed_psum")
+    deq = qs.float() * ss.reshape((-1,) + (1,) * x.dim())
+    return deq.mean(dim=0).to(x.dtype)

@@ -1644,3 +1644,23 @@ def test_moe_compiled_ticks_equal_direct_on_card(dev):
     assert runs[0][2] == {"sma_gemm": 3 * 5 * 2, "rmsnorm_gemm": 3,
                           "paged_decode_attention": 2 * 2}
     assert all(torch.isfinite(o.float()).all() for o in runs[0][0][::2])
+
+
+def test_summa_two_ranks_on_one_card(dev, tmp_path):
+    """Two ranks spawned on the one card (gloo, staged through host): the
+    SUMMA sharded GEMM at a small bf16 shape against one rank's
+    ``ops.sma_gemm`` of the whole product, within the GEMM limits;
+    overlapped and serial schedules ``torch.equal``; one local launch a
+    step on each rank."""
+    import sys
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    import torch_dist_workers as workers
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import spawn
+    _build.build()              # the ranks load the libraries, never build
+    results = spawn(workers.summa_card_case, 2, backend="gloo",
+                    device="cuda:0", timeout=300, workdir=str(tmp_path))
+    for res in results:
+        assert res["backend"] == "gloo"
+        assert res["multiples"] <= 1 and res["equal"], res
+        assert res["launches"] == 2, res

@@ -54,7 +54,10 @@ MODULES = (
     "repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b",
     "repro_torch.configs.dbrx_132b", "repro_torch.data.pipeline",
     "repro_torch.kernels.ops", "repro_torch.kernels.ref",
-    "repro_torch.compiler.loop",
+    "repro_torch.compiler.loop", "repro_torch.launch.mesh",
+    "repro_torch.distributed", "repro_torch.distributed.collectives",
+    "repro_torch.distributed.sharding", "repro_torch.distributed.summa",
+    "repro_torch.distributed.pipeline",
 )
 
 
