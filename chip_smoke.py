@@ -241,7 +241,31 @@
    full-width layers, B 4 x S 2048: logits within ``LOGIT_ATOL`` of the
    single-rank compiled forward, the report's comm bytes equal to
    ``summa_comm_stats`` over its sites and to the ``comm.bcast_*`` spans
-   of a profiled call.  A rank that raises, or is not done in
+   of a profiled call.  Tensor parallelism by the rules
+   (``train(mesh=)`` with a ``model`` axis; every run full width, held
+   against unmeshed ``train()`` runs of the same depth and loop under
+   ``dist_limits``, the replicated leaves' digests equal across the
+   ``model`` ranks every step, one compile, every kernel of the path
+   launched on its route on the rank's local shapes, the report's comm
+   bytes a step against ``collectives.BYTES``): (f) StableLM at
+   ``DIST_TRAIN_LAYERS`` on a 1 x 2 mesh against (c)'s unmeshed runs, its
+   gathered masters against theirs (each leaf's gap over its update, beside
+   the two unmeshed runs' gap); (g) Qwen3-30B-A3B at
+   ``QWEN3_TRAIN_LAYERS`` on 1 x 2, B 4 x S 2048, 64 experts a rank, the
+   padded vocab's last 128 columns on rank 1, against the "train qwen3"
+   phase's run (in ``--only-distributed`` one made here); (h)
+   RecurrentGemma-2B on 1 x 2, one group cut to ``TP_RG_PATTERN`` (3
+   layers), B 2 x S 4096: the RG-LRU scans on 1,280 channels a rank, the
+   MQA KV head whole, flash at D 256, against an unmeshed run of its own;
+   (i) StableLM at ``TP_MESH_LAYERS`` on a 2 x 2 mesh (4 ranks: data x
+   tensor parallel, ZeRO-1 moments) against two unmeshed runs of its own.
+   Planted faults, each a 2-step run: layer 0's MLP *g* skipped (StableLM,
+   1 x 2), and the gate values' gradient (so the router's) not summed over
+   ``model`` (Qwen3): each must read above the limits or part the
+   replicas' digests; and a run of (f)'s length in which each rank updates
+   its vocab block of the head with the other rank's gradient block (the
+   replicas stay equal): its gathered masters must read above (f)'s
+   masters limit.  A rank that raises, or is not done in
    ``DIST_TIMEOUT``, fails the smoke.
 11. Prints the kernel table as one JSON line (the redesigned kernels' rows
    with their route, the earlier design's time in the same call, and the
@@ -267,6 +291,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -2688,7 +2713,9 @@ def captured_compiles():
 
 
 def print_compile(what: str, cm) -> None:
-    rep = cm.report
+    # report_data: .report would first restamp its runtime section from
+    # every span of the last profile window, minutes late in the script.
+    rep = cm.report_data
     fus, bks = rep["fusion"], rep["backends"]
     print(f"{what}: compile "
           + ", ".join(f"{k.removesuffix('_s')} {v:.3f} s"
@@ -3284,7 +3311,7 @@ def front_door(cfg, params, dev, card: str):
         fail(f"front door: S {JIT_SHORT_SEQ} did not compile once: "
              f"{eng.stats}")
     cm = eng.compile(params, batch=batch)
-    rep = cm.report
+    rep = cm.report_data        # compile-time sections (see print_compile)
     fus, disp, bks = rep["fusion"], rep["dispatch"], rep["backends"]
     print(f"jit: compile of lm.forward ({ARCH} full width, {cfg.num_layers} "
           f"layers, B {JIT_BATCH} x S {JIT_SEQ}, bf16): "
@@ -5441,6 +5468,11 @@ def young_heap(seconds: list):
         seconds.append(spent[0])
 
 
+#: Each train cell's history by path (the distributed phase's (g) reads
+#: "train qwen3"'s as its unmeshed reference).
+TRAIN_HISTORY = {}
+
+
 def train_family(cfg, dev, card: str, path: str, seq: int, batch: int,
                  timing_steps: int = TIME_STEPS):
     """:func:`family_run` on a clean card, the earlier phases' objects
@@ -5488,6 +5520,7 @@ def family_run(cfg, dev, card: str, path: str, seq: int, batch: int,
     routes = nonzero(kgemm.ROUTES)
     peak = torch.cuda.max_memory_allocated()
     engine, hist = result["engine"], result["history"]
+    TRAIN_HISTORY[path] = hist
     if (engine["misses"], engine["hits"], len(built)) != \
             (1, TRAIN_STEPS - 1, 1):
         fail(f"{path}: the step engine compiled {len(built)} times, "
@@ -5679,9 +5712,9 @@ DIST_SUMMA = (TRAIN_BATCH * TRAIN_SEQ, 2048, 5632, "silu")  # M, K, N, ep.
 DIST_PIPE_LAYERS, DIST_MICRO = 4, 4          # 2 stages of 2 layers
 DIST_JIT_LAYERS = 2
 DIST_PSUM_SHAPE = (2048, 5632)
-#: (c)'s depth: half of StableLM's 24 layers, so that the phase, with its
-#: unmeshed references and its planted-fault run at the same depth, fits
-#: the script's time limit beside full-depth serving.
+#: (c)'s and (f)'s depth: half of StableLM's 24 layers, so that the
+#: phase, with its unmeshed references and its planted-fault runs at the
+#: same depth, fits the script's time limit beside full-depth serving.
 DIST_TRAIN_LAYERS = 12
 DIST_FAULT_STEPS = 2
 #: train(mesh=)'s loss and grad norm against the unmeshed runs' at the
@@ -5695,6 +5728,19 @@ DIST_FAULT_STEPS = 2
 #: to 2.2e-4 / 1.2e-2 at 12 layers, 4.7e-4 / 3.5e-2 at full depth.
 DIST_STEP2_LIMITS = {"loss": 3e-4, "grad_norm": 1.5e-2}
 DIST_TRAIN_LIMITS = {"loss": 2e-3, "grad_norm": 0.1}
+#: (h)'s RecurrentGemma: one group of its pattern cut to these layers
+#: (RG-LRU, and MQA attention at head_dim 256), and (i)'s StableLM depth.
+TP_RG_PATTERN = ("rglru", "rglru", "local")
+TP_MESH_LAYERS = 4
+#: (f)'s gathered masters against the unmeshed runs': each leaf's
+#: ||tp - unmeshed|| / ||unmeshed - init||, the largest over the leaves,
+#: at most max(TP_MASTERS_SPREAD x the two unmeshed runs' own, the floor).
+#: The floor: a CPU rehearsal at 2 bf16 layers, where the unmeshed runs
+#: are bit for bit, reads 0.07 from the bf16 partial sums alone; on the
+#: H100 (f) reads 0.1142 beside the unmeshed pair's 0.0538-0.0552.  The
+#: planted swap of the head's vocab blocks in the update ("head blocks
+#: swapped", replicas equal) must read above the limit.
+TP_MASTERS_SPREAD, TP_MASTERS_FLOOR = 3.0, 0.25
 
 
 def dist_limits(step: int) -> dict:
@@ -5849,8 +5895,13 @@ def dist_unmeshed(dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     result = train(cfg, loop, device=dev)
     torch.cuda.synchronize()
+    _KEPT["unmeshed masters"] = result["params"]     # for (f)
     return {"history": result["history"], "engine": result["engine"],
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+#: What a rank keeps from one sub-check for a later one (never returned).
+_KEPT = {}
 
 
 def dist_train(mesh, dev, fault: bool = False) -> dict:
@@ -5913,8 +5964,7 @@ def dist_train(mesh, dev, fault: bool = False) -> dict:
     if fault:
         return out
     # The moments: this rank's block of each split master.
-    from repro_torch.launch.train import DataParallel
-    dp = DataParallel(cfg, loop, mesh, result["params"])
+    dp = result["plan"]
     split = wrong = 0
     for p, m, sh in zip(leaves(result["params"]), leaves(result["opt"]["m"]),
                         leaves(dp.shardings)):
@@ -5991,6 +6041,242 @@ def dist_psum(mesh, dev, world: int) -> dict:
             "finite": bool(torch.isfinite(got).all())}
 
 
+# ---- (f)-(i): tensor parallelism by the rules ------------------------------
+def tp_run(kind: str, steps: int = TRAIN_STEPS):
+    """The model and loop of a tensor-parallel run and of its unmeshed
+    reference: "stablelm" (c)'s; "qwen3" the "train qwen3" phase's;
+    "recurrentgemma" one group cut to TP_RG_PATTERN at the "train
+    recurrentgemma" phase's B x S; "stablelm 2x2" TP_MESH_LAYERS layers at
+    the trainer's B x S."""
+    if kind == "stablelm":
+        return dist_run(steps)
+    if kind == "qwen3":
+        cfg = dataclasses.replace(get_config(QWEN3_ARCH),
+                                  num_groups=QWEN3_TRAIN_LAYERS)
+        seq, batch = QWEN3_TRAIN_SEQ, QWEN3_TRAIN_BATCH
+    elif kind == "recurrentgemma":
+        cfg = dataclasses.replace(get_config(RG_ARCH),
+                                  block_pattern=TP_RG_PATTERN, num_groups=1)
+        seq, batch = RG_TRAIN_SEQ, RG_TRAIN_BATCH
+    else:
+        cfg = dataclasses.replace(get_config(ARCH),
+                                  num_groups=TP_MESH_LAYERS)
+        seq, batch = TRAIN_SEQ, TRAIN_BATCH
+    return cfg, TrainLoopConfig(steps=steps, seq_len=seq,
+                                global_batch=batch, log_every=1, seed=0,
+                                peak_lr=TRAIN_LR, remat=True)
+
+
+def tp_unmeshed(dev, kind: str) -> dict:
+    """An unmeshed reference of :func:`tp_run`'s ``kind`` on this rank."""
+    cfg, loop = tp_run(kind)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    result = train(cfg, loop, device=dev)
+    torch.cuda.synchronize()
+    return {"history": result["history"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def plant_tp_fault(fault, cfg, mesh):
+    """Plant a fault in the step the next ``train(mesh=)`` traces; returns
+    the undo.  "mlp g skipped": layer 0's MLP output is this rank's partial
+    sum (its *g* left out); "router not summed": the gate values the
+    combine reads skip *f*, so the router's gradient keeps only this rank's
+    experts' part; "head blocks swapped": every step's update of the head
+    takes the other rank's block of its gradient (2 ranks: each rank's
+    vocab columns move as the other's should, the replicas stay equal)."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw
+    if fault == "head blocks swapped":
+        orig_update = adamw.update
+
+        def swapped(grads, state, params, ocfg, **kw):
+            w = grads["head"]["w"]              # this rank's vocab columns
+            ax = tp.ModelAxis(mesh.group_key("model"), mesh.shape["model"],
+                              mesh.coords["model"])
+            n = w.shape[-1]
+            both = collectives.all_gather(w, ax.key, dim=-1,
+                                          span="comm.fault")
+            other = both.narrow(-1, (ax.index + 1) % ax.size * n, n)
+            grads = {**grads, "head": {**grads["head"], "w": other}}
+            return orig_update(grads, state, params, ocfg, **kw)
+
+        adamw.update = swapped
+        return lambda: setattr(adamw, "update", orig_update)
+    if fault == "mlp g skipped":
+        orig, calls = lm.gated_mlp_apply, [0]
+
+        def skipped(params, x, d_ff):
+            calls[0] += 1
+            if calls[0] > 1:
+                return orig(params, x, d_ff)
+            exit_ = tp.ModelAxis.exit
+            tp.ModelAxis.exit = lambda self, y, span="comm.tp_exit": y
+            try:
+                return orig(params, x, d_ff)
+            finally:
+                tp.ModelAxis.exit = exit_
+
+        lm.gated_mlp_apply = skipped
+        return lambda: setattr(lm, "gated_mlp_apply", orig)
+    if fault == "router not summed":
+        orig_tp = moe.tp
+
+        class NoGateEnter(tp.ModelAxis):
+            def enter(self, x, span="comm.tp_enter"):
+                if x.dtype == torch.float32 and \
+                        x.shape[-1] == cfg.moe.top_k:      # the gates
+                    return x
+                return super().enter(x, span)
+
+        def split_of(local, whole):
+            ax = orig_tp.split_of(local, whole)
+            return ax and NoGateEnter(ax.key, ax.size, ax.index)
+
+        moe.tp = types.SimpleNamespace(split_of=split_of)
+        return lambda: setattr(moe, "tp", orig_tp)
+    return lambda: None
+
+
+def kernel_shapes(cm) -> dict:
+    """The compiled step's kernel sites a step by entry and local shape
+    (``M x K -> N`` a product; the query's (B, H, S, D) for flash; (B, S,
+    D) for a scan)."""
+    from repro_torch.compiler.dispatch import _module_sites
+    from repro_torch.compiler.lower import op_name, val
+    from repro_torch.compiler.rewrite import FusedGemm
+    out = collections.Counter()
+    for item in _module_sites(cm.module):
+        if isinstance(item, FusedGemm):
+            a = val(item.inputs[0])
+            w = val(item.inputs[2 if item.kind == "prologue" else 1])
+            m = int(np.prod(a.shape[:-1]))
+            out[f"{item.entry} {m}x{w.shape[0]}->{w.shape[1]}"] += 1
+        else:
+            x = val(item.args[0])
+            out[f"{op_name(item)} {tuple(x.shape)}"] += 1
+    return dict(out)
+
+
+def gap(a, b, init) -> float:
+    """||a - b|| / ||b - init|| of one leaf (the gap over the update)."""
+    return ((a.float() - b.float()).norm()
+            / (b.float() - init.float()).norm().clamp(min=1e-30)).item()
+
+
+def dist_tp(mesh, dev, kind: str, fault=None) -> dict:
+    """(f)-(i): train(mesh=) of :func:`tp_run`'s ``kind`` on ``mesh`` for
+    TRAIN_STEPS steps (``fault``: :func:`plant_tp_fault`'s fault, for
+    DIST_FAULT_STEPS steps but "head blocks swapped"): the history, the
+    replicated leaves' digests by step, launches, routes and local shapes,
+    the bytes and milliseconds staged, the report's comm bytes a step
+    against ``collectives.BYTES``, peak memory.  For (f) and its "head
+    blocks swapped" run also the gathered masters against the unmeshed run
+    this rank made in (c), and for (f) on rank 0 the two unmeshed runs' own
+    gap."""
+    from repro_torch.distributed import collectives
+    short = fault in ("mlp g skipped", "router not summed")
+    cfg, loop = tp_run(kind, DIST_FAULT_STEPS if short else TRAIN_STEPS)
+    params = lm.init(cfg, seed=loop.seed, device=dev,
+                     dtype=cfg.parameter_dtype)
+    undo = plant_tp_fault(fault, cfg, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    collectives.reset_counts()
+    try:
+        with captured_compiles() as built:
+            result = train(cfg, loop, device=dev, params=params, mesh=mesh)
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    del params
+    plan = result["plan"]
+    split = [bool(sh.splits) for sh in leaves(plan.tp)]
+    out = {"history": result["history"], "layers": cfg.num_layers,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": ops.launch_counts(),
+           "gemm_routes": nonzero(kgemm.ROUTES),
+           "flash_routes": {"fwd": nonzero(kflash.FWD_ROUTES),
+                            "bwd": nonzero(kflash.BWD_ROUTES)},
+           "norm_routes": nonzero(knorm.ROUTES),
+           "scan_routes": {"fwd": nonzero(krglru.ROUTES),
+                           "bwd": nonzero(krglru.BWD_ROUTES)},
+           "routed": dict(ops.ROUTED),
+           "staged_bytes": dict(collectives.STAGED_BYTES),
+           "staged_ms": dict(collectives.STAGED_MS),
+           "calls": dict(collectives.CALLS),
+           "routes": dict(collectives.ROUTES),
+           "bytes": dict(collectives.BYTES),
+           "report": built[0].report_data["comm"]["collectives"],
+           "engine": result["engine"], "compiles": len(built),
+           "shapes": kernel_shapes(built[0]),
+           "split": [sum(split), len(split)],
+           "replicated": [[d for d, sp in zip(h["masters_digest"], split)
+                           if not sp] for h in result["history"]],
+           "coords": dict(mesh.coords)}
+    if kind != "stablelm" or short:
+        return out
+    # The gathered masters against the unmeshed runs' of (c) (the last
+    # run to read them lets them go).
+    opt = result.pop("opt")
+    del opt, built
+    gc.collect()
+    whole = leaves(plan.whole(result["params"]))
+    del result
+    init = leaves(lm.init(cfg, seed=loop.seed, device=dev,
+                          dtype=cfg.parameter_dtype))
+    mine = leaves(_KEPT["unmeshed masters"] if fault is None
+                  else _KEPT.pop("unmeshed masters"))
+    out["masters_gap"] = max(gap(w, u, i)
+                             for w, u, i in zip(whole, mine, init))
+    del whole
+    if fault:
+        return out
+    pair = []
+    for u, i in zip(mine, init):     # rank 1's unmeshed masters to rank 0
+        other = collectives.broadcast(u, plan.model_key, 1,
+                                      span="comm.masters_check")
+        pair.append(gap(u, other, i))
+    out["pair_gap"] = max(pair)
+    return out
+
+
+def dist_tp_refs(dev, rank: int, plan: dict) -> dict:
+    """The unmeshed references of (g) and (h), one run at a time on the
+    card (each near half of it): Qwen3's on rank 0 unless the "train
+    qwen3" phase's came in ``plan`` (``--only-distributed`` runs no such
+    phase), then RecurrentGemma's on rank 1."""
+    import torch.distributed as tdist
+    out = {}
+    if rank == 0 and "qwen3" not in plan["refs"]:
+        out["qwen3"] = tp_unmeshed(dev, "qwen3")
+    gc.collect()
+    torch.cuda.empty_cache()        # the other rank's run needs the card
+    tdist.barrier()
+    if rank == 1:
+        out["recurrentgemma"] = tp_unmeshed(dev, "recurrentgemma")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tdist.barrier()
+    return out
+
+
+def dist_tp_refs4(dev, rank: int) -> dict:
+    """(i)'s unmeshed references: ranks 0 and 1 at once."""
+    import torch.distributed as tdist
+    out = tp_unmeshed(dev, "stablelm 2x2") if rank < 2 else {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    tdist.barrier()
+    return out
+
+
 def dist_rank(rank: int, world: int, plan: dict) -> dict:
     """One spawned rank of the distributed phase (its results go back to
     the parent through a file)."""
@@ -6014,11 +6300,18 @@ def dist_rank(rank: int, world: int, plan: dict) -> dict:
 
 def dist_checks(world: int, plan: dict, dev, timed) -> None:
     """The sub-checks one rank of a ``world``-rank group runs."""
-    from repro_torch.launch.mesh import fake_mesh, smoke_mesh
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import Mesh, fake_mesh, smoke_mesh
     grid = fake_mesh(world)
+    rank = tdist.get_rank()
     timed("summa", dist_summa, grid, dev)
     if world == 4:
         timed("psum", dist_psum, smoke_mesh(), dev, world)
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed("tp_refs", dist_tp_refs4, dev, rank)
+        timed("tp 2x2", dist_tp, Mesh((2, 2), ("data", "model")), dev,
+              "stablelm 2x2")
     if world == 2:
         timed("pipeline", dist_pipeline, dev, world)
         timed("front_door", dist_front_door, grid, dev)
@@ -6031,6 +6324,21 @@ def dist_checks(world: int, plan: dict, dev, timed) -> None:
         gc.collect()
         torch.cuda.empty_cache()
         timed("train_fault", dist_train, smoke_mesh(), dev, True)
+        tp_mesh = Mesh((1, 2), ("data", "model"))
+        for name, kind, fault in (
+                ("tp stablelm", "stablelm", None),
+                ("tp fault masters", "stablelm", "head blocks swapped"),
+                ("tp fault mlp", "stablelm", "mlp g skipped"),
+                ("tp_refs", None, None),
+                ("tp qwen3", "qwen3", None),
+                ("tp fault router", "qwen3", "router not summed"),
+                ("tp recurrentgemma", "recurrentgemma", None)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            if kind is None:
+                timed(name, dist_tp_refs, dev, rank, plan)
+            else:
+                timed(name, dist_tp, tp_mesh, dev, kind, fault)
 
 
 def nccl_world_one(dev) -> dict:
@@ -6157,6 +6465,163 @@ def check_dist_train(ranks: list, card: str, launches) -> None:
         fail("distributed (c): the planted all-reduce fault was not caught")
 
 
+def tp_limits_read(hist: list, refs: list) -> str:
+    return "; ".join(f"{i + 1}: {d['loss']:.3g} / {d['grad_norm']:.3g}"
+                     for i, d in enumerate(dist_drift(hist, refs)))
+
+
+def check_tp_run(name: str, runs: list, refs: list, card: str,
+                 launches) -> None:
+    """One tensor-parallel run's checks on its ranks' results ``runs``
+    against the unmeshed histories ``refs``; adds its launches."""
+    first = runs[0]
+    hist = first["history"]
+    cfg_layers, n = first["layers"], len(hist)
+    for r, run in enumerate(runs):
+        walls = [h["wall_s"] for h in run["history"]]
+        steps = [b - a for a, b in zip(walls, walls[1:])]
+        staged = sum(run["staged_bytes"].values())
+        shapes = sorted(run["shapes"].items(), key=lambda kv: -kv[1])
+        print(f"distributed {name}: rank {r} {run['coords']}: "
+              f"{cfg_layers} layers; losses "
+              f"{[h['loss'] for h in run['history']]}, grad norms "
+              f"{[h['grad_norm'] for h in run['history']]}; step 1 "
+              f"{walls[0]:.2f} s (compile), steps 2-{n} "
+              f"{[round(x, 3) for x in steps]} s; peak "
+              f"{run['peak_gib']:.2f} GiB; staged through host "
+              f"{staged / n / 1e9:.3f} GB a step in "
+              f"{sum(run['staged_ms'].values()) / n:.1f} ms a step; calls "
+              f"{json.dumps(run['calls'])}; comm bytes a step: report "
+              f"{run['report']['bytes_total']}, collectives.BYTES "
+              f"{sum(run['bytes'].values()) / n:.0f}; split leaves "
+              f"{run['split'][0]} of {run['split'][1]}; launches "
+              f"{json.dumps(nonzero(run['launches']))}, sma_gemm "
+              f"{run['gemm_routes']}, flash {run['flash_routes']}, head "
+              f"{run['norm_routes']}, scan {run['scan_routes']}; local "
+              f"shapes a step {json.dumps(dict(shapes))} ({card})")
+        if [{k: h[k] for k in ("loss", "grad_norm", "accuracy")}
+                for h in run["history"]] != \
+                [{k: h[k] for k in ("loss", "grad_norm", "accuracy")}
+                 for h in hist]:
+            fail(f"distributed {name}: rank {r}'s metrics differ from "
+                 f"rank 0's")
+        if run["replicated"] != first["replicated"]:
+            fail(f"distributed {name}: the replicated leaves part on rank "
+                 f"{r}")
+        if run["engine"]["misses"] != 1 or run["compiles"] != 1:
+            fail(f"distributed {name}: the step compiled {run['engine']}")
+        if {k: v * n for k, v in run["report"]["bytes"].items()} != \
+                run["bytes"]:
+            fail(f"distributed {name}: the report's comm bytes a step "
+                 f"{run['report']['bytes']} do not make the run's "
+                 f"{run['bytes']}")
+        counts = run["launches"]
+        need = ["sma_gemm", "rmsnorm_gemm", "flash_attention",
+                "flash_attention_bwd"]
+        if counts.get("rglru_scan_bwd") or "recurrentgemma" in name:
+            need += ["rglru_scan", "rglru_scan_bwd"]
+        if any(not counts[k] for k in need) or \
+                run["gemm_routes"] != {"wgmma": counts["sma_gemm"]} or \
+                run["norm_routes"] != {"wgmma": counts["rmsnorm_gemm"]} or \
+                run["flash_routes"] != {
+                    "fwd": {"wgmma": counts["flash_attention"]},
+                    "bwd": {"wgmma": counts["flash_attention_bwd"]}} or \
+                run["scan_routes"]["fwd"] != (
+                    {"tma": counts["rglru_scan"]}
+                    if counts["rglru_scan"] else {}) or \
+                run["scan_routes"]["bwd"] != (
+                    {"tma": counts["rglru_scan_bwd"]}
+                    if counts["rglru_scan_bwd"] else {}):
+            fail(f"distributed {name}: kernels {counts} on routes "
+                 f"{run['gemm_routes']} {run['flash_routes']} "
+                 f"{run['norm_routes']} {run['scan_routes']}")
+        other = {k: v for k, v in run["routed"].items()
+                 if "gloo stages" not in k}
+        if other:
+            fail(f"distributed {name}: routed {other}")
+        for k in need:
+            launches[k] += counts[k]
+    drift = dist_drift(hist, refs)
+    spread = (f"; the unmeshed runs apart {tp_limits_read(refs[0], refs[1:])}"
+              if len(refs) > 1 else "")
+    print(f"distributed {name}: relative |loss| / |grad norm| by step in "
+          f"multiples of (c)'s limits, from the farther of "
+          f"{len(refs)} unmeshed run(s): {tp_limits_read(hist, refs)}"
+          f"{spread}")
+    if any(v > 1 for d in drift for v in d.values()):
+        fail(f"distributed {name}: train(mesh=) left the unmeshed history "
+             f"(multiples of the limits by step): {drift}")
+
+
+def check_tp_fault(name: str, runs: list, refs: list) -> None:
+    """A planted fault's 2-step run must read above the limits or part the
+    replicas' digests (or the ranks' metrics)."""
+    hist = runs[0]["history"]
+    drift = dist_drift(hist, refs)
+    read = max(v for d in drift for v in d.values())
+    parted = [a != b for a, b in zip(runs[0]["replicated"],
+                                     runs[1]["replicated"])]
+    metrics_part = [a["loss"] != b["loss"] or a["grad_norm"] != b["grad_norm"]
+                    for a, b in zip(hist, runs[1]["history"])]
+    print(f"distributed planted fault {name}: {tp_limits_read(hist, refs)} "
+          f"limits by step (largest {read:.3g}); replicated leaves parted by "
+          f"step {parted}; the ranks' loss / grad norm parted by step "
+          f"{metrics_part}")
+    if read <= 1 and not any(parted) and not any(metrics_part):
+        fail(f"distributed: the planted fault {name!r} was not caught")
+
+
+def check_dist_tp(results: dict, plan: dict, card: str, launches) -> None:
+    """(f)-(i) on the ranks' results (module docstring, step 10)."""
+    two, four = results[2], results[4]
+    refs_c = [res["unmeshed"]["history"] for res in two]
+    check_tp_run("(f) stablelm 1x2", [r["tp stablelm"] for r in two],
+                 refs_c, card, launches)
+    gaps = [r["tp stablelm"]["masters_gap"] for r in two]
+    pair = two[0]["tp stablelm"]["pair_gap"]
+    limit = max(TP_MASTERS_SPREAD * pair, TP_MASTERS_FLOOR)
+    print(f"distributed (f): gathered masters against each rank's unmeshed "
+          f"run, the largest leaf's ||tp - unmeshed|| / ||unmeshed - "
+          f"init||: {[round(g, 4) for g in gaps]}; the two unmeshed runs "
+          f"apart {pair:.4f}; limit {limit:.4f}")
+    if max(gaps) > limit:
+        fail(f"distributed (f): the gathered masters part from the unmeshed "
+             f"ones: {gaps} > {limit}")
+    swapped = [r["tp fault masters"] for r in two]
+    fault_gaps = [r["masters_gap"] for r in swapped]
+    print(f"distributed planted fault (f) the head's vocab blocks swapped "
+          f"in every update: gathered masters "
+          f"{[round(g, 4) for g in fault_gaps]} "
+          f"({min(fault_gaps) / limit:.3g} of the limit {limit:.4f}); "
+          f"{tp_limits_read(swapped[0]['history'], refs_c)} limits by step; "
+          f"replicated leaves parted by step "
+          f"{[a != b for a, b in zip(*(r['replicated'] for r in swapped))]}")
+    if min(fault_gaps) <= limit:
+        fail(f"distributed (f): the planted swap of the head's blocks reads "
+             f"{fault_gaps}, within the masters limit {limit}")
+    q_refs = ([plan["refs"]["qwen3"]] if "qwen3" in plan["refs"]
+              else [two[0]["tp_refs"]["qwen3"]["history"]])
+    rg_refs = [two[1]["tp_refs"]["recurrentgemma"]["history"]]
+    check_tp_run("(g) qwen3 1x2", [r["tp qwen3"] for r in two], q_refs,
+                 card, launches)
+    check_tp_run("(h) recurrentgemma 1x2",
+                 [r["tp recurrentgemma"] for r in two], rg_refs, card,
+                 launches)
+    refs_i = [r["tp_refs"]["history"] for r in four[:2]]
+    check_tp_run("(i) stablelm 2x2", [r["tp 2x2"] for r in four], refs_i,
+                 card, launches)
+    for r, kind in enumerate(("qwen3", "recurrentgemma")):
+        made = two[r]["tp_refs"].get(kind)
+        print(f"distributed {'(g)' if r == 0 else '(h)'}: the unmeshed "
+              f"reference: " + (f"made here, peak {made['peak_gib']:.2f} "
+                                f"GiB" if made else "the train qwen3 "
+                                                    "phase's"))
+    check_tp_fault("(f) layer 0's MLP g skipped",
+                   [r["tp fault mlp"] for r in two], refs_c)
+    check_tp_fault("(g) the router's gradient not summed over model",
+                   [r["tp fault router"] for r in two], q_refs)
+
+
 def distributed(dev, card: str) -> dict:
     """The "distributed" phase (module docstring, step 10): returns the
     phase's launches by kernel, summed over its ranks (the main-path run
@@ -6175,7 +6640,10 @@ def distributed(dev, card: str) -> dict:
           f"calls {nccl['calls']}, routes {nccl['routes']}")
     if not nccl["ok"] or nccl["routes"].get("nccl", 0) < 4:
         fail(f"distributed: the world-1 nccl group's collectives: {nccl}")
-    plan = {"device": "cuda:0" if dev.type == "cuda" else "cpu"}
+    plan = {"device": "cuda:0" if dev.type == "cuda" else "cpu",
+            "refs": {}}
+    if "train qwen3" in TRAIN_HISTORY:
+        plan["refs"]["qwen3"] = TRAIN_HISTORY["train qwen3"]
     results = {}
     for world in (2, 4):
         t, wall = time.perf_counter(), time.time()
@@ -6249,6 +6717,8 @@ def distributed(dev, card: str) -> dict:
             fail(f"distributed (e): comm bytes do not reconcile: {fd}")
         for name in ("sma_gemm", "rmsnorm_gemm", "flash_attention"):
             launches[name] += fd["launches"][name]
+    # (f)-(i) Tensor parallelism.
+    check_dist_tp(results, plan, card, launches)
     staged = sum(sum(res["train"]["staged_bytes"].values())
                  for res in results[2])
     print(f"distributed: seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "

@@ -84,7 +84,8 @@ from repro_torch.obs import trace as _obs_trace
 from repro_torch.resilience import guard as _res_guard
 
 __all__ = ["CompiledModel", "ScanLoop", "TracedRun", "build_module",
-           "collect_comm_sites", "compile_with_options",
+           "collect_collectives", "collect_comm_sites",
+           "compile_with_options",
            "count_dispatch_sites"]
 
 
@@ -234,6 +235,32 @@ def collect_comm_sites(rewritten: RewriteResult) -> List[Dict[str, Any]]:
 
     walk(rewritten)
     return sites
+
+
+def collect_collectives(module: torch.fx.GraphModule) -> Dict[str, Any]:
+    """The collective nodes of a dispatching module that move bytes (a
+    group of one rank moves none; ``tp_enter``'s forward is the identity),
+    by span name: ``{"calls", "bytes", "bytes_total"}``, each call's bytes
+    those its span carries (:func:`repro_torch.distributed.collectives.
+    call_bytes`).  Loop bodies hold none."""
+    impls = {fn: op.__name__.split("::")[-1].split(".")[0]
+             for op, fn in collectives.IMPLS.items()}
+    calls: Dict[str, int] = {}
+    nbytes: Dict[str, int] = {}
+    for n in module.graph.nodes:
+        if n.op != "call_function" or n.target not in impls:
+            continue
+        op, key = impls[n.target], n.args[1]
+        if op == "tp_enter" or collectives._lookup(key)[0] is None:
+            continue
+        x = val(n.args[0])
+        peer = op != "sendrecv" or n.args[2] >= 0
+        span = n.args[-1]
+        calls[span] = calls.get(span, 0) + 1
+        nbytes[span] = nbytes.get(span, 0) + collectives.call_bytes(
+            op, x.shape, x.element_size(), collectives.size_of(key), peer)
+    return {"calls": calls, "bytes": nbytes,
+            "bytes_total": sum(nbytes.values())}
 
 
 def _build(root: torch.fx.GraphModule, name: str,
@@ -480,7 +507,8 @@ def compile_with_options(fn: Callable, *args, name: Optional[str] = None,
     report["backends"] = backends_section(collect_backend_sites(
         _module_sites(module)))
     report["comm"] = comm_section(o.mesh, collect_comm_sites(rewritten),
-                                  plan_comm_bytes=program.total_comm_bytes)
+                                  plan_comm_bytes=program.total_comm_bytes,
+                                  collectives=collect_collectives(module))
     report["resilience"] = _res_guard.resilience_section()
     report["compile"] = times
     return CompiledModel(traced=traced, plan=plan, report_data=report,

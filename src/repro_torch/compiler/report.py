@@ -19,7 +19,12 @@ compile and restamped on every report read).  Loop nodes show in the
 trip counts).  ``comm_section`` prices the collective bytes of a compiled
 program's sharded GEMM sites on ``SMAOptions.mesh`` through
 :func:`repro_torch.distributed.summa.summa_comm_stats`, the cost model the
-SUMMA schedule is built from.  The reference's ``diagnostics`` section
+SUMMA schedule is built from; its ``collectives`` part counts the
+collective nodes of the dispatched program (train(mesh=)'s all-reduces and
+all-gathers, forward and backward) by span name, with the bytes each
+call's span carries, so a run's :data:`repro_torch.distributed.
+collectives.BYTES` and its ``comm.*`` spans read the same bytes a call.
+The reference's ``diagnostics`` section
 waits for ``analysis`` (ROADMAP.md).
 """
 from __future__ import annotations
@@ -151,7 +156,8 @@ def backends_section(records: List[Dict[str, Any]], *,
 
 
 def comm_section(mesh, sites, *, plan_comm_bytes: float = 0.0,
-                 overlap: bool = True, max_sites: int = 20
+                 overlap: bool = True, max_sites: int = 20,
+                 collectives: Optional[Dict[str, Any]] = None
                  ) -> Dict[str, Any]:
     """Predicted collective traffic for one compiled model on ``mesh``
     (``repro.compiler.report.comm_section``).
@@ -164,7 +170,9 @@ def comm_section(mesh, sites, *, plan_comm_bytes: float = 0.0,
     prologue site too (the plan does not know yet which chain the rewrite
     makes a device-local prologue), so it can differ from the per-site sum
     by those.  No mesh, or a mesh of one rank: ``enabled`` False and zero
-    traffic."""
+    traffic.  ``collectives``: the program's collective nodes
+    (:func:`repro_torch.compiler.dispatch.collect_collectives`), reported
+    whatever the mesh."""
     out: Dict[str, Any] = {
         "enabled": False,
         "grid": [1, 1],
@@ -180,6 +188,8 @@ def comm_section(mesh, sites, *, plan_comm_bytes: float = 0.0,
         "collectives_per_axis": {},
         "plan_comm_bytes": float(plan_comm_bytes),
         "sites": [],
+        "collectives": collectives or {"calls": {}, "bytes": {},
+                                       "bytes_total": 0},
     }
     if mesh is None:
         return out

@@ -21,6 +21,11 @@ the port's :data:`repro_torch.models.lm.State`: the recurrent states (the
 RG-LRU carry ``h``, the mLSTM's ``c``, ``n``, ``m``, the sLSTM's ``c``,
 ``n``, ``m``, ``h``) in float32, every other leaf (KV caches, conv tails)
 in ``dtype``.
+
+``model_blocks`` lays whole parameters (these, or ``lm.init``'s) out for a
+rank of a mesh with a ``model`` axis: each leaf its block under a tree of
+:class:`repro_torch.distributed.sharding.LeafSharding`
+(``train(mesh=)``'s :class:`repro_torch.launch.train.MeshPlan` ``tp``).
 """
 from __future__ import annotations
 
@@ -59,3 +64,12 @@ def from_jax_state(state: Any, cfg: ModelConfig, device: DeviceLike = None,
                    dtype: Optional[torch.dtype] = None) -> tuple:
     return _convert(tuple(state), resolve_device(device),
                     dtype or cfg.activation_dtype, F32_STATE)
+
+
+def model_blocks(params: Any, layout: Any) -> Any:
+    """This rank's block of each whole parameter under ``layout`` (a tree
+    like ``params`` of ``LeafSharding``): a new contiguous tensor where
+    the leaf is split, the leaf itself where it is not."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda p, sh: sh.local(p).contiguous().clone()
+                    if sh.splits else p, params, layout)

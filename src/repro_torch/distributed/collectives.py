@@ -8,10 +8,11 @@ Each one is a ``torch.library`` custom op (``repro_torch::all_reduce``,
 the op's implementation in the node's place (:data:`IMPLS`), so the
 compiled program runs the collective itself, as an eager call does (a
 custom op's first call imports ``torch._dynamo``: 2.4 s on an 8-core CPU
-host, ~11 s on the H100 machine's host, in every process).  Every op
-returns a new tensor that the program reads: a collective is never a dead
-node the dispatcher could drop, and the compiled program issues them in
-the order traced, the same on every rank.
+host, ~11 s on the H100 machine's host, in every process).  Every
+collective returns a new tensor that the program reads: it is never a
+dead node the dispatcher could drop, and the compiled program issues them
+in the order traced, the same on every rank.  (``tp_enter``'s forward
+moves nothing: its dispatched node hands on its input, uncopied.)
 
 The group of an axis is named by a string key (:meth:`repro_torch.launch.
 mesh.Mesh.group_key`), registered when the mesh is made.  A key with no
@@ -34,8 +35,22 @@ Routing is static, by the group's backend:
 * ``gloo`` with CPU tensors: the collective runs on them.
 
 Every call counts in :data:`CALLS` (by op) and :data:`ROUTES` (``nccl``,
-``gloo``, ``host``) and, while a :func:`repro_torch.profile` is active, is
-a ``comm.*`` span on the ``comm`` lane with its bytes and axis key.
+``gloo``, ``host``), its bytes in :data:`BYTES` (by span name), and, while
+a :func:`repro_torch.profile` is active, is a ``comm.*`` span on the
+``comm`` lane with those bytes and its axis key.
+
+Gradients (tensor parallelism, :mod:`repro_torch.distributed.
+tensor_parallel`).  ``all_reduce`` with op ``sum`` carries its gradient
+through unchanged (Megatron's *g*: the sum of the ranks' partial outputs
+has a gradient every rank already holds whole); :func:`tp_enter`
+(``repro_torch::tp_enter``) is the identity forward and an all-reduce of
+the gradient backward (Megatron's *f*: each rank's gradient of a tensor it
+read whole is partial); ``all_gather``'s gradient is this rank's block of
+the output's; op ``max`` carries none.  Eagerly these are autograd
+Functions around the implementations; in a trace each op carries its
+backward (``torch.library.register_autograd``), written with the same
+entry points, so the joint graph holds the backward's collectives as
+nodes in the order the backward issues them.
 """
 from __future__ import annotations
 
@@ -49,10 +64,10 @@ from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.obs import trace as _obs_trace
 
-__all__ = ["BUCKET_BYTES", "CALLS", "ROUTES", "STAGED_BYTES", "STAGED_MS",
-           "COLLECTIVE_OPS", "IMPLS", "all_gather", "all_reduce", "broadcast",
-           "broadcast_async", "index_of", "register", "reset_counts",
-           "sendrecv", "size_of"]
+__all__ = ["BUCKET_BYTES", "BYTES", "CALLS", "ROUTES", "STAGED_BYTES",
+           "STAGED_MS", "COLLECTIVE_OPS", "IMPLS", "all_gather", "all_reduce",
+           "broadcast", "broadcast_async", "call_bytes", "index_of",
+           "register", "reset_counts", "sendrecv", "size_of", "tp_enter"]
 
 #: The most a staged collective holds in pinned memory at once (all lanes).
 BUCKET_BYTES = 256 << 20
@@ -67,6 +82,11 @@ ROUTES: Dict[str, int] = collections.Counter()
 #: the host milliseconds those calls took (copies and collective).
 STAGED_BYTES: Dict[str, int] = collections.Counter()
 STAGED_MS: Dict[str, float] = collections.Counter()
+#: The bytes each call's span carries (:func:`call_bytes`), by span name.
+BYTES: Dict[str, int] = collections.Counter()
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
+               "max": dist.ReduceOp.MAX}
 
 STAGED_REASON = "collective: gloo stages through host"
 
@@ -95,8 +115,25 @@ def index_of(key: str) -> int:
 
 
 def reset_counts() -> None:
-    for c in (CALLS, ROUTES, STAGED_BYTES, STAGED_MS):
+    for c in (CALLS, ROUTES, STAGED_BYTES, STAGED_MS, BYTES):
         c.clear()
+
+
+def call_bytes(op: str, shape, itemsize: int, ranks: int,
+               peer: bool = True) -> int:
+    """The bytes one call's span carries: an all-reduce's tensor once; a
+    broadcast's and an all-gather's to each other rank; a send's when it
+    has a peer (``peer``); an identity (``tp_enter``) none."""
+    n = itemsize
+    for d in shape:
+        n *= int(d)
+    if op == "all_reduce":
+        return n
+    if op in ("broadcast", "all_gather"):
+        return n * (ranks - 1)
+    if op == "sendrecv":
+        return n if peer else 0
+    return 0
 
 
 def _lookup(key: str):
@@ -152,6 +189,7 @@ class _Staged:
 
 
 def _span(name: str, key: str, nbytes: int):
+    BYTES[name] += int(nbytes)
     tr = _obs_trace.current_tracer()
     if tr is None:
         return _obs_trace._NULL
@@ -243,7 +281,7 @@ def _run_all_reduce(x: torch.Tensor, key: str, op: str, span: str
         return out
     route = _route(x, backend)
     _count("all_reduce", route)
-    red = dist.ReduceOp.SUM
+    red = _REDUCE_OPS[op]
     with _span(span, key, out.numel() * out.element_size()), \
             _Staged("all_reduce", route):
         if route != "host":
@@ -347,6 +385,21 @@ def _gathered_shape(x: torch.Tensor, key: str, dim: int):
     return shape
 
 
+def _tp_enter_impl(x: torch.Tensor, key: str, span: str) -> torch.Tensor:
+    """Tensor parallelism's *f* forward, as a dispatched graph calls it:
+    ``x`` itself (its backward is an all-reduce of the gradient)."""
+    if _lookup(key)[0] is not None:
+        CALLS["tp_enter"] += 1
+    return x
+
+
+def _tp_enter_op(x: torch.Tensor, key: str, span: str) -> torch.Tensor:
+    """The ``tp_enter`` op's own implementation: a custom op returns a new
+    tensor, so a copy (nothing calls the op on real tensors: a dispatched
+    graph calls :func:`_tp_enter_impl` in its place)."""
+    return _tp_enter_impl(x, key, span).clone()
+
+
 def _op(name: str, impl, fake):
     op = torch.library.custom_op(f"repro_torch::{name}", impl,
                                  mutates_args=())
@@ -368,6 +421,9 @@ COLLECTIVE_OPS = {
     "sendrecv": _op("sendrecv", _sendrecv_impl,
                     lambda x, key, dst, src, span: torch.empty_like(
                         x, memory_format=torch.contiguous_format)),
+    "tp_enter": _op("tp_enter", _tp_enter_op,
+                    lambda x, key, span: torch.empty_like(
+                        x, memory_format=torch.contiguous_format)),
 }
 
 
@@ -375,26 +431,123 @@ COLLECTIVE_OPS = {
 IMPLS = {COLLECTIVE_OPS["all_reduce"]: _all_reduce_impl,
          COLLECTIVE_OPS["broadcast"]: _broadcast_impl,
          COLLECTIVE_OPS["all_gather"]: _all_gather_impl,
-         COLLECTIVE_OPS["sendrecv"]: _sendrecv_impl}
+         COLLECTIVE_OPS["sendrecv"]: _sendrecv_impl,
+         COLLECTIVE_OPS["tp_enter"]: _tp_enter_impl}
+
+
+# --------------------------------------------------------------------------
+# Gradients: the ops' registered backward (a trace) and the autograd
+# Functions of an eager call, one rule each
+# --------------------------------------------------------------------------
+def _reduce_grad(grad: torch.Tensor, key: str, op: str) -> torch.Tensor:
+    if op == "max":
+        raise RuntimeError("all_reduce op 'max' has no gradient: reduce a "
+                           "detached tensor")
+    return grad / size_of(key) if op == "mean" else grad
+
+
+def _gather_grad(grad: torch.Tensor, key: str, dim: int) -> torch.Tensor:
+    """This rank's block of the gathered output's gradient."""
+    size = grad.shape[dim] // size_of(key)
+    return grad.narrow(dim, index_of(key) * size, size).contiguous()
+
+
+def _enter_grad(grad: torch.Tensor, key: str, span: str) -> torch.Tensor:
+    return all_reduce(grad, key, span=span)
+
+
+def _save_args(ctx, inputs, output) -> None:
+    ctx.args = inputs[1:]
+
+
+torch.library.register_autograd(
+    "repro_torch::all_reduce",
+    lambda ctx, grad: (_reduce_grad(grad, ctx.args[0], ctx.args[1]),
+                       None, None, None),
+    setup_context=_save_args)
+torch.library.register_autograd(
+    "repro_torch::all_gather",
+    lambda ctx, grad: (_gather_grad(grad, ctx.args[0], ctx.args[1]),
+                       None, None, None),
+    setup_context=_save_args)
+torch.library.register_autograd(
+    "repro_torch::tp_enter",
+    lambda ctx, grad: (_enter_grad(grad, ctx.args[0], ctx.args[1]),
+                       None, None),
+    setup_context=_save_args)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, key, op, span):
+        ctx.key, ctx.op = key, op
+        return _all_reduce_impl(x, key, op, span)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_grad(grad, ctx.key, ctx.op), None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, key, dim, span):
+        ctx.key, ctx.dim = key, dim
+        return _all_gather_impl(x, key, dim, span)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_grad(grad, ctx.key, ctx.dim), None, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, key, span):
+        ctx.key, ctx.span = key, span
+        if _lookup(key)[0] is not None:
+            CALLS["tp_enter"] += 1
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _enter_grad(grad, ctx.key, ctx.span), None, None
 
 
 # --------------------------------------------------------------------------
 # Entry points: the op while a graph is traced (fake tensors), else the
-# implementation
+# implementation (through its autograd Function when a gradient flows)
 # --------------------------------------------------------------------------
 def _traced(x: torch.Tensor) -> bool:
     return isinstance(x, FakeTensor)
 
 
+def _grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def all_reduce(x: torch.Tensor, key: str, op: str = "sum",
                span: str = "comm.all_reduce") -> torch.Tensor:
-    """The sum (``op="mean"``: the mean) of ``x`` over the group, on every
-    rank."""
-    if op not in ("sum", "mean"):
-        raise ValueError(f"all_reduce op {op!r} (sum | mean)")
+    """The sum (``op="mean"``: the mean; ``"max"``: the largest, without
+    a gradient) of ``x`` over the group, on every rank."""
+    if op not in _REDUCE_OPS:
+        raise ValueError(f"all_reduce op {op!r} (sum | mean | max)")
     if _traced(x):
         return torch.ops.repro_torch.all_reduce(x, key, op, span)
+    if _grad(x):
+        return _AllReduce.apply(x, key, op, span)
     return _all_reduce_impl(x, key, op, span)
+
+
+def tp_enter(x: torch.Tensor, key: str,
+             span: str = "comm.tp_enter") -> torch.Tensor:
+    """``x`` unchanged; its gradient is all-reduced over the group (the
+    backward's call carries ``span``).  The identity without a group."""
+    if _lookup(key)[0] is None:
+        return x
+    if _traced(x):
+        return torch.ops.repro_torch.tp_enter(x, key, span)
+    if _grad(x):
+        return _Enter.apply(x, key, span)
+    return x
 
 
 def broadcast(x: torch.Tensor, key: str, src: int,
@@ -446,6 +599,7 @@ def broadcast_async(x: torch.Tensor, key: str, src: int,
         return _Pending(out, None, False, key, span, nbytes, attrs)
     route = _route(x, backend)
     _count("broadcast", route)
+    BYTES[span] += int(nbytes)
     if route == "host":
         def issue(group, slot, buf):
             return (dist.broadcast(buf, src=ranks[src], group=group,
@@ -461,10 +615,13 @@ def broadcast_async(x: torch.Tensor, key: str, src: int,
 
 def all_gather(x: torch.Tensor, key: str, dim: int = 0,
                span: str = "comm.all_gather") -> torch.Tensor:
-    """Every rank's ``x`` concatenated along ``dim`` in group order."""
+    """Every rank's ``x`` concatenated along ``dim`` in group order; the
+    gradient of this rank's ``x`` is its block of the output's."""
     dim = dim % max(x.dim(), 1)
     if _traced(x):
         return torch.ops.repro_torch.all_gather(x, key, dim, span)
+    if _grad(x):
+        return _AllGather.apply(x, key, dim, span)
     return _all_gather_impl(x, key, dim, span)
 
 

@@ -25,14 +25,26 @@ kv_seq          None | "data"          context parallelism for long decode
 layers          None                   the stacked groups' axis
 ==============  =====================  ====================================
 
-What the port does with them today: ``train(mesh=)`` reads ``batch``
-(the data-parallel axes) and ``embed`` (the axis its AdamW moments are
-split over, ZeRO-1), through :func:`spec_tree_to_shardings`.  The port has
-no GSPMD to propagate a constraint, so :func:`shard` resolves its spec
-under the ambient rules and returns ``x`` unchanged: tensor parallelism by
-the rules (``heads``, ``mlp``, ``vocab``, ``expert`` on ``"model"``) is
-queued (ROADMAP.md §1 item 3), and ``train()`` refuses a ``model`` axis
-larger than one.
+What the port does with them: ``train(mesh=)`` reads ``batch`` (the
+data-parallel axes), ``embed`` (the axis its AdamW moments are split
+over, ZeRO-1) and every logical axis that resolves to ``"model"``
+(``heads``, ``kv_heads``, ``mlp``, ``vocab``, ``expert``): through
+:func:`spec_tree_to_shardings` each rank holds only its ``model`` block of
+every parameter split so, and the layers compute on their blocks with the
+explicit collectives of :mod:`repro_torch.distributed.tensor_parallel`
+(tensor parallelism in the Megatron form GSPMD derives from the same
+specs).  The port has no GSPMD to propagate a constraint, so
+:func:`shard` resolves its spec under the ambient rules and returns ``x``
+unchanged; the layers read the split from their weights' local shapes and
+the ambient mesh (:func:`use_rules`' ``mesh``).  Where ``head_dim``
+resolves to ``"model"`` (neither head count divides the axis), the
+attention weights stay whole and attention is computed whole on every
+rank of the line (a static route, counted in ``ops.ROUTED``).
+
+A split dim may be *grouped* (:class:`LeafSharding` ``groups``): the dim
+is G equal parts side by side (mLSTM's ``w_up`` is the cell input's
+columns, then the output gate's), and a rank's block is its block of each
+part, so its columns line up with whole heads in both.
 """
 from __future__ import annotations
 
@@ -46,9 +58,10 @@ AxisVal = Union[None, str, Tuple[str, ...]]
 #: A physical spec: one entry a dimension.
 Spec = Tuple[AxisVal, ...]
 
-__all__ = ["LeafSharding", "MeshRules", "current_rules", "logical_spec",
-           "logical_to_spec", "rules_for", "shard", "spec_tree_to_shardings",
-           "use_rules"]
+__all__ = ["LeafSharding", "MeshRules", "ambient", "current_mesh",
+           "current_rules",
+           "logical_spec", "logical_to_spec", "regroup", "rules_for", "shard",
+           "spec_tree_to_shardings", "use_rules"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,30 +117,47 @@ class _Ctx(threading.local):
     def __init__(self) -> None:
         self.rules: Optional[MeshRules] = None
         self.mesh_axes: Tuple[str, ...] = ()
+        self.mesh: Any = None
 
 
 _CTX = _Ctx()
 
 
 class use_rules:
-    """Context manager installing the (rules, mesh-axes) pair for a trace."""
+    """Context manager installing the (rules, mesh-axes) pair for a trace.
+    With ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`), a ``model``
+    axis of more than one rank makes the layers tensor-parallel over it
+    (:func:`repro_torch.distributed.tensor_parallel.model_axis`)."""
 
     def __init__(self, rules: Optional[MeshRules],
-                 mesh_axes: Sequence[str]) -> None:
-        self._new = (rules, tuple(mesh_axes))
-        self._old: Tuple[Optional[MeshRules], Tuple[str, ...]] = (None, ())
+                 mesh_axes: Sequence[str], mesh: Any = None) -> None:
+        self._new = (rules, tuple(mesh_axes), mesh)
+        self._old: Tuple[Any, ...] = (None, (), None)
 
     def __enter__(self) -> "use_rules":
-        self._old = (_CTX.rules, _CTX.mesh_axes)
-        _CTX.rules, _CTX.mesh_axes = self._new
+        self._old = (_CTX.rules, _CTX.mesh_axes, _CTX.mesh)
+        _CTX.rules, _CTX.mesh_axes, _CTX.mesh = self._new
         return self
 
     def __exit__(self, *exc) -> None:
-        _CTX.rules, _CTX.mesh_axes = self._old
+        _CTX.rules, _CTX.mesh_axes, _CTX.mesh = self._old
 
 
 def current_rules() -> Optional[MeshRules]:
     return _CTX.rules
+
+
+def current_mesh() -> Any:
+    """The mesh :func:`use_rules` installed, or None."""
+    return _CTX.mesh
+
+
+def ambient() -> Tuple[Any, ...]:
+    """The installed ``(rules, mesh_axes, mesh)``: ``use_rules(*ambient())``
+    installs them again on another thread (the context is per thread, and
+    autograd runs a CUDA tensor's backward, remat recomputations included,
+    on a thread of its own)."""
+    return (_CTX.rules, _CTX.mesh_axes, _CTX.mesh)
 
 
 def logical_spec(*logical_axes: Optional[str]) -> Optional[Spec]:
@@ -139,7 +169,8 @@ def logical_spec(*logical_axes: Optional[str]) -> Optional[Spec]:
 
 def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     """Resolve the spec under the ambient rules and return ``x``: the port
-    has no GSPMD to hand a constraint to (module docstring)."""
+    has no GSPMD to hand a constraint to; the layers split their work by
+    their weights' blocks (module docstring)."""
     logical_spec(*logical_axes)
     return x
 
@@ -179,10 +210,13 @@ class LeafSharding:
     """How one leaf is laid out on this rank: ``splits`` is one ``(dim,
     axes, parts, index)`` per dimension split over axes of more than one
     rank (``axes`` a tuple of mesh axes, ``parts`` their product,
-    ``index`` this rank's block along them)."""
+    ``index`` this rank's block along them); ``groups`` one ``(dim, G)``
+    per split dim made of G parts side by side, whose block is this rank's
+    block of each part (module docstring)."""
 
     spec: Spec
     splits: Tuple[Tuple[int, Tuple[str, ...], int, int], ...]
+    groups: Tuple[Tuple[int, int], ...] = ()
 
     def local_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
         out = list(shape)
@@ -191,15 +225,47 @@ class LeafSharding:
         return tuple(out)
 
     def local(self, x):
-        """This rank's block of the full ``x`` (a view of a tensor; a copy
-        of a numpy array)."""
+        """This rank's block of the full ``x`` (a view of a tensor, a copy
+        where a dim is grouped; a copy of a numpy array)."""
+        groups = dict(self.groups)
         for dim, _, parts, index in self.splits:
-            size = x.shape[dim] // parts
+            g = groups.get(dim, 1)
+            shape = tuple(x.shape)
+            size = shape[dim] // g // parts
+            if g > 1:               # each part's block, side by side
+                x = x.reshape(shape[:dim] + (g, -1) + shape[dim + 1:])
+                dim += 1
             if isinstance(x, torch.Tensor):
                 x = x.narrow(dim, index * size, size)
             else:
                 x = x.take(range(index * size, (index + 1) * size), axis=dim)
+            if g > 1:
+                x = x.reshape(shape[:dim - 1] + (g * size,) + shape[dim:])
         return x
+
+    def only(self, axes: Sequence[str]) -> "LeafSharding":
+        """The splits over ``axes`` alone."""
+        keep = tuple(s for s in self.splits if set(s[1]) <= set(axes))
+        dims = {s[0] for s in keep}
+        return LeafSharding(self.spec, keep,
+                            tuple(g for g in self.groups if g[0] in dims))
+
+    def with_splits(self, other: "LeafSharding") -> "LeafSharding":
+        """This layout's splits, then ``other``'s (a block of a block)."""
+        return LeafSharding(self.spec, self.splits + other.splits,
+                            self.groups + other.groups)
+
+
+def regroup(x: torch.Tensor, dim: int, parts: int, groups: int
+            ) -> torch.Tensor:
+    """The whole dim of a grouped leaf from its ``parts`` blocks
+    concatenated along ``dim`` in rank order (each block its G parts'
+    blocks side by side)."""
+    if groups == 1:
+        return x
+    shape = x.shape
+    x = x.reshape(shape[:dim] + (parts, groups, -1) + shape[dim + 1:])
+    return x.transpose(dim, dim + 1).reshape(shape)
 
 
 def _axes_of(entry: AxisVal) -> Tuple[str, ...]:
@@ -208,17 +274,21 @@ def _axes_of(entry: AxisVal) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def spec_tree_to_shardings(mesh, specs: Any, like: Any = None) -> Any:
+def spec_tree_to_shardings(mesh, specs: Any, like: Any = None,
+                           groups: Any = None) -> Any:
     """A physical spec tree -> a tree of :class:`LeafSharding` on
     ``mesh``: for each leaf, the dims and axes it is split along on this
     rank.  Axes of one rank split nothing.  With ``like`` (a tree of
     tensors of the same structure), a dim that its axes do not divide is
-    left whole (a leaf that does not divide stays replicated there)."""
+    left whole (a leaf that does not divide stays replicated there).
+    ``groups`` (a tree like ``like`` of ints, None for 1 everywhere): a
+    leaf's split dims made of that many parts side by side (a dim whose
+    parts its axes do not divide is left whole)."""
     sizes = dict(mesh.shape)
     coords = dict(mesh.coords)
 
-    def one(spec: Spec, shape=None) -> LeafSharding:
-        splits = []
+    def one(spec: Spec, shape=None, g: int = 1) -> LeafSharding:
+        splits, grouped = [], []
         for dim, entry in enumerate(spec):
             axes = tuple(a for a in _axes_of(entry) if sizes.get(a, 1) > 1)
             if not axes:
@@ -227,22 +297,30 @@ def spec_tree_to_shardings(mesh, specs: Any, like: Any = None) -> Any:
             for a in axes:
                 index = index * sizes[a] + coords[a]
                 parts *= sizes[a]
-            if shape is not None and shape[dim] % parts:
+            if shape is not None and shape[dim] % (parts * g):
                 continue
             splits.append((dim, axes, parts, index))
-        return LeafSharding(tuple(spec), tuple(splits))
+            if g > 1:
+                grouped.append((dim, g))
+        return LeafSharding(tuple(spec), tuple(splits), tuple(grouped))
 
     if like is None:
         return map_specs(one, specs)
 
-    def walk(spec_node, like_node):
+    def walk(spec_node, like_node, g_node):
         if isinstance(spec_node, dict):
-            return {k: walk(spec_node[k], like_node[k]) for k in spec_node}
+            return {k: walk(spec_node[k], like_node[k],
+                            None if g_node is None else g_node[k])
+                    for k in spec_node}
         if _is_spec_leaf(spec_node):
-            return one(spec_node, tuple(like_node.shape))
-        return tuple(walk(s, l) for s, l in zip(spec_node, like_node))
+            return one(spec_node, tuple(like_node.shape), g_node or 1)
+        return tuple(walk(s, l, None if g_node is None else gn)
+                     for s, l, gn in zip(
+                         spec_node, like_node,
+                         g_node if g_node is not None
+                         else [None] * len(spec_node)))
 
-    return walk(specs, like)
+    return walk(specs, like, groups)
 
 
 def rules_for(cfg, mesh, *, batch_size: Optional[int] = None,

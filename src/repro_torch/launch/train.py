@@ -25,23 +25,36 @@ the data cursor travel together), checkpoints every ``checkpoint_every``
 steps, and with ``halt_at_step`` checkpoints and stops there (a simulated
 fault: the resumed run equals an unbroken one).
 
-``train(cfg, loop, mesh=...)`` is data parallelism over the ranks of a
-:class:`repro_torch.launch.mesh.Mesh` (:class:`DataParallel`):
-``rules_for(cfg, mesh, batch_size=loop.global_batch, kind="train")``
-decides the batch axes; every rank draws the same global batch from one
-data cursor and keeps its own rows.  Inside the compiled step the count
-of valid labels and every gradient are all-reduced over the batch axes
-(the loss and its gradient are the global batch's, and the grad norm is
-taken after the all-reduce); the AdamW moments are split along each
-parameter's ``embed`` dim over ``data`` where it divides (ZeRO-1 by the
-rules' ``embed -> data``), each rank updates its block of the masters and
-moments, and the masters are all-gathered.  Every collective is a node of
-the compiled program (:mod:`repro_torch.distributed.collectives`).
-Checkpoints stay unsharded: the moments are gathered and the first rank
-writes; a restore lays them out for the ranks it runs on, so a run saved
-on 2 ranks resumes on 1 or 4.  A ``model`` axis of more than one rank is
-refused: tensor parallelism by the rules is queued (ROADMAP.md §1 item
-3).
+``train(cfg, loop, mesh=...)`` runs over the ranks of a
+:class:`repro_torch.launch.mesh.Mesh` (:class:`MeshPlan`), as the
+reference's ``train(mesh=)`` runs its step under
+``rules_for(cfg, mesh, batch_size=loop.global_batch, kind="train")``:
+
+* **data parallelism** over the batch axes: every rank draws the same
+  global batch from one data cursor and keeps its own rows; inside the
+  compiled step the count of valid labels and every gradient are
+  all-reduced over the batch axes (the loss and its gradient are the
+  global batch's);
+* **tensor parallelism** over a ``model`` axis of more than one rank:
+  each rank holds its ``model`` block of every parameter whose spec
+  resolves a dim to ``model`` (heads, MLP, vocab, experts, recurrent
+  channels; laid out from the whole parameters by
+  :func:`repro_torch.convert.model_blocks`)
+  and the layers compute on their blocks through differentiable
+  collectives (:mod:`repro_torch.distributed.tensor_parallel`); the grad
+  norm sums the blocks' squares over ``model`` and counts each replicated
+  leaf once;
+* **ZeRO-1**: the AdamW moments are split along each parameter's
+  ``embed`` dim over ``data`` where it divides (the rules' ``embed ->
+  data``), each rank updates its block of its masters and moments, and
+  the masters are all-gathered over ``data`` (so they stay ``model``
+  blocks).
+
+Every collective is a node of the compiled program
+(:mod:`repro_torch.distributed.collectives`).  Checkpoints stay
+unsharded: the ``model`` blocks and the moments are gathered and the
+first rank writes; a restore lays them out for the ranks and the layout
+it runs on, so a run saved on a 1 x 2 mesh resumes on 2 x 1 or on 1.
 """
 from __future__ import annotations
 
@@ -54,13 +67,15 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from repro_torch import convert
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.api import SMAOptions, sma_jit
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig, get_config, reduced
 from repro_torch.data.pipeline import DataConfig, DataPipeline, PipelineState
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import (logical_to_spec, rules_for,
+from repro_torch.distributed.sharding import (logical_to_spec, regroup,
+                                              rules_for,
                                               spec_tree_to_shardings,
                                               use_rules)
 from repro_torch.models import lm
@@ -88,20 +103,16 @@ class TrainLoopConfig:
     remat: bool = True
 
 
-class DataParallel:
+class MeshPlan:
     """``train(mesh=)``'s plan on one rank (module docstring): the batch
-    axes and this rank's rows, the all-reduce over them, and the ZeRO-1
-    shardings of the moments with the all-gather that puts each master
-    back whole."""
+    axes and this rank's rows, the all-reduce over them; the ``model``
+    line and each parameter's block on it (``tp``); the ZeRO-1 shardings
+    of the moments of those blocks (``shardings``) with the all-gather that
+    puts each block back whole."""
 
     def __init__(self, cfg: ModelConfig, loop: "TrainLoopConfig", mesh,
                  params: dict) -> None:
-        if mesh.shape.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"train(mesh=) runs data parallelism only; a 'model' axis "
-                f"of {mesh.shape['model']} ranks needs tensor parallelism "
-                f"by the rules, which is not ported yet (ROADMAP.md §1 item "
-                f"3, queue entry 1)")
+        """``params``: the whole parameters (shapes only are read)."""
         self.mesh = mesh
         self.rules = rules_for(cfg, mesh, batch_size=loop.global_batch,
                                kind="train")
@@ -112,9 +123,20 @@ class DataParallel:
         for a in axes:
             self.index = self.index * mesh.shape[a] + mesh.coords[a]
             self.ranks *= mesh.shape[a]
+        self.model_key = (mesh.group_key("model")
+                          if mesh.shape.get("model", 1) > 1 else None)
         specs = logical_to_spec(lm.param_specs(cfg), self.rules,
                                 mesh.axis_names)
-        self.shardings = spec_tree_to_shardings(mesh, specs, like=params)
+        laid = spec_tree_to_shardings(mesh, specs, like=params,
+                                      groups=lm.param_groups(cfg))
+        self.tp = tree_map(lambda sh: sh.only(("model",)), laid)
+        local = tree_map(lambda p, sh: torch.empty(
+            sh.local_shape(p.shape), device="meta"), params, self.tp)
+        others = tuple(a for a in mesh.axis_names if a != "model")
+        self.shardings = tree_map(
+            lambda sh: sh.only(others),
+            spec_tree_to_shardings(mesh, specs, like=local))
+        self.split = [bool(sh.splits) for sh in leaves(self.tp)]
 
     def rows(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         """This rank's rows of the global batch."""
@@ -129,64 +151,89 @@ class DataParallel:
             x = collectives.all_reduce(x, key, span="comm.grad_all_reduce")
         return x
 
+    def model_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the ``model`` line."""
+        return collectives.all_reduce(x, self.model_key,
+                                      span="comm.tp_norm")
+
     def gather(self, x: torch.Tensor, sharding) -> torch.Tensor:
-        """Every rank's block ``x`` of a split leaf, whole."""
-        for dim, axes, _, _ in sharding.splits:
+        """Every rank's block ``x`` of a split leaf, whole (a grouped dim
+        put back in its order)."""
+        groups = dict(sharding.groups)
+        for dim, axes, parts, _ in reversed(sharding.splits):
             for axis in reversed(axes):
                 x = collectives.all_gather(x, self.mesh.group_key(axis),
                                            dim=dim,
                                            span="comm.master_all_gather")
+            x = regroup(x, dim, parts, groups.get(dim, 1))
         return x
+
+    def whole(self, params: dict) -> dict:
+        """Every rank's ``model`` blocks of ``params``, whole."""
+        return tree_map(lambda p, sh: self.gather(p, sh) if sh.splits
+                        else p, params, self.tp)
 
     def full_moments(self, opt_state: Dict) -> Dict:
         """The optimizer state with whole moments (for a checkpoint)."""
-        def whole(m, sh):
-            return self.gather(m, sh) if sh.splits else m
+        def whole(m, sh, tp):
+            return self.gather(m, tp.with_splits(sh))
         return {**opt_state,
-                "m": tree_map(whole, opt_state["m"], self.shardings),
-                "v": tree_map(whole, opt_state["v"], self.shardings)}
+                "m": tree_map(whole, opt_state["m"], self.shardings,
+                              self.tp),
+                "v": tree_map(whole, opt_state["v"], self.shardings,
+                              self.tp)}
+
+    def layouts(self) -> Dict[str, Any]:
+        """``restore(shardings=)``'s layout of a trainer state: the
+        masters' blocks, and the moments' blocks of them."""
+        moments = tree_map(lambda sh, tp: tp.with_splits(sh),
+                           self.shardings, self.tp)
+        return {"params": self.tp, "opt": {"m": moments, "v": moments}}
 
 
 def direct_step(params, opt_state, ef, batch, *, cfg: ModelConfig,
                 ocfg: adamw.AdamWConfig, remat: bool,
-                grad_compression: bool, dp: Optional[DataParallel] = None):
+                grad_compression: bool, plan: Optional[MeshPlan] = None):
     """One step, run as written: ``(params, opt_state, ef, metrics)``.
 
     The gradient is taken with respect to detached copies of the masters
     (so the masters need not require grad); ``params`` and the moments are
     then updated in place and returned, ``opt_state["step"]`` and ``ef``
-    replaced.  With ``dp`` (``train(mesh=)``), ``batch`` is this rank's
-    rows and the step is the data-parallel one of the module docstring.
-    This is the function :func:`make_step` compiles."""
+    replaced.  With ``plan`` (``train(mesh=)``), ``batch`` is this rank's
+    rows, ``params`` its blocks, and the step is the meshed one of the
+    module docstring.  This is the function :func:`make_step` compiles."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
-    if dp is None:
+    if plan is None:
         loss, metrics = lm.loss_fn(live, cfg, batch, remat=remat)
         grads = unflatten(live, torch.autograd.grad(loss, leaves(live)))
     else:
-        with use_rules(dp.rules, dp.mesh.axis_names):
+        with use_rules(plan.rules, plan.mesh.axis_names, mesh=plan.mesh):
             loss, metrics = lm.loss_fn(live, cfg, batch, remat=remat,
-                                       dp_sum=dp.sum, dp_ranks=dp.ranks)
-            grads = unflatten(live, [dp.sum(g) for g in torch.autograd.grad(
+                                       dp_sum=plan.sum, dp_ranks=plan.ranks)
+            grads = unflatten(live, [plan.sum(g) for g in torch.autograd.grad(
                 loss, leaves(live))])
     if grad_compression:
         grads, ef = gcomp.roundtrip(grads, ef)
+    tp_norm = plan is not None and plan.model_key is not None
     params, opt_state, om = adamw.update(
         grads, opt_state, params, ocfg,
-        shardings=dp.shardings if dp is not None else None,
-        gather=dp.gather if dp is not None else None)
+        shardings=plan.shardings if plan is not None else None,
+        gather=plan.gather if plan is not None else None,
+        split=plan.split if tp_norm else None,
+        model_sum=plan.model_sum if tp_norm else None)
     return params, opt_state, ef, {**metrics, **om}
 
 
 def make_step(cfg: ModelConfig, ocfg: adamw.AdamWConfig, *, remat: bool,
               grad_compression: bool, options: Optional[SMAOptions] = None,
-              dp: Optional[DataParallel] = None):
+              plan: Optional[MeshPlan] = None):
     """The train step on the ``sma_jit`` front door:
     ``step(params, opt_state, ef, batch) -> (params, opt_state, ef,
     metrics)``, :func:`direct_step` traced forward, backward and optimizer
     as one program and cached per abstract signature (a new sequence
     length or batch compiles once)."""
     step = functools.partial(direct_step, cfg=cfg, ocfg=ocfg, remat=remat,
-                             grad_compression=grad_compression, dp=dp)
+                             grad_compression=grad_compression, plan=plan)
     return sma_jit(step, options=options, name=f"{cfg.name}.train_step")
 
 
@@ -210,26 +257,32 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, *,
           ) -> Dict[str, Any]:
     """Train for ``loop.steps`` steps through :func:`make_step`'s engine.
     Runs on ``cuda`` unless ``device`` says otherwise.  ``params`` (float32
-    masters on ``device``, updated in place) default to ``lm.init(cfg,
-    seed=loop.seed)`` in ``cfg.parameter_dtype``.  ``mesh``: data
-    parallelism over its ranks (module docstring; every rank calls
-    ``train`` with the same arguments).  Returns ``{"history", "params",
-    "opt", "engine"}`` (``"opt"`` the optimizer state, this rank's block
-    of each split moment): history has one entry per logged step with the
-    metrics, ``step`` and ``wall_s`` (host seconds since the first step of
-    this run began, taken after the metrics reach the host), and with a
-    ``mesh`` ``masters_digest`` (:func:`masters_digest`: the replicas
-    agree at that step when their digests do); ``engine`` is the step
-    engine's cache statistics."""
+    masters on ``device``, whole; updated in place unless a ``model`` axis
+    splits them) default to ``lm.init(cfg, seed=loop.seed)`` in
+    ``cfg.parameter_dtype``.  ``mesh``: data and tensor parallelism over
+    its ranks (module docstring; every rank calls ``train`` with the same
+    arguments).  Returns ``{"history", "params", "opt", "engine", "plan"}``
+    (``"params"`` this rank's masters, a ``model`` block of each split
+    one; ``"opt"`` the optimizer state, this rank's block of each split
+    moment; ``"plan"`` the :class:`MeshPlan`, or None): history has one
+    entry per logged step with the metrics, ``step`` and ``wall_s`` (host
+    seconds since the first step of this run began, taken after the
+    metrics reach the host), and with a ``mesh`` ``masters_digest``
+    (:func:`masters_digest` of this rank's masters: the replicas agree at
+    that step when their digests do); ``engine`` is the step engine's
+    cache statistics."""
     dev = resolve_device(device)
     if params is None:
         params = lm.init(cfg, seed=loop.seed, device=dev,
                          dtype=cfg.parameter_dtype)
     for p in leaves(params):
         p.requires_grad_(False)
-    dp = DataParallel(cfg, loop, mesh, params) if mesh is not None else None
-    lead = dp is None or mesh.rank == 0
-    opt_state = adamw.init(params, dp.shardings if dp is not None else None)
+    plan = MeshPlan(cfg, loop, mesh, params) if mesh is not None else None
+    if plan is not None:
+        params = convert.model_blocks(params, plan.tp)
+    lead = plan is None or mesh.rank == 0
+    opt_state = adamw.init(params,
+                           plan.shardings if plan is not None else None)
     ef = gcomp.init_error(params) if loop.grad_compression else {}
     pipe = DataPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                    seq_len=loop.seq_len,
@@ -244,8 +297,11 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, *,
     mgr = (CheckpointManager(loop.checkpoint_dir)
            if loop.checkpoint_dir else None)
     if mgr is not None and mgr.latest_step() is not None:
-        layout = ({"opt": {"m": dp.shardings, "v": dp.shardings}}
-                  if dp is not None else None)
+        layout = None
+        if plan is not None:
+            layout = plan.layouts()
+            if ef:
+                layout["ef"] = plan.tp
         start_step, restored = mgr.restore(_state(params, opt_state, ef,
                                                   pipe), shardings=layout)
         params, opt_state, ef = (restored["params"], restored["opt"],
@@ -258,37 +314,43 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, *,
                              total_steps=loop.steps)
     step_fn = make_step(cfg, ocfg, remat=loop.remat,
                         grad_compression=loop.grad_compression,
-                        options=options, dp=dp)
+                        options=options, plan=plan)
 
     def save(step: int) -> None:
-        """Every rank gathers the moments; the first one writes."""
-        opt = dp.full_moments(opt_state) if dp is not None else opt_state
+        """Every rank gathers the masters' blocks and the moments; the
+        first one writes."""
+        if plan is None:
+            state = _state(params, opt_state, ef, pipe)
+        else:
+            state = _state(plan.whole(params), plan.full_moments(opt_state),
+                           plan.whole(ef) if ef else ef, pipe)
         if lead:
-            mgr.save(step, _state(params, opt, ef, pipe))
+            mgr.save(step, state)
 
     def commit() -> None:
         if lead:
             mgr.wait()
-        if dp is not None:         # no rank reads before the commit
-            dp.sum(torch.zeros((), device=dev))
+        if plan is not None:       # no rank reads before the commit
+            for key in plan.keys + [plan.model_key] * bool(plan.model_key):
+                collectives.all_reduce(torch.zeros((), device=dev), key)
 
     def finish() -> Dict[str, Any]:
         return {"history": history, "params": params, "opt": opt_state,
-                "engine": step_fn.stats.asdict()}
+                "engine": step_fn.stats.asdict(), "plan": plan}
 
     history = []
     t0 = time.perf_counter()
     for i in range(start_step, loop.steps):
         batch = next(pipe)
-        if dp is not None:
-            batch = dp.rows(batch)
+        if plan is not None:
+            batch = plan.rows(batch)
         with _obs_trace.span("train.step", cat="train", step=i):
             params, opt_state, ef, metrics = step_fn(params, opt_state, ef,
                                                      batch)
         if (i + 1) % loop.log_every == 0 or i == loop.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             m["step"] = i + 1
-            if dp is not None:
+            if plan is not None:
                 m["masters_digest"] = masters_digest(params)
             m["wall_s"] = time.perf_counter() - t0
             history.append(m)

@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops
 
 
@@ -94,9 +95,18 @@ def gated_mlp_init(gen: torch.Generator, d: int, d_ff: int,
     }
 
 
-def gated_mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP: three SMA GEMMs, the silu fused as the epilogue of the
-    gate projection (the ``rewrite.py`` epilogue-fusion rule)."""
+def gated_mlp_apply(params: dict, x: torch.Tensor, d_ff: int
+                    ) -> torch.Tensor:
+    """SwiGLU MLP of hidden width ``d_ff``: three SMA GEMMs, the silu fused
+    as the epilogue of the gate projection (the ``rewrite.py``
+    epilogue-fusion rule).  When the weights hold a block of ``d_ff``
+    (tensor parallelism, :mod:`repro_torch.distributed.tensor_parallel`),
+    ``wi`` / ``wg`` are column blocks behind *f* and ``wo`` a row block
+    before *g*."""
+    ax = tp.split_of(params["wo"].shape[-2], d_ff)
+    if ax is not None:
+        x = ax.enter(x)
     h = ops.sma_gemm(x, compute_cast(params["wi"], x.dtype))
     g = ops.sma_gemm(x, compute_cast(params["wg"], x.dtype), epilogue="silu")
-    return ops.sma_gemm(g * h, compute_cast(params["wo"], x.dtype))
+    y = ops.sma_gemm(g * h, compute_cast(params["wo"], x.dtype))
+    return y if ax is None else ax.exit(y)

@@ -18,6 +18,13 @@ contiguous state (KV caches and recurrent states, stacked over groups like
 the parameters); the paged serving steps of the engine are in
 :mod:`repro_torch.serving.model`.
 
+Under tensor parallelism (``train(mesh=)`` with a ``model`` axis,
+:mod:`repro_torch.distributed.tensor_parallel`) the parameters are the
+rank's blocks (:func:`param_groups` names the one grouped split): the
+embedding is vocab-parallel, the head runs on the rank's vocab columns
+with its pad mask by global column, and :func:`loss_fn` is the
+vocab-parallel cross entropy.
+
 Inputs follow ``cfg.input_mode`` (:func:`embed_inputs`): ``tokens``;
 ``embeds`` (the audio stub: ``batch["embeds"]`` (B, S, D) frame
 embeddings, no table); ``tokens+vision`` (the VLM stub:
@@ -35,6 +42,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import ambient, map_specs, use_rules
 from repro_torch.kernels import ops
 from repro_torch.models import attention, moe, recurrent
 from repro_torch.models.layers import (compute_cast, embed_init,
@@ -174,6 +183,19 @@ def param_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
+def param_groups(cfg: ModelConfig) -> dict:
+    """A tree like :func:`init`'s of the parts a leaf's split dim is made
+    of, side by side (:class:`repro_torch.distributed.sharding.
+    LeafSharding` ``groups``): 2 for mLSTM's ``w_up`` (the cell input's
+    columns, then the output gate's), so a rank's block holds its heads'
+    columns of both; 1 for every other leaf."""
+    out = map_specs(lambda spec: 1, param_specs(cfg))
+    for p, btype in enumerate(cfg.block_pattern):
+        if btype == "mlstm":
+            out["blocks"][p]["mixer"]["w_up"] = 2
+    return out
+
+
 def state_specs(cfg: ModelConfig) -> Tuple[Any, ...]:
     """Logical-axis specs matching :func:`init_state`'s structure."""
     specs = []
@@ -221,10 +243,12 @@ def _is_moe(btype: str, cfg: ModelConfig) -> bool:
     return cfg.moe is not None and btype in ("attn", "local")
 
 
-def mlp_residual(bparams: dict, x: torch.Tensor) -> torch.Tensor:
-    """A dense block's second half: x + mlp(norm2 x)."""
+def mlp_residual(bparams: dict, x: torch.Tensor, d_ff: int
+                 ) -> torch.Tensor:
+    """A dense block's second half: x + mlp(norm2 x), of hidden width
+    ``d_ff`` (the config's)."""
     return x + gated_mlp_apply(bparams["ffn"],
-                               rmsnorm_apply(bparams["norm2"], x))
+                               rmsnorm_apply(bparams["norm2"], x), d_ff)
 
 
 def ffn_residual(bparams: dict, btype: str, x: torch.Tensor,
@@ -237,7 +261,7 @@ def ffn_residual(bparams: dict, btype: str, x: torch.Tensor,
     if btype in _MIXER_ONLY:
         return x
     if not _is_moe(btype, cfg):
-        return mlp_residual(bparams, x)
+        return mlp_residual(bparams, x, cfg.d_ff)
     h = rmsnorm_apply(bparams["norm2"], x)
     if aux is None:
         return x + moe.moe_ffn(bparams["ffn"], h, cfg)[0]
@@ -266,8 +290,12 @@ def step_inputs(params: dict, cfg: ModelConfig,
     rows of the table otherwise (what a decode or paged step takes)."""
     if cfg.input_mode == "embeds":
         return batch["embeds"].to(cfg.activation_dtype)
-    return compute_cast(params["embed"]["table"][batch["tokens"].long()],
-                        cfg.activation_dtype)
+    table = params["embed"]["table"]
+    ax = tp.split_of(table.shape[0], padded_vocab(cfg))
+    if ax is not None:                  # vocab-parallel
+        return tp.vocab_embed(ax, table, batch["tokens"],
+                              cfg.activation_dtype)
+    return compute_cast(table[batch["tokens"].long()], cfg.activation_dtype)
 
 
 def embed_inputs(params: dict, cfg: ModelConfig,
@@ -307,11 +335,16 @@ def forward_aux(params: dict, cfg: ModelConfig,
     aux = ({k: torch.zeros((), device=x.device) for k in AUX_KEYS}
            if cfg.moe is not None else {})
 
+    rules = ambient()
+
     def group_body(x: torch.Tensor, aux: Dict[str, torch.Tensor], g: int
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         aux = dict(aux)
-        for p, btype in enumerate(cfg.block_pattern):
-            x = _block(groups[p][g], btype, x, cfg, aux)
+        # A remat recomputation runs on autograd's thread for a CUDA
+        # tensor: the rules (a model axis) the forward ran under go along.
+        with use_rules(*rules):
+            for p, btype in enumerate(cfg.block_pattern):
+                x = _block(groups[p][g], btype, x, cfg, aux)
         return x, aux
 
     for g in range(cfg.num_groups):
@@ -320,18 +353,28 @@ def forward_aux(params: dict, cfg: ModelConfig,
                                 preserve_rng_state=False)
         else:
             x, aux = group_body(x, aux, g)
-    logits = head(params, x)
-    if logits.shape[-1] != cfg.vocab_size:
-        col = torch.arange(logits.shape[-1], device=logits.device)
+    ax = tp.split_of(params["head"]["w"].shape[-1], padded_vocab(cfg))
+    logits = head(params, x, ax)
+    if padded_vocab(cfg) != cfg.vocab_size:
+        n = logits.shape[-1]
+        first = 0 if ax is None else ax.index * n
+        col = torch.arange(first, first + n, device=logits.device)
         logits = logits.masked_fill(col >= cfg.vocab_size, -1e30)
     n_moe = cfg.num_groups * sum(_is_moe(bt, cfg) for bt in cfg.block_pattern)
     return logits, {k: v / float(n_moe) for k, v in aux.items()}
 
 
-def head(params: dict, x: torch.Tensor) -> torch.Tensor:
+def head(params: dict, x: torch.Tensor,
+         ax: Optional[tp.ModelAxis] = None) -> torch.Tensor:
     """final_norm -> head as one fused ``rmsnorm_gemm`` (the JAX compiler's
-    prologue-fusion rule: the only norm -> dot chain with one consumer)."""
-    return ops.rmsnorm_gemm(x, params["final_norm"]["scale"],
+    prologue-fusion rule: the only norm -> dot chain with one consumer).
+    With ``ax`` (tensor parallelism) ``head.w`` is this rank's vocab
+    columns: x and the fused norm scale pass *f*, since each rank's
+    gradient of them is partial."""
+    scale = params["final_norm"]["scale"]
+    if ax is not None:
+        x, scale = ax.enter(x), ax.enter(scale)
+    return ops.rmsnorm_gemm(x, scale,
                             compute_cast(params["head"]["w"], x.dtype))
 
 
@@ -344,7 +387,10 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     With ``cfg.logits_softcap`` = c the logits are first capped as
     ``tanh(l / c) * c``.  An MoE model adds its load-balance and z losses.
     Returns (loss, {"ce_loss", the auxiliary values, "loss",
-    "accuracy"}), as ``repro``'s ``loss_fn``.
+    "accuracy"}), as ``repro``'s ``loss_fn``.  Under tensor parallelism
+    the logits are the rank's vocab columns and the cross entropy and the
+    accuracy are :func:`repro_torch.distributed.tensor_parallel.
+    vocab_cross_entropy`'s (the loss the same on every rank of the line).
 
     Data parallelism (``train(mesh=)``): ``batch`` is this rank's rows of
     the global batch and ``dp_sum`` sums a tensor over the ``dp_ranks``
@@ -362,9 +408,13 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     labels = batch["labels"].long()
     valid = labels >= 0
     safe = torch.where(valid, labels, 0)
-    lse = torch.logsumexp(logits32, dim=-1)
-    label_logit = logits32.gather(-1, safe[..., None])[..., 0]
-    ce = torch.where(valid, lse - label_logit, 0.0)
+    ax = tp.split_of(params["head"]["w"].shape[-1], padded_vocab(cfg))
+    if ax is None:
+        lse = torch.logsumexp(logits32, dim=-1)
+        label_logit = logits32.gather(-1, safe[..., None])[..., 0]
+        ce = torch.where(valid, lse - label_logit, 0.0)
+    else:
+        ce, tp_hit = tp.vocab_cross_entropy(ax, logits32, labels)
     count = valid.float().sum()
     if dp_sum is not None:
         count = dp_sum(count)
@@ -375,7 +425,8 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     if cfg.moe is not None:
         total = total + aux["moe_lb_loss"] + aux["moe_z_loss"]
     with torch.no_grad():
-        hit = (logits32.argmax(-1) == safe) & valid
+        hit = ((logits32.argmax(-1) == safe) & valid if ax is None
+               else tp_hit)
         hits = hit.float().sum()
         metrics = {"ce_loss": loss.detach(),
                    **{k: v.detach() for k, v in aux.items()},

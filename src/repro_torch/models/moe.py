@@ -34,6 +34,17 @@ Three points where PyTorch differs from JAX:
 
 The router product (…, d) @ (d, E) is an :func:`repro_torch.kernels.ops.
 sma_gemm` site, in the direct step as in a compiled one.
+
+Expert parallelism (tensor parallelism by the rules, ``expert -> model``;
+:mod:`repro_torch.distributed.tensor_parallel`): each rank holds E/m
+experts of ``wi`` / ``wg`` / ``wo`` and computes only their slots.  The
+router is whole on every rank, so every rank routes all of its rows the
+same way, and the auxiliary losses, read from the whole routing, have the
+same gradient on every rank.  The gate-weighted combine over the local
+experts is a partial sum, completed by *g*.  The tokens the experts read
+pass *f*, and so do the gate values the combine reads: each rank's
+gradient of them covers only its experts, so it is summed over the line
+before it meets the router's (whole) gradient from the auxiliary losses.
 """
 from __future__ import annotations
 
@@ -43,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops
 from repro_torch.models.layers import compute_cast, variance_scaling_init
 
@@ -96,12 +108,16 @@ class Routing(NamedTuple):
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, Routing]:
-    """x (B, S, D) -> (y (B, S, D) in x's dtype, the routing)."""
+    """x (B, S, D) -> (y (B, S, D) in x's dtype, the routing); on the
+    rank's experts under expert parallelism (module docstring)."""
     moe = cfg.moe
     b, s, d = x.shape
     e, k = moe.num_experts, moe.top_k
     cap = capacity(s, moe)
     dev = x.device
+    el = params["wi"].shape[0]                  # the experts held here
+    ax = tp.split_of(el, e)
+    e0 = 0 if ax is None else ax.index * el
 
     # ---- SIMD mode: routing ------------------------------------------------
     logits32 = ops.sma_gemm(x, compute_cast(params["router"],
@@ -125,12 +141,15 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig
                           tok.expand(b, -1)).reshape(b, e, cap + 1)
     # Rows of x_pad below, expert-major (E, B, C): a contiguous index, so
     # the gather's output is contiguous in a compiled step as it is here.
+    if ax is not None:
+        table = table[:, e0:e0 + el]
     rows = (table[:, :, :cap] + (s + 1) * torch.arange(
         b, device=dev)[:, None, None]).transpose(0, 1).contiguous()
 
     # ---- gather + systolic mode: the expert FFNs, bmm over E ---------------
-    x_pad = torch.cat([x, x.new_zeros(b, 1, d)], 1).reshape(-1, d)
-    xe = x_pad[rows].reshape(e, b * cap, d)                   # (E, B·C, D)
+    xin = x if ax is None else ax.enter(x)
+    x_pad = torch.cat([xin, xin.new_zeros(b, 1, d)], 1).reshape(-1, d)
+    xe = x_pad[rows].reshape(el, b * cap, d)                  # (E, B·C, D)
     h = torch.bmm(xe, compute_cast(params["wi"], x.dtype))
     g = torch.bmm(xe, compute_cast(params["wg"], x.dtype))
     ye = torch.bmm(F.silu(g) * h, compute_cast(params["wo"], x.dtype))
@@ -138,6 +157,10 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig
     # ---- SIMD mode: the gate-weighted combine, in ascending expert order ---
     e_sorted, order = torch.sort(expert, dim=-1)
     kept = torch.gather(keep, -1, order)
+    if ax is not None:
+        kept = kept & (e_sorted >= e0) & (e_sorted < e0 + el)
+        gate = ax.enter(gate)
+        e_sorted = (e_sorted - e0).clamp(0, el - 1)
     slot = (e_sorted * (b * cap)
             + cap * torch.arange(b, device=dev)[:, None, None]
             + torch.gather(pos, -1, order).clamp(0, cap - 1))
@@ -147,6 +170,8 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig
     y = torch.zeros(b, s, d, dtype=torch.float32, device=dev)
     for j in range(k):
         y = y + part[:, :, j]
+    if ax is not None:
+        y = ax.exit(y)
     return y.to(x.dtype), Routing(logits32, probs, onehot, keep)
 
 

@@ -17,6 +17,27 @@ steps with the recurrent product ``r_gates`` in float32, as the reference's
 ``lax.scan`` (no kernel).  A decode step runs each block's one-step
 recurrence as plain float32 tensor ops, as the JAX package does.  The lru
 width is d_model (recurrentgemma-2b).
+
+Tensor parallelism (the training forward under ``train(mesh=)`` with a
+``model`` axis; :mod:`repro_torch.distributed.tensor_parallel`):
+
+* RG-LRU: ``w_in`` / ``w_gate`` are column blocks of the rank's channels
+  behind *f*; the conv, ``lambda_raw`` and the scan (kernel and backward)
+  run on those channels; ``w_a`` / ``w_x`` are column blocks whose rows
+  are whole, so they read the conv output gathered whole (the reference's
+  ``xc``, sharded by ``mlp``); ``w_out`` is a row block before *g*.
+* mLSTM: ``w_up`` is grouped (the rank's columns of the cell input and of
+  the output gate, whole heads of each), ``w_q`` / ``w_k`` / ``w_v``
+  column blocks by heads reading the gathered conv output and cell input,
+  the chunkwise kernel on the local heads, ``gn_scale`` a block, ``w_down``
+  a row block before *g*.  ``w_if`` / ``b_if`` are whole: every rank
+  computes every head's gates and keeps its own, their gradient summed
+  over the line (*f* on the weights).
+* sLSTM: ``w_gates``' columns are head-major, so its column block is whole
+  heads; ``r_gates`` is a block by heads and the step loop runs on the
+  local heads; ``gn_scale`` is whole and each rank reads its heads' slice
+  (behind *f*); the post-FF reads the hidden states gathered whole, ``w_ff1``
+  a column block, ``w_ff2`` a row block before *g*.
 """
 from __future__ import annotations
 
@@ -29,6 +50,7 @@ import torch.nn.functional as F
 
 from repro_torch.compiler import loop
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops
 from repro_torch.models.layers import compute_cast, variance_scaling_init
 
@@ -80,15 +102,18 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b.to(x.dtype)
 
 
-def rglru_gates(params: dict, xc: torch.Tensor
+def rglru_gates(params: dict, xc: torch.Tensor,
+                xc_whole: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-step decay a_t and gated input u_t from the conv output, both in
     xc's dtype: ``log a = -8 softplus(lambda) r`` in f32, ``u = sqrt(max(1
-    - a^2, 1e-12)) (i * xc)``."""
+    - a^2, 1e-12)) (i * xc)``.  ``xc_whole``: the products' input, every
+    channel, where ``xc`` is this rank's (tensor parallelism)."""
     dtype = xc.dtype
-    r = torch.sigmoid(ops.sma_gemm(xc, compute_cast(params["w_a"], dtype),
+    xin = xc if xc_whole is None else xc_whole
+    r = torch.sigmoid(ops.sma_gemm(xin, compute_cast(params["w_a"], dtype),
                                    bias=params["b_a"].to(dtype)))
-    i = torch.sigmoid(ops.sma_gemm(xc, compute_cast(params["w_x"], dtype),
+    i = torch.sigmoid(ops.sma_gemm(xin, compute_cast(params["w_x"], dtype),
                                    bias=params["b_x"].to(dtype)))
     log_lam = -8.0 * F.softplus(params["lambda_raw"].float())
     log_a = log_lam * r.float() * (_RGLRU_C / 8.0)
@@ -107,23 +132,28 @@ def _in_proj(params: dict, x: torch.Tensor
     return xr, gate
 
 
-def rglru_block_scan(params: dict, x: torch.Tensor
+def rglru_block_scan(params: dict, x: torch.Tensor, cfg: ModelConfig
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The block over a whole sequence.  x (B, S, D) -> (y (B, S, D), the
     scan's h_last (B, lru) in x's dtype, the recurrence input xr (B, S,
-    lru)).  :func:`rglru_block_prefill` keeps the last two for decode."""
+    lru)).  :func:`rglru_block_prefill` keeps the last two for decode.
+    Under tensor parallelism the weights hold a block of the lru width
+    (module docstring); h_last and xr are then the rank's channels."""
+    ax = tp.split_of(params["w_out"].shape[-2], cfg.d_model)
+    if ax is not None:
+        x = ax.enter(x)
     xr, gate = _in_proj(params, x)
     xc = causal_conv1d(xr, params["conv_w"], params["conv_b"])
-    a, u = rglru_gates(params, xc)
+    a, u = rglru_gates(params, xc, None if ax is None else ax.gather(xc))
     h_seq, h_last = ops.rglru_scan(a, u, None)
     y = ops.sma_gemm(h_seq * gate, compute_cast(params["w_out"], x.dtype))
-    return y, h_last, xr
+    return y if ax is None else ax.exit(y), h_last, xr
 
 
 def rglru_block_apply(params: dict, x: torch.Tensor,
                       cfg: ModelConfig) -> torch.Tensor:
     """Training / prefill forward.  x (B, S, D) -> (B, S, D)."""
-    return rglru_block_scan(params, x)[0]
+    return rglru_block_scan(params, x, cfg)[0]
 
 
 def rglru_block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig
@@ -131,7 +161,7 @@ def rglru_block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig
     """The block over a prompt, with its decode state: the scan's h_last
     (rounded to the activation dtype by the kernel, held in float32) and
     the last 3 recurrence inputs."""
-    y, h_last, xr = rglru_block_scan(params, x)
+    y, h_last, xr = rglru_block_scan(params, x, cfg)
     return y, {"h": h_last.float(),
                "conv_tail": xr[:, -(CONV_WIDTH - 1):]
                .to(cfg.activation_dtype).contiguous()}
@@ -211,35 +241,62 @@ def _headwise_rms(x: torch.Tensor, scale: torch.Tensor,
     return (xh.reshape(*lead, inner) * scale.float()).to(x.dtype)
 
 
+def _mlstm_split(params: dict, cfg: ModelConfig
+                 ) -> Optional[tp.ModelAxis]:
+    """The model axis when this rank holds a block of the mLSTM's heads
+    (module docstring), else None."""
+    return tp.split_of(params["w_down"].shape[-2], _mlstm_dims(cfg)[0])
+
+
 def _mlstm_qkv_gates(params: dict, x: torch.Tensor, cfg: ModelConfig,
                      conv_tail: Optional[torch.Tensor] = None,
                      norm_scale: Optional[torch.Tensor] = None):
     """q, k, v (B, S, inner) in x's dtype, log_i and log_f (B, S, H) in
     float32, the output gate's input z and the conv's input x_m.  With
     ``norm_scale``, x is the block's input before its norm1 and the up
-    projection is ``rmsnorm_gemm(x, norm_scale, w_up)``."""
-    dtype, h = x.dtype, cfg.num_heads
-    inner, _ = _mlstm_dims(cfg)
+    projection is ``rmsnorm_gemm(x, norm_scale, w_up)``.  Under tensor
+    parallelism, each of them is the rank's heads' (module docstring)."""
+    dtype = x.dtype
+    ax = _mlstm_split(params, cfg)
+    inner = params["w_down"].shape[-2]          # the heads held here
+    h = cfg.num_heads if ax is None else cfg.num_heads // ax.size
+    if ax is not None:
+        x = ax.enter(x)
     w_up = compute_cast(params["w_up"], dtype)
     up = (ops.sma_gemm(x, w_up) if norm_scale is None
           else ops.rmsnorm_gemm(x, norm_scale, w_up))
     x_m, z = up[..., :inner], up[..., inner:]
     xc = F.silu(causal_conv1d(x_m, params["conv_w"], params["conv_b"],
                               tail=conv_tail))
-    q = ops.sma_gemm(xc, compute_cast(params["w_q"], dtype))
-    k = ops.sma_gemm(xc, compute_cast(params["w_k"], dtype))
-    v = ops.sma_gemm(x_m, compute_cast(params["w_v"], dtype))
-    if_gates = (ops.sma_gemm(xc, compute_cast(params["w_if"], dtype)).float()
-                + params["b_if"].float())
-    log_i, log_f = if_gates[..., :h], F.logsigmoid(if_gates[..., h:])
+    xc_in, xm_in = ((xc, x_m) if ax is None
+                    else (ax.gather(xc), ax.gather(x_m.contiguous())))
+    q = ops.sma_gemm(xc_in, compute_cast(params["w_q"], dtype))
+    k = ops.sma_gemm(xc_in, compute_cast(params["w_k"], dtype))
+    v = ops.sma_gemm(xm_in, compute_cast(params["w_v"], dtype))
+    w_if, b_if = params["w_if"], params["b_if"]
+    if ax is not None:
+        w_if, b_if = ax.enter(w_if), ax.enter(b_if)
+    if_gates = (ops.sma_gemm(xc_in, compute_cast(w_if, dtype)).float()
+                + b_if.float())
+    if ax is None:
+        log_i, log_f = if_gates[..., :h], F.logsigmoid(if_gates[..., h:])
+    else:                       # every head's gates; this rank's heads
+        heads = ax.block(h)
+        whole = cfg.num_heads
+        log_i = if_gates[..., :whole][..., heads]
+        log_f = F.logsigmoid(if_gates[..., whole:][..., heads])
     return q, k, v, log_i, log_f, z, x_m
 
 
 def _mlstm_out(params: dict, out: torch.Tensor, z: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
-    """Headwise norm, the silu(z) output gate, then ``w_down``."""
-    out = _headwise_rms(out, params["gn_scale"], cfg.num_heads) * F.silu(z)
-    return ops.sma_gemm(out, compute_cast(params["w_down"], out.dtype))
+    """Headwise norm, the silu(z) output gate, then ``w_down`` (a row
+    block before *g* under tensor parallelism)."""
+    ax = _mlstm_split(params, cfg)
+    h = cfg.num_heads if ax is None else cfg.num_heads // ax.size
+    out = _headwise_rms(out, params["gn_scale"], h) * F.silu(z)
+    y = ops.sma_gemm(out, compute_cast(params["w_down"], out.dtype))
+    return y if ax is None else ax.exit(y)
 
 
 def _mlstm_sequence(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -247,8 +304,9 @@ def _mlstm_sequence(params: dict, x: torch.Tensor, cfg: ModelConfig,
     """The block over a whole sequence through the chunkwise kernel.
     Returns y (B, S, D), and with ``return_state`` also the decode state."""
     b, s, _ = x.shape
-    inner, dh = _mlstm_dims(cfg)
-    h = cfg.num_heads
+    _, dh = _mlstm_dims(cfg)
+    inner = params["w_down"].shape[-2]          # the heads held here
+    h = inner // dh
     q, k, v, log_i, log_f, z, x_m = _mlstm_qkv_gates(params, x, cfg)
 
     def heads(t: torch.Tensor) -> torch.Tensor:
@@ -385,14 +443,24 @@ def _slstm_step(r_gates: torch.Tensor, wx_t: torch.Tensor, state: dict,
     return {"c": c, "n": n, "m": m_new, "h": h_new}
 
 
-def _slstm_out(params: dict, hs: torch.Tensor, h_heads: int
-               ) -> torch.Tensor:
+def _slstm_out(params: dict, hs: torch.Tensor, h_heads: int,
+               ax: Optional[tp.ModelAxis] = None) -> torch.Tensor:
     """Headwise norm of the hidden states (B, S, D), then the post-FF:
-    ``gelu(hs @ w_ff1) @ w_ff2``."""
-    hs = _headwise_rms(hs, params["gn_scale"], h_heads)
+    ``gelu(hs @ w_ff1) @ w_ff2``.  With ``ax`` (tensor parallelism) hs
+    holds this rank's ``h_heads`` heads: they read their slice of the whole
+    ``gn_scale`` behind *f*, the normed states are gathered whole for
+    ``w_ff1`` (a column block), and ``w_ff2`` is a row block before
+    *g*."""
+    scale = params["gn_scale"]
+    if ax is not None:
+        scale = ax.enter(scale)[ax.block(hs.shape[-1])]
+    hs = _headwise_rms(hs, scale, h_heads)
+    if ax is not None:
+        hs = ax.gather(hs)
     ff = ops.sma_gemm(hs, compute_cast(params["w_ff1"], hs.dtype),
                       epilogue="gelu")
-    return ops.sma_gemm(ff, compute_cast(params["w_ff2"], hs.dtype))
+    y = ops.sma_gemm(ff, compute_cast(params["w_ff2"], hs.dtype))
+    return y if ax is None else ax.exit(y)
 
 
 def _slstm_body(h_heads: int, state: dict, wx_t: torch.Tensor,
@@ -410,13 +478,17 @@ def slstm_block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig
     (and one reverse loop node in its backward).  x (B, S, D) -> (y (B, S,
     D), the final state)."""
     b, s, d = x.shape
+    heads = params["r_gates"].shape[-3]          # the heads held here
+    ax = tp.split_of(heads, cfg.num_heads)
+    if ax is not None:
+        x = ax.enter(x)
     wx = _slstm_gates(params, x).float()   # read in f32 by every step
-    state = slstm_block_init_state(cfg, b, x.dtype, x.device)
-    state, hs = loop.scan(functools.partial(_slstm_body, cfg.num_heads),
+    state = slstm_block_init_state(cfg, b, x.dtype, x.device, heads)
+    state, hs = loop.scan(functools.partial(_slstm_body, heads),
                           state, wx.transpose(0, 1),
                           params["r_gates"].float(), name="slstm_step")
-    hs = hs.transpose(0, 1).reshape(b, s, d).to(x.dtype)
-    return _slstm_out(params, hs, cfg.num_heads), state
+    hs = hs.transpose(0, 1).reshape(b, s, -1).to(x.dtype)
+    return _slstm_out(params, hs, heads, ax), state
 
 
 def slstm_block_apply(params: dict, x: torch.Tensor,
@@ -426,11 +498,12 @@ def slstm_block_apply(params: dict, x: torch.Tensor,
 
 
 def slstm_block_init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
-                           device: torch.device) -> dict:
+                           device: torch.device,
+                           heads: Optional[int] = None) -> dict:
     """c, n, m, h (B, H, dh), all float32 whatever ``dtype``: zeros, with
-    n at 1e-6."""
-    h = cfg.num_heads
-    z = torch.zeros((batch, h, cfg.d_model // h), dtype=torch.float32,
+    n at 1e-6 (``heads``: the rank's H under tensor parallelism)."""
+    dh = cfg.d_model // cfg.num_heads
+    z = torch.zeros((batch, heads or cfg.num_heads, dh), dtype=torch.float32,
                     device=device)
     return {"c": z, "n": z + 1e-6, "m": z.clone(), "h": z.clone()}
 

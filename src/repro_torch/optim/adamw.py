@@ -16,6 +16,13 @@ parameters) :func:`init` makes each moment this rank's block of it, and
 full (all-reduced) gradient, then ``gather`` (an all-gather over the
 split's axes) puts the whole master back on every rank.  The update is
 elementwise, so a split changes no bit of it.
+
+Tensor parallelism: the masters are each rank's ``model`` blocks (the
+moments a block of that block where ZeRO-1 splits it further over
+``data``), and the gradient norm is taken over the whole model:
+``model_sum`` sums the squares of the split leaves' blocks over the
+``model`` line, and each replicated leaf counts once, so every rank clips
+by the same scale.
 """
 from __future__ import annotations
 
@@ -75,19 +82,35 @@ def init(params, shardings=None) -> Dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum() for g in leaves(tree)))
+def global_norm(tree, split=None,
+                model_sum: Optional[Callable] = None) -> torch.Tensor:
+    """The 2-norm of every leaf together.  With ``split`` (one flag a
+    leaf: a block of a leaf split over the model line) and ``model_sum``
+    (a sum over that line), the blocks' squares are summed over the line
+    and each whole leaf's counted once."""
+    if model_sum is None:
+        return torch.sqrt(sum(g.float().square().sum()
+                              for g in leaves(tree)))
+    squares = [g.float().square().sum() for g in leaves(tree)]
+    blocks = sum((q for q, sp in zip(squares, split) if sp),
+                 torch.zeros((), device=squares[0].device))
+    whole = sum((q for q, sp in zip(squares, split) if not sp),
+                torch.zeros((), device=squares[0].device))
+    return torch.sqrt(model_sum(blocks) + whole)
 
 
 @torch.no_grad()
 def update(grads, state: Dict, params, cfg: AdamWConfig, *,
-           shardings=None, gather: Optional[Callable] = None
+           shardings=None, gather: Optional[Callable] = None,
+           split=None, model_sum: Optional[Callable] = None
            ) -> Tuple[object, Dict, Dict[str, torch.Tensor]]:
     """One AdamW step, in place.  Returns (params, state, metrics).
     ``shardings`` / ``gather``: ZeRO-1 (module docstring); ``gather(x,
-    sharding)`` returns the whole tensor of every rank's block ``x``."""
+    sharding)`` returns the whole tensor of every rank's block ``x``.
+    ``split`` / ``model_sum``: the gradient norm under tensor parallelism
+    (:func:`global_norm`)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, split, model_sum)
     flat_g = [g.float() for g in leaves(grads)]
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)

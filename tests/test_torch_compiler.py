@@ -412,7 +412,7 @@ def test_card_signature_compiles_shape_only_on_the_host():
 
     def layer_and_head(params, x):
         p = lm.unstack(params["blocks"][0], cfg.num_groups)[0]
-        return lm.head(params, lm.mlp_residual(p, x))
+        return lm.head(params, lm.mlp_residual(p, x, cfg.d_ff))
 
     spec = lambda t: TensorSpec(t.shape, t.dtype, cuda)  # noqa: E731
     cm = sma_jit(layer_and_head).compile(

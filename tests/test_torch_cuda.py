@@ -1664,3 +1664,42 @@ def test_summa_two_ranks_on_one_card(dev, tmp_path):
         assert res["backend"] == "gloo"
         assert res["multiples"] <= 1 and res["equal"], res
         assert res["launches"] == 2, res
+
+
+def test_tensor_parallel_step_two_ranks_on_one_card(dev, tmp_path):
+    """Two ranks on the one card (gloo, staged through host): 2 steps of
+    a small bf16 StableLM through ``train(mesh=)`` on a 1 x 2 mesh
+    against the unmeshed ``train()`` on the card (step 1 from the same
+    masters: loss within 1e-3 relative, grad norm within 1e-2, the
+    partial sums rounded to bf16 in another order; step 2 within 5e-3 /
+    5e-2), the replicated leaves bit for bit on both ranks, every kernel
+    of the path launched; and the vocab-parallel loss and embedding on
+    CUDA tensors against the plain ones."""
+    import sys
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    import torch_dist_workers as workers
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import spawn
+    _build.build()
+    results = spawn(workers.tp_card_case, 2, backend="gloo",
+                    device="cuda:0", timeout=600, workdir=str(tmp_path))
+    for res in results:
+        for step, (got, want) in enumerate(zip(res["meshed"],
+                                               res["unmeshed"])):
+            limit = (1e-3, 1e-2) if step == 0 else (5e-3, 5e-2)
+            for key, lim in zip(("loss", "grad_norm"), limit):
+                assert abs(got[key] - want[key]) <= lim * abs(want[key]), \
+                    (step, key, got, want)
+        assert all(res["launches"][k] for k in (
+            "sma_gemm", "rmsnorm_gemm", "flash_attention",
+            "flash_attention_bwd")), res["launches"]
+        v = res["vocab"]
+        np.testing.assert_allclose(v["ce"], v["want_ce"], rtol=1e-5,
+                                   atol=1e-4)
+        assert np.array_equal(v["hit"], v["want_hit"])
+        np.testing.assert_allclose(v["dlogits"], v["want_dlogits"],
+                                   rtol=1e-5, atol=1e-6)
+        assert np.array_equal(v["rows"], v["want_rows"])
+        assert np.array_equal(v["dtable"], v["want_dtable"])
+    assert results[0]["replicated"] == results[1]["replicated"]
+    assert results[0]["meshed"] == results[1]["meshed"]

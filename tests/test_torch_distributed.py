@@ -10,7 +10,7 @@ it); the JAX side of the pipeline and of ``compressed_psum`` runs in a
 subprocess on fake devices and hands its outputs back as ``.npz``.  The
 trainer: ``train(mesh=)`` of the reduced StableLM on 2 ranks against the
 unmeshed ``train()`` and the JAX loop, and a checkpoint saved on 2 ranks
-resumed on 1 and on 4.
+resumed on 1 and on 4 (tensor parallelism: ``test_torch_tensor_parallel``).
 """
 import dataclasses
 import os
@@ -187,6 +187,51 @@ def test_shardings_of_a_spec_tree():
     assert not sh["b"].splits and not sh["v"].splits   # 5 does not divide
 
 
+def test_grouped_split_and_regroup():
+    """A grouped dim (mLSTM's ``w_up``: the cell input's columns, then the
+    gate's) splits into each part's block side by side, a tensor and a
+    numpy array alike, and ``regroup`` puts the ranks' blocks, concatenated
+    in rank order, back in the whole order; ``lm.param_groups`` groups
+    only ``w_up``."""
+    model2 = [types.SimpleNamespace(shape={"data": 1, "model": 2},
+                                    coords={"data": 0, "model": r},
+                                    axis_names=("data", "model"))
+              for r in range(2)]
+    specs = {"w_up": (None, "model"), "w": (None, "model")}
+    like = {"w_up": torch.zeros(3, 8), "w": torch.zeros(3, 8)}
+    x = torch.arange(24.).view(3, 8)
+    blocks = []
+    for mesh in model2:
+        sh = tsharding.spec_tree_to_shardings(
+            mesh, specs, like=like, groups={"w_up": 2, "w": 1})
+        assert sh["w_up"].groups == ((1, 2),) and sh["w"].groups == ()
+        cols = [c + 2 * mesh.coords["model"] for c in (0, 1, 4, 5)]
+        assert torch.equal(sh["w_up"].local(x), x[:, cols])
+        assert np.array_equal(sh["w_up"].local(x.numpy()), x[:, cols].numpy())
+        assert torch.equal(sh["w"].local(x),
+                           x[:, 4 * mesh.coords["model"]:][:, :4])
+        blocks.append(sh["w_up"].local(x))
+    assert torch.equal(tsharding.regroup(torch.cat(blocks, 1), 1, 2, 2), x)
+    cfg = reduced(get_config("xlstm-1.3b"))
+    groups = [(n, g) for n, g in zip(
+        [p for p, _ in _spec_paths(lm.param_specs(cfg))],
+        leaves(lm.param_groups(cfg))) if g != 1]
+    assert groups and all(n.endswith("w_up") and g == 2 for n, g in groups)
+    assert all(g == 1 for g in leaves(lm.param_groups(reduced(get_config(
+        "stablelm-1.6b")))))
+
+
+def _spec_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _spec_paths(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, tuple) and tree and isinstance(tree[0], dict):
+        for i, v in enumerate(tree):
+            yield from _spec_paths(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
 # ------------------------------------------------------------------ errors
 def test_meshes_refuse_a_wrong_world():
     with pytest.raises(ValueError, match="needs 256 ranks"):
@@ -204,16 +249,6 @@ def test_meshes_refuse_a_wrong_world():
     assert tmesh.fake_mesh(1) == tmesh.fake_mesh(1)
     assert hash(tmesh.fake_mesh(1)) == hash(tmesh.fake_mesh(1))
     assert tmesh.fake_mesh(1) != tmesh.fake_mesh(1, axes=("x", "y"))
-
-
-def test_train_refuses_a_model_axis():
-    cfg = reduced(get_config(ARCH))
-    mesh = types.SimpleNamespace(shape={"data": 1, "model": 2},
-                                 axis_names=("data", "model"))
-    with pytest.raises(NotImplementedError,
-                       match="tensor parallelism by the rules"):
-        train(cfg, TrainLoopConfig(steps=1, seq_len=8, global_batch=2),
-              device="cpu", mesh=mesh)
 
 
 # ---------------------------------------------------- multi-rank, vs JAX

@@ -58,6 +58,7 @@ MODULES = (
     "repro_torch.distributed", "repro_torch.distributed.collectives",
     "repro_torch.distributed.sharding", "repro_torch.distributed.summa",
     "repro_torch.distributed.pipeline",
+    "repro_torch.distributed.tensor_parallel",
 )
 
 

@@ -27,7 +27,7 @@ def _t(x: np.ndarray) -> torch.Tensor:
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
-    return x.detach().float().numpy()
+    return x.detach().float().cpu().numpy()
 
 
 # --------------------------------------------------------------------------
@@ -297,3 +297,313 @@ def staged_case(rank: int, world: int) -> dict:
             "routes": dict(collectives.ROUTES),
             "staged_bytes": dict(collectives.STAGED_BYTES),
             "routed": dict(ops.ROUTED)}
+
+
+# --------------------------------------------------------------------------
+# Tensor parallelism (test_torch_tensor_parallel.py)
+# --------------------------------------------------------------------------
+#: arch -> the fields its reduced config replaces (the family test's short
+#: patterns that keep every block type; 6 query heads on one KV head for
+#: the whole-attention route).
+TP_FAMILIES = {"stablelm-1.6b": {}, "mistral-nemo-12b": {},
+               "qwen3-moe-30b-a3b": {},
+               "recurrentgemma-2b": dict(block_pattern=("rglru", "rglru",
+                                                        "local"),
+                                         num_groups=1),
+               "xlstm-1.3b": dict(block_pattern=("mlstm", "slstm"),
+                                  num_groups=1),
+               "musicgen-large": {}, "internvl2-2b": {}}
+TP_HEADS = dict(num_heads=6, num_kv_heads=1)
+
+
+def tp_config(arch: str, extra=None):
+    """The reduced config of ``arch`` with :data:`TP_FAMILIES`' fields
+    (and ``extra``)."""
+    import dataclasses
+    from repro_torch.configs.base import get_config, reduced
+    return dataclasses.replace(reduced(get_config(arch)),
+                               **TP_FAMILIES.get(arch, {}), **(extra or {}))
+
+
+def tp_loop(steps: int = 3, ckdir: str = None, halt: int = None):
+    from repro_torch.launch.train import TrainLoopConfig
+    return TrainLoopConfig(steps=steps, seq_len=32, global_batch=2,
+                           log_every=1, seed=0, peak_lr=3e-3, remat=True,
+                           checkpoint_dir=ckdir, halt_at_step=halt,
+                           checkpoint_every=1000)
+
+
+def tp_params(cfg, inputs: str):
+    """The whole f32 masters of ``cfg`` from ``inputs`` (``p{i}``, the
+    port's leaves of the JAX package's init)."""
+    from repro_torch.models import lm
+    from repro_torch.tree import unflatten
+    data = _load(inputs)
+    like = lm.init(cfg, seed=0, device="cpu", dtype=cfg.parameter_dtype)
+    return unflatten(like, [_t(data[f"p{i}"].copy())
+                            for i in range(len(leaves(like)))])
+
+
+def tp_train(cfg, inputs: str, sizes, loop) -> dict:
+    """``train(mesh=)`` of ``cfg`` on a ``sizes`` ``(data, model)`` mesh:
+    history, the gathered masters, which leaves are split over ``model``
+    (each rank's masters and moments their blocks), the replicated
+    leaves' digests by step, the dispatched step's collectives in order,
+    the report's ``comm`` collectives against ``collectives.BYTES`` a
+    step, and the whole-attention route's count."""
+    import repro_torch
+    from repro_torch.compiler import dispatch as cdispatch
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.collectives import IMPLS
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import masters_digest, train
+    from repro_torch.distributed.tensor_parallel import \
+        WHOLE_ATTENTION_REASON
+    params = tp_params(cfg, inputs)
+    whole_shapes = [tuple(p.shape) for p in leaves(params)]
+    mesh = Mesh(sizes, ("data", "model"))
+    built = []
+    orig = cdispatch.compile_with_options
+
+    def spy(*args, **kwargs):
+        built.append(orig(*args, **kwargs))
+        return built[-1]
+
+    cdispatch.compile_with_options = spy
+    ops.reset_counts()
+    collectives.reset_counts()
+    try:
+        with repro_torch.profile() as prof:
+            result = train(cfg, loop, device="cpu", params=params,
+                           mesh=mesh)
+    finally:
+        cdispatch.compile_with_options = orig
+    nbytes = dict(collectives.BYTES)
+    spans = {}
+    for e in prof.events:
+        if e.get("cat") == "comm":
+            spans[e["name"]] = spans.get(e["name"], 0) + e["args"]["bytes"]
+    routed = ops.ROUTED.get(WHOLE_ATTENTION_REASON, 0)
+    plan = result["plan"]
+    split = [bool(sh.splits) for sh in leaves(plan.tp)]
+    impls = set(IMPLS.values())
+    order = [[(n.target.__name__, tuple(n.args[1:]))
+              for n in cm.module.graph.nodes
+              if n.op == "call_function" and n.target in impls]
+             for cm in built]
+    comm = [cm.report["comm"]["collectives"] for cm in built]
+    local = [tuple(p.shape) for p in leaves(result["params"])]
+    moments = [tuple(m.shape) for m in leaves(result["opt"]["m"])]
+    whole = plan.whole(result["params"])
+    return {"history": [{k: v for k, v in h.items() if k != "wall_s"}
+                        for h in result["history"]],
+            "params": [_np(p) for p in leaves(whole)],
+            "split": split, "local_shapes": local, "whole_shapes":
+            whole_shapes, "moment_shapes": moments,
+            "moment_want": [sh.local_shape(s) for sh, s in zip(
+                leaves(plan.shardings), local)],
+            "replicated_digest": [
+                [d for d, sp in zip(h["masters_digest"], split) if not sp]
+                for h in result["history"]],
+            "collectives": order, "comm": comm, "bytes": nbytes,
+            "span_bytes": spans, "routed": routed,
+            "engine": result["engine"], "coords": dict(mesh.coords)}
+
+
+def tp_traced_spans(rank: int, world: int, arch: str, inputs: str) -> dict:
+    """The traced step's collective nodes by (op, span) on a 1 x ``world``
+    mesh (the joint graph: forward, remat recomputation and backward)."""
+    import collections
+    from repro_torch.compiler import dispatch as cdispatch
+    from repro_torch.distributed.collectives import COLLECTIVE_OPS
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import train
+    cfg = tp_config(arch)
+    built = []
+    orig = cdispatch.compile_with_options
+
+    def spy(*args, **kwargs):
+        built.append(orig(*args, **kwargs))
+        return built[-1]
+
+    cdispatch.compile_with_options = spy
+    try:
+        train(cfg, tp_loop(1), device="cpu", params=tp_params(cfg, inputs),
+              mesh=Mesh((1, world), ("data", "model")))
+    finally:
+        cdispatch.compile_with_options = orig
+    names = {op: name for name, op in COLLECTIVE_OPS.items()}
+    return dict(collections.Counter(
+        (names[n.target], n.args[-1]) for n in built[0].traced.graph.nodes
+        if n.op == "call_function" and n.target in names))
+
+
+def vocab_case(rank: int, world: int, device: str = "cpu") -> dict:
+    """The vocab-parallel cross entropy and embedding on a 1 x ``world``
+    mesh against the plain ones, values and gradients: logits of a padded
+    vocab (200 of 256 columns, the pad at -1e30, a tie for the argmax),
+    labels with -1 among them; a table of 256 rows.  On ``device``."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.launch.mesh import Mesh
+    gen = torch.Generator().manual_seed(0)
+    v, vocab = 256, 200
+    logits = torch.randn(2, 8, v, generator=gen)
+    logits[..., vocab:] = -1e30
+    logits[0, 0, 3] = logits[0, 0, 130] = 50.0        # a tie across blocks
+    labels = torch.randint(0, vocab, (2, 8), generator=gen)
+    labels[0, 0] = 130
+    labels[1, ::3] = -1
+    table = torch.randn(v, 16, generator=gen)
+    tokens = torch.randint(0, v, (2, 8), generator=gen)
+    logits, labels, table, tokens = (t.to(device) for t in (
+        logits, labels, table, tokens))
+    weights = torch.arange(16.0, device=device)
+
+    valid = labels >= 0
+    want_l = logits.clone().requires_grad_()
+    lse = torch.logsumexp(want_l, -1)
+    picked = want_l.gather(-1, torch.where(valid, labels, 0)[..., None])[..., 0]
+    want_ce = torch.where(valid, lse - picked, 0.0)
+    want_ce.sum().backward()
+    want_hit = (logits.argmax(-1) == labels) & valid
+    want_t = table.clone().requires_grad_()
+    rows = want_t[tokens]
+    (rows * weights).sum().backward()
+
+    mesh = Mesh((1, world), ("data", "model"))
+    with use_rules(None, mesh.axis_names, mesh=mesh):
+        ax = tp.model_axis()
+        n = v // world
+        block = logits[..., ax.block(n)].clone().requires_grad_()
+        ce, hit = tp.vocab_cross_entropy(ax, block, labels)
+        ce.sum().backward()
+        tblock = table[ax.block(n)].clone().requires_grad_()
+        got_rows = tp.vocab_embed(ax, tblock, tokens, torch.float32)
+        (got_rows * weights).sum().backward()
+    return {"ce": _np(ce), "want_ce": _np(want_ce),
+            "hit": hit.cpu().numpy(), "want_hit": want_hit.cpu().numpy(),
+            "dlogits": _np(block.grad),
+            "want_dlogits": _np(want_l.grad[..., ax.block(n)]),
+            "rows": _np(got_rows), "want_rows": _np(rows),
+            "dtable": _np(tblock.grad),
+            "want_dtable": _np(want_t.grad[ax.block(n)])}
+
+
+def remat_thread_case(rank: int, world: int, inputs: str) -> dict:
+    """The reduced StableLM's loss under the rules of a 1 x ``world`` mesh
+    (remat on), its gradient taken on this thread and, as autograd runs a
+    CUDA tensor's backward, on another thread that holds no rules: the
+    remat recomputation must run tensor parallel there too."""
+    import threading
+    from repro_torch import convert
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import MeshPlan
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+    cfg = tp_config("stablelm-1.6b")
+    mesh = Mesh((1, world), ("data", "model"))
+    whole = tp_params(cfg, inputs)
+    plan = MeshPlan(cfg, tp_loop(), mesh, whole)
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+    batch = {"tokens": toks, "labels": toks}
+    grads = []
+    for other in (False, True):
+        live = tree_map(lambda p: p.detach().requires_grad_(),
+                        convert.model_blocks(whole, plan.tp))
+        with use_rules(plan.rules, mesh.axis_names, mesh=mesh):
+            loss, _ = lm.loss_fn(live, cfg, batch, remat=True)
+        out = []
+
+        def backward():
+            out.append(torch.autograd.grad(loss, leaves(live)))
+        if other:
+            t = threading.Thread(target=backward)
+            t.start()
+            t.join()
+        else:
+            with use_rules(plan.rules, mesh.axis_names, mesh=mesh):
+                backward()
+        grads.append(out[0] if out else None)
+    return {"same": grads[1] is not None and all(
+        torch.equal(a, b) for a, b in zip(*grads))}
+
+
+def tp_world(rank: int, world: int, inputs: dict, ckdir: str) -> dict:
+    """The 2-rank cases: each family of ``inputs`` (arch -> its masters'
+    ``.npz``) on a 1 x 2 mesh (tensor parallel) and on a 2 x 1 mesh (data
+    parallel), 3 steps; the vocab-parallel loss and embedding alone; the
+    traced StableLM step's collective nodes; StableLM halted at step 2 on
+    1 x 2 into ``ckdir`` (copied to ``ckdir + "_one"`` for a one-rank
+    resume) and resumed on 2 x 1."""
+    import shutil
+    import torch.distributed as dist
+    out = {}
+    for arch, path in inputs.items():
+        cfg = tp_config(arch)
+        out[arch] = {"tp": tp_train(cfg, path, (1, world), tp_loop()),
+                     "dp": tp_train(cfg, path, (world, 1), tp_loop())}
+    out["vocab"] = vocab_case(rank, world)
+    lm_path = inputs["stablelm-1.6b"]
+    out["thread"] = remat_thread_case(rank, world, lm_path)
+    out["traced"] = tp_traced_spans(rank, world, "stablelm-1.6b", lm_path)
+    cfg = tp_config("stablelm-1.6b")
+    out["halted"] = tp_train(cfg, lm_path, (1, world),
+                             tp_loop(ckdir=ckdir, halt=2))
+    if rank == 0:
+        shutil.copytree(ckdir, ckdir + "_one")
+    dist.barrier()
+    out["resumed"] = tp_train(cfg, lm_path, (world, 1), tp_loop(ckdir=ckdir))
+    return out
+
+
+def tp_world4(rank: int, world: int, lm_path: str, heads_path: str) -> dict:
+    """The 4-rank cases: StableLM on a 2 x 2 mesh; the config of 6 query
+    heads on one KV head on a 1 x 4 mesh (attention whole on each
+    rank)."""
+    return {"2x2": tp_train(tp_config("stablelm-1.6b"), lm_path, (2, 2),
+                            tp_loop()),
+            "heads": tp_train(tp_config("stablelm-1.6b", TP_HEADS),
+                              heads_path, (1, 4), tp_loop())}
+
+
+def tp_card_case(rank: int, world: int) -> dict:
+    """Two ranks on one card: 2 steps of a small bf16 StableLM (d_model
+    128, 2 heads of 64, d_ff 256) through ``train(mesh=)`` on a 1 x 2 mesh
+    and, on each rank, unmeshed; the kernels each launched; the
+    vocab-parallel loss and embedding on CUDA tensors."""
+    import dataclasses
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(reduced(get_config("stablelm-1.6b")),
+                              d_model=128, num_heads=2, num_kv_heads=2,
+                              head_dim=64, d_ff=256, dtype="bfloat16")
+    dev = torch.device("cuda", 0)
+    loop = tp_loop(2)
+    params = lm.init(cfg, seed=0, device=dev, dtype=cfg.parameter_dtype)
+    unmeshed = train(cfg, loop, device=dev,
+                     params=_clone(params))
+    ops.reset_counts()
+    meshed = train(cfg, loop, device=dev, params=_clone(params),
+                   mesh=Mesh((1, world), ("data", "model")))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    split = [bool(sh.splits) for sh in leaves(meshed["plan"].tp)]
+    return {"unmeshed": [{k: h[k] for k in ("loss", "grad_norm")}
+                         for h in unmeshed["history"]],
+            "meshed": [{k: h[k] for k in ("loss", "grad_norm")}
+                       for h in meshed["history"]],
+            "replicated": [[d for d, sp in zip(h["masters_digest"], split)
+                            if not sp] for h in meshed["history"]],
+            "launches": launches, "vocab": vocab_case(rank, world, "cuda")}
+
+
+def _clone(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.clone(), tree)
