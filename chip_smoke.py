@@ -224,16 +224,23 @@
    ``torch.equal`` to the layers run unpipelined, a dropped hand-off
    caught; (c) ``train(mesh=smoke_mesh())`` of full-width StableLM at
    ``DIST_TRAIN_LAYERS`` of its 24 layers on 2 ranks (B 2 a rank x S
-   2048, the trainer phase's loop): every step's master digests (in the
-   history) equal across the ranks and the masters ``torch.equal`` at the
-   end, each rank's moments its block, each step's loss and grad norm
-   within ``dist_limits`` of two unmeshed runs at the same depth (one a
-   rank, at once; their spread printed), step time, peak memory and the
-   bytes and milliseconds staged through host; a 2-step run with two
-   planted faults: a wrong block in the ZeRO-1 update, which keeps the
-   replicas equal, read at step 2 against the limits, and rank 1 keeping
-   its local gradient at one all-reduce, caught by the replicas' digests;
-   (d)
+   2048, the trainer phase's loop), FSDP over them (each rank's blocks
+   drawn directly, each group's weights gathered in bf16 inside its
+   body as one bucket, their gradients reduce-scattered): every step's
+   master digests (in the history) equal across the ranks and the
+   replicated masters ``torch.equal`` at the end, the gathered masters
+   within the masters limit of (f) of each rank's unmeshed run, each
+   rank's masters and moments its blocks, each step's loss and grad norm within ``dist_limits`` of two
+   unmeshed runs at the same depth (one a rank, at once; their spread
+   printed), step time, peak memory after initialisation (at most its
+   blocks and one whole leaf, plus 10 %) and in the steps, the
+   collectives' bytes a step by span, and the bytes and milliseconds
+   staged through host; a run as long with two planted faults: every
+   FSDP gather's gradient not summed over data, which keeps the replicas
+   equal, read at every step against the limits (above them at step 2)
+   and by its gathered masters (above the masters limit), and at the
+   last step rank 1 keeping its local gradient at one
+   all-reduce, caught by the replicas' digests; (d)
    ``compressed_psum`` on 4 ranks of (2048, 5632) f32 within one scale
    step a rank of the f32 mean, and a world-1 ``nccl`` group in this
    process running each ``repro_torch::`` collective once; (e)
@@ -258,7 +265,9 @@
    layers), B 2 x S 4096: the RG-LRU scans on 1,280 channels a rank, the
    MQA KV head whole, flash at D 256, against an unmeshed run of its own;
    (i) StableLM at ``TP_MESH_LAYERS`` on a 2 x 2 mesh (4 ranks: data x
-   tensor parallel, ZeRO-1 moments) against two unmeshed runs of its own.
+   tensor parallel, FSDP over data) against two unmeshed runs of its own;
+   every run's memory after initialisation and in the steps, and its
+   collectives' bytes by span.
    Planted faults, each a 2-step run: layer 0's MLP *g* skipped (StableLM,
    1 x 2), and the gate values' gradient (so the router's) not summed over
    ``model`` (Qwen3): each must read above the limits or part the
@@ -3203,15 +3212,44 @@ def check_train_options(cfg, dev):
              f"step 3's loss {last[3]} against {last[0]}")
 
 
+def kernel_times(prof) -> dict:
+    """{name: [device us, launches]} of a finished ``torch.profiler`` trace,
+    summed from the trace's raw device events: kernels, copies and fills,
+    no host op and no ``record_function`` range's device span.  It builds
+    none of ``key_averages``'s per-event Python objects, whose cost grows
+    with the events (xLSTM's train step: most of a minute; PERF.md)."""
+    out = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CPU \
+                or ev.is_user_annotation() \
+                or getattr(ev, "is_hidden_event", lambda: False)():
+            continue
+        row = out.setdefault(ev.name(), [0.0, 0])
+        row[0] += ev.duration_ns() / 1e3
+        row[1] += 1
+    return out
+
+
+def same_as_key_averages(prof) -> None:
+    """Fails unless :func:`kernel_times` of a device-only trace gives the
+    kernels, launches and device time (to 1e-6) that ``key_averages``
+    gives: the check of the reduction on the card's own torch."""
+    want = {ev.key: (ev.self_device_time_total, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.self_device_time_total > 0}
+    got = {k: v for k, v in kernel_times(prof).items() if v[0] > 0}
+    if set(got) != set(want) or any(
+            got[k][1] != n or abs(got[k][0] - us) > 1e-6 * us
+            for k, (us, n) in want.items()):
+        fail(f"kernel_times {got} differs from key_averages {want}")
+
+
 def report_profile(prof, wall: float, steps: int, what: str):
     """Print the device busy share of the window and the kernels by device
     time; returns the busy seconds (None when the trace has none)."""
-    rows = []   # kernels only: host ops also carry their kernels' time
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((dev_us, ev.count, ev.key))
+    rows = [(us, n, key) for key, (us, n) in kernel_times(prof).items()
+            if us > 0]
     if not rows:
         print(f"profile {what}: no device time in the trace (not measured)")
         return None
@@ -3259,8 +3297,7 @@ def counted_run(fn):
 
 
 def library_gemm_kernels(prof) -> list:
-    names = {ev.key for ev in prof.key_averages()
-             if ev.device_type == torch.autograd.DeviceType.CUDA}
+    names = set(kernel_times(prof))
     return sorted(n for n in names
                   if any(w in n.lower() for w in LIBRARY_GEMM_WORDS)
                   and not any(k in n for k in OWN_GEMM_KERNELS))
@@ -5086,13 +5123,9 @@ def profile_groups(prof, steps: int, what: str) -> None:
     """A decode tick's device time by QWEN3_PROFILE_GROUPS (ms a step),
     the rest as elementwise work."""
     sums = collections.Counter()
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for key, (dev_us, _) in kernel_times(prof).items():
         group = next((g for g, words in QWEN3_PROFILE_GROUPS
-                      if any(w in ev.key for w in words)),
+                      if any(w in key for w in words)),
                      "elementwise and other")
         sums[group] += dev_us
     print(f"profile {what} by kind (ms a step): " + ", ".join(
@@ -5225,12 +5258,12 @@ def device_ms_by_kernel(fn, args) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn(*args)
         torch.cuda.synchronize()
+    same_as_key_averages(prof)
     out = {}
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and \
-                ev.self_device_time_total > 0:
-            name = ev.key.split("<")[0].split("(")[0].split("::")[-1]
-            out[name] = out.get(name, 0.0) + ev.self_device_time_total / 1e3
+    for key, (us, _) in kernel_times(prof).items():
+        if us > 0:
+            name = key.split("<")[0].split("(")[0].split("::")[-1]
+            out[name] = out.get(name, 0.0) + us / 1e3
     return dict(sorted(((k, round(v, 4)) for k, v in out.items()),
                        key=lambda kv: -kv[1]))
 
@@ -5427,11 +5460,9 @@ def check_moe_backward(cfg, dev):
         torch.cuda.synchronize()
     names = ["x"] + sorted(params)
     same = {n: torch.equal(a, b) for n, a, b in zip(names, first, second)}
-    kernels = sorted(((ev.self_device_time_total, ev.key)
-                      for ev in prof.key_averages()
-                      if ev.self_device_time_total > 0
-                      and ev.device_type == torch.autograd.DeviceType.CUDA
-                      and any(w in ev.key.lower() for w in (
+    kernels = sorted(((us, key)
+                      for key, (us, _) in kernel_times(prof).items()
+                      if us > 0 and any(w in key.lower() for w in (
                           "index", "scatter", "gather", "sort", "put",
                           "atomic"))), reverse=True)
     print(f"moe backward (qwen3, B {QWEN3_TRAIN_BATCH} x S "
@@ -5717,29 +5748,37 @@ DIST_PSUM_SHAPE = (2048, 5632)
 #: same depth, fits the script's time limit beside full-depth serving.
 DIST_TRAIN_LAYERS = 12
 DIST_FAULT_STEPS = 2
+#: (c)'s planted-fault run, as long as the unmeshed references it is read
+#: against: the FSDP gather whose gradient skips the sum over data, read at
+#: every step; the replicated norm scale's all-reduce skipped on rank 1 at
+#: its last step (after the last reading).
+DIST_FSDP_FAULT_STEPS = TRAIN_STEPS
 #: train(mesh=)'s loss and grad norm against the unmeshed runs' at the
 #: same depth, each relative, by step (step 1, from the same masters:
-#: STEP_LIMITS).  On the H100 (12 layers): at step 2 the unmeshed pair
-#: differ by 1.3e-5 / 1.3e-3 and the meshed run reads 2.3e-5 / 1.7e-3 from
-#: the farther (full depth, earlier: up to 3.5e-5 / 4.7e-3); the planted
-#: wrong block in the ZeRO-1 update, which keeps the replicas equal, reads
-#: 1.04e-3 / 4.7e-2 there.  Later steps follow every earlier update and
-#: spread more (the flash backward at D 64 adds dQ in no fixed order): up
-#: to 2.2e-4 / 1.2e-2 at 12 layers, 4.7e-4 / 3.5e-2 at full depth.
+#: STEP_LIMITS).  On the H100 (12 layers, ZeRO-1 before FSDP): at step 2
+#: the unmeshed pair differ by 1.3e-5 / 1.3e-3 and the meshed run read
+#: 2.3e-5 / 1.7e-3 from the farther (full depth, earlier: up to 3.5e-5 /
+#: 4.7e-3); a planted wrong block in the ZeRO-1 update, which kept the
+#: replicas equal, read 1.04e-3 / 4.7e-2 there.  Later steps follow every
+#: earlier update and spread more (the flash backward at D 64 adds dQ in
+#: no fixed order): up to 2.2e-4 / 1.2e-2 at 12 layers, 4.7e-4 / 3.5e-2 at
+#: full depth.
 DIST_STEP2_LIMITS = {"loss": 3e-4, "grad_norm": 1.5e-2}
 DIST_TRAIN_LIMITS = {"loss": 2e-3, "grad_norm": 0.1}
 #: (h)'s RecurrentGemma: one group of its pattern cut to these layers
 #: (RG-LRU, and MQA attention at head_dim 256), and (i)'s StableLM depth.
 TP_RG_PATTERN = ("rglru", "rglru", "local")
 TP_MESH_LAYERS = 4
-#: (f)'s gathered masters against the unmeshed runs': each leaf's
-#: ||tp - unmeshed|| / ||unmeshed - init||, the largest over the leaves,
-#: at most max(TP_MASTERS_SPREAD x the two unmeshed runs' own, the floor).
+#: (c)'s and (f)'s gathered masters against the unmeshed runs': each
+#: leaf's ||meshed - unmeshed|| / ||unmeshed - init||, the largest over the
+#: leaves, at most max(TP_MASTERS_SPREAD x the two unmeshed runs' own, the
+#: floor), the pair's gap read in (c).
 #: The floor: a CPU rehearsal at 2 bf16 layers, where the unmeshed runs
 #: are bit for bit, reads 0.07 from the bf16 partial sums alone; on the
 #: H100 (f) reads 0.1142 beside the unmeshed pair's 0.0538-0.0552.  The
 #: planted swap of the head's vocab blocks in the update ("head blocks
-#: swapped", replicas equal) must read above the limit.
+#: swapped", replicas equal) and (c)'s planted gather with no sum over
+#: data must read above the limit.
 TP_MASTERS_SPREAD, TP_MASTERS_FLOOR = 3.0, 0.25
 
 
@@ -5904,80 +5943,140 @@ def dist_unmeshed(dev) -> dict:
 _KEPT = {}
 
 
+class measured_init:
+    """Within it, ``train(mesh=)``'s ``lm.init_blocks`` records this
+    process's device memory: ``peak`` (peak allocated from the window's
+    start to the blocks' return, less what was allocated at its start),
+    ``blocks`` (what the blocks added) and ``leaf`` (the largest whole
+    leaf's bytes at the masters' dtype), then resets the peak, so the
+    peak read after ``train`` is the steps'."""
+
+    def __enter__(self):
+        self.orig, self.out = lm.init_blocks, {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+
+        def measured(cfg, layout, **kw):
+            blocks = self.orig(cfg, layout, **kw)
+            torch.cuda.synchronize()
+            shapes = leaves(lm.abstract_params(cfg, kw.get("dtype")))
+            self.out.update(
+                base_gib=base / 2**30,
+                peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+                blocks_gib=(torch.cuda.memory_allocated() - base) / 2**30,
+                leaf_gib=max(p.numel() * p.element_size()
+                             for p in shapes) / 2**30)
+            torch.cuda.reset_peak_memory_stats()
+            return blocks
+
+        lm.init_blocks = measured
+        return self.out
+
+    def __exit__(self, *exc):
+        lm.init_blocks = self.orig
+
+
 def dist_train(mesh, dev, fault: bool = False) -> dict:
-    """(c): train(mesh=) of :func:`dist_run` for TRAIN_STEPS steps: the
-    history (with each step's master digests), the
-    moments' shapes, launches, step times, peak memory and the bytes
-    staged through host.  ``fault``: DIST_FAULT_STEPS steps with two
-    planted faults.  In every step's update rank 1 takes rank 0's block
-    of the head's gradient (a wrong block in the ZeRO-1 update; the
-    all-gather then gives every rank the same wrong master), read at step
-    2 against the limits.  At step 2 rank 1 keeps its local gradient of
-    the first norm scale (it still joins the all-reduce; the scales are
-    not split), so the replicas part there."""
+    """(c): train(mesh=) of :func:`dist_run` for TRAIN_STEPS steps (FSDP
+    over the 2 ranks' data axis, each rank's blocks drawn directly): the
+    history (with each step's master digests), the masters' and moments'
+    local shapes, launches, step times, peak memory after initialisation
+    and in the steps (:class:`measured_init`), the collectives' bytes by
+    span and those staged through host; the gathered masters' largest
+    leaf gap from this rank's unmeshed run (:func:`gap`), the replicated
+    leaves against rank 0's bit for bit, and on rank 0 the two unmeshed
+    runs' own gap (rank 1's masters broadcast).  ``fault``:
+    DIST_FSDP_FAULT_STEPS steps with two planted faults.  Every FSDP
+    gather's gradient is this rank's block of its own partial gradient,
+    with no sum over data (the reduce-scatter returns its input's block;
+    the replicas stay equal, each block being one rank's), read at every
+    step against the limits.  At the last step rank 1 keeps its local
+    gradient of the first norm scale (it still joins the all-reduce; the
+    scales are not split), so the replicas part there; its gathered
+    masters' gap is read too."""
     from repro_torch.distributed import collectives
-    from repro_torch.optim import adamw
-    cfg, loop = dist_run(DIST_FAULT_STEPS if fault else TRAIN_STEPS)
-    params = lm.init(cfg, seed=loop.seed, device=dev,
-                     dtype=cfg.parameter_dtype)
+    steps = DIST_FSDP_FAULT_STEPS if fault else TRAIN_STEPS
+    cfg, loop = dist_run(steps)
+    shapes = lm.abstract_params(cfg, cfg.parameter_dtype)
     norm_grad = (cfg.num_groups, cfg.d_model)     # a stacked norm scale's
-    per_step = sum(tuple(p.shape) == norm_grad for p in leaves(params))
-    orig_reduce, orig_update, count = (collectives._run_all_reduce,
-                                       adamw.update, [0])
+    per_step = sum(tuple(p.shape) == norm_grad for p in leaves(shapes))
+    orig_reduce, orig_scatter, count = (collectives._run_all_reduce,
+                                        collectives._run_reduce_scatter, [0])
 
     def kept_local(x, key, op, span):
         out = orig_reduce(x, key, op, span)
         if tuple(x.shape) == norm_grad:
             count[0] += 1
-            if count[0] == per_step + 1 and mesh.rank == 1:
+            if count[0] == per_step * (steps - 1) + 1 and mesh.rank == 1:
                 return x.contiguous().clone()   # the local gradient
         return out
 
-    def wrong_block(grads, state, params, cfg, **kw):
-        if mesh.rank == 1:
-            w = grads["head"]["w"]             # split along its dim 0
-            half = w.shape[0] // 2
-            grads = {**grads, "head": {
-                "w": torch.cat([w[half:], w[:half]])}}
-        return orig_update(grads, state, params, cfg, **kw)
+    def no_sum(x, key, dim, span):
+        n = x.shape[dim] // collectives.size_of(key)
+        return x.narrow(dim, collectives.index_of(key) * n,
+                        n).contiguous()
 
     if fault:
         collectives._run_all_reduce = kept_local
-        adamw.update = wrong_block
+        collectives._run_reduce_scatter = no_sum
+    gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     collectives.reset_counts()
     try:
-        result = train(cfg, loop, device=dev, params=params, mesh=mesh)
+        with measured_init() as init:
+            result = train(cfg, loop, device=dev, mesh=mesh)
     finally:
         collectives._run_all_reduce = orig_reduce
-        adamw.update = orig_update
+        collectives._run_reduce_scatter = orig_scatter
     torch.cuda.synchronize()
-    out = {"history": result["history"],
+    out = {"history": result["history"], "init": init,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "launches": ops.launch_counts(), "engine": result["engine"],
+           "bytes": dict(collectives.BYTES),
            "staged_bytes": dict(collectives.STAGED_BYTES),
            "staged_ms": dict(collectives.STAGED_MS),
            "calls": dict(collectives.CALLS),
            "routes": dict(collectives.ROUTES), "layers": cfg.num_layers}
+    dp = result["plan"]
+    # The gathered masters against this rank's unmeshed run, one whole
+    # leaf at a time; the replicated leaves (a split leaf's blocks each
+    # live on one rank) bit for bit against rank 0's.
+    init = leaves(lm.init(cfg, seed=loop.seed, device=dev,
+                          dtype=cfg.parameter_dtype))
+    key = mesh.group_key("data")
+    gaps, same = [], True
+    for p, sh, u, i in zip(leaves(result["params"]), leaves(dp.layout),
+                           leaves(_KEPT["unmeshed masters"]), init):
+        if sh.splits:
+            whole = dp.gather(p, sh, span="comm.masters_check")
+            gaps.append(gap(whole, u, i))
+            del whole
+        else:
+            gaps.append(gap(p, u, i))
+            same &= torch.equal(p, collectives.broadcast(
+                p, key, 0, span="comm.masters_check"))
+    out["masters_gap"] = max(gaps)
     if fault:
         return out
-    # The moments: this rank's block of each split master.
-    dp = result["plan"]
+    out["replicated_equal"] = same
+    # The two unmeshed runs' own gap: rank 1's masters to rank 0.
+    out["pair_gap"] = max(
+        gap(u, collectives.broadcast(u, key, 1, span="comm.masters_check"),
+            i) for u, i in zip(leaves(_KEPT["unmeshed masters"]), init))
+    del init
+    # Each rank's masters and moments: its blocks of every split leaf.
     split = wrong = 0
-    for p, m, sh in zip(leaves(result["params"]), leaves(result["opt"]["m"]),
-                        leaves(dp.shardings)):
-        split += bool(sh.splits)
-        if tuple(m.shape) != sh.local_shape(p.shape):
+    for p, m, sh, w in zip(leaves(result["params"]),
+                           leaves(result["opt"]["m"]), leaves(dp.layout),
+                           leaves(shapes)):
+        split += "data" in sh.axes()
+        want = sh.local_shape(w.shape)
+        if tuple(p.shape) != want or tuple(m.shape) != want:
             wrong += 1
-    out["moments"] = {"split": split, "leaves": len(leaves(dp.shardings)),
-                      "wrong_shape": wrong}
-    # The masters bit for bit: rank 0's broadcast to every rank.
-    key = mesh.group_key("data")
-    same = all(torch.equal(p, collectives.broadcast(p, key, 0))
-               for p in leaves(result["params"]))
-    out["masters_equal"] = same
+    out["blocks"] = {"split": split, "leaves": len(leaves(dp.layout)),
+                     "wrong_shape": wrong}
     return out
 
 
@@ -6170,35 +6269,32 @@ def gap(a, b, init) -> float:
 
 def dist_tp(mesh, dev, kind: str, fault=None) -> dict:
     """(f)-(i): train(mesh=) of :func:`tp_run`'s ``kind`` on ``mesh`` for
-    TRAIN_STEPS steps (``fault``: :func:`plant_tp_fault`'s fault, for
-    DIST_FAULT_STEPS steps but "head blocks swapped"): the history, the
-    replicated leaves' digests by step, launches, routes and local shapes,
-    the bytes and milliseconds staged, the report's comm bytes a step
-    against ``collectives.BYTES``, peak memory.  For (f) and its "head
-    blocks swapped" run also the gathered masters against the unmeshed run
-    this rank made in (c), and for (f) on rank 0 the two unmeshed runs' own
-    gap."""
+    TRAIN_STEPS steps, each rank's blocks drawn directly (``fault``:
+    :func:`plant_tp_fault`'s fault, for DIST_FAULT_STEPS steps but "head
+    blocks swapped"): the history, the replicated leaves' digests by
+    step, launches, routes and local shapes, the bytes and milliseconds
+    staged, the report's comm bytes a step against ``collectives.BYTES``,
+    peak memory after initialisation and in the steps.  For (f) and its
+    "head blocks swapped" run also the gathered masters against the
+    unmeshed run this rank made in (c)."""
     from repro_torch.distributed import collectives
     short = fault in ("mlp g skipped", "router not summed")
     cfg, loop = tp_run(kind, DIST_FAULT_STEPS if short else TRAIN_STEPS)
-    params = lm.init(cfg, seed=loop.seed, device=dev,
-                     dtype=cfg.parameter_dtype)
     undo = plant_tp_fault(fault, cfg, mesh)
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     collectives.reset_counts()
     try:
-        with captured_compiles() as built:
-            result = train(cfg, loop, device=dev, params=params, mesh=mesh)
+        with captured_compiles() as built, measured_init() as init:
+            result = train(cfg, loop, device=dev, mesh=mesh)
     finally:
         undo()
     torch.cuda.synchronize()
-    del params
     plan = result["plan"]
     split = [bool(sh.splits) for sh in leaves(plan.tp)]
     out = {"history": result["history"], "layers": cfg.num_layers,
+           "init": init,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "launches": ops.launch_counts(),
            "gemm_routes": nonzero(kgemm.ROUTES),
@@ -6235,15 +6331,6 @@ def dist_tp(mesh, dev, kind: str, fault=None) -> dict:
                   else _KEPT.pop("unmeshed masters"))
     out["masters_gap"] = max(gap(w, u, i)
                              for w, u, i in zip(whole, mine, init))
-    del whole
-    if fault:
-        return out
-    pair = []
-    for u, i in zip(mine, init):     # rank 1's unmeshed masters to rank 0
-        other = collectives.broadcast(u, plan.model_key, 1,
-                                      span="comm.masters_check")
-        pair.append(gap(u, other, i))
-    out["pair_gap"] = max(pair)
     return out
 
 
@@ -6371,6 +6458,32 @@ def nccl_world_one(dev) -> dict:
         tdist.destroy_process_group()
 
 
+def mem_line(run: dict) -> str:
+    """A meshed run's memory: the peak after initialisation against its
+    blocks plus its largest whole leaf, and the steps' peak."""
+    i = run["init"]
+    return (f"init peak {i['peak_gib']:.2f} GiB above the {i['base_gib']:.2f}"
+            f" held before (blocks {i['blocks_gib']:.2f} + largest whole leaf "
+            f"{i['leaf_gib']:.2f}), steps' peak {run['peak_gib']:.2f} GiB")
+
+
+def check_init_peak(name: str, run: dict) -> None:
+    """Initialisation held no more than the rank's blocks and one whole
+    leaf, plus 10 %."""
+    i = run["init"]
+    if i["peak_gib"] > 1.1 * (i["blocks_gib"] + i["leaf_gib"]):
+        fail(f"distributed {name}: initialisation peaked at "
+             f"{i['peak_gib']:.2f} GiB, past 1.1 x (blocks "
+             f"{i['blocks_gib']:.2f} + one whole leaf {i['leaf_gib']:.2f})")
+
+
+def span_bytes(run: dict) -> str:
+    """The collectives' bytes a step by span (GB)."""
+    n = len(run["history"])
+    return json.dumps({k: round(v / n / 1e9, 4)
+                       for k, v in sorted(run["bytes"].items())})
+
+
 def check_dist_train(ranks: list, card: str, launches) -> None:
     """(c)'s checks on the results of the 2-rank world (``ranks``, in rank
     order); adds the main-path run's launches to ``launches``."""
@@ -6386,13 +6499,14 @@ def check_dist_train(ranks: list, card: str, launches) -> None:
         staged = sum(tr["staged_bytes"].values())
         nsteps = len(tr["history"])
         print(f"distributed (c): rank {r}: {ARCH} full width, "
-              f"{tr['layers']} layers, B {TRAIN_BATCH} global ({TRAIN_BATCH // 2}"
-              f" a rank) x S {TRAIN_SEQ}: losses "
+              f"{tr['layers']} layers, FSDP over 2 ranks, B {TRAIN_BATCH} "
+              f"global ({TRAIN_BATCH // 2} a rank) x S {TRAIN_SEQ}: losses "
               f"{[h['loss'] for h in tr['history']]}, grad norms "
               f"{[h['grad_norm'] for h in tr['history']]}; step 1 "
               f"{walls[0]:.2f} s (compile), steps 2-{nsteps} "
-              f"{[round(x, 3) for x in steps]} s; peak {tr['peak_gib']:.2f} "
-              f"GiB; staged through host {staged / nsteps / 1e9:.3f} GB a "
+              f"{[round(x, 3) for x in steps]} s; {mem_line(tr)}; "
+              f"collectives' GB a step by span {span_bytes(tr)}; staged "
+              f"through host {staged / nsteps / 1e9:.3f} GB a "
               f"step in {sum(tr['staged_ms'].values()) / nsteps:.1f} ms a "
               f"step ({json.dumps(tr['calls'])} calls, routes "
               f"{json.dumps(tr['routes'])}); launches sma_gemm "
@@ -6400,19 +6514,25 @@ def check_dist_train(ranks: list, card: str, launches) -> None:
               f"{tr['launches']['rmsnorm_gemm']}, flash "
               f"{tr['launches']['flash_attention']} / "
               f"{tr['launches']['flash_attention_bwd']}; engine "
-              f"{json.dumps(tr['engine'])}; moments {tr['moments']} "
+              f"{json.dumps(tr['engine'])}; blocks {tr['blocks']} "
               f"({card})")
         # The master digests ride in the history: equal histories are
         # replicas equal at every step.
         if metrics_of(tr["history"]) != metrics_of(hist):
             fail(f"distributed (c): rank {r}'s metrics or master digests "
                  f"differ from rank 0's")
-        if not tr["masters_equal"]:
-            fail("distributed (c): the ranks' final masters differ")
-        mo = tr["moments"]
-        if mo["wrong_shape"] or not mo["split"]:
-            fail(f"distributed (c): the moments are not each rank's block: "
-                 f"{mo}")
+        if not tr["replicated_equal"]:
+            fail("distributed (c): the ranks' final replicated masters "
+                 "differ")
+        bl = tr["blocks"]
+        if bl["wrong_shape"] or not bl["split"]:
+            fail(f"distributed (c): the masters and moments are not each "
+                 f"rank's blocks: {bl}")
+        if not (tr["bytes"].get("comm.fsdp_gather")
+                and tr["bytes"].get("comm.fsdp_reduce_scatter")) or \
+                "comm.master_all_gather" in tr["bytes"]:
+            fail(f"distributed (c): not FSDP's collectives: {tr['bytes']}")
+        check_init_peak("(c)", tr)
         if tr["engine"]["misses"] != 1:
             fail(f"distributed (c): the step compiled {tr['engine']}")
         for name in ("sma_gemm", "rmsnorm_gemm", "flash_attention",
@@ -6444,25 +6564,40 @@ def check_dist_train(ranks: list, card: str, launches) -> None:
     same = [a["masters_digest"] == b["masters_digest"]
             for a, b in zip(fl[0]["history"], fl[1]["history"])]
     fdrift = dist_drift(fl[0]["history"], refs)
-    wrong_block = max(fdrift[1].values())
-    print(f"distributed (c): planted faults, {DIST_FAULT_STEPS} steps at "
-          f"{DIST_TRAIN_LAYERS} layers: (1) rank 1 updates its block of the head with rank "
-          f"0's gradient block: step 2 on rank 0 |loss| "
-          f"{fdrift[1]['loss']:.2f} limits, |grad norm| "
-          f"{fdrift[1]['grad_norm']:.2f} limits (step 1 "
-          f"{fdrift[0]['loss']:.2f} / {fdrift[0]['grad_norm']:.2f}); losses "
+    print(f"distributed (c): planted faults, {DIST_FSDP_FAULT_STEPS} steps "
+          f"at {DIST_TRAIN_LAYERS} layers: (1) every FSDP gather's gradient "
+          f"is this rank's block of its own partial gradient, not summed "
+          f"over data: rank 0's relative |loss| / |grad norm| in multiples "
+          f"of each step's limits {limits(fdrift)}; losses "
           f"{[h['loss'] for h in fl[0]['history']]}, grad norms "
           f"{[h['grad_norm'] for h in fl[0]['history']]}; (2) rank 1 keeps "
-          f"its local gradient of the first norm scale at step 2: master "
-          f"digests equal across the ranks by step {same}")
-    if not same[0]:
-        fail("distributed (c): the planted wrong block parted the replicas "
-             "(it must keep them equal)")
-    if wrong_block <= 1:
-        fail(f"distributed (c): a wrong block in the ZeRO-1 update stayed "
-             f"within the limits at step 2 ({fdrift[1]})")
-    if same[1]:
+          f"its local gradient of the first norm scale at step "
+          f"{DIST_FSDP_FAULT_STEPS}: master digests equal across the ranks "
+          f"by step {same}")
+    if not all(same[:-1]):
+        fail("distributed (c): the planted no-sum gather parted the "
+             "replicas (it must keep them equal)")
+    if max(fdrift[1].values()) <= 1:
+        fail(f"distributed (c): a gather whose gradient is not summed over "
+             f"data stayed within the limits at step 2 ({fdrift[1]})")
+    if same[-1]:
         fail("distributed (c): the planted all-reduce fault was not caught")
+    gaps = [tr["masters_gap"] for tr in trs]
+    fault_gaps = [f["masters_gap"] for f in fl]
+    pair = trs[0]["pair_gap"]
+    limit = max(TP_MASTERS_SPREAD * pair, TP_MASTERS_FLOOR)
+    print(f"distributed (c): gathered masters against each rank's unmeshed "
+          f"run, the largest leaf's ||fsdp - unmeshed|| / ||unmeshed - "
+          f"init||: {[round(g, 4) for g in gaps]}; the two unmeshed runs "
+          f"apart {pair:.4f}; limit {limit:.4f}; the planted no-sum gather "
+          f"{[round(g, 4) for g in fault_gaps]} "
+          f"({min(fault_gaps) / limit:.3g} of the limit)")
+    if max(gaps) > limit:
+        fail(f"distributed (c): the gathered masters part from the unmeshed "
+             f"ones: {gaps} > {limit}")
+    if min(fault_gaps) <= limit:
+        fail(f"distributed (c): the planted no-sum gather's masters read "
+             f"{fault_gaps}, within the limit {limit}")
 
 
 def tp_limits_read(hist: list, refs: list) -> str:
@@ -6487,9 +6622,9 @@ def check_tp_run(name: str, runs: list, refs: list, card: str,
               f"{[h['loss'] for h in run['history']]}, grad norms "
               f"{[h['grad_norm'] for h in run['history']]}; step 1 "
               f"{walls[0]:.2f} s (compile), steps 2-{n} "
-              f"{[round(x, 3) for x in steps]} s; peak "
-              f"{run['peak_gib']:.2f} GiB; staged through host "
-              f"{staged / n / 1e9:.3f} GB a step in "
+              f"{[round(x, 3) for x in steps]} s; {mem_line(run)}; "
+              f"collectives' GB a step by span {span_bytes(run)}; staged "
+              f"through host {staged / n / 1e9:.3f} GB a step in "
               f"{sum(run['staged_ms'].values()) / n:.1f} ms a step; calls "
               f"{json.dumps(run['calls'])}; comm bytes a step: report "
               f"{run['report']['bytes_total']}, collectives.BYTES "
@@ -6510,11 +6645,15 @@ def check_tp_run(name: str, runs: list, refs: list, card: str,
                  f"{r}")
         if run["engine"]["misses"] != 1 or run["compiles"] != 1:
             fail(f"distributed {name}: the step compiled {run['engine']}")
+        check_init_peak(name, run)
+        # The digests' all-reduce (a logged step's, outside the step).
+        in_steps = {k: v for k, v in run["bytes"].items()
+                    if k != "comm.digest"}
         if {k: v * n for k, v in run["report"]["bytes"].items()} != \
-                run["bytes"]:
+                in_steps:
             fail(f"distributed {name}: the report's comm bytes a step "
                  f"{run['report']['bytes']} do not make the run's "
-                 f"{run['bytes']}")
+                 f"{in_steps}")
         counts = run["launches"]
         need = ["sma_gemm", "rmsnorm_gemm", "flash_attention",
                 "flash_attention_bwd"]
@@ -6578,7 +6717,7 @@ def check_dist_tp(results: dict, plan: dict, card: str, launches) -> None:
     check_tp_run("(f) stablelm 1x2", [r["tp stablelm"] for r in two],
                  refs_c, card, launches)
     gaps = [r["tp stablelm"]["masters_gap"] for r in two]
-    pair = two[0]["tp stablelm"]["pair_gap"]
+    pair = two[0]["train"]["pair_gap"]
     limit = max(TP_MASTERS_SPREAD * pair, TP_MASTERS_FLOOR)
     print(f"distributed (f): gathered masters against each rank's unmeshed "
           f"run, the largest leaf's ||tp - unmeshed|| / ||unmeshed - "

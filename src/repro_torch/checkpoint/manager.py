@@ -21,13 +21,15 @@
 Leaves are tensors, numpy arrays or Python numbers; a tensor numpy cannot
 hold (bfloat16) is not taken.
 
-* **Elastic restore** -- checkpoints are unsharded (``train(mesh=)``
-  gathers its masters' ``model`` blocks and its moments, split over
-  ``model`` and ZeRO-1's ``data``, before it saves, and only the first
-  rank writes).  ``restore(..., shardings=)`` lays each stored array out
-  for this rank (:class:`repro_torch.distributed.sharding.LeafSharding`:
-  this rank's block of a split leaf, a grouped dim's block of each part),
-  so a run saved on a 1 x 2 mesh resumes on 2 x 1, on 4 ranks or on 1.
+* **Elastic restore** -- checkpoints are unsharded (``train(mesh=)``,
+  whose masters, moments and error-feedback state are each rank's blocks
+  over ``model`` and ``data``, gathers one leaf at a time to host before
+  it saves, and only the first rank writes).  ``restore(...,
+  shardings=)`` lays each stored array out for this rank
+  (:class:`repro_torch.distributed.sharding.LeafSharding`: this rank's
+  block of a split leaf, a grouped dim's block of each part), so a run
+  saved on a 1 x 2 or a 2 x 1 mesh resumes on the other, on 4 ranks or
+  on 1.
 """
 from __future__ import annotations
 

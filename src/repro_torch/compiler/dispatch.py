@@ -240,8 +240,9 @@ def collect_comm_sites(rewritten: RewriteResult) -> List[Dict[str, Any]]:
 def collect_collectives(module: torch.fx.GraphModule) -> Dict[str, Any]:
     """The collective nodes of a dispatching module that move bytes (a
     group of one rank moves none; ``tp_enter``'s forward is the identity),
-    by span name: ``{"calls", "bytes", "bytes_total"}``, each call's bytes
-    those its span carries (:func:`repro_torch.distributed.collectives.
+    by span name: ``{"calls", "bytes", "bytes_total"}`` (FSDP's parameter
+    gathers and their gradients' reduce-scatters among them), each call's
+    bytes those its span carries (:func:`repro_torch.distributed.collectives.
     call_bytes`).  Loop bodies hold none."""
     impls = {fn: op.__name__.split("::")[-1].split(".")[0]
              for op, fn in collectives.IMPLS.items()}
@@ -255,10 +256,12 @@ def collect_collectives(module: torch.fx.GraphModule) -> Dict[str, Any]:
             continue
         x = val(n.args[0])
         peer = op != "sendrecv" or n.args[2] >= 0
+        itemsize = (n.args[3].itemsize if op == "param_gather"
+                    else x.element_size())
         span = n.args[-1]
         calls[span] = calls.get(span, 0) + 1
         nbytes[span] = nbytes.get(span, 0) + collectives.call_bytes(
-            op, x.shape, x.element_size(), collectives.size_of(key), peer)
+            op, x.shape, itemsize, collectives.size_of(key), peer)
     return {"calls": calls, "bytes": nbytes,
             "bytes_total": sum(nbytes.values())}
 

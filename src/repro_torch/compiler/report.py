@@ -20,8 +20,9 @@ trip counts).  ``comm_section`` prices the collective bytes of a compiled
 program's sharded GEMM sites on ``SMAOptions.mesh`` through
 :func:`repro_torch.distributed.summa.summa_comm_stats`, the cost model the
 SUMMA schedule is built from; its ``collectives`` part counts the
-collective nodes of the dispatched program (train(mesh=)'s all-reduces and
-all-gathers, forward and backward) by span name, with the bytes each
+collective nodes of the dispatched program (train(mesh=)'s all-reduces,
+all-gathers, FSDP parameter gathers and gradient reduce-scatters, forward
+and backward) by span name, with the bytes each
 call's span carries, so a run's :data:`repro_torch.distributed.
 collectives.BYTES` and its ``comm.*`` spans read the same bytes a call.
 The reference's ``diagnostics`` section

@@ -23,9 +23,10 @@ RG-LRU carry ``h``, the mLSTM's ``c``, ``n``, ``m``, the sLSTM's ``c``,
 in ``dtype``.
 
 ``model_blocks`` lays whole parameters (these, or ``lm.init``'s) out for a
-rank of a mesh with a ``model`` axis: each leaf its block under a tree of
+rank of a mesh: each leaf its block under a tree of
 :class:`repro_torch.distributed.sharding.LeafSharding`
-(``train(mesh=)``'s :class:`repro_torch.launch.train.MeshPlan` ``tp``).
+(``train(mesh=)``'s :class:`repro_torch.launch.train.MeshPlan` ``layout``:
+``model`` blocks, and their FSDP ``data`` blocks), one leaf at a time.
 """
 from __future__ import annotations
 

@@ -3,7 +3,8 @@
 inside ``shard_map``.
 
 Each one is a ``torch.library`` custom op (``repro_torch::all_reduce``,
-``broadcast``, ``all_gather``, ``sendrecv``) with a fake, so a graph that
+``broadcast``, ``all_gather``, ``reduce_scatter``, ``param_gather``,
+``sendrecv``) with a fake, so a graph that
 ``sma_jit`` traces keeps each collective as one node; the dispatcher puts
 the op's implementation in the node's place (:data:`IMPLS`), so the
 compiled program runs the collective itself, as an eager call does (a
@@ -46,7 +47,13 @@ has a gradient every rank already holds whole); :func:`tp_enter`
 (``repro_torch::tp_enter``) is the identity forward and an all-reduce of
 the gradient backward (Megatron's *f*: each rank's gradient of a tensor it
 read whole is partial); ``all_gather``'s gradient is this rank's block of
-the output's; op ``max`` carries none.  Eagerly these are autograd
+the output's; op ``max`` carries none; ``reduce_scatter``'s is an
+all-gather.  :func:`param_gather` (``repro_torch::param_gather``, FSDP's
+gather of a stored parameter block, :mod:`repro_torch.distributed.fsdp`)
+casts its input to the compute dtype and all-gathers it; its gradient is
+cast back to the input's dtype (float32 for a master) and reduce-scattered,
+so each rank receives the float32 sum over the group of every rank's
+partial gradient of its block.  Eagerly these are autograd
 Functions around the implementations; in a trace each op carries its
 backward (``torch.library.register_autograd``), written with the same
 entry points, so the joint graph holds the backward's collectives as
@@ -67,7 +74,8 @@ from repro_torch.obs import trace as _obs_trace
 __all__ = ["BUCKET_BYTES", "BYTES", "CALLS", "ROUTES", "STAGED_BYTES",
            "STAGED_MS", "COLLECTIVE_OPS", "IMPLS", "all_gather", "all_reduce",
            "broadcast", "broadcast_async", "call_bytes", "index_of",
-           "register", "reset_counts", "sendrecv", "size_of", "tp_enter"]
+           "param_gather", "reduce_scatter", "register", "reset_counts",
+           "sendrecv", "size_of", "tp_enter"]
 
 #: The most a staged collective holds in pinned memory at once (all lanes).
 BUCKET_BYTES = 256 << 20
@@ -121,15 +129,17 @@ def reset_counts() -> None:
 
 def call_bytes(op: str, shape, itemsize: int, ranks: int,
                peer: bool = True) -> int:
-    """The bytes one call's span carries: an all-reduce's tensor once; a
-    broadcast's and an all-gather's to each other rank; a send's when it
-    has a peer (``peer``); an identity (``tp_enter``) none."""
+    """The bytes one call's span carries: an all-reduce's and a
+    reduce-scatter's input once; a broadcast's and an all-gather's to each
+    other rank (a ``param_gather``'s in the dtype it gathers, ``itemsize``
+    that dtype's); a send's when it has a peer (``peer``); an identity
+    (``tp_enter``) none."""
     n = itemsize
     for d in shape:
         n *= int(d)
-    if op == "all_reduce":
+    if op in ("all_reduce", "reduce_scatter"):
         return n
-    if op in ("broadcast", "all_gather"):
+    if op in ("broadcast", "all_gather", "param_gather"):
         return n * (ranks - 1)
     if op == "sendrecv":
         return n if peer else 0
@@ -214,10 +224,12 @@ def _staged(flat: torch.Tensor, outs, groups, issue,
     lane (a process group of the same ranks) in flight: ``issue(group,
     slot, host_in)`` starts the collective and returns ``(work,
     host_outs)``; each of ``host_outs`` is then copied into the piece's
-    place in the matching flat tensor of ``outs``.  The first round of
-    pieces is issued now; the handle's ``wait()`` completes it and runs
-    the rest.  ``tag`` names the pinned buffers (one set a tag): a call
-    left in flight while others run has a tag of its own."""
+    place in the matching flat tensor of ``outs``.  ``flat`` may be 2-D
+    (one row a rank's part, a reduce-scatter's input): a piece is then the
+    same columns of every row.  The first round of pieces is issued now;
+    the handle's ``wait()`` completes it and runs the rest.  ``tag`` names
+    the pinned buffers (one set a tag): a call left in flight while others
+    run has a tag of its own."""
     return _InFlight(flat, outs, groups, issue, tag)
 
 
@@ -229,7 +241,9 @@ class _InFlight:
         self.flat, self.outs, self.groups = flat, outs, groups
         self.issue, self.tag = issue, tag
         lanes = len(groups)
-        pieces = _lane_pieces(flat.numel(), flat.element_size(), lanes)
+        rows = flat.shape[0] if flat.dim() == 2 else 1
+        pieces = _lane_pieces(flat.shape[-1], flat.element_size() * rows,
+                              lanes)
         self.rounds = [pieces[i:i + lanes]
                        for i in range(0, len(pieces), lanes)]
         self.pending = self._issue()
@@ -239,8 +253,10 @@ class _InFlight:
         if self.rounds:
             for lane, (lo, hi) in enumerate(self.rounds.pop(0)):
                 slot = (self.tag, lane)
-                host_in = _host(slot + (0,), hi - lo, self.flat.dtype)
-                host_in.copy_(self.flat[lo:hi])
+                part = self.flat[..., lo:hi]
+                host_in = _host(slot + (0,), part.numel(),
+                                self.flat.dtype).view(part.shape)
+                host_in.copy_(part)
                 pending.append((lo, hi, *self.issue(self.groups[lane], slot,
                                                     host_in)))
         return pending
@@ -318,18 +334,18 @@ def _broadcast_impl(x: torch.Tensor, key: str, src: int, span: str
     return out
 
 
-def _all_gather_impl(x: torch.Tensor, key: str, dim: int, span: str
-                     ) -> torch.Tensor:
+def _all_gather_impl(x: torch.Tensor, key: str, dim: int, span: str,
+                     op: str = "all_gather") -> torch.Tensor:
     groups, ranks, backend = _lookup(key)
     x = x.contiguous()
     if groups is None:
         return x.clone()
     n = len(ranks)
     route = _route(x, backend)
-    _count("all_gather", route)
+    _count(op, route)
     parts = [torch.empty_like(x) for _ in range(n)]
     with _span(span, key, x.numel() * x.element_size() * (n - 1)), \
-            _Staged("all_gather", route):
+            _Staged(op, route):
         if route != "host":
             dist.all_gather(parts, x, group=groups[0])
         else:
@@ -340,8 +356,51 @@ def _all_gather_impl(x: torch.Tensor, key: str, dim: int, span: str
                                        async_op=True), bufs
             _staged(x.view(-1), [p.view(-1) for p in parts], groups,
                     issue).wait()
-            STAGED_BYTES["all_gather"] += x.numel() * x.element_size()
+            STAGED_BYTES[op] += x.numel() * x.element_size()
     return torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter_impl(x: torch.Tensor, key: str, dim: int, span: str
+                         ) -> torch.Tensor:
+    return _run_reduce_scatter(x, key, dim, span)
+
+
+def _run_reduce_scatter(x: torch.Tensor, key: str, dim: int, span: str
+                        ) -> torch.Tensor:
+    """The sum over the group of every rank's ``x``, this rank's block of it
+    along ``dim`` (the blocks in group order), as a ``repro_torch::
+    reduce_scatter`` node runs it (looked up on the module at each call,
+    so a check can stand a planted fault in its place)."""
+    groups, ranks, backend = _lookup(key)
+    if groups is None:
+        return x.contiguous().clone()
+    n = len(ranks)
+    lead = x.movedim(dim, 0).contiguous()      # rank r's block: row r
+    out = lead.new_empty((lead.shape[0] // n,) + tuple(lead.shape[1:]))
+    route = _route(x, backend)
+    _count("reduce_scatter", route)
+    with _span(span, key, x.numel() * x.element_size()), \
+            _Staged("reduce_scatter", route):
+        if route != "host":
+            dist.reduce_scatter_tensor(out, lead, group=groups[0])
+        else:
+            def issue(group, slot, rows):
+                mine = _host(slot + (1,), rows.shape[1], rows.dtype)
+                return (dist.reduce_scatter_tensor(
+                    mine, rows.reshape(-1), group=group, async_op=True),
+                    [mine])
+            _staged(lead.view(n, -1), [out.view(-1)], groups, issue).wait()
+            STAGED_BYTES["reduce_scatter"] += x.numel() * x.element_size()
+    return out.movedim(0, dim).contiguous()
+
+
+def _param_gather_impl(x: torch.Tensor, key: str, dim: int,
+                       dtype: torch.dtype, summed: bool, span: str
+                       ) -> torch.Tensor:
+    """FSDP's gather of a stored block: ``x`` in ``dtype``, every rank's
+    block concatenated along ``dim`` (``summed`` only picks the gradient
+    rule)."""
+    return _all_gather_impl(x.to(dtype), key, dim, span, "param_gather")
 
 
 def _sendrecv_impl(x: torch.Tensor, key: str, dst: int, src: int,
@@ -385,6 +444,12 @@ def _gathered_shape(x: torch.Tensor, key: str, dim: int):
     return shape
 
 
+def _scattered_shape(x: torch.Tensor, key: str, dim: int):
+    shape = list(x.shape)
+    shape[dim] //= size_of(key)
+    return shape
+
+
 def _tp_enter_impl(x: torch.Tensor, key: str, span: str) -> torch.Tensor:
     """Tensor parallelism's *f* forward, as a dispatched graph calls it:
     ``x`` itself (its backward is an all-reduce of the gradient)."""
@@ -418,6 +483,12 @@ COLLECTIVE_OPS = {
     "all_gather": _op("all_gather", _all_gather_impl,
                       lambda x, key, dim, span: x.new_empty(
                           _gathered_shape(x, key, dim))),
+    "reduce_scatter": _op("reduce_scatter", _reduce_scatter_impl,
+                          lambda x, key, dim, span: x.new_empty(
+                              _scattered_shape(x, key, dim))),
+    "param_gather": _op("param_gather", _param_gather_impl,
+                        lambda x, key, dim, dtype, summed, span: x.new_empty(
+                            _gathered_shape(x, key, dim), dtype=dtype)),
     "sendrecv": _op("sendrecv", _sendrecv_impl,
                     lambda x, key, dst, src, span: torch.empty_like(
                         x, memory_format=torch.contiguous_format)),
@@ -431,6 +502,8 @@ COLLECTIVE_OPS = {
 IMPLS = {COLLECTIVE_OPS["all_reduce"]: _all_reduce_impl,
          COLLECTIVE_OPS["broadcast"]: _broadcast_impl,
          COLLECTIVE_OPS["all_gather"]: _all_gather_impl,
+         COLLECTIVE_OPS["reduce_scatter"]: _reduce_scatter_impl,
+         COLLECTIVE_OPS["param_gather"]: _param_gather_impl,
          COLLECTIVE_OPS["sendrecv"]: _sendrecv_impl,
          COLLECTIVE_OPS["tp_enter"]: _tp_enter_impl}
 
@@ -456,6 +529,28 @@ def _enter_grad(grad: torch.Tensor, key: str, span: str) -> torch.Tensor:
     return all_reduce(grad, key, span=span)
 
 
+#: The span of a :func:`param_gather`'s backward reduce-scatter.
+PARAM_GRAD_SPAN = "comm.fsdp_reduce_scatter"
+
+
+def _param_grad(grad: torch.Tensor, key: str, dim: int,
+                dtype: torch.dtype, summed: bool) -> torch.Tensor:
+    """A gathered parameter's gradient, back on the stored block: cast to
+    the block's ``dtype`` first, then reduce-scattered over the group
+    (``summed``: the ranks' gradients are partial sums of one loss), or
+    else this rank's block of it (every rank computed the same whole
+    gradient)."""
+    grad = grad.to(dtype)
+    if summed:
+        return reduce_scatter(grad, key, dim, span=PARAM_GRAD_SPAN)
+    return _gather_grad(grad, key, dim)
+
+
+def _save_param_args(ctx, inputs, output) -> None:
+    ctx.args = inputs[1:]
+    ctx.in_dtype = inputs[0].dtype
+
+
 def _save_args(ctx, inputs, output) -> None:
     ctx.args = inputs[1:]
 
@@ -470,6 +565,17 @@ torch.library.register_autograd(
     lambda ctx, grad: (_gather_grad(grad, ctx.args[0], ctx.args[1]),
                        None, None, None),
     setup_context=_save_args)
+torch.library.register_autograd(
+    "repro_torch::reduce_scatter",
+    lambda ctx, grad: (all_gather(grad, ctx.args[0], ctx.args[1],
+                                  span=ctx.args[2]), None, None, None),
+    setup_context=_save_args)
+torch.library.register_autograd(
+    "repro_torch::param_gather",
+    lambda ctx, grad: (_param_grad(grad, ctx.args[0], ctx.args[1],
+                                   ctx.in_dtype, ctx.args[3]),
+                       None, None, None, None, None),
+    setup_context=_save_param_args)
 torch.library.register_autograd(
     "repro_torch::tp_enter",
     lambda ctx, grad: (_enter_grad(grad, ctx.args[0], ctx.args[1]),
@@ -497,6 +603,30 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return _gather_grad(grad, ctx.key, ctx.dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, key, dim, span):
+        ctx.key, ctx.dim, ctx.span = key, dim, span
+        return _reduce_scatter_impl(x, key, dim, span)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (all_gather(grad, ctx.key, ctx.dim, span=ctx.span),
+                None, None, None)
+
+
+class _ParamGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, key, dim, dtype, summed, span):
+        ctx.key, ctx.dim, ctx.summed, ctx.in_dtype = key, dim, summed, x.dtype
+        return _param_gather_impl(x, key, dim, dtype, summed, span)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_param_grad(grad, ctx.key, ctx.dim, ctx.in_dtype,
+                            ctx.summed), None, None, None, None, None)
 
 
 class _Enter(torch.autograd.Function):
@@ -623,6 +753,39 @@ def all_gather(x: torch.Tensor, key: str, dim: int = 0,
     if _grad(x):
         return _AllGather.apply(x, key, dim, span)
     return _all_gather_impl(x, key, dim, span)
+
+
+def reduce_scatter(x: torch.Tensor, key: str, dim: int = 0,
+                   span: str = "comm.reduce_scatter") -> torch.Tensor:
+    """The sum of every rank's ``x`` over the group, this rank's block of
+    it along ``dim`` (blocks in group order); the gradient of ``x`` is the
+    all-gather of the block's."""
+    dim = dim % max(x.dim(), 1)
+    if _traced(x):
+        return torch.ops.repro_torch.reduce_scatter(x, key, dim, span)
+    if _grad(x):
+        return _ReduceScatter.apply(x, key, dim, span)
+    return _reduce_scatter_impl(x, key, dim, span)
+
+
+def param_gather(x: torch.Tensor, key: str, dim: int, dtype: torch.dtype,
+                 summed: bool = True,
+                 span: str = "comm.fsdp_gather") -> torch.Tensor:
+    """A stored parameter block ``x`` cast to ``dtype`` and all-gathered
+    over the group along ``dim`` (the cast first: the gather moves the
+    compute dtype's bytes).  The gradient of ``x`` is the gathered
+    tensor's cast back to ``x``'s dtype and reduce-scattered over the
+    group (span :data:`PARAM_GRAD_SPAN`): the float32 sum of the ranks'
+    partial gradients of this rank's block; with ``summed`` False (the
+    ranks computed one gradient, not shares of it) this rank's block of
+    it, with no collective."""
+    dim = dim % max(x.dim(), 1)
+    if _traced(x):
+        return torch.ops.repro_torch.param_gather(x, key, dim, dtype, summed,
+                                                  span)
+    if _grad(x):
+        return _ParamGather.apply(x, key, dim, dtype, summed, span)
+    return _param_gather_impl(x, key, dim, dtype, summed, span)
 
 
 def sendrecv(x: torch.Tensor, key: str, dst: int, src: int,

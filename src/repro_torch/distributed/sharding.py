@@ -26,8 +26,10 @@ layers          None                   the stacked groups' axis
 ==============  =====================  ====================================
 
 What the port does with them: ``train(mesh=)`` reads ``batch`` (the
-data-parallel axes), ``embed`` (the axis its AdamW moments are split
-over, ZeRO-1) and every logical axis that resolves to ``"model"``
+data-parallel axes), ``embed`` (the axis its masters, moments and
+gradients are split over, FSDP: :mod:`repro_torch.distributed.fsdp`
+gathers each group's weights inside the group's body) and every logical
+axis that resolves to ``"model"``
 (``heads``, ``kv_heads``, ``mlp``, ``vocab``, ``expert``): through
 :func:`spec_tree_to_shardings` each rank holds only its ``model`` block of
 every parameter split so, and the layers compute on their blocks with the
@@ -254,6 +256,21 @@ class LeafSharding:
         """This layout's splits, then ``other``'s (a block of a block)."""
         return LeafSharding(self.spec, self.splits + other.splits,
                             self.groups + other.groups)
+
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes the leaf is split over, in split order."""
+        return tuple(a for _, axes, _, _ in self.splits for a in axes)
+
+    def inner(self) -> "LeafSharding":
+        """The layout of one slice along dim 0 (a stacked leaf's group):
+        every split one dim lower.  Dim 0 itself must be whole."""
+        if any(dim == 0 for dim, _, _, _ in self.splits):
+            raise ValueError(f"a leaf split along its dim 0 ({self.spec}) "
+                             f"has no per-slice layout")
+        return LeafSharding(
+            self.spec[1:],
+            tuple((d - 1, ax, p, i) for d, ax, p, i in self.splits),
+            tuple((d - 1, g) for d, g in self.groups))
 
 
 def regroup(x: torch.Tensor, dim: int, parts: int, groups: int

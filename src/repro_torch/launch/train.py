@@ -44,17 +44,27 @@ reference's ``train(mesh=)`` runs its step under
   collectives (:mod:`repro_torch.distributed.tensor_parallel`); the grad
   norm sums the blocks' squares over ``model`` and counts each replicated
   leaf once;
-* **ZeRO-1**: the AdamW moments are split along each parameter's
+* **FSDP**: every master, moment and gradient is split along its
   ``embed`` dim over ``data`` where it divides (the rules' ``embed ->
-  data``), each rank updates its block of its masters and moments, and
-  the masters are all-gathered over ``data`` (so they stay ``model``
-  blocks).
+  data``; a ``data`` block of the ``model`` block where both split it),
+  and each rank holds only its block (:attr:`MeshPlan.layout`).  The
+  masters are drawn a rank's block at a time
+  (:func:`repro_torch.models.lm.init_blocks`), never whole.  Each group's
+  body gathers the group's weights in the compute dtype as its first act,
+  inside its remat checkpoint, and the table and the head are gathered
+  just before their use (:mod:`repro_torch.distributed.fsdp`); each
+  gather's gradient is a float32 reduce-scatter over ``data``, so such a
+  leaf's gradient arrives summed, and only the leaves with no ``data``
+  split are all-reduced over the batch axes.  AdamW updates each rank's
+  blocks in place, with no gather; the grad norm sums the blocks' squares
+  over the axes each leaf is split over and counts each replicated leaf
+  once.
 
 Every collective is a node of the compiled program
 (:mod:`repro_torch.distributed.collectives`).  Checkpoints stay
-unsharded: the ``model`` blocks and the moments are gathered and the
-first rank writes; a restore lays them out for the ranks and the layout
-it runs on, so a run saved on a 1 x 2 mesh resumes on 2 x 1 or on 1.
+unsharded: a save gathers one leaf at a time to host, and the first rank
+writes; a restore lays them out for the ranks and the layout it runs on,
+so a run saved on a 1 x 2 or a 2 x 1 mesh resumes on the other or on 1.
 """
 from __future__ import annotations
 
@@ -63,7 +73,7 @@ import dataclasses
 import functools
 import json
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -73,9 +83,8 @@ from repro_torch.api import SMAOptions, sma_jit
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig, get_config, reduced
 from repro_torch.data.pipeline import DataConfig, DataPipeline, PipelineState
-from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import (logical_to_spec, regroup,
-                                              rules_for,
+from repro_torch.distributed import collectives, fsdp
+from repro_torch.distributed.sharding import (logical_to_spec, rules_for,
                                               spec_tree_to_shardings,
                                               use_rules)
 from repro_torch.models import lm
@@ -106,19 +115,21 @@ class TrainLoopConfig:
 class MeshPlan:
     """``train(mesh=)``'s plan on one rank (module docstring): the batch
     axes and this rank's rows, the all-reduce over them; the ``model``
-    line and each parameter's block on it (``tp``); the ZeRO-1 shardings
-    of the moments of those blocks (``shardings``) with the all-gather that
-    puts each block back whole."""
+    line and each parameter's block on it (``tp``); each ``model`` block's
+    splits over the other axes (``shardings``: FSDP's ``data`` blocks,
+    the layout the model gathers); both together (``layout``: every
+    master, moment, gradient and error-feedback state on this rank)."""
 
     def __init__(self, cfg: ModelConfig, loop: "TrainLoopConfig", mesh,
                  params: dict) -> None:
-        """``params``: the whole parameters (shapes only are read)."""
+        """``params``: the whole parameters (shapes only are read; ``meta``
+        tensors will do)."""
         self.mesh = mesh
         self.rules = rules_for(cfg, mesh, batch_size=loop.global_batch,
                                kind="train")
         axes = tuple(a for a in (self.rules.batch or ())
                      if mesh.shape.get(a, 1) > 1)
-        self.keys = [mesh.group_key(a) for a in axes]
+        self.axes = axes
         self.ranks, self.index = 1, 0
         for a in axes:
             self.index = self.index * mesh.shape[a] + mesh.coords[a]
@@ -136,7 +147,14 @@ class MeshPlan:
         self.shardings = tree_map(
             lambda sh: sh.only(others),
             spec_tree_to_shardings(mesh, specs, like=local))
-        self.split = [bool(sh.splits) for sh in leaves(self.tp)]
+        self.layout = tree_map(lambda tp, sh: tp.with_splits(sh), self.tp,
+                               self.shardings)
+        #: Each leaf's split axes (the grad norm's sums), and the batch
+        #: axes its gather's reduce-scatter already summed its gradient
+        #: over.
+        self.split = [sh.axes() for sh in leaves(self.layout)]
+        self.summed = [tuple(a for a in sh.axes() if a in axes)
+                       for sh in leaves(self.shardings)]
 
     def rows(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         """This rank's rows of the global batch."""
@@ -144,51 +162,98 @@ class MeshPlan:
         return {k: v[self.index * b:(self.index + 1) * b]
                 for k, v in batch.items()}
 
-    def sum(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the batch axes (an all-reduce a non-trivial
-        axis)."""
-        for key in self.keys:
-            x = collectives.all_reduce(x, key, span="comm.grad_all_reduce")
+    def sum(self, x: torch.Tensor, skip: Tuple[str, ...] = ()
+            ) -> torch.Tensor:
+        """``x`` summed over the batch axes but ``skip`` (an all-reduce a
+        non-trivial axis)."""
+        for a in self.axes:
+            if a not in skip:
+                x = collectives.all_reduce(x, self.mesh.group_key(a),
+                                           span="comm.grad_all_reduce")
         return x
 
-    def model_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the ``model`` line."""
-        return collectives.all_reduce(x, self.model_key,
-                                      span="comm.tp_norm")
+    def axis_sum(self, x: torch.Tensor, axes: Tuple[str, ...]
+                 ) -> torch.Tensor:
+        """``x`` summed over ``axes`` (the grad norm's squares of blocks)."""
+        for a in axes:
+            x = collectives.all_reduce(
+                x, self.mesh.group_key(a),
+                span="comm.tp_norm" if a == "model" else "comm.fsdp_norm")
+        return x
 
-    def gather(self, x: torch.Tensor, sharding) -> torch.Tensor:
+    def _by_leaf(self, v: torch.Tensor, axes: List[Tuple[str, ...]],
+                 op: str, span: str) -> torch.Tensor:
+        """``v`` (one entry a leaf) reduced by ``op``, entry by entry, over
+        the axes each leaf is split over (``axes``, one tuple a leaf): one
+        all-reduce an axis, in one order on every rank."""
+        for a in sorted({a for ax in axes for a in ax}):
+            mask = torch.tensor([a in ax for ax in axes], device=v.device)
+            total = collectives.all_reduce(torch.where(mask, v, 0),
+                                           self.mesh.group_key(a), op=op,
+                                           span=span)
+            v = torch.where(mask, total, v)
+        return v
+
+    def leaf_max(self, maxes: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each leaf's largest of ``maxes`` (one a leaf, this rank's
+        block's) over the axes the leaf is split over (the compressed
+        gradient's whole-leaf scale)."""
+        return list(self._by_leaf(torch.stack(maxes), self.split, "max",
+                                  "comm.compress_max").unbind())
+
+    def gather(self, x: torch.Tensor, sharding,
+               span: str = "comm.checkpoint_gather") -> torch.Tensor:
         """Every rank's block ``x`` of a split leaf, whole (a grouped dim
-        put back in its order)."""
-        groups = dict(sharding.groups)
-        for dim, axes, parts, _ in reversed(sharding.splits):
-            for axis in reversed(axes):
-                x = collectives.all_gather(x, self.mesh.group_key(axis),
-                                           dim=dim,
-                                           span="comm.master_all_gather")
-            x = regroup(x, dim, parts, groups.get(dim, 1))
-        return x
+        put back in its order), in ``x``'s dtype."""
+        return fsdp.gather_param(x, sharding, None, mesh=self.mesh,
+                                 span=span)
 
-    def whole(self, params: dict) -> dict:
-        """Every rank's ``model`` blocks of ``params``, whole."""
+    def whole(self, tree: dict) -> dict:
+        """Every rank's blocks of ``tree`` (masters, a moment, the
+        error-feedback state), whole on every rank."""
         return tree_map(lambda p, sh: self.gather(p, sh) if sh.splits
-                        else p, params, self.tp)
-
-    def full_moments(self, opt_state: Dict) -> Dict:
-        """The optimizer state with whole moments (for a checkpoint)."""
-        def whole(m, sh, tp):
-            return self.gather(m, tp.with_splits(sh))
-        return {**opt_state,
-                "m": tree_map(whole, opt_state["m"], self.shardings,
-                              self.tp),
-                "v": tree_map(whole, opt_state["v"], self.shardings,
-                              self.tp)}
+                        else p, tree, self.layout)
 
     def layouts(self) -> Dict[str, Any]:
-        """``restore(shardings=)``'s layout of a trainer state: the
-        masters' blocks, and the moments' blocks of them."""
-        moments = tree_map(lambda sh, tp: tp.with_splits(sh),
-                           self.shardings, self.tp)
-        return {"params": self.tp, "opt": {"m": moments, "v": moments}}
+        """``restore(shardings=)``'s layout of a trainer state (and
+        :meth:`host`'s): masters and moments each this rank's blocks."""
+        return {"params": self.layout,
+                "opt": {"m": self.layout, "v": self.layout}}
+
+    def host(self, tree: Any, layout: Any, keep: bool) -> Any:
+        """``tree`` (a trainer state) on the host for a checkpoint, each
+        leaf split under ``layout`` (a like tree; a missing key: whole)
+        gathered first, one leaf at a time, each copied to host before the
+        next is gathered, so no rank's device holds more than one whole
+        leaf.  Every rank calls it (the gathers are collectives); a rank
+        that does not write (``keep`` False) gets None leaves."""
+        if isinstance(tree, dict):
+            return {k: self.host(v, layout.get(k) if isinstance(
+                layout, dict) else None, keep) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return tuple(self.host(v, None if layout is None else layout[i],
+                                   keep) for i, v in enumerate(tree))
+        if layout is not None and layout.splits:
+            tree = self.gather(tree, layout)
+        if not keep:
+            return None
+        return (tree.detach().to("cpu", copy=True).numpy()
+                if isinstance(tree, torch.Tensor) else tree)
+
+    def digest(self, params: dict) -> List[int]:
+        """:func:`masters_digest` of each ``model`` block of the masters,
+        whole over the other axes: the digest is a sum, so a block's
+        digests are summed over the axes the block is split over (one
+        all-reduce of the digests an axis; none without such a split).
+        Every rank of a ``data`` line reads the same digests where its
+        replicas agree.  Only a leaf whole over ``data`` (a norm scale)
+        can show ranks parting: a split leaf's blocks each live on one
+        rank, and the summed digest is the same on all of them by
+        construction."""
+        d = torch.tensor(masters_digest(params), dtype=torch.int64,
+                         device=leaves(params)[0].device)
+        return self._by_leaf(d, [sh.axes() for sh in leaves(self.shardings)],
+                             "sum", "comm.digest").tolist()
 
 
 def direct_step(params, opt_state, ef, batch, *, cfg: ModelConfig,
@@ -209,18 +274,18 @@ def direct_step(params, opt_state, ef, batch, *, cfg: ModelConfig,
     else:
         with use_rules(plan.rules, plan.mesh.axis_names, mesh=plan.mesh):
             loss, metrics = lm.loss_fn(live, cfg, batch, remat=remat,
-                                       dp_sum=plan.sum, dp_ranks=plan.ranks)
-            grads = unflatten(live, [plan.sum(g) for g in torch.autograd.grad(
-                loss, leaves(live))])
+                                       dp_sum=plan.sum, dp_ranks=plan.ranks,
+                                       fsdp=plan.shardings)
+            grads = unflatten(live, [
+                plan.sum(g, skip) for g, skip in zip(
+                    torch.autograd.grad(loss, leaves(live)), plan.summed)])
     if grad_compression:
-        grads, ef = gcomp.roundtrip(grads, ef)
-    tp_norm = plan is not None and plan.model_key is not None
+        grads, ef = gcomp.roundtrip(
+            grads, ef, plan.leaf_max if plan is not None else None)
     params, opt_state, om = adamw.update(
         grads, opt_state, params, ocfg,
-        shardings=plan.shardings if plan is not None else None,
-        gather=plan.gather if plan is not None else None,
-        split=plan.split if tp_norm else None,
-        model_sum=plan.model_sum if tp_norm else None)
+        split=plan.split if plan is not None else None,
+        axis_sum=plan.axis_sum if plan is not None else None)
     return params, opt_state, ef, {**metrics, **om}
 
 
@@ -257,32 +322,38 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, *,
           ) -> Dict[str, Any]:
     """Train for ``loop.steps`` steps through :func:`make_step`'s engine.
     Runs on ``cuda`` unless ``device`` says otherwise.  ``params`` (float32
-    masters on ``device``, whole; updated in place unless a ``model`` axis
-    splits them) default to ``lm.init(cfg, seed=loop.seed)`` in
-    ``cfg.parameter_dtype``.  ``mesh``: data and tensor parallelism over
+    masters on ``device``, whole; updated in place without a ``mesh``)
+    default to ``lm.init(cfg, seed=loop.seed)`` in ``cfg.parameter_dtype``
+    (with a ``mesh``, this rank's blocks of them, drawn by
+    :func:`repro_torch.models.lm.init_blocks`; given ``params`` are laid
+    out a leaf at a time).  ``mesh``: data, tensor and FSDP parallelism over
     its ranks (module docstring; every rank calls ``train`` with the same
     arguments).  Returns ``{"history", "params", "opt", "engine", "plan"}``
-    (``"params"`` this rank's masters, a ``model`` block of each split
-    one; ``"opt"`` the optimizer state, this rank's block of each split
-    moment; ``"plan"`` the :class:`MeshPlan`, or None): history has one
-    entry per logged step with the metrics, ``step`` and ``wall_s`` (host
-    seconds since the first step of this run began, taken after the
-    metrics reach the host), and with a ``mesh`` ``masters_digest``
-    (:func:`masters_digest` of this rank's masters: the replicas agree at
-    that step when their digests do); ``engine`` is the step engine's
-    cache statistics."""
+    (``"params"`` this rank's masters, its block of each split one;
+    ``"opt"`` the optimizer state, its block of each split moment;
+    ``"plan"`` the :class:`MeshPlan`, or None): history has one entry per
+    logged step with the metrics, ``step`` and ``wall_s`` (host seconds
+    since the first step of this run began, taken after the metrics reach
+    the host), and with a ``mesh`` ``masters_digest`` (:meth:`MeshPlan.
+    digest`: of each ``model`` block whole over ``data``, so the replicas
+    agree at that step when their digests do); ``engine`` is the step
+    engine's cache statistics."""
     dev = resolve_device(device)
-    if params is None:
+    plan = None
+    if mesh is not None:
+        plan = MeshPlan(cfg, loop, mesh, params if params is not None
+                        else lm.abstract_params(cfg, cfg.parameter_dtype))
+        params = (lm.init_blocks(cfg, plan.layout, seed=loop.seed,
+                                 device=dev, dtype=cfg.parameter_dtype)
+                  if params is None
+                  else convert.model_blocks(params, plan.layout))
+    elif params is None:
         params = lm.init(cfg, seed=loop.seed, device=dev,
                          dtype=cfg.parameter_dtype)
     for p in leaves(params):
         p.requires_grad_(False)
-    plan = MeshPlan(cfg, loop, mesh, params) if mesh is not None else None
-    if plan is not None:
-        params = convert.model_blocks(params, plan.tp)
     lead = plan is None or mesh.rank == 0
-    opt_state = adamw.init(params,
-                           plan.shardings if plan is not None else None)
+    opt_state = adamw.init(params)
     ef = gcomp.init_error(params) if loop.grad_compression else {}
     pipe = DataPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                    seq_len=loop.seq_len,
@@ -301,7 +372,7 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, *,
         if plan is not None:
             layout = plan.layouts()
             if ef:
-                layout["ef"] = plan.tp
+                layout["ef"] = plan.layout
         start_step, restored = mgr.restore(_state(params, opt_state, ef,
                                                   pipe), shardings=layout)
         params, opt_state, ef = (restored["params"], restored["opt"],
@@ -317,13 +388,15 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, *,
                         options=options, plan=plan)
 
     def save(step: int) -> None:
-        """Every rank gathers the masters' blocks and the moments; the
-        first one writes."""
-        if plan is None:
-            state = _state(params, opt_state, ef, pipe)
-        else:
-            state = _state(plan.whole(params), plan.full_moments(opt_state),
-                           plan.whole(ef) if ef else ef, pipe)
+        """Every rank gathers the split leaves, one at a time, each to
+        host before the next (:meth:`MeshPlan.host`); the first one
+        writes."""
+        state = _state(params, opt_state, ef, pipe)
+        if plan is not None:
+            layout = plan.layouts()
+            if ef:
+                layout["ef"] = plan.layout
+            state = plan.host(state, layout, keep=lead)
         if lead:
             mgr.save(step, state)
 
@@ -331,7 +404,8 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, *,
         if lead:
             mgr.wait()
         if plan is not None:       # no rank reads before the commit
-            for key in plan.keys + [plan.model_key] * bool(plan.model_key):
+            for key in [mesh.group_key(a) for a in plan.axes] + \
+                    [plan.model_key] * bool(plan.model_key):
                 collectives.all_reduce(torch.zeros((), device=dev), key)
 
     def finish() -> Dict[str, Any]:
@@ -351,7 +425,7 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig, *,
             m = {k: float(v) for k, v in metrics.items()}
             m["step"] = i + 1
             if plan is not None:
-                m["masters_digest"] = masters_digest(params)
+                m["masters_digest"] = plan.digest(params)
             m["wall_s"] = time.perf_counter() - t0
             history.append(m)
             if lead:

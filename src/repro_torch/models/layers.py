@@ -11,7 +11,9 @@ reads them in float32.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import threading
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 
@@ -25,6 +27,47 @@ def compute_cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     already held in ``dtype``; for an f32 master, a cast whose backward
     casts the gradient back."""
     return w.to(dtype)
+
+
+class _Draws(threading.local):
+    hook: Optional[Callable] = None
+
+
+_DRAWS = _Draws()
+
+
+@contextlib.contextmanager
+def deferred_draws(hook: Callable) -> Iterator[None]:
+    """Within it, every random draw of an ``*_init`` function (on this
+    thread) calls ``hook(make, shape, dtype)`` in its place and puts what
+    the hook returns into the tree: ``make(keep)`` draws the leaf from the
+    init's generator, where ``keep`` (a
+    :class:`repro_torch.distributed.sharding.LeafSharding`, or None for the
+    whole leaf) is the block of it to return; a stacked leaf is drawn a
+    leading slice at a time and only each slice's block kept.  Calling
+    the ``make`` functions later, in the order the hook saw them, draws
+    exactly what the init would have
+    (:func:`repro_torch.models.lm.init_blocks`)."""
+    old, _DRAWS.hook = _DRAWS.hook, hook
+    try:
+        yield
+    finally:
+        _DRAWS.hook = old
+
+
+def _drawn(make: Callable, shape: Tuple[int, ...], dtype: torch.dtype
+           ) -> torch.Tensor:
+    hook = _DRAWS.hook
+    return make(None) if hook is None else hook(make, tuple(shape), dtype)
+
+
+def _kept(x: torch.Tensor, keep, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in ``dtype``, or a new tensor of its block under ``keep``."""
+    if keep is None or not keep.splits:
+        return x.to(dtype)
+    part = keep.local(x)
+    return torch.empty(part.shape, dtype=dtype,
+                       device=x.device).copy_(part)
 
 
 def variance_scaling_init(gen: torch.Generator, shape: Tuple[int, ...],
@@ -43,12 +86,32 @@ def variance_scaling_init(gen: torch.Generator, shape: Tuple[int, ...],
         return torch.randn(part, generator=gen, device=gen.device,
                            dtype=torch.float32).mul_(scale)
 
-    if len(shape) < 3:
-        return draw(shape).to(dtype)
-    out = torch.empty(shape, dtype=dtype, device=gen.device)
-    for i in range(shape[0]):
-        out[i] = draw(shape[1:])
-    return out
+    def make(keep) -> torch.Tensor:
+        if len(shape) < 3:
+            return _kept(draw(shape), keep, dtype)
+        split = keep is not None and bool(keep.splits)
+        if split and any(d == 0 for d, _, _, _ in keep.splits):
+            return _kept(make(None), keep, dtype)
+        inner = keep.inner() if split else None
+        rest = inner.local_shape(shape[1:]) if split else shape[1:]
+        out = torch.empty((shape[0],) + tuple(rest), dtype=dtype,
+                          device=gen.device)
+        for i in range(shape[0]):
+            out[i] = inner.local(draw(shape[1:])) if split \
+                else draw(shape[1:])
+        return out
+
+    return _drawn(make, shape, dtype)
+
+
+def uniform_init(gen: torch.Generator, shape: Tuple[int, ...], lo: float,
+                 hi: float) -> torch.Tensor:
+    """U[lo, hi) drawn in float32 (held so)."""
+    def make(keep) -> torch.Tensor:
+        x = torch.rand(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32) * (hi - lo) + lo
+        return _kept(x, keep, torch.float32)
+    return _drawn(make, shape, torch.float32)
 
 
 def rmsnorm_init(d: int, device: torch.device,
@@ -66,9 +129,11 @@ def rmsnorm_apply(params: dict, x: torch.Tensor, *,
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                dtype: torch.dtype) -> dict:
-    table = torch.randn((vocab, d), generator=gen, device=gen.device,
-                        dtype=torch.float32)
-    return {"table": table.to(dtype)}
+    def make(keep) -> torch.Tensor:
+        return _kept(torch.randn((vocab, d), generator=gen,
+                                 device=gen.device, dtype=torch.float32),
+                     keep, dtype)
+    return {"table": _drawn(make, (vocab, d), dtype)}
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,

@@ -42,14 +42,16 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import fsdp as _fsdp
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import ambient, map_specs, use_rules
 from repro_torch.kernels import ops
 from repro_torch.models import attention, moe, recurrent
-from repro_torch.models.layers import (compute_cast, embed_init,
-                                       gated_mlp_apply, gated_mlp_init,
-                                       rmsnorm_apply, rmsnorm_init,
-                                       variance_scaling_init)
+from repro_torch.models.layers import (compute_cast, deferred_draws,
+                                       embed_init, gated_mlp_apply,
+                                       gated_mlp_init, rmsnorm_apply,
+                                       rmsnorm_init, variance_scaling_init)
+from repro_torch.tree import leaves, tree_map
 
 VOCAB_PAD = 256
 
@@ -128,6 +130,51 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
     params["final_norm"] = rmsnorm_init(d, dev)
     params["head"] = {"w": variance_scaling_init(gen, (d, vpad), dt)}
     return params
+
+
+def _deferred_init(cfg: ModelConfig, seed: int, device: DeviceLike,
+                   dtype: Optional[torch.dtype]) -> Tuple[dict, List]:
+    """:func:`init`'s tree with a ``meta`` tensor in place of every drawn
+    leaf, and each draw's ``(meta tensor, make)`` in the order the init
+    made them (:func:`repro_torch.models.layers.deferred_draws`)."""
+    draws: List = []
+
+    def hook(make, shape, dt):
+        t = torch.empty(shape, dtype=dt, device="meta")
+        draws.append((t, make))
+        return t
+
+    with deferred_draws(hook):
+        tree = init(cfg, seed=seed, device=device, dtype=dtype)
+    return tree, draws
+
+
+def abstract_params(cfg: ModelConfig,
+                    dtype: Optional[torch.dtype] = None) -> dict:
+    """:func:`init`'s tree of ``meta`` tensors (shapes and dtypes only;
+    nothing is drawn)."""
+    tree, _ = _deferred_init(cfg, 0, "cpu", dtype)
+    return tree_map(lambda t: t.to("meta"), tree)
+
+
+def init_blocks(cfg: ModelConfig, layout: Any, *, seed: int = 0,
+                device: DeviceLike = None,
+                dtype: Optional[torch.dtype] = None) -> dict:
+    """This rank's block of every leaf of :func:`init` under ``layout`` (a
+    tree like it of :class:`repro_torch.distributed.sharding.LeafSharding`;
+    ``train(mesh=)``'s ``model`` and ``data`` splits), bit for bit
+    ``convert.model_blocks(init(cfg, ...), layout)``, with no whole model
+    on the device: every leaf is drawn in :func:`init`'s order from its one
+    generator and only its block kept before the next is drawn (a stacked
+    leaf a group's slice at a time, :func:`repro_torch.models.layers.
+    variance_scaling_init`).  Runs on ``cuda`` unless ``device`` says
+    otherwise."""
+    tree, draws = _deferred_init(cfg, seed, device, dtype)
+    keep = {id(t): sh for t, sh in zip(leaves(tree), leaves(layout))}
+    made = {id(t): make(keep[id(t)]) for t, make in draws}
+    return tree_map(lambda t, sh: made[id(t)] if id(t) in made
+                    else sh.local(t).contiguous().clone() if sh.splits
+                    else t, tree, layout)
 
 
 #: Logical-axis specs of one group's mixer and FFN, by block type: the
@@ -284,13 +331,19 @@ def _block(bparams: dict, btype: str, x: torch.Tensor, cfg: ModelConfig,
 
 
 def step_inputs(params: dict, cfg: ModelConfig,
-                batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+                batch: Dict[str, torch.Tensor],
+                fsdp: Optional[dict] = None) -> torch.Tensor:
     """The embeddings of a batch without its vision prefix, in the
     activation dtype: ``batch["embeds"]`` in ``embeds`` mode, the tokens'
-    rows of the table otherwise (what a decode or paged step takes)."""
+    rows of the table otherwise (what a decode or paged step takes).
+    ``fsdp``: the parameters' FSDP layout (:func:`forward_aux`); the table
+    is gathered, in the activation dtype, just before the lookup."""
     if cfg.input_mode == "embeds":
         return batch["embeds"].to(cfg.activation_dtype)
     table = params["embed"]["table"]
+    if fsdp is not None:
+        table = _fsdp.gather_param(table, fsdp["embed"]["table"],
+                                   cfg.activation_dtype)
     ax = tp.split_of(table.shape[0], padded_vocab(cfg))
     if ax is not None:                  # vocab-parallel
         return tp.vocab_embed(ax, table, batch["tokens"],
@@ -299,11 +352,12 @@ def step_inputs(params: dict, cfg: ModelConfig,
 
 
 def embed_inputs(params: dict, cfg: ModelConfig,
-                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+                 batch: Dict[str, torch.Tensor],
+                 fsdp: Optional[dict] = None) -> torch.Tensor:
     """The decoder's input (B, S, D) in the activation dtype, by
     ``cfg.input_mode``: :func:`step_inputs`, after the vision prefix in
     ``tokens+vision`` mode."""
-    x = step_inputs(params, cfg, batch)
+    x = step_inputs(params, cfg, batch, fsdp)
     if cfg.input_mode == "tokens+vision":
         x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
     return x
@@ -317,7 +371,8 @@ def forward(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 
 def forward_aux(params: dict, cfg: ModelConfig,
-                batch: Dict[str, torch.Tensor], *, remat: bool = False
+                batch: Dict[str, torch.Tensor], *, remat: bool = False,
+                fsdp: Optional[dict] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(logits (B, S, Vpad) in the activation dtype, padded-vocab columns
     -1e30; the auxiliary values).  An MoE model's are :data:`AUX_KEYS`,
@@ -328,10 +383,21 @@ def forward_aux(params: dict, cfg: ModelConfig,
     (``torch.utils.checkpoint``, the counterpart of ``Runtime.remat`` with
     policy ``"full"``): every forward launch of a group runs twice a step.
     ``final_norm -> head`` is one fused ``rmsnorm_gemm`` (the JAX
-    compiler's prologue-fusion rule)."""
+    compiler's prologue-fusion rule).
+
+    ``fsdp`` (FSDP, ``train(mesh=)``): a tree like ``params`` of each
+    leaf's splits over the axes other than ``model``
+    (:class:`repro_torch.distributed.sharding.LeafSharding`); ``params``
+    are this rank's blocks.  Each group's body gathers that group's split
+    leaves, and only those, as its first act (inside the remat
+    checkpoint: the recomputation gathers again), in the activation dtype
+    and in one bucket (:func:`repro_torch.distributed.fsdp.gather_tree`);
+    the table and the head are gathered just before their use."""
     check_pattern(cfg)
-    x = embed_inputs(params, cfg, batch)
+    x = embed_inputs(params, cfg, batch, fsdp)
     groups = [unstack(p, cfg.num_groups) for p in params["blocks"]]
+    layouts = (None if fsdp is None else
+               [tree_map(lambda sh: sh.inner(), b) for b in fsdp["blocks"]])
     aux = ({k: torch.zeros((), device=x.device) for k in AUX_KEYS}
            if cfg.moe is not None else {})
 
@@ -343,8 +409,10 @@ def forward_aux(params: dict, cfg: ModelConfig,
         # A remat recomputation runs on autograd's thread for a CUDA
         # tensor: the rules (a model axis) the forward ran under go along.
         with use_rules(*rules):
+            whole = _fsdp.gather_tree([gp[g] for gp in groups], layouts,
+                                      cfg.activation_dtype)
             for p, btype in enumerate(cfg.block_pattern):
-                x = _block(groups[p][g], btype, x, cfg, aux)
+                x = _block(whole[p], btype, x, cfg, aux)
         return x, aux
 
     for g in range(cfg.num_groups):
@@ -354,6 +422,10 @@ def forward_aux(params: dict, cfg: ModelConfig,
         else:
             x, aux = group_body(x, aux, g)
     ax = tp.split_of(params["head"]["w"].shape[-1], padded_vocab(cfg))
+    if fsdp is not None:
+        params = {"final_norm": params["final_norm"],
+                  "head": _fsdp.gather_tree(params["head"], fsdp["head"],
+                                            cfg.activation_dtype)}
     logits = head(params, x, ax)
     if padded_vocab(cfg) != cfg.vocab_size:
         n = logits.shape[-1]
@@ -381,7 +453,7 @@ def head(params: dict, x: torch.Tensor,
 def loss_fn(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             *, remat: bool = False,
             dp_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
-            dp_ranks: int = 1
+            dp_ranks: int = 1, fsdp: Optional[dict] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy in float32; labels -1 are ignored.
     With ``cfg.logits_softcap`` = c the logits are first capped as
@@ -399,8 +471,9 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     cross-entropies over the global count (plus its auxiliary losses over
     ``dp_ranks``), whose gradient summed over the ranks is the global
     batch's; the metrics are the global batch's (each numerator summed).
+    ``fsdp``: :func:`forward_aux`'s.
     """
-    logits, aux = forward_aux(params, cfg, batch, remat=remat)
+    logits, aux = forward_aux(params, cfg, batch, remat=remat, fsdp=fsdp)
     logits32 = logits.float()
     if cfg.logits_softcap:
         c = cfg.logits_softcap

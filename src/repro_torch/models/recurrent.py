@@ -52,7 +52,8 @@ from repro_torch.compiler import loop
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import ops
-from repro_torch.models.layers import compute_cast, variance_scaling_init
+from repro_torch.models.layers import (compute_cast, uniform_init,
+                                       variance_scaling_init)
 
 CONV_WIDTH = 4
 _RGLRU_C = 8.0
@@ -69,8 +70,7 @@ def rglru_block_init(gen: torch.Generator, cfg: ModelConfig,
     def zeros(n: int) -> torch.Tensor:
         return torch.zeros(lead + (n,), dtype=dtype, device=dev)
 
-    lam = torch.rand(lead + (lru,), generator=gen, device=dev,
-                     dtype=torch.float32) * (0.999 - 0.744) + 0.744
+    lam = uniform_init(gen, lead + (lru,), 0.744, 0.999)
     return {
         "w_in": variance_scaling_init(gen, lead + (d, lru), dtype),
         "w_gate": variance_scaling_init(gen, lead + (d, lru), dtype),

@@ -9,26 +9,20 @@ of the model or of the optimizer state.  It returns the same (params,
 state, metrics) triple, with ``params`` and the state the objects passed
 in.
 
-ZeRO-1 (``train(mesh=)``): with ``shardings`` (a tree of
-:class:`repro_torch.distributed.sharding.LeafSharding` like the
-parameters) :func:`init` makes each moment this rank's block of it, and
-:func:`update` updates this rank's block of each split master from the
-full (all-reduced) gradient, then ``gather`` (an all-gather over the
-split's axes) puts the whole master back on every rank.  The update is
-elementwise, so a split changes no bit of it.
-
-Tensor parallelism: the masters are each rank's ``model`` blocks (the
-moments a block of that block where ZeRO-1 splits it further over
-``data``), and the gradient norm is taken over the whole model:
-``model_sum`` sums the squares of the split leaves' blocks over the
-``model`` line, and each replicated leaf counts once, so every rank clips
-by the same scale.
+Under ``train(mesh=)`` the masters, moments and gradients are each this
+rank's block of the leaf (FSDP and tensor parallelism,
+:mod:`repro_torch.launch.train`), and the update is elementwise, so it
+runs on the blocks as they are and a split changes no bit of it.  The
+gradient norm is taken over the whole model: ``axis_sum`` sums the
+squares of the blocks over the axes each leaf is split over (``split``),
+and each replicated leaf counts once, so every rank clips by the same
+scale.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -66,51 +60,46 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.peak_lr * warm * decay
 
 
-def init(params, shardings=None) -> Dict:
-    """Zero moments in float32 beside each parameter (this rank's block of
-    it under ``shardings``), and step 0."""
-    def zeros(p, sh=None):
-        shape = p.shape if sh is None else sh.local_shape(p.shape)
-        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+def init(params) -> Dict:
+    """Zero moments in float32 beside each parameter (beside each block of
+    one under ``train(mesh=)``), and step 0."""
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     dev = leaves(params)[0].device
-    if shardings is None:
-        m, v = tree_map(zeros, params), tree_map(zeros, params)
-    else:
-        m = tree_map(zeros, params, shardings)
-        v = tree_map(zeros, params, shardings)
-    return {"m": m, "v": v,
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree, split=None,
-                model_sum: Optional[Callable] = None) -> torch.Tensor:
-    """The 2-norm of every leaf together.  With ``split`` (one flag a
-    leaf: a block of a leaf split over the model line) and ``model_sum``
-    (a sum over that line), the blocks' squares are summed over the line
-    and each whole leaf's counted once."""
-    if model_sum is None:
-        return torch.sqrt(sum(g.float().square().sum()
-                              for g in leaves(tree)))
+def global_norm(tree, split: Optional[Sequence[Tuple[str, ...]]] = None,
+                axis_sum: Optional[Callable] = None) -> torch.Tensor:
+    """The 2-norm of every leaf together.  With ``split`` (a leaf's mesh
+    axes when it is a block of a leaf split over them, else ``()``) and
+    ``axis_sum(x, axes)`` (a sum over those axes), the squares of the
+    blocks of one set of axes are summed over those axes, and each whole
+    leaf's counted once."""
     squares = [g.float().square().sum() for g in leaves(tree)]
-    blocks = sum((q for q, sp in zip(squares, split) if sp),
-                 torch.zeros((), device=squares[0].device))
-    whole = sum((q for q, sp in zip(squares, split) if not sp),
-                torch.zeros((), device=squares[0].device))
-    return torch.sqrt(model_sum(blocks) + whole)
+    if axis_sum is None:
+        return torch.sqrt(sum(squares))
+    by_axes: Dict[Tuple[str, ...], list] = {}
+    for q, axes in zip(squares, split):
+        by_axes.setdefault(tuple(axes), []).append(q)
+    total = torch.zeros((), device=squares[0].device)
+    for axes in sorted(by_axes, key=lambda a: (len(a), a), reverse=True):
+        part = sum(by_axes[axes])
+        total = total + (axis_sum(part, axes) if axes else part)
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def update(grads, state: Dict, params, cfg: AdamWConfig, *,
-           shardings=None, gather: Optional[Callable] = None,
-           split=None, model_sum: Optional[Callable] = None
+           split: Optional[Sequence[Tuple[str, ...]]] = None,
+           axis_sum: Optional[Callable] = None
            ) -> Tuple[object, Dict, Dict[str, torch.Tensor]]:
     """One AdamW step, in place.  Returns (params, state, metrics).
-    ``shardings`` / ``gather``: ZeRO-1 (module docstring); ``gather(x,
-    sharding)`` returns the whole tensor of every rank's block ``x``.
-    ``split`` / ``model_sum``: the gradient norm under tensor parallelism
+    ``split`` / ``axis_sum``: the gradient norm of blocks
     (:func:`global_norm`)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads, split, model_sum)
+    gnorm = global_norm(grads, split, axis_sum)
     flat_g = [g.float() for g in leaves(grads)]
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
@@ -119,23 +108,15 @@ def update(grads, state: Dict, params, cfg: AdamWConfig, *,
     lr = lr_at(cfg, step)
     b1c = 1.0 - cfg.b1 ** step.to(torch.float32)
     b2c = 1.0 - cfg.b2 ** step.to(torch.float32)
-    flat_sh = (leaves(shardings) if shardings is not None
-               else [None] * len(flat_g))
-    for p, g, m, v, sh in zip(leaves(params), flat_g, leaves(state["m"]),
-                              leaves(state["v"]), flat_sh):
-        split = sh is not None and sh.splits
-        if split:
-            g = sh.local(g)
+    for p, g, m, v in zip(leaves(params), flat_g, leaves(state["m"]),
+                          leaves(state["v"])):
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
         delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        p32 = (sh.local(p) if split else p).float()
+        p32 = p.float()
         if cfg.weight_decay:
             delta.add_(cfg.weight_decay * p32)
-        new = p32 - lr * delta
-        if split:
-            new = gather(new.to(p.dtype), sh)
-        p.copy_(new)
+        p.copy_(p32 - lr * delta)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
 

@@ -6,7 +6,10 @@ step: each gradient plus its carried error is quantized to int8 against
 a float32 scale ``max(max|g + e|, 1e-12) / 127`` (rounding half to even,
 as ``jnp.round`` does), dequantized, and what the int8 payload lost is
 carried to the next step.  The payloads, scales and errors equal the JAX
-functions' exactly on the same float32 inputs.
+functions' exactly on the same float32 inputs.  Under ``train(mesh=)`` a
+gradient is held as blocks, and each block is quantized against its
+whole leaf's scale (``amax``: the largest magnitude over the blocks), so
+the round trip is the unmeshed one's, block by block.
 
 Trees are nested dicts and tuples of tensors (:mod:`repro_torch.tree`);
 ``grads`` and ``error`` have one structure.  :func:`compressed_psum` is
@@ -16,18 +19,18 @@ the dequantized values is taken in float32 on every rank.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
-def _quant_one(g: torch.Tensor, e: torch.Tensor
+def _quant_one(g32: torch.Tensor, amax: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Quantize g + e to int8: (q, scale, new error)."""
-    g32 = g.float() + e
-    scale = torch.clamp_min(g32.abs().amax(), 1e-12) / 127.0
+    """Quantize g32 (a gradient plus its error) against its largest
+    magnitude ``amax``: (q, scale, new error)."""
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
     q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)
     return q, scale, g32 - q.float() * scale
 
@@ -38,10 +41,19 @@ def init_error(params: Any) -> Any:
                                           device=p.device), params)
 
 
-def compress_grads(grads: Any, error: Any):
+def compress_grads(grads: Any, error: Any,
+                   amax: Optional[Callable[[List[torch.Tensor]],
+                                           List[torch.Tensor]]] = None):
     """``((q_tree, scale_tree), new_error_tree)``: int8 payloads, float32
-    scalar scales and float32 errors, each a tree like ``grads``."""
-    out = [_quant_one(g, e) for g, e in zip(leaves(grads), leaves(error))]
+    scalar scales and float32 errors, each a tree like ``grads``.
+    ``amax``: each leaf's largest magnitude from this rank's (a gradient
+    held as blocks, ``train(mesh=)``: the largest over the blocks, so a
+    block is quantized against its whole leaf's scale)."""
+    g32 = [g.float() + e for g, e in zip(leaves(grads), leaves(error))]
+    maxes = [g.abs().amax() for g in g32]
+    if amax is not None:
+        maxes = amax(maxes)
+    out = [_quant_one(g, m) for g, m in zip(g32, maxes)]
     q, scale, err = (unflatten(grads, [o[i] for o in out]) for i in range(3))
     return (q, scale), err
 
@@ -52,10 +64,11 @@ def decompress(compressed) -> Any:
     return tree_map(lambda q, s: q.float() * s, q_tree, scale_tree)
 
 
-def roundtrip(grads: Any, error: Any):
+def roundtrip(grads: Any, error: Any, amax=None):
     """Quantize and dequantize with error feedback (the trainer's hook):
-    ``(dequantized grads, new error)``."""
-    compressed, new_error = compress_grads(grads, error)
+    ``(dequantized grads, new error)``; ``amax`` as
+    :func:`compress_grads`'."""
+    compressed, new_error = compress_grads(grads, error, amax)
     return decompress(compressed), new_error
 
 

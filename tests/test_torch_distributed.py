@@ -446,9 +446,10 @@ def train_runs(tmp_path_factory):
 
 
 def test_train_mesh_replicas_are_equal(train_runs):
-    """train(mesh=) on 2 ranks: the same metrics and masters bit for bit
-    on both ranks (each step's master digests in the history among them),
-    one compile, every rank's moments its block."""
+    """train(mesh=) on 2 ranks: the same metrics and gathered masters bit
+    for bit on both ranks (each step's master digests, of the gathered
+    masters, in the history among them), one compile, every rank's masters
+    and moments its ``data`` block (FSDP)."""
     a, b = train_runs["two"]
     assert a["history"] == b["history"]
     assert [len(h["masters_digest"]) for h in a["history"]] == \
@@ -459,6 +460,7 @@ def test_train_mesh_replicas_are_equal(train_runs):
     for x, y in zip(a["params"], b["params"]):
         assert np.array_equal(x, y)
     assert a["engine"]["misses"] == 1 and a["engine"]["hits"] == 4
+    assert a["local_shapes"] == a["m_shapes"] == b["local_shapes"]
     full = [p.shape for p in a["params"]]
     halved = [s for s, f in zip(a["m_shapes"], full) if s != f]
     assert halved and all(s[-1] * 2 == f[-1] or s[-2] * 2 == f[-2]
@@ -483,13 +485,16 @@ def test_masters_digest_sees_one_element():
 
 def test_train_mesh_collectives_in_order(train_runs):
     """Every rank's dispatched step issues the same collectives in the
-    same order, each of them kept from the traced graph."""
+    same order, each of them kept from the traced graph: every gradient
+    summed (an all-reduce, or the reduce-scatter of an FSDP gather's
+    backward), the split masters gathered."""
     a, b = train_runs["two"]
     assert a["collectives"] == b["collectives"] and a["collectives"][0]
     assert [len(c) for c in a["collectives"]] == a["traced_collectives"]
     ops_ = [op for op, _ in a["collectives"][0]]
-    assert ops_.count("_all_reduce_impl") >= len(a["params"])
-    assert "_all_gather_impl" in ops_
+    assert ops_.count("_all_reduce_impl") + \
+        ops_.count("_reduce_scatter_impl") >= len(a["params"])
+    assert "_param_gather_impl" in ops_
 
 
 def test_train_mesh_matches_unmeshed_and_jax(train_runs):

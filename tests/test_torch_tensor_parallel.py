@@ -261,9 +261,10 @@ def test_tp_replicas_blocks_and_order(tp_runs, arch):
 
 
 def test_tp_two_by_two(tp_runs):
-    """StableLM on 2 x 2 (data x tensor parallel, ZeRO-1 moments) against
+    """StableLM on 2 x 2 (data x tensor parallel, FSDP over data) against
     the unmeshed run; the replicated leaves equal on all four ranks, the
-    split ones on each data pair."""
+    split ones on each data pair; each rank's masters and moments its
+    ``data`` block of some ``model`` blocks."""
     unmeshed, jax_loop, _ = _references(tp_runs, "stablelm-1.6b")
     runs = [rank["2x2"] for rank in tp_runs["four"]]
     for run in runs:
@@ -280,8 +281,10 @@ def test_tp_two_by_two(tp_runs):
     for pair in by_model.values():
         assert pair[0]["history"] == pair[1]["history"]
     assert all(r["collectives"] == runs[0]["collectives"] for r in runs)
-    assert any(s != w for s, w in zip(runs[0]["moment_shapes"],
-                                      runs[0]["local_shapes"]))
+    assert runs[0]["moment_shapes"] == runs[0]["local_shapes"] == \
+        [tuple(s) for s in runs[0]["moment_want"]]
+    assert any(s != w for s, w in zip(runs[0]["local_shapes"],
+                                      runs[0]["model_shapes"]))
 
 
 def test_whole_attention_route(tp_runs):

@@ -211,8 +211,9 @@ def train_case(rank: int, world: int, inputs: str, steps: int,
                global_batch: int = 4) -> dict:
     """``train(mesh=smoke_mesh())`` of the reduced StableLM from the
     masters in ``inputs`` (``p{i}``, the JAX package's init): history,
-    masters, this rank's moments, the traced step's collective nodes and
-    the dispatched step's collectives in order."""
+    the gathered masters and this rank's masters' and moments' shapes, the
+    traced step's collective nodes and the dispatched step's collectives
+    in order."""
     from repro_torch.compiler import dispatch as cdispatch
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.distributed.collectives import COLLECTIVE_OPS, IMPLS
@@ -253,7 +254,10 @@ def train_case(rank: int, world: int, inputs: str, steps: int,
               for cm in built]
     return {"history": [{k: v for k, v in h.items() if k != "wall_s"}
                         for h in result["history"]],
-            "params": [_np(p) for p in leaves(result["params"])],
+            "params": [_np(p) for p in
+                       leaves(result["plan"].whole(result["params"]))],
+            "local_shapes": [tuple(p.shape)
+                             for p in leaves(result["params"])],
             "m_shapes": [tuple(m.shape) for m in leaves(result["opt"]["m"])],
             "collectives": order, "traced_collectives": traced,
             "engine": result["engine"]}
@@ -402,7 +406,9 @@ def tp_train(cfg, inputs: str, sizes, loop) -> dict:
             "split": split, "local_shapes": local, "whole_shapes":
             whole_shapes, "moment_shapes": moments,
             "moment_want": [sh.local_shape(s) for sh, s in zip(
-                leaves(plan.shardings), local)],
+                leaves(plan.layout), whole_shapes)],
+            "model_shapes": [sh.local_shape(s) for sh, s in zip(
+                leaves(plan.tp), whole_shapes)],
             "replicated_digest": [
                 [d for d, sp in zip(h["masters_digest"], split) if not sp]
                 for h in result["history"]],
@@ -607,3 +613,196 @@ def tp_card_case(rank: int, world: int) -> dict:
 def _clone(tree):
     from repro_torch.tree import tree_map
     return tree_map(lambda t: t.clone(), tree)
+
+
+# --------------------------------------------------------------------------
+# FSDP (test_torch_fsdp.py)
+# --------------------------------------------------------------------------
+def fsdp_collectives_case(rank: int, world: int) -> dict:
+    """``reduce_scatter`` and ``gather_param`` on this rank's seeded
+    tensors, values and gradients, over the direct ``gloo`` route and the
+    host-staged one forced on CPU tensors (small pieces over the lanes):
+    this rank's inputs and upstream gradients go back beside the results
+    for the test's plain sums."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.fsdp import gather_param, gather_tree
+    from repro_torch.distributed.sharding import (LeafSharding, MeshRules,
+                                                  use_rules)
+    from repro_torch.launch.mesh import smoke_mesh
+    mesh = smoke_mesh()
+    key = mesh.group_key("data")
+    gen = torch.Generator().manual_seed(10 + rank)
+    x = torch.randn(6, 4 * world, 3, generator=gen)
+    up_rs = torch.randn(6, 4, 3, generator=gen)
+    w = torch.randn(5, 8, generator=gen)             # a block, split dim 1
+    up_g = torch.randn(5, 8 * world, generator=gen).to(torch.bfloat16)
+    v = torch.randn(3, 5, generator=gen)             # a block, split dim 0
+    up_v = torch.randn(3 * world, 5, generator=gen).to(torch.bfloat16)
+    split = ((1, ("data",), world, rank),)
+    layouts = {"plain": LeafSharding((None, "data"), split),
+               "grouped": LeafSharding((None, "data"), split, ((1, 2),))}
+    rules = MeshRules(batch=("data",))
+    # A bucket: three leaves, two dims, one grouped, each against its own
+    # gather_param.
+    trio = {"a": (w, layouts["plain"], up_g),
+              "b": (v, LeafSharding(("data", None),
+                                    ((0, ("data",), world, rank),)), up_v),
+              "c": (w * 2, layouts["grouped"], up_g * 3)}
+
+    def gathered(one_by_one: bool) -> dict:
+        blocks = {k: b.clone().requires_grad_()
+                  for k, (b, _, _) in trio.items()}
+        lay = {k: sh for k, (_, sh, _) in trio.items()}
+        calls = collectives.CALLS["param_gather"]
+        whole = ({k: gather_param(blocks[k], lay[k], torch.bfloat16)
+                  for k in blocks} if one_by_one
+                 else gather_tree(blocks, lay, torch.bfloat16))
+        calls = collectives.CALLS["param_gather"] - calls
+        torch.autograd.backward([whole[k] for k in sorted(whole)],
+                                [trio[k][2] for k in sorted(whole)])
+        return {"calls": calls, "whole": {k: _np(x) for k, x in
+                                          whole.items()},
+                "grad": {k: _np(b.grad) for k, b in blocks.items()}}
+
+    def run() -> dict:
+        xs = x.clone().requires_grad_()
+        rs = collectives.reduce_scatter(xs, key, dim=1)
+        rs.backward(up_rs)
+        out = {"rs": _np(rs), "rs_grad": _np(xs.grad)}
+        with use_rules(rules, mesh.axis_names, mesh=mesh):
+            for name, sh in layouts.items():
+                ws = w.clone().requires_grad_()
+                whole = gather_param(ws, sh, torch.bfloat16)
+                whole.backward(up_g)
+                out[name] = {"whole": _np(whole), "dtype": str(whole.dtype),
+                             "grad": _np(ws.grad),
+                             "grad_dtype": str(ws.grad.dtype)}
+        return out
+
+    collectives.reset_counts()
+    direct = run()
+    gather_bytes = collectives.BYTES["comm.fsdp_gather"]
+    route, pinned, bucket = (collectives._route, collectives._pinned,
+                             collectives.BUCKET_BYTES)
+    collectives._route = lambda t, backend: "host"
+    collectives._pinned = lambda slot, nbytes: torch.empty(
+        nbytes, dtype=torch.uint8)
+    collectives.BUCKET_BYTES = 64
+    collectives.reset_counts()
+    try:
+        staged = run()
+        stats = {"calls": dict(collectives.CALLS),
+                 "staged_bytes": dict(collectives.STAGED_BYTES)}
+    finally:
+        collectives._route, collectives._pinned = route, pinned
+        collectives.BUCKET_BYTES = bucket
+    with use_rules(rules, mesh.axis_names, mesh=mesh):
+        buckets = {"one": gathered(True), "tree": gathered(False)}
+    return {"x": x.numpy(), "up_rs": up_rs.numpy(), "w": w.numpy(),
+            "up_g": _np(up_g), "direct": direct, "staged": staged,
+            "stats": stats, "gather_bytes": gather_bytes,
+            "bucket": buckets}
+
+
+def fsdp_train(cfg, sizes, loop, params=None) -> dict:
+    """``train(mesh=)`` of ``cfg`` on a ``sizes`` (data, model) mesh from
+    ``params`` (None: each rank's blocks drawn by ``lm.init_blocks``):
+    history, the gathered masters, the whole, local, moment and gradient
+    shapes (the gradients' as the traced step saw them), the dispatched
+    step's collectives in order, the report's comm collectives against
+    ``collectives.BYTES`` and the ``comm.*`` spans of the run, and every
+    gather a save made (its size, and how many earlier gathered tensors
+    were still alive)."""
+    import weakref
+    import repro_torch
+    from repro_torch.compiler import dispatch as cdispatch
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.collectives import IMPLS
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    whole_shapes = [tuple(p.shape) for p in
+                    leaves(lm.abstract_params(cfg, cfg.parameter_dtype))]
+    mesh = Mesh(sizes, ("data", "model"))
+    built, grads, saves, alive = [], [], [], []
+    orig_compile, orig_update = cdispatch.compile_with_options, adamw.update
+    orig_gather = ltrain.MeshPlan.gather
+
+    def spy(*args, **kwargs):
+        built.append(orig_compile(*args, **kwargs))
+        return built[-1]
+
+    def update(g, *args, **kwargs):
+        grads.append([tuple(x.shape) for x in leaves(g)])
+        return orig_update(g, *args, **kwargs)
+
+    def gather(self, x, sharding, *args, **kwargs):
+        out = orig_gather(self, x, sharding, *args, **kwargs)
+        saves.append((out.numel(), sum(r() is not None for r in alive)))
+        alive.append(weakref.ref(out))
+        return out
+
+    cdispatch.compile_with_options = spy
+    adamw.update = update
+    ltrain.MeshPlan.gather = gather
+    collectives.reset_counts()
+    try:
+        with repro_torch.profile() as prof:
+            result = ltrain.train(cfg, loop, device="cpu", params=params,
+                                  mesh=mesh)
+    finally:
+        cdispatch.compile_with_options = orig_compile
+        adamw.update = orig_update
+        ltrain.MeshPlan.gather = orig_gather
+    nbytes = dict(collectives.BYTES)
+    spans = {}
+    for e in prof.events:
+        if e.get("cat") == "comm":
+            spans[e["name"]] = spans.get(e["name"], 0) + e["args"]["bytes"]
+    plan = result["plan"]
+    impls = set(IMPLS.values())
+    order = [[(n.target.__name__, tuple(n.args[1:]))
+              for n in cm.module.graph.nodes
+              if n.op == "call_function" and n.target in impls]
+             for cm in built]
+    return {"history": [{k: v for k, v in h.items() if k != "wall_s"}
+                        for h in result["history"]],
+            "bytes": nbytes, "span_bytes": spans,
+            "report": built[0].report["comm"]["collectives"],
+            "params": [_np(p) for p in leaves(plan.whole(result["params"]))],
+            "whole_shapes": whole_shapes,
+            "local_shapes": [tuple(p.shape)
+                             for p in leaves(result["params"])],
+            "moment_shapes": [tuple(m.shape)
+                              for m in leaves(result["opt"]["m"])],
+            "grad_shapes": grads[0] if grads else None,
+            "split": [sh.axes() for sh in leaves(plan.layout)],
+            "collectives": order, "saves": saves,
+            "engine": result["engine"], "coords": dict(mesh.coords)}
+
+
+def fsdp_world(rank: int, world: int, ckdir: str) -> dict:
+    """The 2-rank FSDP cases: the collectives alone; the reduced StableLM
+    on 2 x 1 from ``lm.init_blocks``, 3 steps (and with int8 gradient
+    compression; and with a global batch of one row, which the data axis
+    does not divide), and halted at step 2 into
+    ``ckdir`` (copied to ``ckdir + "_one"`` for a one-rank resume), then
+    resumed on 1 x 2."""
+    import shutil
+    import torch.distributed as dist
+    cfg = tp_config("stablelm-1.6b")
+    import dataclasses
+    out = {"collectives": fsdp_collectives_case(rank, world),
+           "drawn": fsdp_train(cfg, (world, 1), tp_loop()),
+           "compressed": fsdp_train(cfg, (world, 1), dataclasses.replace(
+               tp_loop(), grad_compression=True)),
+           "one_row": fsdp_train(cfg, (world, 1), dataclasses.replace(
+               tp_loop(), global_batch=1)),
+           "halted": fsdp_train(cfg, (world, 1), tp_loop(ckdir=ckdir,
+                                                         halt=2))}
+    if rank == 0:
+        shutil.copytree(ckdir, ckdir + "_one")
+    dist.barrier()
+    out["resumed"] = fsdp_train(cfg, (1, world), tp_loop(ckdir=ckdir))
+    return out
