@@ -112,7 +112,11 @@
    early, one stage's store dropped, the carry run past S into the
    zero-filled tail), timed beside the ``simt`` kernel (the earlier
    design) on the same inputs, the flash forward and the
-   contiguous decode kernel at recurrentgemma's MQA head_dim 256; then
+   contiguous decode kernel at recurrentgemma's MQA head_dim 256, and its
+   ``return_lse`` route (decode context parallelism) at a rank's slice of
+   the ring (B 2, Hq 10, D 256, 1,024 slots, lengths 0, 1, 513, 1,024:
+   ``lse = -inf`` and ``out = 0`` at 0), the merge of two halves against
+   the whole ring; then
    full-width, full-depth RecurrentGemma-2B (random bf16 weights from a
    seed) through ``lm.prefill`` of 4 x 4,096 tokens and 32 greedy
    ``lm.decode_step``s, with launch counts as predicted and nothing
@@ -274,8 +278,20 @@
    replicas' digests; and a run of (f)'s length in which each rank updates
    its vocab block of the head with the other rank's gradient block (the
    replicas stay equal): its gathered masters must read above (f)'s
-   masters limit.  A rank that raises, or is not done in
-   ``DIST_TIMEOUT``, fails the smoke.
+   masters limit.  Serving on a mesh (``launch.common``'s prefill and
+   decode cells, full width and depth, each rank's blocks drawn
+   directly): (j) RecurrentGemma-2B on 1 x 2, 5 query heads a rank, its
+   MQA ring of 2,048 slots held as 1,024 a rank (decode context
+   parallelism), a 2 x 4,096 prefill and 16 decode steps, and a 1,020-token
+   prompt that leaves rank 1 empty until step 5; (k) StableLM on 2 x 2, a
+   4 x 512 prefill and 16 decode steps; each rank's logits within
+   SERVE_MESH_LIMIT of the unmeshed ``lm.prefill`` / ``lm.decode_step`` on
+   rank 0, (j)'s key caches within SERVE_MESH_CACHE_LIMIT of the unmeshed
+   caches' blocks, every local layer's decode on the kernel's ``lse``
+   route; three planted faults in (j) (the merge dropping the other
+   rank's partial, every rank writing the slot, the owner computed from
+   the local slot) must read above a limit.  A rank that raises, or is
+   not done in ``DIST_TIMEOUT``, fails the smoke.
 11. Prints the kernel table as one JSON line (the redesigned kernels' rows
    with their route, the earlier design's time in the same call, and the
    ``-Xptxas -v`` registers, spills and shared memory), then the result line
@@ -3762,6 +3778,97 @@ def check_decode_mqa(gen, dev):
     return [row]
 
 
+#: (j)'s slice of the ring: B 2, Hq 10, Hkv 1, D 256, 1,024 slots a rank;
+#: the lengths checked (0: a rank whose slice holds no position yet).
+LSE_SLICE = (2, 10, 256, 1024)
+LSE_LENS = ((0, 1), (513, 1024))
+#: |lse - plain| of a row with a position (the kernel's __expf against
+#: float32 exp, summed over up to 1,024 keys).
+LSE_ATOL = 1e-4
+
+
+def check_decode_lse(gen, dev):
+    """The contiguous decode kernel's ``return_lse`` route at (j)'s slice
+    (LSE_SLICE, bf16): the f32 output and the log-sum-exp against the plain
+    version at the lengths of LSE_LENS, ``lse = -inf`` and ``out = 0`` at
+    length 0; the merge (``context_parallel.fold``) of two 1,024-slot
+    halves, each through the kernel at its rank's lengths, against the
+    kernel over all 2,048 slots.  Timed at every length 1,024 beside the
+    plain version and scaled_dot_product_attention on the same slice."""
+    from repro_torch.distributed import context_parallel as cpar
+    dt = torch.bfloat16
+    b, hq, d, smax = LSE_SLICE
+    q = torch.randn((b, hq, d), generator=gen, device=dev).to(dt)
+    caches = [tuple(torch.randn((b, 1, smax, d), generator=gen,
+                                device=dev).to(dt) for _ in range(2))
+              for _ in range(copies(2 * b * smax * d * 2))]
+    errs = []
+    for lens in LSE_LENS:
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out, lse = kdecode.decode_attention(q, *caches[0], lens,
+                                            return_lse=True)
+        want, want_lse = ref.decode_attention_ref(q, *caches[0], lens,
+                                                  return_lse=True)
+        empty = lens == 0
+        if out.dtype != torch.float32 or lse.dtype != torch.float32 or \
+                not torch.equal(torch.isinf(lse), empty[:, None].expand(
+                    -1, hq)) or (lse[empty] != -math.inf).any() or \
+                (out[empty] != 0).any():
+            fail(f"decode lse: an empty row is not out 0, lse -inf, or a "
+                 f"dtype is not f32 (lengths {lens.tolist()})")
+        full = ~empty
+        lse_err = (lse[full] - want_lse[full]).abs().max().item()
+        if lse_err > LSE_ATOL:
+            fail(f"decode lse: |lse - plain| {lse_err:.3g} > {LSE_ATOL}")
+        errs.append(compare(out, want, "decode_attention lse", ATTN_ATOL,
+                            ATTN_RTOL))
+        print(f"decode lse at {tuple(LSE_SLICE)}, lengths {lens.tolist()}: "
+              f"out max|err| {errs[-1]:.3g}, lse max|err| {lse_err:.3g}")
+    # Two ranks' halves of a 2,048-slot ring against the whole.
+    halves = (caches[0], caches[-1])
+    whole = [torch.cat([h[i] for h in halves], 2) for i in range(2)]
+    pos = torch.tensor([700, 3000], device=dev)
+    valid = (pos + 1).clamp(max=2 * smax)
+    lens = cpar.local_lengths(pos, 2 * smax, 2 * smax, 2).to(torch.int32)
+    parts = [kdecode.decode_attention(q, *h, lens[r], return_lse=True)
+             for r, h in enumerate(halves)]
+    merged = cpar.fold([o for o, _ in parts], [l for _, l in parts])
+    want, _ = kdecode.decode_attention(q, *whole, valid.to(torch.int32),
+                                       return_lse=True)
+    merge_err = compare(merged, want, "decode lse merge of two halves",
+                        ATTN_ATOL, ATTN_RTOL)
+    print(f"decode lse: the merge of two {smax}-slot halves against the "
+          f"kernel over {2 * smax} slots at positions {pos.tolist()}: "
+          f"max|err| {merge_err:.3g}")
+    full = torch.full((b,), smax, dtype=torch.int32, device=dev)
+    args = [(q, kc, vc, full) for kc, vc in caches]
+
+    def lse_kernel(q_, k_, v_, lens_):
+        return kdecode.decode_attention(q_, k_, v_, lens_, return_lse=True)
+
+    def lse_plain(q_, k_, v_, lens_):
+        return ref.decode_attention_ref(q_, k_, v_, lens_, return_lse=True)
+
+    def sdpa(q_, k_, v_, _lens):
+        return F.scaled_dot_product_attention(
+            q_[:, :, None], k_.expand(-1, hq, -1, -1),
+            v_.expand(-1, hq, -1, -1))
+
+    nbytes = 2 * b * hq * d + 2 * 2 * b * smax * d + 4 * b * hq * (d + 1) \
+        + 4 * b
+    row = entry(
+        "decode_attention",
+        f"return_lse: B={b} Hq={hq} Hkv=1 D={d} Smax={smax} (a rank's slice "
+        f"of a 2,048-slot ring) kv_len={smax} bf16 -> f32 out and lse "
+        f"(checked also at {list(LSE_LENS)} and the merge of two halves)",
+        max(errs + [merge_err]), time_ms(lse_kernel, args),
+        time_ms(lse_plain, args),
+        bound(nbytes, 4 * b * hq * smax * d, dt), time_ms(sdpa, args))
+    row["kernel_route"] = "lse"
+    row["paced_ms"] = time_ms(lse_kernel, args, paced=True)
+    return [row]
+
+
 def rg_launches(cfg, phase: str) -> dict:
     """Launches of one call: an rglru block makes 8 projections (w_in,
     w_gate, w_a, w_x, w_out and the MLP's 3), a local block 7; prefill
@@ -6364,6 +6471,223 @@ def dist_tp_refs4(dev, rank: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Serving on a mesh: (j) RecurrentGemma-2B on 1 x 2, context parallelism;
+# (k) StableLM-2-1.6B on 2 x 2
+# ---------------------------------------------------------------------------
+#: Each cell at full width and depth, random bf16 weights from seed 0:
+#: ``launch.common``'s prefill cell of ``seq`` (caches of seq +
+#: DECODE_MARGIN), then SERVE_MESH_STEPS decode steps, for each prompt.
+#: (j)'s ring of 2,048 slots is 1,024 a rank; its 4,096-token prompt is a
+#: multiple of the window (the ring wraps), and its 1,020-token prompt lies
+#: below rank 1's first slot, so rank 1 starts empty and its decode crosses
+#: into rank 1's slots at step 5.
+SERVE_MESH = {"rg": {"arch": RG_ARCH, "mesh": (1, 2), "batch": 2,
+                     "seq": 4096, "prompts": {"long": 4096, "short": 1020}},
+              "stablelm": {"arch": ARCH, "mesh": (2, 2), "batch": 4,
+                           "seq": 512, "prompts": {"prompt": 512}}}
+SERVE_MESH_STEPS = 16
+#: max |logits - the unmeshed run's| of a meshed prefill or decode step,
+#: same card and seed (the row-parallel partial sums are rounded to bf16
+#: before their all-reduce).
+SERVE_MESH_LIMIT = 0.25
+#: (j)'s KV caches after the decode steps against the unmeshed run's
+#: blocks: the largest ||meshed - unmeshed|| / ||unmeshed|| of one slot's
+#: key (a row's head), over every slot of every local layer (a slot the
+#: unmeshed cache holds as zeros and the meshed one does not reads as
+#: 1e6).  Each planted fault (a SERVE_MESH_FAULT_STEPS-step run from the
+#: same relaid-out state) must read above this limit or SERVE_MESH_LIMIT:
+#: a dropped merge moves the logits, a slot written by the wrong rank the
+#: cache (one key in a window of 2,048 barely moves the logits).
+SERVE_MESH_CACHE_LIMIT = 0.25
+SERVE_MESH_FAULT_STEPS = 8
+#: (j)'s planted faults and the prompt whose state each runs from.
+SERVE_MESH_FAULTS = {"merge drops the other rank's partial": "long",
+                     "every rank writes the slot": "long",
+                     "owner computed from the local slot": "short"}
+
+
+def serve_mesh_tokens(cfg, batch: int, prompt: int, dev):
+    """A prompt and one token a decode step, from seed 0."""
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g)
+    nxt = torch.randint(0, cfg.vocab_size, (SERVE_MESH_STEPS, batch, 1),
+                        generator=g)
+    return toks.to(dev, torch.int32), nxt.to(dev, torch.int32)
+
+
+def kv_keys(state) -> list:
+    """The key caches of a state's attention positions, on the host."""
+    return [entry["k"].cpu() for entry in state if "k" in entry]
+
+
+def serve_mesh_ref(cfg, dev, spec: dict) -> dict:
+    """The unmeshed ``lm.prefill`` and decode steps of each prompt of a
+    (j) / (k) cell on whole parameters: logits a step (float32, host), and
+    (j)'s key caches after the last step and after
+    SERVE_MESH_FAULT_STEPS steps."""
+    from repro_torch.launch.common import DECODE_MARGIN
+    params = lm.init(cfg, seed=0, device=dev)
+    out = {}
+    for name, prompt in spec["prompts"].items():
+        toks, nxt = serve_mesh_tokens(cfg, spec["batch"], prompt, dev)
+        logits, state, clen = lm.prefill(params, cfg, {"tokens": toks},
+                                         cache_size=spec["seq"]
+                                         + DECODE_MARGIN)
+        got, mid = [logits.float().cpu()], None
+        for i, tok in enumerate(nxt):
+            logits, state, clen = lm.decode_step(params, state, clen, cfg,
+                                                 {"tokens": tok})
+            got.append(logits.float().cpu())
+            if i + 1 == SERVE_MESH_FAULT_STEPS and spec["arch"] == RG_ARCH:
+                mid = kv_keys(state)
+        out[name] = {"logits": got, "fault_keys": mid,
+                     "keys": kv_keys(state) if spec["arch"] == RG_ARCH
+                     else None}
+        del state
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def plant_cp_fault(fault: str, mesh):
+    """Plant one of SERVE_MESH_FAULTS in the context-parallel decode;
+    returns the undo.  "merge drops the other rank's partial": each rank
+    keeps its own slice's attention; "every rank writes the slot": each
+    rank takes itself for every slot's owner, so it writes the new key at
+    its own local slot too; "owner computed from the local slot": the owner
+    read from ``slot % local``, so rank 0 owns every slot."""
+    from repro_torch.distributed import context_parallel as cpar
+    if fault == "merge drops the other rank's partial":
+        orig = cpar.merge
+        cpar.merge = lambda out, lse, ax: out
+        return lambda: setattr(cpar, "merge", orig)
+    orig = cpar.slot_owner
+    if fault == "every rank writes the slot":
+        me = mesh.coords["model"]
+        cpar.slot_owner = lambda slot, local: (torch.full_like(slot, me),
+                                               slot % local)
+    else:
+        cpar.slot_owner = lambda slot, local: ((slot % local) // local,
+                                               slot % local)
+    return lambda: setattr(cpar, "slot_owner", orig)
+
+
+def serve_mesh_counts() -> dict:
+    """The launches, routes and collectives since the last reset."""
+    from repro_torch.distributed import collectives
+    return {"launches": nonzero(ops.launch_counts()),
+            "decode_routes": nonzero(kdecode.ROUTES),
+            "gemm_routes": nonzero(kgemm.ROUTES),
+            "norm_routes": nonzero(knorm.ROUTES),
+            "flash_routes": nonzero(kflash.FWD_ROUTES),
+            "scan_routes": nonzero(krglru.ROUTES),
+            "routed": dict(ops.ROUTED),
+            "bytes": dict(collectives.BYTES),
+            "staged_bytes": dict(collectives.STAGED_BYTES),
+            "staged_ms": dict(collectives.STAGED_MS)}
+
+
+def dist_serve(mesh, dev, kind: str) -> dict:
+    """(j) / (k) on this rank (SERVE_MESH[kind]): the unmeshed reference on
+    rank 0 while the others wait; this rank's blocks drawn directly
+    (``lm.init_blocks``, bit for bit the whole init's blocks); for each
+    prompt the prefill cell, the state relaid out from the prefill rules'
+    layout to the decode rules', SERVE_MESH_STEPS decode steps (each timed,
+    host clock to a synchronize), their logits, launches, routes and
+    collectives; (j)'s planted faults, each from a copy of the relaid-out
+    state; peak memory."""
+    import torch.distributed as tdist
+    from repro_torch import convert
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import common
+    spec = SERVE_MESH[kind]
+    cfg = get_config(spec["arch"])
+    out = {"coords": dict(mesh.coords), "layers": cfg.num_layers,
+           "local_layers": cfg.num_groups * cfg.block_pattern.count("local")}
+    t = time.perf_counter()
+    if mesh.rank == 0:
+        out["ref"] = serve_mesh_ref(cfg, dev, spec)
+    out["ref_s"] = time.perf_counter() - t
+    tdist.barrier()
+    shapes = {k: ShapeConfig(k, spec["seq"], spec["batch"], k)
+              for k in ("prefill", "decode")}
+    rules = {k: common.cell_rules(cfg, s, mesh) for k, s in shapes.items()}
+    cache = spec["seq"] + common.DECODE_MARGIN
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = lm.init_blocks(cfg, common.param_layout(cfg, rules["prefill"],
+                                                     mesh), seed=0,
+                            device=dev)
+    torch.cuda.synchronize()
+    out["blocks_gib"] = (torch.cuda.memory_allocated() - base) / 2**30
+    prefill = common.make_prefill_step(cfg, cache, rules["prefill"], mesh)
+    decode = common.make_decode_step(cfg, cache, rules["decode"], mesh)
+    src = common.state_layout(cfg, shapes["prefill"], rules["prefill"], mesh)
+    dst = common.state_layout(cfg, shapes["decode"], rules["decode"], mesh)
+    kv = next(entry["k"] for entry in dst if "k" in entry)
+    out["cache_split"] = [[sp[0], list(sp[1]), sp[2]] for sp in kv.splits]
+    out["key_layouts"] = [entry["k"] for entry in dst if "k" in entry]
+    runs = {}
+    for name, prompt in spec["prompts"].items():
+        toks, nxt = serve_mesh_tokens(cfg, spec["batch"], prompt, dev)
+        run = {}
+        ops.reset_counts()
+        collectives.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, state, clen = prefill(params, common.batch_rows(
+            {"tokens": toks}, rules["prefill"], mesh))
+        torch.cuda.synchronize()
+        run["prefill_s"] = time.perf_counter() - t
+        run["prefill"] = serve_mesh_counts()
+        state = convert.relayout_state(state, src, dst)
+        start = (tree_map(torch.clone, state), clen.clone())
+
+        def steps(state, clen, n=SERVE_MESH_STEPS):
+            got, times = [], []
+            for tok in nxt[:n]:
+                t = time.perf_counter()
+                logits, state, clen = decode(params, state, clen,
+                                             common.batch_rows(
+                                                 {"tokens": tok},
+                                                 rules["decode"], mesh))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+                got.append(logits.float().cpu())
+            return got, times, (kv_keys(state) if kind == "rg" else None)
+
+        ops.reset_counts()
+        collectives.reset_counts()
+        got, run["step_s"], run["keys"] = steps(
+            tree_map(torch.clone, start[0]), start[1].clone())
+        run["decode"] = serve_mesh_counts()
+        run["logits"] = [logits.float().cpu()] + got
+        run["faults"] = {}
+        for fault, on in SERVE_MESH_FAULTS.items():
+            if kind != "rg" or on != name:
+                continue
+            undo = plant_cp_fault(fault, mesh)
+            try:
+                run["faults"][fault] = steps(tree_map(torch.clone, start[0]),
+                                             start[1].clone(),
+                                             SERVE_MESH_FAULT_STEPS)
+            finally:
+                undo()
+        runs[name] = run
+        del state, start
+    out["runs"] = runs
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def dist_rank(rank: int, world: int, plan: dict) -> dict:
     """One spawned rank of the distributed phase (its results go back to
     the parent through a file)."""
@@ -6399,6 +6723,10 @@ def dist_checks(world: int, plan: dict, dev, timed) -> None:
         timed("tp_refs", dist_tp_refs4, dev, rank)
         timed("tp 2x2", dist_tp, Mesh((2, 2), ("data", "model")), dev,
               "stablelm 2x2")
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed("serve stablelm", dist_serve, Mesh((2, 2), ("data", "model")),
+              dev, "stablelm")
     if world == 2:
         timed("pipeline", dist_pipeline, dev, world)
         timed("front_door", dist_front_door, grid, dev)
@@ -6426,6 +6754,9 @@ def dist_checks(world: int, plan: dict, dev, timed) -> None:
                 timed(name, dist_tp_refs, dev, rank, plan)
             else:
                 timed(name, dist_tp, tp_mesh, dev, kind, fault)
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed("serve rg", dist_serve, tp_mesh, dev, "rg")
 
 
 def nccl_world_one(dev) -> dict:
@@ -6761,6 +7092,145 @@ def check_dist_tp(results: dict, plan: dict, card: str, launches) -> None:
                    [r["tp fault router"] for r in two], q_refs)
 
 
+def key_gap(got: list, ref: list, layouts: list) -> float:
+    """The largest slot's ||got - ref's block|| / ||ref's block|| over a
+    rank's key caches ``got`` (its blocks under ``layouts``) and the whole
+    unmeshed ones ``ref``; 1e6 where the unmeshed slot is zero and the
+    meshed one is not."""
+    worst = 0.0
+    for g, w, sh in zip(got, ref, layouts):
+        w = sh.local(w).float()
+        num = (g.float() - w).norm(dim=-1)
+        den = w.norm(dim=-1)
+        gap = torch.where(den > 0, num / den.clamp(min=1e-30),
+                          torch.where(num > 0, 1e6, 0.0))
+        worst = max(worst, gap.max().item())
+    return worst
+
+
+def serve_mesh_errs(got: list, ref: list, rows: slice) -> list:
+    """Each step's max |logits - the unmeshed run's| over this rank's
+    rows."""
+    return [(g - r[rows]).abs().max().item() for g, r in zip(got, ref)]
+
+
+def check_dist_serve(results: dict, card: str, launches) -> None:
+    """(j) and (k) on the ranks' results: every rank's logits of every step
+    within SERVE_MESH_LIMIT of the unmeshed run's and (j)'s key caches
+    within SERVE_MESH_CACHE_LIMIT of its blocks, each planted fault above
+    one of them on some rank; the kernels of the path launched on their routes (the decode
+    kernel's ``lse`` route in every local layer of (j), its plain output
+    in (k)); adds the main-path runs' launches (the clean meshed runs)."""
+    from repro_torch.distributed import collectives
+    for kind, world, key in (("rg", 2, "serve rg"),
+                             ("stablelm", 4, "serve stablelm")):
+        spec = SERVE_MESH[kind]
+        ranks = [res[key] for res in results[world]]
+        reads = collections.defaultdict(list)
+        ref = {k: v["logits"] for k, v in ranks[0]["ref"].items()}
+        keys = {k: v["keys"] for k, v in ranks[0]["ref"].items()}
+        fault_keys = {k: v["fault_keys"] for k, v in ranks[0]["ref"].items()}
+        tag = "(j)" if kind == "rg" else "(k)"
+        rows_a_rank = spec["batch"] // spec["mesh"][0]
+        for r, res in enumerate(ranks):
+            rows = slice(res["coords"]["data"] * rows_a_rank,
+                         (res["coords"]["data"] + 1) * rows_a_rank)
+            for name, run in res["runs"].items():
+                errs = serve_mesh_errs(run["logits"], ref[name], rows)
+                gap = (key_gap(run["keys"], keys[name], res["key_layouts"])
+                       if kind == "rg" else None)
+                d = run["decode"]
+                n = SERVE_MESH_STEPS
+                print(f"distributed {tag} {spec['arch']} {spec['mesh'][0]} x "
+                      f"{spec['mesh'][1]}, {res['layers']} layers, prompt "
+                      f"{spec['prompts'][name]} of B {spec['batch']}: rank "
+                      f"{r} {res['coords']}: max|logits - unmeshed| prefill "
+                      f"{errs[0]:.4g}, decode steps "
+                      f"{[round(e, 4) for e in errs[1:]]} (limit "
+                      f"{SERVE_MESH_LIMIT}); key caches after the steps "
+                      f"{gap if gap is None else round(gap, 4)} of the "
+                      f"unmeshed slots (limit {SERVE_MESH_CACHE_LIMIT}); "
+                      f"prefill {run['prefill_s']:.3f} "
+                      f"s, decode steps (s) "
+                      f"{[round(x, 4) for x in run['step_s']]} (median "
+                      f"{float(np.median(run['step_s'])):.4f}); collectives' "
+                      f"MB a decode step by span "
+                      f"{json.dumps({k: round(v / n / 1e6, 4) for k, v in sorted(d['bytes'].items())})}"
+                      f", staged {sum(d['staged_bytes'].values()) / n / 1e6:.4f}"
+                      f" MB in {sum(d['staged_ms'].values()) / n:.2f} ms; "
+                      f"prefill's GB by span "
+                      f"{json.dumps({k: round(v / 1e9, 4) for k, v in sorted(run['prefill']['bytes'].items())})}"
+                      f"; launches prefill "
+                      f"{json.dumps(run['prefill']['launches'])} decode "
+                      f"{json.dumps(d['launches'])}, decode routes "
+                      f"{d['decode_routes']}, sma_gemm "
+                      f"{run['prefill']['gemm_routes']} / {d['gemm_routes']}"
+                      f", routed {d['routed']} ({card})")
+                if max(errs) > SERVE_MESH_LIMIT or \
+                        not all(map(math.isfinite, errs)) or \
+                        (gap is not None and gap > SERVE_MESH_CACHE_LIMIT):
+                    fail(f"distributed {tag}: rank {r}'s {name} logits or "
+                         f"key caches part from the unmeshed run's: {errs}, "
+                         f"{gap}")
+                steps_local = res["local_layers"] * n
+                if kind == "rg":
+                    want = {"lse": steps_local}
+                    if run["prefill"]["scan_routes"] != {
+                            "tma": run["prefill"]["launches"].get(
+                                "rglru_scan", 0)} or \
+                            not run["prefill"]["launches"].get("rglru_scan"):
+                        fail(f"distributed {tag}: the prefill's scans "
+                             f"{run['prefill']['scan_routes']}")
+                else:
+                    want = {"out": res["layers"] * n}
+                routed = [{k: v for k, v in c["routed"].items()
+                           if k != collectives.STAGED_REASON}
+                          for c in (d, run["prefill"])]
+                if d["decode_routes"] != want or any(routed):
+                    fail(f"distributed {tag}: decode routes "
+                         f"{d['decode_routes']} (want {want}), routed "
+                         f"{d['routed']} / {run['prefill']['routed']}")
+                if set(d["gemm_routes"]) != {"splitk"} or \
+                        set(run["prefill"]["gemm_routes"]) != {"wgmma"} or \
+                        run["prefill"]["flash_routes"] != {
+                            "wgmma": run["prefill"]["launches"].get(
+                                "flash_attention", 0)}:
+                    fail(f"distributed {tag}: routes prefill "
+                         f"{run['prefill']['gemm_routes']} "
+                         f"{run['prefill']['flash_routes']}, decode "
+                         f"{d['gemm_routes']}")
+                for counts in (run["prefill"]["launches"], d["launches"]):
+                    for k, v in counts.items():
+                        launches[k] += v
+                launches["decode_attention lse"] += d["decode_routes"].get(
+                    "lse", 0)
+                for fault, (got, _, fkeys) in run["faults"].items():
+                    ferrs = serve_mesh_errs(got, ref[name][1:], rows)
+                    fgap = key_gap(fkeys, fault_keys[name],
+                                   res["key_layouts"])
+                    read = max(max(ferrs) / SERVE_MESH_LIMIT,
+                               fgap / SERVE_MESH_CACHE_LIMIT)
+                    reads[fault].append(read)
+                    print(f"distributed planted fault {tag} {fault}: rank "
+                          f"{r}, max|logits - unmeshed| by step "
+                          f"{[round(e, 4) for e in ferrs]}, key caches "
+                          f"{fgap:.4g} ({read:.3g} limits)")
+            print(f"distributed {tag}: rank {r}: blocks "
+                  f"{res['blocks_gib']:.2f} GiB, peak "
+                  f"{res['peak_gib']:.2f} GiB; the cache's split "
+                  f"{res['cache_split']}; the unmeshed reference "
+                  f"{res['ref_s']:.1f} s")
+        # A fault is caught where any rank reads it: a slot written by the
+        # wrong rank shows in that rank's slice of the cache.
+        for fault, got in reads.items():
+            if not max(got) > 1:
+                fail(f"distributed {tag}: the planted fault {fault!r} was "
+                     f"not caught on any rank ({got} limits)")
+        if kind == "rg" and ranks[0]["cache_split"] != [[3, ["model"], 2]]:
+            fail(f"distributed (j): the local layers' cache is split "
+                 f"{ranks[0]['cache_split']}, not by its slots over model")
+
+
 def distributed(dev, card: str) -> dict:
     """The "distributed" phase (module docstring, step 10): returns the
     phase's launches by kernel, summed over its ranks (the main-path run
@@ -6858,6 +7328,8 @@ def distributed(dev, card: str) -> dict:
             launches[name] += fd["launches"][name]
     # (f)-(i) Tensor parallelism.
     check_dist_tp(results, plan, card, launches)
+    # (j), (k) Serving on a mesh.
+    check_dist_serve(results, card, launches)
     staged = sum(sum(res["train"]["staged_bytes"].values())
                  for res in results[2])
     print(f"distributed: seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
@@ -6936,7 +7408,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows += phase("recurrent kernel checks",
                   lambda: check_rglru(gen, dev) + check_flash_mqa(gen, dev)
-                  + check_decode_mqa(gen, dev))
+                  + check_decode_mqa(gen, dev) + check_decode_lse(gen, dev))
     torch.cuda.empty_cache()
     rows += phase("mlstm kernel checks", check_mlstm, gen, dev)
     torch.cuda.empty_cache()
@@ -7148,6 +7620,14 @@ def main(argv=None) -> int:
           f"{json.dumps({k: round(x, 1) for k, x in phases.items()})}")
 
     for row in rows:
+        if row.get("kernel_route") == "lse":    # (j)'s route alone
+            row["launches_by_path"] = {"distributed": dist_counts.get(
+                "decode_attention lse", 0)}
+            row["launches"] = row["launches_by_path"]["distributed"]
+            if row["launches"] == 0:
+                fail("the decode kernel's lse route was not launched on "
+                     "(j)'s main path")
+            continue
         by_path = {"serve": serve_counts[row["name"]],
                    "train": train_counts[row["name"]],
                    "jit": jit_counts.get(row["name"], 0),

@@ -9,10 +9,12 @@ from repro_torch.configs import (dbrx_132b, deepseek_67b, deepseek_coder_33b,
                                  musicgen_large, qwen3_moe_30b_a3b,
                                  recurrentgemma_2b, stablelm_1_6b,
                                  xlstm_1_3b)
-from repro_torch.configs.base import (REGISTRY, ModelConfig, MoEConfig,
-                                      get_config, reduced)
+from repro_torch.configs.base import (ARCH_IDS, REGISTRY, SHAPES,
+                                      ModelConfig, MoEConfig, ShapeConfig,
+                                      applicable_shapes, get_config, reduced)
 
-__all__ = ["REGISTRY", "ModelConfig", "MoEConfig", "dbrx_132b",
+__all__ = ["ARCH_IDS", "REGISTRY", "SHAPES", "ModelConfig", "MoEConfig",
+           "ShapeConfig", "applicable_shapes", "dbrx_132b",
            "deepseek_67b", "deepseek_coder_33b", "get_config",
            "internvl2_2b", "mistral_nemo_12b", "musicgen_large",
            "qwen3_moe_30b_a3b", "recurrentgemma_2b", "reduced",

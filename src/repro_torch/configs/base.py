@@ -14,7 +14,9 @@ a mixture of experts (:mod:`repro_torch.models.moe`).
 ``reduced()`` derives the same tiny CPU-test variant as the JAX package
 (an MoE one keeps 4 experts, top 2, ``d_ff_expert`` 64), and
 ``param_count()`` / ``active_param_count()`` are the reference's analytic
-counts.
+counts.  :class:`ShapeConfig`, :data:`SHAPES`, :data:`ARCH_IDS` and
+:func:`applicable_shapes` are the launchers' shape cells
+(:mod:`repro_torch.launch.common`).
 """
 from __future__ import annotations
 
@@ -83,6 +85,13 @@ class ModelConfig:
     def parameter_dtype(self) -> torch.dtype:
         return _DTYPES[self.param_dtype]
 
+    @property
+    def supports_long_context(self) -> bool:
+        """True if the decode state is O(1) or windowed (no full-attention
+        KV cache)."""
+        return all(b in ("rglru", "mlstm", "slstm", "local")
+                   for b in self.block_pattern)
+
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head), the
         reference's formula (which counts the embedding in every input
@@ -126,6 +135,36 @@ class ModelConfig:
             self.moe.num_experts - self.moe.top_k)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+ARCH_IDS = (
+    "dbrx-132b",
+    "qwen3-moe-30b-a3b",
+    "musicgen-large",
+    "mistral-nemo-12b",
+    "deepseek-coder-33b",
+    "deepseek-67b",
+    "stablelm-1.6b",
+    "xlstm-1.3b",
+    "recurrentgemma-2b",
+    "internvl2-2b",
+)
+
 REGISTRY: Dict[str, ModelConfig] = {}
 
 
@@ -140,6 +179,15 @@ def get_config(name: str) -> ModelConfig:
         mod = name.replace("-", "_").replace(".", "_")
         importlib.import_module(f"repro_torch.configs.{mod}")
     return REGISTRY[name]
+
+
+def applicable_shapes(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Shape cells that run for this arch (long_500k needs sub-quadratic
+    decode state)."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.supports_long_context:
+        names.append("long_500k")
+    return tuple(names)
 
 
 def reduced(cfg: ModelConfig, *, seq_len: int = 64) -> ModelConfig:

@@ -27,6 +27,9 @@ rank of a mesh: each leaf its block under a tree of
 :class:`repro_torch.distributed.sharding.LeafSharding`
 (``train(mesh=)``'s :class:`repro_torch.launch.train.MeshPlan` ``layout``:
 ``model`` blocks, and their FSDP ``data`` blocks), one leaf at a time.
+``state_blocks`` does the same for a decode state (``launch.common``'s
+state layout), and ``relayout_state`` takes a rank's state from the
+prefill rules' layout to the decode rules' by local slicing alone.
 """
 from __future__ import annotations
 
@@ -74,3 +77,33 @@ def model_blocks(params: Any, layout: Any) -> Any:
     from repro_torch.tree import tree_map
     return tree_map(lambda p, sh: sh.local(p).contiguous().clone()
                     if sh.splits else p, params, layout)
+
+
+def state_blocks(state: Any, layout: Any) -> Any:
+    """This rank's block of each leaf of a whole decode state under
+    ``layout`` (a tree like the state of ``LeafSharding``):
+    :func:`model_blocks` for a state."""
+    return model_blocks(state, layout)
+
+
+def relayout_state(state: Any, src: Any, dst: Any) -> Any:
+    """A rank's state under the layout ``src`` as the same rank's blocks
+    under ``dst``, each leaf by local slicing: every split of ``src`` must
+    be one of ``dst`` (the prefill rules' layout, whose ``kv_seq`` is
+    whole, to the decode rules', which may put it over ``model``); a split
+    ``dst`` adds keeps this rank's block of a dim the source held whole."""
+    from repro_torch.distributed.sharding import LeafSharding
+    from repro_torch.tree import tree_map
+
+    def one(x, a, b):
+        missing = [sp for sp in a.splits if sp not in b.splits]
+        if missing:
+            raise ValueError(f"a leaf split {missing} under the source "
+                             f"layout is not under the target's {b.splits}:"
+                             f" the relayout needs a gather")
+        extra = tuple(sp for sp in b.splits if sp not in a.splits)
+        if not extra:
+            return x
+        return LeafSharding(b.spec, extra).local(x).contiguous().clone()
+
+    return tree_map(one, state, src, dst)

@@ -32,7 +32,13 @@
 // 2. The merge pass, one block per (request, query head), folds the
 //    partials in split order: m = max m_i, l = sum l_i e^(m_i - m),
 //    out = sum acc_i e^(m_i - m) / l, in q's dtype.  A row with kv_len == 0
-//    (a batch-padding row) has l == 0 and writes 0, not NaN.
+//    (a batch-padding row) has l == 0 and writes 0, not NaN.  With the
+//    log-sum-exp output (decode context parallelism: each rank attends its
+//    slice of the cache and the ranks' pairs are merged) the pass writes
+//    out unrounded in f32 and lse = m + log l, the log of the row's softmax
+//    denominator over the scaled scores; a row with no position (a rank
+//    whose slice holds none yet) writes out = 0 and lse = -inf, so its
+//    weight in the ranks' merge is 0.
 //
 // `splits` (from the wrapper) depends on B, Hkv and the table's capacity
 // MB * BS only, never on kv_len, so a call shape has one launch shape.  The
@@ -290,10 +296,13 @@ __global__ void __launch_bounds__(kWarps * 32) decode_partial_kernel(
   }
 }
 
+// out32 / lse null: the row in q's dtype to out; out32 non-null: the row in
+// f32 to out32 instead, and lse (non-null with it) its log-sum-exp.
 template <typename T>
 __global__ void __launch_bounds__(kMergeThreads) decode_merge_kernel(
     const float* __restrict__ part_ml, const float* __restrict__ part_acc,
-    const int* __restrict__ kv_len, T* __restrict__ out, int Hq, int D,
+    const int* __restrict__ kv_len, T* __restrict__ out,
+    float* __restrict__ out32, float* __restrict__ lse, int Hq, int D,
     int splits, int cap, int paged) {
   // ms: each split's m, then its weight e^(m_i - m); ls: its l.
   __shared__ float ms[kMaxSplits], ls[kMaxSplits];
@@ -333,21 +342,29 @@ __global__ void __launch_bounds__(kMergeThreads) decode_merge_kernel(
   }
   __syncthreads();
   const float l = red[1];
+  if (lse != nullptr && threadIdx.x == 0)
+    lse[row] = isnan(m) ? m
+                        : (l == 0.f ? -__int_as_float(0x7f800000)
+                                    : m + logf(l));
   const float* acc = part_acc + static_cast<size_t>(row) * splits * D;
-  T* o = out + static_cast<size_t>(row) * D;
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
     float a = 0.f;
 #pragma unroll 8
     for (int s = 0; s < splits; ++s) a = fmaf(acc[s * D + d], e[s], a);
     // NaN m (poisoned) makes e and l NaN, so the row stays NaN.
-    o[d] = from_f<T>(isnan(m) ? m : (l == 0.f ? 0.f : a / l));
+    const float x = isnan(m) ? m : (l == 0.f ? 0.f : a / l);
+    if (out32 != nullptr)
+      out32[static_cast<size_t>(row) * D + d] = x;
+    else
+      out[static_cast<size_t>(row) * D + d] = from_f<T>(x);
   }
 }
 
 template <typename T, int G, int CH>
 cudaError_t launch_pair(const void* q, const void* kp, const void* vp,
                         const int* table, const int* kv_len, float* part,
-                        void* out, int B, int Hq, int Hkv, int D, int NB,
+                        void* out, float* out32, float* lse, int B, int Hq,
+                        int Hkv, int D, int NB,
                         int BS, int MB, int splits, int lpt, float scale,
                         cudaStream_t stream) {
   const int g = Hq / Hkv, cap = MB * BS;
@@ -370,8 +387,8 @@ cudaError_t launch_pair(const void* q, const void* kp, const void* vp,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_merge_kernel<T><<<B * Hq, kMergeThreads, 0, stream>>>(
-      part_ml, part_acc, kv_len, static_cast<T*>(out), Hq, D, splits, cap,
-      table != nullptr);
+      part_ml, part_acc, kv_len, static_cast<T*>(out), out32, lse, Hq, D,
+      splits, cap, table != nullptr);
   return cudaGetLastError();
 }
 
@@ -380,8 +397,9 @@ cudaError_t launch_pair(const void* q, const void* kp, const void* vp,
 template <typename T>
 cudaError_t dispatch(const void* q, const void* kp, const void* vp,
                      const int* table, const int* kv_len, float* part,
-                     void* out, int B, int Hq, int Hkv, int D, int NB, int BS,
-                     int MB, int splits, float scale, cudaStream_t stream) {
+                     void* out, float* out32, float* lse, int B, int Hq,
+                     int Hkv, int D, int NB, int BS, int MB, int splits,
+                     float scale, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
   const int g = Hq / Hkv, chunks = D / VEC;
   if (D % VEC || g > 16 || splits < 1 || splits > kMaxSplits)
@@ -396,9 +414,9 @@ cudaError_t dispatch(const void* q, const void* kp, const void* vp,
     return cudaErrorInvalidValue;
   }
 #define REPRO_PAIR(GG, CC)                                                   \
-  return launch_pair<T, GG, CC>(q, kp, vp, table, kv_len, part, out, B, Hq, \
-                                Hkv, D, NB, BS, MB, splits, lpt, scale,     \
-                                stream)
+  return launch_pair<T, GG, CC>(q, kp, vp, table, kv_len, part, out, out32, \
+                                lse, B, Hq, Hkv, D, NB, BS, MB, splits, lpt, \
+                                scale, stream)
 #define REPRO_BY_G(CC)       \
   if (g <= 1) REPRO_PAIR(1, CC);  \
   if (g <= 2) REPRO_PAIR(2, CC);  \
@@ -418,29 +436,33 @@ cudaError_t dispatch(const void* q, const void* kp, const void* vp,
 
 // part: f32 scratch of B * Hq * splits * (D + 2) elements (the wrapper's
 // torch.empty): m and l of every partial, then the accumulators.  table:
-// (B, MB) int32, or null for the contiguous entry (NB = B, MB = 1).
+// (B, MB) int32, or null for the contiguous entry (NB = B, MB = 1).  out32
+// and lse: null, or the f32 (B, Hq, D) output and (B, Hq) log-sum-exp that
+// take out's place (out is then not written).
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pool, const void* v_pool, const void* table,
     const void* kv_len, void* part, void* out, int B, int Hq, int Hkv, int D,
-    int NB, int BS, int MB, int splits, float scale, int dtype,
-    void* stream) {
+    int NB, int BS, int MB, int splits, float scale, int dtype, void* stream,
+    void* out32, void* lse) {
   const int* tb = static_cast<const int*>(table);
   const int* kl = static_cast<const int*>(kv_len);
   float* pt = static_cast<float*>(part);
+  float* o32 = static_cast<float*>(out32);
+  float* ls = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case repro::kF32:
       return static_cast<int>(repro::dispatch<float>(
-          q, k_pool, v_pool, tb, kl, pt, out, B, Hq, Hkv, D, NB, BS, MB,
-          splits, scale, s));
+          q, k_pool, v_pool, tb, kl, pt, out, o32, ls, B, Hq, Hkv, D, NB, BS,
+          MB, splits, scale, s));
     case repro::kBF16:
       return static_cast<int>(repro::dispatch<__nv_bfloat16>(
-          q, k_pool, v_pool, tb, kl, pt, out, B, Hq, Hkv, D, NB, BS, MB,
-          splits, scale, s));
+          q, k_pool, v_pool, tb, kl, pt, out, o32, ls, B, Hq, Hkv, D, NB, BS,
+          MB, splits, scale, s));
     case repro::kF16:
       return static_cast<int>(repro::dispatch<__half>(
-          q, k_pool, v_pool, tb, kl, pt, out, B, Hq, Hkv, D, NB, BS, MB,
-          splits, scale, s));
+          q, k_pool, v_pool, tb, kl, pt, out, o32, ls, B, Hq, Hkv, D, NB, BS,
+          MB, splits, scale, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -32,11 +32,17 @@ Two entries share the kernels:
   (B, Hkv, Smax, D) cache, passed as a pool of B blocks of Smax positions
   with no table (block b is request b's); ``cache_len`` past Smax is
   clamped (every position valid, as in the plain version).  Plain version
-  :func:`repro_torch.kernels.ref.decode_attention_ref`.
+  :func:`repro_torch.kernels.ref.decode_attention_ref`.  With
+  ``return_lse`` (decode context parallelism,
+  :mod:`repro_torch.distributed.context_parallel`) the merge pass writes
+  the output unrounded in f32 and each row's log-sum-exp ``m + log l``
+  beside it: ``-inf`` and 0 for a row with no position, a rank whose slice
+  of the cache holds none yet.
 
 Each wrapper runs its plain version only for CPU tensors; for CUDA tensors
 it launches the kernels or raises, and counts one launch per call in
-``.launches``.
+``.launches``; :data:`ROUTES` counts the contiguous entry's launches by
+output (``out``, or ``lse``: the f32 output and its log-sum-exp).
 """
 from __future__ import annotations
 
@@ -60,9 +66,13 @@ _MAX_SPLITS = 512
 _MAX_G = 16
 
 #: q, k_pool, v_pool, table, kv_len, part, out; B, Hq, Hkv, D, NB, BS, MB,
-#: splits; scale; dtype; stream.
+#: splits; scale; dtype; stream; out32, lse (null but for ``return_lse``).
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float]
-             + [ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_void_p] * 2)
+
+#: The contiguous entry's launches by output (``ops.reset_counts`` zeroes
+#: them).
+ROUTES = {"out": 0, "lse": 0}
 
 
 def _lib() -> ctypes.CDLL:
@@ -93,10 +103,11 @@ def _check_head(g: int, d: int, vec: int) -> None:
 
 def _launch(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
             block_table: Optional[torch.Tensor], kv_len: torch.Tensor,
-            scale: Optional[float]) -> torch.Tensor:
+            scale: Optional[float], return_lse: bool = False):
     """Check and launch the kernels; q (B, Hq, D), pools (NB, Hkv, BS, D),
     table (B, MB), or None for a contiguous cache (pool block b is request
-    b's, kv_len clamped to BS).  Returns (B, Hq, D)."""
+    b's, kv_len clamped to BS).  Returns (B, Hq, D), or with
+    ``return_lse`` its f32 form and the (B, Hq) f32 log-sum-exp."""
     b, hq, d = q.shape
     nb, hkv, bs, d2 = k_pool.shape
     if d2 != d or v_pool.shape != k_pool.shape or hq % hkv:
@@ -121,9 +132,12 @@ def _launch(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     table = None if block_table is None else \
         block_table.to(torch.int32).contiguous()
     lens = kv_len.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32 if return_lse
+                      else q.dtype, device=q.device)
+    lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if b == 0:
-        return out
+        return (out, lse) if return_lse else out
     mb = 1 if table is None else table.shape[1]
     splits = _splits(b, hkv, mb * bs)
     part = torch.empty(b * hq * splits * (d + 2), dtype=torch.float32,
@@ -134,10 +148,12 @@ def _launch(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         err = lib.paged_decode_attention_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             None if table is None else table.data_ptr(), lens.data_ptr(),
-            part.data_ptr(), out.data_ptr(), b, hq, hkv, d, nb, bs, mb,
-            splits, scale, DTYPE_CODES[q.dtype], _build.stream_of(q))
+            part.data_ptr(), None if return_lse else out.data_ptr(), b, hq,
+            hkv, d, nb, bs, mb, splits, scale, DTYPE_CODES[q.dtype],
+            _build.stream_of(q), out.data_ptr() if return_lse else None,
+            lse.data_ptr() if return_lse else None)
     _build.check(lib, err, "decode_attention")
-    return out
+    return (out, lse) if return_lse else out
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -160,19 +176,23 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     return_lse: bool = False):
     """Single-token GQA attention over a contiguous cache.
 
     q (B, Hq, D); k/v_cache (B, Hkv, Smax, D); cache_len (B,).  Returns
-    (B, Hq, D).
+    (B, Hq, D) in q's dtype; with ``return_lse``, (out (B, Hq, D) float32,
+    lse (B, Hq) float32), lse = -inf and out = 0 where cache_len is 0.
     """
     if not _build.on_card("decode_attention", q):
         return decode_attention_ref(q, k_cache, v_cache, cache_len,
-                                    scale=scale)
-    out = _launch(q, k_cache, v_cache, None, cache_len, scale)
+                                    scale=scale, return_lse=return_lse)
+    out = _launch(q, k_cache, v_cache, None, cache_len, scale, return_lse)
     decode_attention.launches += 1
+    ROUTES["lse" if return_lse else "out"] += 1
     return out
 
 
 paged_decode_attention.launches = 0
 decode_attention.launches = 0
+decode_attention.routes = ROUTES

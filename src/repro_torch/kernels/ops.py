@@ -115,11 +115,12 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_counts() -> None:
     """Zero every wrapper's launches, the routes of ``sma_gemm``,
-    ``rmsnorm_gemm``, ``mlstm_chunkwise`` and ``rglru_scan`` (forward and
-    backward) and the flash kernels, and :data:`ROUTED`."""
+    ``rmsnorm_gemm``, ``mlstm_chunkwise``, ``decode_attention`` and
+    ``rglru_scan`` (forward and backward) and the flash kernels, and
+    :data:`ROUTED`."""
     for fn in WRAPPERS.values():
         fn.launches = 0
-    for routes in (_gemm.ROUTES, _norm.ROUTES, _mlstm.ROUTES,
+    for routes in (_gemm.ROUTES, _norm.ROUTES, _mlstm.ROUTES, _decode.ROUTES,
                    _mlstm.BWD_ROUTES, _rglru.ROUTES, _rglru.BWD_ROUTES, _flash.FWD_ROUTES,
                    _flash.BWD_ROUTES):
         routes.update(dict.fromkeys(routes, 0))
@@ -273,12 +274,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 @_spanned("decode_attention")
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     return_lse: bool = False):
     """One query token against a contiguous cache.  q (B, Hq, D); k/v_cache
     (B, Hkv, Smax, D); cache_len (B,) valid positions.  Returns
-    (B, Hq, D)."""
+    (B, Hq, D); with ``return_lse`` (a rank's slice of the cache under
+    decode context parallelism) the output in float32 and the (B, Hq)
+    float32 log-sum-exp."""
     return _decode.decode_attention(q, k_cache, v_cache, cache_len,
-                                    scale=scale)
+                                    scale=scale, return_lse=return_lse)
 
 
 @_spanned("rglru_scan")

@@ -56,25 +56,35 @@ def rmsnorm_gemm_ref(x: torch.Tensor, scale: torch.Tensor, w: torch.Tensor,
 
 
 def _masked_softmax_pv(logits: torch.Tensor, valid: torch.Tensor,
-                       v: torch.Tensor, pattern: str) -> torch.Tensor:
+                       v: torch.Tensor, pattern: str, with_lse: bool = False):
     """softmax over the valid keys, then the product with v; a row with no
-    valid key gives 0 (the kernel's ``l == 0`` rule), never NaN."""
+    valid key gives 0 (the kernel's ``l == 0`` rule), never NaN.  With
+    ``with_lse`` also each row's log-sum-exp ``m + log l`` over the valid
+    keys (-inf where there is none)."""
     logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
-    p = torch.exp(logits - logits.amax(-1, keepdim=True)) * valid
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m) * valid
     l = p.sum(-1, keepdim=True)
     out = torch.einsum(pattern, p, v)
-    return out / torch.where(l == 0, torch.ones_like(l), l)
+    out = out / torch.where(l == 0, torch.ones_like(l), l)
+    if not with_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(l), -math.inf)
+    return out, lse[..., 0]
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         return_lse: bool = False):
     """Single-token GQA attention over a partly filled cache.
 
     q (B, Hq, D); k/v_cache (B, Hkv, Smax, D); cache_len (B,).  Returns
     (B, Hq, D).  Each KV head serves its g = Hq/Hkv query rows (the cache
     is never expanded).  A row with ``cache_len == 0`` gives 0, as the
-    kernel does.
+    kernel does.  With ``return_lse``: (out (B, Hq, D) float32, unrounded;
+    lse (B, Hq) float32, the log of each row's softmax denominator over
+    the scaled scores, -inf where ``cache_len`` is 0).
     """
     b, hq, d = q.shape
     hkv, smax = k_cache.shape[1], k_cache.shape[2]
@@ -85,7 +95,10 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     pos = torch.arange(smax, device=q.device)
     valid = (pos[None, :] < cache_len[:, None].to(pos.dtype))[:, None, None]
     out = _masked_softmax_pv(logits, valid, v_cache.float(),
-                             "bhgk,bhkd->bhgd")
+                             "bhgk,bhkd->bhgd", with_lse=return_lse)
+    if return_lse:
+        out, lse = out
+        return out.reshape(b, hq, d), lse.reshape(b, hq)
     return out.reshape(b, hq, d).to(q.dtype)
 
 

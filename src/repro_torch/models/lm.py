@@ -23,7 +23,11 @@ Under tensor parallelism (``train(mesh=)`` with a ``model`` axis,
 rank's blocks (:func:`param_groups` names the one grouped split): the
 embedding is vocab-parallel, the head runs on the rank's vocab columns
 with its pad mask by global column, and :func:`loss_fn` is the
-vocab-parallel cross entropy.
+vocab-parallel cross entropy.  The serving steps (:func:`prefill`,
+:func:`decode_step`, ``launch.common``'s cells) run the same way on the
+rank's blocks of the parameters and the state (:func:`init_state`'s
+``layout``), the KV cache over the line by its slots where the decode
+rules say so (decode context parallelism), and gather the logits whole.
 
 Inputs follow ``cfg.input_mode`` (:func:`embed_inputs`): ``tokens``;
 ``embeds`` (the audio stub: ``batch["embeds"]`` (B, S, D) frame
@@ -42,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
 from repro_torch.distributed import fsdp as _fsdp
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import ambient, map_specs, use_rules
@@ -516,15 +521,25 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 def init_state(cfg: ModelConfig, batch: int, cache_size: int,
                dtype: Optional[torch.dtype] = None,
-               device: DeviceLike = None) -> State:
+               device: DeviceLike = None, layout: Any = None) -> State:
     """Zeroed decode state, one entry per pattern position stacked over
     groups: ``{"k", "v"}`` (G, B, Hkv, size, hd) for attention, where a
     ``local`` layer's size is ``min(window, cache_size)``; ``{"h"}`` (G, B,
     lru) float32 and ``{"conv_tail"}`` (G, B, 3, lru) for ``rglru``;
     ``{"c", "n", "m"}`` float32 and ``{"conv_tail"}`` for ``mlstm``;
     ``{"c", "n", "m", "h"}`` (G, B, H, dh) float32 for ``slstm``.  Runs on
-    ``cuda`` unless ``device`` says otherwise."""
+    ``cuda`` unless ``device`` says otherwise.  ``layout`` (a tree like the
+    state of :class:`repro_torch.distributed.sharding.LeafSharding`): only
+    this rank's block of every leaf is made."""
     check_pattern(cfg)
+    if layout is not None:
+        whole = init_state(cfg, batch, cache_size, dtype, "meta")
+        # Every leaf holds one value throughout (0, or the sLSTM's n).
+        fill = init_state(cfg, 1, 1, dtype, "cpu")
+        dev = resolve_device(device)
+        return tree_map(lambda t, f, sh: torch.full(
+            sh.local_shape(t.shape), f.reshape(-1)[0].item(), dtype=t.dtype,
+            device=dev), whole, fill, layout)
     dev = resolve_device(device)
     dtype = dtype or cfg.activation_dtype
     hd, g = cfg.resolved_head_dim, cfg.num_groups
@@ -580,20 +595,40 @@ def prefill(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             entries.append(st)
             x = ffn_residual(bp, btype, x + y, cfg)
         per_group.append(entries)
-    logits = head(params, x[:, -1:])
     cache_len = torch.full((b,), s, dtype=torch.int32, device=x.device)
-    return logits[:, 0], _stack_state(per_group), cache_len
+    return (_whole_logits(params, x[:, -1:], cfg)[:, 0],
+            _stack_state(per_group), cache_len)
+
+
+def _whole_logits(params: dict, x: torch.Tensor, cfg: ModelConfig
+                  ) -> torch.Tensor:
+    """The head's logits (B, S, Vpad): under tensor parallelism computed
+    on this rank's vocab columns and gathered over the line in rank order
+    (span ``comm.tp_logits``)."""
+    ax = tp.split_of(params["head"]["w"].shape[-1], padded_vocab(cfg))
+    logits = head(params, x, ax)
+    if ax is None:
+        return logits
+    return collectives.all_gather(logits, ax.key, dim=-1,
+                                  span="comm.tp_logits")
 
 
 @torch.no_grad()
 def decode_step(params: dict, state: State, cache_len: torch.Tensor,
-                cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+                cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+                cache_size: Optional[int] = None
                 ) -> Tuple[torch.Tensor, State, torch.Tensor]:
     """One token for every row.  batch ``tokens`` (B, 1), or ``embeds``
     (B, 1, D) in ``embeds`` mode; cache_len (B,), the position this step
     writes.  Returns (logits (B, Vpad), state,
     cache_len + 1).  **The state is updated in place** and returned (the
-    JAX function returns a new one)."""
+    JAX function returns a new one).
+
+    On a mesh (tensor parallelism: ``params`` and ``state`` this rank's
+    blocks) ``cache_size`` is the whole caches' size, which a KV cache
+    held as this rank's slice of its slots (decode context parallelism,
+    :mod:`repro_torch.distributed.context_parallel`) is read against; the
+    logits are whole (:func:`_whole_logits`)."""
     check_pattern(cfg)
     x = step_inputs(params, cfg, batch)
     groups = [unstack(p, cfg.num_groups) for p in params["blocks"]]
@@ -609,6 +644,8 @@ def decode_step(params: dict, state: State, cache_len: torch.Tensor,
             else:
                 y, _ = attention.attn_decode(
                     bp["mixer"], h, {"k": entry["k"][g], "v": entry["v"][g]},
-                    cache_len, cfg, window=_window(btype, cfg))
+                    cache_len, cfg, window=_window(btype, cfg),
+                    slots=None if cache_size is None
+                    else _cache_slots(btype, cfg, cache_size))
             x = ffn_residual(bp, btype, x + y, cfg)
-    return head(params, x)[:, 0], state, cache_len + 1
+    return _whole_logits(params, x, cfg)[:, 0], state, cache_len + 1

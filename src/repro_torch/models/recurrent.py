@@ -38,6 +38,14 @@ Tensor parallelism (the training forward under ``train(mesh=)`` with a
   local heads; ``gn_scale`` is whole and each rank reads its heads' slice
   (behind *f*); the post-FF reads the hidden states gathered whole, ``w_ff1``
   a column block, ``w_ff2`` a row block before *g*.
+
+The serving steps (``*_block_prefill``, ``*_block_decode``) split the same
+way, and their states follow ``lm.state_specs``: the RG-LRU's ``h`` and
+``conv_tail`` and the mLSTM's ``conv_tail`` are the rank's channels (the
+``mlp`` block); the mLSTM's ``c``, ``n``, ``m`` and the sLSTM's ``c``,
+``n``, ``m``, ``h`` are whole on every rank, so a step computes its
+heads' part from its heads' slice and gathers the new state over the line
+(:func:`_whole_heads`).
 """
 from __future__ import annotations
 
@@ -181,18 +189,42 @@ def rglru_block_init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
 def rglru_block_decode(params: dict, x: torch.Tensor, state: dict,
                        cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
     """One decode step.  x (B, 1, D) -> (y (B, 1, D), new state); ``state``
-    is not modified."""
+    is not modified.  Under tensor parallelism on the rank's channels, as
+    :func:`rglru_block_scan` (``state`` the rank's block)."""
     dtype = x.dtype
+    ax = tp.split_of(params["w_out"].shape[-2], cfg.d_model)
+    if ax is not None:
+        x = ax.enter(x)
     xr, gate = _in_proj(params, x)
     xc = causal_conv1d(xr, params["conv_w"], params["conv_b"],
                        tail=state["conv_tail"])
     tail = torch.cat([state["conv_tail"][:, 1:],
                       xr.to(state["conv_tail"].dtype)], dim=1)
-    a, u = rglru_gates(params, xc)
+    a, u = rglru_gates(params, xc, None if ax is None else ax.gather(xc))
     h = a[:, 0].float() * state["h"] + u[:, 0].float()
     y = h.to(dtype)[:, None, :] * gate
     out = ops.sma_gemm(y, compute_cast(params["w_out"], dtype))
-    return out, {"h": h, "conv_tail": tail}
+    return out if ax is None else ax.exit(out), {"h": h, "conv_tail": tail}
+
+
+def _own_heads(state: dict, ax: Optional[tp.ModelAxis], heads: int,
+               keys: Tuple[str, ...]) -> dict:
+    """This rank's ``heads`` of the whole per-head leaves ``keys`` (dim 1)
+    of a state (module docstring)."""
+    if ax is None:
+        return state
+    return {k: v[:, ax.block(heads)] if k in keys else v
+            for k, v in state.items()}
+
+
+def _whole_heads(state: dict, ax: Optional[tp.ModelAxis],
+                 keys: Tuple[str, ...]) -> dict:
+    """The per-head leaves ``keys`` of this rank's new state gathered over
+    the line into every head (dim 1; span ``comm.tp_state``)."""
+    if ax is None:
+        return state
+    return {k: ax.gather(v.contiguous(), dim=1, span="comm.tp_state")
+            if k in keys else v for k, v in state.items()}
 
 
 # ===========================================================================
@@ -332,11 +364,17 @@ def mlstm_block_apply(params: dict, x: torch.Tensor,
     return _mlstm_sequence(params, x, cfg, return_state=False)
 
 
+_MLSTM_HEADS = ("c", "n", "m")
+_SLSTM_HEADS = ("c", "n", "m", "h")
+
+
 def mlstm_block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig
                         ) -> Tuple[torch.Tensor, dict]:
     """The forward that also returns the decode state: the kernel's final
-    (C, n, m) in float32 and the last 3 conv inputs."""
-    return _mlstm_sequence(params, x, cfg, return_state=True)
+    (C, n, m) in float32 (every head's: gathered over the line under
+    tensor parallelism) and the last 3 conv inputs."""
+    y, state = _mlstm_sequence(params, x, cfg, return_state=True)
+    return y, _whole_heads(state, _mlstm_split(params, cfg), _MLSTM_HEADS)
 
 
 def mlstm_block_init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
@@ -364,10 +402,14 @@ def mlstm_block_decode(params: dict, x: torch.Tensor, state: dict,
     norm1 -> w_up runs as one ``rmsnorm_gemm``: the site the compiler's
     prologue rule makes of that chain, so the paged decode step
     (:mod:`repro_torch.serving.model`) launches what its compiled tick
-    launches."""
+    launches.  Under tensor parallelism on the rank's heads (module
+    docstring)."""
     b = x.shape[0]
-    inner, dh = _mlstm_dims(cfg)
-    h = cfg.num_heads
+    _, dh = _mlstm_dims(cfg)
+    ax = _mlstm_split(params, cfg)
+    inner = params["w_down"].shape[-2]          # the heads held here
+    h = inner // dh
+    state = _own_heads(state, ax, h, _MLSTM_HEADS)
     q, k, v, log_i, log_f, z, x_m = _mlstm_qkv_gates(
         params, x, cfg, conv_tail=state["conv_tail"], norm_scale=norm_scale)
     tail = torch.cat([state["conv_tail"][:, 1:],
@@ -388,8 +430,8 @@ def mlstm_block_decode(params: dict, x: torch.Tensor, state: dict,
     den = torch.maximum(torch.einsum("bhd,bhd->bh", n, q1).abs(),
                         torch.exp(-m_new))[..., None]
     out = (num / den).reshape(b, 1, inner).to(x.dtype)
-    return _mlstm_out(params, out, z, cfg), {"c": c, "n": n, "m": m_new,
-                                             "conv_tail": tail}
+    new = _whole_heads({"c": c, "n": n, "m": m_new}, ax, _MLSTM_HEADS)
+    return _mlstm_out(params, out, z, cfg), {**new, "conv_tail": tail}
 
 
 # ===========================================================================
@@ -476,7 +518,17 @@ def slstm_block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig
     state, as one :func:`repro_torch.compiler.loop.scan` (the reference's
     ``lax.scan``): eagerly a Python loop, in a compiled step one loop node
     (and one reverse loop node in its backward).  x (B, S, D) -> (y (B, S,
-    D), the final state)."""
+    D), the final state, every head's: gathered over the line under tensor
+    parallelism)."""
+    y, state = _slstm_sequence(params, x, cfg)
+    ax = tp.split_of(params["r_gates"].shape[-3], cfg.num_heads)
+    return y, _whole_heads(state, ax, _SLSTM_HEADS)
+
+
+def _slstm_sequence(params: dict, x: torch.Tensor, cfg: ModelConfig
+                    ) -> Tuple[torch.Tensor, dict]:
+    """:func:`slstm_block_prefill` with the final state of the heads held
+    here (the training forward's)."""
     b, s, d = x.shape
     heads = params["r_gates"].shape[-3]          # the heads held here
     ax = tp.split_of(heads, cfg.num_heads)
@@ -494,7 +546,7 @@ def slstm_block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig
 def slstm_block_apply(params: dict, x: torch.Tensor,
                       cfg: ModelConfig) -> torch.Tensor:
     """Training / forward path.  x (B, S, D) -> (B, S, D)."""
-    return slstm_block_prefill(params, x, cfg)[0]
+    return _slstm_sequence(params, x, cfg)[0]
 
 
 def slstm_block_init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
@@ -511,9 +563,15 @@ def slstm_block_init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
 def slstm_block_decode(params: dict, x: torch.Tensor, state: dict,
                        cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
     """One decode step.  x (B, 1, D) -> (y (B, 1, D), new state); ``state``
-    is not modified."""
+    is not modified.  Under tensor parallelism on the rank's heads (module
+    docstring)."""
     b = x.shape[0]
+    heads = params["r_gates"].shape[-3]          # the heads held here
+    ax = tp.split_of(heads, cfg.num_heads)
+    if ax is not None:
+        x = ax.enter(x)
     new = _slstm_step(params["r_gates"].float(), _slstm_gates(params, x)[:, 0],
-                      state, cfg.num_heads)
+                      _own_heads(state, ax, heads, _SLSTM_HEADS), heads)
     hs = new["h"].reshape(b, 1, -1).to(x.dtype)
-    return _slstm_out(params, hs, cfg.num_heads), new
+    return (_slstm_out(params, hs, heads, ax),
+            _whole_heads(new, ax, _SLSTM_HEADS))

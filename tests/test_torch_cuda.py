@@ -327,6 +327,42 @@ def test_split_kv_decode_at_split_lengths(dev, dtype, hq, hkv, d):
     close(paged, got, dt)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("hq,hkv,d", [(10, 1, 256), (4, 2, 64)])
+def test_decode_lse_route_matches_plain(dev, dtype, hq, hkv, d):
+    """``decode_attention(return_lse=True)`` launches the kernel (its
+    ``lse`` route counted) and gives the plain version's f32 output and
+    log-sum-exp at the split lengths, -inf and 0 at length 0; two halves
+    merged (``context_parallel.fold``) give the whole cache's."""
+    from repro_torch.distributed import context_parallel as cpar
+    dt = DTYPES[dtype]
+    cap = 512
+    lens = _split_lens(cap, kdecode._splits(8, hkv, cap))
+    b = len(lens)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = randn((b, hq, d), dt, dev, 70)
+    kc = randn((b, hkv, cap, d), dt, dev, 71)
+    vc = randn((b, hkv, cap, d), dt, dev, 72)
+    before = dict(kdecode.ROUTES)
+    out, lse = decode_attention(q, kc, vc, kv_len, return_lse=True)
+    assert kdecode.ROUTES["lse"] == before["lse"] + 1
+    want, want_lse = ref.decode_attention_ref(q, kc, vc, kv_len,
+                                              return_lse=True)
+    assert out.dtype == lse.dtype == torch.float32
+    close(out, want, dt)
+    torch.cuda.synchronize()
+    assert torch.all(lse[0] == -float("inf")) and torch.all(out[0] == 0)
+    torch.testing.assert_close(lse[1:], want_lse[1:], rtol=1e-5, atol=1e-4)
+    half = cap // 2
+    parts = cpar.local_lengths(kv_len - 1, cap, None, 2).to(torch.int32)
+    pairs = [decode_attention(q, kc[:, :, r * half:(r + 1) * half]
+                              .contiguous(),
+                              vc[:, :, r * half:(r + 1) * half].contiguous(),
+                              parts[r], return_lse=True) for r in range(2)]
+    merged = cpar.fold([o for o, _ in pairs], [l for _, l in pairs])
+    close(merged, out, dt)
+
+
 def test_split_kv_decode_poisons_in_any_split(dev):
     """A sentinel entry below kv_len in the last split (not the first) still
     makes that request's output NaN after the merge; ragged neighbours are

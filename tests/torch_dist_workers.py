@@ -806,3 +806,185 @@ def fsdp_world(rank: int, world: int, ckdir: str) -> dict:
     dist.barrier()
     out["resumed"] = fsdp_train(cfg, (1, world), tp_loop(ckdir=ckdir))
     return out
+
+
+# --------------------------------------------------------------------------
+# Serving on a mesh (test_torch_serve_mesh.py)
+# --------------------------------------------------------------------------
+#: The families' prompt and decode steps, and the batch.
+SERVE_PROMPT, SERVE_STEPS, SERVE_BATCH = 16, 4, 2
+#: RecurrentGemma's context-parallel cases on 1 x 2, (prompt, decode
+#: steps): a ring of 32 slots (16 a rank) that wraps and whose decode
+#: crosses into rank 1's slots; a prompt below rank 1's first slot (a ring
+#: of 24, 12 a rank), so rank 1 starts empty; a ring of 31 slots, which the
+#: line does not divide (the cache whole on each rank).
+RG_CP_CASES = {"wrap": (32, 20), "rank 1 empty": (8, 12), "odd": (15, 3)}
+#: Nemo's own context-parallel case on 1 x 4 (the reference's decode cell,
+#: ``seq_len`` 16, caches of 32 slots, 8 a rank).
+NEMO_CP = dict(seq_len=16, prompt=12, steps=6)
+
+
+def serve_inputs(cfg, prompt: int, steps: int, seed: int = 0) -> dict:
+    """Numpy inputs of a prefill of ``prompt`` positions (a vision prefix
+    ahead of them in ``tokens+vision`` mode) and ``steps`` decode steps."""
+    rng = np.random.default_rng(seed)
+    b, d = SERVE_BATCH, cfg.d_model
+    out = {}
+    if cfg.input_mode == "embeds":
+        out["embeds"] = rng.standard_normal((b, prompt, d)).astype(np.float32)
+        out["step_embeds"] = rng.standard_normal(
+            (steps, b, 1, d)).astype(np.float32)
+    else:
+        out["tokens"] = rng.integers(0, cfg.vocab_size,
+                                     (b, prompt)).astype(np.int32)
+        out["step_tokens"] = rng.integers(0, cfg.vocab_size,
+                                          (steps, b, 1)).astype(np.int32)
+    if cfg.input_mode == "tokens+vision":
+        out["vision_embeds"] = rng.standard_normal(
+            (b, cfg.num_vision_tokens, d)).astype(np.float32)
+    return out
+
+
+def serve_batches(data: dict):
+    """(the prefill batch, one batch a decode step) as tensors."""
+    first = {k: _t(v) for k, v in data.items() if not k.startswith("step_")}
+    key = "embeds" if "step_embeds" in data else "tokens"
+    steps = [{key: _t(x)} for x in data["step_" + key]]
+    return first, steps
+
+
+def serve_unmeshed(cfg, params, data: dict, cache_size: int):
+    """``lm.prefill`` then ``lm.decode_step``s on whole parameters: (logits
+    a step, the final state)."""
+    from repro_torch.models import lm
+    first, steps = serve_batches(data)
+    logits, state, clen = lm.prefill(params, cfg, first,
+                                     cache_size=cache_size)
+    out = [logits]
+    for batch in steps:
+        logits, state, clen = lm.decode_step(params, state, clen, cfg, batch)
+        out.append(logits)
+    return out, state
+
+
+def serve_meshed(cfg, params, data: dict, mesh, seq_len: int) -> dict:
+    """``launch.common``'s prefill cell of ``seq_len`` (caches of
+    ``seq_len + DECODE_MARGIN``), the state relaid out for the decode
+    cell, then its decode steps, on this rank's blocks and rows; beside
+    it the unmeshed run's final state as this rank's blocks."""
+    from repro_torch import convert
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import common
+    from repro_torch.models import moe
+    cache = seq_len + common.DECODE_MARGIN
+    pshape, dshape = (ShapeConfig(kind, seq_len, SERVE_BATCH, kind)
+                      for kind in ("prefill", "decode"))
+    prules = common.cell_rules(cfg, pshape, mesh)
+    drules = common.cell_rules(cfg, dshape, mesh)
+    layout = common.param_layout(cfg, prules, mesh)
+    same = [a.splits == b.splits for a, b in zip(
+        leaves(layout), leaves(common.param_layout(cfg, drules, mesh)))]
+    local = convert.model_blocks(params, layout)
+    first, steps = serve_batches(data)
+    experts = []
+    orig = moe.moe_ffn
+
+    def spy(p, x, c):
+        experts.append((tuple(p["wi"].shape), tuple(p["router"].shape)))
+        return orig(p, x, c)
+
+    moe.moe_ffn = spy
+    ops.reset_counts()
+    try:
+        logits, state, clen = common.make_prefill_step(
+            cfg, cache, prules, mesh)(local, common.batch_rows(
+                first, prules, mesh))
+        src = common.state_layout(cfg, pshape, prules, mesh)
+        dst = common.state_layout(cfg, dshape, drules, mesh)
+        state = convert.relayout_state(state, src, dst)
+        step = common.make_decode_step(cfg, cache, drules, mesh)
+        out = [logits]
+        for batch in steps:
+            logits, state, clen = step(local, state, clen, common.batch_rows(
+                batch, drules, mesh))
+            out.append(logits)
+    finally:
+        moe.moe_ffn = orig
+    routed = dict(ops.ROUTED)
+    _, want = serve_unmeshed(cfg, params, data, cache)
+    fresh = convert.state_blocks(want, dst)
+    return {"logits": [_np(x) for x in out],
+            "state": [_np(x) for x in leaves(state)],
+            "unmeshed_state": [_np(x) for x in leaves(fresh)],
+            "state_split": [[(sp[0], sp[1]) for sp in sh.splits]
+                            for sh in leaves(dst)],
+            "same_params": all(same), "experts": sorted(set(experts)),
+            "routed": routed, "coords": dict(mesh.coords),
+            "cache_len": _np(clen)}
+
+
+def serve_world(rank: int, world: int, inputs: dict) -> dict:
+    """The 2-rank serving cases: every family on 2 x 1 and 1 x 2, and
+    RecurrentGemma's context-parallel cases on 1 x 2.  ``inputs``: arch
+    (or ``"rg <case>"``) -> (params npz, data npz)."""
+    from repro_torch.launch.mesh import Mesh
+    out = {}
+    for name, (ppath, dpath) in inputs.items():
+        arch = "recurrentgemma-2b" if name.startswith("rg ") else name
+        cfg = tp_config(arch)
+        params = tp_params(cfg, ppath)
+        data = _load(dpath)
+        prompt = data[next(k for k in data if not k.startswith(
+            "step_") and k != "vision_embeds")].shape[1]
+        meshes = ((1, world),) if name.startswith("rg ") else (
+            (world, 1), (1, world))
+        for sizes in meshes:
+            out[(name, sizes)] = serve_meshed(
+                cfg, params, data, Mesh(sizes, ("data", "model")), prompt)
+    return out
+
+
+def serve_world4(rank: int, world: int, ppath: str, dpath: str,
+                 lm_path: str) -> dict:
+    """The 4-rank serving cases: the reduced Nemo's context-parallel decode
+    on 1 x 4 (the reference's decode cell), StableLM on 2 x 2, every cell
+    of ``build_cell`` with ``abstract`` (local shapes only), and a decode
+    cell's drawn arguments."""
+    import dataclasses
+    from repro_torch import convert
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import common
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import lm
+    line = Mesh((1, 4), ("data", "model"))
+    nemo = tp_config("mistral-nemo-12b")
+    out = {"nemo": serve_meshed(nemo, tp_params(nemo, ppath), _load(dpath),
+                                line, NEMO_CP["seq_len"])}
+    cfg = tp_config("stablelm-1.6b")
+    grid = Mesh((2, 2), ("data", "model"))
+    data = serve_inputs(cfg, SERVE_PROMPT, SERVE_STEPS)
+    out["stablelm 2x2"] = serve_meshed(cfg, tp_params(cfg, lm_path), data,
+                                       grid, SERVE_PROMPT)
+    cells = {}
+    for kind in ("train", "prefill", "decode"):
+        _, args = common.build_cell(cfg, ShapeConfig(kind, 32, 4, kind),
+                                    grid, abstract=True)
+        cells[kind] = [(tuple(t.shape), str(t.device))
+                       for t in leaves(args)]
+    out["cells"] = cells
+    rg = dataclasses.replace(tp_config("recurrentgemma-2b"),
+                             dtype="bfloat16")
+    shape = ShapeConfig("decode", 16, 4, "decode")
+    _, args = common.build_cell(rg, shape, line, device="cpu")
+    layout = common.param_layout(rg, common.cell_rules(rg, shape, line),
+                                 line)
+    want = convert.model_blocks(lm.init(rg, seed=0, device="cpu"), layout)
+    out["drawn"] = {
+        "equal": all(torch.equal(a, b) for a, b in zip(leaves(args[0]),
+                                                       leaves(want))),
+        "split": sum(bool(sh.splits) for sh in leaves(layout)),
+        "state": [(tuple(t.shape), float(t.float().abs().sum()))
+                  for t in leaves(args[1])],
+        "cache_len": _np(args[2]), "batch": _np(args[3]["tokens"])}
+    return out
